@@ -1,0 +1,475 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Drives ``mxnet_tpu_torch``'s GPT serving path — ``DecodeEngine`` and
+``DecodeBatcher`` — at the repo's benchmark configuration (GPT-2-small
+body: 768 wide, 12 layers, 6 heads of 128, FFN 3072, vocab 8192; window
+576, batch buckets (1, 8), prompt bucket 512) with random weights from a
+seed.  Phases, one JSON line each; the run stops with a non-zero exit
+at the first phase that fails:
+
+1. ``env``: the card (``nvidia-smi`` name and power limit), torch and
+   CUDA versions; TF32 is switched off for matmul and cuDNN.
+2. ``build``: nvcc builds the kernels of ``mxnet_tpu_torch/csrc``.
+3. ``kernels``: each kernel at the shapes the path gives it, against its
+   plain PyTorch version on the same inputs (LayerNorm within 1e-5,
+   attention within 1e-4: its sums run in another order), with CUDA
+   event times of the kernel, the plain version and one PyTorch library
+   call computing the same function (timed here, never used by the port).
+4. ``slice``: launch counters set to 0, then ``warmup`` is done, then
+   ``generate`` at batch 1 and 8 (48-token prompt) and ``DecodeBatcher``
+   serving concurrent requests, each stream equal to ``generate`` for its
+   prompt; the counters are read after and must both be > 0.
+5. ``reference``: the same weights run by the port on the CPU: prefill
+   and decode-step logits within 1e-3, greedy tokens equal.
+6. ``profile``: prefill and decode step at batch 1 and 8 under
+   ``torch.profiler``: kernels per call, device-busy time, idle share.
+
+Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the
+result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+or without the package beside this file, it exits non-zero and prints
+no result.
+"""
+import json
+import os
+import re
+import subprocess
+import sys
+import threading
+import time
+import traceback
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet): device memory and fp32 on CUDA cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_FLOP_S = 67e12
+
+LN_TOL = 1e-5
+ATTN_TOL = 1e-4
+REF_TOL = 1e-3
+MAX_NEW = 32
+SEED = 0
+SLEEP_CYCLES = 40_000_000      # ~20 ms at the H100's boost clock
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters=20, repeats=5):
+    """Device time of one call of ``fn`` in ms: the median over
+    ``repeats`` CUDA-event windows of ``iters`` back-to-back calls.  Each
+    window starts behind a ~20 ms device-side sleep, so the host has
+    queued every call before the first one runs and the window holds
+    device time only, not the host's launch overhead."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return sorted(runs)[len(runs) // 2]
+
+
+def eager_ms(fn, iters=20):
+    """Wall time of one call of ``fn`` in ms when called back to back
+    from Python, launch overhead included (what an eager caller sees)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def bound(nbytes, flops):
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_flops = flops / PEAK_FP32_FLOP_S * 1e3
+    return (max(t_bytes, t_flops),
+            "bytes" if t_bytes >= t_flops else "operations")
+
+
+# ---------------------------------------------------------------- phases
+def phase_env(state):
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state["card"] = smi
+    return {"card": smi, "device": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(), "torch": torch.__version__,
+            "cuda": torch.version.cuda, "python": sys.version.split()[0],
+            "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+            "tf32_cudnn": torch.backends.cudnn.allow_tf32}
+
+
+def phase_build(state):
+    from mxnet_tpu_torch import _build
+    t0 = time.perf_counter()
+    _build.build(force=True)
+    _build.lib()
+    ptxas, fn = {}, None
+    for ln in _build.last_build_log.splitlines():
+        m = re.search(r"entry function '\S*?(causal_attn_fwd|layernorm_fwd)"
+                      r"I((?:Li\d+E)+)E", ln)
+        if m:
+            args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
+            fn = f"{m.group(1)}<{args}>"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            ptxas.setdefault(fn, {})["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and fn:
+            ptxas.setdefault(fn, {})["spill_store_bytes"] = int(m.group(1))
+    return {"seconds": time.perf_counter() - t0,
+            "nvcc_seconds": _build.last_build_s,
+            "sources": [str(s.relative_to(HERE)) for s in _build.SOURCES],
+            "ptxas": ptxas}
+
+
+def _ln_case(rows, C, gen):
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.cuda_kernels import (layernorm_fused,
+                                                  layernorm_plain)
+    x = torch.randn(rows, C, device="cuda", generator=gen)
+    g = 1 + 0.1 * torch.randn(C, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(C, device="cuda", generator=gen)
+    out = layernorm_fused(x, g, b)
+    ref = layernorm_plain(x, g, b)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    nbytes = (2 * rows * C + 2 * C) * 4
+    flops = 8 * rows * C
+    bms, by = bound(nbytes, flops)
+    return {"shape": [rows, C], "max_abs_err": err, "tol": LN_TOL,
+            "kernel_ms": cuda_ms(lambda: layernorm_fused(x, g, b)),
+            "kernel_eager_ms": eager_ms(lambda: layernorm_fused(x, g, b)),
+            "plain_ms": cuda_ms(lambda: layernorm_plain(x, g, b)),
+            "library_ms": cuda_ms(
+                lambda: F.layer_norm(x, (C,), g, b, 1e-5)),
+            "bytes": nbytes, "flop": flops, "bound_ms": bms,
+            "bound_by": by}
+
+
+def _attn_case(B, H, L, hd, gen):
+    """q/k/v as the GPT prefill passes them: per-head [q|k|v] views
+    into one (B, L, 3*H*hd) projection."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.cuda_attention import (causal_attention,
+                                                    causal_attention_plain)
+    t5 = torch.randn(B, L, H, 3, hd, device="cuda", generator=gen)
+    q, k, v = (t5[:, :, :, i].transpose(1, 2) for i in range(3))
+    scale = hd ** -0.5
+    out = causal_attention(q, k, v, scale)
+    ref = causal_attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    nbytes = 4 * B * H * L * hd * 4
+    flops = 4 * B * H * hd * (L * (L + 1) // 2)
+    bms, by = bound(nbytes, flops)
+    return {"shape": [B * H, L, hd], "max_abs_err": err, "tol": ATTN_TOL,
+            "kernel_ms": cuda_ms(lambda: causal_attention(q, k, v, scale)),
+            "kernel_eager_ms": eager_ms(
+                lambda: causal_attention(q, k, v, scale)),
+            "plain_ms": cuda_ms(
+                lambda: causal_attention_plain(q, k, v, scale)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale)),
+            "bytes": nbytes, "flop": flops, "bound_ms": bms,
+            "bound_by": by}
+
+
+def phase_kernels(state):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ln = [_ln_case(r, 768, gen) for r in (4096, 512, 8, 1)]
+    attn = [_attn_case(8, 6, 512, 128, gen), _attn_case(1, 6, 512, 128, gen),
+            _attn_case(8, 12, 512, 64, gen), _attn_case(1, 6, 200, 128, gen)]
+    bad = [c for c in ln + attn if not c["max_abs_err"] <= c["tol"]]
+    state["cases"] = {"layernorm_fused": ln, "causal_attention": attn}
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{bad}")
+    return {"cases": state["cases"]}
+
+
+def _mean_us(h0, h1, name):
+    a, b = h0.get(name, {}), h1.get(name, {})
+    n = b.get("count", 0) - a.get("count", 0)
+    return (b.get("sum", 0.0) - a.get("sum", 0.0)) / n if n > 0 else None
+
+
+def phase_slice(state):
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import DecodeBatcher, DecodeEngine, telemetry
+    from mxnet_tpu_torch.models import gpt
+    from mxnet_tpu_torch.ops.cuda_attention import causal_attention
+    from mxnet_tpu_torch.ops.cuda_kernels import layernorm_fused
+
+    cfg = gpt.GPTConfig(vocab_size=8192, hidden=768, layers=12, heads=6,
+                        intermediate=3072, max_len=1024)
+    t0 = time.perf_counter()
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+    init_s = time.perf_counter() - t0
+    rs = np.random.RandomState(SEED)
+    prompt = rs.randint(1, cfg.vocab_size, size=48).tolist()
+    state.update(cfg=cfg, prompt=prompt)
+
+    layernorm_fused.launches = 0
+    causal_attention.launches = 0
+    telemetry.reset()
+    t0 = time.perf_counter()
+    eng = DecodeEngine(params, cfg, name="smoke-gpt", window=576,
+                       buckets=(1, 8), prompts=(512,)).warmup()
+    warmup_s = time.perf_counter() - t0
+    state["engine"] = eng
+
+    def leg(nreq):
+        eng.generate([prompt] * nreq, max_new=2)
+        h0 = telemetry.raw_snapshot()["histograms"]
+        t0 = time.perf_counter()
+        out = eng.generate([prompt] * nreq, max_new=MAX_NEW)
+        dt = time.perf_counter() - t0
+        h1 = telemetry.raw_snapshot()["histograms"]
+        assert all(len(o) == MAX_NEW for o in out)
+        assert all(0 <= t < cfg.vocab_size for o in out for t in o)
+        return {"tokens_s": nreq * MAX_NEW / dt,
+                "prefill_us": _mean_us(h0, h1, "decode.prefill_us"),
+                "decode_step_us": _mean_us(h0, h1, "decode.decode_step_us"),
+                "seconds": dt}, out
+
+    b1, out1 = leg(1)
+    b8, out8 = leg(8)
+    b8["rows_equal_b1"] = all(o == out1[0] for o in out8)
+
+    prompts = [rs.randint(1, cfg.vocab_size, size=n).tolist()
+               for n in (5, 17, 48, 64, 100, 9)]
+    got, errs = {}, []
+    with DecodeBatcher(eng, slots=8, name="smoke") as bat:
+        def one(i, p):
+            try:
+                got[i] = bat.submit(p, max_new=16, timeout=300)
+            except Exception as e:
+                errs.append(repr(e))
+
+        ts = [threading.Thread(target=one, args=(i, p))
+              for i, p in enumerate(prompts)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(600)
+        bstats = bat.stats()
+    if errs or len(got) != len(prompts):
+        raise AssertionError(f"batcher requests failed: {errs}")
+    singles = [eng.generate([p], max_new=16)[0] for p in prompts]
+    launches = {"layernorm_fused": layernorm_fused.launches,
+                "causal_attention": causal_attention.launches}
+    state["launches"] = launches
+    mismatched = [i for i in range(len(prompts)) if got[i] != singles[i]]
+    if mismatched:
+        raise AssertionError(f"batcher streams {mismatched} differ from "
+                             "generate")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return {"config": {k: v for k, v in vars(cfg).items() if k != "dtype"},
+            "window": 576, "buckets": [1, 8], "prompt_buckets": [512],
+            "prompt_len": len(prompt), "max_new": MAX_NEW,
+            "init_s": init_s, "warmup_s": warmup_s, "b1": b1, "b8": b8,
+            "batcher": {"requests": len(prompts), "max_new": 16,
+                        "joins": bstats["joins"],
+                        "max_concurrent": bstats["max_concurrent"],
+                        "streams_equal_generate": True},
+            "launches": launches,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_reference(state):
+    """The same weights through the port on the CPU."""
+    import torch
+    from mxnet_tpu_torch import DecodeEngine
+    from mxnet_tpu_torch.models import gpt
+
+    cfg, prompt, eng = state["cfg"], state["prompt"], state["engine"]
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu_params = gpt.init_params(cfg, seed=SEED, device="cpu")
+    cpu = DecodeEngine(cpu_params, cfg, name="smoke-cpu", window=576,
+                       buckets=(1,), prompts=(512,), device="cpu")
+    toks = torch.zeros(1, 512, dtype=torch.long)
+    toks[0, :len(prompt)] = torch.tensor(prompt)
+    with torch.no_grad():
+        lg = gpt.apply(eng.params, cfg, toks.cuda()).cpu()
+        lc = gpt.apply(cpu_params, cfg, toks)
+    prefill_err = (lg - lc).abs().max().item()
+
+    # decode steps from the card's prefilled ring, the same on both sides
+    ctl = eng.prefill([prompt])
+    k, v = ctl["k"].clone(), ctl["v"].clone()
+    kc, vc = k.cpu(), v.cpu()
+    pos, tok = ctl["pos"].clone(), ctl["tok"].clone()
+    step_err = 0.0
+    with torch.no_grad():
+        for _ in range(3):
+            pos += 1
+            a, _, _ = gpt.decode_step(eng.params, cfg, tok, pos, k, v)
+            b, _, _ = gpt.decode_step(cpu_params, cfg, tok.cpu(), pos.cpu(),
+                                      kc, vc)
+            step_err = max(step_err, (a.cpu() - b).abs().max().item())
+            tok = a.argmax(-1)
+
+    card_toks = eng.generate([prompt], max_new=16)[0]
+    cpu_toks = cpu.generate([prompt], max_new=16)[0]
+    ok = (torch.allclose(lg, lc, atol=REF_TOL, rtol=REF_TOL) and
+          step_err <= REF_TOL and card_toks == cpu_toks)
+    res = {"prefill_logits_max_abs_diff": prefill_err,
+           "decode_logits_max_abs_diff": step_err, "tol": REF_TOL,
+           "greedy_tokens_equal": card_toks == cpu_toks,
+           "tokens": card_toks}
+    if not ok:
+        raise AssertionError(f"card disagrees with the CPU: {res}")
+    return res
+
+
+def _profile(fn, calls):
+    """Device view of ``calls`` calls of ``fn`` from torch.profiler:
+    kernels per call, device-busy µs per call (union of kernel
+    intervals), the idle share of the profiled wall time, and the
+    kernels that took the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {"wall_us_per_call": wall_us / calls}
+    if not kern:
+        out["device"] = "not measured: the profiler recorded no kernels"
+        return out
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    by_name = {}
+    for e in kern:
+        n = by_name.setdefault(e.name, [0, 0.0])
+        n[0] += 1
+        n[1] += e.time_range.end - e.time_range.start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    out.update(kernels_per_call=len(kern) / calls,
+               device_busy_us_per_call=busy / calls,
+               idle_share=1.0 - busy / wall_us,
+               top=[{"kernel": n[:90], "per_call": c / calls,
+                     "us_per_call": t / calls} for n, (c, t) in top])
+    return out
+
+
+def phase_profile(state):
+    """Where the time goes on the path: prefill and decode step at
+    batch 1 and 8, under torch.profiler (its own cost inflates the wall
+    times here; the slice phase's times are the uninstrumented ones)."""
+    eng, prompt = state["engine"], state["prompt"]
+    res = {}
+    for b in (1, 8):
+        res[f"prefill_b{b}"] = _profile(lambda: eng.prefill([prompt] * b),
+                                        2)
+        ctl = eng.prefill([prompt] * b)
+        res[f"decode_step_b{b}"] = _profile(lambda: eng.step(ctl), 5)
+    return res
+
+
+# ------------------------------------------------------------------ main
+KERNELS = [
+    ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
+     "mxnet_tpu/ops/pallas_kernels.py:104"),
+    ("causal_attention", "mxnet_tpu_torch/csrc/causal_attention.cu",
+     "mxnet_tpu/ops/pallas_attention.py:203"),
+]
+
+
+def kernels_line(state):
+    out = []
+    for name, source, replaces in KERNELS:
+        cases = state["cases"][name]
+        main = cases[0]        # the largest shape the path gives it
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces,
+                    "launches": state["launches"][name],
+                    "max_abs_err": max(c["max_abs_err"] for c in cases),
+                    "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+                    "eager_ms": main["kernel_eager_ms"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"],
+                    "library_ms": main["library_ms"],
+                    "shape": main["shape"], "card": state["card"]})
+    return {"kernels": out}
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        import mxnet_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the mxnet_tpu_torch package is not beside this "
+              f"script ({e})", file=sys.stderr)
+        return 2
+
+    state = {"card": None}
+    for name, fn in (("env", phase_env), ("build", phase_build),
+                     ("kernels", phase_kernels), ("slice", phase_slice),
+                     ("reference", phase_reference),
+                     ("profile", phase_profile)):
+        t0 = time.perf_counter()
+        try:
+            res = fn(state)
+        except Exception as e:
+            traceback.print_exc()
+            emit({"phase": name, "ok": False, "card": state["card"],
+                  "error": f"{type(e).__name__}: {e}"[:4000]})
+            return 1
+        emit({"phase": name, "ok": True, "card": state["card"],
+              "phase_s": time.perf_counter() - t0, **res})
+    emit(kernels_line(state))
+    print(state["card"], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

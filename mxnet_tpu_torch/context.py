@@ -1,0 +1,44 @@
+"""Devices (≙ ``mxnet_tpu/context.py`` ``cpu``/``gpu``/``num_gpus``).
+
+The port's entry points run on the card unless the caller asks for the
+CPU.  :func:`resolve` turns a caller's ``device`` argument into a
+``torch.device``; with none given it is the card, and with no card it
+raises rather than quietly running on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["cpu", "gpu", "num_gpus", "default_device", "resolve"]
+
+
+def cpu(device_id: int = 0) -> torch.device:
+    return torch.device("cpu")
+
+
+def gpu(device_id: int = 0) -> torch.device:
+    return torch.device("cuda", device_id)
+
+
+def num_gpus() -> int:
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def default_device() -> torch.device:
+    """The current CUDA device; raises when there is no card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: mxnet_tpu_torch runs on the GPU by default; "
+            "pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve(device=None) -> torch.device:
+    """``device`` as a ``torch.device`` (a ``cuda`` device with no index
+    gets the current one); None means :func:`default_device`."""
+    if device is None:
+        return default_device()
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
