@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives ``mxnet_tpu_torch``'s GPT serving path — ``DecodeEngine`` and
-``DecodeBatcher`` — at the repo's benchmark configuration (GPT-2-small
-body: 768 wide, 12 layers, 6 heads of 128, FFN 3072, vocab 8192; window
-576, batch buckets (1, 8), prompt bucket 512) with random weights from a
-seed.  Phases, one JSON line each; the run stops with a non-zero exit
-at the first phase that fails:
+Drives ``mxnet_tpu_torch``'s two paths with random weights from a seed:
+GPT serving — ``DecodeEngine`` and ``DecodeBatcher`` — at the repo's
+benchmark configuration (GPT-2-small body: 768 wide, 12 layers, 6 heads
+of 128, FFN 3072, vocab 8192; window 576, batch buckets (1, 8), prompt
+bucket 512), then BERT-base masked-LM pretraining through
+``examples.bert_pretrain`` at its defaults (vocab 30522, 768 wide, 12
+layers, 12 heads of 64, FFN 3072, batch 16 x 128 tokens, AdamW lr 1e-4,
+wd 0.01).  Phases, one JSON line each; the run stops with a non-zero
+exit at the first phase that fails:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions; TF32 is switched off for matmul and cuDNN.
@@ -26,6 +29,21 @@ at the first phase that fails:
    and decode-step logits within 1e-3, greedy tokens equal.
 6. ``profile``: prefill and decode step at batch 1 and 8 under
    ``torch.profiler``: kernels per call, device-busy time, idle share.
+7. ``bert_kernels``: the flash-attention forward, dq and dk/dv kernels
+   against their plain versions at BERT-base's shape (a strided view
+   into the qkv projection) and three more (o within 1e-4, lse within
+   1e-5, dq/dk/dv within 1e-4 of the tensor's largest magnitude), timed
+   beside their bounds, the plain versions and SDPA (forward; backward
+   for dq and dk/dv together).
+8. ``bert_train``: launch counters set to 0, then 6 steps of
+   ``examples.bert_pretrain.main``; the loss must be finite and end
+   below step 0's, each attention kernel launched 12 times a step and
+   LayerNorm 25 times a step.
+9. ``bert_reference``: one step at batch 2 on the card and through the
+   port on the CPU from the same weights and batch: loss within 1e-4
+   relative, every gradient within 1e-3 of its largest magnitude, the
+   weights after one AdamW step within 2 * lr.
+10. ``bert_profile``: one train step under ``torch.profiler``.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -49,7 +67,10 @@ PEAK_FP32_FLOP_S = 67e12
 
 LN_TOL = 1e-5
 ATTN_TOL = 1e-4
+LSE_TOL = 1e-5
 REF_TOL = 1e-3
+BERT_STEPS = 6
+BERT_LOSS_RTOL = 1e-4
 MAX_NEW = 32
 SEED = 0
 SLEEP_CYCLES = 40_000_000      # ~20 ms at the H100's boost clock
@@ -126,8 +147,8 @@ def phase_build(state):
     _build.lib()
     ptxas, fn = {}, None
     for ln in _build.last_build_log.splitlines():
-        m = re.search(r"entry function '\S*?(causal_attn_fwd|layernorm_fwd)"
-                      r"I((?:Li\d+E)+)E", ln)
+        m = re.search(r"entry function '\S*?(causal_attn_fwd|layernorm_fwd|"
+                      r"attn_fwd|attn_dq|attn_dkv)I((?:Li\d+E)+)E", ln)
         if m:
             args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
             fn = f"{m.group(1)}<{args}>"
@@ -348,11 +369,31 @@ def phase_reference(state):
     return res
 
 
-def _profile(fn, calls):
+# kernel-name patterns of the profile's categories, first match wins
+KERNEL_CATEGORIES = (
+    ("gemm", r"gemm|gemv|splitKreduce"),
+    ("attention (ours)", r"attn_(fwd|dq|dkv)|causal_attn_fwd"),
+    ("layernorm (ours)", r"layernorm_fwd"),
+    ("optimizer foreach", r"multi_tensor_apply"),
+    ("softmax", r"softmax"),
+    ("reduction", r"reduce_kernel"),
+    ("embedding / index", r"embedding|index|scatter|gather"),
+    ("elementwise", r"elementwise|vectorized"),
+)
+
+
+def _category(name):
+    for cat, pat in KERNEL_CATEGORIES:
+        if re.search(pat, name, re.I):
+            return cat
+    return "other"
+
+
+def _profile(fn, calls, top=6):
     """Device view of ``calls`` calls of ``fn`` from torch.profiler:
     kernels per call, device-busy µs per call (union of kernel
-    intervals), the idle share of the profiled wall time, and the
-    kernels that took the most device time."""
+    intervals), the idle share of the profiled wall time, the kernels
+    that took the most device time, and device time by category."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -381,8 +422,17 @@ def _profile(fn, calls):
         n = by_name.setdefault(e.name, [0, 0.0])
         n[0] += 1
         n[1] += e.time_range.end - e.time_range.start
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    cats = {}
+    for n, (c, t) in by_name.items():
+        k = cats.setdefault(_category(n), [0, 0.0])
+        k[0] += c
+        k[1] += t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     out.update(kernels_per_call=len(kern) / calls,
+               by_category={k: {"per_call": c / calls,
+                                "us_per_call": t / calls}
+                            for k, (c, t) in sorted(
+                                cats.items(), key=lambda kv: -kv[1][1])},
                device_busy_us_per_call=busy / calls,
                idle_share=1.0 - busy / wall_us,
                top=[{"kernel": n[:90], "per_call": c / calls,
@@ -404,23 +454,245 @@ def phase_profile(state):
     return res
 
 
+# ------------------------------------------------------------ BERT phases
+def _bert_qkv(B, H, L, D, strided, gen):
+    """q, k, v (B, H, L, D): views into one (B, L, 3*H*D) projection as
+    BERT passes them, or contiguous tensors."""
+    import torch
+    if strided:
+        t = torch.randn(B, L, 3 * H * D, device="cuda", generator=gen)
+        return [x.view(B, L, H, D).transpose(1, 2)
+                for x in t.split(H * D, dim=-1)]
+    return [torch.randn(B, H, L, D, device="cuda", generator=gen)
+            for _ in range(3)]
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def _flash_case(B, H, L, D, strided, gen):
+    """The three kernels at one shape against their plain versions, fed
+    the same lse and delta; times of each beside its bound, its plain
+    version and SDPA (``attention_fwd``: the forward; ``attention_dq``
+    and ``attention_dkv``: SDPA's backward, which computes dq, dk and dv
+    together)."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    q, k, v = _bert_qkv(B, H, L, D, strided, gen)
+    g = torch.randn(B, H, L, D, device="cuda", generator=gen)
+    sc = D ** -0.5
+    o, lse = fa.attention_fwd(q, k, v, sc)
+    ro, rlse = fa.attention_fwd_plain(q, k, v, sc)
+    delta = (g * ro).sum(dim=-1).contiguous()
+    dq = fa.attention_dq(q, k, v, g, rlse, delta, sc)
+    rdq = fa.attention_dq_plain(q, k, v, g, rlse, delta, sc)
+    dk, dv = fa.attention_dkv(q, k, v, g, rlse, delta, sc)
+    rdk, rdv = fa.attention_dkv_plain(q, k, v, g, rlse, delta, sc)
+    torch.cuda.synchronize()
+
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(lq, lk, lv, scale=sc)
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (lq, lk, lv), g, retain_graph=True))
+    bh, el = B * H, 4 * B * H * L * D       # one (B, H, L, D) fp32 in bytes
+    shape = [bh, L, D]
+    common = {"shape": shape, "strided": strided}
+    fwd_b = bound(4 * el + 4 * bh * L, 4 * bh * L * L * D)
+    dq_b = bound(5 * el + 8 * bh * L, 6 * bh * L * L * D)
+    dkv_b = bound(6 * el + 8 * bh * L, 8 * bh * L * L * D)
+    cases = {
+        "attention_fwd": dict(
+            common, max_abs_err=(o - ro).abs().max().item(),
+            lse_max_abs_err=(lse - rlse).abs().max().item(),
+            tol=ATTN_TOL, lse_tol=LSE_TOL,
+            kernel_ms=cuda_ms(lambda: fa.attention_fwd(q, k, v, sc)),
+            kernel_eager_ms=eager_ms(lambda: fa.attention_fwd(q, k, v, sc)),
+            plain_ms=cuda_ms(lambda: fa.attention_fwd_plain(q, k, v, sc)),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=sc)),
+            library="F.scaled_dot_product_attention",
+            bound_ms=fwd_b[0], bound_by=fwd_b[1]),
+        "attention_dq": dict(
+            common, max_abs_err=(dq - rdq).abs().max().item(),
+            rel_err=_rel(dq, rdq), tol=ATTN_TOL,
+            kernel_ms=cuda_ms(lambda: fa.attention_dq(
+                q, k, v, g, rlse, delta, sc)),
+            kernel_eager_ms=eager_ms(lambda: fa.attention_dq(
+                q, k, v, g, rlse, delta, sc)),
+            plain_ms=cuda_ms(lambda: fa.attention_dq_plain(
+                q, k, v, g, rlse, delta, sc)),
+            library_ms=lib_bwd_ms, library="SDPA backward (dq, dk, dv)",
+            bound_ms=dq_b[0], bound_by=dq_b[1]),
+        "attention_dkv": dict(
+            common, max_abs_err=max((dk - rdk).abs().max().item(),
+                                    (dv - rdv).abs().max().item()),
+            rel_err=max(_rel(dk, rdk), _rel(dv, rdv)), tol=ATTN_TOL,
+            kernel_ms=cuda_ms(lambda: fa.attention_dkv(
+                q, k, v, g, rlse, delta, sc)),
+            kernel_eager_ms=eager_ms(lambda: fa.attention_dkv(
+                q, k, v, g, rlse, delta, sc)),
+            plain_ms=cuda_ms(lambda: fa.attention_dkv_plain(
+                q, k, v, g, rlse, delta, sc)),
+            library_ms=lib_bwd_ms, library="SDPA backward (dq, dk, dv)",
+            bound_ms=dkv_b[0], bound_by=dkv_b[1]),
+    }
+    return cases
+
+
+def _flash_ok(name, c):
+    if name == "attention_fwd":
+        return c["max_abs_err"] <= c["tol"] and \
+            c["lse_max_abs_err"] <= c["lse_tol"]
+    return c["rel_err"] <= c["tol"]
+
+
+def phase_bert_kernels(state):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    # BERT-base's path shape first (B=16, 12 heads of 64, T=128, views
+    # into the qkv projection), then long, ragged, and ragged strided
+    shapes = [(16, 12, 128, 64, True), (8, 12, 512, 64, False),
+              (1, 6, 200, 128, False), (2, 4, 200, 128, True)]
+    per = [_flash_case(*sh, gen) for sh in shapes]
+    bad = []
+    for name in ("attention_fwd", "attention_dq", "attention_dkv"):
+        state["cases"][name] = [c[name] for c in per]
+        bad += [(name, c) for c in state["cases"][name]
+                if not _flash_ok(name, c)]
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{bad}")
+    return {"cases": {n: state["cases"][n] for n in
+                      ("attention_fwd", "attention_dq", "attention_dkv")}}
+
+
+def phase_bert_train(state):
+    """BERT-base pretraining through the example's entry point, on the
+    card, with the launch counters read around it."""
+    import math
+    import torch
+    from mxnet_tpu_torch.examples import bert_pretrain
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.ops.cuda_kernels import layernorm_fused
+    torch.cuda.reset_peak_memory_stats()
+    counted = (layernorm_fused, fa.attention_fwd, fa.attention_dq,
+               fa.attention_dkv)
+    for fn in counted:
+        fn.launches = 0
+    argv = ["--steps", str(BERT_STEPS), "--seed", str(SEED)]
+    out = bert_pretrain.main(argv)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    state["bert_launches"] = launches
+    losses = out["losses"]
+    want = {"layernorm_fused": 25 * BERT_STEPS,
+            "attention_fwd": 12 * BERT_STEPS,
+            "attention_dq": 12 * BERT_STEPS,
+            "attention_dkv": 12 * BERT_STEPS}
+    steady = sorted(out["step_s"][1:])
+    res = {"args": vars(bert_pretrain.parse_args(argv)),
+           "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+           "losses": losses,
+           "step_ms_median_1_5": steady[len(steady) // 2] * 1e3,
+           "step_ms": [t * 1e3 for t in out["step_s"]],
+           "tokens_s": out["tokens_s"], "launches": launches,
+           "launches_expected": want,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    state["bert_step_ms"] = res["step_ms_median_1_5"]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {res}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall from step 0: {res}")
+    if launches != want:
+        raise AssertionError(f"launch counts differ from the path's: {res}")
+    return res
+
+
+def phase_bert_reference(state):
+    """One step from the same seeded weights and batch, on the card and
+    through the port on the CPU."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.examples import bert_pretrain
+    torch.set_num_threads(os.cpu_count() or 1)
+    args = bert_pretrain.parse_args(["--batch-size", "2"])
+    cfg = bert_pretrain.config(args)
+    tokens, labels = bert_pretrain.synthetic_batch(
+        np.random.RandomState(SEED + 2), 2, args.seq_len, args.vocab)
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        tr = bert_pretrain.Trainer(cfg, SEED, args.lr, dev)
+        loss, gs = tr.grads(torch.as_tensor(tokens, device=tr.device),
+                            torch.as_tensor(labels, device=tr.device))
+        tr.update(gs)
+        sides[dev] = (float(loss), [x.cpu() for x in gs],
+                      [w.detach().cpu() for w in tr.flat])
+        del tr, gs
+    (lc, gc, wc), (lp, gp, wp) = sides["cuda"], sides["cpu"]
+    loss_rel = abs(lc - lp) / abs(lp)
+    grad_rel = max(_rel(a, b) for a, b in zip(gc, gp))
+    w_err = max((a - b).abs().max().item() for a, b in zip(wc, wp))
+    res = {"batch": [2, args.seq_len], "loss_card": lc, "loss_cpu": lp,
+           "loss_rel": loss_rel, "loss_tol": BERT_LOSS_RTOL,
+           "grad_rel_to_max": grad_rel, "grad_tol": REF_TOL,
+           "params_after_step_max_abs_diff": w_err,
+           "params_tol": 2 * args.lr, "leaves": len(gc)}
+    if not (loss_rel <= BERT_LOSS_RTOL and grad_rel <= REF_TOL and
+            w_err <= 2 * args.lr):
+        raise AssertionError(f"card disagrees with the CPU: {res}")
+    return res
+
+
+def phase_bert_profile(state):
+    """Where one BERT-base train step's time goes, under torch.profiler
+    (its own cost inflates the wall time; ``bert_train``'s step time is
+    the uninstrumented one)."""
+    import numpy as np
+    from mxnet_tpu_torch.examples import bert_pretrain
+    args = bert_pretrain.parse_args([])
+    tr = bert_pretrain.Trainer(bert_pretrain.config(args), SEED, args.lr,
+                               "cuda")
+    tokens, labels = bert_pretrain.synthetic_batch(
+        np.random.RandomState(SEED), args.batch_size, args.seq_len,
+        args.vocab)
+    float(tr.step(tokens, labels))
+    res = _profile(lambda: float(tr.step(tokens, labels)), 1, top=12)
+    busy = res.get("device_busy_us_per_call")
+    if busy is not None:
+        res["idle_share_vs_uninstrumented_step"] = \
+            1.0 - busy / (state["bert_step_ms"] * 1e3)
+    return res
+
+
 # ------------------------------------------------------------------ main
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
      "mxnet_tpu/ops/pallas_kernels.py:104"),
     ("causal_attention", "mxnet_tpu_torch/csrc/causal_attention.cu",
      "mxnet_tpu/ops/pallas_attention.py:203"),
+    ("attention_fwd", "mxnet_tpu_torch/csrc/attention.cu",
+     "mxnet_tpu/ops/pallas_kernels.py:167"),
+    ("attention_dq", "mxnet_tpu_torch/csrc/attention.cu",
+     "mxnet_tpu/ops/pallas_kernels.py:283"),
+    ("attention_dkv", "mxnet_tpu_torch/csrc/attention.cu",
+     "mxnet_tpu/ops/pallas_kernels.py:309"),
 ]
 
 
 def kernels_line(state):
+    """One entry per kernel.  ``launches`` sums the main-path runs that
+    launch it (GPT serving in ``slice``, BERT training in
+    ``bert_train``); the times are at the first case, the path's own
+    shape."""
     out = []
     for name, source, replaces in KERNELS:
         cases = state["cases"][name]
-        main = cases[0]        # the largest shape the path gives it
+        main = cases[0]
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces,
-                    "launches": state["launches"][name],
+                    "launches": state["launches"].get(name, 0) +
+                    state["bert_launches"].get(name, 0),
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
                     "eager_ms": main["kernel_eager_ms"],
@@ -452,7 +724,11 @@ def main():
     for name, fn in (("env", phase_env), ("build", phase_build),
                      ("kernels", phase_kernels), ("slice", phase_slice),
                      ("reference", phase_reference),
-                     ("profile", phase_profile)):
+                     ("profile", phase_profile),
+                     ("bert_kernels", phase_bert_kernels),
+                     ("bert_train", phase_bert_train),
+                     ("bert_reference", phase_bert_reference),
+                     ("bert_profile", phase_bert_profile)):
         t0 = time.perf_counter()
         try:
             res = fn(state)

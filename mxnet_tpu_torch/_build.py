@@ -44,6 +44,17 @@ _SIGNATURES = {
     # scale, stream
     "mxt_causal_attention_f32": [_P, _P, _P, _P] + [ctypes.c_int] * 5 +
                                 [_P] * 4 + [ctypes.c_float, _P],
+    # q, k, v, o, lse, B, H, Lq, Lk, D, q/k/v/o strides, scale, stream
+    "mxt_attention_fwd_f32": [_P] * 5 + [ctypes.c_int] * 5 + [_P] * 4 +
+                             [ctypes.c_float, _P],
+    # q, k, v, g, lse, delta, dq, B, H, Lq, Lk, D, q/k/v/g/dq strides,
+    # scale, stream
+    "mxt_attention_dq_f32": [_P] * 7 + [ctypes.c_int] * 5 + [_P] * 5 +
+                            [ctypes.c_float, _P],
+    # q, k, v, g, lse, delta, dk, dv, B, H, Lq, Lk, D,
+    # q/k/v/g/dk/dv strides, scale, stream
+    "mxt_attention_dkv_f32": [_P] * 8 + [ctypes.c_int] * 5 + [_P] * 6 +
+                             [ctypes.c_float, _P],
 }
 
 _mu = threading.Lock()

@@ -1,5 +1,7 @@
 """Models of the port."""
-from . import gpt
+from . import bert, gpt
+from .bert import BertConfig, BertModel
 from .gpt import GPTConfig, GPTModel
 
-__all__ = ["gpt", "GPTConfig", "GPTModel"]
+__all__ = ["bert", "gpt", "BertConfig", "BertModel", "GPTConfig",
+           "GPTModel"]

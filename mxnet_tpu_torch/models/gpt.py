@@ -26,13 +26,14 @@ import math
 from dataclasses import dataclass
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 from torch import nn
 
 from .. import context as _context
 from ..ops import nn as _nn
 from ..ops.cuda_attention import causal_attention
+from ._tree import (as_modules, from_modules, map_tree, params_from_numpy,
+                    params_to)
 
 __all__ = ["GPTConfig", "GPTModel", "init_params", "params_from_numpy",
            "apply", "prefill", "decode_step"]
@@ -51,14 +52,6 @@ class GPTConfig:
     intermediate: int = 3072
     max_len: int = 1024
     dtype: torch.dtype = torch.float32
-
-
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
 
 
 def _dense_init(gen, in_dim, out_dim, dtype):
@@ -100,21 +93,7 @@ def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> Dict:
             "ln1_g": ones(), "ln1_b": zeros(),
             "ln2_g": ones(), "ln2_b": zeros(),
         })
-    return _map(params, lambda t: t.to(device))
-
-
-def params_from_numpy(tree, device=None) -> Dict:
-    """The reference's params pytree as numpy arrays (``np.asarray`` of
-    each leaf of ``mxnet_tpu.models.gpt.init_params``) → the port's tree
-    with the same keys, shapes and layouts on ``device``."""
-    device = _context.resolve(device)
-    return _map(tree, lambda a: torch.from_numpy(
-        np.ascontiguousarray(a)).to(device))
-
-
-def params_to(params, device) -> Dict:
-    """The tree on ``device`` (leaves already there are not copied)."""
-    return _map(params, lambda t: t.to(device))
+    return map_tree(params, lambda t: t.to(device))
 
 
 def _proj(x, p):
@@ -209,27 +188,6 @@ def decode_step(params, cfg: GPTConfig, tok, pos, k_cache, v_cache):
     return _logits(params, x), k_cache, v_cache
 
 
-def _modules(tree):
-    if isinstance(tree, list):
-        return nn.ModuleList([_modules(t) for t in tree])
-    m = nn.Module()
-    for k, v in tree.items():
-        if isinstance(v, torch.Tensor):
-            m.register_parameter(k, nn.Parameter(v, requires_grad=False))
-        else:
-            m.add_module(k, _modules(v))
-    return m
-
-
-def _tree(m):
-    if isinstance(m, nn.ModuleList):
-        return [_tree(c) for c in m]
-    out = dict(m.named_parameters(recurse=False))
-    for k, c in m.named_children():
-        out[k] = _tree(c)
-    return out
-
-
 class GPTModel(nn.Module):
     """``nn.Module`` holding the params tree (frozen parameters with the
     tree's keys); ``model.params`` is the dict the functions take."""
@@ -242,11 +200,11 @@ class GPTModel(nn.Module):
             params = init_params(self.cfg, seed, device)
         else:
             params = params_to(params, _context.resolve(device))
-        self.tree = _modules(params)
+        self.tree = as_modules(params)
 
     @property
     def params(self) -> Dict:
-        return _tree(self.tree)
+        return from_modules(self.tree)
 
     def forward(self, tokens):
         return apply(self.params, self.cfg, tokens)

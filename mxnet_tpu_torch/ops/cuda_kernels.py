@@ -6,8 +6,10 @@
 
 ``layernorm_fused`` launches the kernel for a CUDA tensor and raises on
 anything the kernel does not take; a CPU tensor takes
-``layernorm_plain``.  There is no other route.  Forward only: the
-backward comes with training.
+``layernorm_plain``.  There is no other route.  ``LayerNormFn`` makes it
+differentiable: its forward is ``layernorm_fused`` and its backward the
+closed form of ``_ln_bwd`` in plain PyTorch, as the JAX package has no
+backward kernel for LayerNorm.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 
 from .. import _build
 
-__all__ = ["layernorm_fused", "layernorm_plain"]
+__all__ = ["layernorm_fused", "layernorm_plain", "layernorm_bwd",
+           "LayerNormFn"]
 
 _MAX_C = 4096
 _count_mu = threading.Lock()
@@ -74,3 +77,34 @@ def layernorm_fused(x, gamma, beta, eps: float = 1e-5):
 
 
 layernorm_fused.launches = 0
+
+
+def layernorm_bwd(x, gamma, g, eps: float = 1e-5):
+    """(dx, dgamma, dbeta) of LayerNorm over the last axis for upstream
+    gradient ``g`` — the closed form of ``pallas_kernels._ln_bwd``, with
+    the statistics recomputed from ``x``."""
+    mu = x.mean(dim=-1, keepdim=True)
+    xc = x - mu
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    gg = g * gamma
+    dx = rstd * (gg - gg.mean(dim=-1, keepdim=True) -
+                 xhat * (gg * xhat).mean(dim=-1, keepdim=True))
+    lead = tuple(range(g.dim() - 1))
+    return dx, (g * xhat).sum(dim=lead), g.sum(dim=lead)
+
+
+class LayerNormFn(torch.autograd.Function):
+    """LayerNorm with the kernel forward (≙ ``layernorm_fused``'s custom
+    VJP): saves x and gamma, and the backward is :func:`layernorm_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return layernorm_fused(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma = ctx.saved_tensors
+        return (*layernorm_bwd(x, gamma, g, ctx.eps), None)

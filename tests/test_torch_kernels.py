@@ -182,3 +182,172 @@ def test_plain_route_counts_no_launches():
     # the plain versions are not kernel launches
     assert (cuda_kernels.layernorm_fused.launches,
             cuda_attention.causal_attention.launches) == before
+
+
+# ------------------------------------ non-causal flash attention (BERT)
+
+from mxnet_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+
+def _bhld(rs, B, H, L, D):
+    return rs.randn(B, H, L, D).astype(np.float32)
+
+
+# D = 64 and 128; L = 40 is not a multiple of the kernels' 64-row tiles
+ATTN_SHAPES = [(2, 2, 32, 64), (1, 2, 16, 128), (2, 3, 40, 64)]
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_attention_fwd_plain_matches_pallas_interpret(shape):
+    q, k, v = _qkv(shape, 4)
+    scale = 1.0 / np.sqrt(shape[-1])
+    o_ref, lse_ref = jpk._attention_pallas(
+        *(jnp.asarray(a) for a in (q, k, v)), scale)
+    o, lse = fa.attention_fwd(*(torch.from_numpy(a) for a in (q, k, v)),
+                              scale)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=1e-5,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_attention_bwd_plain_matches_pallas_interpret(shape):
+    """dq and dk/dv from the same saved o/lse on both sides; Δ =
+    rowsum(g ⊙ o) is the plain reduction, as in ``_attn_bwd_pallas``."""
+    q, k, v = _qkv(shape, 5)
+    g = np.random.RandomState(6).randn(*shape).astype(np.float32)
+    scale = 1.0 / np.sqrt(shape[-1])
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    o, lse = jpk._attention_pallas(jq, jk, jv, scale)
+    rdq, rdk, rdv = jpk._attn_bwd_pallas(scale, jq, jk, jv, jg, o, lse)
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    to, tlse = torch.from_numpy(np.array(o)), torch.from_numpy(np.array(lse))
+    delta = (tg * to).sum(-1)
+    dq = fa.attention_dq(tq, tk, tv, tg, tlse, delta, scale)
+    dk, dv = fa.attention_dkv(tq, tk, tv, tg, tlse, delta, scale)
+    for got, ref in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5,
+                                   rtol=2e-5)
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_attention_fused_grads_match_jax_grad_of_reference(shape):
+    import jax
+    q, k, v = _qkv(shape, 7)
+    g = np.random.RandomState(8).randn(*shape).astype(np.float32)
+    scale = 1.0 / np.sqrt(shape[-1])
+
+    def loss(q, k, v):
+        return jnp.sum(jpk._attention_ref(q, k, v, scale) * jnp.asarray(g))
+
+    refs = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = fa.attention_fused(*ts)                 # default scale
+    assert out.grad_fn is not None and \
+        type(out.grad_fn).__name__ == "_AttentionBackward"
+    grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), ts)
+    np.testing.assert_allclose(
+        out.detach().numpy(),
+        np.asarray(jpk._attention_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                                      scale)), atol=1e-5, rtol=1e-5)
+    for got, ref in zip(grads, refs):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5,
+                                   rtol=2e-5)
+
+
+def test_attention_fused_takes_strided_qkv_views():
+    """BERT passes (B, H, T, hd) views into one (B, T, 3·D) projection;
+    values and gradients equal those of contiguous copies."""
+    rs = np.random.RandomState(9)
+    B, T, H, hd = 2, 24, 2, 64
+    qkv = torch.from_numpy(rs.randn(B, T, 3 * H * hd).astype(np.float32))
+    qkv.requires_grad_()
+    q, k, v = (t.view(B, T, H, hd).transpose(1, 2)
+               for t in qkv.split(H * hd, dim=-1))
+    assert q.stride() == (T * 3 * H * hd, hd, 3 * H * hd, 1)
+    out = fa.attention_fused(q, k, v)
+    (gq,) = torch.autograd.grad(out.square().sum(), qkv)
+    c = qkv.detach().clone().requires_grad_()
+    q2, k2, v2 = (t.view(B, T, H, hd).transpose(1, 2).contiguous()
+                  for t in c.split(H * hd, dim=-1))
+    out2 = fa.attention_fused(q2, k2, v2)
+    (gq2,) = torch.autograd.grad(out2.square().sum(), c)
+    torch.testing.assert_close(out, out2, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(gq, gq2, atol=1e-6, rtol=1e-6)
+
+
+def test_attention_fused_makes_no_node_without_grad():
+    t = torch.zeros(1, 1, 8, 64)
+    assert fa.attention_fused(t, t, t).grad_fn is None
+    with torch.no_grad():
+        r = torch.zeros(1, 1, 8, 64, requires_grad=True)
+        assert fa.attention_fused(r, r, r).grad_fn is None
+
+
+@pytest.mark.parametrize("shape", [(7, 256), (2, 5, 768)])
+def test_layer_norm_autograd_matches_ln_bwd(shape):
+    rs = np.random.RandomState(10)
+    x = (rs.randn(*shape) * 2 + 0.5).astype(np.float32)
+    g = (1 + 0.1 * rs.randn(shape[-1])).astype(np.float32)
+    b = (0.1 * rs.randn(shape[-1])).astype(np.float32)
+    up = rs.randn(*shape).astype(np.float32)
+    out, res = jpk._ln_fwd(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                           1e-5)
+    rdx, rdg, rdb = jpk._ln_bwd(1e-5, res, jnp.asarray(up))
+    tx, tg, tb = (torch.from_numpy(a).requires_grad_() for a in (x, g, b))
+    y = tnn.layer_norm(tx, tg, tb)
+    assert type(y.grad_fn).__name__ == "LayerNormFnBackward"
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(out),
+                               atol=1e-5, rtol=1e-5)
+    dx, dg, db = torch.autograd.grad(y, (tx, tg, tb), torch.from_numpy(up))
+    for got, ref in ((dx, rdx), (dg, rdg), (db, rdb)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5,
+                                   rtol=2e-5)
+
+
+def test_layer_norm_makes_no_node_without_grad():
+    x, g, b = torch.randn(3, 8), torch.ones(8), torch.zeros(8)
+    assert tnn.layer_norm(x, g, b).grad_fn is None
+    with torch.no_grad():
+        assert tnn.layer_norm(x.requires_grad_(), g, b).grad_fn is None
+
+
+_REFUSALS = [("dtype", TypeError), ("head_dim", ValueError),
+             ("k_shape", ValueError), ("last_stride", ValueError),
+             ("misaligned", ValueError)]
+
+
+@pytest.mark.parametrize("which,bad,exc", [
+    (w, b, e) for w in ("fwd", "dq", "dkv") for b, e in _REFUSALS] +
+    [(w, "lse_shape", ValueError) for w in ("dq", "dkv")])
+def test_flash_wrappers_refuse(which, bad, exc, monkeypatch):
+    monkeypatch.setattr(fa._build, "lib", _no_lib)
+    B, H, L, D = 1, 2, 8, 64
+    dt = torch.float16 if bad == "dtype" else torch.float32
+    D = 32 if bad == "head_dim" else D
+    q = torch.zeros(B, H, L, D, dtype=dt)
+    k = torch.zeros(B, 3 if bad == "k_shape" else H, L, D, dtype=dt)
+    if bad == "last_stride":
+        k = torch.zeros(B, H, D, L, dtype=dt).transpose(2, 3)
+    lse = torch.zeros(B, H, L + (bad == "lse_shape"))
+    args = [_FakeCuda(q, aligned=bad != "misaligned"), _FakeCuda(k),
+            _FakeCuda(q)]
+    if which == "fwd":
+        call = lambda: fa.attention_fwd(*args, 0.125)  # noqa: E731
+    else:
+        fn = fa.attention_dq if which == "dq" else fa.attention_dkv
+        call = lambda: fn(*args, _FakeCuda(q), _FakeCuda(lse),  # noqa: E731
+                          _FakeCuda(lse), 0.125)
+    with pytest.raises(exc):
+        call()
+
+
+def test_flash_plain_route_counts_no_launches():
+    before = (fa.attention_fwd.launches, fa.attention_dq.launches,
+              fa.attention_dkv.launches)
+    t = torch.randn(1, 1, 8, 64, requires_grad=True)
+    fa.attention_fused(t, t, t).sum().backward()
+    assert (fa.attention_fwd.launches, fa.attention_dq.launches,
+            fa.attention_dkv.launches) == before
