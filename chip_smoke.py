@@ -10,8 +10,10 @@ of 128, FFN 3072, vocab 8192; window 576, batch buckets (1, 8), prompt
 bucket 512), then BERT-base masked-LM pretraining through
 ``examples.bert_pretrain`` at its defaults (vocab 30522, 768 wide, 12
 layers, 12 heads of 64, FFN 3072, batch 16 x 128 tokens, AdamW lr 1e-4,
-wd 0.01).  Phases, one JSON line each; the run stops with a non-zero
-exit at the first phase that fails:
+wd 0.01), then ResNet-50 v1 image serving (1000 classes, NHWC items
+224x224x3, buckets 1, 2, 4, 8) through ``ModelRegistry`` →
+``InferenceEngine`` → ``Batcher``.  Phases, one JSON line each; the run
+stops with a non-zero exit at the first phase that fails:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions; TF32 is switched off for matmul and cuDNN.
@@ -44,6 +46,24 @@ exit at the first phase that fails:
    relative, every gradient within 1e-3 of its largest magnitude, the
    weights after one AdamW step within 2 * lr.
 10. ``bert_profile``: one train step under ``torch.profiler``.
+11. ``image_kernels``: the fused conv3x3 + folded BN (+ add) (+ ReLU)
+    kernel against its plain version at ResNet-50's four 3x3 stages at
+    batch 8, the 7x7x512 stage at batch 1, ResNet-18's residual tail,
+    ReLU off and a ragged shape (within 1e-4 of the output's largest
+    magnitude: the 9*C sums run in another order), timed beside its
+    bound, its plain version and ``F.conv2d`` alone.
+12. ``image_serve``: the launch counter set to 0, then
+    ``ModelRegistry.load`` of a seeded ResNet-50 ``.params`` (warmup of
+    every bucket), 32 closed-loop requests from one client and 64 from
+    8 client threads through the ``Batcher``; every response finite,
+    and exactly 16 kernel launches per forward run.  Device and eager
+    ms per forward at each bucket, peak memory.
+13. ``image_reference``: card logits against the port on the CPU from
+    the same ``.params`` at batch 2 (within 1e-4 of the largest logit,
+    top-1 equal), and every batched response against the unbatched
+    forward of its image (same tolerance).
+14. ``image_profile``: one bucket-8 and one bucket-1 forward under
+    ``torch.profiler``.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -130,8 +150,8 @@ def phase_env(state):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from mxnet_tpu_torch import context
+    context.exact_fp32()
     state["card"] = smi
     return {"card": smi, "device": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -148,9 +168,10 @@ def phase_build(state):
     ptxas, fn = {}, None
     for ln in _build.last_build_log.splitlines():
         m = re.search(r"entry function '\S*?(causal_attn_fwd|layernorm_fwd|"
-                      r"attn_fwd|attn_dq|attn_dkv)I((?:Li\d+E)+)E", ln)
+                      r"attn_fwd|attn_dq|attn_dkv|conv_affine_kernel)"
+                      r"I((?:L[ib]\d+E)+)E", ln)
         if m:
-            args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
             fn = f"{m.group(1)}<{args}>"
         m = re.search(r"Used (\d+) registers", ln)
         if m and fn:
@@ -371,11 +392,16 @@ def phase_reference(state):
 
 # kernel-name patterns of the profile's categories, first match wins
 KERNEL_CATEGORIES = (
+    ("conv_affine (ours)", r"conv_affine_kernel"),
+    ("batch norm", r"batch_norm|bn_fw"),
+    ("layout transform", r"nchwToNhwc|nhwcToNchw"),
+    ("cuDNN conv", r"fprop|convolve|implicit_gemm|cudnn"),
     ("gemm", r"gemm|gemv|splitKreduce"),
     ("attention (ours)", r"attn_(fwd|dq|dkv)|causal_attn_fwd"),
     ("layernorm (ours)", r"layernorm_fwd"),
     ("optimizer foreach", r"multi_tensor_apply"),
     ("softmax", r"softmax"),
+    ("pooling", r"pool"),
     ("reduction", r"reduce_kernel"),
     ("embedding / index", r"embedding|index|scatter|gather"),
     ("elementwise", r"elementwise|vectorized"),
@@ -665,6 +691,269 @@ def phase_bert_profile(state):
     return res
 
 
+# ----------------------------------------------------------- image phases
+CONV_TOL = 1e-4
+IMG_REF_TOL = 1e-4
+RESNET50_SEGMENTS = 16          # 3x3/s1 frozen conv+BN segments a forward
+
+
+def _conv_case(N, H, W, C, Cout, gen, residual=False, relu=True):
+    """``conv_affine`` against ``conv_affine_plain`` at one shape, timed
+    beside its bound, its plain version and ``F.conv2d`` alone (cuDNN,
+    channels-last, TF32 off): the nearest single library call, which
+    does less work than the kernel (no BN fold, residual or ReLU)."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.conv_block import conv_affine, conv_affine_plain
+    x = torch.randn(N, H, W, C, device="cuda", generator=gen)
+    w = torch.randn(3, 3, C, Cout, device="cuda", generator=gen) * \
+        (2.0 / (9 * C)) ** 0.5
+    g = 1 + 0.1 * torch.randn(Cout, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(Cout, device="cuda", generator=gen)
+    mu = 0.1 * torch.randn(Cout, device="cuda", generator=gen)
+    var = 0.5 + torch.rand(Cout, device="cuda", generator=gen)
+    res = torch.randn(N, H, W, Cout, device="cuda", generator=gen) \
+        if residual else None
+    args = (x, w, g, b, mu, var, res)
+    out = conv_affine(*args, relu=relu)
+    ref = conv_affine_plain(*args, relu=relu)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    xc = x.permute(0, 3, 1, 2)                      # channels-last view
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    npix = N * H * W
+    nbytes = 4 * (npix * C + 9 * C * Cout + npix * Cout * (2 if residual
+                                                           else 1)
+                  + 4 * Cout)
+    flops = 2 * npix * 9 * C * Cout
+    bms, by = bound(nbytes, flops)
+    kms = cuda_ms(lambda: conv_affine(*args, relu=relu))
+    return {"shape": [N, H, W, C, Cout], "residual": residual, "relu": relu,
+            "max_abs_err": err, "rel_err": err / max(scale, 1e-30),
+            "tol": CONV_TOL, "kernel_ms": kms,
+            "kernel_eager_ms": eager_ms(lambda: conv_affine(*args,
+                                                            relu=relu)),
+            "plain_ms": cuda_ms(lambda: conv_affine_plain(*args,
+                                                          relu=relu)),
+            "library_ms": cuda_ms(lambda: F.conv2d(xc, wc, padding=1)),
+            "library": "F.conv2d alone (cuDNN, channels-last; no BN fold, "
+                       "residual or ReLU)",
+            "bytes": nbytes, "flop": flops, "bound_ms": bms, "bound_by": by,
+            "tflop_s": flops / (kms * 1e-3) / 1e12}
+
+
+def phase_image_kernels(state):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    # ResNet-50's four 3x3 stages at batch 8 (the path shape first), the
+    # batch-1 tail, ResNet-18's residual tail, relu off, and a ragged one
+    cases = [_conv_case(8, 56, 56, 64, 64, gen),
+             _conv_case(8, 28, 28, 128, 128, gen),
+             _conv_case(8, 14, 14, 256, 256, gen),
+             _conv_case(8, 7, 7, 512, 512, gen),
+             _conv_case(1, 7, 7, 512, 512, gen),
+             _conv_case(8, 56, 56, 64, 64, gen, residual=True),
+             _conv_case(8, 28, 28, 128, 128, gen, relu=False),
+             _conv_case(2, 13, 17, 24, 40, gen, residual=True)]
+    state["cases"]["conv_affine"] = cases
+    bad = [c for c in cases if not c["rel_err"] <= c["tol"]]
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{bad}")
+    return {"cases": cases}
+
+
+def _resnet50_params(path):
+    """ResNet-50 v1 (1000 classes) with the port's seeded initializer
+    and plausible frozen BatchNorm statistics (γ near 1, β and μ small,
+    σ² uniform in [0.5, 1.5]), saved to ``path`` as a ``.params``."""
+    import torch
+    from mxnet_tpu_torch.models import get_model
+    net = get_model("resnet50_v1", classes=1000)
+    net.initialize(seed=SEED)
+    net(torch.zeros(1, 32, 32, 3))      # deferred shapes take their values
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for name, t in net.collect_params().items():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "gamma":
+                t.copy_(1 + 0.1 * torch.randn(t.shape, generator=gen))
+            elif leaf in ("beta", "running_mean"):
+                t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+            elif leaf == "running_var":
+                t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+    net.save_parameters(path)
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
+
+
+def phase_image_serve(state):
+    """ResNet-50 v1 at 224x224x3 through ``ModelRegistry.load`` (the
+    default ladder 1, 2, 4, 8) and its ``Batcher``: a closed loop of one
+    client, then 8 client threads.  The launch counter is set to 0
+    before the load and read after the traffic: 16 per forward run."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.ops.conv_block import conv_affine
+    from mxnet_tpu_torch.serve import ModelRegistry
+
+    work = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "resnet50_v1.params")
+    t0 = time.perf_counter()
+    _resnet50_params(path)
+    init_s = time.perf_counter() - t0
+    rs = np.random.RandomState(SEED)
+    images = rs.rand(64, 224, 224, 3).astype(np.float32)
+    state.update(image_params=path, images=images)
+
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()      # earlier phases' state
+    conv_affine.launches = 0
+    telemetry.reset()
+    reg = ModelRegistry()
+    t0 = time.perf_counter()
+    entry = reg.load("resnet50", path, arch="resnet50_v1",
+                     item_shape=(224, 224, 3))
+    load_s = time.perf_counter() - t0
+    state.update(image_registry=reg, image_engine=entry.engine)
+
+    lat, outs = [], []
+    for i in range(32):
+        t1 = time.perf_counter()
+        outs.append(reg.predict("resnet50", images[i])[0])
+        lat.append((time.perf_counter() - t1) * 1e3)
+
+    got, errs = {}, []
+
+    def client(c):
+        try:
+            for j in range(8):
+                k = 8 * c + j
+                got[k] = reg.predict("resnet50", images[k], timeout=300)[0]
+        except Exception as e:
+            errs.append(repr(e))
+
+    h0 = telemetry.raw_snapshot()["histograms"].get("serve.batch_fill", {})
+    b0 = telemetry.raw_snapshot()["counters"].get("serve.batches", 0)
+    ts = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    t1 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    conc_s = time.perf_counter() - t1
+    snap = telemetry.raw_snapshot()
+    launches = conv_affine.launches
+    h1 = snap["histograms"].get("serve.batch_fill", {})
+    batches = snap["counters"].get("serve.batches", 0)
+    forwards = entry.engine.forwards     # warmups, the batcher's, traffic
+    state["image_launches"] = {"conv_affine": launches}
+    state["image_batched"] = got
+    if errs or len(got) != 64:
+        raise AssertionError(f"concurrent requests failed: {errs}")
+    bad = [o for o in outs + list(got.values())
+           if o.shape != (1, 1000) or not np.isfinite(o).all()]
+    if bad:
+        raise AssertionError(f"{len(bad)} responses not finite (1, 1000)")
+    if launches != RESNET50_SEGMENTS * forwards:
+        raise AssertionError(f"conv_affine launched {launches} times in "
+                             f"{forwards} forwards")
+
+    eng = entry.engine
+    per_bucket = {}
+    for b in eng.buckets:
+        x = torch.as_tensor(images[:b], device="cuda")
+        per_bucket[b] = {
+            # two forwards per CUDA-event window: the host queues both
+            # inside the device-side sleep, so the window is device time
+            "device_ms": cuda_ms(lambda: eng.run(x), iters=2, repeats=5),
+            "eager_ms": eager_ms(lambda: eng.run(x), iters=10)}
+    hist = snap["histograms"]
+    return {"model": "resnet50_v1", "classes": 1000,
+            "item_shape": [224, 224, 3], "buckets": list(eng.buckets),
+            "init_s": init_s, "load_and_warmup_s": load_s,
+            "closed_loop": {"requests": 32, "p50_ms": _pct(lat, 50),
+                            "p99_ms": _pct(lat, 99), "mean_ms":
+                            sum(lat) / len(lat), "first_ms": lat[0],
+                            "max_ms": max(lat)},
+            "concurrent": {"clients": 8, "requests": 64, "seconds": conc_s,
+                           "images_s": 64 / conc_s,
+                           "batches": batches - b0,
+                           "mean_batch_fill":
+                           (h1.get("sum", 0) - h0.get("sum", 0)) /
+                           max(1, h1.get("count", 0) - h0.get("count", 0))},
+            "queue_wait_us_mean": _mean_us({}, hist, "serve.queue_wait_us"),
+            "device_us_mean": _mean_us({}, hist, "serve.device_us"),
+            "per_bucket": per_bucket,
+            "launches": {"conv_affine": launches, "forwards": forwards,
+                         "per_forward": launches / forwards},
+            "engine": {k: v for k, v in eng.stats().items()
+                       if k in ("retraces", "programs", "precision",
+                                "param_bytes_per_device")},
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "mem_before_bytes": mem_before}
+
+
+def phase_image_reference(state):
+    """The card's engine against the port on the CPU from the same
+    ``.params`` at batch 2, and each batched response against the
+    unbatched forward of its image (a tolerance, not bitwise: the
+    reference's bitwise batching tests are red on the CPU)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import get_model
+    from mxnet_tpu_torch.serve import InferenceEngine
+    torch.set_num_threads(os.cpu_count() or 1)
+    eng, images = state["image_engine"], state["images"]
+    x2 = images[:2]
+    card = eng.run(x2)[0].cpu().numpy()
+    net = get_model("resnet50_v1", classes=1000)
+    net.load_parameters(state["image_params"])
+    cpu = InferenceEngine(net, (224, 224, 3), buckets=(2,),
+                          device="cpu").run(x2)[0].numpy()
+    ref_err = float(np.abs(card - cpu).max())
+    ref_scale = float(np.abs(cpu).max())
+    top1 = bool((card.argmax(-1) == cpu.argmax(-1)).all())
+
+    bat_err, bat_scale, bitwise = 0.0, 0.0, 0
+    for k, out in state["image_batched"].items():
+        one = eng.run(images[k:k + 1])[0].cpu().numpy()
+        bat_err = max(bat_err, float(np.abs(out - one).max()))
+        bat_scale = max(bat_scale, float(np.abs(one).max()))
+        bitwise += int(np.array_equal(out, one))
+    state["image_registry"].close()
+    res = {"batch": 2, "logits_max_abs_diff": ref_err,
+           "logits_max_abs": ref_scale, "tol": IMG_REF_TOL,
+           "top1_equal": top1,
+           "batched_vs_unbatched_max_abs_diff": bat_err,
+           "batched_max_abs": bat_scale,
+           "batched_bitwise_equal": bitwise,
+           "batched_responses": len(state["image_batched"])}
+    if not (ref_err <= IMG_REF_TOL * ref_scale and top1 and
+            bat_err <= IMG_REF_TOL * bat_scale):
+        raise AssertionError(f"card disagrees: {res}")
+    return res
+
+
+def phase_image_profile(state):
+    """Where a ResNet-50 forward's time goes: one bucket-8 and one
+    bucket-1 forward under torch.profiler."""
+    import torch
+    eng, images = state["image_engine"], state["images"]
+    res = {}
+    for b in (8, 1):
+        x = torch.as_tensor(images[:b], device="cuda")
+        eng.run(x)
+        res[f"forward_b{b}"] = _profile(lambda: eng.run(x), 1, top=8)
+    return res
+
+
 # ------------------------------------------------------------------ main
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
@@ -677,22 +966,25 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_kernels.py:283"),
     ("attention_dkv", "mxnet_tpu_torch/csrc/attention.cu",
      "mxnet_tpu/ops/pallas_kernels.py:309"),
+    ("conv_affine", "mxnet_tpu_torch/csrc/conv_affine.cu",
+     "mxnet_tpu/ops/pallas_block.py:325"),
 ]
+PATH_LAUNCHES = ("launches", "bert_launches", "image_launches")
 
 
 def kernels_line(state):
     """One entry per kernel.  ``launches`` sums the main-path runs that
     launch it (GPT serving in ``slice``, BERT training in
-    ``bert_train``); the times are at the first case, the path's own
-    shape."""
+    ``bert_train``, ResNet-50 serving in ``image_serve``); the times are
+    at the first case, the path's own shape."""
     out = []
     for name, source, replaces in KERNELS:
         cases = state["cases"][name]
         main = cases[0]
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces,
-                    "launches": state["launches"].get(name, 0) +
-                    state["bert_launches"].get(name, 0),
+                    "launches": sum(state[k].get(name, 0)
+                                    for k in PATH_LAUNCHES),
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
                     "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
                     "eager_ms": main["kernel_eager_ms"],
@@ -728,7 +1020,11 @@ def main():
                      ("bert_kernels", phase_bert_kernels),
                      ("bert_train", phase_bert_train),
                      ("bert_reference", phase_bert_reference),
-                     ("bert_profile", phase_bert_profile)):
+                     ("bert_profile", phase_bert_profile),
+                     ("image_kernels", phase_image_kernels),
+                     ("image_serve", phase_image_serve),
+                     ("image_reference", phase_image_reference),
+                     ("image_profile", phase_image_profile)):
         t0 = time.perf_counter()
         try:
             res = fn(state)

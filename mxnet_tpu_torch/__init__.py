@@ -7,17 +7,26 @@ and causal flash attention.  Slice 2 is BERT masked-LM pretraining:
 ``models.bert`` + ``optimizer.AdamW``, driven by
 ``examples.bert_pretrain``, with hand-written CUDA kernels for the
 non-causal flash-attention forward and its dq and dk/dv backward passes,
-and a differentiable LayerNorm.  The kernels (``csrc/``) are built with
+and a differentiable LayerNorm.  Slice 3 is image serving: the Gluon
+stack (``gluon``: blocks as ``nn.Module``s with the reference's
+parameter names and ``.params`` files) and ``models.resnet`` served by
+``serve.ModelRegistry`` → ``InferenceEngine`` → ``Batcher``, with a
+hand-written CUDA kernel for the fused 3×3 conv + folded frozen BN
+(+ add) (+ ReLU).  The kernels (``csrc/``) are built with
 ``nvcc`` at their first launch.  Entry points run on the GPU unless
 ``device="cpu"`` is passed.  Importing the package builds nothing.
 """
-from . import context, optimizer, telemetry
+from . import context, gluon, initializer, optimizer, telemetry
 from .context import cpu, gpu, num_gpus
 from .generate import DecodeEngine
 from .models.bert import BertConfig, BertModel
 from .models.gpt import GPTConfig, GPTModel, init_params, params_from_numpy
-from .serve.batcher import DecodeBatcher
+from .models import get_model
+from .serve import (Batcher, DecodeBatcher, InferenceEngine,
+                    ModelRegistry)
 
-__all__ = ["context", "optimizer", "telemetry", "cpu", "gpu", "num_gpus",
-           "DecodeEngine", "DecodeBatcher", "BertConfig", "BertModel",
-           "GPTConfig", "GPTModel", "init_params", "params_from_numpy"]
+__all__ = ["context", "gluon", "initializer", "optimizer", "telemetry",
+           "cpu", "gpu", "num_gpus", "DecodeEngine", "DecodeBatcher",
+           "BertConfig", "BertModel", "GPTConfig", "GPTModel",
+           "init_params", "params_from_numpy", "get_model", "Batcher",
+           "InferenceEngine", "ModelRegistry"]

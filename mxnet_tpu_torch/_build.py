@@ -55,6 +55,10 @@ _SIGNATURES = {
     # q/k/v/g/dk/dv strides, scale, stream
     "mxt_attention_dkv_f32": [_P] * 8 + [ctypes.c_int] * 5 + [_P] * 6 +
                              [ctypes.c_float, _P],
+    # x, w, gamma, beta, mean, var, res, out, N, H, W, C, Cout, eps,
+    # relu, vec, stream
+    "mxt_conv_affine_f32": [_P] * 8 + [ctypes.c_int] * 5 +
+                           [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
 }
 
 _mu = threading.Lock()

@@ -3,13 +3,15 @@
 The port's entry points run on the card unless the caller asks for the
 CPU.  :func:`resolve` turns a caller's ``device`` argument into a
 ``torch.device``; with none given it is the card, and with no card it
-raises rather than quietly running on the CPU.
+raises rather than quietly running on the CPU.  :func:`exact_fp32` is
+the one switch that keeps fp32 products in full fp32 on the card.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["cpu", "gpu", "num_gpus", "default_device", "resolve"]
+__all__ = ["cpu", "gpu", "num_gpus", "default_device", "resolve",
+           "exact_fp32"]
 
 
 def cpu(device_id: int = 0) -> torch.device:
@@ -42,3 +44,14 @@ def resolve(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def exact_fp32():
+    """Keep fp32 matrix products and convolutions in full fp32: TF32 off
+    for cuBLAS and for cuDNN.  PyTorch leaves ``cudnn.allow_tf32`` True
+    by default, so without this every cuDNN convolution would silently
+    run in TF32 (about three decimal digits).  Process-wide, as
+    PyTorch's flags are; every entry point that runs on the card calls
+    it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

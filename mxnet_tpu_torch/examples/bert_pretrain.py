@@ -66,6 +66,8 @@ class Trainer:
     def __init__(self, cfg: bert.BertConfig, seed=0, lr=1e-4, device=None):
         self.cfg = cfg
         self.device = _context.resolve(device)
+        if self.device.type == "cuda":
+            _context.exact_fp32()
         self.params = bert.init_params(cfg, seed, self.device)
         self.flat = bert.leaves(self.params)
         for t in self.flat:

@@ -135,9 +135,7 @@ class DecodeEngine:
                  temperature: float = 0.0, seed: int = 0, device=None):
         self.device = _context.resolve(device)
         if self.device.type == "cuda":
-            # fp32 slice: dense products in full fp32, never TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+            _context.exact_fp32()
         self.params = _gpt.params_to(params, self.device)
         self.param_bytes = sum(
             t.numel() * t.element_size()

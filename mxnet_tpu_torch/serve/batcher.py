@@ -1,30 +1,39 @@
-"""Token-level continuous batching over one decode engine
-(≙ ``mxnet_tpu/serve/batcher.py`` ``DecodeBatcher``).
+"""Batching for the port's serving (≙ ``mxnet_tpu/serve/batcher.py``).
 
-A persistent B-row decode batch: each row (slot) hosts one in-flight
-generation, and requests join and leave at iteration boundaries.  A
-joining request is prefilled into a free row of the batch's ctl block
-(``DecodeEngine.join``) while every other row keeps decoding, and a
-finished row frees its slot without stalling the rest.
+``Batcher`` is request-level continuous batching over one
+:class:`~mxnet_tpu_torch.serve.engine.InferenceEngine`: queued requests
+coalesce into the engine's bucket ladder under a max-wait deadline,
+partial batches are padded with zeros (the pad rows are computed and
+discarded), and each caller gets its own slice of the one forward.
+Admission control is a bounded queue counted in items (``QueueFull``);
+a ``submit`` that times out tombstones its request, which the coalescer
+then skips (``serve.abandoned``).  The reference's fault injection and
+trace links belong to the host planes, not ported yet.
 
-The request-level ``Batcher`` of the reference waits for the image
-serving slice.
+``DecodeBatcher`` is token-level continuous batching over one decode
+engine: a persistent B-row decode batch where each row (slot) hosts one
+in-flight generation, and requests join and leave at iteration
+boundaries.  A joining request is prefilled into a free row of the
+batch's ctl block (``DecodeEngine.join``) while every other row keeps
+decoding, and a finished row frees its slot without stalling the rest.
 """
 from __future__ import annotations
 
 import os
 import queue
+import random
 import threading
 import time
 from collections import deque
 from contextlib import nullcontext
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import telemetry as _telemetry
 
-__all__ = ["DecodeBatcher", "QueueFull", "RequestError"]
+__all__ = ["Batcher", "DecodeBatcher", "QueueFull", "RequestError"]
 
 _US = 1e6
 
@@ -51,6 +60,266 @@ class RequestError(Exception):
     """The device execution for this request's batch failed."""
 
 
+def _on_device(dev):
+    """The loop thread's device context (its kernels launch on that
+    device's current stream)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
+
+
+class _Request:
+    __slots__ = ("x", "n", "event", "result", "error", "t_submit",
+                 "abandoned")
+
+    def __init__(self, x, n):
+        self.x = x
+        self.n = n
+        self.event = threading.Event()
+        self.result = None
+        self.error = None
+        self.t_submit = time.perf_counter()
+        self.abandoned = False
+
+
+class Batcher:
+    """Request-level continuous batching over one
+    :class:`~mxnet_tpu_torch.serve.engine.InferenceEngine`.
+
+    A daemon thread (``serve-batcher-<name>``) waits for queued requests,
+    coalesces up to ``max_bucket`` items — flushing early when the
+    oldest request has waited ``max_wait_ms`` (default 5,
+    ``MXNET_SERVE_MAX_WAIT_MS``) — and runs one padded bucket per flush.
+    ``submit(x)`` blocks the caller until its slice of the response is
+    ready; ``submit_async(x)`` returns a handle with ``.event`` /
+    ``.result`` / ``.error``.  Queue depth in items:
+    ``MXNET_SERVE_QUEUE_DEPTH`` (256); default wait:
+    ``MXNET_SERVE_TIMEOUT_MS`` (30 s).  The loop thread first runs the
+    engine's ``warm_thread`` (one forward of the smallest bucket, making
+    the thread's cuDNN and cuBLAS handles) and the constructor returns
+    after it, so no request waits for that.
+    """
+
+    def __init__(self, engine, max_wait_ms: Optional[float] = None,
+                 queue_depth: Optional[int] = None,
+                 name: Optional[str] = None):
+        self.engine = engine
+        self.name = name or engine.name
+        self.max_wait_s = (_env_float("MXNET_SERVE_MAX_WAIT_MS", 5.0)
+                           if max_wait_ms is None else float(max_wait_ms)) \
+            / 1000.0
+        self.queue_depth = _env_int("MXNET_SERVE_QUEUE_DEPTH", 256) \
+            if queue_depth is None else int(queue_depth)
+        self.timeout_s = _env_float("MXNET_SERVE_TIMEOUT_MS", 30000.0) / 1e3
+        self._cv = threading.Condition()
+        self._q: "deque[_Request]" = deque()
+        self._qn = 0            # queued items (rows), not requests
+        self._closed = False
+        # EWMA of per-item service time, for retry_after_s()
+        self._ewma_item_s = 0.0
+        self._started = threading.Event()
+        self._start_error = None
+        self._thread = threading.Thread(
+            target=self._loop, name=f"serve-batcher-{self.name}",
+            daemon=True)
+        self._thread.start()
+        self._started.wait()
+        if self._start_error is not None:
+            raise self._start_error
+
+    # ------------------------------------------------------------- ingress
+    def _normalize(self, x) -> Tuple[np.ndarray, int]:
+        item = self.engine.item_shape
+        a = np.asarray(x, dtype=self.engine.dtype)
+        if a.shape == item:
+            return a.reshape((1,) + item), 1
+        if a.ndim == len(item) + 1 and a.shape[1:] == item:
+            n = int(a.shape[0])
+            if n < 1:
+                raise ValueError("empty request batch")
+            if n > self.engine.max_bucket:
+                raise ValueError(f"request batch {n} exceeds max bucket "
+                                 f"{self.engine.max_bucket}")
+            return a, n
+        raise ValueError(f"request shape {a.shape} matches neither item "
+                         f"{item} nor (n,)+{item}")
+
+    def submit_async(self, x) -> _Request:
+        """Enqueue one request (an item or a small batch of items);
+        returns its handle without waiting.  Raises :class:`QueueFull`
+        when admission control rejects it."""
+        a, n = self._normalize(x)
+        req = _Request(a, n)
+        _telemetry.counter_add("serve.requests")
+        with self._cv:
+            if self._closed:
+                raise RuntimeError(f"batcher {self.name!r} is closed")
+            if self._qn + n > self.queue_depth:
+                _telemetry.counter_add("serve.rejected")
+                raise QueueFull(f"queue at {self._qn}/{self.queue_depth} "
+                                f"items")
+            self._q.append(req)
+            self._qn += n
+            _telemetry.gauge_set("serve.queue_depth", self._qn)
+            self._cv.notify()
+        _telemetry.counter_add("serve.admitted")
+        return req
+
+    def submit(self, x, timeout: Optional[float] = None):
+        """Blocking predict: the tuple of numpy outputs for this request's
+        rows.  On timeout the request is tombstoned: if still queued it
+        is never run, and the coalescer counts it ``serve.abandoned``."""
+        req = self.submit_async(x)
+        if not req.event.wait(self.timeout_s if timeout is None
+                              else timeout):
+            with self._cv:
+                if not req.event.is_set():
+                    req.abandoned = True
+                    raise TimeoutError(
+                        f"request not served within timeout (batcher "
+                        f"{self.name!r}, queued={self._qn})")
+            # served in the window between wait() and the lock
+        if req.error is not None:
+            raise RequestError(str(req.error)) from req.error
+        return req.result
+
+    def retry_after_s(self) -> float:
+        """Retry-After estimate: queued items × the EWMA per-item service
+        time, jittered ±25%; ~1 s before any batch has been measured."""
+        with self._cv:
+            qn, per_item = self._qn, self._ewma_item_s
+        est = qn * per_item if per_item > 0.0 else 1.0
+        return max(0.05, est) * random.uniform(0.75, 1.25)
+
+    # ---------------------------------------------------------------- loop
+    def _sweep_abandoned_locked(self):
+        swept = 0
+        while self._q and self._q[0].abandoned:
+            r = self._q.popleft()
+            self._qn -= r.n
+            swept += 1
+        if swept:
+            _telemetry.counter_add("serve.abandoned", swept)
+            _telemetry.gauge_set("serve.queue_depth", self._qn)
+
+    def _loop(self):
+        maxb = self.engine.max_bucket
+        with _on_device(self.engine.device):
+            warm = getattr(self.engine, "warm_thread", None)
+            try:
+                if warm is not None:
+                    warm()      # this thread's library handles, up front
+            except Exception as e:      # re-raised by the constructor
+                self._start_error = e
+                return
+            finally:
+                self._started.set()
+            while True:
+                batch, taken = [], 0
+                with self._cv:
+                    self._sweep_abandoned_locked()
+                    while not self._q and not self._closed:
+                        self._cv.wait()
+                        self._sweep_abandoned_locked()
+                    if not self._q and self._closed:
+                        return
+                    # fill-or-deadline: wait for more items until the
+                    # oldest request's max-wait expires (closed: at once)
+                    deadline = self._q[0].t_submit + self.max_wait_s
+                    while self._qn < maxb and not self._closed:
+                        left = deadline - time.perf_counter()
+                        if left <= 0:
+                            break
+                        self._cv.wait(left)
+                        self._sweep_abandoned_locked()
+                        if not self._q:
+                            break
+                    while self._q:
+                        head = self._q[0]
+                        if head.abandoned:
+                            self._q.popleft()
+                            self._qn -= head.n
+                            _telemetry.counter_add("serve.abandoned")
+                            continue
+                        if taken + head.n > maxb:
+                            break
+                        self._q.popleft()
+                        taken += head.n
+                        batch.append(head)
+                    self._qn -= taken
+                    _telemetry.gauge_set("serve.queue_depth", self._qn)
+                if batch:
+                    self._execute(batch, taken)
+
+    def _execute(self, batch, n_items):
+        now = time.perf_counter()
+        for r in batch:
+            _telemetry.observe("serve.queue_wait_us",
+                               (now - r.t_submit) * _US)
+        bucket = self.engine.bucket_for(n_items)
+        x = np.concatenate(
+            [r.x for r in batch] +
+            ([np.zeros((bucket - n_items,) + self.engine.item_shape,
+                       dtype=self.engine.dtype)]
+             if bucket > n_items else []))
+        try:
+            t0 = time.perf_counter()
+            with _telemetry.span("serve.execute", fill=n_items,
+                                 requests=len(batch), bucket=bucket):
+                outs = self.engine.run(x)
+                outs = tuple(o.cpu().numpy() for o in outs)  # waits
+            _telemetry.observe("serve.device_us",
+                               (time.perf_counter() - t0) * _US)
+        except Exception as e:      # deliver, don't kill the loop
+            _telemetry.counter_add("serve.errors")
+            for r in batch:
+                r.error = e
+                r.event.set()
+            return
+        _telemetry.counter_add("serve.batches")
+        if len(batch) > 1:
+            _telemetry.counter_add("serve.coalesced_batches")
+        if bucket > n_items:
+            _telemetry.counter_add("serve.padded", bucket - n_items)
+        _telemetry.observe("serve.batch_fill", float(n_items))
+        done = time.perf_counter()
+        per_item = (done - now) / max(1, n_items)
+        with self._cv:
+            self._ewma_item_s = per_item if self._ewma_item_s <= 0.0 \
+                else 0.3 * per_item + 0.7 * self._ewma_item_s
+        off = 0
+        for r in batch:
+            r.result = tuple(o[off:off + r.n] for o in outs)
+            off += r.n
+            _telemetry.observe("serve.e2e_us", (done - r.t_submit) * _US)
+            r.event.set()
+
+    # --------------------------------------------------------------- admin
+    def stats(self) -> dict:
+        with self._cv:
+            return {"name": self.name, "queued_items": self._qn,
+                    "queued_requests": len(self._q),
+                    "queue_depth": self.queue_depth,
+                    "max_wait_ms": self.max_wait_s * 1e3,
+                    "ewma_item_ms": round(self._ewma_item_s * 1e3, 3),
+                    "closed": self._closed}
+
+    def close(self, timeout: float = 30.0):
+        """Drain the queue (queued requests are still served), stop the
+        loop thread and join it."""
+        with self._cv:
+            if self._closed:
+                return
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+# ===================================================================== decode
 class _DecodeRequest:
     __slots__ = ("tokens", "max_new", "q", "emitted", "t_submit")
 
@@ -163,8 +432,7 @@ class DecodeBatcher:
 
     # ---------------------------------------------------------------- loop
     def _loop(self):
-        dev = self.engine.device
-        with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
+        with _on_device(self.engine.device):
             while True:
                 joins = []
                 with self._cv:

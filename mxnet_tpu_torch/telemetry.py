@@ -1,8 +1,25 @@
-"""Process-wide metrics for the decode path: a pure-Python, thread-safe
+"""Process-wide metrics of the serving paths: a pure-Python, thread-safe
 subset of ``mxnet_tpu/telemetry.py`` with the same names and the same
 ``raw_snapshot()`` shape (``counters``, ``gauges``, ``histograms`` with
 ``count``/``sum``).  Histograms take microseconds in the reference's
 fixed buckets.
+
+What the port emits, under the reference's names:
+
+- decode (``generate``, ``DecodeBatcher``): the ``decode.*`` counters
+  and gauges, and the histograms ``decode.prefill_us`` and
+  ``decode.decode_step_us``;
+- image serving (``InferenceEngine``, ``Batcher``, ``ModelRegistry``):
+  counters ``serve.requests``, ``.admitted``, ``.rejected``,
+  ``.abandoned``, ``.batches``, ``.coalesced_batches``, ``.padded``,
+  ``.errors``, ``.swaps``, ``.evictions``,
+  ``serve.precision.{builds,batches}.fp32``; gauges
+  ``serve.queue_depth``, ``.models``, ``.programs``,
+  ``.param_bytes_per_device``; histograms ``serve.queue_wait_us``,
+  ``serve.device_us`` (the forward and the copy of its outputs to the
+  host), ``serve.e2e_us``, ``serve.batch_fill`` (items per batch, not
+  µs), ``serve.warmup_us``, and the spans ``serve.engine_run_us``,
+  ``serve.execute_us``.
 """
 from __future__ import annotations
 

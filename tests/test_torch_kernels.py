@@ -351,3 +351,113 @@ def test_flash_plain_route_counts_no_launches():
     fa.attention_fused(t, t, t).sum().backward()
     assert (fa.attention_fwd.launches, fa.attention_dq.launches,
             fa.attention_dkv.launches) == before
+
+
+# ------------------------- fused conv3x3 + folded frozen BN (image serving)
+
+from mxnet_tpu.ops import pallas_block as jpb  # noqa: E402
+from mxnet_tpu_torch.ops import conv_block  # noqa: E402
+
+
+def _conv_data(rs, N, H, W, C, Cout, res):
+    x = rs.randn(N, H, W, C).astype(np.float32)
+    w = (rs.randn(3, 3, C, Cout) * np.sqrt(2.0 / (9 * C))).astype(np.float32)
+    gamma = (1 + 0.1 * rs.randn(Cout)).astype(np.float32)
+    beta = (0.1 * rs.randn(Cout)).astype(np.float32)
+    mean = (0.1 * rs.randn(Cout)).astype(np.float32)
+    var = rs.uniform(0.5, 1.5, Cout).astype(np.float32)
+    r = rs.randn(N, H, W, Cout).astype(np.float32) if res else None
+    return x, w, gamma, beta, mean, var, r
+
+
+# (N, H, W, C, Cout, residual, relu): with and without the add, ReLU on
+# and off, C != Cout, ragged spatial sizes
+CONV_CASES = [(1, 8, 8, 16, 16, True, True), (2, 6, 7, 8, 12, False, True),
+              (1, 5, 9, 16, 16, True, False), (2, 4, 4, 24, 40, False, False)]
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=str)
+def test_conv_affine_plain_matches_pallas_interpret(case, monkeypatch):
+    monkeypatch.setenv("MXNET_TPU_PALLAS_BLOCK", "1")
+    N, H, W, C, Cout, res, relu = case
+    monkeypatch.setenv("MXNET_TPU_PALLAS_STAGES", f"{H}x{W}x{C}=pallas")
+    data = _conv_data(np.random.RandomState(7), N, H, W, C, Cout, res)
+    ref = np.asarray(jpb.residual_block_fused(
+        *(None if a is None else jnp.asarray(a) for a in data),
+        eps=1e-5, frozen=True, relu=relu)[0])
+    out = conv_block.conv_affine(
+        *(None if a is None else torch.from_numpy(a) for a in data),
+        eps=1e-5, relu=relu).numpy()
+    assert out.shape == (N, H, W, Cout)
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_residual_block_matches_reference_on_forced_pallas_route(
+        monkeypatch):
+    """ops.nn.residual_block against the JAX package's, routed to its
+    Pallas kernel by the per-stage table."""
+    monkeypatch.setenv("MXNET_TPU_PALLAS_BLOCK", "1")
+    monkeypatch.setenv("MXNET_TPU_PALLAS_STAGES", "6x6x16=pallas")
+    x, w, g, b, m, v, r = _conv_data(np.random.RandomState(8), 2, 6, 6, 16,
+                                     16, True)
+    assert jpb.decide(x.shape, w.shape, jnp.float32, True).fwd == "pallas"
+    ref = jnn.residual_block(*(jnp.asarray(a) for a in (x, w, g, b, m, v)),
+                             residual=jnp.asarray(r), training=False)
+    out = tnn.residual_block(*(torch.from_numpy(a)
+                               for a in (x, w, g, b, m, v)),
+                             residual=torch.from_numpy(r), training=False)
+    ref0 = np.asarray(ref[0])
+    assert np.abs(out[0].numpy() - ref0).max() <= 1e-5 * np.abs(ref0).max()
+    # the running statistics come back unchanged
+    np.testing.assert_array_equal(out[1].numpy(), m)
+    np.testing.assert_array_equal(out[2].numpy(), v)
+
+
+def test_fold_matches_reference():
+    rs = np.random.RandomState(9)
+    g, b, m = (rs.randn(32).astype(np.float32) for _ in range(3))
+    v = rs.uniform(0.5, 1.5, 32).astype(np.float32)
+    inv = 1.0 / np.sqrt(jnp.asarray(v) + 1e-5)
+    ref = jpb._fold(jnp.asarray(g), jnp.asarray(b), jnp.asarray(m), inv)
+    out = conv_block.fold(*(torch.from_numpy(a) for a in (g, b, m, v)))
+    for a, e in zip(out, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(e), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def _conv_args(bad):
+    N, H, W, C, Cout = 1, 4, 4, 16, 8
+    dt = torch.float64 if bad == "dtype" else torch.float32
+    x = torch.zeros(N, H, W, C, dtype=dt)
+    if bad == "strided":
+        x = torch.zeros(N, C, H, W).permute(0, 2, 3, 1)    # NCHW storage
+    if bad == "rank":
+        x = torch.zeros(H, W, C)
+    kh = 1 if bad == "kernel" else 3
+    cin = C + 1 if bad == "channels" else C
+    w = torch.zeros(kh, kh, cin, Cout, dtype=dt)
+    vec = torch.zeros(Cout + (bad == "vector"), dtype=dt)
+    r = torch.zeros(N, H, W, Cout + 1) if bad == "residual" else None
+    return x, w, vec, r
+
+
+@pytest.mark.parametrize("bad,exc", [
+    ("dtype", TypeError), ("strided", ValueError), ("rank", ValueError),
+    ("kernel", ValueError), ("channels", ValueError), ("vector", ValueError),
+    ("residual", ValueError)])
+def test_conv_affine_wrapper_refuses(bad, exc, monkeypatch):
+    monkeypatch.setattr(conv_block._build, "lib", _no_lib)
+    x, w, vec, r = _conv_args(bad)
+    fake = [_FakeCuda(t) for t in (x, w, vec, vec, vec, vec)]
+    with pytest.raises(exc):
+        conv_block.conv_affine(*fake,
+                               residual=None if r is None else _FakeCuda(r))
+
+
+def test_conv_affine_plain_route_counts_no_launches():
+    before = conv_block.conv_affine.launches
+    x, w, g, b, m, v, r = (None if a is None else torch.from_numpy(a)
+                           for a in _conv_data(np.random.RandomState(1),
+                                               1, 3, 3, 4, 4, True))
+    conv_block.conv_affine(x, w, g, b, m, v, r)
+    assert conv_block.conv_affine.launches == before
