@@ -12,8 +12,11 @@ bucket 512), then BERT-base masked-LM pretraining through
 layers, 12 heads of 64, FFN 3072, batch 16 x 128 tokens, AdamW lr 1e-4,
 wd 0.01), then ResNet-50 v1 image serving (1000 classes, NHWC items
 224x224x3, buckets 1, 2, 4, 8) through ``ModelRegistry`` →
-``InferenceEngine`` → ``Batcher``.  Phases, one JSON line each; the run
-stops with a non-zero exit at the first phase that fails:
+``InferenceEngine`` → ``Batcher``, then ResNet-50 v1 training through
+``examples.image_classification`` at its defaults (batch 64 x 224x224x3,
+1000 classes, SGD lr 0.1, momentum 0.9, wd 1e-4).  Phases, one JSON
+line each; the run stops with a non-zero exit at the first phase that
+fails:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions; TF32 is switched off for matmul and cuDNN.
@@ -64,6 +67,28 @@ stops with a non-zero exit at the first phase that fails:
     forward of its image (same tolerance).
 14. ``image_profile``: one bucket-8 and one bucket-1 forward under
     ``torch.profiler``.
+15. ``train_kernels``: the four training kernels (``conv3x3``, also as
+    dgrad on the rotated weight, ``conv_stats``, ``bn_affine``,
+    ``conv_wgrad``) against their plain versions at ResNet-50's four 3x3
+    stages at batch 64, a C != Cout dgrad/wgrad case, ``bn_affine`` with
+    a residual and with ReLU off, and a ragged shape (z, dx, dW within
+    1e-4 of the tensor's largest magnitude; sum(z^2) within 1e-5
+    relative and sum(z) within 1e-5 of the channel's sum |z|;
+    ``bn_affine`` within 1e-6 of its largest magnitude), timed beside
+    their bounds, plain versions and the nearest single library call.
+16. ``image_train``: the launch counters set to 0, then
+    ``examples.image_classification.main`` at its defaults with 2
+    warm-up and 8 timed steps; the losses finite, each training kernel
+    launched exactly 16 times a step and ``conv_affine`` never.  Step ms
+    (CUDA events), images/s, peak memory.
+17. ``image_train_reference``: one step at batch 2 on the card and
+    through the port on the CPU (and on the CPU in float64, the floor)
+    from the same seeded weights (the damped-residual init) and batch:
+    loss within 1e-4 relative, every gradient within 1e-2 of the net's
+    largest gradient, every parameter after the SGD step within 1e-2 of
+    the net's largest update, running statistics within 1e-5 of their
+    largest magnitude.
+18. ``image_train_profile``: one training step under ``torch.profiler``.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -168,11 +193,15 @@ def phase_build(state):
     ptxas, fn = {}, None
     for ln in _build.last_build_log.splitlines():
         m = re.search(r"entry function '\S*?(causal_attn_fwd|layernorm_fwd|"
-                      r"attn_fwd|attn_dq|attn_dkv|conv_affine_kernel)"
+                      r"attn_fwd|attn_dq|attn_dkv|conv_affine_kernel|"
+                      r"conv3x3_kernel|conv_stats_kernel|"
+                      r"conv_wgrad_kernel|bn_affine_kernel)"
                       r"I((?:L[ib]\d+E)+)E", ln)
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
             fn = f"{m.group(1)}<{args}>"
+        elif "Compiling entry function" in ln:
+            fn = None           # a kernel not listed: its lines are not ours
         m = re.search(r"Used (\d+) registers", ln)
         if m and fn:
             ptxas.setdefault(fn, {})["registers"] = int(m.group(1))
@@ -393,8 +422,13 @@ def phase_reference(state):
 # kernel-name patterns of the profile's categories, first match wins
 KERNEL_CATEGORIES = (
     ("conv_affine (ours)", r"conv_affine_kernel"),
+    ("conv3x3 / dgrad (ours)", r"conv3x3_kernel"),
+    ("conv_stats (ours)", r"conv_stats_kernel|stats_reduce_kernel"),
+    ("bn_affine (ours)", r"bn_affine_kernel"),
+    ("conv_wgrad (ours)", r"conv_wgrad_kernel|wgrad_reduce_kernel"),
     ("batch norm", r"batch_norm|bn_fw"),
     ("layout transform", r"nchwToNhwc|nhwcToNchw"),
+    ("cuDNN conv backward", r"dgrad|wgrad|bprop"),
     ("cuDNN conv", r"fprop|convolve|implicit_gemm|cudnn"),
     ("gemm", r"gemm|gemv|splitKreduce"),
     ("attention (ours)", r"attn_(fwd|dq|dkv)|causal_attn_fwd"),
@@ -771,7 +805,7 @@ def _resnet50_params(path):
     import torch
     from mxnet_tpu_torch.models import get_model
     net = get_model("resnet50_v1", classes=1000)
-    net.initialize(seed=SEED)
+    net.initialize(seed=SEED, ctx="cpu")
     net(torch.zeros(1, 32, 32, 3))      # deferred shapes take their values
     gen = torch.Generator().manual_seed(SEED)
     with torch.no_grad():
@@ -954,6 +988,388 @@ def phase_image_profile(state):
     return res
 
 
+# -------------------------------------------------------- training phases
+TRAIN_TOL = 1e-4            # z, dx, dW: of the tensor's largest magnitude
+STATS_RTOL = 1e-5           # sum(z), sum(z^2)
+AFFINE_TOL = 1e-6           # bn_affine: of the output's largest magnitude
+TRAIN_ITERS = 8
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_REF_TOL = 1e-2        # gradients, updates: of the net's largest
+TRAIN_STATS_TOL = 1e-5
+
+
+def _timed(case, fn, plain, library, nbytes, flops, iters=10):
+    """Times of ``fn`` (device and eager), its plain version and the
+    library call, beside the bound, into ``case``."""
+    bms, by = bound(nbytes, flops)
+    kms = cuda_ms(fn, iters=iters)
+    case.update(kernel_ms=kms, kernel_eager_ms=eager_ms(fn, iters=iters),
+                plain_ms=cuda_ms(plain, iters=iters),
+                library_ms=cuda_ms(library, iters=iters), bytes=nbytes,
+                flop=flops, bound_ms=bms, bound_by=by,
+                tflop_s=flops / (kms * 1e-3) / 1e12)
+    return case
+
+
+def _rel_err(out, ref):
+    err = (out - ref).abs().max().item()
+    return err, err / max(ref.abs().max().item(), 1e-30)
+
+
+def _train_conv_cases(N, H, W, C, Cout, gen, dgrad_only=False):
+    """conv3x3, its dgrad use, conv_stats and conv_wgrad at one shape,
+    against their plain versions.  The library yardsticks (cuDNN,
+    channels-last, TF32 off) are F.conv2d for the forward and
+    torch.nn.grad.conv2d_input / conv2d_weight for dgrad / wgrad; each
+    does no more than the kernel (conv_stats' also leaves out the
+    sums)."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import conv_block as cb
+    x = torch.randn(N, H, W, C, device="cuda", generator=gen)
+    w = torch.randn(3, 3, C, Cout, device="cuda", generator=gen) * \
+        (2.0 / (9 * C)) ** 0.5
+    dy = torch.randn(N, H, W, Cout, device="cuda", generator=gen)
+    npix = N * H * W
+    flops = 2 * npix * 9 * C * Cout
+    conv_bytes = 4 * (npix * (C + Cout) + 9 * C * Cout)
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    dyc = dy.permute(0, 3, 1, 2)
+    shape = [N, H, W, C, Cout]
+    out = {}
+
+    wr = cb.rotate(w)
+    dx = cb.conv3x3_dgrad(w, dy)
+    rdx = cb.conv3x3_plain(dy, wr)
+    err, rel = _rel_err(dx, rdx)
+    out["conv3x3_dgrad"] = _timed(
+        {"shape": shape, "use": "dgrad: conv3x3(dy, rotate(w))",
+         "max_abs_err": err, "rel_err": rel, "tol": TRAIN_TOL,
+         "library": "torch.nn.grad.conv2d_input (cuDNN)"},
+        lambda: cb.conv3x3(dy, wr), lambda: cb.conv3x3_plain(dy, wr),
+        lambda: torch.nn.grad.conv2d_input(xc.shape, wc, dyc, padding=1),
+        conv_bytes, flops)
+
+    dw = cb.conv_wgrad(x, dy)
+    rdw = cb.conv_wgrad_plain(x, dy)
+    err, rel = _rel_err(dw, rdw)
+    splits, _ = cb.wgrad_splits(npix, 9 * C, Cout,
+                                torch.cuda.get_device_properties(0)
+                                .multi_processor_count)
+    out["conv_wgrad"] = _timed(
+        {"shape": shape, "splits": splits, "max_abs_err": err,
+         "rel_err": rel, "tol": TRAIN_TOL,
+         "library": "torch.nn.grad.conv2d_weight (cuDNN)"},
+        lambda: cb.conv_wgrad(x, dy), lambda: cb.conv_wgrad_plain(x, dy),
+        lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, dyc, padding=1),
+        conv_bytes, flops)
+    if dgrad_only:
+        return out
+
+    z = cb.conv3x3(x, w)
+    rz = cb.conv3x3_plain(x, w)
+    err, rel = _rel_err(z, rz)
+    out["conv3x3"] = _timed(
+        {"shape": shape, "use": "forward", "max_abs_err": err,
+         "rel_err": rel, "tol": TRAIN_TOL,
+         "library": "F.conv2d (cuDNN, channels-last)"},
+        lambda: cb.conv3x3(x, w), lambda: cb.conv3x3_plain(x, w),
+        lambda: F.conv2d(xc, wc, padding=1), conv_bytes, flops)
+
+    z, s1, s2 = cb.conv_stats(x, w)
+    rz, r1, r2 = cb.conv_stats_plain(x, w)
+    err, rel = _rel_err(z, rz)
+    mag = rz.abs().sum(dim=(0, 1, 2))
+    s1_rel = ((s1 - r1).abs() / mag).max().item()
+    s2_rel = ((s2 - r2).abs() / r2.abs()).max().item()
+    out["conv_stats"] = _timed(
+        {"shape": shape, "max_abs_err": err, "rel_err": rel,
+         "tol": TRAIN_TOL, "sum_rel_err": s1_rel, "sumsq_rel_err": s2_rel,
+         "stats_rtol": STATS_RTOL,
+         "library": "F.conv2d alone (cuDNN; no sums)"},
+        lambda: cb.conv_stats(x, w), lambda: cb.conv_stats_plain(x, w),
+        lambda: F.conv2d(xc, wc, padding=1), conv_bytes + 8 * Cout, flops)
+    return out
+
+
+def _affine_case(N, H, W, C, gen, residual=False, relu=True):
+    import torch
+    from mxnet_tpu_torch.ops import conv_block as cb
+    z = torch.randn(N, H, W, C, device="cuda", generator=gen)
+    scale = 1 + 0.1 * torch.randn(C, device="cuda", generator=gen)
+    shift = 0.1 * torch.randn(C, device="cuda", generator=gen)
+    res = torch.randn(N, H, W, C, device="cuda", generator=gen) \
+        if residual else None
+    out = cb.bn_affine(z, scale, shift, res, relu)
+    ref = cb.bn_affine_plain(z, scale, shift, res, relu)
+    err, rel = _rel_err(out, ref)
+    n = N * H * W * C
+    return _timed(
+        {"shape": [N, H, W, C], "residual": residual, "relu": relu,
+         "max_abs_err": err, "rel_err": rel, "tol": AFFINE_TOL,
+         "library": "torch.addcmul(shift, z, scale) (no residual, ReLU)"},
+        lambda: cb.bn_affine(z, scale, shift, res, relu),
+        lambda: cb.bn_affine_plain(z, scale, shift, res, relu),
+        lambda: torch.addcmul(shift, z, scale),
+        4 * (n * (3 if residual else 2) + 2 * C),
+        n * (2 + int(residual) + int(relu)))
+
+
+def _train_ok(name, c):
+    if not c["rel_err"] <= c["tol"]:
+        return False
+    if name == "conv_stats":
+        return c["sum_rel_err"] <= c["stats_rtol"] and \
+            c["sumsq_rel_err"] <= c["stats_rtol"]
+    return True
+
+
+def phase_train_kernels(state):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    # ResNet-50's four 3x3 stages at batch 64 (the path's first), then a
+    # C != Cout backward, and a ragged shape
+    per = [_train_conv_cases(64, 56, 56, 64, 64, gen),
+           _train_conv_cases(64, 28, 28, 128, 128, gen),
+           _train_conv_cases(64, 14, 14, 256, 256, gen),
+           _train_conv_cases(64, 7, 7, 512, 512, gen),
+           _train_conv_cases(8, 28, 28, 64, 128, gen, dgrad_only=True),
+           _train_conv_cases(2, 13, 17, 24, 40, gen)]
+    cases = {"conv3x3": [c[k] for c in per for k in ("conv3x3_dgrad",
+                                                    "conv3x3") if k in c],
+             "conv_stats": [c["conv_stats"] for c in per
+                            if "conv_stats" in c],
+             "conv_wgrad": [c["conv_wgrad"] for c in per],
+             "bn_affine": [_affine_case(64, 56, 56, 64, gen),
+                           _affine_case(64, 28, 28, 128, gen),
+                           _affine_case(64, 14, 14, 256, gen),
+                           _affine_case(64, 7, 7, 512, gen),
+                           _affine_case(64, 56, 56, 64, gen, residual=True),
+                           _affine_case(64, 28, 28, 128, gen, relu=False),
+                           _affine_case(2, 13, 17, 40, gen, residual=True,
+                                        relu=False)]}
+    state["cases"].update(cases)
+    bad = [(n, c) for n, cs in cases.items() for c in cs
+           if not _train_ok(n, c)]
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{bad}")
+    return {"cases": cases}
+
+
+TRAIN_KERNELS = ("conv3x3", "conv_stats", "bn_affine", "conv_wgrad")
+
+
+def _train_counters():
+    from mxnet_tpu_torch.ops import conv_block as cb
+    return [getattr(cb, n) for n in TRAIN_KERNELS + ("conv_affine",)]
+
+
+def phase_image_train(state):
+    """ResNet-50 v1 training through the example's entry point at its
+    defaults, with the launch counters read around it."""
+    import math
+    import torch
+    from mxnet_tpu_torch.examples import image_classification as ic
+    torch.cuda.reset_peak_memory_stats()
+    from mxnet_tpu_torch.ops import conv_block as cb
+    counted = _train_counters()
+    for fn in counted:
+        fn.launches = 0
+    cb._FusedBlock.dout_copies = 0
+    argv = ["--iters", str(TRAIN_ITERS), "--seed", str(SEED)]
+    out = ic.main(argv)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    copies = cb._FusedBlock.dout_copies
+    state["train_launches"] = launches
+    steps = out["steps"]
+    want = dict({n: RESNET50_SEGMENTS * steps for n in TRAIN_KERNELS},
+                conv_affine=0)
+    timed = sorted(out["step_ms"][ic.WARMUP:])
+    med = timed[len(timed) // 2]
+    args = ic.parse_args(argv)
+    res = {"args": vars(args), "losses": out["losses"],
+           "step_ms": out["step_ms"], "step_ms_median": med,
+           "images_s": out["img_s"],
+           "images_s_from_median_step": args.batch_size / med * 1e3,
+           "launches": launches, "launches_expected": want,
+           "dout_copies_per_step": copies / steps,
+           "tf32_cudnn": torch.backends.cudnn.allow_tf32,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    state["train_step_ms"] = med
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"non-finite loss: {res}")
+    if launches != want:
+        raise AssertionError(f"launch counts differ from the path's: {res}")
+    return res
+
+
+def _train_side(args, dev, x, y, dtype="float32", damp=0.1):
+    """One step on ``dev`` from the example's seeded weights, with each
+    bottleneck's last BatchNorm γ scaled by ``damp`` (0.1: the
+    damped-residual init; see ``phase_image_train_reference``): (loss,
+    {name: gradient},
+    {name: value after the step}, {name: value before}) on the CPU in
+    float64.  The weights take their shapes in an inference forward
+    first, which leaves the running statistics as they are."""
+    import torch
+    from mxnet_tpu_torch.examples import image_classification as ic
+    device = torch.device(dev)
+    net, trainer, loss_fn = ic.build(args, device)
+    net.eval()
+    with torch.no_grad():
+        net(torch.zeros(1, 32, 32, 3, device=device))
+        for k, t in net.collect_params().items():
+            if k.endswith(".body.7.gamma"):
+                t.mul_(damp)
+    net.to(getattr(torch, dtype)).train()
+    before = {k: t.detach().double().cpu().clone()
+              for k, t in net.collect_params().items()}
+    xt = torch.as_tensor(x, device=device).to(getattr(torch, dtype))
+    loss = ic.forward_backward(net, loss_fn, xt,
+                               torch.as_tensor(y, device=device))
+    params = net.collect_params()
+    grads = {k: t.grad.detach().double().cpu() for k, t in params.items()
+             if isinstance(t, torch.nn.Parameter) and t.grad is not None}
+    trainer.step(args.batch_size)
+    after = {k: t.detach().double().cpu() for k, t in params.items()}
+    return loss.double().cpu(), grads, after, before
+
+
+def _step_diff(a, b):
+    """How far apart two sides' steps are: the loss (relative), the
+    gradients (of the largest gradient in the net), the parameters after
+    the step (of the largest update in the net) and the running
+    statistics (each of its largest magnitude)."""
+    (la, ga, aa, _), (lb, gb, ab, b0) = a, b
+    gmax = max(g.abs().max().item() for g in gb.values())
+    params = [k for k in ab if "running_" not in k]
+    umax = max((ab[k] - b0[k]).abs().max().item() for k in params)
+    grad = {k: (ga[k] - gb[k]).abs().max().item() / gmax for k in gb}
+    upd = {k: (aa[k] - ab[k]).abs().max().item() / umax for k in params}
+    stats = {k: _rel(aa[k], ab[k]) for k in ab if "running_" in k}
+    return {"loss_rel": ((la - lb).abs().max() / lb.abs().max()).item(),
+            "grad_rel_to_net_max": max(grad.values()),
+            "grad_worst": max(grad, key=grad.get),
+            "params_after_step_rel_to_max_update": max(upd.values()),
+            "params_worst": max(upd, key=upd.get),
+            "running_stats_rel_to_max": max(stats.values()),
+            "largest_gradient": gmax, "largest_update": umax,
+            "gradients": len(gb), "same_gradients": sorted(ga) == sorted(gb)}
+
+
+def phase_image_train_reference(state):
+    """One ResNet-50 training step at batch 2 on the card and through the
+    port on the CPU, from the same seeded weights and batch; the CPU
+    step in float64 too, as the floor any fp32 run sits on.
+
+    The weights are the example's, with each bottleneck's last BN γ
+    scaled by 0.1 (the damped-residual init of large-batch ResNet
+    training).  With γ = 1 at batch 2 the step is badly conditioned: the
+    port's own fp32 and fp64 CPU steps differ by a few percent of the
+    largest gradient (``cpu_fp32_vs_fp64_gamma1``, printed, not gated),
+    so no fp32 pair could be held tighter.  The
+    gradients and the updates are read against the net's largest
+    gradient and largest update, since a gradient that is small by the
+    BatchNorm's cancellation carries rounding of the net's scale."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.examples import image_classification as ic
+    torch.set_num_threads(os.cpu_count() or 1)
+    args = ic.parse_args(["--batch-size", "2", "--seed", str(SEED)])
+    x, y = ic.synthetic_batch(np.random.RandomState(SEED + 4), 2,
+                              args.image_size, args.classes)
+    card = _train_side(args, "cuda", x, y)
+    cpu = _train_side(args, "cpu", x, y)
+    cpu64 = _train_side(args, "cpu", x, y, "float64")
+    diff = _step_diff(card, cpu)
+    # the same floor from the example's own weights (γ = 1), not gated
+    floor_gamma1 = _step_diff(_train_side(args, "cpu", x, y, damp=1.0),
+                              _train_side(args, "cpu", x, y, "float64",
+                                          damp=1.0))
+    res = {"batch": [2, args.image_size, args.image_size, 3],
+           "loss_card": card[0].tolist(), "loss_cpu": cpu[0].tolist(),
+           "card_vs_cpu": diff,
+           "cpu_fp32_vs_fp64": _step_diff(cpu, cpu64),
+           "cpu_fp32_vs_fp64_gamma1": floor_gamma1,
+           "tol": {"loss_rel": TRAIN_LOSS_RTOL,
+                   "grad_rel_to_net_max": TRAIN_REF_TOL,
+                   "params_after_step_rel_to_max_update": TRAIN_REF_TOL,
+                   "running_stats_rel_to_max": TRAIN_STATS_TOL}}
+    if not (diff["same_gradients"] and all(
+            diff[k] <= t for k, t in res["tol"].items())):
+        raise AssertionError(f"card disagrees with the CPU: {res}")
+    return res
+
+
+def phase_image_train_profile(state):
+    """Where one ResNet-50 training step's time goes, under torch.profiler
+    (its own cost inflates the wall time; ``image_train``'s step time is
+    the uninstrumented one)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.examples import image_classification as ic
+    args = ic.parse_args(["--seed", str(SEED)])
+    device = torch.device("cuda")
+    net, trainer, loss_fn = ic.build(args, device)
+    x, y = ic.synthetic_batch(np.random.RandomState(SEED), args.batch_size,
+                              args.image_size, args.classes)
+    x, y = torch.as_tensor(x, device=device), torch.as_tensor(y,
+                                                             device=device)
+
+    def step():
+        ic.forward_backward(net, loss_fn, x, y)
+        trainer.step(args.batch_size)
+
+    from mxnet_tpu_torch.gluon import nn as gnn
+    shapes = []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: shapes.append(tuple(i[0].shape)))
+        for m in net.modules() if isinstance(m, gnn.BatchNorm)]
+    step()
+    for h in hooks:
+        h.remove()
+    res = _profile(step, 1, top=12)
+    busy = res.get("device_busy_us_per_call")
+    if busy is not None:
+        res["idle_share_vs_uninstrumented_step"] = \
+            1.0 - busy / (state["train_step_ms"] * 1e3)
+    res["unfused_batch_norm"] = _bn_cost(shapes)
+    return res
+
+
+def _bn_cost(shapes):
+    """The step's unfused BatchNorms (the layers the fused segments leave
+    to ``ops.nn.batch_norm``), forward and backward in training mode on
+    inputs of the shapes the step gave them: their device ms a step and
+    kernels a step, so the profile's elementwise and reduction time can
+    be split between them and the rest."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as tnn
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    args = []
+    for sh in shapes:
+        x = torch.randn(sh, device="cuda", generator=gen).requires_grad_()
+        c = sh[-1]
+        g, b = (torch.ones(c, device="cuda").requires_grad_(),
+                torch.zeros(c, device="cuda").requires_grad_())
+        args.append((x, g, b, torch.zeros(c, device="cuda"),
+                     torch.ones(c, device="cuda"),
+                     torch.randn(sh, device="cuda", generator=gen)))
+
+    def run():
+        for x, g, b, rm, rv, gy in args:
+            out, _, _ = tnn.batch_norm(x, g, b, rm, rv, training=True)
+            torch.autograd.grad(out, (x, g, b), gy)
+
+    prof = _profile(run, 1)
+    return {"layers": len(shapes),
+            "device_ms_per_step": cuda_ms(run, iters=2, repeats=3),
+            "kernels_per_step": prof.get("kernels_per_call"),
+            "by_category": prof.get("by_category")}
+
+
 # ------------------------------------------------------------------ main
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
@@ -968,15 +1384,26 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_kernels.py:309"),
     ("conv_affine", "mxnet_tpu_torch/csrc/conv_affine.cu",
      "mxnet_tpu/ops/pallas_block.py:325"),
+    ("conv3x3", "mxnet_tpu_torch/csrc/conv_train.cu",
+     "mxnet_tpu/ops/pallas_block.py:318"),
+    ("conv_stats", "mxnet_tpu_torch/csrc/conv_train.cu",
+     "mxnet_tpu/ops/pallas_block.py:343"),
+    ("bn_affine", "mxnet_tpu_torch/csrc/conv_train.cu",
+     "mxnet_tpu/ops/pallas_block.py:367"),
+    ("conv_wgrad", "mxnet_tpu_torch/csrc/conv_train.cu",
+     "mxnet_tpu/ops/pallas_block.py:381"),
 ]
-PATH_LAUNCHES = ("launches", "bert_launches", "image_launches")
+PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
+                 "train_launches")
 
 
 def kernels_line(state):
     """One entry per kernel.  ``launches`` sums the main-path runs that
     launch it (GPT serving in ``slice``, BERT training in
-    ``bert_train``, ResNet-50 serving in ``image_serve``); the times are
-    at the first case, the path's own shape."""
+    ``bert_train``, ResNet-50 serving in ``image_serve``, ResNet-50
+    training in ``image_train``); the times are at the first case, the
+    path's own shape (``conv3x3``: its dgrad use, which is how training
+    launches it)."""
     out = []
     for name, source, replaces in KERNELS:
         cases = state["cases"][name]
@@ -1024,7 +1451,11 @@ def main():
                      ("image_kernels", phase_image_kernels),
                      ("image_serve", phase_image_serve),
                      ("image_reference", phase_image_reference),
-                     ("image_profile", phase_image_profile)):
+                     ("image_profile", phase_image_profile),
+                     ("train_kernels", phase_train_kernels),
+                     ("image_train", phase_image_train),
+                     ("image_train_reference", phase_image_train_reference),
+                     ("image_train_profile", phase_image_train_profile)):
         t0 = time.perf_counter()
         try:
             res = fn(state)

@@ -12,7 +12,12 @@ stack (``gluon``: blocks as ``nn.Module``s with the reference's
 parameter names and ``.params`` files) and ``models.resnet`` served by
 ``serve.ModelRegistry`` → ``InferenceEngine`` → ``Batcher``, with a
 hand-written CUDA kernel for the fused 3×3 conv + folded frozen BN
-(+ add) (+ ReLU).  The kernels (``csrc/``) are built with
+(+ add) (+ ReLU).  Slice 4 is ResNet training: training-mode
+BatchNorm, ``gluon.loss``, ``optimizer.SGD`` and ``gluon.Trainer``,
+driven by ``examples.image_classification``, with hand-written CUDA
+kernels for the fused block's training forward (conv + batch
+statistics, the BN affine pass) and backward (dgrad, wgrad).  The
+kernels (``csrc/``) are built with
 ``nvcc`` at their first launch.  Entry points run on the GPU unless
 ``device="cpu"`` is passed.  Importing the package builds nothing.
 """

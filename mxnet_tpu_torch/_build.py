@@ -5,7 +5,8 @@ on a CUDA tensor, each ``csrc/*.cu`` file is compiled by its own
 ``nvcc`` process (all started together) for ``sm_90a``, the objects are
 linked into ``build/mxnet_tpu_torch/libmxnet_tpu_torch_kernels.so`` at
 the root of the checkout, and the library is loaded with ``ctypes``.
-A stamp file holds a hash of the sources and flags, so an unchanged
+A stamp file holds a hash of the sources, the headers they include
+(``csrc/*.cuh``) and the flags, so an unchanged
 checkout reuses its library; a file lock keeps concurrent processes from
 building over each other.  ``import mxnet_tpu_torch`` builds nothing.
 
@@ -25,13 +26,16 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["build", "lib", "check", "BUILD_DIR", "LIB_PATH", "SOURCES"]
+__all__ = ["build", "lib", "check", "BUILD_DIR", "LIB_PATH", "SOURCES",
+           "HEADERS"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "mxnet_tpu_torch"
 LIB_PATH = BUILD_DIR / "libmxnet_tpu_torch_kernels.so"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
+# headers the sources include: hashed with them, so an edit rebuilds
+HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -59,6 +63,16 @@ _SIGNATURES = {
     # relu, vec, stream
     "mxt_conv_affine_f32": [_P] * 8 + [ctypes.c_int] * 5 +
                            [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
+    # x, w, out, N, H, W, C, Cout, vec, stream
+    "mxt_conv3x3_f32": [_P] * 3 + [ctypes.c_int] * 6 + [_P],
+    # x, w, z, part, stats, N, H, W, C, Cout, vec, stream
+    "mxt_conv_stats_f32": [_P] * 5 + [ctypes.c_int] * 6 + [_P],
+    # x, dy, part, dw, N, H, W, C, Cout, splits, per_split, vec, stream
+    "mxt_conv_wgrad_f32": [_P] * 4 + [ctypes.c_int] * 6 +
+                          [ctypes.c_longlong, ctypes.c_int, _P],
+    # z, scale, shift, res, out, total, Cout, relu, vec, stream
+    "mxt_bn_affine_f32": [_P] * 5 + [ctypes.c_longlong] +
+                         [ctypes.c_int] * 3 + [_P],
 }
 
 _mu = threading.Lock()
@@ -80,7 +94,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()

@@ -6,8 +6,8 @@ The module tree keeps the reference's child names, so
 (``features.4.0.body.1.running_var``, ``output.weight``) and a
 ``.params`` file moves between the two packages.  A block starts in
 inference mode (``training`` False), as the reference runs outside
-``autograd.record``; ``.train()`` turns training on, which the layers of
-this slice refuse (see ``gluon/nn``).
+``autograd.record``; ``.train()`` turns training on (BatchNorm on batch
+statistics, see ``gluon/nn``).
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 from torch import nn
 from torch.nn.parameter import UninitializedBuffer, UninitializedParameter
 
+from .. import context as _context
 from .. import initializer as _init
 from .parameter import (DeferredInitializationError, ParameterDict,
                         ParamSpec, is_initialized, load_numpy)
@@ -85,15 +86,15 @@ class Block(nn.Module):
         ``Parameter.initialize``), else from its own initializer
         (``Xavier`` where it has none), drawing from ``generator``
         (default: a CPU generator seeded with ``seed``).
-        Parameters of unknown shape are filled at their first forward.
-        ``ctx`` is the device to allocate on (default the CPU, the
-        reference's default context; the serving entry points move the
-        net to theirs)."""
+        Parameters of unknown shape are filled at their first forward, on
+        the device of its input.  ``ctx`` is the device to allocate on:
+        by default the card (``context.resolve``), as the reference
+        allocates on JAX's default device; with no card and no ``ctx``
+        this raises.  Pass ``ctx="cpu"`` to work on the CPU."""
+        device = _context.resolve(ctx)
         gen = generator if generator is not None else \
             torch.Generator().manual_seed(int(seed))
         given = _init.create(init) if init is not None else None
-        device = torch.device(ctx) if ctx is not None else \
-            torch.device("cpu")
         for mod in self.modules():
             if not isinstance(mod, Block):
                 continue

@@ -3,13 +3,16 @@
 
 The reference's conventions hold: NHWC activations, HWIO conv weights,
 dense weights ``(units, in_units)``, BatchNorm over the last axis with
-running statistics as buffers.  Inference only: a BatchNorm in training
-mode (batch statistics and their running average) raises, naming the
-ResNet-training slice that brings it.
+running statistics as buffers.  A block in training mode (``.train()``,
+the port's counterpart of the reference's ``autograd.record()``) runs
+BatchNorm on batch statistics and writes the new running statistics
+back in place, as the reference's ``set_data`` does.
 """
 from __future__ import annotations
 
 import math
+
+import torch
 
 from ... import initializer as init
 from ...ops import nn as _nn
@@ -145,10 +148,20 @@ class GlobalAvgPool2D(_Pool):
                          **kwargs)
 
 
+def _write_back(bn, new_mean, new_var):
+    """Store a training step's running statistics into ``bn``'s buffers
+    (in place, outside autograd)."""
+    with torch.no_grad():
+        bn.running_mean.copy_(new_mean)
+        bn.running_var.copy_(new_var)
+
+
 class BatchNorm(HybridBlock):
-    """≙ ``gluon.nn.BatchNorm`` over ``axis`` (default -1, NHWC), with
-    frozen statistics: gamma/beta are parameters, running_mean/var
-    buffers.  Training mode raises ``NotImplementedError``."""
+    """≙ ``gluon.nn.BatchNorm`` over ``axis`` (default -1, NHWC): gamma/
+    beta are parameters, running_mean/var buffers.  In training mode it
+    normalizes by the batch statistics and updates the running ones
+    (``new = momentum·running + (1 − momentum)·batch``) unless
+    ``use_global_stats``."""
 
     def __init__(self, axis=-1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, in_channels=0,
@@ -170,11 +183,13 @@ class BatchNorm(HybridBlock):
 
     def forward(self, x):
         self._infer(x.shape[self._axis], x.device)
-        out, _, _ = _nn.batch_norm(
+        out, new_mean, new_var = _nn.batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,
             momentum=self._momentum, eps=self._eps,
             use_global_stats=self._use_global_stats, training=self.training,
             axis=self._axis)
+        if self.training and not self._use_global_stats:
+            _write_back(self, new_mean, new_var)
         return out
 
 
@@ -188,10 +203,13 @@ def fused_block_active() -> bool:
 def fused_conv_bn_relu(conv: Conv2D, bn: BatchNorm, x, residual=None,
                        relu: bool = True):
     """Run a Conv2D + BatchNorm (+ residual add) (+ ReLU) segment through
-    ``ops.nn.residual_block`` (the conv_affine kernel on the card) when
-    it has the kernel's structure: 3×3, stride 1, pad 1, no dilation,
-    groups or bias, NHWC, BN over the last axis.  Any other segment runs
-    its layers one by one, which computes the same function."""
+    ``ops.nn.residual_block`` (the fused kernels on the card: conv_affine
+    in inference, conv_stats + bn_affine in training) when it has the
+    kernels' structure: 3×3, stride 1, pad 1, no dilation, groups or bias,
+    NHWC, BN over the last axis.  In training mode the BN's running
+    statistics are updated as ``BatchNorm`` updates them.  Any other
+    segment runs its layers one by one, which computes the same
+    function."""
     if not (conv._kernel == (3, 3) and _pair(conv._strides) == (1, 1)
             and _pair(conv._padding) == (1, 1)
             and _pair(conv._dilation) == (1, 1) and conv._groups == 1
@@ -203,9 +221,11 @@ def fused_conv_bn_relu(conv: Conv2D, bn: BatchNorm, x, residual=None,
         return out.relu() if relu else out
     conv._infer(x)
     bn._infer(conv._channels, x.device)
-    y, _, _ = _nn.residual_block(
+    y, new_mean, new_var = _nn.residual_block(
         x, conv.weight, bn.gamma, bn.beta, bn.running_mean, bn.running_var,
         residual, momentum=bn._momentum, eps=bn._eps,
         use_global_stats=bn._use_global_stats, training=bn.training,
         relu=relu)
+    if bn.training and not bn._use_global_stats:
+        _write_back(bn, new_mean, new_var)
     return y

@@ -3,10 +3,12 @@
 NHWC throughout, children named as in the reference so that parameter
 names line up.  The v1 blocks always take the fused forward: every
 3×3/s1 conv + BatchNorm (+ add) (+ ReLU) segment goes through
-``nn.fused_conv_bn_relu`` (the conv_affine kernel on the card), the
-other convs through cuDNN.  That is 16 kernel segments per ResNet-50
-forward (each bottleneck's mid conv) and, on ResNet-18/34, every basic
-block's 3×3 head at stride 1 and every 3×3 tail (with the residual).
+``nn.fused_conv_bn_relu`` (on the card the conv_affine kernel in
+inference, conv_stats + bn_affine forward and conv3x3/conv_wgrad
+backward in training), the other convs through cuDNN.  That is 16
+kernel segments per ResNet-50 forward (each bottleneck's mid conv) and,
+on ResNet-18/34, every basic block's 3×3 head at stride 1 and every 3×3
+tail (with the residual).
 """
 from __future__ import annotations
 

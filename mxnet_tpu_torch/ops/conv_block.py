@@ -1,21 +1,31 @@
-"""Fused 3×3/s1 conv + folded frozen BatchNorm (+ residual add) (+ ReLU):
-the hand-written CUDA kernel and its plain version.
+"""The fused 3×3/s1 conv + BatchNorm (+ residual add) (+ ReLU) block:
+its hand-written CUDA kernels, their plain versions, and the autograd
+Function that trains through them (≙ ``mxnet_tpu/ops/pallas_block.py``).
 
-≙ the frozen-stats forward of ``mxnet_tpu/ops/pallas_block.py``
-(``_conv_affine_kernel``, ``_conv_affine``, ``_fold`` and the frozen
-branch of ``_fused_fwd``).  The kernel lives in ``csrc/conv_affine.cu``;
-see the note at its top for its bound and design.
+- ``conv_affine`` (≙ ``_conv_affine_kernel``, ``_conv_affine``, ``_fold``,
+  the frozen ``_fused_fwd``): conv + folded frozen BN (+ add) (+ ReLU),
+  ``csrc/conv_affine.cu``.
+- ``conv3x3`` (≙ ``_conv_kernel``, ``conv3x3``; ``conv3x3_dgrad`` runs it
+  on the rotated weight), ``conv_stats`` (≙ ``_conv_stats_kernel``,
+  ``_conv_stats``), ``bn_affine`` (≙ ``_affine_kernel``, ``_affine``) and
+  ``conv_wgrad`` (≙ ``_wgrad_kernel``, ``conv3x3_wgrad``):
+  ``csrc/conv_train.cu``.
+- ``residual_block_fused`` (≙ ``residual_block_fused``, ``_fused``,
+  ``_fused_fwd``, ``_fused_bwd``, ``_conv_bwd``, ``_sums``): training
+  (batch statistics) and frozen forward, and their backward.
 
-``conv_affine`` launches the kernel for CUDA tensors and raises on
-anything the kernel does not take; CPU tensors take
-``conv_affine_plain``.  There is no other route: the TPU package's VMEM
-gate (``eligible_block``) and its per-stage A/B table are budgets of
-the TPU, and on the card every 3×3/s1 frozen segment goes to the kernel.
-Layouts are the JAX package's: activations NHWC, the weight HWIO
-``(3, 3, C, Cout)``, both contiguous (the caller makes them so).
+See the notes at the top of the ``.cu`` files for bounds and designs.
+Each wrapper launches its kernel for CUDA tensors and raises on anything
+the kernel does not take; CPU tensors take the ``*_plain`` version.
+There is no other route: the TPU package's VMEM gate (``eligible_block``)
+and its per-stage A/B table are budgets of the TPU, and on the card every
+3×3/s1 segment goes to the kernels.  Layouts are the JAX package's:
+activations NHWC, the weight HWIO ``(3, 3, C, Cout)``, all contiguous
+(the callers make them so).
 """
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
@@ -23,7 +33,10 @@ import torch.nn.functional as F
 
 from .. import _build
 
-__all__ = ["conv_affine", "conv_affine_plain", "fold"]
+__all__ = ["conv_affine", "conv_affine_plain", "fold", "conv3x3",
+           "conv3x3_plain", "conv3x3_dgrad", "rotate", "conv_stats",
+           "conv_stats_plain", "bn_affine", "bn_affine_plain", "conv_wgrad",
+           "conv_wgrad_plain", "wgrad_splits", "residual_block_fused"]
 
 _count_mu = threading.Lock()
 
@@ -48,37 +61,59 @@ def conv_affine_plain(x, w, gamma, beta, mean, var, residual=None,
     return torch.relu(y) if relu else y
 
 
-def _check(x, w, vecs, residual):
+def _same(what, x, named):
+    """Every tensor of ``named`` on x's device, float32 and contiguous."""
+    for name, t in named:
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, x on "
+                             f"{x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous "
+                             f"({'NHWC' if t.dim() == 4 else 'dense'})")
+
+
+def _check(x, w, vecs, residual, what="conv_affine"):
     """Refuse what the kernel does not take; → (N, H, W, C, Cout)."""
     if x.dim() != 4:
-        raise ValueError(f"conv_affine: x must be NHWC, got {tuple(x.shape)}")
+        raise ValueError(f"{what}: x must be NHWC, got {tuple(x.shape)}")
     N, H, W, C = x.shape
     if w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, C):
-        raise ValueError(f"conv_affine: w must be (3, 3, {C}, Cout) HWIO, "
+        raise ValueError(f"{what}: w must be (3, 3, {C}, Cout) HWIO, "
                          f"got {tuple(w.shape)}")
     Cout = w.shape[3]
     named = [("x", x), ("w", w)] + list(vecs)
     if residual is not None:
         if tuple(residual.shape) != (N, H, W, Cout):
-            raise ValueError(f"conv_affine: residual must be "
+            raise ValueError(f"{what}: residual must be "
                              f"{(N, H, W, Cout)}, got "
                              f"{tuple(residual.shape)}")
         named.append(("residual", residual))
     for name, t in vecs:
         if tuple(t.shape) != (Cout,):
-            raise ValueError(f"conv_affine: {name} must be ({Cout},), got "
+            raise ValueError(f"{what}: {name} must be ({Cout},), got "
                              f"{tuple(t.shape)}")
-    for name, t in named:
-        if t.device != x.device:
-            raise ValueError(f"conv_affine: {name} is on {t.device}, x on "
-                             f"{x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"conv_affine: {name} must be float32, got "
-                            f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"conv_affine: {name} must be contiguous "
-                             f"({'NHWC' if t.dim() == 4 else 'dense'})")
+    _same(what, x, named)
     return N, H, W, C, Cout
+
+
+def _on_card(what, x):
+    """True for a CUDA tensor, False for a CPU one; raise otherwise."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {x.device}")
+    return True
+
+
+def _aligned(*ts):
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def conv_affine(x, w, gamma, beta, mean, var, residual=None,
@@ -89,23 +124,20 @@ def conv_affine(x, w, gamma, beta, mean, var, residual=None,
     HWIO (3, 3, C, Cout), the four BN vectors (Cout,).  CUDA tensors
     launch ``csrc/conv_affine.cu``; CPU tensors take
     :func:`conv_affine_plain`."""
-    if x.device.type == "cpu":
+    if not _on_card("conv_affine", x):
         return conv_affine_plain(x, w, gamma, beta, mean, var, residual,
                                  eps, relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv_affine: no kernel for device {x.device}")
     vecs = (("gamma", gamma), ("beta", beta), ("mean", mean), ("var", var))
     N, H, W, C, Cout = _check(x, w, vecs, residual)
     out = torch.empty((N, H, W, Cout), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
-    ptrs = [t.data_ptr() for t in (x, w, out) +
-            ((residual,) if residual is not None else ())]
     vec = int(C % 16 == 0 and Cout % 4 == 0 and
-              all(p % 16 == 0 for p in ptrs))
+              _aligned(x, w, out, *([residual] if residual is not None
+                                    else [])))
     lib = _build.lib()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = _stream(x.device)
         err = lib.mxt_conv_affine_f32(
             x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             mean.data_ptr(), var.data_ptr(),
@@ -119,3 +151,285 @@ def conv_affine(x, w, gamma, beta, mean, var, residual=None,
 
 
 conv_affine.launches = 0
+
+
+# ------------------------------------------------------ training kernels
+def conv3x3_plain(x, w):
+    """Plain version of ``conv3x3``: the 3×3/s1/p1 conv of NHWC ``x`` with
+    HWIO ``w``, contiguous NHWC as the kernel writes it."""
+    return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                    padding=1).permute(0, 2, 3, 1).contiguous()
+
+
+def conv3x3(x, w):
+    """3×3/s1/p1 conv with no epilogue, ``x`` (N, H, W, C) and ``w``
+    (3, 3, C, Cout) contiguous fp32.  CUDA tensors launch
+    ``csrc/conv_train.cu``; CPU tensors take :func:`conv3x3_plain`."""
+    if not _on_card("conv3x3", x):
+        return conv3x3_plain(x, w)
+    N, H, W, C, Cout = _check(x, w, (), None, "conv3x3")
+    out = torch.empty((N, H, W, Cout), device=x.device, dtype=x.dtype)
+    if out.numel() == 0:
+        return out
+    vec = int(C % 16 == 0 and Cout % 4 == 0 and _aligned(x, w, out))
+    lib = _build.lib()
+    with torch.cuda.device(x.device):
+        err = lib.mxt_conv3x3_f32(x.data_ptr(), w.data_ptr(),
+                                  out.data_ptr(), N, H, W, C, Cout, vec,
+                                  _stream(x.device))
+    _build.check(err, "conv3x3")
+    with _count_mu:
+        conv3x3.launches += 1
+    return out
+
+
+conv3x3.launches = 0
+
+
+def rotate(w):
+    """The dgrad weight of HWIO ``w`` (3, 3, C, Cout): rotated 180° in
+    both spatial axes and IO-transposed, (3, 3, Cout, C), contiguous."""
+    return w.flip(0, 1).transpose(2, 3).contiguous()
+
+
+def conv3x3_dgrad(w, dy):
+    """dx = ``conv3x3(dy, rotate(w))`` (≙ ``pallas_block.conv3x3_dgrad``)."""
+    return conv3x3(dy, rotate(w))
+
+
+def conv_stats_plain(x, w):
+    """Plain version of ``conv_stats``: ``(z, Σz, Σz²)``, the sums per
+    output channel over every pixel."""
+    z = conv3x3_plain(x, w)
+    return z, z.sum(dim=(0, 1, 2)), (z * z).sum(dim=(0, 1, 2))
+
+
+def conv_stats(x, w):
+    """``(z, Σz, Σz²)``: the conv of :func:`conv3x3` and its per-channel
+    sums (f32, (Cout,) each), read off the accumulator, reduced over the
+    pixel blocks in a fixed order.  CPU tensors take
+    :func:`conv_stats_plain`."""
+    if not _on_card("conv_stats", x):
+        return conv_stats_plain(x, w)
+    N, H, W, C, Cout = _check(x, w, (), None, "conv_stats")
+    z = torch.empty((N, H, W, Cout), device=x.device, dtype=x.dtype)
+    if z.numel() == 0:
+        stats = torch.zeros((2, Cout), device=x.device, dtype=torch.float32)
+        return z, stats[0], stats[1]
+    stats = torch.empty((2, Cout), device=x.device, dtype=torch.float32)
+    part = torch.empty((-(-N * H * W // 64), 2, Cout), device=x.device,
+                       dtype=torch.float32)
+    vec = int(C % 16 == 0 and Cout % 4 == 0 and _aligned(x, w, z))
+    lib = _build.lib()
+    with torch.cuda.device(x.device):
+        err = lib.mxt_conv_stats_f32(x.data_ptr(), w.data_ptr(),
+                                     z.data_ptr(), part.data_ptr(),
+                                     stats.data_ptr(), N, H, W, C, Cout,
+                                     vec, _stream(x.device))
+    _build.check(err, "conv_stats")
+    with _count_mu:
+        conv_stats.launches += 1
+    return z, stats[0], stats[1]
+
+
+conv_stats.launches = 0
+
+
+def bn_affine_plain(z, scale, shift, residual=None, relu: bool = True):
+    """Plain version of ``bn_affine``."""
+    y = z * scale + shift
+    if residual is not None:
+        y = y + residual
+    return torch.relu(y) if relu else y
+
+
+def bn_affine(z, scale, shift, residual=None, relu: bool = True):
+    """``act(z·scale + shift (+ residual))`` over the last axis of ``z``
+    (the channels, NHWC), all contiguous fp32, ``scale`` and ``shift``
+    (Cout,).  CUDA tensors launch ``csrc/conv_train.cu``; CPU tensors take
+    :func:`bn_affine_plain`."""
+    if not _on_card("bn_affine", z):
+        return bn_affine_plain(z, scale, shift, residual, relu)
+    if z.dim() < 1:
+        raise ValueError("bn_affine: z must have a channel axis")
+    Cout = z.shape[-1]
+    named = [("z", z), ("scale", scale), ("shift", shift)]
+    for name, t in named[1:]:
+        if tuple(t.shape) != (Cout,):
+            raise ValueError(f"bn_affine: {name} must be ({Cout},), got "
+                             f"{tuple(t.shape)}")
+    if residual is not None:
+        if residual.shape != z.shape:
+            raise ValueError(f"bn_affine: residual must be "
+                             f"{tuple(z.shape)}, got "
+                             f"{tuple(residual.shape)}")
+        named.append(("residual", residual))
+    _same("bn_affine", z, named)
+    out = torch.empty_like(z)
+    if out.numel() == 0:
+        return out
+    vec = int(Cout % 4 == 0 and _aligned(out, *(t for _, t in named)))
+    lib = _build.lib()
+    with torch.cuda.device(z.device):
+        err = lib.mxt_bn_affine_f32(
+            z.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            residual.data_ptr() if residual is not None else None,
+            out.data_ptr(), z.numel(), Cout, int(bool(relu)), vec,
+            _stream(z.device))
+    _build.check(err, "bn_affine")
+    with _count_mu:
+        bn_affine.launches += 1
+    return out
+
+
+bn_affine.launches = 0
+
+
+def conv_wgrad_plain(x, dy):
+    """Plain version of ``conv_wgrad``: dW (3, 3, C, Cout) as nine
+    patchesᵀ·dy products over the padded input, tap-major."""
+    _, H, W, C = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    taps = [torch.einsum("nhwc,nhwo->co", xp[:, dh:dh + H, dw:dw + W], dy)
+            for dh in range(3) for dw in range(3)]
+    return torch.stack(taps).reshape(3, 3, C, dy.shape[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def wgrad_splits(M, K, Cout, sms):
+    """``(splits, per_split)``: how many pixel ranges ``conv_wgrad`` cuts
+    its ``M``-pixel reduction into.  Enough that the (9C/64)·(Cout/64)
+    output tiles times the splits give ~4 blocks an SM (the 256-thread
+    tile's occupancy), none under 512 pixels; ranges are whole 16-pixel
+    chunks."""
+    tiles = -(-K // 64) * -(-Cout // 64)
+    splits = max(1, min(-(-4 * sms // tiles), M // 512, 65535))
+    per = -(-M // splits)
+    per = -(-per // 16) * 16
+    return -(-M // per), per
+
+
+def conv_wgrad(x, dy):
+    """dW (3, 3, C, Cout) of the 3×3/s1/p1 conv from NHWC ``x`` (N, H, W,
+    C) and ``dy`` (N, H, W, Cout), contiguous fp32: per pixel range a
+    partial patchesᵀ·dy, summed in a fixed order.  CUDA tensors launch
+    ``csrc/conv_train.cu``; CPU tensors take :func:`conv_wgrad_plain`."""
+    if not _on_card("conv_wgrad", x):
+        return conv_wgrad_plain(x, dy)
+    if x.dim() != 4 or dy.dim() != 4 or tuple(dy.shape[:3]) != \
+            tuple(x.shape[:3]):
+        raise ValueError(f"conv_wgrad: x (N, H, W, C) and dy (N, H, W, "
+                         f"Cout) must share N, H, W; got {tuple(x.shape)} "
+                         f"and {tuple(dy.shape)}")
+    _same("conv_wgrad", x, [("x", x), ("dy", dy)])
+    N, H, W, C = x.shape
+    Cout = dy.shape[3]
+    M = N * H * W
+    dw = torch.empty((3, 3, C, Cout), device=x.device, dtype=torch.float32)
+    if M == 0 or dw.numel() == 0:
+        return dw.zero_()
+    splits, per = wgrad_splits(M, 9 * C, Cout, _sm_count(x.device.index))
+    part = torch.empty((splits, 9 * C, Cout), device=x.device,
+                       dtype=torch.float32) if splits > 1 else None
+    vec = int(C % 4 == 0 and Cout % 4 == 0 and _aligned(
+        x, dy, dw, *([part] if part is not None else [])))
+    lib = _build.lib()
+    with torch.cuda.device(x.device):
+        err = lib.mxt_conv_wgrad_f32(
+            x.data_ptr(), dy.data_ptr(),
+            part.data_ptr() if part is not None else None, dw.data_ptr(),
+            N, H, W, C, Cout, splits, per, vec, _stream(x.device))
+    _build.check(err, "conv_wgrad")
+    with _count_mu:
+        conv_wgrad.launches += 1
+    return dw
+
+
+conv_wgrad.launches = 0
+
+
+# ------------------------------------------------------ the fused block
+class _FusedBlock(torch.autograd.Function):
+    """≙ ``pallas_block._fused`` with its custom VJP.  Training: z and
+    Σz, Σz² from ``conv_stats``, BN folded from the batch statistics
+    (``var = Σz²/n − μ²``), then ``bn_affine``; returns ``(out, μ, σ²)``.
+    Frozen: ``conv_affine`` with the given statistics; returns
+    ``(out,)``.  The backward is the reference's: the ReLU mask, (Σdy,
+    Σdy·x̂) and dz in plain torch, then dx by ``conv3x3`` on the rotated
+    weight and dW by ``conv_wgrad``; frozen mode first recomputes z with
+    ``conv3x3``.  Cotangents of the batch statistics are ignored (they
+    feed the running averages only)."""
+
+    @staticmethod
+    def forward(ctx, x, w, gamma, beta, mean, var, residual, eps, frozen,
+                relu):
+        ctx.cfg = (frozen, relu, residual is not None)
+        if frozen:
+            out = conv_affine(x, w, gamma, beta, mean, var, residual, eps,
+                              relu)
+            inv = torch.rsqrt(var.float() + eps)
+            ctx.save_for_backward(x, w, gamma, None, mean, inv, out)
+            return (out,)
+        z, s1, s2 = conv_stats(x, w)
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        bmean = s1 / n
+        bvar = torch.clamp(s2 / n - bmean * bmean, min=0.0)
+        inv = torch.rsqrt(bvar + eps)
+        scale = gamma.float() * inv
+        shift = beta.float() - bmean * scale
+        out = bn_affine(z, scale, shift, residual, relu)
+        ctx.save_for_backward(x, w, gamma, z, bmean, inv, out)
+        ctx.mark_non_differentiable(bmean, bvar)
+        return out, bmean, bvar
+
+    @staticmethod
+    def backward(ctx, dout, *stat_cotangents):
+        frozen, relu, has_res = ctx.cfg
+        x, w, gamma, z, mean, inv, out = ctx.saved_tensors
+        # the gradient from the next layer may come in another layout;
+        # the kernels take contiguous NHWC (copies counted, for PERF.md)
+        if not dout.is_contiguous():
+            dout = dout.contiguous()
+            with _count_mu:
+                _FusedBlock.dout_copies += 1
+        dz_post = torch.where(out > 0, dout, 0.0) if relu else dout
+        if frozen:
+            # z is recomputed rather than saved, as the reference does
+            z = conv3x3(x, w)
+        xhat = (z - mean) * inv
+        sum_dy = dz_post.sum(dim=(0, 1, 2))
+        sum_dy_xhat = (dz_post * xhat).sum(dim=(0, 1, 2))
+        scale = gamma.float() * inv
+        if frozen:
+            dz = dz_post * scale
+        else:
+            n = x.shape[0] * x.shape[1] * x.shape[2]
+            dz = scale * (dz_post - sum_dy / n - xhat * (sum_dy_xhat / n))
+        need = ctx.needs_input_grad
+        dx = conv3x3_dgrad(w, dz) if need[0] else None
+        dw = conv_wgrad(x, dz) if need[1] else None
+        dres = dz_post if has_res and need[6] else None
+        return (dx, dw, sum_dy_xhat, sum_dy, None, None, dres, None, None,
+                None)
+
+
+_FusedBlock.dout_copies = 0
+
+
+def residual_block_fused(x, w, gamma, beta, mean, var, residual=None, *,
+                         eps: float = 1e-5, frozen: bool = False,
+                         relu: bool = True):
+    """Fused 3×3/s1 conv + BN (+ residual add) (+ ReLU), differentiable
+    (≙ ``pallas_block.residual_block_fused``).  Returns ``(out,
+    batch_mean, batch_var)`` in training mode (the biased batch variance)
+    and ``(out, mean, var)``, the given statistics, when ``frozen``.
+    ``x``, ``w`` and ``residual`` contiguous NHWC/HWIO fp32."""
+    outs = _FusedBlock.apply(x, w, gamma, beta, mean, var, residual,
+                             float(eps), bool(frozen), bool(relu))
+    if frozen:
+        return outs[0], mean, var
+    return outs

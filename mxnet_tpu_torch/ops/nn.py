@@ -5,9 +5,10 @@ Layouts are the JAX package's: activations NHWC (channels last), conv
 weights HWIO ``(kh, kw, in/groups, out)``, dense weights ``(out, in)``.
 Convolution and pooling run as PyTorch calls on channels-last NCHW
 views of the NHWC tensors (cuDNN on the card, with TF32 off: see
-``context.exact_fp32``), as the JAX package leaves them to XLA; the one
-Pallas kernel of the image path, the fused conv + frozen BN (+ add)
-(+ ReLU) of ``residual_block``, is ``ops/conv_block.py``.
+``context.exact_fp32``), as the JAX package leaves them to XLA, and so
+do BatchNorm, the softmax and the losses; the Pallas kernels of the image
+path, the fused conv + BN (+ add) (+ ReLU) of ``residual_block`` in
+inference and training, are ``ops/conv_block.py``.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from . import conv_block
 from .cuda_kernels import LayerNormFn, layernorm_fused
 
 __all__ = ["layer_norm", "gelu", "activation", "fully_connected",
-           "convolution", "pooling", "batch_norm", "residual_block"]
+           "convolution", "pooling", "batch_norm", "residual_block",
+           "log_softmax", "pick", "softmax_cross_entropy"]
 
 
 def layer_norm(x, gamma, beta, eps: float = 1e-5):
@@ -121,22 +123,48 @@ def pooling(x, kernel=2, stride=None, pad=0, pool_type: str = "max",
     return _nhwc(out)
 
 
-def _training_slice(what):
-    return NotImplementedError(
-        f"{what} in training mode (batch statistics and their running "
-        f"averages) belongs to the ResNet-training slice of the port, "
-        f"which is not ported yet; run the block in inference mode")
-
-
 def batch_norm(x, gamma, beta, running_mean, running_var, momentum=0.9,
                eps: float = 1e-5, use_global_stats: bool = False,
                training: bool = False, axis: int = -1):
-    """≙ BatchNorm, frozen statistics only: normalizes ``axis`` by the
-    running mean/var.  Returns ``(out, running_mean, running_var)`` (the
-    stats unchanged), as the JAX package's inference branch does."""
-    if training and not use_global_stats:
-        raise _training_slice("batch_norm")
+    """≙ BatchNorm over channel ``axis``; returns ``(out, new_mean,
+    new_var)``.
+
+    Training (and not ``use_global_stats``), fp32: batch statistics from
+    one-pass *shifted* sums (the first element of each channel is
+    subtracted first, so ``E[x²] − E[x]²`` does not cancel when
+    ``|mean| ≫ std``), the biased batch variance, and running averages
+    under MXNet's convention ``new = momentum·running +
+    (1 − momentum)·batch`` (detached: they are state, not outputs to
+    differentiate).  The gradient flows through the batch statistics by
+    autograd, as the reference's fp32 branch leaves it to JAX's AD.
+    ``F.batch_norm`` is not used here: its momentum is ``1 − momentum``
+    and it stores the unbiased variance.
+
+    Otherwise: normalization by the running statistics, which come back
+    unchanged."""
     ch = axis % x.dim()
+    if training and not use_global_stats:
+        if x.dtype not in (torch.float32, torch.float64):
+            raise NotImplementedError(
+                f"batch_norm in training mode on {x.dtype}: the port "
+                f"trains in fp32; low-precision BatchNorm comes with the "
+                f"bf16 serving / amp item of the port's queue")
+        C = x.shape[ch]
+        shape = [1] * x.dim()
+        shape[ch] = C
+        rax = tuple(i for i in range(x.dim()) if i != ch)
+        s = x.detach().movedim(ch, -1).reshape(-1, C)[0]
+        xs = x - s.reshape(shape)
+        m1 = xs.mean(dim=rax)
+        m2 = (xs * xs).mean(dim=rax)
+        mean = m1 + s
+        var = torch.clamp(m2 - m1 * m1, min=0.0)
+        out = ((x - mean.reshape(shape))
+               * torch.rsqrt(var.reshape(shape) + eps)
+               * gamma.reshape(shape) + beta.reshape(shape))
+        new_mean = momentum * running_mean + (1 - momentum) * mean.detach()
+        new_var = momentum * running_var + (1 - momentum) * var.detach()
+        return out, new_mean, new_var
     xc = x.movedim(ch, 1) if ch != 1 else x
     out = F.batch_norm(xc, running_mean, running_var, gamma, beta,
                        training=False, eps=eps)
@@ -148,17 +176,59 @@ def residual_block(x, weight, gamma, beta, running_mean, running_var,
                    residual=None, momentum=0.9, eps: float = 1e-5,
                    use_global_stats: bool = False, training: bool = False,
                    relu: bool = True):
-    """Fused 3×3/s1 SAME conv + frozen BatchNorm (+ residual add)
-    (+ ReLU), NHWC/HWIO → ``(out, running_mean, running_var)``.  Every
-    call goes to ``conv_block.conv_affine``: the kernel on the card, its
-    plain version on the CPU.  ``x``, ``weight`` and ``residual`` are
-    made contiguous here (a no-op on the path, where the producing
-    cuDNN and element-wise calls keep NHWC contiguous), since the kernel
-    takes contiguous NHWC only."""
-    if training and not use_global_stats:
-        raise _training_slice("residual_block")
-    out = conv_block.conv_affine(
-        x.contiguous(), weight.contiguous(), gamma, beta, running_mean,
-        running_var, residual.contiguous() if residual is not None
-        else None, eps=eps, relu=relu)
-    return out, running_mean, running_var
+    """Fused 3×3/s1 SAME conv + BatchNorm (+ residual add) (+ ReLU),
+    NHWC/HWIO → ``(out, new_mean, new_var)`` with ``batch_norm``'s
+    running-statistics contract.  Every call goes to ``ops/conv_block``:
+    its kernels on the card, their plain versions on the CPU.
+
+    Training: ``residual_block_fused`` (conv + batch statistics, then the
+    affine pass; its backward runs dgrad and wgrad).  Frozen
+    (``use_global_stats`` or inference) with autograd recording: the same
+    Function's frozen branch.  Frozen without gradients: ``conv_affine``
+    alone, with no autograd node.  ``x``, ``weight`` and ``residual`` are
+    made contiguous here (a no-op on the path, where the producing cuDNN
+    and element-wise calls keep NHWC contiguous), since the kernels take
+    contiguous NHWC only."""
+    x = x.contiguous()
+    weight = weight.contiguous()
+    if residual is not None:
+        residual = residual.contiguous()
+    frozen = use_global_stats or not training
+    if frozen and not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, weight, gamma, beta, residual))):
+        out = conv_block.conv_affine(x, weight, gamma, beta, running_mean,
+                                     running_var, residual, eps=eps,
+                                     relu=relu)
+        return out, running_mean, running_var
+    out, bmean, bvar = conv_block.residual_block_fused(
+        x, weight, gamma, beta, running_mean, running_var, residual,
+        eps=eps, frozen=frozen, relu=relu)
+    if frozen:
+        return out, running_mean, running_var
+    new_mean = momentum * running_mean + (1 - momentum) * bmean
+    new_var = momentum * running_var + (1 - momentum) * bvar
+    return out, new_mean, new_var
+
+
+def log_softmax(x, axis: int = -1):
+    """≙ ``ops/nn.py log_softmax``."""
+    return F.log_softmax(x, dim=axis)
+
+
+def pick(x, index, axis: int = -1, keepdims: bool = False):
+    """≙ pick: the element of ``x`` along ``axis`` at ``index`` for every
+    other position."""
+    idx = index.long().unsqueeze(axis)
+    out = torch.gather(x, axis, idx)
+    return out if keepdims else out.squeeze(axis)
+
+
+def softmax_cross_entropy(logits, labels, sparse: bool = True,
+                          axis: int = -1):
+    """≙ SoftmaxCrossEntropy: ``−log_softmax(logits)`` at the label (or
+    summed against dense label distributions)."""
+    logp = log_softmax(logits, axis=axis)
+    if sparse:
+        return -pick(logp, labels, axis=axis)
+    return -(labels * logp).sum(dim=axis)

@@ -1,6 +1,7 @@
 """Optimizers (≙ the parts of ``mxnet_tpu/optimizer/__init__.py`` that
-BERT pretraining uses): the registry, the ``Optimizer`` base with its
-per-key update counts, ``Adam`` and ``AdamW``.
+BERT pretraining and ResNet training use): the registry, the
+``Optimizer`` base with its per-key update counts, ``SGD`` (momentum,
+Nesterov), ``NAG``, ``Adam`` and ``AdamW``.
 
 Each rule is the reference's arithmetic, applied to the weights IN PLACE
 under ``torch.no_grad`` (the reference returns new arrays) with
@@ -15,7 +16,8 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-__all__ = ["Optimizer", "create", "register", "Adam", "AdamW"]
+__all__ = ["Optimizer", "create", "register", "SGD", "NAG", "Adam",
+           "AdamW"]
 
 _REGISTRY: Dict[str, type] = {}
 
@@ -52,6 +54,13 @@ class Optimizer:
         # per-key t drives Adam's bias correction and advances once per
         # update of that key
         self._index_update_count: Dict[str, int] = {}
+
+    @property
+    def learning_rate(self):
+        return self.lr
+
+    def set_learning_rate(self, lr):
+        self.lr = lr
 
     def create_state(self, index, weight) -> Dict[str, torch.Tensor]:
         return {}
@@ -91,6 +100,49 @@ class Optimizer:
         updates ``weight`` and ``state`` in place and returns the state."""
         self.update_multi([index], [weight], [grad], [state])
         return state
+
+
+@register
+class SGD(Optimizer):
+    """≙ optimizer/sgd.py: ``g += wd·w``; without momentum ``w −= lr·g``;
+    with it ``mom = μ·mom − lr·g`` and ``w += mom`` (Nesterov: ``w +=
+    μ·mom − lr·g``)."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, nesterov=False,
+                 **kw):
+        super().__init__(learning_rate=learning_rate, **kw)
+        self.momentum = momentum
+        self.nesterov = nesterov
+
+    def create_state(self, index, weight):
+        if self.momentum != 0.0:
+            return {"mom": torch.zeros_like(weight)}
+        return {}
+
+    def _update(self, ws, gs, states, ts):
+        lr = self.learning_rate
+        if self.wd:
+            gs = torch._foreach_add(gs, ws, alpha=self.wd)
+        if self.momentum == 0.0:
+            torch._foreach_add_(ws, gs, alpha=-lr)
+            return
+        moms = [s["mom"] for s in states]
+        torch._foreach_mul_(moms, self.momentum)
+        torch._foreach_add_(moms, gs, alpha=-lr)
+        if self.nesterov:
+            torch._foreach_add_(ws, moms, alpha=self.momentum)
+            torch._foreach_add_(ws, gs, alpha=-lr)
+        else:
+            torch._foreach_add_(ws, moms)
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated gradient ≙ optimizer/nag.py."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.0, **kw):
+        super().__init__(learning_rate=learning_rate, momentum=momentum,
+                         nesterov=True, **kw)
 
 
 def _moments(opt, gs, states, ts):

@@ -112,7 +112,7 @@ def test_engine_needs_an_exact_bucket_and_item_shape(nets):
 
 def test_engine_resolves_deferred_shapes_on_a_fresh_net():
     net = _tiny(tgnn, TBasic)
-    net.initialize(seed=1)
+    net.initialize(seed=1, ctx="cpu")
     eng = InferenceEngine(net, ITEM, buckets=(2,), device="cpu").warmup()
     assert eng.run(_images(2))[0].shape == (2, 4)
 
@@ -317,7 +317,7 @@ def test_registry_loads_a_reference_params_file(nets, tmp_path):
 def test_registry_builds_the_zoo_arch_from_a_params_file(tmp_path):
     from mxnet_tpu_torch.models import get_model
     src = get_model("resnet18_v1", classes=5)
-    src.initialize(seed=2)
+    src.initialize(seed=2, ctx="cpu")
     src(torch.zeros(1, 16, 16, 3))          # deferred shapes, then save
     path = str(tmp_path / "r18.params")
     src.save_parameters(path)

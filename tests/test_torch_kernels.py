@@ -461,3 +461,97 @@ def test_conv_affine_plain_route_counts_no_launches():
                                                1, 3, 3, 4, 4, True))
     conv_block.conv_affine(x, w, g, b, m, v, r)
     assert conv_block.conv_affine.launches == before
+
+
+# ----------------------- training kernels: conv3x3, conv_stats, bn_affine,
+# conv_wgrad (their numbers are held against the JAX package in
+# test_torch_resnet_train.py; here: what the wrappers refuse)
+@pytest.mark.parametrize("fn", ["conv3x3", "conv_stats"])
+@pytest.mark.parametrize("bad,exc", [
+    ("dtype", TypeError), ("strided", ValueError), ("rank", ValueError),
+    ("kernel", ValueError), ("channels", ValueError)])
+def test_train_conv_wrappers_refuse(fn, bad, exc, monkeypatch):
+    monkeypatch.setattr(conv_block._build, "lib", _no_lib)
+    x, w, _, _ = _conv_args(bad)
+    with pytest.raises(exc):
+        getattr(conv_block, fn)(_FakeCuda(x), _FakeCuda(w))
+
+
+@pytest.mark.parametrize("x,dy,exc", [
+    (torch.zeros(1, 4, 4, 8, dtype=torch.float64),
+     torch.zeros(1, 4, 4, 8, dtype=torch.float64), TypeError),
+    (torch.zeros(1, 8, 4, 4).permute(0, 2, 3, 1), torch.zeros(1, 4, 4, 8),
+     ValueError),                                         # NCHW storage
+    (torch.zeros(4, 4, 8), torch.zeros(4, 4, 8), ValueError),    # rank
+    (torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 5, 8), ValueError)])
+def test_conv_wgrad_wrapper_refuses(x, dy, exc, monkeypatch):
+    monkeypatch.setattr(conv_block._build, "lib", _no_lib)
+    with pytest.raises(exc):
+        conv_block.conv_wgrad(_FakeCuda(x), _FakeCuda(dy))
+
+
+@pytest.mark.parametrize("z,vec,res,exc", [
+    (torch.zeros(2, 3, 8, dtype=torch.float64),
+     torch.zeros(8, dtype=torch.float64), None, TypeError),
+    (torch.zeros(2, 8, 3).transpose(1, 2), torch.zeros(8), None,
+     ValueError),                                          # strided z
+    (torch.zeros(2, 3, 8), torch.zeros(7), None, ValueError),     # Cout
+    (torch.zeros(2, 3, 8), torch.zeros(8), torch.zeros(2, 3, 7),
+     ValueError)])                                         # residual
+def test_bn_affine_wrapper_refuses(z, vec, res, exc, monkeypatch):
+    monkeypatch.setattr(conv_block._build, "lib", _no_lib)
+    with pytest.raises(exc):
+        conv_block.bn_affine(_FakeCuda(z), _FakeCuda(vec), _FakeCuda(vec),
+                             None if res is None else _FakeCuda(res))
+
+
+def test_train_wrappers_refuse_devices_without_a_kernel():
+    x = torch.empty(1, 4, 4, 16, device="meta")
+    w = torch.empty(3, 3, 16, 16, device="meta")
+    for call in (lambda: conv_block.conv3x3(x, w),
+                 lambda: conv_block.conv_stats(x, w),
+                 lambda: conv_block.conv_wgrad(x, x),
+                 lambda: conv_block.bn_affine(x, x[0, 0, 0], x[0, 0, 0])):
+        with pytest.raises(ValueError):
+            call()
+
+
+def test_train_plain_routes_count_no_launches():
+    counted = (conv_block.conv3x3, conv_block.conv_stats,
+               conv_block.bn_affine, conv_block.conv_wgrad)
+    before = [f.launches for f in counted]
+    x, w, g, b, m, v, r = (None if a is None else torch.from_numpy(a)
+                           for a in _conv_data(np.random.RandomState(2),
+                                               2, 3, 4, 4, 6, True))
+    x.requires_grad_()
+    out, _, _ = conv_block.residual_block_fused(x, w, g, b, m, v, r)
+    out.sum().backward()
+    conv_block.conv_wgrad(x.detach(), r)
+    assert [f.launches for f in counted] == before
+
+
+def test_wgrad_splits_fill_the_card_and_cover_every_pixel():
+    """ResNet-50's four stages at batch 64 on 132 SMs: the splits give
+    about four blocks an SM where the output has few tiles, ranges are
+    whole 16-pixel chunks, and together they cover every pixel."""
+    got = {}
+    for H, C in ((56, 64), (28, 128), (14, 256), (7, 512)):
+        M = 64 * H * H
+        splits, per = conv_block.wgrad_splits(M, 9 * C, C, 132)
+        assert per % 16 == 0 and (splits - 1) * per < M <= splits * per
+        got[H] = splits
+    assert got == {56: 59, 28: 15, 14: 4, 7: 1}
+    assert conv_block.wgrad_splits(100, 72, 8, 132) == (1, 112)
+
+
+def test_build_digest_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a ``csrc/*.cuh`` header changes the build stamp, so the
+    library is rebuilt rather than run stale."""
+    from mxnet_tpu_torch import _build
+    assert any(h.name == "conv3x3_tile.cuh" for h in _build.HEADERS)
+    hdr = tmp_path / "conv3x3_tile.cuh"
+    hdr.write_text("// one\n")
+    monkeypatch.setattr(_build, "HEADERS", (hdr,))
+    before = _build._digest()
+    hdr.write_text("// two\n")
+    assert _build._digest() != before

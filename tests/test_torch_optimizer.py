@@ -93,3 +93,47 @@ def test_create_unknown_name_raises_keyerror():
         topt.create("nope")
     o = topt.AdamW()
     assert topt.create(o) is o
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("sgd", dict(learning_rate=0.1, momentum=0.9, wd=1e-4)),
+    ("sgd", dict(learning_rate=0.05, wd=1e-3, rescale_grad=0.5,
+                 clip_gradient=0.8)),                  # no momentum
+    ("sgd", dict(learning_rate=0.1, momentum=0.9, nesterov=True, wd=1e-4,
+                 rescale_grad=1 / 64, clip_gradient=0.01)),
+    ("nag", dict(learning_rate=0.1, momentum=0.8, wd=1e-4,
+                 rescale_grad=0.25, clip_gradient=0.5)),
+])
+def test_sgd_and_nag_match_reference(name, kw):
+    """Three steps of each key with wd, rescale and clip: the weights and
+    the momentum within 1e-6."""
+    rs = np.random.RandomState(2)
+    shapes = [(3, 4), (6,)]
+    ws = [rs.randn(*s).astype(np.float32) for s in shapes]
+    jo, to = jopt.create(name, **kw), topt.create(name, **kw)
+    jw = [NDArray(jnp.asarray(w)) for w in ws]
+    tw = [torch.from_numpy(w.copy()) for w in ws]
+    js = [jo.create_state(i, w) for i, w in enumerate(jw)]
+    ts = [to.create_state(i, w) for i, w in enumerate(tw)]
+    assert sorted(ts[0]) == sorted(js[0])
+    for _ in range(3):
+        gs = [(2 * rs.randn(*s)).astype(np.float32) for s in shapes]
+        for i in range(2):
+            js[i] = jo.update(i, jw[i], NDArray(jnp.asarray(gs[i])), js[i])
+        to.update_multi([0, 1], tw, [torch.from_numpy(g) for g in gs], ts)
+    for i in range(2):
+        np.testing.assert_allclose(tw[i].numpy(), np.asarray(jw[i]._data),
+                                   atol=1e-6, rtol=0)
+        for k in ts[i]:
+            np.testing.assert_allclose(ts[i][k].numpy(),
+                                       np.asarray(js[i][k]), atol=1e-6,
+                                       rtol=0)
+
+
+def test_learning_rate_is_settable():
+    opt = topt.create("sgd", learning_rate=0.1, momentum=0.9)
+    assert opt.learning_rate == 0.1
+    opt.set_learning_rate(0.01)
+    w = torch.ones(2)
+    opt.update(0, w, torch.ones(2), opt.create_state(0, w))
+    torch.testing.assert_close(w, torch.full((2,), 1 - 0.01))

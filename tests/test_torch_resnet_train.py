@@ -1,0 +1,388 @@
+"""The port's ResNet-training slice against the JAX package on the CPU:
+the training kernels' plain versions against ``pallas_block``'s Pallas
+kernels in interpret mode, ``residual_block_fused`` forward and
+gradients in training and frozen mode against ``jax.grad`` through the
+reference's custom VJP, training-mode BatchNorm, the losses, the
+Trainer, the example's entry point, and two SGD steps of ResNet-50 v1
+(ResNet-18's are in ``test_torch_resnet.py`` on the reference's layer
+route and in ``test_torch_resnet_train_pallas.py`` on its Pallas route).
+On the CPU the port's wrappers take their plain versions (no launch is
+counted)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import mxnet_tpu as mx  # noqa: E402
+from mxnet_tpu.gluon import loss as jloss  # noqa: E402
+from mxnet_tpu.gluon import nn as jgnn  # noqa: E402
+from mxnet_tpu.ops import nn as jnn  # noqa: E402
+from mxnet_tpu.ops import pallas_block as jpb  # noqa: E402
+from mxnet_tpu_torch import gluon as tgluon  # noqa: E402
+from mxnet_tpu_torch.examples import image_classification as ic  # noqa
+from mxnet_tpu_torch.gluon import loss as tloss  # noqa: E402
+from mxnet_tpu_torch.gluon import nn as tgnn  # noqa: E402
+from mxnet_tpu_torch.ops import conv_block as cb  # noqa: E402
+from mxnet_tpu_torch.ops import nn as tnn  # noqa: E402
+from test_torch_resnet import (assert_two_steps_match,  # noqa: E402
+                               two_sgd_steps)
+
+torch.set_num_threads(1)
+
+CONV_TOL = 1e-5         # of the output's largest magnitude (9C sums)
+GRAD_TOL = 1e-4         # of each gradient's largest magnitude
+
+COUNTED = (cb.conv3x3, cb.conv_stats, cb.bn_affine, cb.conv_wgrad,
+           cb.conv_affine)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+def _close(out, ref, tol, what=""):
+    out, ref = np.asarray(out), np.asarray(ref)
+    assert out.shape == ref.shape, (what, out.shape, ref.shape)
+    assert np.isfinite(out).all(), what
+    err = np.abs(out - ref).max()
+    assert err <= tol * np.abs(ref).max(), (what, err, np.abs(ref).max())
+
+
+def _data(rs, N, H, W, C, Cout):
+    x = rs.randn(N, H, W, C).astype(np.float32)
+    w = (rs.randn(3, 3, C, Cout) * np.sqrt(2.0 / (9 * C))).astype(
+        np.float32)
+    dy = rs.randn(N, H, W, Cout).astype(np.float32)
+    return x, w, dy
+
+
+# (N, H, W, C, Cout): C != Cout, ragged spatial sizes, C % 16 != 0
+SHAPES = [(2, 6, 5, 8, 12), (1, 8, 8, 16, 16), (2, 4, 7, 24, 8)]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_conv3x3_and_dgrad_plain_match_pallas_interpret(shape):
+    x, w, dy = _data(np.random.RandomState(1), *shape)
+    _close(cb.conv3x3(_t(x), _t(w)), jpb.conv3x3(_j(x), _j(w)), CONV_TOL)
+    # dx = conv3x3(dy, w rotated): the IO transposition shows as C != Cout
+    dx = cb.conv3x3_dgrad(_t(w), _t(dy))
+    assert dx.shape == x.shape
+    _close(dx, jpb.conv3x3_dgrad(_j(w), _j(dy)), CONV_TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_conv_wgrad_plain_matches_pallas_interpret(shape):
+    x, w, dy = _data(np.random.RandomState(2), *shape)
+    dw = cb.conv_wgrad(_t(x), _t(dy))
+    assert dw.shape == w.shape
+    _close(dw, jpb.conv3x3_wgrad(_j(x), _j(dy)), CONV_TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_conv_stats_plain_matches_pallas_interpret(shape):
+    """z within 1e-5 of its max; Σz within 1e-5 of the channel's Σ|z|
+    (the sum may cancel); Σz² within 1e-5 relative."""
+    x, w, _ = _data(np.random.RandomState(3), *shape)
+    z, s1, s2 = cb.conv_stats(_t(x), _t(w))
+    rz, r1, r2 = jpb._conv_stats(_j(x), _j(w))
+    _close(z, rz, CONV_TOL)
+    mag = np.abs(np.asarray(rz)).sum(axis=(0, 1, 2))
+    assert (np.abs(s1.numpy() - np.asarray(r1)) <= 1e-5 * mag).all()
+    np.testing.assert_allclose(s2.numpy(), np.asarray(r2), rtol=1e-5)
+
+
+@pytest.mark.parametrize("res,relu", [(False, True), (True, True),
+                                      (True, False), (False, False)])
+def test_bn_affine_plain_matches_pallas_interpret(res, relu):
+    rs = np.random.RandomState(4)
+    z = rs.randn(2, 6, 5, 12).astype(np.float32)
+    scale = (1 + 0.1 * rs.randn(12)).astype(np.float32)
+    shift = (0.1 * rs.randn(12)).astype(np.float32)
+    r = rs.randn(*z.shape).astype(np.float32) if res else None
+    out = cb.bn_affine(_t(z), _t(scale), _t(shift), _t(r), relu=relu)
+    ref = jpb._affine(_j(z), _j(scale), _j(shift), _j(r), relu)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6,
+                               atol=1e-6)
+
+
+def _block_inputs(rs, res):
+    N, H, W, C, Cout = 2, 6, 5, 8, 12
+    x, w, _ = _data(rs, N, H, W, C, Cout)
+    gamma = (1 + 0.1 * rs.randn(Cout)).astype(np.float32)
+    beta = (0.1 * rs.randn(Cout)).astype(np.float32)
+    mean = (0.1 * rs.randn(Cout)).astype(np.float32)
+    var = rs.uniform(0.5, 1.5, Cout).astype(np.float32)
+    r = rs.randn(N, H, W, Cout).astype(np.float32) if res else None
+    g = rs.randn(N, H, W, Cout).astype(np.float32)
+    return (x, w, gamma, beta, mean, var, r), g
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+@pytest.mark.parametrize("res,relu", [(True, True), (False, True),
+                                      (True, False)])
+def test_residual_block_fused_matches_jax_grad(frozen, res, relu):
+    """Forward (and the batch statistics) and the gradients of x, w,
+    γ, β and the residual against ``jax.grad`` through the reference's
+    custom VJP with its Pallas backward (interpret mode)."""
+    args, g = _block_inputs(np.random.RandomState(5), res)
+    x, w, gamma, beta, mean, var, r = args
+
+    def jf(x, w, gamma, beta, r):
+        out, bm, bv = jpb.residual_block_fused(
+            x, w, gamma, beta, _j(mean), _j(var), r, frozen=frozen,
+            relu=relu, bwd="pallas")
+        return jnp.sum(out * _j(g)), (out, bm, bv)
+
+    argn = (0, 1, 2, 3, 4) if res else (0, 1, 2, 3)
+    (_, (rout, rbm, rbv)), rgrads = jax.value_and_grad(
+        jf, argnums=argn, has_aux=True)(_j(x), _j(w), _j(gamma), _j(beta),
+                                        _j(r))
+    leaves = [_t(a).requires_grad_() for a in (x, w, gamma, beta)]
+    tr = _t(r).requires_grad_() if res else None
+    out, bm, bv = cb.residual_block_fused(
+        *leaves, _t(mean), _t(var), tr, frozen=frozen, relu=relu)
+    grads = torch.autograd.grad((out * _t(g)).sum(),
+                                leaves + ([tr] if res else []))
+    _close(out.detach(), rout, CONV_TOL, "out")
+    _close(bm, rbm, 1e-5, "mean")
+    _close(bv, rbv, 1e-5, "var")
+    for name, a, b in zip(("x", "w", "gamma", "beta", "residual"), grads,
+                          rgrads):
+        _close(a, b, GRAD_TOL, name)
+
+
+def test_residual_block_running_stats_match_reference(monkeypatch):
+    """``ops.nn.residual_block`` in training mode on the reference's
+    forced-Pallas route: the output and the running statistics
+    (momentum 0.9, biased batch variance)."""
+    monkeypatch.setenv("MXNET_TPU_PALLAS_BLOCK", "1")
+    monkeypatch.setenv("MXNET_TPU_PALLAS_STAGES", "6x5x8=pallas")
+    (x, w, gamma, beta, mean, var, r), _ = _block_inputs(
+        np.random.RandomState(6), True)
+    assert jpb.decide(x.shape, w.shape, jnp.float32, True).fwd == "pallas"
+    ref = jnn.residual_block(*map(_j, (x, w, gamma, beta, mean, var)),
+                             residual=_j(r), training=True)
+    out = tnn.residual_block(*map(_t, (x, w, gamma, beta, mean, var)),
+                             residual=_t(r), training=True)
+    _close(out[0], ref[0], CONV_TOL, "out")
+    for a, b, what in zip(out[1:], ref[1:], ("mean", "var")):
+        _close(a, b, 1e-5, what)
+
+
+@pytest.mark.parametrize("shift", [0.0, 20.0])
+def test_batch_norm_training_matches_reference(shift):
+    """fp32 shifted one-pass statistics (also where |mean| >> std), the
+    new running statistics and the gradients of x, γ, β."""
+    rs = np.random.RandomState(7)
+    x = (rs.randn(4, 3, 5, 6) + shift).astype(np.float32)
+    gamma = (1 + 0.1 * rs.randn(6)).astype(np.float32)
+    beta = (0.1 * rs.randn(6)).astype(np.float32)
+    rm = (0.1 * rs.randn(6)).astype(np.float32)
+    rv = rs.uniform(0.5, 1.5, 6).astype(np.float32)
+    g = rs.randn(*x.shape).astype(np.float32)
+
+    def jf(x, gamma, beta):
+        out, nm, nv = jnn.batch_norm(x, gamma, beta, _j(rm), _j(rv),
+                                     momentum=0.9, training=True)
+        return jnp.sum(out * _j(g)), (out, nm, nv)
+
+    (_, ref), rgrads = jax.value_and_grad(jf, (0, 1, 2), has_aux=True)(
+        _j(x), _j(gamma), _j(beta))
+    leaves = [_t(a).requires_grad_() for a in (x, gamma, beta)]
+    out = tnn.batch_norm(*leaves, _t(rm), _t(rv), momentum=0.9,
+                         training=True)
+    grads = torch.autograd.grad((out[0] * _t(g)).sum(), leaves)
+    for a, b, what in zip(out, ref, ("out", "mean", "var")):
+        _close(a.detach(), b, 1e-5, what)
+    for a, b, what in zip(grads, rgrads, ("x", "gamma", "beta")):
+        _close(a, b, GRAD_TOL, what)
+
+
+def test_batch_norm_training_refuses_bf16_and_names_the_queue():
+    x = torch.zeros(2, 3, dtype=torch.bfloat16)
+    v = torch.ones(3)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        tnn.batch_norm(x, v, v, v, v, training=True)
+
+
+def test_gluon_batch_norm_writes_running_stats_back():
+    rs = np.random.RandomState(8)
+    x = rs.randn(4, 3, 3, 5).astype(np.float32)
+    jbn = jgnn.BatchNorm(in_channels=5)
+    jbn.initialize()
+    with mx.autograd.record():
+        jbn(mx.np.array(x))
+    bn = tgnn.BatchNorm(in_channels=5)
+    bn.initialize(ctx="cpu")
+    bn.train()
+    bn(_t(x))
+    for name in ("running_mean", "running_var"):
+        _close(getattr(bn, name),
+               getattr(jbn, name).data()._data, 1e-5, name)
+    bn.eval()               # inference leaves them alone
+    before = bn.running_mean.clone()
+    bn(_t(x))
+    assert torch.equal(bn.running_mean, before)
+
+
+# ----------------------------------------------------------------- losses
+@pytest.mark.parametrize("kw,dense,weighted", [
+    ({}, False, False), ({}, False, True),
+    (dict(sparse_label=False), True, False),
+    (dict(from_logits=True), False, False),
+    (dict(weight=0.5), False, True)])
+def test_softmax_ce_loss_matches_reference(kw, dense, weighted):
+    rs = np.random.RandomState(9)
+    pred = rs.randn(4, 7).astype(np.float32)
+    if kw.get("from_logits"):
+        pred = pred - np.log(np.exp(pred).sum(-1, keepdims=True))
+    label = rs.dirichlet(np.ones(7), 4).astype(np.float32) if dense else \
+        rs.randint(0, 7, (4,))
+    sw = rs.rand(4).astype(np.float32) if weighted else None
+    ref = jloss.SoftmaxCrossEntropyLoss(**kw)(
+        mx.np.array(pred), mx.np.array(label),
+        None if sw is None else mx.np.array(sw))
+    out = tloss.SoftmaxCELoss(**kw)(_t(pred), _t(label), _t(sw))
+    assert out.shape == (4,)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref._data),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["L2Loss", "L1Loss"])
+def test_regression_losses_match_reference(name):
+    rs = np.random.RandomState(10)
+    pred, label = (rs.randn(3, 2, 4).astype(np.float32) for _ in range(2))
+    sw = rs.rand(3, 1, 1).astype(np.float32)
+    ref = getattr(jloss, name)()(mx.np.array(pred), mx.np.array(label),
+                                 mx.np.array(sw))
+    out = getattr(tloss, name)()(_t(pred), _t(label), _t(sw))
+    assert out.shape == (3,)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref._data),
+                               rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------- Trainer
+def _tiny():
+    net = tgnn.HybridSequential()
+    net.add(tgnn.Dense(4, in_units=3), tgnn.BatchNorm(in_channels=4))
+    net.initialize(ctx="cpu", seed=1)
+    net.train()
+    return net
+
+
+def _backward(net, seed=0):
+    x = torch.from_numpy(np.random.RandomState(seed).randn(5, 3).astype(
+        np.float32))
+    net(x).square().sum().backward()
+
+
+def test_trainer_trains_parameters_not_running_stats():
+    net = _tiny()
+    tr = tgluon.Trainer(net.collect_params(), "sgd",
+                        {"learning_rate": 0.1, "momentum": 0.9})
+    names = [n for n, _ in tr._trainable]
+    assert names == ["0.weight", "0.bias", "1.gamma", "1.beta"]
+    assert tr.learning_rate == 0.1
+    tr.set_learning_rate(0.05)
+    assert tr.learning_rate == tr.optimizer.learning_rate == 0.05
+
+
+def test_trainer_step_consumes_gradients_and_refuses_stale_ones():
+    net = _tiny()
+    tr = tgluon.Trainer(net.collect_params(), "sgd",
+                        {"learning_rate": 0.1, "momentum": 0.9})
+    _backward(net)
+    w0 = net[0].weight.detach().clone()
+    g0 = net[0].weight.grad.clone()
+    tr.step(5)
+    # one SGD-momentum step from zero momentum: w -= lr * g / batch
+    torch.testing.assert_close(net[0].weight.detach(), w0 - 0.1 * g0 / 5)
+    assert all(p.grad is None for _, p in tr._trainable)
+    with pytest.raises(UserWarning, match="has not been updated"):
+        tr.step(5)
+    w1 = net[0].weight.detach().clone()
+    tr.step(5, ignore_stale_grad=True)          # nothing to apply
+    assert torch.equal(net[0].weight.detach(), w1)
+    # a fresh backward writes, it does not add to a consumed gradient
+    _backward(net, seed=1)
+    g1 = net[0].weight.grad.clone()
+    net2 = _tiny()
+    with torch.no_grad():
+        for a, b in zip(net2.parameters(), net.parameters()):
+            a.copy_(b)
+    _backward(net2, seed=1)
+    torch.testing.assert_close(g1, net2[0].weight.grad)
+
+
+def test_trainer_save_and_load_states(tmp_path):
+    net = _tiny()
+    tr = tgluon.Trainer(net.collect_params(), "sgd",
+                        {"learning_rate": 0.1, "momentum": 0.9})
+    _backward(net)
+    tr.step(5)
+    path = str(tmp_path / "trainer.states")
+    tr.save_states(path)
+    tr2 = tgluon.Trainer(net.collect_params(), "sgd",
+                         {"learning_rate": 0.1, "momentum": 0.9})
+    tr2.load_states(path)
+    assert tr2.optimizer.num_update == tr.optimizer.num_update == 1
+    assert tr2.optimizer._index_update_count == \
+        tr.optimizer._index_update_count
+    assert set(tr2._states) == set(tr._states)
+    for k, st in tr._states.items():
+        assert torch.equal(st["mom"], tr2._states[k]["mom"])
+
+
+@pytest.mark.parametrize("kw", [dict(kvstore="dist_sync"),
+                                dict(kvstore="dist_async"),
+                                dict(update_on_kvstore=True),
+                                dict(mesh=object()),
+                                dict(sharding_plan=object())])
+def test_trainer_refuses_what_later_slices_bring(kw):
+    with pytest.raises(NotImplementedError, match="slice"):
+        tgluon.Trainer(_tiny().collect_params(), "sgd", **kw)
+
+
+def test_trainer_fuse_step_is_not_ported():
+    tr = tgluon.Trainer(_tiny().collect_params(), "sgd")
+    with pytest.raises(NotImplementedError, match="CUDA graph"):
+        tr.fuse_step(None)
+
+
+def test_initialize_without_a_card_or_ctx_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = tgnn.Dense(3, in_units=2)
+    with pytest.raises(RuntimeError, match="device=\"cpu\""):
+        net.initialize()
+    net.initialize(ctx="cpu")
+    assert net.weight.device.type == "cpu"
+
+
+# ------------------------------------------------------ example and slice
+def test_example_trains_on_the_cpu_and_launches_nothing():
+    before = [f.launches for f in COUNTED]
+    out = ic.main(["--device", "cpu", "--model", "resnet18_v1",
+                   "--image-size", "32", "--batch-size", "2", "--iters",
+                   "1", "--classes", "10"])
+    assert out["steps"] == ic.WARMUP + 1 == len(out["losses"])
+    assert np.isfinite(out["losses"]).all() and out["img_s"] > 0
+    assert len(out["step_ms"]) == out["steps"]
+    assert [f.launches for f in COUNTED] == before
+
+
+@pytest.mark.parametrize("argv", [["--rec", "data.rec"],
+                                  ["--kvstore", "dist_sync"]])
+def test_example_refuses_what_later_slices_bring(argv):
+    with pytest.raises(NotImplementedError):
+        ic.main(["--device", "cpu"] + argv)
+
+
+def test_two_sgd_steps_of_resnet50_match_reference():
+    assert_two_steps_match(*two_sgd_steps("resnet50_v1"))
