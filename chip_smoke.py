@@ -14,8 +14,11 @@ wd 0.01), then ResNet-50 v1 image serving (1000 classes, NHWC items
 224x224x3, buckets 1, 2, 4, 8) through ``ModelRegistry`` →
 ``InferenceEngine`` → ``Batcher``, then ResNet-50 v1 training through
 ``examples.image_classification`` at its defaults (batch 64 x 224x224x3,
-1000 classes, SGD lr 0.1, momentum 0.9, wd 1e-4).  Phases, one JSON
-line each; the run stops with a non-zero exit at the first phase that
+1000 classes, SGD lr 0.1, momentum 0.9, wd 1e-4), then Gluon BERT-base
+serving (``models.bert_gluon.bert_12_768_12``: vocab 30522, 768 wide, 12
+layers of 12 heads of 64, FFN 3072, fp32; int32 items of 512 token ids,
+buckets 1, 2, 4, 8) through ``ModelRegistry`` → ``Batcher`` →
+``InferenceEngine``.  Phases, one JSON line each; the run stops with a non-zero exit at the first phase that
 fails:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and
@@ -89,6 +92,30 @@ fails:
     the net's largest update, running statistics within 1e-5 of their
     largest magnitude.
 18. ``image_train_profile``: one training step under ``torch.profiler``.
+19. ``text_kernels``: the row-softmax kernel against its plain version
+    (within 1e-6 absolute: softmax values lie in [0, 1]) at the Gluon
+    BERT's shapes at buckets 8 and 1 (49152 and 6144 rows of 512),
+    ragged widths 77 and 1000, vocabulary rows (4096, 30522) and (1024,
+    4096), rows holding -1e9 and a row of only -1e9 (which must give
+    1/cols) on both of its kernels, and a strided view; timed beside its
+    bound, its plain version and ``torch.softmax``.
+20. ``text_serve``: the launch counters set to 0, then
+    ``ModelRegistry.load`` of a seeded BERT-base ``.params`` with
+    ``dtype="int32"`` (warmup of every bucket), 32 closed-loop requests
+    from one client and 64 from 8 client threads; every response finite
+    (its sum and argmax kept, the 62.5 MB of logits dropped), and
+    exactly 12 softmax and 25 LayerNorm launches per forward run.
+    Device and eager ms per forward and ms of the copy of its logits to
+    the host at each bucket, p50/p99 request ms,
+    sequences/s and tokens/s, batch fill, peak memory.
+21. ``text_reference``: card logits against the port on the CPU from
+    the same ``.params`` at batch 1 x 512 (within 1e-4 of the largest
+    logit, argmax equal at >= 99.9% of positions); the 64 concurrent
+    requests served again, each response against the forward of its
+    sequence alone on the card (same tolerance), and every
+    ``text_serve`` response's argmax and sum against that forward.
+22. ``text_profile``: one bucket-8 and one bucket-1 forward under
+    ``torch.profiler``.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -195,7 +222,8 @@ def phase_build(state):
         m = re.search(r"entry function '\S*?(causal_attn_fwd|layernorm_fwd|"
                       r"attn_fwd|attn_dq|attn_dkv|conv_affine_kernel|"
                       r"conv3x3_kernel|conv_stats_kernel|"
-                      r"conv_wgrad_kernel|bn_affine_kernel)"
+                      r"conv_wgrad_kernel|bn_affine_kernel|"
+                      r"softmax_warp_kernel|softmax_block_kernel)"
                       r"I((?:L[ib]\d+E)+)E", ln)
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
@@ -433,6 +461,7 @@ KERNEL_CATEGORIES = (
     ("gemm", r"gemm|gemv|splitKreduce"),
     ("attention (ours)", r"attn_(fwd|dq|dkv)|causal_attn_fwd"),
     ("layernorm (ours)", r"layernorm_fwd"),
+    ("softmax (ours)", r"softmax_(warp|block)_kernel"),
     ("optimizer foreach", r"multi_tensor_apply"),
     ("softmax", r"softmax"),
     ("pooling", r"pool"),
@@ -1370,6 +1399,354 @@ def _bn_cost(shapes):
             "by_category": prof.get("by_category")}
 
 
+# ------------------------------------------------------------ text phases
+SOFTMAX_TOL = 1e-6          # absolute: every softmax value lies in [0, 1]
+TEXT_REF_TOL = 1e-4         # logits: of the largest logit
+TEXT_ARGMAX_AGREE = 0.999   # share of positions whose argmax agrees
+TEXT_T = 512                # tokens an item
+BERT_SOFTMAXES = 12         # attention softmaxes a BERT-base forward
+BERT_LAYERNORMS = 25        # LayerNorms a BERT-base forward
+
+
+def _softmax_case(rows, cols, gen, masked=False, strided=False):
+    """``softmax_fused`` against ``softmax_plain`` at one shape, timed
+    beside its bound, its plain version and ``torch.softmax`` (the one
+    PyTorch call computing the same function).  ``masked`` puts the
+    model's finite mask value -1e9 in every third column and across the
+    whole first row (which must come out 1/cols); ``strided`` passes a
+    non-contiguous view, which the wrapper copies first."""
+    import torch
+    from mxnet_tpu_torch.ops.cuda_kernels import softmax_fused, softmax_plain
+    if strided:
+        x = (torch.randn(rows, cols + 64, device="cuda", generator=gen)
+             * 4)[:, :cols]
+    else:
+        x = torch.randn(rows, cols, device="cuda", generator=gen) * 4
+    if masked:
+        x[:, ::3] = -1e9
+        x[0] = -1e9
+    out = softmax_fused(x)
+    ref = softmax_plain(x)
+    torch.cuda.synchronize()
+    case = {"shape": [rows, cols], "masked": masked, "strided": strided,
+            "max_abs_err": (out - ref).abs().max().item(), "tol": SOFTMAX_TOL,
+            "finite": bool(torch.isfinite(out).all()),
+            "row_sum_err": (out.sum(-1) - 1).abs().max().item()}
+    if masked:
+        case["masked_row_err"] = (out[0] - 1.0 / cols).abs().max().item()
+    _timed(case, lambda: softmax_fused(x), lambda: softmax_plain(x),
+           lambda: torch.softmax(x, -1), 2 * rows * cols * 4,
+           5 * rows * cols)
+    case["gb_s"] = case["bytes"] / (case["kernel_ms"] * 1e-3) / 1e9
+    return case
+
+
+def phase_text_kernels(state):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    heads = 12
+    # the path's shape at buckets 8 and 1 first, then ragged widths, the
+    # long-row kernel (vocabulary rows, scalar and 16-byte), masked rows
+    # on both kernels and a strided view
+    cases = [_softmax_case(8 * heads * TEXT_T, TEXT_T, gen),
+             _softmax_case(heads * TEXT_T, TEXT_T, gen),
+             _softmax_case(4096, 77, gen),
+             _softmax_case(4096, 1000, gen),
+             _softmax_case(4096, 30522, gen),
+             _softmax_case(1024, 4096, gen),
+             _softmax_case(heads * TEXT_T, TEXT_T, gen, masked=True),
+             _softmax_case(1024, 4099, gen, masked=True),
+             _softmax_case(2048, 512, gen, strided=True)]
+    state["cases"]["softmax_fused"] = cases
+    bad = [c for c in cases
+           if not (c["max_abs_err"] <= c["tol"] and c["finite"] and
+                   c.get("masked_row_err", 0.0) <= c["tol"])]
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{bad}")
+    return {"cases": cases}
+
+
+def _bert_base_params(path):
+    """BERT-base (``bert_12_768_12``) with weights from
+    ``numpy.random.RandomState(SEED)``: embeddings N(0, 1), dense weights
+    N(0, 1/fan_in) (attention scores of unit scale, so the softmax is far
+    from uniform), LayerNorm γ near 1, small β and biases; saved to
+    ``path`` as a ``.params``.  Returns the parameter count."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import bert_gluon
+    net = bert_gluon.bert_12_768_12()
+    net.initialize(seed=SEED, ctx="cpu")
+    net(torch.zeros(1, 8, dtype=torch.int32))   # deferred shapes resolve
+    rs = np.random.RandomState(SEED)
+    with torch.no_grad():
+        for name, t in net.collect_params().items():
+            leaf = name.rsplit(".", 1)[-1]
+            shape = tuple(t.shape)
+            if "embed" in name:
+                a = rs.randn(*shape)
+            elif leaf == "weight":
+                a = rs.randn(*shape) / np.sqrt(shape[1])
+            elif leaf == "gamma":
+                a = 1 + 0.1 * rs.randn(*shape)
+            else:                               # beta, bias
+                a = 0.1 * rs.randn(*shape)
+            t.copy_(torch.from_numpy(a.astype(np.float32)))
+    net.save_parameters(path)
+    return sum(t.numel() for t in net.collect_params().values())
+
+
+def _digest(out):
+    """What ``text_serve`` keeps of one (1, T, vocab) response: its sum
+    (float64; finite iff every logit is) and the argmax at each
+    position.  The response itself, 62.5 MB, is dropped."""
+    import numpy as np
+    return float(out.sum(dtype=np.float64)), out[0].argmax(-1)
+
+
+def _to_host_ms(out, repeats=5):
+    """Host-clock ms of the batcher's copy of one bucket's logits to the
+    host (``.cpu().numpy()`` of a finished forward), median of
+    ``repeats``."""
+    import torch
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out.cpu().numpy()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return sorted(runs)[len(runs) // 2]
+
+
+def phase_text_serve(state):
+    """Gluon BERT-base on 512-token int32 items through
+    ``ModelRegistry.load(..., net=bert_12_768_12(), dtype="int32")`` (the
+    default ladder 1, 2, 4, 8) and its ``Batcher``: a closed loop of one
+    client, then 8 client threads.  The launch counters are set to 0
+    before the load and read after the traffic: 12 softmax and 25
+    LayerNorm launches per forward run."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.models import bert_gluon
+    from mxnet_tpu_torch.ops.cuda_kernels import layernorm_fused, softmax_fused
+    from mxnet_tpu_torch.serve import ModelRegistry
+
+    work = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "bert_12_768_12.params")
+    t0 = time.perf_counter()
+    n_params = _bert_base_params(path)
+    init_s = time.perf_counter() - t0
+    rs = np.random.RandomState(SEED)
+    seqs = rs.randint(0, 30522, (96, TEXT_T)).astype(np.int32)
+    state.update(text_params=path, text_seqs=seqs)
+
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()      # earlier phases' state
+    softmax_fused.launches = 0
+    layernorm_fused.launches = 0
+    telemetry.reset()
+    reg = ModelRegistry()
+    t0 = time.perf_counter()
+    entry = reg.load("bert", path, net=bert_gluon.bert_12_768_12(),
+                     item_shape=(TEXT_T,), dtype="int32")
+    load_s = time.perf_counter() - t0
+    eng = entry.engine
+    state.update(text_registry=reg, text_engine=eng)
+
+    def spans(h0, h1):
+        """Mean µs per request of the batcher's queue wait and end to end,
+        and per batch of its forward + copy to the host, between two
+        histogram snapshots."""
+        return {n: _mean_us(h0, h1, f"serve.{n}")
+                for n in ("queue_wait_us", "device_us", "e2e_us")}
+
+    hc0 = telemetry.raw_snapshot()["histograms"]
+    digests, lat = {}, []
+    for k in range(32):
+        t1 = time.perf_counter()
+        out = reg.predict("bert", seqs[k])[0]
+        lat.append((time.perf_counter() - t1) * 1e3)
+        if out.shape != (1, TEXT_T, 30522):
+            raise AssertionError(f"response shape {out.shape}")
+        digests[k] = _digest(out)
+        del out
+
+    errs = []
+
+    def client(c):
+        try:
+            for j in range(8):
+                k = 32 + 8 * c + j
+                out = reg.predict("bert", seqs[k], timeout=300)[0]
+                if out.shape != (1, TEXT_T, 30522):
+                    raise AssertionError(f"response shape {out.shape}")
+                digests[k] = _digest(out)
+                del out
+        except Exception as e:
+            errs.append(repr(e))
+
+    hc1 = telemetry.raw_snapshot()["histograms"]
+    h0 = hc1.get("serve.batch_fill", {})
+    b0 = telemetry.raw_snapshot()["counters"].get("serve.batches", 0)
+    ts = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    t1 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    conc_s = time.perf_counter() - t1
+    snap = telemetry.raw_snapshot()
+    launches = {"softmax_fused": softmax_fused.launches,
+                "layernorm_fused": layernorm_fused.launches}
+    forwards = eng.forwards      # warmups, the batcher's, traffic
+    h1 = snap["histograms"].get("serve.batch_fill", {})
+    batches = snap["counters"].get("serve.batches", 0)
+    state["text_launches"] = launches
+    state["text_digests"] = digests
+    if errs or len(digests) != 96:
+        raise AssertionError(f"requests failed: {errs}")
+    bad = [k for k, (s, _) in digests.items() if not np.isfinite(s)]
+    if bad:
+        raise AssertionError(f"responses {bad} not finite")
+    if (launches["softmax_fused"] != BERT_SOFTMAXES * forwards or
+            launches["layernorm_fused"] != BERT_LAYERNORMS * forwards):
+        raise AssertionError(f"launches {launches} in {forwards} forwards")
+
+    per_bucket = {}
+    for b in eng.buckets:
+        x = torch.as_tensor(seqs[:b], device="cuda")
+        per_bucket[b] = {
+            # two forwards per CUDA-event window: the host queues both
+            # inside the device-side sleep, so the window is device time
+            "device_ms": cuda_ms(lambda: eng.run(x), iters=2, repeats=5),
+            "eager_ms": eager_ms(lambda: eng.run(x), iters=5),
+            "to_host_ms": _to_host_ms(eng.run(x)[0])}
+    return {"model": "bert_12_768_12", "params": n_params,
+            "vocab": 30522, "item_shape": [TEXT_T], "dtype": "int32",
+            "buckets": list(eng.buckets), "init_s": init_s,
+            "load_and_warmup_s": load_s,
+            "closed_loop": {"requests": 32, "p50_ms": _pct(lat, 50),
+                            "p99_ms": _pct(lat, 99), "mean_ms":
+                            sum(lat) / len(lat), "first_ms": lat[0],
+                            "max_ms": max(lat),
+                            "sequences_s": 1e3 * len(lat) / sum(lat),
+                            "batcher_us": spans(hc0, hc1)},
+            "concurrent": {"clients": 8, "requests": 64, "seconds": conc_s,
+                           "sequences_s": 64 / conc_s,
+                           "tokens_s": 64 * TEXT_T / conc_s,
+                           "batches": batches - b0,
+                           "mean_batch_fill":
+                           (h1.get("sum", 0) - h0.get("sum", 0)) /
+                           max(1, h1.get("count", 0) - h0.get("count", 0)),
+                           "batcher_us": spans(hc1, snap["histograms"])},
+            "per_bucket": per_bucket,
+            "launches": {**launches, "forwards": forwards,
+                         "softmax_per_forward":
+                         launches["softmax_fused"] / forwards,
+                         "layernorm_per_forward":
+                         launches["layernorm_fused"] / forwards},
+            "engine": {k: v for k, v in eng.stats().items()
+                       if k in ("retraces", "programs", "precision",
+                                "dtype", "param_bytes_per_device")},
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "mem_before_bytes": mem_before}
+
+
+def phase_text_reference(state):
+    """Card logits against the port on the CPU from the same ``.params``
+    at batch 1 x 512 (within 1e-4 of the largest logit, argmax equal at
+    >= 99.9% of positions).  Then batched against unbatched: the 64
+    concurrent requests are served again through the ``Batcher`` by 8
+    clients, and each response is held, element by element, against the
+    forward of its sequence alone on the card (same tolerance); and the
+    digest ``text_serve`` kept of each of its 96 responses is held
+    against that forward (argmax agreement, and the sum within what the
+    tolerance allows)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import bert_gluon
+    from mxnet_tpu_torch.serve import InferenceEngine
+    torch.set_num_threads(os.cpu_count() or 1)
+    eng, reg, seqs = (state["text_engine"], state["text_registry"],
+                      state["text_seqs"])
+    x1 = seqs[:1]
+    card = eng.run(x1)[0].cpu().numpy()
+    net = bert_gluon.bert_12_768_12()
+    net.load_parameters(state["text_params"])
+    cpu = InferenceEngine(net, (TEXT_T,), dtype="int32", buckets=(1,),
+                          device="cpu").run(x1)[0].numpy()
+    del net
+    ref_err = float(np.abs(card - cpu).max())
+    ref_scale = float(np.abs(cpu).max())
+    ref_agree = float((card.argmax(-1) == cpu.argmax(-1)).mean())
+    del card, cpu
+
+    def alone(k):
+        return eng.run(seqs[k:k + 1])[0][0]        # on the card
+
+    rows, errs = [], []
+
+    def client(c):
+        try:
+            for j in range(8):
+                k = 32 + 8 * c + j
+                one = alone(k)
+                out = torch.from_numpy(reg.predict("bert", seqs[k],
+                                                   timeout=300)[0][0])
+                rows.append(((out.cuda() - one).abs().max().item(),
+                             one.abs().max().item()))
+                del out, one
+        except Exception as e:
+            errs.append(repr(e))
+
+    ts = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    reg.close()
+    if errs or len(rows) != 64:
+        raise AssertionError(f"requests failed: {errs}")
+    bat_err = max(e / s for e, s in rows)
+
+    dig_agree, dig_sum = 1.0, 0.0
+    for k, (s, am) in state["text_digests"].items():
+        one = alone(k)
+        dig_agree = min(dig_agree,
+                        float((one.argmax(-1).cpu().numpy() == am).mean()))
+        dig_sum = max(dig_sum, abs(s - one.double().sum().item()) /
+                      (one.abs().max().item() * one.numel()))
+    res = {"batch": 1, "logits_max_abs_diff": ref_err,
+           "logits_max_abs": ref_scale, "tol": TEXT_REF_TOL,
+           "argmax_agree": ref_agree, "argmax_agree_min": TEXT_ARGMAX_AGREE,
+           "batched_vs_unbatched_max_rel_diff": bat_err,
+           "batched_responses": len(rows),
+           "served_digests": len(state["text_digests"]),
+           "served_argmax_agree_min": dig_agree,
+           "served_sum_diff_per_logit_rel": dig_sum}
+    if not (ref_err <= TEXT_REF_TOL * ref_scale and
+            ref_agree >= TEXT_ARGMAX_AGREE and bat_err <= TEXT_REF_TOL and
+            dig_agree >= TEXT_ARGMAX_AGREE and dig_sum <= TEXT_REF_TOL):
+        raise AssertionError(f"card disagrees: {res}")
+    return res
+
+
+def phase_text_profile(state):
+    """Where a Gluon BERT-base forward's time goes: one bucket-8 and one
+    bucket-1 forward under torch.profiler."""
+    import torch
+    eng, seqs = state["text_engine"], state["text_seqs"]
+    res = {}
+    for b in (8, 1):
+        x = torch.as_tensor(seqs[:b], device="cuda")
+        eng.run(x)
+        res[f"forward_b{b}"] = _profile(lambda: eng.run(x), 1, top=8)
+    return res
+
+
 # ------------------------------------------------------------------ main
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
@@ -1392,16 +1769,19 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_block.py:367"),
     ("conv_wgrad", "mxnet_tpu_torch/csrc/conv_train.cu",
      "mxnet_tpu/ops/pallas_block.py:381"),
+    ("softmax_fused", "mxnet_tpu_torch/csrc/softmax.cu",
+     "mxnet_tpu/ops/pallas_kernels.py:61"),
 ]
 PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
-                 "train_launches")
+                 "train_launches", "text_launches")
 
 
 def kernels_line(state):
     """One entry per kernel.  ``launches`` sums the main-path runs that
     launch it (GPT serving in ``slice``, BERT training in
     ``bert_train``, ResNet-50 serving in ``image_serve``, ResNet-50
-    training in ``image_train``); the times are at the first case, the
+    training in ``image_train``, Gluon BERT serving in ``text_serve``);
+    the times are at the first case, the
     path's own shape (``conv3x3``: its dgrad use, which is how training
     launches it)."""
     out = []
@@ -1455,7 +1835,11 @@ def main():
                      ("train_kernels", phase_train_kernels),
                      ("image_train", phase_image_train),
                      ("image_train_reference", phase_image_train_reference),
-                     ("image_train_profile", phase_image_train_profile)):
+                     ("image_train_profile", phase_image_train_profile),
+                     ("text_kernels", phase_text_kernels),
+                     ("text_serve", phase_text_serve),
+                     ("text_reference", phase_text_reference),
+                     ("text_profile", phase_text_profile)):
         t0 = time.perf_counter()
         try:
             res = fn(state)

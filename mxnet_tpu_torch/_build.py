@@ -73,6 +73,9 @@ _SIGNATURES = {
     # z, scale, shift, res, out, total, Cout, relu, vec, stream
     "mxt_bn_affine_f32": [_P] * 5 + [ctypes.c_longlong] +
                          [ctypes.c_int] * 3 + [_P],
+    # x, y, rows, cols, vec4, stream
+    "mxt_softmax_f32": [_P, _P, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_int, _P],
 }
 
 _mu = threading.Lock()

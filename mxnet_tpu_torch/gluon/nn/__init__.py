@@ -1,5 +1,6 @@
-"""Gluon layers of the image-serving slice (≙ the subset of
-``mxnet_tpu/gluon/nn/__init__.py`` the ResNet zoo uses).
+"""Gluon layers of the image and text slices (≙ the subset of
+``mxnet_tpu/gluon/nn/__init__.py`` the ResNet zoo and the Gluon BERT
+use).
 
 The reference's conventions hold: NHWC activations, HWIO conv weights,
 dense weights ``(units, in_units)``, BatchNorm over the last axis with
@@ -18,8 +19,9 @@ from ... import initializer as init
 from ...ops import nn as _nn
 from ..block import Block, HybridBlock, HybridSequential, Sequential
 
-__all__ = ["Dense", "Flatten", "Activation", "Conv2D", "MaxPool2D",
-           "GlobalAvgPool2D", "BatchNorm",
+__all__ = ["Dense", "Dropout", "Flatten", "Activation", "GELU", "Conv2D",
+           "MaxPool2D", "GlobalAvgPool2D", "BatchNorm", "LayerNorm",
+           "Embedding",
            "Sequential", "HybridSequential", "Block", "HybridBlock",
            "fused_conv_bn_relu", "fused_block_active"]
 
@@ -55,6 +57,27 @@ class Dense(HybridBlock):
         return _nn.activation(out, self.act) if self.act else out
 
 
+class Dropout(HybridBlock):
+    """≙ ``gluon.nn.Dropout``: the identity in inference mode; in training
+    mode ``ops.nn.dropout`` at ``rate`` with the block's
+    ``torch.Generator`` (``generator=``, or one on the input's device
+    seeded with 0 at the first training forward)."""
+
+    def __init__(self, rate, axes=(), generator=None, **kwargs):
+        super().__init__(**kwargs)
+        if axes:
+            raise NotImplementedError("Dropout(axes=...) is not ported")
+        self._rate = rate
+        self._generator = generator
+
+    def forward(self, x):
+        if not self.training or self._rate == 0.0:
+            return x
+        if self._generator is None:
+            self._generator = torch.Generator(device=x.device).manual_seed(0)
+        return _nn.dropout(x, self._rate, self._generator, training=True)
+
+
 class Flatten(HybridBlock):
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
@@ -67,6 +90,18 @@ class Activation(HybridBlock):
 
     def forward(self, x):
         return _nn.activation(x, self._act)
+
+
+class GELU(HybridBlock):
+    """≙ ``gluon.nn.GELU``: ``approximation="erf"`` (the default) is the
+    exact form, anything else the tanh approximation."""
+
+    def __init__(self, approximation="erf", **kwargs):
+        super().__init__(**kwargs)
+        self._approx = approximation != "erf"
+
+    def forward(self, x):
+        return _nn.gelu(x, approximate=self._approx)
 
 
 class _ConvBase(HybridBlock):
@@ -191,6 +226,51 @@ class BatchNorm(HybridBlock):
         if self.training and not self._use_global_stats:
             _write_back(self, new_mean, new_var)
         return out
+
+
+class LayerNorm(HybridBlock):
+    """≙ ``gluon.nn.LayerNorm`` over ``axis`` (``ops.nn.layer_norm``: the
+    LayerNorm kernel on the card over the last axis): gamma One, beta
+    Zero, their length deferred to the first input when ``in_channels``
+    is 0."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._eps = epsilon
+        sh = (in_channels,)
+        self._param("gamma", sh, init.One(), differentiable=scale)
+        self._param("beta", sh, init.Zero(), differentiable=center)
+
+    def forward(self, x):
+        c = x.shape[self._axis]
+        for name in ("gamma", "beta"):
+            self._finish(name, (c,), x.device)
+        return _nn.layer_norm(x, self.gamma, self.beta, axis=self._axis,
+                              eps=self._eps)
+
+
+class Embedding(HybridBlock):
+    """≙ ``gluon.nn.Embedding``: weight ``(input_dim, output_dim)``,
+    ``Normal(0.02)`` by default; the forward gathers its rows at integer
+    ids.  float32 only; ``sparse_grad`` (a row-sparse gradient for the
+    optimizer) is not ported."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super().__init__(**kwargs)
+        if str(dtype) != "float32":
+            raise TypeError(f"Embedding dtype {dtype!r}: the port's "
+                            f"embeddings are float32")
+        if sparse_grad:
+            raise NotImplementedError("Embedding(sparse_grad=True) is not "
+                                      "ported")
+        self._param("weight", (input_dim, output_dim),
+                    weight_initializer or init.Normal(0.02))
+
+    def forward(self, x):
+        return _nn.embedding(x, self.weight)
 
 
 def fused_block_active() -> bool:

@@ -13,8 +13,8 @@ import math
 
 import torch
 
-__all__ = ["Initializer", "Zero", "One", "Uniform", "Xavier", "register",
-           "create"]
+__all__ = ["Initializer", "Zero", "One", "Constant", "Uniform", "Normal",
+           "Xavier", "register", "create"]
 
 _REGISTRY = {}
 
@@ -58,12 +58,32 @@ class One(Initializer):
 
 
 @register
+class Constant(Initializer):
+    def __init__(self, value=0.0):
+        self.value = value
+
+    def init_array(self, shape, generator):
+        return torch.full(shape, float(self.value))
+
+
+@register
 class Uniform(Initializer):
     def __init__(self, scale=0.07):
         self.scale = scale
 
     def init_array(self, shape, generator):
         return (torch.rand(shape, generator=generator) * 2 - 1) * self.scale
+
+
+@register
+class Normal(Initializer):
+    """Gaussian with mean 0 and standard deviation ``sigma``."""
+
+    def __init__(self, sigma=0.01):
+        self.sigma = sigma
+
+    def init_array(self, shape, generator):
+        return torch.randn(shape, generator=generator) * self.sigma
 
 
 def _fan(shape):

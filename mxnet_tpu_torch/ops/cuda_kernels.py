@@ -1,15 +1,18 @@
-"""LayerNorm forward: the hand-written CUDA kernel and its plain version.
+"""Row softmax and LayerNorm forward: the hand-written CUDA kernels and
+their plain versions.
 
-≙ ``mxnet_tpu/ops/pallas_kernels.py`` layernorm (``_layernorm_kernel``,
-``_layernorm_pallas``, ``layernorm_fused``).  The kernel lives in
-``csrc/layernorm.cu``; see the note at its top for its bound and design.
+≙ the softmax and layernorm sections of ``mxnet_tpu/ops/pallas_kernels.py``
+(``_softmax_kernel``, ``_softmax_pallas``, ``softmax_fused``;
+``_layernorm_kernel``, ``_layernorm_pallas``, ``layernorm_fused``).  The
+kernels live in ``csrc/softmax.cu`` and ``csrc/layernorm.cu``; see the
+note at the top of each for its bound and design.
 
-``layernorm_fused`` launches the kernel for a CUDA tensor and raises on
-anything the kernel does not take; a CPU tensor takes
-``layernorm_plain``.  There is no other route.  ``LayerNormFn`` makes it
-differentiable: its forward is ``layernorm_fused`` and its backward the
-closed form of ``_ln_bwd`` in plain PyTorch, as the JAX package has no
-backward kernel for LayerNorm.
+``softmax_fused`` and ``layernorm_fused`` launch their kernel for a CUDA
+tensor and raise on anything it does not take; a CPU tensor takes the
+plain version.  There is no other route.  ``SoftmaxFn`` and
+``LayerNormFn`` make them differentiable: the forward is the kernel and
+the backward the reference's closed form (``_softmax_bwd``, ``_ln_bwd``)
+in plain PyTorch, as the JAX package has no backward kernel for either.
 """
 from __future__ import annotations
 
@@ -19,11 +22,80 @@ import torch
 
 from .. import _build
 
-__all__ = ["layernorm_fused", "layernorm_plain", "layernorm_bwd",
+__all__ = ["softmax_fused", "softmax_plain", "softmax_bwd", "SoftmaxFn",
+           "layernorm_fused", "layernorm_plain", "layernorm_bwd",
            "LayerNormFn"]
 
 _MAX_C = 4096
 _count_mu = threading.Lock()
+
+
+def softmax_plain(x):
+    """Plain PyTorch softmax over the last axis with the kernel's
+    arithmetic: ``exp(x - max) / sum(exp(x - max))``."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def softmax_fused(x):
+    """Softmax over the last axis of fp32 ``x`` (any leading shape, any
+    last dim).  CUDA tensors launch ``csrc/softmax.cu``; CPU tensors take
+    :func:`softmax_plain`.  A non-contiguous CUDA input is copied to a
+    contiguous one first (the kernel reads rows of a contiguous
+    ``(rows, cols)`` view); the output is a new contiguous tensor."""
+    if x.device.type == "cpu":
+        return softmax_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"softmax_fused: no kernel for device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"softmax_fused: x must be float32, got {x.dtype}")
+    if x.dim() == 0:
+        raise ValueError("softmax_fused: x needs at least one axis")
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    cols = x.shape[-1]
+    if x.numel() == 0:
+        return y
+    if cols >= 2 ** 31:
+        raise ValueError(f"softmax_fused: last dim {cols} >= 2**31")
+    rows = x.numel() // cols
+    vec4 = int(cols % 4 == 0 and x.data_ptr() % 16 == 0 and
+               y.data_ptr() % 16 == 0)
+    lib = _build.lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mxt_softmax_f32(x.data_ptr(), y.data_ptr(), rows, cols,
+                                  vec4, stream)
+    _build.check(err, "softmax_fused")
+    with _count_mu:
+        softmax_fused.launches += 1
+    return y
+
+
+softmax_fused.launches = 0
+
+
+def softmax_bwd(y, g):
+    """Gradient of the last-axis softmax at output ``y`` for upstream
+    ``g``: the closed form of ``pallas_kernels._softmax_bwd``,
+    ``(g - sum(g * y)) * y``."""
+    return (g - (g * y).sum(dim=-1, keepdim=True)) * y
+
+
+class SoftmaxFn(torch.autograd.Function):
+    """Softmax with the kernel forward (≙ ``softmax_fused``'s custom VJP):
+    saves the output, and the backward is :func:`softmax_bwd`."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = softmax_fused(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return softmax_bwd(y, g)
 
 
 def layernorm_plain(x, gamma, beta, eps: float = 1e-5):

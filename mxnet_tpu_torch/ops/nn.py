@@ -6,9 +6,11 @@ weights HWIO ``(kh, kw, in/groups, out)``, dense weights ``(out, in)``.
 Convolution and pooling run as PyTorch calls on channels-last NCHW
 views of the NHWC tensors (cuDNN on the card, with TF32 off: see
 ``context.exact_fp32``), as the JAX package leaves them to XLA, and so
-do BatchNorm, the softmax and the losses; the Pallas kernels of the image
-path, the fused conv + BN (+ add) (+ ReLU) of ``residual_block`` in
-inference and training, are ``ops/conv_block.py``.
+do BatchNorm, GELU, the embedding gather, dropout and the losses.  The
+last-axis softmax and LayerNorm are the Pallas kernels of
+``ops/pallas_kernels.py`` in the reference and the CUDA kernels of
+``ops/cuda_kernels.py`` here; the fused conv + BN (+ add) (+ ReLU) of
+``residual_block``, in inference and training, is ``ops/conv_block.py``.
 """
 from __future__ import annotations
 
@@ -16,30 +18,60 @@ import torch
 import torch.nn.functional as F
 
 from . import conv_block
-from .cuda_kernels import LayerNormFn, layernorm_fused
+from .cuda_kernels import (LayerNormFn, SoftmaxFn, layernorm_fused,
+                           softmax_fused)
 
-__all__ = ["layer_norm", "gelu", "activation", "fully_connected",
+__all__ = ["softmax", "layer_norm", "gelu", "activation", "fully_connected",
            "convolution", "pooling", "batch_norm", "residual_block",
-           "log_softmax", "pick", "softmax_cross_entropy"]
+           "log_softmax", "pick", "softmax_cross_entropy", "embedding",
+           "dropout"]
 
 
-def layer_norm(x, gamma, beta, eps: float = 1e-5):
-    """LayerNorm over the last axis (≙ ``ops/nn.py layer_norm``).  A CUDA
-    tensor launches the LayerNorm kernel; a CPU tensor takes its plain
-    version.  With autograd recording and an input that requires grad,
-    the call goes through ``LayerNormFn`` (closed-form backward);
-    otherwise no autograd node is made, which the decode step, issuing
-    25 of these per token, should not pay for."""
-    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
-                                    or beta.requires_grad):
+def _records(*ts):
+    """Autograd would record a call on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def softmax(x, axis: int = -1, temperature=None):
+    """≙ ``ops/nn.py softmax`` (``npx.softmax``): ``x`` is divided by
+    ``temperature`` first when one other than 1 is given.  Over the last
+    axis a CUDA tensor launches the softmax kernel and a CPU tensor takes
+    its plain version, through ``SoftmaxFn`` (closed-form backward) only
+    when autograd records, as ``layer_norm`` does.  Any other axis is
+    ``torch.softmax``, where the reference has ``jax.nn.softmax``."""
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    if axis in (-1, x.dim() - 1):
+        if _records(x):
+            return SoftmaxFn.apply(x)
+        return softmax_fused(x)
+    return torch.softmax(x, dim=axis)
+
+
+def layer_norm(x, gamma, beta, axis: int = -1, eps: float = 1e-5):
+    """LayerNorm over ``axis`` (≙ ``ops/nn.py layer_norm``), gamma and
+    beta of that axis's length.  Over the last axis a CUDA tensor
+    launches the LayerNorm kernel; a CPU tensor takes its plain version.
+    With autograd recording and an input that requires grad, the call
+    goes through ``LayerNormFn`` (closed-form backward); otherwise no
+    autograd node is made, which the decode step, issuing 25 of these
+    per token, should not pay for.  Another axis is moved last, normalized
+    the same way and moved back."""
+    if axis not in (-1, x.dim() - 1):
+        out = layer_norm(x.movedim(axis, -1).contiguous(), gamma, beta,
+                         eps=eps)
+        return out.movedim(-1, axis)
+    if _records(x, gamma, beta):
         return LayerNormFn.apply(x, gamma, beta, eps)
     return layernorm_fused(x, gamma, beta, eps)
 
 
-def gelu(x):
-    """GELU with the tanh approximation — ``jax.nn.gelu``'s default (the
-    exact erf form that ``F.gelu`` defaults to differs by ~4e-4)."""
-    return F.gelu(x, approximate="tanh")
+def gelu(x, approximate: bool = True):
+    """≙ ``ops/nn.py gelu`` (``jax.nn.gelu``): the tanh approximation by
+    default, as GPT and the functional BERT call it; ``approximate=False``
+    is the exact erf form, which Gluon's ``GELU`` block defaults to (the
+    two differ by ~4e-4)."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
 _ACTIVATIONS = {
@@ -232,3 +264,27 @@ def softmax_cross_entropy(logits, labels, sparse: bool = True,
     if sparse:
         return -pick(logp, labels, axis=axis)
     return -(labels * logp).sum(dim=axis)
+
+
+def embedding(indices, weight):
+    """≙ Embedding: the rows of ``weight`` at integer ``indices`` (any
+    shape; int32 or int64).  Out-of-range ids are not checked here: the
+    reference's ``jnp.take`` gives NaN rows for them, ``F.embedding``
+    fails (a device assert on the card)."""
+    return F.embedding(indices, weight)
+
+
+def dropout(x, rate: float, generator=None, training: bool = True):
+    """≙ ``ops/nn.py dropout``: outside training or at rate 0 the input
+    itself; else each element kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``.  The random draws come from the explicit
+    ``torch.Generator`` (on its own device; the keep mask then moves to
+    ``x``'s), as the reference draws from an explicit key."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator,
+                      device=generator.device) < keep
+    return torch.where(mask.to(x.device), x / keep, 0.0).to(x.dtype)

@@ -11,8 +11,11 @@ choose its algorithms before traffic arrives.  Nothing is traced, so
 nothing can retrace: ``retraces`` and ``rebuilds`` stay 0 and
 ``programs`` counts the buckets warmed.
 
-fp32 only.  ``precision="bf16"`` and ``"int8"``, ``mesh=`` and
-``sharding_plan=`` raise and name the later slices that bring them.
+Items are float32 (images) or integer token ids (int32 or int64): the
+engine casts every batch to its ``dtype`` and resolves deferred shapes,
+warms and runs on batches of that dtype.  The weights are fp32:
+``precision="bf16"`` and ``"int8"``, ``mesh=`` and ``sharding_plan=``
+raise and name the later slices that bring them.
 """
 from __future__ import annotations
 
@@ -33,6 +36,10 @@ __all__ = ["InferenceEngine", "DEFAULT_BUCKETS", "PRECISIONS",
 DEFAULT_BUCKETS = (1, 2, 4, 8)
 
 PRECISIONS = ("fp32", "bf16", "int8")
+
+# item dtypes the engine serves, as numpy names → torch dtypes
+_ITEM_DTYPES = {"float32": torch.float32, "int32": torch.int32,
+                "int64": torch.int64}
 
 
 def resolve_precision(precision: Optional[str] = None) -> str:
@@ -74,7 +81,7 @@ class InferenceEngine:
     item_shape : tuple
         Shape of ONE request item (no batch dim), e.g. ``(224, 224, 3)``.
     dtype : str
-        Input dtype; float32 only.
+        Item dtype: ``float32``, or ``int32`` / ``int64`` for token ids.
     buckets : sequence of int, optional
         Batch-size ladder; default from ``MXNET_SERVE_BUCKETS``.
     precision : str, optional
@@ -98,15 +105,17 @@ class InferenceEngine:
             raise NotImplementedError(
                 "mesh=/sharding_plan=: tensor-parallel serving comes with "
                 "the tensor-parallel slice (NCCL), not ported yet")
-        if np.dtype(dtype) != np.float32:
-            raise TypeError(f"dtype {dtype!r}: the port serves float32")
+        self.dtype = np.dtype(dtype)
+        if self.dtype.name not in _ITEM_DTYPES:
+            raise TypeError(f"dtype {dtype!r}: the port serves items of "
+                            f"{sorted(_ITEM_DTYPES)}")
+        self._tdtype = _ITEM_DTYPES[self.dtype.name]
         self.device = _context.resolve(device)
         if self.device.type == "cuda":
             _context.exact_fp32()
         self.net = net
         self.name = name
         self.item_shape = tuple(int(d) for d in item_shape)
-        self.dtype = np.dtype(np.float32)
         self.buckets = bucket_ladder(buckets)
         net.eval()
         if not all(is_initialized(t)
@@ -114,7 +123,7 @@ class InferenceEngine:
             # deferred shapes resolve on the CPU, then the net moves (not
             # under inference_mode: its tensors could not be moved after)
             with torch.no_grad():
-                net(torch.zeros((self.buckets[0],) + self.item_shape))
+                net(self._zeros(self.buckets[0], "cpu"))
         net.to(self.device)
         self.param_bytes = sum(t.numel() * t.element_size()
                                for t in net.collect_params().values())
@@ -128,6 +137,10 @@ class InferenceEngine:
         self._mu = threading.Lock()
         _telemetry.counter_add(f"serve.precision.builds.{self.precision}")
 
+    def _zeros(self, b, device):
+        return torch.zeros((b,) + self.item_shape, dtype=self._tdtype,
+                           device=device)
+
     def _forward(self, x):
         with self._mu:
             self.forwards += 1
@@ -140,8 +153,7 @@ class InferenceEngine:
         The first launch builds the CUDA kernel library."""
         with _telemetry.timed("serve.warmup_us"):
             for b in self.buckets:
-                x = torch.zeros((b,) + self.item_shape, device=self.device)
-                self._forward(x)
+                self._forward(self._zeros(b, self.device))
                 with self._mu:
                     self._warmed.add(b)
             if self.device.type == "cuda":
@@ -157,9 +169,7 @@ class InferenceEngine:
         thread, so a serving thread's first forward would otherwise make
         them while a request waits."""
         if self._warm:
-            x = torch.zeros((self.buckets[0],) + self.item_shape,
-                            device=self.device)
-            self._forward(x)
+            self._forward(self._zeros(self.buckets[0], self.device))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -185,7 +195,7 @@ class InferenceEngine:
         pads to one).  ``x`` is a numpy array or tensor of
         ``(b,) + item_shape``; returns the tuple of output tensors on the
         engine's device, not synchronized."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        x = torch.as_tensor(x, dtype=self._tdtype, device=self.device)
         b = int(x.shape[0])
         if b not in self.buckets:
             raise ValueError(f"batch size {b} is not a bucket of "

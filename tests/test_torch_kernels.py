@@ -555,3 +555,112 @@ def test_build_digest_hashes_the_shared_headers(tmp_path, monkeypatch):
     before = _build._digest()
     hdr.write_text("// two\n")
     assert _build._digest() != before
+
+
+# ------------------------------------------------ row softmax (Gluon BERT)
+SOFTMAX_SHAPES = [(7, 77), (16, 128), (3, 5, 256), (4, 1000), (2, 1030)]
+
+
+def _logits(rs, shape, masked=False):
+    x = (rs.randn(*shape) * 4).astype(np.float32)
+    if masked:
+        x[..., ::3] = -1e9                  # the model's finite mask value
+        x.reshape(-1, shape[-1])[0] = -1e9  # a row masked everywhere
+    return x
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", SOFTMAX_SHAPES, ids=str)
+def test_softmax_fused_matches_pallas_interpret(shape, masked, monkeypatch):
+    monkeypatch.setattr(jpk, "_FORCE_INTERPRET", True)
+    x = _logits(np.random.RandomState(11), shape, masked)
+    ref = np.asarray(jpk.softmax_fused(jnp.asarray(x)))
+    out = cuda_kernels.softmax_fused(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(out.sum(-1), 1.0, atol=1e-5)
+    if masked:          # the all-masked row is uniform, not NaN
+        np.testing.assert_allclose(out.reshape(-1, shape[-1])[0],
+                                   1.0 / shape[-1], atol=1e-9)
+
+
+@pytest.mark.parametrize("temperature", [None, 1.0, 0.5, 3.0])
+def test_nn_softmax_temperature_matches_reference(temperature, monkeypatch):
+    monkeypatch.setattr(jpk, "_FORCE_INTERPRET", True)
+    x = _logits(np.random.RandomState(12), (6, 256))
+    ref = np.asarray(jnn.softmax(jnp.asarray(x), axis=-1,
+                                 temperature=temperature))
+    out = tnn.softmax(torch.from_numpy(x), axis=-1,
+                      temperature=temperature).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("axis", [0, 1, -2])
+def test_nn_softmax_other_axes_match_reference(axis):
+    x = _logits(np.random.RandomState(13), (4, 6, 5))
+    ref = np.asarray(jnn.softmax(jnp.asarray(x), axis=axis))
+    out = tnn.softmax(torch.from_numpy(x), axis=axis).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(5, 128), (2, 3, 77)], ids=str)
+def test_softmax_fn_grad_matches_jax_grad_of_reference(shape, monkeypatch):
+    import jax
+    monkeypatch.setattr(jpk, "_FORCE_INTERPRET", True)
+    rs = np.random.RandomState(14)
+    x = _logits(rs, shape)
+    g = rs.randn(*shape).astype(np.float32)
+    ref = np.asarray(jax.grad(lambda a: jnp.sum(
+        jpk.softmax_fused(a) * jnp.asarray(g)))(jnp.asarray(x)))
+    tx = torch.from_numpy(x).requires_grad_()
+    y = tnn.softmax(tx)
+    assert type(y.grad_fn).__name__ == "SoftmaxFnBackward"
+    y.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tx.grad.numpy(), ref, atol=1e-5, rtol=0)
+    # the closed form against autograd through the plain version
+    px = torch.from_numpy(x).requires_grad_()
+    cuda_kernels.softmax_plain(px).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tx.grad.numpy(), px.grad.numpy(), atol=1e-6,
+                               rtol=0)
+
+
+def test_softmax_makes_no_node_without_grad():
+    x = torch.randn(3, 8)
+    assert tnn.softmax(x).grad_fn is None
+    with torch.no_grad():
+        assert tnn.softmax(x.requires_grad_()).grad_fn is None
+
+
+def test_gelu_exact_matches_reference():
+    x = np.linspace(-5, 5, 101).astype(np.float32)
+    ref = np.asarray(jnn.gelu(jnp.asarray(x), approximate=False))
+    out = tnn.gelu(torch.from_numpy(x), approximate=False).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("x,exc", [
+    (torch.zeros(4, 8, dtype=torch.float64), TypeError),       # dtype
+    (torch.zeros(4, 8, dtype=torch.bfloat16), TypeError),
+    (torch.zeros(()), ValueError),                             # no axis
+])
+def test_softmax_wrapper_refuses(x, exc, monkeypatch):
+    monkeypatch.setattr(cuda_kernels._build, "lib", _no_lib)
+    with pytest.raises(exc):
+        cuda_kernels.softmax_fused(_FakeCuda(x))
+
+
+def test_softmax_wrapper_refuses_devices_without_a_kernel():
+    with pytest.raises(ValueError):
+        cuda_kernels.softmax_fused(torch.empty(2, 8, device="meta"))
+
+
+def test_softmax_plain_route_counts_no_launches():
+    before = cuda_kernels.softmax_fused.launches
+    tnn.softmax(torch.randn(2, 3, 8))
+    cuda_kernels.softmax_fused(torch.zeros(0, 8))
+    assert cuda_kernels.softmax_fused.launches == before
+
+
+def test_softmax_kernel_is_built_and_bound():
+    from mxnet_tpu_torch import _build
+    assert any(s.name == "softmax.cu" for s in _build.SOURCES)
+    assert len(_build._SIGNATURES["mxt_softmax_f32"]) == 6
