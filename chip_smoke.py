@@ -18,8 +18,13 @@ wd 0.01), then ResNet-50 v1 image serving (1000 classes, NHWC items
 serving (``models.bert_gluon.bert_12_768_12``: vocab 30522, 768 wide, 12
 layers of 12 heads of 64, FFN 3072, fp32; int32 items of 512 token ids,
 buckets 1, 2, 4, 8) through ``ModelRegistry`` → ``Batcher`` →
-``InferenceEngine``.  Phases, one JSON line each; the run stops with a non-zero exit at the first phase that
-fails:
+``InferenceEngine``, then int8 post-training-quantized ResNet-50 v1
+(``quantization.quantize_net``, naive calibration, 53 quantized convs
+and a quantized dense; 1000 classes, 224x224x3): scoring at batch 64 as
+``benchmark/int8_score.py`` runs it, and serving through
+``ModelRegistry.load(..., precision="int8")`` → ``Batcher`` →
+``InferenceEngine``.  Phases, one JSON line each; the run stops with a
+non-zero exit at the first phase that fails:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions; TF32 is switched off for matmul and cuDNN.
@@ -116,6 +121,46 @@ fails:
     ``text_serve`` response's argmax and sum against that forward.
 22. ``text_profile``: one bucket-8 and one bucket-1 forward under
     ``torch.profiler``.
+23. ``int8_kernels``: the int8 3x3/s1 conv + dequantization (+ add)
+    (+ ReLU) kernel against its plain version (im2col + ``_int_mm`` +
+    the same epilogue) at ResNet-50's four 3x3 stages at batch 64 and 8,
+    the 7x7x512 stage at batch 1, ResNet-18's residual tail, ReLU off, a
+    ragged shape (C = 20, odd H and W) and an exact case (scale 1, shift
+    0: the output must equal the int32 sum bit for bit); every other
+    case within 1e-6 of the output's largest magnitude (its epilogue is
+    the plain version's two rounded operations, so it is bitwise in
+    practice).  Timed beside its bound (bytes over 3.35 TB/s, int8
+    operations over 1,979 TOPS), its plain version, ``torch._int_mm`` on
+    the pre-built patch matrix and the fp32 ``conv_affine``.
+24. ``int8_score``: ``int8_score.py`` at its defaults: ResNet-50 v1 from
+    the ``image_serve`` ``.params``, batch 64, fp32 and int8 (two
+    ``RandomState(1)`` calibration batches, naive) images/s over 4
+    warm-up and 20 timed forwards on fresh inputs (CUDA events), the
+    int8-vs-fp32 argmax agreement over 256 ``RandomState(0)`` images;
+    the launch counters set to 0 before the int8 forwards and read after:
+    exactly 16 int8-kernel and 0 ``conv_affine`` launches a forward.
+25. ``int8_serve``: the counters set to 0, then ``ModelRegistry.load``
+    of that ``.params`` with ``precision="int8"`` (the default
+    calibration, warmup of every bucket), 32 closed-loop requests from
+    one client and 64 from 8 client threads; every response finite and
+    16 int8-kernel, 0 ``conv_affine`` launches per forward run.  p50/p99
+    request ms, images/s, batch fill, device and eager ms per forward per
+    bucket, peak memory; then ``int8_score.py``'s ``--serve`` leg: the
+    int8 engine's QPS against the fp32 engine's at bucket 8 (fp32 stands
+    in for bf16, which is not ported).
+26. ``int8_reference``: card logits against the port on the CPU with the
+    same int8 weights and thresholds (``state_from_numpy``) at batch 2
+    (within 1e-3 of the largest logit, top-1 equal), and every batched
+    response against the unbatched forward of its image (same
+    tolerance).  The int32 sums are exact and the epilogues the same
+    rounded operations on both devices, so only the average pool's sum
+    order can differ; one pooled feature crossing a rounding boundary
+    of the dense layer's input moves a logit by one int8 step of that
+    product, and 1e-3 admits a few such steps and nothing larger.
+27. ``int8_profile``: one bucket-8 and one bucket-1 int8 forward under
+    ``torch.profiler``, with device time split into the int8 kernel,
+    ``_int_mm``, the quantize passes, copies, pools and elementwise
+    epilogues.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -133,9 +178,11 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): device memory and fp32 on CUDA cores
+# H100 SXM peaks (NVIDIA data sheet): device memory, fp32 on CUDA cores,
+# dense int8 on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
+PEAK_INT8_OPS_S = 1979e12
 
 LN_TOL = 1e-5
 ATTN_TOL = 1e-4
@@ -152,12 +199,14 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters=20, repeats=5):
+def cuda_ms(fn, iters=20, repeats=5, sleep=SLEEP_CYCLES):
     """Device time of one call of ``fn`` in ms: the median over
     ``repeats`` CUDA-event windows of ``iters`` back-to-back calls.  Each
-    window starts behind a ~20 ms device-side sleep, so the host has
-    queued every call before the first one runs and the window holds
-    device time only, not the host's launch overhead."""
+    window starts behind a device-side sleep of ``sleep`` cycles (~20 ms
+    by default), so the host has queued every call before the first one
+    runs and the window holds device time only, not the host's launch
+    overhead: the sleep must outlast the host's time to queue the
+    ``iters`` calls."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -165,7 +214,7 @@ def cuda_ms(fn, iters=20, repeats=5):
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep)
         start.record()
         for _ in range(iters):
             fn()
@@ -188,9 +237,11 @@ def eager_ms(fn, iters=20):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=PEAK_FP32_FLOP_S):
+    """The least time of the work on this card: the larger of its bytes
+    over the memory rate and its operations over ``peak``."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_flops = flops / PEAK_FP32_FLOP_S * 1e3
+    t_flops = flops / peak * 1e3
     return (max(t_bytes, t_flops),
             "bytes" if t_bytes >= t_flops else "operations")
 
@@ -223,7 +274,8 @@ def phase_build(state):
                       r"attn_fwd|attn_dq|attn_dkv|conv_affine_kernel|"
                       r"conv3x3_kernel|conv_stats_kernel|"
                       r"conv_wgrad_kernel|bn_affine_kernel|"
-                      r"softmax_warp_kernel|softmax_block_kernel)"
+                      r"softmax_warp_kernel|softmax_block_kernel|"
+                      r"qconv_affine_kernel)"
                       r"I((?:L[ib]\d+E)+)E", ln)
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
@@ -471,14 +523,14 @@ KERNEL_CATEGORIES = (
 )
 
 
-def _category(name):
-    for cat, pat in KERNEL_CATEGORIES:
+def _category(name, categories=KERNEL_CATEGORIES):
+    for cat, pat in categories:
         if re.search(pat, name, re.I):
             return cat
     return "other"
 
 
-def _profile(fn, calls, top=6):
+def _profile(fn, calls, top=6, categories=KERNEL_CATEGORIES):
     """Device view of ``calls`` calls of ``fn`` from torch.profiler:
     kernels per call, device-busy µs per call (union of kernel
     intervals), the idle share of the profiled wall time, the kernels
@@ -513,7 +565,7 @@ def _profile(fn, calls, top=6):
         n[1] += e.time_range.end - e.time_range.start
     cats = {}
     for n, (c, t) in by_name.items():
-        k = cats.setdefault(_category(n), [0, 0.0])
+        k = cats.setdefault(_category(n, categories), [0, 0.0])
         k[0] += c
         k[1] += t
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
@@ -1747,6 +1799,411 @@ def phase_text_profile(state):
     return res
 
 
+# ------------------------------------------------------------ int8 phases
+QCONV_TOL = 1e-6            # of the output's largest magnitude
+INT8_REF_TOL = 1e-3         # logits, card vs CPU: of the largest logit
+INT8_BATCH = 64             # int8_score.py's defaults
+INT8_WARMUP = 4
+INT8_ITERS = 20
+INT8_AGREE_N = 256
+INT8_SERVE_ITERS = 20
+
+INT8_CATEGORIES = (
+    ("qconv3x3_affine (ours)", r"qconv_affine_kernel"),
+    ("conv_affine (ours)", r"conv_affine_kernel"),
+    ("int8 gemm (_int_mm)", r"i8i8|s8|imma|int8|igemm|i8"),
+    ("quantize: round / clamp", r"round|clamp"),
+    ("im2col, pad, slice copies", r"CatArrayBatchedCopy|pad|copy"),
+    ("pooling", r"pool|reduce_kernel"),
+    ("elementwise (epilogues, casts)", r"elementwise|vectorized"),
+)
+
+
+def _qconv_case(N, H, W, C, Cout, gen, residual=False, relu=True,
+                exact=False):
+    """``qconv3x3_affine`` against ``qconv3x3_plain`` at one shape on
+    random int8 data, timed beside its bound, its plain version,
+    ``torch._int_mm`` on the pre-built (N*H*W, 9C) patch matrix (no
+    im2col, no epilogue) and the fp32 ``conv_affine`` at the same shape.
+    ``exact``: scale 1, shift 0, no ReLU or residual, so the output is
+    the int32 sum itself."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import cuda_int8 as ci
+    from mxnet_tpu_torch.ops.conv_block import conv_affine
+    dev = "cuda"
+    qx = torch.randint(-127, 128, (N, H, W, C), device=dev, generator=gen,
+                       dtype=torch.int8)
+    qw = torch.randint(-127, 128, (3, 3, C, Cout), device=dev,
+                       generator=gen, dtype=torch.int8)
+    wt = ci.pack_weight(qw)
+    if exact:
+        scale = torch.ones(Cout, device=dev)
+        shift = torch.zeros(Cout, device=dev)
+    else:
+        scale = torch.rand(Cout, device=dev, generator=gen) * 1e-3 + 1e-4
+        shift = 0.1 * torch.randn(Cout, device=dev, generator=gen)
+    res = torch.randn(N, H, W, Cout, device=dev, generator=gen) \
+        if residual else None
+    args = (qx, qw, scale, shift, res, relu)
+    out = ci.qconv3x3_affine(*args, qw_packed=wt)
+    ref = ci.qconv3x3_plain(*args, qw_packed=wt)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    scale_ref = ref.abs().max().item()
+    case = {"shape": [N, H, W, C, Cout], "residual": residual,
+            "relu": relu, "exact": exact, "max_abs_err": err,
+            "rel_err": err / max(scale_ref, 1e-30), "tol": QCONV_TOL,
+            "bitwise_equal": bool(torch.equal(out, ref))}
+    K = 9 * C
+    patches = ci.im2col(qx, (3, 3), pad=(1, 1)).reshape(-1, K)
+    if exact:
+        acc = ci.int8_matmul(patches, wt).reshape(N, H, W, Cout)
+        case["acc_max_abs"] = acc.abs().max().item()
+        case["equals_int32_sum"] = bool(
+            case["acc_max_abs"] < 2 ** 24 and
+            torch.equal(out.to(torch.int64), acc.to(torch.int64)))
+    Kp = -(-K // 8) * 8
+    pa = F.pad(patches, (0, Kp - K)).contiguous()
+    wb = F.pad(wt, (0, Kp - K)).contiguous().t()
+    x32 = qx.float()
+    w32 = qw.float()
+    ones, zeros = torch.ones(Cout, device=dev), torch.zeros(Cout, device=dev)
+    npix = N * H * W
+    nbytes = npix * C + 9 * C * Cout + 8 * Cout + 4 * npix * Cout * (
+        2 if residual else 1)
+    ops = 2 * npix * 9 * C * Cout
+    bms, by = bound(nbytes, ops, peak=PEAK_INT8_OPS_S)
+    it = 10 if N >= 64 else 20
+    kms = cuda_ms(lambda: ci.qconv3x3_affine(*args, qw_packed=wt), iters=it)
+    case.update(
+        kernel_ms=kms,
+        kernel_eager_ms=eager_ms(
+            lambda: ci.qconv3x3_affine(*args, qw_packed=wt), iters=it),
+        plain_ms=cuda_ms(lambda: ci.qconv3x3_plain(*args, qw_packed=wt),
+                         iters=it),
+        library_ms=cuda_ms(lambda: torch._int_mm(pa, wb), iters=it),
+        library="torch._int_mm on the pre-built (N*H*W, 9C) patch matrix "
+                "(cuBLASLt; no im2col, no epilogue)",
+        fp32_conv_affine_ms=cuda_ms(
+            lambda: conv_affine(x32, w32, ones, zeros, zeros, ones,
+                                res, relu=relu), iters=it),
+        bytes=nbytes, ops=ops, bound_ms=bms, bound_by=by,
+        tops=ops / (kms * 1e-3) / 1e12)
+    return case
+
+
+def _qconv_ok(c):
+    if c["exact"]:
+        return c["bitwise_equal"] and c["equals_int32_sum"]
+    return c["bitwise_equal"] or c["rel_err"] <= c["tol"]
+
+
+def phase_int8_kernels(state):
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    # int8_score's batch-64 stages first (the path's shape), the same at
+    # batch 8 (serving), the batch-1 tail, ResNet-18's residual tail,
+    # ReLU off, a ragged shape and the exact case
+    stages = ((56, 64), (28, 128), (14, 256), (7, 512))
+    cases = [_qconv_case(64, h, h, c, c, gen) for h, c in stages]
+    cases += [_qconv_case(8, h, h, c, c, gen) for h, c in stages]
+    cases += [_qconv_case(1, 7, 7, 512, 512, gen),
+              _qconv_case(8, 56, 56, 64, 64, gen, residual=True),
+              _qconv_case(8, 28, 28, 128, 128, gen, relu=False),
+              _qconv_case(2, 13, 17, 20, 40, gen, residual=True),
+              _qconv_case(8, 56, 56, 64, 64, gen, relu=False, exact=True)]
+    state["cases"]["qconv3x3_affine"] = cases
+    bad = [c for c in cases if not _qconv_ok(c)]
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{bad}")
+    return {"cases": cases}
+
+
+def _int8_counters():
+    from mxnet_tpu_torch.ops.conv_block import conv_affine
+    from mxnet_tpu_torch.ops.cuda_int8 import qconv3x3_affine
+    return qconv3x3_affine, conv_affine
+
+
+def _load_resnet50(path, device):
+    from mxnet_tpu_torch.models import get_model
+    net = get_model("resnet50_v1", classes=1000)
+    net.load_parameters(path)
+    net.eval()
+    return net.to(device)
+
+
+def phase_int8_score(state):
+    """``benchmark/int8_score.py`` at its defaults on the card: ResNet-50
+    v1, 1000 classes, batch 64 of 224x224x3, fp32 and int8 (two
+    ``RandomState(1)`` [0, 1) calibration batches, naive) scoring with
+    4 warm-up and 20 timed forwards on fresh inputs, and the int8-vs-fp32
+    argmax agreement over 256 ``RandomState(0)`` images.  The launch
+    counters are set to 0 before the int8 forwards and read after: 16
+    ``qconv3x3_affine`` and 0 ``conv_affine`` launches a forward."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import quantization as q
+    path = state["image_params"]
+    B, S = INT8_BATCH, 224
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    xs = [torch.rand(B, S, S, 3, device="cuda", generator=gen)
+          for _ in range(INT8_WARMUP + INT8_ITERS)]
+
+    def score(net):
+        with torch.inference_mode():
+            for x in xs[:INT8_WARMUP]:
+                net(x)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for x in xs[INT8_WARMUP:]:
+                net(x)
+            end.record()
+            end.synchronize()
+        ms = start.elapsed_time(end) / INT8_ITERS
+        return {"ms_per_batch": ms, "images_s": B / (ms * 1e-3)}
+
+    fp32_net = _load_resnet50(path, "cuda")
+    fp32 = score(fp32_net)
+    int8_net = _load_resnet50(path, "cuda")
+    rs = np.random.RandomState(1)
+    calib = [rs.rand(B, S, S, 3).astype(np.float32) for _ in range(2)]
+    t0 = time.perf_counter()
+    q.quantize_net(int8_net, calib_data=calib, calib_mode="naive")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    qk, ca = _int8_counters()
+    qk.launches = ca.launches = 0
+    int8 = score(int8_net)
+    forwards = INT8_WARMUP + INT8_ITERS
+    launches = {"qconv3x3_affine": qk.launches,
+                "conv_affine": ca.launches, "forwards": forwards}
+    state["int8_launches"] = {"qconv3x3_affine": qk.launches}
+
+    rs = np.random.RandomState(0)
+    agree = total = 0
+    with torch.inference_mode():
+        for _ in range(INT8_AGREE_N // B):
+            x = torch.as_tensor(rs.rand(B, S, S, 3).astype(np.float32),
+                                device="cuda")
+            a = fp32_net(x).argmax(-1)
+            b = int8_net(x)
+            if not torch.isfinite(b).all():
+                raise AssertionError("int8 logits not finite")
+            agree += int((a == b.argmax(-1)).sum())
+            total += B
+    twins = sum(isinstance(b, q._Twin) for b in int8_net.modules())
+    del fp32_net, int8_net, xs
+    torch.cuda.empty_cache()
+    res = {"model": "resnet50_v1", "classes": 1000, "batch": B,
+           "image": S, "warmup": INT8_WARMUP, "iters": INT8_ITERS,
+           "fp32": fp32, "int8": int8,
+           "int8_vs_fp32": int8["images_s"] / fp32["images_s"],
+           "int8_argmax_agreement_vs_fp32": agree / total,
+           "agreement_images": total, "quantize_s": quant_s,
+           "twins": twins, "launches": launches,
+           "bf16": "not ported: the bf16 leg (amp.convert_model) is a "
+                   "later item of the port's queue"}
+    if launches["qconv3x3_affine"] != RESNET50_SEGMENTS * forwards or \
+            launches["conv_affine"] != 0 or twins != 54:
+        raise AssertionError(f"int8 forward launches: {res}")
+    return res
+
+
+def phase_int8_serve(state):
+    """int8 ResNet-50 v1 through ``ModelRegistry.load(...,
+    precision="int8")`` (default calibration, buckets 1, 2, 4, 8, warmup
+    of every bucket) and its ``Batcher``: 32 closed-loop requests from
+    one client, then 64 from 8 client threads; then int8_score.py's
+    ``--serve`` leg, the int8 engine's QPS against the fp32 engine's at
+    bucket 8 (fp32 standing in for bf16, which is not ported)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serve import InferenceEngine, ModelRegistry
+
+    path, images = state["image_params"], state["images"]
+    qk, ca = _int8_counters()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    qk.launches = ca.launches = 0
+    telemetry.reset()
+    reg = ModelRegistry(precision="int8")
+    t0 = time.perf_counter()
+    entry = reg.load("resnet50_int8", path, arch="resnet50_v1",
+                     item_shape=(224, 224, 3))
+    load_s = time.perf_counter() - t0
+    state.update(int8_registry=reg, int8_engine=entry.engine)
+
+    lat, outs = [], []
+    for i in range(32):
+        t1 = time.perf_counter()
+        outs.append(reg.predict("resnet50_int8", images[i])[0])
+        lat.append((time.perf_counter() - t1) * 1e3)
+    got, errs = {}, []
+
+    def client(c):
+        try:
+            for j in range(8):
+                k = 8 * c + j
+                got[k] = reg.predict("resnet50_int8", images[k],
+                                     timeout=300)[0]
+        except Exception as e:
+            errs.append(repr(e))
+
+    h0 = telemetry.raw_snapshot()["histograms"].get("serve.batch_fill", {})
+    b0 = telemetry.raw_snapshot()["counters"].get("serve.batches", 0)
+    ts = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    t1 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    conc_s = time.perf_counter() - t1
+    snap = telemetry.raw_snapshot()
+    eng = entry.engine
+    forwards = eng.forwards
+    launches = {"qconv3x3_affine": qk.launches, "conv_affine": ca.launches,
+                "forwards": forwards}
+    prev = state["int8_launches"]["qconv3x3_affine"]
+    state["int8_launches"] = {"qconv3x3_affine": prev + qk.launches}
+    state["int8_batched"] = got
+    if errs or len(got) != 64:
+        raise AssertionError(f"concurrent requests failed: {errs}")
+    bad = [o for o in outs + list(got.values())
+           if o.shape != (1, 1000) or not np.isfinite(o).all()]
+    if bad:
+        raise AssertionError(f"{len(bad)} responses not finite (1, 1000)")
+    if launches["qconv3x3_affine"] != RESNET50_SEGMENTS * forwards or \
+            launches["conv_affine"] != 0:
+        raise AssertionError(f"int8 serving launches: {launches}")
+    h1 = snap["histograms"].get("serve.batch_fill", {})
+    batches = snap["counters"].get("serve.batches", 0)
+    hist = snap["histograms"]
+
+    per_bucket = {}
+    for b in eng.buckets:
+        x = torch.as_tensor(images[:b], device="cuda")
+        per_bucket[b] = {
+            # one forward per window behind a ~80 ms sleep: the host
+            # takes ~15-20 ms to queue an int8 forward's ~600 launches
+            "device_ms": cuda_ms(lambda: eng.run(x), iters=1, repeats=5,
+                                 sleep=4 * SLEEP_CYCLES),
+            "eager_ms": eager_ms(lambda: eng.run(x), iters=10)}
+    peak = torch.cuda.max_memory_allocated()
+
+    # int8_score.py --serve: one engine a precision at bucket 8, the
+    # response fetched to the host after every run
+    serve_leg = {"bucket": 8, "iters": INT8_SERVE_ITERS,
+                 "bf16": "not ported; fp32 stands in for it"}
+    xs = [images[8 * i:8 * i + 8] for i in range(4)]
+    for prec in ("fp32", "int8"):
+        net = _load_resnet50(path, "cpu")
+        e = InferenceEngine(net, (224, 224, 3), buckets=(8,),
+                            name=f"int8row-{prec}", precision=prec)
+        e.warmup()
+        t2 = time.perf_counter()
+        for i in range(INT8_SERVE_ITERS):
+            for o in e.run(xs[i % len(xs)]):
+                o.cpu()
+        dt = time.perf_counter() - t2
+        serve_leg[f"{prec}_qps"] = 8 * INT8_SERVE_ITERS / dt
+        del e, net
+    serve_leg["int8_vs_fp32"] = serve_leg["int8_qps"] / \
+        serve_leg["fp32_qps"]
+    torch.cuda.empty_cache()
+    return {"model": "resnet50_v1", "precision": "int8", "classes": 1000,
+            "item_shape": [224, 224, 3], "buckets": list(eng.buckets),
+            "load_quantize_and_warmup_s": load_s,
+            "closed_loop": {"requests": 32, "p50_ms": _pct(lat, 50),
+                            "p99_ms": _pct(lat, 99), "mean_ms":
+                            sum(lat) / len(lat), "first_ms": lat[0],
+                            "max_ms": max(lat)},
+            "concurrent": {"clients": 8, "requests": 64, "seconds": conc_s,
+                           "images_s": 64 / conc_s,
+                           "batches": batches - b0,
+                           "mean_batch_fill":
+                           (h1.get("sum", 0) - h0.get("sum", 0)) /
+                           max(1, h1.get("count", 0) - h0.get("count", 0))},
+            "queue_wait_us_mean": _mean_us({}, hist, "serve.queue_wait_us"),
+            "device_us_mean": _mean_us({}, hist, "serve.device_us"),
+            "per_bucket": per_bucket, "launches": launches,
+            "engine": {k: v for k, v in eng.stats().items()
+                       if k in ("retraces", "programs", "precision",
+                                "param_bytes_per_device")},
+            "peak_mem_bytes": peak, "mem_before_bytes": mem_before,
+            "serve_leg": serve_leg}
+
+
+def phase_int8_reference(state):
+    """The card's int8 engine against the port on the CPU from the same
+    ``.params`` and the same int8 weights and thresholds (carried with
+    ``quantization.state_from_numpy``) at batch 2; and each batched
+    response against the unbatched forward of its image on the card."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import quantization as q
+    from mxnet_tpu_torch.serve import InferenceEngine
+    torch.set_num_threads(os.cpu_count() or 1)
+    eng, images = state["int8_engine"], state["images"]
+    card_state = {p: {"qw": b._qw.cpu().numpy(),
+                      "w_scale": b._w_scale.cpu().numpy(),
+                      "bias": None if b._bias is None
+                      else b._bias.cpu().numpy(), "in_t": b._in_t}
+                  for _, b, p in q._walk(eng.net)
+                  if isinstance(b, q._Twin)}
+    x2 = images[:2]
+    card = eng.run(x2)[0].cpu().numpy()
+    net = _load_resnet50(state["image_params"], "cpu")
+    q.quantize_net(net, thresholds={p: s["in_t"]
+                                    for p, s in card_state.items()})
+    q.state_from_numpy(net, card_state)
+    cpu = InferenceEngine(net, (224, 224, 3), buckets=(2,),
+                          precision="int8", device="cpu").run(x2)[0].numpy()
+    ref_err = float(np.abs(card - cpu).max())
+    ref_scale = float(np.abs(cpu).max())
+    top1 = bool((card.argmax(-1) == cpu.argmax(-1)).all())
+
+    bat_err, bat_scale, bitwise = 0.0, 0.0, 0
+    for k, out in state["int8_batched"].items():
+        one = eng.run(images[k:k + 1])[0].cpu().numpy()
+        bat_err = max(bat_err, float(np.abs(out - one).max()))
+        bat_scale = max(bat_scale, float(np.abs(one).max()))
+        bitwise += int(np.array_equal(out, one))
+    state["int8_registry"].close()
+    res = {"batch": 2, "logits_max_abs_diff": ref_err,
+           "logits_max_abs": ref_scale, "tol": INT8_REF_TOL,
+           "logits_bitwise_equal": bool(np.array_equal(card, cpu)),
+           "top1_equal": top1,
+           "batched_vs_unbatched_max_abs_diff": bat_err,
+           "batched_max_abs": bat_scale,
+           "batched_bitwise_equal": bitwise,
+           "batched_responses": len(state["int8_batched"])}
+    if not (ref_err <= INT8_REF_TOL * ref_scale and top1 and
+            bat_err <= INT8_REF_TOL * bat_scale):
+        raise AssertionError(f"card disagrees: {res}")
+    return res
+
+
+def phase_int8_profile(state):
+    """Where an int8 ResNet-50 forward's time goes: one bucket-8 and one
+    bucket-1 forward under torch.profiler."""
+    import torch
+    eng, images = state["int8_engine"], state["images"]
+    res = {}
+    for b in (8, 1):
+        x = torch.as_tensor(images[:b], device="cuda")
+        eng.run(x)
+        res[f"forward_b{b}"] = _profile(lambda: eng.run(x), 1, top=8,
+                                        categories=INT8_CATEGORIES)
+    return res
+
+
 # ------------------------------------------------------------------ main
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
@@ -1771,16 +2228,20 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_block.py:381"),
     ("softmax_fused", "mxnet_tpu_torch/csrc/softmax.cu",
      "mxnet_tpu/ops/pallas_kernels.py:61"),
+    ("qconv3x3_affine", "mxnet_tpu_torch/csrc/qconv_affine.cu",
+     "mxnet_tpu/ops/pallas_int8.py:197"),
 ]
 PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
-                 "train_launches", "text_launches")
+                 "train_launches", "text_launches", "int8_launches")
 
 
 def kernels_line(state):
     """One entry per kernel.  ``launches`` sums the main-path runs that
     launch it (GPT serving in ``slice``, BERT training in
     ``bert_train``, ResNet-50 serving in ``image_serve``, ResNet-50
-    training in ``image_train``, Gluon BERT serving in ``text_serve``);
+    training in ``image_train``, Gluon BERT serving in ``text_serve``,
+    int8 ResNet-50 scoring and serving in ``int8_score`` and
+    ``int8_serve``);
     the times are at the first case, the
     path's own shape (``conv3x3``: its dgrad use, which is how training
     launches it)."""
@@ -1839,7 +2300,12 @@ def main():
                      ("text_kernels", phase_text_kernels),
                      ("text_serve", phase_text_serve),
                      ("text_reference", phase_text_reference),
-                     ("text_profile", phase_text_profile)):
+                     ("text_profile", phase_text_profile),
+                     ("int8_kernels", phase_int8_kernels),
+                     ("int8_score", phase_int8_score),
+                     ("int8_serve", phase_int8_serve),
+                     ("int8_reference", phase_int8_reference),
+                     ("int8_profile", phase_int8_profile)):
         t0 = time.perf_counter()
         try:
             res = fn(state)

@@ -16,8 +16,13 @@ hand-written CUDA kernel for the fused 3×3 conv + folded frozen BN
 BatchNorm, ``gluon.loss``, ``optimizer.SGD`` and ``gluon.Trainer``,
 driven by ``examples.image_classification``, with hand-written CUDA
 kernels for the fused block's training forward (conv + batch
-statistics, the BN affine pass) and backward (dgrad, wgrad).  The
-kernels (``csrc/``) are built with
+statistics, the BN affine pass) and backward (dgrad, wgrad).  Slice 5
+is Gluon BERT serving (``models.bert_gluon`` on token items), with a
+hand-written row-softmax kernel.  Slice 6 is int8 serving:
+``quantization.quantize_net`` behind ``InferenceEngine(precision=
+"int8")``, with a hand-written int8 tensor-core kernel for the 3×3 conv
++ dequantization (+ add) (+ ReLU).  The kernels (``csrc/``) are built
+with
 ``nvcc`` at their first launch.  Entry points run on the GPU unless
 ``device="cpu"`` is passed.  Importing the package builds nothing.
 """

@@ -76,6 +76,8 @@ _SIGNATURES = {
     # x, y, rows, cols, vec4, stream
     "mxt_softmax_f32": [_P, _P, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, _P],
+    # qx, wt, scale, shift, res, out, N, H, W, C, Cout, relu, vec, stream
+    "mxt_qconv_affine_s8": [_P] * 6 + [ctypes.c_int] * 7 + [_P],
 }
 
 _mu = threading.Lock()

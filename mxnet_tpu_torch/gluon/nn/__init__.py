@@ -11,7 +11,9 @@ back in place, as the reference's ``set_data`` does.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 
@@ -273,6 +275,24 @@ class Embedding(HybridBlock):
         return _nn.embedding(x, self.weight)
 
 
+_route = threading.local()
+
+
+@contextlib.contextmanager
+def _layer_by_layer():
+    """While active on this thread, ``fused_conv_bn_relu`` runs every
+    segment as its layers (``bn(conv(x))``), which computes the same
+    function: ``quantization.quantize_net`` calibrates under it, so each
+    conv's input passes through the conv's own call, as the reference
+    switches its fused route off for the calibration."""
+    prev = getattr(_route, "layers", False)
+    _route.layers = True
+    try:
+        yield
+    finally:
+        _route.layers = prev
+
+
 def fused_block_active() -> bool:
     """True: the port's ResNet blocks always take the fused forward.
     The reference consults its TPU A/B table here; the port routes by
@@ -289,8 +309,18 @@ def fused_conv_bn_relu(conv: Conv2D, bn: BatchNorm, x, residual=None,
     NHWC, BN over the last axis.  In training mode the BN's running
     statistics are updated as ``BatchNorm`` updates them.  Any other
     segment runs its layers one by one, which computes the same
-    function."""
-    if not (conv._kernel == (3, 3) and _pair(conv._strides) == (1, 1)
+    function.
+
+    After ``quantization.quantize_net`` the conv slot holds a
+    ``QuantizedConv2D`` twin and the BN slot the identity its BN was
+    folded into: the twin's ``fused_forward`` carries the epilogue
+    (dequantization, folded BN, residual add, ReLU) through the int8
+    kernel, before any other check, as in the reference."""
+    fused = getattr(conv, "fused_forward", None)
+    if fused is not None:
+        return fused(x, residual=residual, relu=relu)
+    if getattr(_route, "layers", False) or not (
+            conv._kernel == (3, 3) and _pair(conv._strides) == (1, 1)
             and _pair(conv._padding) == (1, 1)
             and _pair(conv._dilation) == (1, 1) and conv._groups == 1
             and conv.bias is None and conv.act is None

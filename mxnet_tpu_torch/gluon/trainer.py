@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import Dict
 
 import numpy as np
@@ -137,8 +138,16 @@ class Trainer:
         os.replace(tmp, fname)
 
     def load_states(self, fname):
-        """Restore what :meth:`save_states` wrote; each state lands on its
+        """Restore the optimizer's states and step count from ``fname``:
+        an ``.npz`` that :meth:`save_states` wrote, or the JAX package's
+        file (a pickle of ``{"num_update", "states"}``, read by
+        :func:`_read_reference_states`).  Each state lands on its
         parameter's device."""
+        with open(fname, "rb") as f:
+            zipped = f.read(4) == b"PK\x03\x04"
+        if not zipped:
+            self._load_reference_states(_read_reference_states(fname))
+            return
         byname = dict(self._trainable)
         states: Dict[str, dict] = {}
         with np.load(fname, allow_pickle=False) as z:
@@ -154,3 +163,55 @@ class Trainer:
         self._optimizer.num_update = int(meta["num_update"])
         self._optimizer._index_update_count = {
             str(k): int(v) for k, v in meta["index_update_count"].items()}
+
+    def _load_reference_states(self, blob):
+        byname = dict(self._trainable)
+        states: Dict[str, dict] = {}
+        for name, st in blob["states"].items():
+            if not isinstance(st, dict):
+                raise ValueError(f"{name}: optimizer state {type(st)} is "
+                                 f"not a dict of arrays")
+            dev = byname[name].device if name in byname else "cpu"
+            states[name] = {k: torch.as_tensor(np.asarray(v), device=dev)
+                            for k, v in st.items()}
+        self._states = states
+        self._optimizer.num_update = int(blob["num_update"])
+
+
+# the globals a pickle of numpy arrays names (numpy 1.x and 2.x module
+# paths; protocol 5 rebuilds an array from a buffer with _frombuffer)
+_NUMPY_GLOBALS = {
+    ("numpy", "ndarray"), ("numpy", "dtype"),
+    ("numpy.core.multiarray", "_reconstruct"),
+    ("numpy._core.multiarray", "_reconstruct"),
+    ("numpy.core.numeric", "_frombuffer"),
+    ("numpy._core.numeric", "_frombuffer"),
+}
+
+
+class _StatesUnpickler(pickle.Unpickler):
+    """Admits numpy arrays, dicts, tuples, lists and plain scalars: every
+    other global a pickle names is refused."""
+
+    def find_class(self, module, name):
+        if (module, name) in _NUMPY_GLOBALS:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"{module}.{name} is not allowed in an optimizer-states file")
+
+
+def _read_reference_states(fname):
+    """The JAX package's ``Trainer.save_states`` file, through an
+    unpickler that builds nothing but numpy arrays and containers."""
+    fmt = ("neither this package's .npz nor the JAX package's pickle of "
+           "{'num_update': int, 'states': {name: {key: numpy array}}}")
+    try:
+        with open(fname, "rb") as f:
+            blob = _StatesUnpickler(f).load()
+    except Exception as e:
+        raise ValueError(f"{fname}: {fmt} ({type(e).__name__}: {e})") \
+            from None
+    if not (isinstance(blob, dict) and "num_update" in blob and
+            isinstance(blob.get("states"), dict)):
+        raise ValueError(f"{fname}: {fmt}")
+    return blob

@@ -17,14 +17,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import conv_block
+from . import conv_block, cuda_int8
 from .cuda_kernels import (LayerNormFn, SoftmaxFn, layernorm_fused,
                            softmax_fused)
 
 __all__ = ["softmax", "layer_norm", "gelu", "activation", "fully_connected",
            "convolution", "pooling", "batch_norm", "residual_block",
            "log_softmax", "pick", "softmax_cross_entropy", "embedding",
-           "dropout"]
+           "dropout", "quantized_dense", "quantized_conv"]
 
 
 def _records(*ts):
@@ -49,18 +49,21 @@ def softmax(x, axis: int = -1, temperature=None):
 
 
 def layer_norm(x, gamma, beta, axis: int = -1, eps: float = 1e-5):
-    """LayerNorm over ``axis`` (≙ ``ops/nn.py layer_norm``), gamma and
-    beta of that axis's length.  Over the last axis a CUDA tensor
-    launches the LayerNorm kernel; a CPU tensor takes its plain version.
-    With autograd recording and an input that requires grad, the call
-    goes through ``LayerNormFn`` (closed-form backward); otherwise no
-    autograd node is made, which the decode step, issuing 25 of these
-    per token, should not pay for.  Another axis is moved last, normalized
-    the same way and moved back."""
+    """LayerNorm over ``axis`` (≙ ``ops/nn.py layer_norm``).  Over the
+    last axis a CUDA tensor launches the LayerNorm kernel; a CPU tensor
+    takes its plain version.  With autograd recording and an input that
+    requires grad, the call goes through ``LayerNormFn`` (closed-form
+    backward); otherwise no autograd node is made, which the decode step,
+    issuing 25 of these per token, should not pay for.  Over another axis
+    it is the reference's closed form: normalized over ``axis`` with fp32
+    statistics, then ``· gamma + beta`` broadcast along the LAST axis, as
+    the reference does (it raises where that broadcast fails)."""
     if axis not in (-1, x.dim() - 1):
-        out = layer_norm(x.movedim(axis, -1).contiguous(), gamma, beta,
-                         eps=eps)
-        return out.movedim(-1, axis)
+        xf = x.float()
+        mean = xf.mean(dim=axis, keepdim=True)
+        var = xf.var(dim=axis, unbiased=False, keepdim=True)
+        out = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+        return out * gamma + beta
     if _records(x, gamma, beta):
         return LayerNormFn.apply(x, gamma, beta, eps)
     return layernorm_fused(x, gamma, beta, eps)
@@ -267,11 +270,16 @@ def softmax_cross_entropy(logits, labels, sparse: bool = True,
 
 
 def embedding(indices, weight):
-    """≙ Embedding: the rows of ``weight`` at integer ``indices`` (any
-    shape; int32 or int64).  Out-of-range ids are not checked here: the
-    reference's ``jnp.take`` gives NaN rows for them, ``F.embedding``
-    fails (a device assert on the card)."""
-    return F.embedding(indices, weight)
+    """≙ Embedding (``jnp.take`` in fill mode): the rows of ``weight`` at
+    integer ``indices`` (any shape; int32 or int64).  An id in [-n, 0)
+    reads row n + id; an id outside [-n, n) gives a row of NaN, on the
+    CPU and on the card alike (no device assert)."""
+    n = weight.shape[0]
+    idx = indices.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    rows = F.embedding(torch.where(ok, idx, 0), weight)
+    return torch.where(ok.unsqueeze(-1), rows, float("nan"))
 
 
 def dropout(x, rate: float, generator=None, training: bool = True):
@@ -288,3 +296,87 @@ def dropout(x, rate: float, generator=None, training: bool = True):
     mask = torch.rand(x.shape, generator=generator,
                       device=generator.device) < keep
     return torch.where(mask.to(x.device), x / keep, 0.0).to(x.dtype)
+
+
+# ------------------------------------------------------------ int8 ops
+def _quantize_sym(x, in_t):
+    """Symmetric per-tensor int8 quantization of an activation against a
+    calibrated threshold (≙ ``ops/nn.py _quantize_sym``): scale ``127/T``
+    (a Python float, as in the reference), round half to even, clip to
+    ±127 → ``(qx, s_in)``."""
+    s_in = 127.0 / max(float(in_t), 1e-12)
+    qx = torch.round(x.float() * s_in).clamp_(-127, 127).to(torch.int8)
+    return qx, s_in
+
+
+def quantized_dense(x, qw, w_scale, bias=None, *, in_t, flatten=True,
+                    act=None, qw_packed=None):
+    """int8 fully-connected (≙ ``ops/nn.py quantized_dense``): ``x``
+    quantized against ``in_t``, times the int8 weight ``qw`` (in, units)
+    summed exactly in int32, then ``/ (s_in·w_scale) + bias`` and the
+    activation.  ``qw_packed`` is ``qwᵀ`` contiguous (units, in), the
+    form :func:`cuda_int8.int8_matmul` takes (made here when not
+    given)."""
+    qx, s_in = _quantize_sym(x, in_t)
+    if flatten and qx.dim() > 2:
+        qx = qx.reshape(qx.shape[0], -1)
+    wt = qw_packed if qw_packed is not None else qw.t().contiguous()
+    lead = qx.shape[:-1]
+    acc = cuda_int8.int8_matmul(qx.reshape(-1, qx.shape[-1]), wt)
+    out = acc.reshape(*lead, wt.shape[0]).float() / (s_in * w_scale.float())
+    if bias is not None:
+        out = out + bias.float()
+    if act is not None:
+        out = activation(out, act)
+    return out
+
+
+def quantized_conv(x, qw, w_scale, bias=None, residual=None, *, in_t,
+                   stride=(1, 1), pad=(1, 1), dilate=(1, 1), groups=1,
+                   relu=False, act=None, qw_packed=None):
+    """int8 conv, NHWC activation × pre-quantized HWIO int8 weight, with
+    the dequantization ``1/(s_in·w_scale)`` + ``bias`` (+ ``residual``)
+    (+ ReLU) epilogue (≙ ``ops/nn.py quantized_conv``).  A 3×3/s1/p1
+    single-group conv goes to ``cuda_int8.qconv3x3_affine`` (the kernel on
+    the card, its plain version on the CPU); every other geometry (the
+    1×1 convs, strided as a strided slice, the 7×7/s2 stem as im2col) is
+    the int8 patch matrix times the weight through
+    ``cuda_int8.int8_matmul`` and the same epilogue in plain PyTorch.
+    ``qw_packed`` is :func:`cuda_int8.pack_weight` of ``qw`` (made here
+    when not given).  ``bias`` is the per-channel shift: after BatchNorm
+    folding it is the folded BN."""
+    qx, s_in = _quantize_sym(x, in_t)
+    cout = qw.shape[-1]
+    dq = 1.0 / (s_in * w_scale.float())
+    shift = bias.float() if bias is not None else \
+        torch.zeros(cout, device=x.device)
+    fuse_relu = bool(relu) or act == "relu"
+    stride, pad, dilate = _pair(stride), _pair(pad), _pair(dilate)
+    if residual is not None:
+        residual = residual.float().contiguous()
+    if (stride == (1, 1) and pad == (1, 1) and dilate == (1, 1)
+            and groups == 1 and tuple(qw.shape[:2]) == (3, 3)):
+        out = cuda_int8.qconv3x3_affine(qx.contiguous(), qw, dq, shift,
+                                        res=residual, relu=fuse_relu,
+                                        qw_packed=qw_packed)
+    else:
+        wt = qw_packed if qw_packed is not None else \
+            cuda_int8.pack_weight(qw)
+        kh, kw, cg = qw.shape[:3]
+        cog = cout // groups
+        accs = []
+        for g in range(groups):
+            xg = qx if groups == 1 else qx[..., g * cg:(g + 1) * cg]
+            p = cuda_int8.im2col(xg, (kh, kw), stride, pad, dilate)
+            accs.append(cuda_int8.int8_matmul(
+                p.reshape(-1, p.shape[-1]),
+                wt[g * cog:(g + 1) * cog]).reshape(*p.shape[:3], cog))
+        acc = accs[0] if groups == 1 else torch.cat(accs, dim=-1)
+        out = acc.float() * dq + shift
+        if residual is not None:
+            out = out + residual
+        if fuse_relu:
+            out = torch.relu(out)
+    if act is not None and act != "relu":
+        out = activation(out, act)
+    return out

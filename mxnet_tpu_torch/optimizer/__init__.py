@@ -1,6 +1,7 @@
 """Optimizers (≙ the parts of ``mxnet_tpu/optimizer/__init__.py`` that
 BERT pretraining and ResNet training use): the registry, the
-``Optimizer`` base with its per-key update counts, ``SGD`` (momentum,
+``Optimizer`` base with its step counts (one global count for
+``update_multi``, per-key counts for ``update``), ``SGD`` (momentum,
 Nesterov), ``NAG``, ``Adam`` and ``AdamW``.
 
 Each rule is the reference's arithmetic, applied to the weights IN PLACE
@@ -40,7 +41,7 @@ class Optimizer:
 
     Subclasses implement ``create_state(index, w)`` and ``_update(ws,
     gs, states, ts)``, one step of the rule over lists of weights,
-    gradients, states and per-key step counts.  ``rescale_grad`` and
+    gradients, states and step counts.  ``rescale_grad`` and
     ``clip_gradient`` are applied here first."""
 
     def __init__(self, learning_rate=0.01, wd=0.0, rescale_grad=1.0,
@@ -50,9 +51,9 @@ class Optimizer:
         self.rescale_grad = rescale_grad
         self.clip_gradient = clip_gradient
         self.num_update = 0
-        # per-key update counts ≙ Optimizer._index_update_count: the
-        # per-key t drives Adam's bias correction and advances once per
-        # update of that key
+        # per-key update counts ≙ Optimizer._index_update_count: the t of
+        # a single-key ``update`` (Adam's bias correction), advanced once
+        # per update of that key
         self._index_update_count: Dict[str, int] = {}
 
     @property
@@ -84,21 +85,27 @@ class Optimizer:
                   for g in gs]
         return gs
 
-    def update_multi(self, indices: Sequence, weights: Sequence,
-                     grads: Sequence, states: Sequence):
-        """One step for each key in ``indices``: each weight is updated in
-        place from its gradient and state (both updated in place too),
-        with that key's own step count."""
-        ts = [self._update_count(i) for i in indices]
+    def _apply(self, weights, grads, states, ts):
         gs = [g.to(w.dtype) for w, g in zip(weights, grads)]
         with torch.no_grad():
             self._update(list(weights), self._preprocess(gs), list(states),
                          ts)
 
+    def update_multi(self, indices: Sequence, weights: Sequence,
+                     grads: Sequence, states: Sequence):
+        """One step of every key in ``indices`` (≙ the reference's
+        ``update_multi``, which ``Trainer`` calls): ``num_update``
+        advances once and is every key's step count, whether or not a key
+        took the steps before.  Each weight is updated in place from its
+        gradient and state (both updated in place too)."""
+        self.num_update += 1
+        self._apply(weights, grads, states, [self.num_update] * len(weights))
+
     def update(self, index, weight, grad, state):
-        """Single-tensor update (≙ the reference's ``Optimizer.update``);
-        updates ``weight`` and ``state`` in place and returns the state."""
-        self.update_multi([index], [weight], [grad], [state])
+        """Single-tensor update (≙ the reference's ``Optimizer.update``)
+        with the key's own step count; updates ``weight`` and ``state`` in
+        place and returns the state."""
+        self._apply([weight], [grad], [state], [self._update_count(index)])
         return state
 
 

@@ -13,12 +13,16 @@ nothing can retrace: ``retraces`` and ``rebuilds`` stay 0 and
 
 Items are float32 (images) or integer token ids (int32 or int64): the
 engine casts every batch to its ``dtype`` and resolves deferred shapes,
-warms and runs on batches of that dtype.  The weights are fp32:
-``precision="bf16"`` and ``"int8"``, ``mesh=`` and ``sharding_plan=``
-raise and name the later slices that bring them.
+warms and runs on batches of that dtype.  ``precision="int8"`` quantizes
+the net in place on its device (``quantization.quantize_net``, naive
+calibration on ``calib_data``, or on the reference's two seeded uniform
+batches), unless it already holds int8 twins.  ``precision="bf16"``,
+``mesh=`` and ``sharding_plan=`` raise and name the later slices that
+bring them.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import threading
 from typing import Optional, Sequence, Tuple
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import context as _context
+from .. import quantization as _q
 from .. import telemetry as _telemetry
 from ..gluon.parameter import is_initialized
 
@@ -85,7 +90,12 @@ class InferenceEngine:
     buckets : sequence of int, optional
         Batch-size ladder; default from ``MXNET_SERVE_BUCKETS``.
     precision : str, optional
-        Must resolve to ``fp32``.
+        ``fp32`` or ``int8`` (explicit, else ``MXNET_SERVE_PRECISION``,
+        else fp32); ``bf16`` raises.
+    calib_data : iterable, optional
+        Calibration batches for ``precision="int8"``; default two batches
+        of ``RandomState(0)`` uniform [-1, 1) shaped ``(buckets[0],
+        *item_shape)``, as the reference makes them.
     device : optional
         Default: the current CUDA device; raises without a card unless
         ``device="cpu"`` is given.
@@ -94,13 +104,14 @@ class InferenceEngine:
     def __init__(self, net, item_shape, dtype: str = "float32",
                  buckets: Optional[Sequence[int]] = None,
                  name: str = "default", precision: Optional[str] = None,
-                 mesh=None, sharding_plan=None, device=None):
+                 calib_data=None, mesh=None, sharding_plan=None,
+                 device=None):
         self.precision = resolve_precision(precision)
-        if self.precision != "fp32":
+        if self.precision == "bf16":
             raise NotImplementedError(
-                f"precision {self.precision!r}: the port serves fp32 only; "
-                f"reduced-precision serving (bf16 casts, int8 post-training "
-                f"quantization and its kernel) comes with the int8 slice")
+                "precision 'bf16': the port serves fp32 and int8; bf16 "
+                "casts (amp.convert_model) come with the bf16 item of the "
+                "port's queue")
         if mesh is not None or sharding_plan is not None:
             raise NotImplementedError(
                 "mesh=/sharding_plan=: tensor-parallel serving comes with "
@@ -125,8 +136,12 @@ class InferenceEngine:
             with torch.no_grad():
                 net(self._zeros(self.buckets[0], "cpu"))
         net.to(self.device)
+        if self.precision == "int8":
+            self._quantize(net, calib_data)
+        # parameters and buffers: an int8 net's weights are buffers
         self.param_bytes = sum(t.numel() * t.element_size()
-                               for t in net.collect_params().values())
+                               for t in itertools.chain(net.parameters(),
+                                                        net.buffers()))
         _telemetry.gauge_set("serve.param_bytes_per_device",
                              self.param_bytes)
         self._warmed = set()
@@ -136,6 +151,18 @@ class InferenceEngine:
         self.forwards = 0           # every forward run, warmups included
         self._mu = threading.Lock()
         _telemetry.counter_add(f"serve.precision.builds.{self.precision}")
+
+    def _quantize(self, net, calib_data):
+        """Quantize ``net`` in place for ``precision="int8"``, unless it
+        already holds int8 twins (quantized offline), which pass through
+        untouched."""
+        if any(isinstance(b, _q._Twin) for b in net.modules()):
+            return
+        if calib_data is None:
+            rs = np.random.RandomState(0)
+            calib_data = [(rs.rand(self.buckets[0], *self.item_shape) * 2.0
+                           - 1.0).astype("float32") for _ in range(2)]
+        _q.quantize_net(net, calib_data=calib_data, calib_mode="naive")
 
     def _zeros(self, b, device):
         return torch.zeros((b,) + self.item_shape, dtype=self._tdtype,

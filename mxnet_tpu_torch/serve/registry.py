@@ -70,17 +70,22 @@ class ModelRegistry:
     def register(self, name: str, net, item_shape, dtype: str = "float32",
                  buckets: Optional[Sequence[int]] = None,
                  warmup: bool = True, source: Optional[str] = None,
-                 precision: Optional[str] = None, mesh=None,
-                 sharding_plan=None, device=None) -> ModelEntry:
+                 precision: Optional[str] = None, calib_data=None,
+                 mesh=None, sharding_plan=None,
+                 device=None) -> ModelEntry:
         """Wrap an initialized net into an engine + batcher under
         ``name``.  Re-registering a name replaces the old entry (its
-        batcher drains); exceeding ``max_models`` evicts the LRU entry."""
+        batcher drains); exceeding ``max_models`` evicts the LRU entry.
+        ``precision=`` overrides the registry's default (which falls back
+        to ``MXNET_SERVE_PRECISION``); ``calib_data`` goes to the engine
+        for ``precision="int8"``."""
         engine = InferenceEngine(
             net, item_shape, dtype=dtype,
             buckets=buckets if buckets is not None else self._buckets,
             name=name,
             precision=precision if precision is not None
             else self._precision,
+            calib_data=calib_data,
             mesh=mesh if mesh is not None else self._mesh,
             sharding_plan=sharding_plan if sharding_plan is not None
             else self._sharding_plan,
@@ -111,7 +116,7 @@ class ModelRegistry:
              dtype: str = "float32",
              buckets: Optional[Sequence[int]] = None,
              warmup: bool = True, precision: Optional[str] = None,
-             mesh=None, sharding_plan=None, device=None,
+             calib_data=None, mesh=None, sharding_plan=None, device=None,
              **model_kwargs) -> ModelEntry:
         """Load weights from the ``.params`` file ``source`` into ``net``
         (or a fresh ``models.get_model(arch, **model_kwargs)``) and
@@ -133,8 +138,9 @@ class ModelRegistry:
         net.hybridize()
         return self.register(name, net, item_shape, dtype=dtype,
                              buckets=buckets, warmup=warmup, source=source,
-                             precision=precision, mesh=mesh,
-                             sharding_plan=sharding_plan, device=device)
+                             precision=precision, calib_data=calib_data,
+                             mesh=mesh, sharding_plan=sharding_plan,
+                             device=device)
 
     # ------------------------------------------------------------ dispatch
     def get(self, name: str) -> ModelEntry:

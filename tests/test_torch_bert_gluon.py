@@ -11,9 +11,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
+
 import mxnet_tpu as mx  # noqa: E402
 from mxnet_tpu.gluon import nn as jgnn  # noqa: E402
 from mxnet_tpu.models import bert_gluon as jbert  # noqa: E402
+from mxnet_tpu.ops import nn as jnn  # noqa: E402
 from mxnet_tpu.ops import pallas_kernels as jpk  # noqa: E402
 from mxnet_tpu.serve import InferenceEngine as JEngine  # noqa: E402
 from mxnet_tpu_torch import gluon as tgluon  # noqa: E402
@@ -22,6 +25,7 @@ from mxnet_tpu_torch import telemetry as ttel  # noqa: E402
 from mxnet_tpu_torch.gluon import nn as tgnn  # noqa: E402
 from mxnet_tpu_torch.models import bert_gluon as tbert  # noqa: E402
 from mxnet_tpu_torch.ops import cuda_kernels  # noqa: E402
+from mxnet_tpu_torch.ops import nn as tnn  # noqa: E402
 from mxnet_tpu_torch.serve import (Batcher, InferenceEngine,  # noqa: E402
                                    ModelRegistry)
 
@@ -327,8 +331,11 @@ def _jout(y):
 
 
 @pytest.mark.parametrize("shape,axis", [((3, 5, 64), -1), ((4, 768), -1),
-                                        ((2, 6, 3), 1)])
+                                        ((2, 6, 6), 1)])
 def test_layernorm_block_matches_reference(shape, axis):
+    """Against the reference's block on the same numpy γ, β and input,
+    within 1e-5; over a middle axis the reference normalizes along it and
+    scales by γ along the last axis (the two lengths agree here)."""
     rs = np.random.RandomState(8)
     x = (rs.randn(*shape) * 2 + 0.5).astype(np.float32)
     c = shape[axis]
@@ -338,24 +345,28 @@ def test_layernorm_block_matches_reference(shape, axis):
     tl.initialize(ctx="cpu")
     tgluon.load_numpy(tl, {"gamma": g, "beta": b})
     out = tl(torch.from_numpy(x)).detach().numpy()
-    if axis in (-1, len(shape) - 1):
-        jl = jgnn.LayerNorm(axis=axis, epsilon=1e-5)
-        jl.initialize()
-        jl(_jarr(x))
-        jl.gamma.set_data(_jarr(g)._data)
-        jl.beta.set_data(_jarr(b)._data)
-        ref = _jout(jl(_jarr(x)))
-    else:
-        # the reference scales by γ along its last axis whatever ``axis``
-        # is (γ broadcasts only when the two lengths agree); the port
-        # scales along ``axis``, checked here against numpy
-        xm = np.moveaxis(x, axis, -1)
-        mu = xm.mean(-1, keepdims=True)
-        var = ((xm - mu) ** 2).mean(-1, keepdims=True)
-        ref = np.moveaxis((xm - mu) / np.sqrt(var + 1e-5) * g + b, -1, axis)
+    jl = jgnn.LayerNorm(axis=axis, epsilon=1e-5)
+    jl.initialize()
+    jl(_jarr(x))
+    jl.gamma.set_data(_jarr(g)._data)
+    jl.beta.set_data(_jarr(b)._data)
+    ref = _jout(jl(_jarr(x)))
     np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
     # deferred: gamma/beta took the input's length
     assert tuple(tl.gamma.shape) == (c,)
+
+
+def test_layernorm_middle_axis_raises_where_the_reference_does():
+    """γ of the normalized axis's length (6) against a last axis of 3:
+    the reference's broadcast fails, and so does the port's."""
+    x = np.random.RandomState(8).randn(2, 6, 3).astype(np.float32)
+    g, b = np.ones(6, np.float32), np.zeros(6, np.float32)
+    with pytest.raises(Exception):
+        jnn.layer_norm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                       axis=1)
+    with pytest.raises(RuntimeError):
+        tnn.layer_norm(torch.from_numpy(x), torch.from_numpy(g),
+                       torch.from_numpy(b), axis=1)
 
 
 def test_embedding_block_matches_reference():
@@ -377,6 +388,21 @@ def test_embedding_block_matches_reference():
         tgnn.Embedding(50, 12, sparse_grad=True)
     with pytest.raises(TypeError):
         tgnn.Embedding(50, 12, dtype="float16")
+
+
+def test_embedding_out_of_range_ids_match_reference():
+    """``jnp.take``'s fill mode: ids in [-n, 0) wrap to row n + id, ids
+    outside [-n, n) give NaN rows; the port gives the same rows
+    (NaN where the reference has NaN)."""
+    rs = np.random.RandomState(10)
+    w = rs.randn(3, 4).astype(np.float32)
+    ids = np.array([[0, 3, -1], [-3, -4, 7]], np.int32)
+    ref = np.asarray(jnn.embedding(jnp.asarray(ids), jnp.asarray(w)))
+    for dt in (torch.int32, torch.int64):
+        out = tnn.embedding(torch.from_numpy(ids).to(dt),
+                            torch.from_numpy(w)).numpy()
+        np.testing.assert_array_equal(out, ref)
+    assert np.isnan(ref[0, 1]).all() and (ref[0, 2] == w[2]).all()
 
 
 @pytest.mark.parametrize("approximation", ["erf", "tanh"])

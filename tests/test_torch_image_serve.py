@@ -118,16 +118,22 @@ def test_engine_resolves_deferred_shapes_on_a_fresh_net():
 
 
 @pytest.mark.parametrize("kw", [dict(precision="bf16"),
-                                dict(precision="int8"),
+                                dict(precision="bfloat16"),
                                 dict(mesh=object()),
                                 dict(sharding_plan=object())])
 def test_engine_refuses_what_later_slices_bring(nets, kw):
+    """bf16 (either spelling), meshes and sharding plans still raise;
+    int8 is served (``test_torch_int8_serve.py``)."""
     with pytest.raises(NotImplementedError):
         InferenceEngine(_port(nets[1]), ITEM, device="cpu", **kw)
 
 
 def test_precision_env_and_bucket_ladder(nets, monkeypatch):
     monkeypatch.setenv("MXNET_SERVE_PRECISION", "int8")
+    eng = InferenceEngine(_port(nets[1]), ITEM, buckets=(1,), device="cpu")
+    assert eng.precision == eng.stats()["precision"] == "int8"
+    assert eng.run(_images(1))[0].shape == (1, 4)
+    monkeypatch.setenv("MXNET_SERVE_PRECISION", "bf16")
     with pytest.raises(NotImplementedError):
         InferenceEngine(_port(nets[1]), ITEM, device="cpu")
     monkeypatch.delenv("MXNET_SERVE_PRECISION")

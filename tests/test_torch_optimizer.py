@@ -137,3 +137,126 @@ def test_learning_rate_is_settable():
     w = torch.ones(2)
     opt.update(0, w, torch.ones(2), opt.create_state(0, w))
     torch.testing.assert_close(w, torch.full((2,), 1 - 0.01))
+
+
+# ---------------------------------------------------------------- Trainer
+def _two_dense(ws):
+    """Two bias-free Dense layers (4x3, 2x3) of each package holding the
+    same numpy weights."""
+    from mxnet_tpu.gluon import nn as jnn
+    from mxnet_tpu_torch import gluon as tgluon
+    from mxnet_tpu_torch.gluon import nn as tnn
+    jnet = jnn.HybridSequential()
+    jnet.add(jnn.Dense(4, in_units=3, use_bias=False),
+             jnn.Dense(2, in_units=3, use_bias=False))
+    jnet.initialize()
+    for p, w in zip(jnet.collect_params().values(), ws):
+        p.set_data(jnp.asarray(w))
+    tnet = tnn.HybridSequential()
+    tnet.add(tnn.Dense(4, in_units=3, use_bias=False),
+             tnn.Dense(2, in_units=3, use_bias=False))
+    tgluon.load_numpy(tnet, {"0.weight": ws[0], "1.weight": ws[1]})
+    return jnet, tnet
+
+
+def _loss_j(jnet, x, layers):
+    import mxnet_tpu as mx
+    with mx.autograd.record():
+        loss = sum((jnet[i](mx.np.array(x)) ** 2).sum() for i in layers)
+    loss.backward()
+
+
+def _loss_t(tnet, x, layers):
+    sum((tnet[i](torch.from_numpy(x)) ** 2).sum() for i in layers).backward()
+
+
+def test_trainer_adam_step_count_matches_reference():
+    """A parameter that sits out step 1 takes step 2 with t = 2, the
+    Trainer's one global count (the reference's ``update_multi``), not
+    with its own count of 1.  Within 1e-6 of the reference."""
+    import mxnet_tpu as mx
+    from mxnet_tpu_torch import gluon as tgluon
+    rs = np.random.RandomState(0)
+    ws = [rs.randn(4, 3).astype(np.float32),
+          rs.randn(2, 3).astype(np.float32)]
+    xs = [rs.randn(5, 3).astype(np.float32) for _ in range(2)]
+    jnet, tnet = _two_dense(ws)
+    jtr = mx.gluon.Trainer(jnet.collect_params(), "adam",
+                           {"learning_rate": 0.1})
+    ttr = tgluon.Trainer(tnet.collect_params(), "adam",
+                         {"learning_rate": 0.1})
+    for x, layers in zip(xs, [(0,), (0, 1)]):
+        _loss_j(jnet, x, layers)
+        jtr.step(5, ignore_stale_grad=True)
+        _loss_t(tnet, x, layers)
+        ttr.step(5, ignore_stale_grad=True)
+    assert ttr.optimizer.num_update == jtr._optimizer.num_update == 2
+    for (k, p), t in zip(jnet.collect_params().items(),
+                         tnet.collect_params().values()):
+        np.testing.assert_allclose(t.detach().numpy(),
+                                   np.asarray(p.data()._data), atol=1e-6,
+                                   rtol=0, err_msg=k)
+
+
+def test_trainer_loads_the_reference_states_file(tmp_path):
+    """The JAX package's ``save_states`` pickle loads into the port's
+    Trainer: the same states and step count, and the next step lands
+    where the reference's does (within 1e-6)."""
+    import mxnet_tpu as mx
+    from mxnet_tpu_torch import gluon as tgluon
+    rs = np.random.RandomState(1)
+    ws = [rs.randn(4, 3).astype(np.float32),
+          rs.randn(2, 3).astype(np.float32)]
+    xs = [rs.randn(5, 3).astype(np.float32) for _ in range(3)]
+    jnet, tnet = _two_dense(ws)
+    jtr = mx.gluon.Trainer(jnet.collect_params(), "adam",
+                           {"learning_rate": 0.05})
+    for x in xs[:2]:
+        _loss_j(jnet, x, (0, 1))
+        jtr.step(5)
+    path = str(tmp_path / "reference.states")
+    jtr.save_states(path)
+    tgluon.load_numpy(tnet, {k: np.array(p.data()._data)
+                             for k, p in jnet.collect_params().items()})
+    ttr = tgluon.Trainer(tnet.collect_params(), "adam",
+                         {"learning_rate": 0.05})
+    ttr.load_states(path)
+    assert ttr.optimizer.num_update == 2
+    assert set(ttr._states) == {"0.weight", "1.weight"}
+    for name, st in ttr._states.items():
+        for k in ("mean", "var"):
+            np.testing.assert_array_equal(
+                st[k].numpy(), np.asarray(jtr._states[name][k]))
+    _loss_j(jnet, xs[2], (0, 1))
+    jtr.step(5)
+    _loss_t(tnet, xs[2], (0, 1))
+    ttr.step(5)
+    for p, t in zip(jnet.collect_params().values(),
+                    tnet.collect_params().values()):
+        np.testing.assert_allclose(t.detach().numpy(),
+                                   np.asarray(p.data()._data), atol=1e-6,
+                                   rtol=0)
+
+
+class _Smuggled:
+    pass
+
+
+def test_trainer_refuses_a_states_pickle_that_is_not_arrays(tmp_path):
+    """Only numpy arrays and plain containers unpickle; anything else is
+    refused with a message naming the expected format."""
+    import pickle
+    from mxnet_tpu_torch import gluon as tgluon
+    from mxnet_tpu_torch.gluon import nn as tnn
+    net = tnn.Dense(2, in_units=3)
+    net.initialize(ctx="cpu")
+    tr = tgluon.Trainer(net.collect_params(), "adam")
+    bad = tmp_path / "bad.states"
+    bad.write_bytes(pickle.dumps({"num_update": 1,
+                                  "states": {"weight": _Smuggled()}}))
+    with pytest.raises(ValueError, match="num_update"):
+        tr.load_states(str(bad))
+    junk = tmp_path / "junk.states"
+    junk.write_bytes(b"not a states file")
+    with pytest.raises(ValueError, match="num_update"):
+        tr.load_states(str(junk))
