@@ -23,11 +23,16 @@ buckets 1, 2, 4, 8) through ``ModelRegistry`` → ``Batcher`` →
 and a quantized dense; 1000 classes, 224x224x3): scoring at batch 64 as
 ``benchmark/int8_score.py`` runs it, and serving through
 ``ModelRegistry.load(..., precision="int8")`` → ``Batcher`` →
-``InferenceEngine``.  Phases, one JSON line each; the run stops with a
-non-zero exit at the first phase that fails:
+``InferenceEngine``, then the extension surface (``tvmop`` generated ops,
+``rtc.CudaModule`` user kernels compiled by NVRTC, a ``CustomOp``, an
+external library) at the largest elementwise operand of those models,
+ResNet-50 v1 batch-64 training's stage-1 block output (64, 56, 56, 256)
+fp32.  Phases, one JSON line each; the run stops with a non-zero exit at
+the first phase that fails:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions; TF32 is switched off for matmul and cuDNN.
+   CUDA versions, the NVRTC library's path and version; TF32 is switched
+   off for matmul and cuDNN.
 2. ``build``: nvcc builds the kernels of ``mxnet_tpu_torch/csrc``.
 3. ``kernels``: each kernel at the shapes the path gives it, against its
    plain PyTorch version on the same inputs (LayerNorm within 1e-5,
@@ -161,8 +166,38 @@ non-zero exit at the first phase that fails:
     ``torch.profiler``, with device time split into the int8 kernel,
     ``_int_mm``, the quantize passes, copies, pools and elementwise
     epilogues.
+28. ``ext_kernels``: the three stock generated kernels (``tvm_vadd``,
+    ``tvm_vmul``, ``tvm_sigmoid``: ``csrc/tvmop_elementwise.cuh`` with
+    their bodies, compiled by NVRTC) against their plain versions at full
+    width, one element, 1,000,003 elements (ragged for the 16-byte path),
+    an offset view of that (the 16-byte path refused; for ``tvm_vadd``
+    also at full width, timed) and float64 / int32 / int64: ``tvm_vadd``
+    and ``tvm_vmul`` bit for bit, ``tvm_sigmoid`` within 1e-6 absolute.
+    Timed at full width beside the bound (12 or 8 bytes an element over
+    3.35 TB/s), the plain version and ``torch.add`` / ``torch.mul`` /
+    ``torch.sigmoid``; each kernel's NVRTC compile, cold and from the
+    CUBIN cache.
+29. ``rtc``: the JAX package's rtc test kernels as CUDA source
+    (``examples/rtc_kernels.cu``) through ``rtc.CudaModule``: axpy and
+    ``double_it`` (out dtype float32 and int32, one templated kernel) at
+    the tests' sizes and at full width, bit for bit against plain torch;
+    the module compiles once however often it launches; a launch from a
+    second thread; an NVRTC syntax error raises with the log and a dtype
+    mismatch raises ``TypeError``.  axpy timed beside its bound, plain
+    torch and ``torch.add(y, x, alpha=2)``; the eager µs of one launch
+    against one ``torch.add``.
+30. ``ext_path``: the launch counters set to 0, then at full width
+    ``nd.tvm_vadd`` and ``nd.tvm_vmul`` twice each, ``nd.tvm_sigmoid``
+    forward and backward under ``autograd.record()`` (the gradient
+    within 1e-6 of the plain closed form), a user ``tvmop.register`` of
+    ``tvm_test_relu`` run once and unregistered, ``nd.Custom`` of a
+    ``t_sigmoid`` ``CustomOp`` forward and backward (torch ops on the
+    card), the example library built by ``library.compile_example`` and
+    loaded, ``nd.my_relu6`` and ``nd.my_scale(k=3.0)`` forward and
+    backward (the host round trip timed), and a user rtc axpy twice;
+    every counter must equal the calls made.
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the
+Then one ``{"kernels": [...]}`` line (16 entries), the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside this file, it exits non-zero and prints
 no result.
@@ -253,10 +288,11 @@ def phase_env(state):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    from mxnet_tpu_torch import context
+    from mxnet_tpu_torch import _nvrtc, context
     context.exact_fp32()
     state["card"] = smi
     return {"card": smi, "device": torch.cuda.get_device_name(0),
+            "nvrtc": _nvrtc.info(),
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "python": sys.version.split()[0],
             "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
@@ -2204,6 +2240,365 @@ def phase_int8_profile(state):
     return res
 
 
+# ------------------------------------------------------- extension phases
+# the largest elementwise operand of a model the port runs: ResNet-50 v1
+# batch-64 training's stage-1 block output, 205.5 MB in fp32 (4x the L2)
+EXT_SHAPE = (64, 56, 56, 256)
+EXT_RAGGED = 1_000_003          # ragged for the 16-byte path
+SIGMOID_TOL = 1e-6              # absolute: sigmoid values lie in [0, 1]
+STOCK_OPS = ("tvm_vadd", "tvm_vmul", "tvm_sigmoid")
+# ops an element (for the bound; the bytes bound them all)
+STOCK_FLOPS = {"tvm_vadd": 1, "tvm_vmul": 1, "tvm_sigmoid": 4}
+EXT_CALLS = {"tvm_vadd": 2, "tvm_vmul": 2, "tvm_sigmoid": 1,
+             "tvm_test_relu": 1, "rtc_axpy": 2}
+
+
+def _ext_inputs(op, n, dtype, gen, offset=False):
+    import torch
+    out = []
+    for _ in range(op.num_inputs):
+        m = n + (1 if offset else 0)
+        if dtype.is_floating_point:
+            t = 3 * torch.randn(m, device="cuda", dtype=dtype, generator=gen)
+        else:
+            t = torch.randint(-2 ** 15, 2 ** 15, (m,), device="cuda",
+                              dtype=dtype, generator=gen)
+        out.append(t[1:] if offset else t)
+    return out
+
+
+def _ext_case(name, n, gen, dtype=None, offset=False, shape=None,
+              timed=False):
+    """A stock generated op's kernel against its plain version on the
+    same inputs: ``tvm_vadd`` / ``tvm_vmul`` bit for bit, ``tvm_sigmoid``
+    within 1e-6; timed beside its bound, its plain version and the one
+    torch call computing the same function."""
+    import torch
+    from mxnet_tpu_torch import tvmop
+    op = tvmop.get(name)
+    dtype = dtype or torch.float32
+    xs = _ext_inputs(op, n, dtype, gen, offset)
+    if shape is not None:
+        xs = [x.view(shape) for x in xs]
+    out = op.forward(*xs)
+    ref = op.plain(*xs)
+    torch.cuda.synchronize()
+    exact = name != "tvm_sigmoid"
+    err = (out.double() - ref.double()).abs().max().item()
+    vec = int(all(t.data_ptr() % 16 == 0 for t in xs + [out]) and
+              n >= 16 // out.element_size())
+    case = {"shape": list(shape or (n,)), "dtype": str(dtype)[6:],
+            "offset_view": offset, "vector_path": bool(vec),
+            "max_abs_err": err, "bitwise_equal": bool(torch.equal(out, ref)),
+            "tol": 0.0 if exact else SIGMOID_TOL,
+            "finite": bool(torch.isfinite(out.double()).all())}
+    case["ok"] = (case["bitwise_equal"] if exact else
+                  err <= SIGMOID_TOL and case["finite"])
+    if timed:
+        library = {"tvm_vadd": torch.add, "tvm_vmul": torch.mul,
+                   "tvm_sigmoid": torch.sigmoid}[name]
+        nbytes = (op.num_inputs + 1) * n * out.element_size()
+        bms, by = bound(nbytes, STOCK_FLOPS[name] * n)
+        kms = cuda_ms(lambda: op.forward(*xs))
+        case.update(kernel_ms=kms,
+                    kernel_eager_ms=eager_ms(lambda: op.forward(*xs)),
+                    plain_ms=cuda_ms(lambda: op.plain(*xs)),
+                    library_ms=cuda_ms(lambda: library(*xs)),
+                    library=f"torch.{library.__name__}", bytes=nbytes,
+                    bound_ms=bms, bound_by=by,
+                    gb_s=nbytes / (kms * 1e-3) / 1e9,
+                    bound_share=bms / kms)
+    return case
+
+
+def _compile_ms(src, exports=()):
+    """NVRTC compile of ``src``, cold (the cache bypassed) and from the
+    CUBIN cache the cold compile wrote."""
+    from mxnet_tpu_torch import _nvrtc
+    cold = _nvrtc.compile_program(src, (), exports, use_cache=False)
+    cached = _nvrtc.compile_program(src, (), exports)
+    if not cached.cached or cached.image != cold.image:
+        raise AssertionError("the CUBIN cache did not return the compile")
+    return {"cold_ms": cold.seconds * 1e3, "cached_ms": cached.seconds * 1e3,
+            "cubin_bytes": len(cold.image), "log": cold.log[:400]}
+
+
+def phase_ext_kernels(state):
+    """The three stock generated kernels against their plain versions:
+    full width (timed), one element, a ragged length, an offset view
+    (the 16-byte path refused; at full width it is timed too) and the
+    other element types."""
+    import torch
+    from mxnet_tpu_torch import tvmop
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    full = 1
+    for d in EXT_SHAPE:
+        full *= d
+    res = {"compile": {}}
+    for name in STOCK_OPS:
+        res["compile"][name] = _compile_ms(
+            tvmop.get(name).source(torch.float32))
+        cases = [_ext_case(name, full, gen, shape=EXT_SHAPE, timed=True),
+                 _ext_case(name, 1, gen), _ext_case(name, EXT_RAGGED, gen),
+                 _ext_case(name, EXT_RAGGED, gen, offset=True)]
+        if name == "tvm_vadd":
+            cases.append(_ext_case(name, full, gen, offset=True, timed=True))
+        dtypes = (torch.float64,) if name == "tvm_sigmoid" else \
+            (torch.float64, torch.int32, torch.int64)
+        cases += [_ext_case(name, EXT_RAGGED, gen, dtype=dt)
+                  for dt in dtypes]
+        state["cases"][name] = cases
+        res[name] = cases
+    bad = [(n, c) for n in STOCK_OPS for c in res[n] if not c["ok"]]
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{bad}")
+    if any(res[n][0]["vector_path"] is False or res[n][3]["vector_path"]
+           for n in STOCK_OPS):
+        raise AssertionError("full width must take the 16-byte path and the "
+                             "offset view must not")
+    return res
+
+
+RTC_BAD_SOURCE = 'extern "C" __global__ void bad(float *o) { o[0] = ; }'
+
+
+def phase_rtc(state):
+    """The JAX package's rtc test kernels as CUDA source through
+    ``CudaModule``: axpy and the out-dtype-templated ``double_it`` at the
+    tests' own sizes and at full width, bit for bit against plain torch;
+    one compile for the module however often it launches; a launch from
+    a second thread; an NVRTC syntax error and a dtype mismatch raise."""
+    import torch
+    from mxnet_tpu_torch import _nvrtc, rtc
+    from mxnet_tpu_torch.examples import rtc_example as rx
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    res = {"compile": _compile_ms(rx.SOURCE.read_text(), rx.EXPORTS)}
+    mod = rx.module()
+    axpy, dbl = mod.get_kernel("axpy"), mod.get_kernel("double_it")
+    checks = {}
+    # the tests' own sizes: axpy over 8, double over 16 with grid 2 x 8
+    x8 = torch.arange(8, dtype=torch.float32, device="cuda")
+    y8 = torch.ones(8, device="cuda")
+    o8 = rx.axpy(axpy, x8, y8)
+    checks["axpy_8"] = bool(torch.equal(o8, 2 * x8 + 1))
+    checks["compiles_after_first_launch"] = mod.compiles
+    rx.axpy(axpy, x8, y8)
+    x16 = torch.arange(16, dtype=torch.float32, device="cuda")
+    for dt in (torch.float32, torch.int32):
+        o16 = dbl.launch([x16, 16], grid=(2,), block=(8,), out_dtype=dt)
+        checks[f"double_16_{str(dt)[6:]}"] = bool(
+            o16.dtype == dt and torch.equal(o16, rx.double_plain(x16, dt)))
+    checks["compiles_after_relaunch"] = mod.compiles
+    # full width
+    x = 3 * torch.randn(EXT_SHAPE, device="cuda", generator=gen)
+    y = torch.randn(EXT_SHAPE, device="cuda", generator=gen)
+    out = rx.axpy(axpy, x, y)
+    ref = rx.axpy_plain(x, y)
+    checks["axpy_full"] = bool(torch.equal(out, ref))
+    for dt in (torch.float32, torch.int32):
+        o = rx.double(dbl, x, dt)
+        checks[f"double_full_{str(dt)[6:]}"] = bool(
+            torch.equal(o, rx.double_plain(x, dt)))
+    # a launch from a thread that has no current context
+    got, errs = {}, []
+
+    def worker():
+        try:
+            xt = torch.randn(EXT_RAGGED, device="cuda")
+            yt = torch.randn(EXT_RAGGED, device="cuda")
+            got["ok"] = bool(torch.equal(rx.axpy(axpy, xt, yt),
+                                         rx.axpy_plain(xt, yt)))
+        except Exception as e:
+            errs.append(repr(e))
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(120)
+    checks["thread"] = got.get("ok", False) and not errs
+    checks["compiles_at_end"] = mod.compiles
+    # refusals
+    try:
+        rtc.CudaModule(RTC_BAD_SOURCE).get_kernel("bad").launch(
+            [], out_shape=(1,))
+        checks["syntax_error_raises"] = False
+    except _nvrtc.NvrtcError as e:
+        checks["syntax_error_raises"] = "error" in str(e)
+        res["syntax_error_log"] = str(e)[:600]
+    try:
+        axpy.launch([x.double(), y.double(), x.numel()])
+        checks["dtype_mismatch_raises"] = False
+    except TypeError as e:
+        checks["dtype_mismatch_raises"] = True
+        res["dtype_mismatch"] = str(e)
+    n = x.numel()
+    nbytes = 3 * n * 4
+    bms, by = bound(nbytes, 2 * n)
+    kms = cuda_ms(lambda: rx.axpy(axpy, x, y))
+    case = {"shape": list(EXT_SHAPE), "max_abs_err":
+            (out - ref).abs().max().item(), "bitwise_equal":
+            checks["axpy_full"], "kernel_ms": kms,
+            "kernel_eager_ms": eager_ms(lambda: rx.axpy(axpy, x, y)),
+            "plain_ms": cuda_ms(lambda: rx.axpy_plain(x, y)),
+            "library_ms": cuda_ms(lambda: torch.add(y, x, alpha=2.0)),
+            "library": "torch.add(y, x, alpha=2)", "bytes": nbytes,
+            "bound_ms": bms, "bound_by": by,
+            "gb_s": nbytes / (kms * 1e-3) / 1e9, "bound_share": bms / kms}
+    state["cases"]["rtc_axpy"] = [case]
+    # the eager cost of one launch at the tests' size, against torch.add
+    res["eager_launch_us"] = {
+        "rtc_axpy_8": 1e3 * eager_ms(lambda: rx.axpy(axpy, x8, y8),
+                                     iters=200),
+        "torch_add_8": 1e3 * eager_ms(lambda: torch.add(x8, y8), iters=200)}
+    res.update(checks=checks, axpy=case)
+    ok = all(v is True for k, v in checks.items()
+             if not k.startswith("compiles")) and \
+        checks["compiles_after_first_launch"] == 1 and \
+        checks["compiles_at_end"] == 1
+    if not ok:
+        raise AssertionError(f"rtc checks failed: {checks}")
+    return res
+
+
+def phase_ext_path(state):
+    """The slice's path at full width, with the launch counters set to 0
+    first: ``nd.tvm_vadd`` / ``nd.tvm_vmul``; ``nd.tvm_sigmoid`` forward
+    and backward under ``autograd.record()``; a user ``tvmop.register``
+    of ``tvm_test_relu``, run and unregistered; ``nd.Custom`` of a
+    ``t_sigmoid`` CustomOp forward and backward; the example library
+    built by ``compile_example`` and loaded, ``nd.my_relu6`` and
+    ``nd.my_scale(k=3.0)`` forward and backward; a user rtc kernel
+    (axpy).  Every counter must equal the calls made."""
+    import tempfile
+
+    import torch
+    from mxnet_tpu_torch import autograd, library, nd, operator, rtc, tvmop
+    from mxnet_tpu_torch.examples import rtc_example as rx
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    a = 3 * torch.randn(EXT_SHAPE, device="cuda", generator=gen)
+    b = 3 * torch.randn(EXT_SHAPE, device="cuda", generator=gen)
+    ops = {n: tvmop.get(n) for n in STOCK_OPS}
+    axpy = rx.module().get_kernel("axpy")
+    rx.axpy(axpy, a[:1], b[:1])      # compiled before the counted run
+    torch.cuda.synchronize()
+    res, checks = {}, {}
+
+    @tvmop.register("tvm_test_relu", body="o = x0 < T(0) ? T(0) : x0;")
+    def relu(x):
+        return torch.clamp_min(x, 0)
+
+    @operator.register("t_sigmoid")
+    class _SigmoidProp(operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return _SigmoidOp()
+
+    class _SigmoidOp(operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0],
+                        1.0 / (1.0 + torch.exp(-in_data[0])))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            y = out_data[0]
+            self.assign(in_grad[0], req[0], out_grad[0] * y * (1 - y))
+
+    for op in ops.values():
+        op.launches = 0
+    relu.launches = 0
+    rtc.Kernel.launches = 0
+    t_path = time.perf_counter()
+    try:
+        for _ in range(EXT_CALLS["tvm_vadd"]):
+            s = nd.tvm_vadd(a, b)
+        for _ in range(EXT_CALLS["tvm_vmul"]):
+            p = nd.tvm_vmul(a, b)
+        checks["vadd"] = bool(torch.equal(s, a + b))
+        checks["vmul"] = bool(torch.equal(p, a * b))
+        del s, p
+        # sigmoid forward and backward
+        x = a.clone().requires_grad_()
+        with autograd.record():
+            y = nd.tvm_sigmoid(x)
+        autograd.backward(y.sum())
+        sp = ops["tvm_sigmoid"].plain(a)
+        res["sigmoid_fwd_max_abs_err"] = (y.detach() - sp).abs().max().item()
+        res["sigmoid_grad_max_abs_err"] = \
+            (x.grad - sp * (1 - sp)).abs().max().item()
+        checks["sigmoid"] = res["sigmoid_fwd_max_abs_err"] <= SIGMOID_TOL \
+            and res["sigmoid_grad_max_abs_err"] <= SIGMOID_TOL
+        del x, y
+        # a user-registered generated op
+        r = nd.tvm_test_relu(a)
+        checks["user_relu"] = bool(torch.equal(r, relu.plain(a)))
+        checks["user_relu_compiles"] = relu.compiles == 1
+        del r
+        # a Python custom op, its body torch ops on the card
+        x = a.clone().requires_grad_()
+        t0 = time.perf_counter()
+        with autograd.record():
+            y = nd.Custom(x, op_type="t_sigmoid")
+        autograd.backward(y.sum())
+        torch.cuda.synchronize()
+        res["custom_fwd_bwd_ms"] = (time.perf_counter() - t0) * 1e3
+        res["custom_max_abs_err"] = max(
+            (y.detach() - sp).abs().max().item(),
+            (x.grad - sp * (1 - sp)).abs().max().item())
+        checks["custom"] = res["custom_max_abs_err"] <= SIGMOID_TOL and \
+            y.device == a.device
+        del x, y, sp
+        # the example library: host code, a round trip each call
+        build = os.path.join(HERE, "build", "mxnet_tpu_torch")
+        os.makedirs(build, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build) as d:
+            so = library.compile_example(d)
+            library.load(so, verbose=False)
+            x = a.clone().requires_grad_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with autograd.record():
+                y6 = nd.my_relu6(x)
+            torch.cuda.synchronize()
+            res["relu6_fwd_round_trip_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            autograd.backward(y6.sum())
+            torch.cuda.synchronize()
+            res["relu6_bwd_round_trip_ms"] = (time.perf_counter() - t0) * 1e3
+            checks["relu6"] = bool(
+                y6.device == a.device and
+                torch.equal(y6, a.clamp(0, 6)) and
+                torch.equal(x.grad, ((a > 0) & (a < 6)).float()))
+            del y6
+            x.grad = None
+            with autograd.record():
+                y3 = nd.my_scale(x, k=3.0)
+            autograd.backward(y3.sum())
+            checks["scale"] = bool(torch.equal(y3, a * 3.0) and
+                                   torch.equal(x.grad, torch.full_like(a, 3)))
+            del x, y3
+        res["round_trip_bytes"] = 2 * a.numel() * 4
+        # a user's rtc kernel
+        for _ in range(EXT_CALLS["rtc_axpy"]):
+            o = rx.axpy(axpy, a, b)
+        checks["rtc_axpy"] = bool(torch.equal(o, rx.axpy_plain(a, b)))
+        del o
+        torch.cuda.synchronize()
+        res["path_s"] = time.perf_counter() - t_path
+    finally:
+        tvmop._REGISTRY.pop("tvm_test_relu", None)
+        if hasattr(nd, "tvm_test_relu"):
+            delattr(nd, "tvm_test_relu")
+    launches = {n: op.launches for n, op in ops.items()}
+    launches.update(tvm_test_relu=relu.launches,
+                    rtc_axpy=rtc.Kernel.launches)
+    state["ext_launches"] = {k: v for k, v in launches.items()
+                             if k != "tvm_test_relu"}
+    checks["unregistered"] = "tvm_test_relu" not in tvmop.list_ops()
+    res.update(shape=list(EXT_SHAPE), launches=launches, calls=EXT_CALLS,
+               checks=checks)
+    if launches != EXT_CALLS or not all(checks.values()):
+        raise AssertionError(f"extension path: {res}")
+    return res
+
+
 # ------------------------------------------------------------------ main
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
@@ -2230,9 +2625,27 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_kernels.py:61"),
     ("qconv3x3_affine", "mxnet_tpu_torch/csrc/qconv_affine.cu",
      "mxnet_tpu/ops/pallas_int8.py:197"),
+    ("tvm_vadd", "mxnet_tpu_torch/csrc/tvmop_elementwise.cuh",
+     "mxnet_tpu/tvmop.py:50"),
+    ("tvm_vmul", "mxnet_tpu_torch/csrc/tvmop_elementwise.cuh",
+     "mxnet_tpu/tvmop.py:50"),
+    ("tvm_sigmoid", "mxnet_tpu_torch/csrc/tvmop_elementwise.cuh",
+     "mxnet_tpu/tvmop.py:50"),
+    ("rtc_axpy", "mxnet_tpu_torch/examples/rtc_kernels.cu",
+     "mxnet_tpu/rtc.py:35"),
 ]
+# what else an entry names: the registered Pallas body a generated kernel
+# replaces, the module that compiles and launches the rtc route
+KERNEL_NOTES = {
+    "tvm_vadd": {"body": "mxnet_tpu/tvmop.py:119", "compiler": "nvrtc"},
+    "tvm_vmul": {"body": "mxnet_tpu/tvmop.py:124", "compiler": "nvrtc"},
+    "tvm_sigmoid": {"body": "mxnet_tpu/tvmop.py:138", "compiler": "nvrtc"},
+    "rtc_axpy": {"body": "tests/test_pallas_rtc.py:85",
+                 "launcher": "mxnet_tpu_torch/rtc.py", "compiler": "nvrtc"},
+}
 PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
-                 "train_launches", "text_launches", "int8_launches")
+                 "train_launches", "text_launches", "int8_launches",
+                 "ext_launches")
 
 
 def kernels_line(state):
@@ -2241,7 +2654,7 @@ def kernels_line(state):
     ``bert_train``, ResNet-50 serving in ``image_serve``, ResNet-50
     training in ``image_train``, Gluon BERT serving in ``text_serve``,
     int8 ResNet-50 scoring and serving in ``int8_score`` and
-    ``int8_serve``);
+    ``int8_serve``, the extension surface in ``ext_path``);
     the times are at the first case, the
     path's own shape (``conv3x3``: its dgrad use, which is how training
     launches it)."""
@@ -2259,7 +2672,8 @@ def kernels_line(state):
                     "bound_ms": main["bound_ms"],
                     "bound_by": main["bound_by"],
                     "library_ms": main["library_ms"],
-                    "shape": main["shape"], "card": state["card"]})
+                    "shape": main["shape"], "card": state["card"],
+                    **KERNEL_NOTES.get(name, {})})
     return {"kernels": out}
 
 
@@ -2305,7 +2719,10 @@ def main():
                      ("int8_score", phase_int8_score),
                      ("int8_serve", phase_int8_serve),
                      ("int8_reference", phase_int8_reference),
-                     ("int8_profile", phase_int8_profile)):
+                     ("int8_profile", phase_int8_profile),
+                     ("ext_kernels", phase_ext_kernels),
+                     ("rtc", phase_rtc),
+                     ("ext_path", phase_ext_path)):
         t0 = time.perf_counter()
         try:
             res = fn(state)

@@ -21,10 +21,17 @@ is Gluon BERT serving (``models.bert_gluon`` on token items), with a
 hand-written row-softmax kernel.  Slice 6 is int8 serving:
 ``quantization.quantize_net`` behind ``InferenceEngine(precision=
 "int8")``, with a hand-written int8 tensor-core kernel for the 3×3 conv
-+ dequantization (+ add) (+ ReLU).  The kernels (``csrc/``) are built
-with
-``nvcc`` at their first launch.  Entry points run on the GPU unless
-``device="cpu"`` is passed.  Importing the package builds nothing.
++ dequantization (+ add) (+ ReLU).  Slice 7 is the extension surface:
+runtime-compiled CUDA kernels (``rtc.CudaModule`` over NVRTC,
+``_nvrtc``), the generated-op registry (``tvmop``, its kernels made from
+the hand-written template ``csrc/tvmop_elementwise.cuh``; stock
+``tvm_vadd``, ``tvm_vmul``, ``tvm_sigmoid``), Python custom ops
+(``operator.CustomOp`` on ``autograd.Function``), ops from a user's
+shared library (``library``) and the function registry (``_ffi``), all
+joining the ``nd`` namespace.  The kernels of ``csrc/*.cu`` are built
+with ``nvcc`` at their first launch, the generated and rtc kernels by
+NVRTC at theirs.  Entry points run on the GPU unless ``device="cpu"`` is
+passed.  Importing the package builds and compiles nothing.
 """
 from . import context, gluon, initializer, optimizer, telemetry
 from .context import cpu, gpu, num_gpus
@@ -34,9 +41,13 @@ from .models.gpt import GPTConfig, GPTModel, init_params, params_from_numpy
 from .models import get_model
 from .serve import (Batcher, DecodeBatcher, InferenceEngine,
                     ModelRegistry)
+from . import autograd, nd, operator, library, rtc, tvmop, _ffi
+from ._ffi import get_global_func, register_func
 
 __all__ = ["context", "gluon", "initializer", "optimizer", "telemetry",
            "cpu", "gpu", "num_gpus", "DecodeEngine", "DecodeBatcher",
            "BertConfig", "BertModel", "GPTConfig", "GPTModel",
            "init_params", "params_from_numpy", "get_model", "Batcher",
-           "InferenceEngine", "ModelRegistry"]
+           "InferenceEngine", "ModelRegistry", "autograd", "nd", "operator",
+           "library", "rtc", "tvmop", "_ffi", "get_global_func",
+           "register_func"]

@@ -57,8 +57,11 @@ def layer_norm(x, gamma, beta, axis: int = -1, eps: float = 1e-5):
     issuing 25 of these per token, should not pay for.  Over another axis
     it is the reference's closed form: normalized over ``axis`` with fp32
     statistics, then ``· gamma + beta`` broadcast along the LAST axis, as
-    the reference does (it raises where that broadcast fails)."""
-    if axis not in (-1, x.dim() - 1):
+    the reference does (it raises where that broadcast fails).  A
+    non-fp32 ``x`` takes that closed form on every axis, as in the
+    reference (``ops/nn.py:482-493``): the kernel and its plain version
+    are fp32 only."""
+    if axis not in (-1, x.dim() - 1) or x.dtype != torch.float32:
         xf = x.float()
         mean = xf.mean(dim=axis, keepdim=True)
         var = xf.var(dim=axis, unbiased=False, keepdim=True)

@@ -369,6 +369,36 @@ def test_layernorm_middle_axis_raises_where_the_reference_does():
                        torch.from_numpy(b), axis=1)
 
 
+@pytest.mark.parametrize("shape,axis", [((4, 768), -1), ((4, 768), 0),
+                                        ((2, 6, 768), 1)])
+def test_layer_norm_bf16_matches_reference(shape, axis):
+    """A bf16 input takes the reference's closed form on every axis:
+    fp32 statistics, the normalized value cast back to bf16, then
+    ``· γ + β``.  With bf16 γ and β (a bf16 model's) the output is bf16
+    and equal to the reference bit for bit; with fp32 γ and β it is fp32
+    and within 1e-6 (XLA contracts the scale and shift into one FMA,
+    torch rounds twice)."""
+    rs = np.random.RandomState(0)
+    x = rs.randn(*shape).astype(np.float32)
+    g = (1 + 0.5 * rs.randn(shape[-1])).astype(np.float32)
+    b = (0.5 * rs.randn(shape[-1])).astype(np.float32)
+    jx = jnp.asarray(x, dtype=jnp.bfloat16)
+    tx = torch.from_numpy(x).bfloat16()
+    for gdt, jdt in ((torch.bfloat16, jnp.bfloat16),
+                     (torch.float32, jnp.float32)):
+        ref = jnn.layer_norm(jx, jnp.asarray(g, dtype=jdt),
+                             jnp.asarray(b, dtype=jdt), axis=axis)
+        out = tnn.layer_norm(tx, torch.from_numpy(g).to(gdt),
+                             torch.from_numpy(b).to(gdt), axis=axis)
+        assert out.dtype == gdt and str(ref.dtype) == str(gdt)[6:]
+        ref = np.asarray(ref.astype(jnp.float32))
+        if gdt == torch.bfloat16:
+            np.testing.assert_array_equal(out.float().numpy(), ref)
+        else:
+            np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6,
+                                       atol=1e-6)
+
+
 def test_embedding_block_matches_reference():
     rs = np.random.RandomState(9)
     w = rs.randn(50, 12).astype(np.float32)
