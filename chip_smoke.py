@@ -35,8 +35,9 @@ the first phase that fails:
    off for matmul and cuDNN.
 2. ``build``: nvcc builds the kernels of ``mxnet_tpu_torch/csrc``.
 3. ``kernels``: each kernel at the shapes the path gives it, against its
-   plain PyTorch version on the same inputs (LayerNorm within 1e-5,
-   attention within 1e-4: its sums run in another order), with CUDA
+   plain PyTorch version on the same inputs (LayerNorm within 1e-5, also
+   on its block-a-row path at (64, 8192) and (16, 30522); attention
+   within 1e-4: its sums run in another order), with CUDA
    event times of the kernel, the plain version and one PyTorch library
    call computing the same function (timed here, never used by the port).
 4. ``slice``: launch counters set to 0, then ``warmup`` is done, then
@@ -89,6 +90,15 @@ the first phase that fails:
     relative and sum(z) within 1e-5 of the channel's sum |z|;
     ``bn_affine`` within 1e-6 of its largest magnitude), timed beside
     their bounds, plain versions and the nearest single library call.
+    ``conv_wgrad`` (3xTF32 on the tensor cores) also reports, per case,
+    its plan (ranges, partial slots), both bounds (fp32 on the CUDA
+    cores; its three TF32 products on the tensor cores, the line's
+    ``bound_ms``), fp32-equivalent TFLOP/s, its share of the
+    tensor-core bound, ``conv2d_weight``'s ms, and that two launches on
+    the same inputs give bitwise-equal dW (a gate); and the TF32
+    ``mma.sync`` ceiling of the card (independent products on registers,
+    no memory, compiled through ``rtc.CudaModule``) with each case's
+    share of it.
 16. ``image_train``: the launch counters set to 0, then
     ``examples.image_classification.main`` at its defaults with 2
     warm-up and 8 timed steps; the losses finite, each training kernel
@@ -108,7 +118,12 @@ the first phase that fails:
     ragged widths 77 and 1000, vocabulary rows (4096, 30522) and (1024,
     4096), rows holding -1e9 and a row of only -1e9 (which must give
     1/cols) on both of its kernels, and a strided view; timed beside its
-    bound, its plain version and ``torch.softmax``.
+    bound, its plain version and ``torch.softmax``.  Then ``ops.nn.softmax``
+    on bf16 at (4, 768), (2, 3, 512) and (8, 30522), last axis and axis
+    0, on the card (the closed form: the fp32 kernel is not launched)
+    against the port on the CPU, each value within one bf16 step of its
+    own (the fp32 sums run in another order on the two devices, which may
+    move a rounding of the sum by one step).
 20. ``text_serve``: the launch counters set to 0, then
     ``ModelRegistry.load`` of a seeded BERT-base ``.params`` with
     ``dtype="int32"`` (warmup of every bucket), 32 closed-loop requests
@@ -201,6 +216,13 @@ Then one ``{"kernels": [...]}`` line (16 entries), the ``nvidia-smi`` line, and 
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside this file, it exits non-zero and prints
 no result.
+
+    python3 chip_smoke.py --phases env,build,train_kernels
+
+runs only the named phases, in that order, and prints their lines (no
+kernels or result line).  Two commits are compared on one card by
+running each checkout's own script in turns (parent, change, change,
+parent), each on its own package and build.
 """
 import json
 import os
@@ -217,6 +239,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # dense int8 on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
+PEAK_TF32_FLOP_S = 495e12
 PEAK_INT8_OPS_S = 1979e12
 
 LN_TOL = 1e-5
@@ -309,7 +332,8 @@ def phase_build(state):
         m = re.search(r"entry function '\S*?(causal_attn_fwd|layernorm_fwd|"
                       r"attn_fwd|attn_dq|attn_dkv|conv_affine_kernel|"
                       r"conv3x3_kernel|conv_stats_kernel|"
-                      r"conv_wgrad_kernel|bn_affine_kernel|"
+                      r"conv_wgrad_kernel|wgrad_reduce_kernel|"
+                      r"layernorm_row_fwd|bn_affine_kernel|"
                       r"softmax_warp_kernel|softmax_block_kernel|"
                       r"qconv_affine_kernel)"
                       r"I((?:L[ib]\d+E)+)E", ln)
@@ -387,7 +411,8 @@ def _attn_case(B, H, L, hd, gen):
 def phase_kernels(state):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    ln = [_ln_case(r, 768, gen) for r in (4096, 512, 8, 1)]
+    ln = [_ln_case(r, 768, gen) for r in (4096, 512, 8, 1)] + \
+        [_ln_case(64, 8192, gen), _ln_case(16, 30522, gen)]
     attn = [_attn_case(8, 6, 512, 128, gen), _attn_case(1, 6, 512, 128, gen),
             _attn_case(8, 12, 512, 64, gen), _attn_case(1, 6, 200, 128, gen)]
     bad = [c for c in ln + attn if not c["max_abs_err"] <= c["tol"]]
@@ -1168,19 +1193,8 @@ def _train_conv_cases(N, H, W, C, Cout, gen, dgrad_only=False):
         lambda: torch.nn.grad.conv2d_input(xc.shape, wc, dyc, padding=1),
         conv_bytes, flops)
 
-    dw = cb.conv_wgrad(x, dy)
-    rdw = cb.conv_wgrad_plain(x, dy)
-    err, rel = _rel_err(dw, rdw)
-    splits, _ = cb.wgrad_splits(npix, 9 * C, Cout,
-                                torch.cuda.get_device_properties(0)
-                                .multi_processor_count)
-    out["conv_wgrad"] = _timed(
-        {"shape": shape, "splits": splits, "max_abs_err": err,
-         "rel_err": rel, "tol": TRAIN_TOL,
-         "library": "torch.nn.grad.conv2d_weight (cuDNN)"},
-        lambda: cb.conv_wgrad(x, dy), lambda: cb.conv_wgrad_plain(x, dy),
-        lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, dyc, padding=1),
-        conv_bytes, flops)
+    out["conv_wgrad"] = _wgrad_case(x, dy, xc, wc, dyc, shape, conv_bytes,
+                                    flops)
     if dgrad_only:
         return out
 
@@ -1210,6 +1224,83 @@ def _train_conv_cases(N, H, W, C, Cout, gen, dgrad_only=False):
     return out
 
 
+def _wgrad_case(x, dy, xc, wc, dyc, shape, nbytes, flops):
+    """``conv_wgrad`` against its plain version, twice on the same inputs
+    (the two dW must be bitwise equal), timed beside both bounds: fp32
+    on the CUDA cores and the three TF32 products of its 3xTF32 scheme on
+    the tensor cores (the line's ``bound_ms``)."""
+    import torch
+    from mxnet_tpu_torch.ops import conv_block as cb
+    dw = cb.conv_wgrad(x, dy)
+    again = cb.conv_wgrad(x, dy)
+    rdw = cb.conv_wgrad_plain(x, dy)
+    err, rel = _rel_err(dw, rdw)
+    N, H, W, C, Cout = shape
+    vec = int(C % 4 == 0 and Cout % 4 == 0)
+    plan = cb.wgrad_splits(N * H * W, 9 * C, Cout,
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count,
+                           cb._wgrad_per_sm(0, cb.wgrad_tile_cols(Cout), vec))
+    case = _timed(
+        {"shape": shape, "plan": plan._asdict(), "max_abs_err": err,
+         "rel_err": rel, "tol": TRAIN_TOL,
+         "bitwise_equal_relaunch": bool(torch.equal(dw, again)),
+         "library": "torch.nn.grad.conv2d_weight (cuDNN)"},
+        lambda: cb.conv_wgrad(x, dy), lambda: cb.conv_wgrad_plain(x, dy),
+        lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, dyc, padding=1),
+        nbytes, flops)
+    fp32_ms, fp32_by = bound(nbytes, flops)
+    tc_ms, tc_by = bound(nbytes, 3 * flops, PEAK_TF32_FLOP_S)
+    case.update(bound_ms=tc_ms, bound_by=tc_by, bound_fp32_ms=fp32_ms,
+                bound_fp32_by=fp32_by, tf32_flop=3 * flops,
+                tensor_core_bound_share=tc_ms / case["kernel_ms"],
+                vs_library=case["kernel_ms"] / case["library_ms"])
+    return case
+
+
+MMA_TF32_PEAK_SRC = r"""
+extern "C" __global__ void mma_tf32_peak(float* out, int iters) {
+  const unsigned v = __float_as_uint(1.0f + threadIdx.x * 1e-3f) & 0xffffe000u;
+  const unsigned a0 = v, a1 = v ^ 0x2000u, a2 = v, a3 = v ^ 0x4000u;
+  float acc[8][4] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+          : "+f"(acc[j][0]), "+f"(acc[j][1]), "+f"(acc[j][2]),
+            "+f"(acc[j][3])
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(a1), "r"(a3));
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+"""
+
+
+def _mma_tf32_ceiling():
+    """What ``mma.sync.m16n8k8`` TF32 sustains on this card: every warp
+    issues independent products on registers (8 accumulators, no memory
+    in the loop), 8 warps a block, 2 blocks an SM; compiled by NVRTC
+    through ``rtc.CudaModule``.  The ceiling of any ``mma.sync`` TF32
+    kernel, beside the 495 TFLOP/s dense peak that ``wgmma`` can reach."""
+    import torch
+    from mxnet_tpu_torch import rtc
+    blocks = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 4096
+    kern = rtc.CudaModule(MMA_TF32_PEAK_SRC).get_kernel("mma_tf32_peak")
+    run = lambda: kern.launch([iters], grid=(blocks,), block=(256,),  # noqa
+                              out_shape=(blocks * 256,))
+    ms = cuda_ms(run, iters=3)
+    flop = blocks * 8 * iters * 8 * 2 * 16 * 8 * 8
+    return {"blocks": blocks, "ms": ms, "flop": flop,
+            "tflop_s": flop / (ms * 1e-3) / 1e12,
+            "share_of_dense_peak": flop / (ms * 1e-3) / PEAK_TF32_FLOP_S}
+
+
 def _affine_case(N, H, W, C, gen, residual=False, relu=True):
     import torch
     from mxnet_tpu_torch.ops import conv_block as cb
@@ -1236,6 +1327,8 @@ def _affine_case(N, H, W, C, gen, residual=False, relu=True):
 def _train_ok(name, c):
     if not c["rel_err"] <= c["tol"]:
         return False
+    if name == "conv_wgrad":
+        return c["bitwise_equal_relaunch"]
     if name == "conv_stats":
         return c["sum_rel_err"] <= c["stats_rtol"] and \
             c["sumsq_rel_err"] <= c["stats_rtol"]
@@ -1272,7 +1365,12 @@ def phase_train_kernels(state):
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
-    return {"cases": cases}
+    ceiling = _mma_tf32_ceiling()
+    for c in cases["conv_wgrad"]:
+        c["mma_sync_ceiling_share"] = \
+            3 * c["flop"] / (c["kernel_ms"] * 1e-3) / 1e12 / \
+            ceiling["tflop_s"]
+    return {"cases": cases, "mma_tf32_ceiling": ceiling}
 
 
 TRAIN_KERNELS = ("conv3x3", "conv_stats", "bn_affine", "conv_wgrad")
@@ -1529,6 +1627,37 @@ def _softmax_case(rows, cols, gen, masked=False, strided=False):
     return case
 
 
+SOFTMAX_BF16_STEPS = 1  # bf16 steps between card and CPU, value by value
+
+
+def _softmax_bf16_case(shape, axis, gen):
+    """``ops.nn.softmax`` on a bf16 tensor on the card (the reference's
+    closed form; the fp32 kernel must not launch) against the port on the
+    CPU on the same values.  Softmax values are never negative, so the
+    distance of two bf16 values in steps of their own size is the
+    difference of their bit patterns."""
+    import torch
+    from mxnet_tpu_torch.ops import nn as tnn
+    from mxnet_tpu_torch.ops.cuda_kernels import softmax_fused
+    x = (torch.randn(*shape, device="cuda", generator=gen) * 4).bfloat16()
+    before = softmax_fused.launches
+    out = tnn.softmax(x, axis=axis)
+    torch.cuda.synchronize()
+    launched = softmax_fused.launches - before
+    ref = tnn.softmax(x.cpu(), axis=axis)
+    got = out.cpu()
+    steps = (got.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
+    return {"shape": list(shape), "axis": axis, "dtype": str(out.dtype),
+            "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+            "max_bf16_steps": steps.max().item(),
+            "tol_bf16_steps": SOFTMAX_BF16_STEPS,
+            "all_nonnegative": bool((got >= 0).all() and (ref >= 0).all()),
+            "values_differing": int((steps > 0).sum()),
+            "values": steps.numel(),
+            "finite": bool(torch.isfinite(out).all()),
+            "kernel_launches": launched}
+
+
 def phase_text_kernels(state):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
@@ -1552,7 +1681,18 @@ def phase_text_kernels(state):
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
-    return {"cases": cases}
+    half = [_softmax_bf16_case(shape, axis, gen)
+            for shape in ((4, 768), (2, 3, 512), (8, 30522))
+            for axis in (-1, 0)]
+    bad = [c for c in half
+           if not (c["max_bf16_steps"] <= c["tol_bf16_steps"] and
+                   c["all_nonnegative"] and c["finite"] and
+                   c["dtype"] == "torch.bfloat16" and
+                   c["kernel_launches"] == 0)]
+    if bad:
+        raise AssertionError(f"bf16 softmax on the card disagrees with the "
+                             f"CPU: {bad}")
+    return {"cases": cases, "bf16_vs_cpu": half}
 
 
 def _bert_base_params(path):
@@ -2619,7 +2759,7 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_block.py:343"),
     ("bn_affine", "mxnet_tpu_torch/csrc/conv_train.cu",
      "mxnet_tpu/ops/pallas_block.py:367"),
-    ("conv_wgrad", "mxnet_tpu_torch/csrc/conv_train.cu",
+    ("conv_wgrad", "mxnet_tpu_torch/csrc/conv_wgrad.cu",
      "mxnet_tpu/ops/pallas_block.py:381"),
     ("softmax_fused", "mxnet_tpu_torch/csrc/softmax.cu",
      "mxnet_tpu/ops/pallas_kernels.py:61"),
@@ -2673,11 +2813,32 @@ def kernels_line(state):
                     "bound_by": main["bound_by"],
                     "library_ms": main["library_ms"],
                     "shape": main["shape"], "card": state["card"],
+                    **{k: main[k] for k in ("bound_fp32_ms",) if k in main},
                     **KERNEL_NOTES.get(name, {})})
     return {"kernels": out}
 
 
-def main():
+PHASES = ("env", "build", "kernels", "slice", "reference", "profile",
+          "bert_kernels", "bert_train", "bert_reference", "bert_profile",
+          "image_kernels", "image_serve", "image_reference", "image_profile",
+          "train_kernels", "image_train", "image_train_reference",
+          "image_train_profile", "text_kernels", "text_serve",
+          "text_reference", "text_profile", "int8_kernels", "int8_score",
+          "int8_serve", "int8_reference", "int8_profile", "ext_kernels",
+          "rtc", "ext_path")
+
+
+def _args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "card (see the module docstring).")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run alone, in order")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = _args(sys.argv[1:] if argv is None else argv)
     try:
         import torch
     except ImportError:
@@ -2693,39 +2854,17 @@ def main():
         print(f"chip_smoke: the mxnet_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 2
+    names = args.phases.split(",") if args.phases else PHASES
+    unknown = [n for n in names if n not in PHASES]
+    if unknown:
+        print(f"chip_smoke: no phases {unknown}", file=sys.stderr)
+        return 2
 
-    state = {"card": None}
-    for name, fn in (("env", phase_env), ("build", phase_build),
-                     ("kernels", phase_kernels), ("slice", phase_slice),
-                     ("reference", phase_reference),
-                     ("profile", phase_profile),
-                     ("bert_kernels", phase_bert_kernels),
-                     ("bert_train", phase_bert_train),
-                     ("bert_reference", phase_bert_reference),
-                     ("bert_profile", phase_bert_profile),
-                     ("image_kernels", phase_image_kernels),
-                     ("image_serve", phase_image_serve),
-                     ("image_reference", phase_image_reference),
-                     ("image_profile", phase_image_profile),
-                     ("train_kernels", phase_train_kernels),
-                     ("image_train", phase_image_train),
-                     ("image_train_reference", phase_image_train_reference),
-                     ("image_train_profile", phase_image_train_profile),
-                     ("text_kernels", phase_text_kernels),
-                     ("text_serve", phase_text_serve),
-                     ("text_reference", phase_text_reference),
-                     ("text_profile", phase_text_profile),
-                     ("int8_kernels", phase_int8_kernels),
-                     ("int8_score", phase_int8_score),
-                     ("int8_serve", phase_int8_serve),
-                     ("int8_reference", phase_int8_reference),
-                     ("int8_profile", phase_int8_profile),
-                     ("ext_kernels", phase_ext_kernels),
-                     ("rtc", phase_rtc),
-                     ("ext_path", phase_ext_path)):
+    state = {"card": None, "cases": {}}
+    for name in names:
         t0 = time.perf_counter()
         try:
-            res = fn(state)
+            res = globals()["phase_" + name](state)
         except Exception as e:
             traceback.print_exc()
             emit({"phase": name, "ok": False, "card": state["card"],
@@ -2733,6 +2872,8 @@ def main():
             return 1
         emit({"phase": name, "ok": True, "card": state["card"],
               "phase_s": time.perf_counter() - t0, **res})
+    if args.phases:
+        return 0
     emit(kernels_line(state))
     print(state["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -67,9 +67,11 @@ _SIGNATURES = {
     "mxt_conv3x3_f32": [_P] * 3 + [ctypes.c_int] * 6 + [_P],
     # x, w, z, part, stats, N, H, W, C, Cout, vec, stream
     "mxt_conv_stats_f32": [_P] * 5 + [ctypes.c_int] * 6 + [_P],
-    # x, dy, part, dw, N, H, W, C, Cout, splits, per_split, vec, stream
-    "mxt_conv_wgrad_f32": [_P] * 4 + [ctypes.c_int] * 6 +
-                          [ctypes.c_longlong, ctypes.c_int, _P],
+    # x, dy, part, dw, N, H, W, C, Cout, bn, ranges, jmax, vec, stream
+    "mxt_conv_wgrad_f32": [_P] * 4 + [ctypes.c_int] * 9 + [_P],
+    # bn, vec, out (int*)
+    "mxt_conv_wgrad_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)],
     # z, scale, shift, res, out, total, Cout, relu, vec, stream
     "mxt_bn_affine_f32": [_P] * 5 + [ctypes.c_longlong] +
                          [ctypes.c_int] * 3 + [_P],

@@ -1,6 +1,6 @@
 // The implicit-GEMM tile shared by the 3x3/s1/p1 convolution kernels of
 // conv_affine.cu (frozen forward) and conv_train.cu (training forward with
-// statistics, dgrad, wgrad).
+// statistics, dgrad).
 //
 // A block of 256 threads owns a 64 x 64 output tile and streams the
 // reduction in chunks of 16 through double-buffered shared memory: the
@@ -18,9 +18,7 @@
 // output channels, the reduction K = 9*C taps x input channels in
 // tap-major order (the HWIO weight read as the row-major (9C, Cout)
 // matrix), the input patch gathered straight from NHWC with the 3x3 halo
-// zero-filled by predicated loads.  WgradLoader reads the weight
-// gradient: rows are the 9C patch columns, columns output channels, the
-// reduction a range of output pixels (patches^T . dy).
+// zero-filled by predicated loads.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,7 +39,7 @@ struct TileSmem {
 // The 3x3/s1/p1 conv geometry: x (N, H, W, C) NHWC, w (3, 3, C, Cout).
 struct ConvGeom {
   const float* x;
-  const float* w;        // the weight (forward) or dy (wgrad)
+  const float* w;        // the weight
   long long M;           // N*H*W
   int H, W, C, Cout, K;  // K = 9*C
 };
@@ -167,83 +165,6 @@ struct ConvFwdLoader {
 #pragma unroll
     for (int e = 0; e < 4; ++e) As[a_q * 4 + e][a_m] = ra[e];
     *reinterpret_cast<float4*>(&Bs[b_row][b_col]) =
-        make_float4(rb[0], rb[1], rb[2], rb[3]);
-  }
-};
-
-// Weight gradient over output pixels [mbeg, mend): tile rows are patch
-// columns k0 .. k0+63 (k = tap*C + c), tile columns output channels; the
-// reduction runs over pixels, 16 a chunk.  g.w is dy (N, H, W, Cout).
-// VEC: C % 4 == 0 (four consecutive k share a tap), Cout % 4 == 0 and
-// 16-byte aligned bases.
-template <bool VEC>
-struct WgradLoader {
-  const ConvGeom& g;
-  long long mbeg, mend;
-  int p;               // chunk pixel of this thread's loads
-  int ka;              // global patch column of its A loads
-  int nb;              // global output channel of its B loads
-  int q;               // tile offset of both
-
-  __device__ __forceinline__ WgradLoader(const ConvGeom& geom, long long b,
-                                         long long e, int k0, int n0)
-      : g(geom), mbeg(b), mend(e) {
-    const int tid = threadIdx.x;
-    p = tid >> 4;
-    q = (tid & 15) * 4;
-    ka = k0 + q;
-    nb = n0 + q;
-  }
-
-  __device__ __forceinline__ void fetch(int kt, float* ra, float* rb) const {
-    const long long m = mbeg + (long long)kt * BK + p;
-    const bool valid = m < mend;
-    int ph = 0, pw = 0;
-    if (valid) {
-      pw = (int)(m % g.W);
-      ph = (int)((m / g.W) % g.H);
-    }
-    if constexpr (VEC) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (valid && ka < g.K) {
-        const int tap = ka / g.C;
-        const int c = ka - tap * g.C;
-        const int dh = tap / 3 - 1, dw = tap % 3 - 1;
-        const int ih = ph + dh, iw = pw + dw;
-        if (ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
-          v = *reinterpret_cast<const float4*>(
-              g.x + (m + (long long)dh * g.W + dw) * g.C + c);
-      }
-      ra[0] = v.x; ra[1] = v.y; ra[2] = v.z; ra[3] = v.w;
-      float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (valid && nb < g.Cout)
-        d = *reinterpret_cast<const float4*>(g.w + m * g.Cout + nb);
-      rb[0] = d.x; rb[1] = d.y; rb[2] = d.z; rb[3] = d.w;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int k = ka + e;
-        float v = 0.f;
-        if (valid && k < g.K) {
-          const int tap = k / g.C;
-          const int c = k - tap * g.C;
-          const int dh = tap / 3 - 1, dw = tap % 3 - 1;
-          const int ih = ph + dh, iw = pw + dw;
-          if (ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
-            v = g.x[(m + (long long)dh * g.W + dw) * g.C + c];
-        }
-        ra[e] = v;
-        rb[e] = (valid && nb + e < g.Cout) ? g.w[m * g.Cout + nb + e] : 0.f;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void put(float (*As)[BM + APAD],
-                                      float (*Bs)[BN], const float* ra,
-                                      const float* rb) const {
-    *reinterpret_cast<float4*>(&As[p][q]) =
-        make_float4(ra[0], ra[1], ra[2], ra[3]);
-    *reinterpret_cast<float4*>(&Bs[p][q]) =
         make_float4(rb[0], rb[1], rb[2], rb[3]);
   }
 };

@@ -6,39 +6,32 @@
 //   conv_stats  z = conv(x, w) and per-channel sum(z), sum(z^2), read off
 //               the accumulator before z is stored.
 //   bn_affine   out = act(z * scale[c] + shift[c] (+ res)), elementwise.
-//   conv_wgrad  dW (3, 3, C, Cout) = patches(x)^T . dy.
+//
+// (The fourth, the weight gradient, is conv_wgrad.cu's.)
 //
 // Replaces: mxnet_tpu/ops/pallas_block.py `_conv_kernel` (launched by
-// `conv3x3` and `conv3x3_dgrad`), `_conv_stats_kernel` (`_conv_stats`),
-// `_affine_kernel` (`_affine`) and `_wgrad_kernel` (`conv3x3_wgrad`), the
-// training forward and the backward of `residual_block_fused`.
+// `conv3x3` and `conv3x3_dgrad`), `_conv_stats_kernel` (`_conv_stats`)
+// and `_affine_kernel` (`_affine`), the training forward and the data
+// gradient of `residual_block_fused`.
 //
-// Bound on an H100: conv3x3, conv_stats and conv_wgrad do 2 * N*H*W * 9C *
+// Bound on an H100: conv3x3 and conv_stats do 2 * N*H*W * 9C *
 // Cout flops (231 MFLOP per image at every ResNet-50 stage, 14.8 GFLOP at
 // batch 64: 0.221 ms at the 67 TFLOP/s fp32 peak) over (N*H*W*(C + Cout)
 // + 9C*Cout) * 4 bytes (~2-26 MB: a few us at 3.35 TB/s), so operations
 // bound them.  bn_affine moves 2-3 tensors of N*H*W*Cout floats and does
 // 2-4 flops an element: bytes bound it (103 MB, 31 us at (64,56,56,64)).
 //
-// Design.  The three convolutions share conv3x3_tile.cuh's implicit-GEMM
+// Design.  The two convolutions share conv3x3_tile.cuh's implicit-GEMM
 // tile with conv_affine.cu (64 x 64 outputs a block, 16-deep double
 // buffered chunks, predicated halo loads; CUDA cores, TF32 off).
 //
-// The TPU kernels of conv_stats and wgrad add into one output block that
-// every grid step revisits, which is safe only on the TPU's sequential
-// grid.  Here blocks run at once and in no order, so each block writes
-// its own row of partial sums and a second kernel sums the rows in a
-// fixed order: the result is the same from run to run (float atomics
-// would not be).
-//  - conv_stats: each 64-pixel block sums its 64 channels over its pixels
-//    (4 per thread, then 16 threads in order through shared memory) into
-//    part[block][2][Cout]; stats_reduce_kernel sums the N*H*W/64 rows.
-//  - conv_wgrad: dW is a tall-skinny product, (9C x N*H*W) . (N*H*W x
-//    Cout): 576 x 64 at ResNet-50's first stage is 9 tiles for 132 SMs
-//    against a reduction of 200,704 pixels at batch 64.  The pixels are
-//    split into `splits` ranges (the host picks enough to fill the card),
-//    each block writes one (9C, Cout) partial, and wgrad_reduce_kernel
-//    sums the partials in order (no second pass when splits == 1).
+// The TPU kernel of conv_stats adds into one output block that every
+// grid step revisits, which is safe only on the TPU's sequential grid.
+// Here blocks run at once and in no order, so each 64-pixel block sums
+// its 64 channels over its pixels (4 per thread, then 16 threads in order
+// through shared memory) into its own row part[block][2][Cout], and
+// stats_reduce_kernel sums the N*H*W/64 rows in a fixed order: the result
+// is the same from run to run (float atomics would not be).
 //
 // bn_affine is CUDA C++ rather than Triton so the port keeps one build
 // system and nothing compiles at first launch: float4 loads and stores
@@ -131,30 +124,12 @@ conv_stats_kernel(const ConvGeom g, float* __restrict__ z,
   }
 }
 
-// dW partial of pixel range blockIdx.z: part (splits, 9C, Cout)
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-conv_wgrad_kernel(const ConvGeom g, long long per_split,
-                  float* __restrict__ part) {
-  __shared__ __align__(16) TileSmem smem;
-  const int k0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const long long mbeg = (long long)blockIdx.z * per_split;
-  const long long mend = mbeg + per_split < g.M ? mbeg + per_split : g.M;
-  const int nk = mend > mbeg ? (int)((mend - mbeg + BK - 1) / BK) : 0;
-  float acc[4][4];
-  WgradLoader<VEC> ld(g, mbeg, mend, k0, n0);
-  gemm_tile(ld, nk, smem, acc);
-  store_tile<VEC>(acc, part + (long long)blockIdx.z * g.K * g.Cout, k0, n0,
-                  g.K, g.Cout);
-}
-
 // out[c] = sum over r = 0 .. rows-1 of part[r][c], in a fixed order:
 // thread (x, y) sums rows y, y + blockDim.y, ... of its column, then
 // thread (x, 0) sums the blockDim.y partials in order.
-__device__ __forceinline__ void column_sum(const float* __restrict__ part,
-                                           float* __restrict__ out,
-                                           int rows, long long cols) {
+__global__ void stats_reduce_kernel(const float* __restrict__ part,
+                                    float* __restrict__ out, int rows,
+                                    long long cols) {
   __shared__ float red[32][33];
   const long long c = (long long)blockIdx.x * 32 + threadIdx.x;
   float t = 0.f;
@@ -170,18 +145,6 @@ __device__ __forceinline__ void column_sum(const float* __restrict__ part,
     for (int r = 0; r < (int)blockDim.y; ++r) u += red[r][threadIdx.x];
     out[c] = u;
   }
-}
-
-__global__ void stats_reduce_kernel(const float* __restrict__ part,
-                                    float* __restrict__ out, int rows,
-                                    long long cols) {
-  column_sum(part, out, rows, cols);
-}
-
-__global__ void wgrad_reduce_kernel(const float* __restrict__ part,
-                                    float* __restrict__ out, int rows,
-                                    long long cols) {
-  column_sum(part, out, rows, cols);
 }
 
 template <bool VEC>
@@ -290,34 +253,6 @@ extern "C" int mxt_conv_stats_f32(const void* x, const void* w, void* z,
   const long long cols = 2LL * Cout;
   stats_reduce_kernel<<<column_grid(cols), column_block((int)mb), 0, s>>>(
       p, static_cast<float*>(stats), (int)mb, cols);
-  return (int)cudaGetLastError();
-}
-
-// x (N, H, W, C), dy (N, H, W, Cout), dw (3, 3, C, Cout) == (9C, Cout).
-// The N*H*W pixels are split into `splits` ranges of per_split (the last
-// may be short); part (splits, 9C, Cout) scratch, unused (may be null)
-// when splits == 1.  vec needs C % 4 == 0 and Cout % 4 == 0.
-extern "C" int mxt_conv_wgrad_f32(const void* x, const void* dy, void* part,
-                                  void* dw, int N, int H, int W, int C,
-                                  int Cout, int splits, long long per_split,
-                                  int vec, void* stream) {
-  ConvGeom g;
-  if (!geom(g, x, dy, N, H, W, C, Cout) || splits <= 0 || splits > 65535 ||
-      per_split <= 0 || (long long)splits * per_split < g.M)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((g.K + BM - 1) / BM),
-                  (unsigned)((Cout + BN - 1) / BN), (unsigned)splits);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(splits == 1 ? dw : part);
-  if (vec)
-    conv_wgrad_kernel<true><<<grid, kThreads, 0, s>>>(g, per_split, out);
-  else
-    conv_wgrad_kernel<false><<<grid, kThreads, 0, s>>>(g, per_split, out);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const long long cols = (long long)g.K * Cout;
-  wgrad_reduce_kernel<<<column_grid(cols), column_block(splits), 0, s>>>(
-      out, static_cast<float*>(dw), splits, cols);
   return (int)cudaGetLastError();
 }
 

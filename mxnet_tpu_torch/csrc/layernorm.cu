@@ -16,7 +16,13 @@
 // two-pass in registers, as the TPU kernel computes them: the mean first,
 // then the centred variance mean((x - mu)^2) (not E[x^2] - mu^2), both
 // reduced with warp shuffles; then (x - mu) * rsqrt(var + eps) * g + b.
-// Four rows per 128-thread block; any row count, any C up to 4096.
+// Four rows per 128-thread block; any row count, C up to 4096.
+//
+// Wider rows (a LayerNorm over a vocabulary, 30522 wide) do not fit a
+// warp's registers: one 512-thread block owns a row instead and walks it
+// three times (sum, centred squares, output), the second and third reads
+// mostly from L2.  Its sums are warp shuffles, then the 16 warps' partials
+// added in a fixed order, so the result is the same from run to run.
 
 #include <cuda_runtime.h>
 
@@ -110,6 +116,72 @@ layernorm_fwd(const float* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+constexpr int kRowThreads = 512;
+
+// The sum of v over the block, the same in every thread: warp shuffles,
+// then the warps' partials added in warp order.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRowThreads / 32; ++i) t += red[i];
+  __syncthreads();   // red is written again by the next call
+  return t;
+}
+
+// One block a row, rows in a grid-stride loop; any C.  VEC == 4: the host
+// guarantees C % 4 == 0 and 16-byte aligned bases.
+template <int VEC>
+__global__ void __launch_bounds__(kRowThreads)
+layernorm_row_fwd(const float* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, float* __restrict__ y,
+                  long long rows, int C, float eps) {
+  __shared__ float red[kRowThreads / 32];
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const float* xr = x + row * C;
+    float* yr = y + row * C;
+    float v[VEC];
+    float sum = 0.f;
+    for (int c = threadIdx.x * VEC; c < C; c += kRowThreads * VEC) {
+      load_vec<VEC>(xr + c, v);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sum += v[e];
+    }
+    const float mean = block_sum(sum, red) / (float)C;
+    float sq = 0.f;
+    for (int c = threadIdx.x * VEC; c < C; c += kRowThreads * VEC) {
+      load_vec<VEC>(xr + c, v);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float d = v[e] - mean;
+        sq += d * d;
+      }
+    }
+    const float rstd = rsqrtf(block_sum(sq, red) / (float)C + eps);
+    for (int c = threadIdx.x * VEC; c < C; c += kRowThreads * VEC) {
+      float g[VEC], b[VEC], o[VEC];
+      load_vec<VEC>(xr + c, v);
+      load_vec<VEC>(gamma + c, g);
+      load_vec<VEC>(beta + c, b);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) o[e] = (v[e] - mean) * rstd * g[e] + b[e];
+      store_vec<VEC>(yr + c, o);
+    }
+  }
+}
+
+template <int VEC>
+cudaError_t launch_rows(const float* x, const float* g, const float* b,
+                        float* y, long long rows, int C, float eps,
+                        cudaStream_t stream) {
+  const long long blocks = rows < (1LL << 20) ? rows : (1LL << 20);
+  layernorm_row_fwd<VEC><<<(unsigned)blocks, kRowThreads, 0, stream>>>(
+      x, g, b, y, rows, C, eps);
+  return cudaGetLastError();
+}
+
 template <int VEC, int NV>
 cudaError_t launch(const float* x, const float* g, const float* b, float* y,
                    long long rows, int C, float eps, cudaStream_t stream) {
@@ -123,6 +195,7 @@ template <int VEC>
 cudaError_t dispatch(const float* x, const float* g, const float* b,
                      float* y, long long rows, int C, float eps,
                      cudaStream_t s) {
+  if (C > 4096) return launch_rows<VEC>(x, g, b, y, rows, C, eps, s);
   const int per_lane = (C + 32 * VEC - 1) / (32 * VEC);
   if (per_lane <= 1) return launch<VEC, 1>(x, g, b, y, rows, C, eps, s);
   if (per_lane <= 2) return launch<VEC, 2>(x, g, b, y, rows, C, eps, s);
@@ -144,7 +217,7 @@ cudaError_t dispatch(const float* x, const float* g, const float* b,
 extern "C" int mxt_layernorm_f32(const void* x, const void* gamma,
                                  const void* beta, void* y, long long rows,
                                  int C, float eps, int vec4, void* stream) {
-  if (rows <= 0 || C <= 0 || C > 4096) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* gf = static_cast<const float*>(gamma);

@@ -8,8 +8,8 @@ Function that trains through them (≙ ``mxnet_tpu/ops/pallas_block.py``).
 - ``conv3x3`` (≙ ``_conv_kernel``, ``conv3x3``; ``conv3x3_dgrad`` runs it
   on the rotated weight), ``conv_stats`` (≙ ``_conv_stats_kernel``,
   ``_conv_stats``), ``bn_affine`` (≙ ``_affine_kernel``, ``_affine``) and
-  ``conv_wgrad`` (≙ ``_wgrad_kernel``, ``conv3x3_wgrad``):
-  ``csrc/conv_train.cu``.
+  ``csrc/conv_train.cu``; ``conv_wgrad`` (≙ ``_wgrad_kernel``,
+  ``conv3x3_wgrad``): ``csrc/conv_wgrad.cu``.
 - ``residual_block_fused`` (≙ ``residual_block_fused``, ``_fused``,
   ``_fused_fwd``, ``_fused_bwd``, ``_conv_bwd``, ``_sums``): training
   (batch statistics) and frozen forward, and their backward.
@@ -25,8 +25,10 @@ activations NHWC, the weight HWIO ``(3, 3, C, Cout)``, all contiguous
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import threading
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +38,9 @@ from .. import _build
 __all__ = ["conv_affine", "conv_affine_plain", "fold", "conv3x3",
            "conv3x3_plain", "conv3x3_dgrad", "rotate", "conv_stats",
            "conv_stats_plain", "bn_affine", "bn_affine_plain", "conv_wgrad",
-           "conv_wgrad_plain", "wgrad_splits", "residual_block_fused"]
+           "conv_wgrad_plain", "wgrad_splits", "wgrad_tile_cols",
+           "WgradPlan",
+           "residual_block_fused"]
 
 _count_mu = threading.Lock()
 
@@ -300,24 +304,69 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def wgrad_splits(M, K, Cout, sms):
-    """``(splits, per_split)``: how many pixel ranges ``conv_wgrad`` cuts
-    its ``M``-pixel reduction into.  Enough that the (9C/64)·(Cout/64)
-    output tiles times the splits give ~4 blocks an SM (the 256-thread
-    tile's occupancy), none under 512 pixels; ranges are whole 16-pixel
-    chunks."""
-    tiles = -(-K // 64) * -(-Cout // 64)
-    splits = max(1, min(-(-4 * sms // tiles), M // 512, 65535))
-    per = -(-M // splits)
-    per = -(-per // 16) * 16
-    return -(-M // per), per
+WGRAD_ROWS = 128     # patch columns (k = tap·C + c) a tile
+WGRAD_CHUNK = 32     # pixels a chunk of the reduction
+
+
+class WgradPlan(NamedTuple):
+    """How ``conv_wgrad`` cuts its work: ``tiles`` output tiles of 128
+    patch columns × ``bn`` channels, each a reduction over ``chunks``
+    32-pixel chunks; the tiles × chunks units are cut into ``ranges``
+    ranges of whole chunks, one a block, and ``jmax`` is the most ranges
+    one tile is cut between (its partial slots)."""
+    bn: int
+    tiles: int
+    chunks: int
+    ranges: int
+    jmax: int
+
+
+def wgrad_tile_cols(Cout):
+    """Output channels a ``conv_wgrad`` tile holds: 64 when ``Cout`` fits
+    (ResNet-50's first stage), else 128."""
+    return 64 if Cout <= 64 else 128
+
+
+def wgrad_splits(M, K, Cout, sms, per_sm):
+    """The :class:`WgradPlan` of ``conv_wgrad`` for ``M`` pixels, ``K`` =
+    9C patch columns and ``Cout`` channels on a card of ``sms`` SMs that
+    holds ``per_sm`` of its blocks each: exactly ``sms·per_sm`` ranges of
+    near-equal work (one full wave; fewer only when there are fewer
+    units), each range whole chunks (stream-K rather than equal splits per
+    tile, whose whole waves would need 11 splits and 104 MB of partials
+    at 7×7×512).  Range ``b`` holds units ``[b·T/ranges, (b+1)·T/ranges)``
+    of the ``T`` = tiles·chunks (unit = tile·chunks + chunk)."""
+    bn = wgrad_tile_cols(Cout)
+    tiles = -(-K // WGRAD_ROWS) * -(-Cout // bn)
+    chunks = -(-M // WGRAD_CHUNK)
+    total = tiles * chunks
+    ranges = max(1, min(sms * per_sm, total))
+    least = total // ranges
+    return WgradPlan(bn, tiles, chunks, ranges,
+                     min(ranges, (chunks - 1) // least + 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _wgrad_per_sm(index, bn, vec):
+    """Blocks of the ``(bn, vec)`` wgrad kernel an SM of card ``index``
+    holds, from the occupancy API."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(_build.lib().mxt_conv_wgrad_blocks_per_sm(
+            bn, vec, ctypes.byref(out)), "conv_wgrad")
+    if out.value < 1:
+        raise RuntimeError(f"conv_wgrad: the (bn={bn}, vec={vec}) kernel "
+                           f"fits no block on an SM")
+    return out.value
 
 
 def conv_wgrad(x, dy):
     """dW (3, 3, C, Cout) of the 3×3/s1/p1 conv from NHWC ``x`` (N, H, W,
-    C) and ``dy`` (N, H, W, Cout), contiguous fp32: per pixel range a
-    partial patchesᵀ·dy, summed in a fixed order.  CUDA tensors launch
-    ``csrc/conv_train.cu``; CPU tensors take :func:`conv_wgrad_plain`."""
+    C) and ``dy`` (N, H, W, Cout), contiguous fp32: patchesᵀ·dy on the
+    tensor cores in 3×TF32 (fp32-accurate), the pixel reduction cut into
+    one wave of ranges whose partial tiles are summed in a fixed order.
+    CUDA tensors launch ``csrc/conv_wgrad.cu``; CPU tensors take
+    :func:`conv_wgrad_plain`."""
     if not _on_card("conv_wgrad", x):
         return conv_wgrad_plain(x, dy)
     if x.dim() != 4 or dy.dim() != 4 or tuple(dy.shape[:3]) != \
@@ -332,17 +381,18 @@ def conv_wgrad(x, dy):
     dw = torch.empty((3, 3, C, Cout), device=x.device, dtype=torch.float32)
     if M == 0 or dw.numel() == 0:
         return dw.zero_()
-    splits, per = wgrad_splits(M, 9 * C, Cout, _sm_count(x.device.index))
-    part = torch.empty((splits, 9 * C, Cout), device=x.device,
-                       dtype=torch.float32) if splits > 1 else None
-    vec = int(C % 4 == 0 and Cout % 4 == 0 and _aligned(
-        x, dy, dw, *([part] if part is not None else [])))
+    vec = int(C % 4 == 0 and Cout % 4 == 0 and _aligned(x, dy, dw))
+    index = x.device.index
+    plan = wgrad_splits(M, 9 * C, Cout, _sm_count(index),
+                        _wgrad_per_sm(index, wgrad_tile_cols(Cout), vec))
+    part = torch.empty((plan.tiles, plan.jmax, WGRAD_ROWS, plan.bn),
+                       device=x.device, dtype=torch.float32)
     lib = _build.lib()
     with torch.cuda.device(x.device):
         err = lib.mxt_conv_wgrad_f32(
-            x.data_ptr(), dy.data_ptr(),
-            part.data_ptr() if part is not None else None, dw.data_ptr(),
-            N, H, W, C, Cout, splits, per, vec, _stream(x.device))
+            x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+            N, H, W, C, Cout, plan.bn, plan.ranges, plan.jmax, vec,
+            _stream(x.device))
     _build.check(err, "conv_wgrad")
     with _count_mu:
         conv_wgrad.launches += 1

@@ -26,7 +26,6 @@ __all__ = ["softmax_fused", "softmax_plain", "softmax_bwd", "SoftmaxFn",
            "layernorm_fused", "layernorm_plain", "layernorm_bwd",
            "LayerNormFn"]
 
-_MAX_C = 4096
 _count_mu = threading.Lock()
 
 
@@ -109,8 +108,9 @@ def layernorm_plain(x, gamma, beta, eps: float = 1e-5):
 
 def layernorm_fused(x, gamma, beta, eps: float = 1e-5):
     """LayerNorm over the last axis of fp32 ``x`` (any leading shape,
-    last dim ``C`` <= 4096), gamma/beta ``(C,)``.  CUDA tensors launch
-    ``csrc/layernorm.cu``; CPU tensors take :func:`layernorm_plain`."""
+    any last dim ``C``), gamma/beta ``(C,)``.  CUDA tensors launch
+    ``csrc/layernorm.cu`` (a warp a row up to C = 4096, a block a row
+    above); CPU tensors take :func:`layernorm_plain`."""
     if x.device.type == "cpu":
         return layernorm_plain(x, gamma, beta, eps)
     if x.device.type != "cuda":
@@ -127,9 +127,9 @@ def layernorm_fused(x, gamma, beta, eps: float = 1e-5):
                             f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"layernorm_fused: {name} must be contiguous")
-    if not 1 <= C <= _MAX_C:
+    if not 1 <= C < 2 ** 31:
         raise ValueError(f"layernorm_fused: last dim {C} not in "
-                         f"[1, {_MAX_C}]")
+                         f"[1, 2**31)")
     y = torch.empty_like(x)
     rows = x.numel() // C
     if rows == 0:

@@ -34,18 +34,32 @@ def _records(*ts):
 
 def softmax(x, axis: int = -1, temperature=None):
     """≙ ``ops/nn.py softmax`` (``npx.softmax``): ``x`` is divided by
-    ``temperature`` first when one other than 1 is given.  Over the last
-    axis a CUDA tensor launches the softmax kernel and a CPU tensor takes
-    its plain version, through ``SoftmaxFn`` (closed-form backward) only
-    when autograd records, as ``layer_norm`` does.  Any other axis is
-    ``torch.softmax``, where the reference has ``jax.nn.softmax``."""
+    ``temperature`` first when one other than 1 is given.  For fp32 ``x``
+    over the last axis a CUDA tensor launches the softmax kernel and a CPU
+    tensor takes its plain version, through ``SoftmaxFn`` (closed-form
+    backward) only when autograd records, as ``layer_norm`` does; over any
+    other axis it is ``torch.softmax``, where the reference has
+    ``jax.nn.softmax``.  A non-fp32 ``x`` takes the reference's jitted
+    ``jax.nn.softmax`` written out on every axis (the kernel and its plain
+    version are fp32 only), rounded where XLA on the CPU rounds it:
+    ``d = x - max`` in the dtype; for bf16, which XLA carries in fp32
+    between its roundings, ``exp(d)`` stays fp32, its sum is taken in fp32
+    and rounded, and ``exp(d)`` is rounded before the divide; for other
+    dtypes ``exp(d)`` is rounded first and summed from the rounded values."""
     if temperature is not None and temperature != 1.0:
         x = x / temperature
-    if axis in (-1, x.dim() - 1):
+    if x.dtype == torch.float32:
+        if axis not in (-1, x.dim() - 1):
+            return torch.softmax(x, dim=axis)
         if _records(x):
             return SoftmaxFn.apply(x)
         return softmax_fused(x)
-    return torch.softmax(x, dim=axis)
+    d = x - x.amax(dim=axis, keepdim=True)
+    if x.dtype == torch.bfloat16:
+        e = torch.exp(d.float())
+        return e.to(x.dtype) / e.sum(dim=axis, keepdim=True).to(x.dtype)
+    e = torch.exp(d)
+    return e / e.sum(dim=axis, keepdim=True)
 
 
 def layer_norm(x, gamma, beta, axis: int = -1, eps: float = 1e-5):

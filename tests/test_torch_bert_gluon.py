@@ -399,6 +399,52 @@ def test_layer_norm_bf16_matches_reference(shape, axis):
                                        atol=1e-6)
 
 
+SOFTMAX_HALF_CASES = [((4, 768), -1), ((4, 768), 0), ((2, 3, 512), -1),
+                      ((2, 3, 512), 0), ((2, 3, 512), 1), ((8, 30522), -1),
+                      ((8, 30522), 0)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("shape,axis", SOFTMAX_HALF_CASES, ids=str)
+def test_softmax_half_matches_reference(shape, axis, dtype):
+    """A bf16 or fp16 softmax takes the reference's closed form on every
+    axis and equals the reference's public ``ops.nn.softmax`` (jitted by
+    the dispatch cache; on the last axis its Pallas kernel in interpret
+    mode) bit for bit: for bf16, ``exp`` kept in fp32, summed in fp32,
+    the sum and the numerator rounded to bf16 before the divide."""
+    rs = np.random.RandomState(0)
+    x = (rs.randn(*shape) * 4).astype(np.float32)
+    ref = jnn.softmax(jnp.asarray(x, dtype=getattr(jnp, dtype)), axis=axis)
+    out = tnn.softmax(torch.from_numpy(x).to(getattr(torch, dtype)),
+                      axis=axis)
+    assert out.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+
+
+def test_softmax_half_never_reaches_the_fp32_kernel(monkeypatch):
+    """The softmax kernel and its wrapper are fp32 only (a bf16 CUDA
+    tensor makes ``softmax_fused`` raise), so a bf16 call must not reach
+    them, on any axis, recording or not; an fp32 last-axis call does."""
+    calls = []
+
+    def fused(x):
+        calls.append(x.dtype)
+        return cuda_kernels.softmax_plain(x)
+
+    monkeypatch.setattr(tnn, "softmax_fused", fused)
+    monkeypatch.setattr(cuda_kernels, "softmax_fused", fused)
+    x = torch.from_numpy(np.random.RandomState(1).randn(2, 3, 64)
+                         .astype(np.float32))
+    for axis in (-1, 0):
+        tnn.softmax(x.bfloat16(), axis=axis)
+        tnn.softmax(x.bfloat16().requires_grad_(), axis=axis).sum()\
+            .backward()
+    assert calls == []
+    tnn.softmax(x)
+    assert calls == [torch.float32]
+
+
 def test_embedding_block_matches_reference():
     rs = np.random.RandomState(9)
     w = rs.randn(50, 12).astype(np.float32)
