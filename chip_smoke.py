@@ -40,6 +40,11 @@ the first phase that fails:
    within 1e-4: its sums run in another order), with CUDA
    event times of the kernel, the plain version and one PyTorch library
    call computing the same function (timed here, never used by the port).
+   Causal attention (3xTF32 on the tensor cores) also gives both bounds
+   (fp32 on the CUDA cores; its three TF32 products on the tensor cores,
+   the line's ``bound_ms``), its share of the card's ``mma.sync`` TF32
+   ceiling, and that two launches on the same inputs are bitwise equal
+   (a gate).
 4. ``slice``: launch counters set to 0, then ``warmup`` is done, then
    ``generate`` at batch 1 and 8 (48-token prompt) and ``DecodeBatcher``
    serving concurrent requests, each stream equal to ``generate`` for its
@@ -90,15 +95,15 @@ the first phase that fails:
     relative and sum(z) within 1e-5 of the channel's sum |z|;
     ``bn_affine`` within 1e-6 of its largest magnitude), timed beside
     their bounds, plain versions and the nearest single library call.
-    ``conv_wgrad`` (3xTF32 on the tensor cores) also reports, per case,
-    its plan (ranges, partial slots), both bounds (fp32 on the CUDA
-    cores; its three TF32 products on the tensor cores, the line's
-    ``bound_ms``), fp32-equivalent TFLOP/s, its share of the
-    tensor-core bound, ``conv2d_weight``'s ms, and that two launches on
-    the same inputs give bitwise-equal dW (a gate); and the TF32
-    ``mma.sync`` ceiling of the card (independent products on registers,
-    no memory, compiled through ``rtc.CudaModule``) with each case's
-    share of it.
+    ``conv3x3`` and ``conv_wgrad`` (3xTF32 on the tensor cores) also
+    report, per case, their plan (ranges; wgrad's partial slots), both
+    bounds (fp32 on the CUDA cores; the three TF32 products on the
+    tensor cores, the line's ``bound_ms``), fp32-equivalent TFLOP/s, the
+    share of the tensor-core bound, the library call's ms, and that two
+    launches on the same inputs give bitwise-equal outputs (a gate); and
+    the TF32 ``mma.sync`` ceiling of the card (independent products on
+    registers, no memory, compiled through ``rtc.CudaModule``) with each
+    case's share of it.
 16. ``image_train``: the launch counters set to 0, then
     ``examples.image_classification.main`` at its defaults with 2
     warm-up and 8 timed steps; the losses finite, each training kernel
@@ -331,7 +336,8 @@ def phase_build(state):
     for ln in _build.last_build_log.splitlines():
         m = re.search(r"entry function '\S*?(causal_attn_fwd|layernorm_fwd|"
                       r"attn_fwd|attn_dq|attn_dkv|conv_affine_kernel|"
-                      r"conv3x3_kernel|conv_stats_kernel|"
+                      r"conv3x3_tc_kernel|conv3x3_reduce_kernel|"
+                      r"conv_stats_kernel|"
                       r"conv_wgrad_kernel|wgrad_reduce_kernel|"
                       r"layernorm_row_fwd|bn_affine_kernel|"
                       r"softmax_warp_kernel|softmax_block_kernel|"
@@ -390,22 +396,49 @@ def _attn_case(B, H, L, hd, gen):
     q, k, v = (t5[:, :, :, i].transpose(1, 2) for i in range(3))
     scale = hd ** -0.5
     out = causal_attention(q, k, v, scale)
+    again = causal_attention(q, k, v, scale)
     ref = causal_attention_plain(q, k, v, scale)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     nbytes = 4 * B * H * L * hd * 4
     flops = 4 * B * H * hd * (L * (L + 1) // 2)
-    bms, by = bound(nbytes, flops)
-    return {"shape": [B * H, L, hd], "max_abs_err": err, "tol": ATTN_TOL,
+    case = {"shape": [B * H, L, hd], "max_abs_err": err, "tol": ATTN_TOL,
+            "bitwise_equal_relaunch": bool(torch.equal(out, again)),
             "kernel_ms": cuda_ms(lambda: causal_attention(q, k, v, scale)),
             "kernel_eager_ms": eager_ms(
                 lambda: causal_attention(q, k, v, scale)),
             "plain_ms": cuda_ms(
                 lambda: causal_attention_plain(q, k, v, scale)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, scale=scale)),
-            "bytes": nbytes, "flop": flops, "bound_ms": bms,
-            "bound_by": by}
+                q, k, v, is_causal=True, scale=scale))}
+    return _tc_bounds(case, nbytes, flops)
+
+
+def _tc_bounds(case, nbytes, flops):
+    """Both bounds of a 3xTF32 kernel into ``case``: its three TF32
+    products on the tensor cores (``bound_ms``) and the fp32 work on the
+    CUDA cores beside it, with the kernel's share of the first and its
+    time over the library call's."""
+    fp32_ms, fp32_by = bound(nbytes, flops)
+    tc_ms, tc_by = bound(nbytes, 3 * flops, PEAK_TF32_FLOP_S)
+    case.update(bytes=nbytes, flop=flops, bound_ms=tc_ms, bound_by=tc_by,
+                bound_fp32_ms=fp32_ms, bound_fp32_by=fp32_by,
+                tf32_flop=3 * flops,
+                tensor_core_bound_share=tc_ms / case["kernel_ms"],
+                vs_library=case["kernel_ms"] / case["library_ms"])
+    return case
+
+
+def _ceiling_shares(state, cases):
+    """Each 3xTF32 case's share of the card's ``mma.sync`` TF32 ceiling,
+    measured once a run."""
+    if "mma_tf32_ceiling" not in state:
+        state["mma_tf32_ceiling"] = _mma_tf32_ceiling()
+    tflop_s = state["mma_tf32_ceiling"]["tflop_s"]
+    for c in cases:
+        c["mma_sync_ceiling_share"] = \
+            c["tf32_flop"] / (c["kernel_ms"] * 1e-3) / 1e12 / tflop_s
+    return state["mma_tf32_ceiling"]
 
 
 def phase_kernels(state):
@@ -415,12 +448,14 @@ def phase_kernels(state):
         [_ln_case(64, 8192, gen), _ln_case(16, 30522, gen)]
     attn = [_attn_case(8, 6, 512, 128, gen), _attn_case(1, 6, 512, 128, gen),
             _attn_case(8, 12, 512, 64, gen), _attn_case(1, 6, 200, 128, gen)]
-    bad = [c for c in ln + attn if not c["max_abs_err"] <= c["tol"]]
+    bad = [c for c in ln + attn if not c["max_abs_err"] <= c["tol"] or
+           not c.get("bitwise_equal_relaunch", True)]
     state["cases"] = {"layernorm_fused": ln, "causal_attention": attn}
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
-    return {"cases": state["cases"]}
+    ceiling = _ceiling_shares(state, attn)
+    return {"cases": state["cases"], "mma_tf32_ceiling": ceiling}
 
 
 def _mean_us(h0, h1, name):
@@ -563,7 +598,7 @@ def phase_reference(state):
 # kernel-name patterns of the profile's categories, first match wins
 KERNEL_CATEGORIES = (
     ("conv_affine (ours)", r"conv_affine_kernel"),
-    ("conv3x3 / dgrad (ours)", r"conv3x3_kernel"),
+    ("conv3x3 / dgrad (ours)", r"conv3x3_tc_kernel|conv3x3_reduce_kernel"),
     ("conv_stats (ours)", r"conv_stats_kernel|stats_reduce_kernel"),
     ("bn_affine (ours)", r"bn_affine_kernel"),
     ("conv_wgrad (ours)", r"conv_wgrad_kernel|wgrad_reduce_kernel"),
@@ -1183,15 +1218,18 @@ def _train_conv_cases(N, H, W, C, Cout, gen, dgrad_only=False):
 
     wr = cb.rotate(w)
     dx = cb.conv3x3_dgrad(w, dy)
+    again = cb.conv3x3(dy, wr)
     rdx = cb.conv3x3_plain(dy, wr)
     err, rel = _rel_err(dx, rdx)
-    out["conv3x3_dgrad"] = _timed(
+    out["conv3x3_dgrad"] = _tc_bounds(_timed(
         {"shape": shape, "use": "dgrad: conv3x3(dy, rotate(w))",
+         "plan": _conv3x3_plan(N * H * W, Cout, C),
          "max_abs_err": err, "rel_err": rel, "tol": TRAIN_TOL,
+         "bitwise_equal_relaunch": bool(torch.equal(dx, again)),
          "library": "torch.nn.grad.conv2d_input (cuDNN)"},
         lambda: cb.conv3x3(dy, wr), lambda: cb.conv3x3_plain(dy, wr),
         lambda: torch.nn.grad.conv2d_input(xc.shape, wc, dyc, padding=1),
-        conv_bytes, flops)
+        conv_bytes, flops), conv_bytes, flops)
 
     out["conv_wgrad"] = _wgrad_case(x, dy, xc, wc, dyc, shape, conv_bytes,
                                     flops)
@@ -1199,14 +1237,18 @@ def _train_conv_cases(N, H, W, C, Cout, gen, dgrad_only=False):
         return out
 
     z = cb.conv3x3(x, w)
+    again = cb.conv3x3(x, w)
     rz = cb.conv3x3_plain(x, w)
     err, rel = _rel_err(z, rz)
-    out["conv3x3"] = _timed(
-        {"shape": shape, "use": "forward", "max_abs_err": err,
+    out["conv3x3"] = _tc_bounds(_timed(
+        {"shape": shape, "use": "forward",
+         "plan": _conv3x3_plan(N * H * W, C, Cout), "max_abs_err": err,
          "rel_err": rel, "tol": TRAIN_TOL,
+         "bitwise_equal_relaunch": bool(torch.equal(z, again)),
          "library": "F.conv2d (cuDNN, channels-last)"},
         lambda: cb.conv3x3(x, w), lambda: cb.conv3x3_plain(x, w),
-        lambda: F.conv2d(xc, wc, padding=1), conv_bytes, flops)
+        lambda: F.conv2d(xc, wc, padding=1), conv_bytes, flops),
+        conv_bytes, flops)
 
     z, s1, s2 = cb.conv_stats(x, w)
     rz, r1, r2 = cb.conv_stats_plain(x, w)
@@ -1237,25 +1279,27 @@ def _wgrad_case(x, dy, xc, wc, dyc, shape, nbytes, flops):
     err, rel = _rel_err(dw, rdw)
     N, H, W, C, Cout = shape
     vec = int(C % 4 == 0 and Cout % 4 == 0)
-    plan = cb.wgrad_splits(N * H * W, 9 * C, Cout,
-                           torch.cuda.get_device_properties(0)
-                           .multi_processor_count,
-                           cb._wgrad_per_sm(0, cb.wgrad_tile_cols(Cout), vec))
-    case = _timed(
+    plan = cb.wgrad_splits(N * H * W, 9 * C, Cout, cb._sm_count(0),
+                           cb._per_sm("mxt_conv_wgrad_blocks_per_sm", 0,
+                                      cb.wgrad_tile_cols(Cout), vec))
+    return _tc_bounds(_timed(
         {"shape": shape, "plan": plan._asdict(), "max_abs_err": err,
          "rel_err": rel, "tol": TRAIN_TOL,
          "bitwise_equal_relaunch": bool(torch.equal(dw, again)),
          "library": "torch.nn.grad.conv2d_weight (cuDNN)"},
         lambda: cb.conv_wgrad(x, dy), lambda: cb.conv_wgrad_plain(x, dy),
         lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, dyc, padding=1),
-        nbytes, flops)
-    fp32_ms, fp32_by = bound(nbytes, flops)
-    tc_ms, tc_by = bound(nbytes, 3 * flops, PEAK_TF32_FLOP_S)
-    case.update(bound_ms=tc_ms, bound_by=tc_by, bound_fp32_ms=fp32_ms,
-                bound_fp32_by=fp32_by, tf32_flop=3 * flops,
-                tensor_core_bound_share=tc_ms / case["kernel_ms"],
-                vs_library=case["kernel_ms"] / case["library_ms"])
-    return case
+        nbytes, flops), nbytes, flops)
+
+
+def _conv3x3_plan(M, C, Cout):
+    """The plan ``conv3x3`` runs at this shape on card 0."""
+    from mxnet_tpu_torch.ops import conv_block as cb
+    vec = int(C % 4 == 0 and Cout % 4 == 0)
+    return cb.conv3x3_splits(
+        M, 9 * C, Cout, cb._sm_count(0),
+        cb._per_sm("mxt_conv3x3_tc_blocks_per_sm", 0,
+                   cb.wgrad_tile_cols(Cout), vec))._asdict()
 
 
 MMA_TF32_PEAK_SRC = r"""
@@ -1327,7 +1371,7 @@ def _affine_case(N, H, W, C, gen, residual=False, relu=True):
 def _train_ok(name, c):
     if not c["rel_err"] <= c["tol"]:
         return False
-    if name == "conv_wgrad":
+    if name in ("conv3x3", "conv_wgrad"):
         return c["bitwise_equal_relaunch"]
     if name == "conv_stats":
         return c["sum_rel_err"] <= c["stats_rtol"] and \
@@ -1365,11 +1409,7 @@ def phase_train_kernels(state):
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
-    ceiling = _mma_tf32_ceiling()
-    for c in cases["conv_wgrad"]:
-        c["mma_sync_ceiling_share"] = \
-            3 * c["flop"] / (c["kernel_ms"] * 1e-3) / 1e12 / \
-            ceiling["tflop_s"]
+    ceiling = _ceiling_shares(state, cases["conv3x3"] + cases["conv_wgrad"])
     return {"cases": cases, "mma_tf32_ceiling": ceiling}
 
 
@@ -2753,7 +2793,7 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_kernels.py:309"),
     ("conv_affine", "mxnet_tpu_torch/csrc/conv_affine.cu",
      "mxnet_tpu/ops/pallas_block.py:325"),
-    ("conv3x3", "mxnet_tpu_torch/csrc/conv_train.cu",
+    ("conv3x3", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
      "mxnet_tpu/ops/pallas_block.py:318"),
     ("conv_stats", "mxnet_tpu_torch/csrc/conv_train.cu",
      "mxnet_tpu/ops/pallas_block.py:343"),

@@ -63,8 +63,11 @@ _SIGNATURES = {
     # relu, vec, stream
     "mxt_conv_affine_f32": [_P] * 8 + [ctypes.c_int] * 5 +
                            [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
-    # x, w, out, N, H, W, C, Cout, vec, stream
-    "mxt_conv3x3_f32": [_P] * 3 + [ctypes.c_int] * 6 + [_P],
+    # x, w, part, out, N, H, W, C, Cout, bn, ranges, vec, stream
+    "mxt_conv3x3_tc_f32": [_P] * 4 + [ctypes.c_int] * 8 + [_P],
+    # bn, vec, out (int*)
+    "mxt_conv3x3_tc_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)],
     # x, w, z, part, stats, N, H, W, C, Cout, vec, stream
     "mxt_conv_stats_f32": [_P] * 5 + [ctypes.c_int] * 6 + [_P],
     # x, dy, part, dw, N, H, W, C, Cout, bn, ranges, jmax, vec, stream

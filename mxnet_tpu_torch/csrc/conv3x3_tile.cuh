@@ -1,6 +1,6 @@
 // The implicit-GEMM tile shared by the 3x3/s1/p1 convolution kernels of
 // conv_affine.cu (frozen forward) and conv_train.cu (training forward with
-// statistics, dgrad).
+// statistics).
 //
 // A block of 256 threads owns a 64 x 64 output tile and streams the
 // reduction in chunks of 16 through double-buffered shared memory: the

@@ -1,28 +1,26 @@
 // The training kernels of the fused 3x3/s1/p1 conv + BatchNorm (+ add)
 // (+ ReLU) block, fp32, NHWC x HWIO:
 //
-//   conv3x3     z = conv(x, w), no epilogue.  With the weight rotated 180
-//               degrees and IO-transposed it is the data gradient (dgrad).
 //   conv_stats  z = conv(x, w) and per-channel sum(z), sum(z^2), read off
 //               the accumulator before z is stored.
 //   bn_affine   out = act(z * scale[c] + shift[c] (+ res)), elementwise.
 //
-// (The fourth, the weight gradient, is conv_wgrad.cu's.)
+// (The conv alone, also the data gradient, is conv3x3_tc.cu's; the
+// weight gradient conv_wgrad.cu's.)
 //
-// Replaces: mxnet_tpu/ops/pallas_block.py `_conv_kernel` (launched by
-// `conv3x3` and `conv3x3_dgrad`), `_conv_stats_kernel` (`_conv_stats`)
-// and `_affine_kernel` (`_affine`), the training forward and the data
-// gradient of `residual_block_fused`.
+// Replaces: mxnet_tpu/ops/pallas_block.py `_conv_stats_kernel`
+// (`_conv_stats`) and `_affine_kernel` (`_affine`), the training forward
+// of `residual_block_fused`.
 //
-// Bound on an H100: conv3x3 and conv_stats do 2 * N*H*W * 9C *
-// Cout flops (231 MFLOP per image at every ResNet-50 stage, 14.8 GFLOP at
-// batch 64: 0.221 ms at the 67 TFLOP/s fp32 peak) over (N*H*W*(C + Cout)
-// + 9C*Cout) * 4 bytes (~2-26 MB: a few us at 3.35 TB/s), so operations
-// bound them.  bn_affine moves 2-3 tensors of N*H*W*Cout floats and does
-// 2-4 flops an element: bytes bound it (103 MB, 31 us at (64,56,56,64)).
+// Bound on an H100: conv_stats does 2 * N*H*W * 9C * Cout flops (231
+// MFLOP per image at every ResNet-50 stage, 14.8 GFLOP at batch 64: 0.221
+// ms at the 67 TFLOP/s fp32 peak) over (N*H*W*(C + Cout) + 9C*Cout) * 4
+// bytes (~2-26 MB: a few us at 3.35 TB/s), so operations bound it.
+// bn_affine moves 2-3 tensors of N*H*W*Cout floats and does 2-4 flops an
+// element: bytes bound it (103 MB, 31 us at (64,56,56,64)).
 //
-// Design.  The two convolutions share conv3x3_tile.cuh's implicit-GEMM
-// tile with conv_affine.cu (64 x 64 outputs a block, 16-deep double
+// Design.  conv_stats runs on conv3x3_tile.cuh's implicit-GEMM tile,
+// shared with conv_affine.cu (64 x 64 outputs a block, 16-deep double
 // buffered chunks, predicated halo loads; CUDA cores, TF32 off).
 //
 // The TPU kernel of conv_stats adds into one output block that every
@@ -68,18 +66,6 @@ __device__ __forceinline__ void store_tile(float acc[4][4], float* out,
         if (cb + j < cols) o[cb + j] = acc[i][j];
     }
   }
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(const ConvGeom g, float* __restrict__ out) {
-  __shared__ __align__(16) TileSmem smem;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  float acc[4][4];
-  ConvFwdLoader<VEC> ld(g, m0, n0);
-  gemm_tile(ld, (g.K + BK - 1) / BK, smem, acc);
-  store_tile<VEC>(acc, out, m0, n0, g.M, g.Cout);
 }
 
 // part: (gridDim.x, 2, Cout), row blockIdx.x of sum(z) then sum(z^2)
@@ -213,26 +199,9 @@ unsigned column_grid(long long cols) { return (unsigned)((cols + 31) / 32); }
 // and 16-byte aligned bases.  Each returns cudaGetLastError() after its
 // launches.
 
-// x (N, H, W, C), w (3, 3, C, Cout), out (N, H, W, Cout); vec needs
-// C % 16 == 0 and Cout % 4 == 0.
-extern "C" int mxt_conv3x3_f32(const void* x, const void* w, void* out,
-                               int N, int H, int W, int C, int Cout, int vec,
-                               void* stream) {
-  ConvGeom g;
-  if (!geom(g, x, w, N, H, W, C, Cout)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((g.M + BM - 1) / BM),
-                  (unsigned)((Cout + BN - 1) / BN));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(out);
-  if (vec)
-    conv3x3_kernel<true><<<grid, kThreads, 0, s>>>(g, o);
-  else
-    conv3x3_kernel<false><<<grid, kThreads, 0, s>>>(g, o);
-  return (int)cudaGetLastError();
-}
-
-// As mxt_conv3x3_f32, plus part (ceil(N*H*W / 64), 2, Cout) scratch and
-// stats (2, Cout): sum(z) then sum(z^2) per channel.
+// x (N, H, W, C), w (3, 3, C, Cout), z (N, H, W, Cout), part
+// (ceil(N*H*W / 64), 2, Cout) scratch and stats (2, Cout): sum(z) then
+// sum(z^2) per channel.  vec needs C % 16 == 0 and Cout % 4 == 0.
 extern "C" int mxt_conv_stats_f32(const void* x, const void* w, void* z,
                                   void* part, void* stats, int N, int H,
                                   int W, int C, int Cout, int vec,

@@ -18,15 +18,15 @@
 // at 7x7x512 (0.007 ms).  Operations bound it at every stage.
 //
 // Design.
-// - 3xTF32 (CUTLASS's "fast fp32"): every fp32 operand v is split on its
-//   way from shared memory into registers into TF32 hi and lo (v's top 11
-//   significant bits by a mask, and the rest), and each product is
-//   lo*hi' + hi*lo' + hi*hi', small terms first, by
-//   `mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32`.  The dropped lo*lo' and
-//   the truncation of lo leave an error of fp32's order (one TF32 product
-//   alone errs by ~2^-11).  The tensor core truncates its own fp32 sums,
-//   so a chunk's products gather in a run accumulator from zero, added to
-//   the block's sums with IEEE adds (see mma_chunk).
+// - 3xTF32 (CUTLASS's "fast fp32", the helpers of tf32x3.cuh): every
+//   fp32 operand v is split on its way from shared memory into registers
+//   into TF32 hi and lo (v's top 11 significant bits by a mask, and the
+//   rest), and each product is lo*hi' + hi*lo' + hi*hi', small terms
+//   first, by `mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32`.  The dropped
+//   lo*lo' and the truncation of lo leave an error of fp32's order (one
+//   TF32 product alone errs by ~2^-11).  The tensor core truncates its
+//   own fp32 sums, so a chunk's products gather in a run accumulator from
+//   zero, added to the block's sums with IEEE adds (see mma_chunk).
 // - Tiles: a block of 8 warps owns 128 patch columns (k) x BN output
 //   channels (BN 64 for Cout <= 64, else 128); a warp owns 32 x BN/2 as
 //   2 x BN/16 fragments, in two sets (sums and run) of registers: 210-232
@@ -54,9 +54,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 extern __shared__ __align__(16) unsigned char mxt_wgrad_smem[];
 
 namespace {
+
+using namespace mxt_tf32;
 
 constexpr int BM = 128;        // patch columns (k = tap*C + c) a tile
 constexpr int BK = 32;         // pixels a chunk
@@ -88,47 +92,6 @@ struct Args {
 // unit u lies in range ((u+1)*ranges - 1) / total.
 __device__ __forceinline__ long long range_of(const Args& a, long long u) {
   return ((u + 1) * a.ranges - 1) / a.total;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// v = hi + lo with hi = v's top 11 significant bits (a TF32 value, v
-// rounded toward zero) and lo = v - hi, exact in fp32; the tensor core
-// reads lo's top 11 bits, so hi + lo as it sees them is within 2^-21 |v|
-// of v.  Masking costs an integer op where cvt.rna.tf32.f32 is a
-// sequence of compares and selects (its NaN and overflow handling).
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(v) & 0xffffe000u;
-  lo = __float_as_uint(__fsub_rn(v, __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // One thread's share of filling a ring stage with one chunk: piece q
@@ -252,29 +215,6 @@ __device__ __forceinline__ void load_frags(const Ring<BN>& s, int st, int ks,
   }
 }
 
-// run += the 3xTF32 products of one step's fragments, small terms first
-template <int BN>
-__device__ __forceinline__ void mma_step(const Frags<BN>& f,
-                                         float (&run)[2][BN / 16][4]) {
-  uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) split(f.a[mi][e], ahi[mi][e], alo[mi][e]);
-#pragma unroll
-  for (int ni = 0; ni < BN / 16; ++ni) {
-    uint32_t bhi[2], blo[2];
-    split(f.b[ni][0], bhi[0], blo[0]);
-    split(f.b[ni][1], bhi[1], blo[1]);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      mma_tf32(run[mi][ni], alo[mi], bhi);
-      mma_tf32(run[mi][ni], ahi[mi], blo);
-      mma_tf32(run[mi][ni], ahi[mi], bhi);
-    }
-  }
-}
-
 // acc += this warp's 32 x BN/2 share of the chunk in stage st.  The
 // chunk's four steps accumulate into run, from zero, and run is added to
 // acc with IEEE adds: the tensor core truncates its fp32 sums, which on
@@ -299,7 +239,7 @@ __device__ __forceinline__ void mma_chunk(const Ring<BN>& s, int st,
   for (int ks = 0; ks < BK / 8; ++ks) {
     if (ks + 1 < BK / 8)
       load_frags<BN>(s, st, (ks + 1) * 8, wk, wn, g, t, f[(ks + 1) & 1]);
-    mma_step<BN>(f[ks & 1], run);
+    mma_step(f[ks & 1].a, f[ks & 1].b, run);
   }
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)

@@ -6,10 +6,11 @@ Function that trains through them (≙ ``mxnet_tpu/ops/pallas_block.py``).
   the frozen ``_fused_fwd``): conv + folded frozen BN (+ add) (+ ReLU),
   ``csrc/conv_affine.cu``.
 - ``conv3x3`` (≙ ``_conv_kernel``, ``conv3x3``; ``conv3x3_dgrad`` runs it
-  on the rotated weight), ``conv_stats`` (≙ ``_conv_stats_kernel``,
-  ``_conv_stats``), ``bn_affine`` (≙ ``_affine_kernel``, ``_affine``) and
-  ``csrc/conv_train.cu``; ``conv_wgrad`` (≙ ``_wgrad_kernel``,
-  ``conv3x3_wgrad``): ``csrc/conv_wgrad.cu``.
+  on the rotated weight): ``csrc/conv3x3_tc.cu``; ``conv_stats`` (≙
+  ``_conv_stats_kernel``, ``_conv_stats``), ``bn_affine`` (≙
+  ``_affine_kernel``, ``_affine``): ``csrc/conv_train.cu``;
+  ``conv_wgrad`` (≙ ``_wgrad_kernel``, ``conv3x3_wgrad``):
+  ``csrc/conv_wgrad.cu``.
 - ``residual_block_fused`` (≙ ``residual_block_fused``, ``_fused``,
   ``_fused_fwd``, ``_fused_bwd``, ``_conv_bwd``, ``_sums``): training
   (batch statistics) and frozen forward, and their backward.
@@ -36,7 +37,8 @@ import torch.nn.functional as F
 from .. import _build
 
 __all__ = ["conv_affine", "conv_affine_plain", "fold", "conv3x3",
-           "conv3x3_plain", "conv3x3_dgrad", "rotate", "conv_stats",
+           "conv3x3_plain", "conv3x3_dgrad", "conv3x3_splits",
+           "Conv3x3Plan", "rotate", "conv_stats",
            "conv_stats_plain", "bn_affine", "bn_affine_plain", "conv_wgrad",
            "conv_wgrad_plain", "wgrad_splits", "wgrad_tile_cols",
            "WgradPlan",
@@ -165,22 +167,85 @@ def conv3x3_plain(x, w):
                     padding=1).permute(0, 2, 3, 1).contiguous()
 
 
+CONV_ROWS = 128     # output pixels a conv3x3 tile
+CONV_CHUNK = 32     # patch columns (k = tap·C + c) a chunk of its reduction
+
+
+class Conv3x3Plan(NamedTuple):
+    """How ``conv3x3`` cuts its work: ``tiles`` output tiles of 128
+    pixels × ``bn`` channels, each a reduction over ``chunks`` chunks of
+    32 patch columns; the tiles × chunks units are cut into ``ranges``
+    ranges of whole chunks, one a block.  A range's segment that covers a
+    whole tile writes it out; a cut tile's segments write partial slots
+    (a range's first segment to slot 2b, its last to 2b + 1) that a
+    second kernel sums in range order."""
+    bn: int
+    tiles: int
+    chunks: int
+    ranges: int
+
+
+def conv3x3_splits(M, K, Cout, sms, per_sm):
+    """The :class:`Conv3x3Plan` of ``conv3x3`` for ``M`` output pixels,
+    ``K`` = 9C patch columns and ``Cout`` channels on a card of ``sms`` SMs
+    that holds ``per_sm`` of its blocks each: exactly ``sms·per_sm`` ranges
+    of near-equal work (one full wave; fewer only when there are fewer
+    units), each whole chunks (stream-K: at 7×7×512, batch 64, the 100
+    tiles alone would leave 32 of 132 SMs idle).  Range ``b`` holds units
+    ``[b·T/ranges, (b+1)·T/ranges)`` of the ``T`` = tiles·chunks (unit =
+    tile·chunks + chunk)."""
+    bn = wgrad_tile_cols(Cout)
+    tiles = -(-M // CONV_ROWS) * -(-Cout // bn)
+    chunks = -(-K // CONV_CHUNK)
+    return Conv3x3Plan(bn, tiles, chunks,
+                       max(1, min(sms * per_sm, tiles * chunks)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _per_sm(entry, index, bn, vec):
+    """Blocks of the ``(bn, vec)`` kernel behind ``entry`` (its
+    ``mxt_*_blocks_per_sm``) an SM of card ``index`` holds, from the
+    occupancy API."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(getattr(_build.lib(), entry)(bn, vec,
+                                                  ctypes.byref(out)), entry)
+    if out.value < 1:
+        raise RuntimeError(f"{entry}: the (bn={bn}, vec={vec}) kernel fits "
+                           f"no block on an SM")
+    return out.value
+
+
 def conv3x3(x, w):
     """3×3/s1/p1 conv with no epilogue, ``x`` (N, H, W, C) and ``w``
-    (3, 3, C, Cout) contiguous fp32.  CUDA tensors launch
-    ``csrc/conv_train.cu``; CPU tensors take :func:`conv3x3_plain`."""
+    (3, 3, C, Cout) contiguous fp32: an implicit GEMM on the tensor cores
+    in 3×TF32 (fp32-accurate), its work cut into one wave of ranges
+    (:func:`conv3x3_splits`) whose cut tiles are summed in a fixed order.
+    CUDA tensors launch ``csrc/conv3x3_tc.cu``; CPU tensors take
+    :func:`conv3x3_plain`."""
     if not _on_card("conv3x3", x):
         return conv3x3_plain(x, w)
     N, H, W, C, Cout = _check(x, w, (), None, "conv3x3")
     out = torch.empty((N, H, W, Cout), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
-    vec = int(C % 16 == 0 and Cout % 4 == 0 and _aligned(x, w, out))
+    vec = int(C % 4 == 0 and Cout % 4 == 0 and _aligned(x, w, out))
+    index = x.device.index
+    plan = conv3x3_splits(N * H * W, 9 * C, Cout, _sm_count(index),
+                          _per_sm("mxt_conv3x3_tc_blocks_per_sm", index,
+                                  wgrad_tile_cols(Cout), vec))
+    part = torch.empty((2 * plan.ranges, CONV_ROWS, plan.bn),
+                       device=x.device, dtype=torch.float32)
     lib = _build.lib()
     with torch.cuda.device(x.device):
-        err = lib.mxt_conv3x3_f32(x.data_ptr(), w.data_ptr(),
-                                  out.data_ptr(), N, H, W, C, Cout, vec,
-                                  _stream(x.device))
+        err = lib.mxt_conv3x3_tc_f32(
+            x.data_ptr(), w.data_ptr(), part.data_ptr(), out.data_ptr(),
+            N, H, W, C, Cout, plan.bn, plan.ranges, vec, _stream(x.device))
     _build.check(err, "conv3x3")
     with _count_mu:
         conv3x3.launches += 1
@@ -299,11 +364,6 @@ def conv_wgrad_plain(x, dy):
     return torch.stack(taps).reshape(3, 3, C, dy.shape[-1])
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 WGRAD_ROWS = 128     # patch columns (k = tap·C + c) a tile
 WGRAD_CHUNK = 32     # pixels a chunk of the reduction
 
@@ -322,8 +382,8 @@ class WgradPlan(NamedTuple):
 
 
 def wgrad_tile_cols(Cout):
-    """Output channels a ``conv_wgrad`` tile holds: 64 when ``Cout`` fits
-    (ResNet-50's first stage), else 128."""
+    """Output channels a ``conv_wgrad`` or ``conv3x3`` tile holds: 64 when
+    ``Cout`` fits (ResNet-50's first stage), else 128."""
     return 64 if Cout <= 64 else 128
 
 
@@ -344,20 +404,6 @@ def wgrad_splits(M, K, Cout, sms, per_sm):
     least = total // ranges
     return WgradPlan(bn, tiles, chunks, ranges,
                      min(ranges, (chunks - 1) // least + 2))
-
-
-@functools.lru_cache(maxsize=None)
-def _wgrad_per_sm(index, bn, vec):
-    """Blocks of the ``(bn, vec)`` wgrad kernel an SM of card ``index``
-    holds, from the occupancy API."""
-    out = ctypes.c_int(0)
-    with torch.cuda.device(index):
-        _build.check(_build.lib().mxt_conv_wgrad_blocks_per_sm(
-            bn, vec, ctypes.byref(out)), "conv_wgrad")
-    if out.value < 1:
-        raise RuntimeError(f"conv_wgrad: the (bn={bn}, vec={vec}) kernel "
-                           f"fits no block on an SM")
-    return out.value
 
 
 def conv_wgrad(x, dy):
@@ -384,7 +430,8 @@ def conv_wgrad(x, dy):
     vec = int(C % 4 == 0 and Cout % 4 == 0 and _aligned(x, dy, dw))
     index = x.device.index
     plan = wgrad_splits(M, 9 * C, Cout, _sm_count(index),
-                        _wgrad_per_sm(index, wgrad_tile_cols(Cout), vec))
+                        _per_sm("mxt_conv_wgrad_blocks_per_sm", index,
+                                wgrad_tile_cols(Cout), vec))
     part = torch.empty((plan.tiles, plan.jmax, WGRAD_ROWS, plan.bn),
                        device=x.device, dtype=torch.float32)
     lib = _build.lib()

@@ -645,6 +645,161 @@ def test_wgrad_3xtf32_model_is_fp32_accurate_and_1xtf32_is_not(
     assert (one.double() - ref).abs().max().item() / scale > 1e-4
 
 
+def _conv3x3_segments(plan):
+    """The segments ``csrc/conv3x3_tc.cu`` runs for ``plan``, as its main
+    kernel walks them: (range, tile, first chunk, chunks, slot), slot None
+    for a segment that covers its whole tile (written to the output)."""
+    total = plan.tiles * plan.chunks
+    for b in range(plan.ranges):
+        u0, u1 = b * total // plan.ranges, (b + 1) * total // plan.ranges
+        u = u0
+        while u < u1:
+            tile = u // plan.chunks
+            c0 = u - tile * plan.chunks
+            send = min(u1, (tile + 1) * plan.chunks)
+            whole = c0 == 0 and send - u == plan.chunks
+            yield (b, tile, c0, send - u,
+                   None if whole else 2 * b + (0 if u == u0 else 1))
+            u = send
+
+
+def _conv3x3_reduced(plan):
+    """{tile: slots in summing order} as ``conv3x3_reduce_kernel`` picks
+    them: the block of range start r takes the tile cut there when no
+    earlier range start cut it."""
+    total, R = plan.tiles * plan.chunks, plan.ranges
+
+    def range_of(u):
+        return ((u + 1) * R - 1) // total
+
+    out = {}
+    for r in range(1, R):
+        sr = r * total // R
+        if sr % plan.chunks == 0:
+            continue
+        tile = sr // plan.chunks
+        t0 = tile * plan.chunks
+        if range_of(t0) != r - 1:
+            continue
+        assert tile not in out
+        out[tile] = [2 * q + (0 if q * total // R >= t0 else 1)
+                     for q in range(r - 1, range_of(t0 + plan.chunks - 1)
+                                    + 1)]
+    return out
+
+
+@pytest.mark.parametrize("per_sm", [1, 2])
+def test_conv3x3_splits_fill_the_card_and_cover_every_tile(per_sm):
+    """ResNet-50's four 3×3 stages at batch 64 on 132 SMs that hold
+    ``per_sm`` blocks each: one full wave of ranges whose segments cover
+    every k chunk of every output tile exactly once; each tile is either
+    written whole by one segment or cut, and then summed by exactly one
+    reduce block from exactly its segments' slots, in chunk order, no slot
+    written twice.  7×7×512 (100 tiles of 128 × 128) is no longer under
+    one wave."""
+    tiles = {}
+    for H, C in ((56, 64), (28, 128), (14, 256), (7, 512)):
+        M = 64 * H * H
+        plan = conv_block.conv3x3_splits(M, 9 * C, C, 132, per_sm)
+        assert plan.bn == conv_block.wgrad_tile_cols(C) == \
+            (64 if C == 64 else 128)
+        assert plan.ranges == 132 * per_sm
+        assert plan.chunks == 9 * C // 32
+        covered = {}
+        whole, cut, slots = set(), {}, set()
+        for b, tile, c0, nk, slot in _conv3x3_segments(plan):
+            for c in range(c0, c0 + nk):
+                assert (tile, c) not in covered
+                covered[tile, c] = b
+            if slot is None:
+                whole.add(tile)
+            else:
+                assert slot not in slots
+                slots.add(slot)
+                cut.setdefault(tile, []).append((c0, slot))
+        assert len(covered) == plan.tiles * plan.chunks
+        assert not whole & set(cut)
+        assert whole | set(cut) == set(range(plan.tiles))
+        assert _conv3x3_reduced(plan) == \
+            {t: [sl for _, sl in sorted(segs)] for t, segs in cut.items()}
+        tiles[H] = plan.tiles
+    assert tiles == {56: 1568, 28: 392, 14: 196, 7: 100}
+    assert conv_block.conv3x3_splits(64 * 49, 9 * 512, 512, 132,
+                                     per_sm).ranges > 100
+    # fewer units than slots: one range a unit
+    assert conv_block.conv3x3_splits(50, 72, 8, 132, per_sm) == \
+        conv_block.Conv3x3Plan(64, 1, 3, 3)
+
+
+@pytest.mark.parametrize("rounding", ["rna", "rz"])
+@pytest.mark.parametrize("use", ["forward", "dgrad"])
+@pytest.mark.parametrize("H,C", [(56, 64), (28, 128), (14, 256), (7, 512)])
+def test_conv3x3_3xtf32_model_is_fp32_accurate_and_1xtf32_is_not(
+        H, C, use, rounding):
+    """A plain-torch model of ``conv3x3``'s arithmetic on the tensor cores,
+    forward and as the dgrad (the rotated weight): each operand split into
+    TF32 hi and lo, out = lo·hi' + hi·lo' + hi·hi' (TF32 products are
+    exact in fp32).  At ResNet-50's stage widths, batch 1, it is within
+    1e-5 of the fp64 conv (of its largest magnitude), while hi·hi' alone
+    (1×TF32) is over the card's 1e-4 gate."""
+    rs = np.random.RandomState(C + (use == "dgrad"))
+    x = torch.from_numpy(rs.randn(1, H, H, C).astype(np.float32))
+    w = torch.from_numpy((rs.randn(3, 3, C, C) *
+                          np.sqrt(2.0 / (9 * C))).astype(np.float32))
+    if use == "dgrad":
+        w = conv_block.rotate(w)
+    ref = conv_block.conv3x3_plain(x.double(), w.double())
+    xh, wh = _tf32(x, rounding), _tf32(w, rounding)
+    xl, wl = _tf32(x - xh, rounding), _tf32(w - wh, rounding)
+    three = (conv_block.conv3x3_plain(xl, wh) +
+             conv_block.conv3x3_plain(xh, wl) +
+             conv_block.conv3x3_plain(xh, wh))
+    one = conv_block.conv3x3_plain(xh, wh)
+    scale = ref.abs().max().item()
+    assert (three.double() - ref).abs().max().item() / scale <= 1e-5
+    assert (one.double() - ref).abs().max().item() / scale > 1e-4
+
+
+def _attn_3xtf32_model(q, k, v, scale, rounding):
+    """``csrc/causal_attention.cu``'s arithmetic in plain torch: q scaled
+    in fp32 then split, S and P·V from hi/lo parts (lo·hi' + hi·lo' +
+    hi·hi', TF32 products exact in fp32), P = exp(S − row max) in fp32
+    split too, divided by its fp32 row sum at the end."""
+    def parts(t):
+        hi = _tf32(t, rounding)
+        return hi, _tf32(t - hi, rounding)
+
+    def prod(eq, a, b):
+        (ah, al), (bh, bl) = parts(a), parts(b)
+        return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) +
+                torch.einsum(eq, ah, bh))
+
+    Lq, Lk = q.shape[2], k.shape[2]
+    s = prod("bhqd,bhkd->bhqk", q * scale, k)
+    keep = torch.arange(Lk)[None, :] <= torch.arange(Lq)[:, None]
+    s = torch.where(keep, s, torch.full_like(s, -1e30))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return prod("bhqk,bhkd->bhqd", p, v) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("rounding", ["rna", "rz"])
+@pytest.mark.parametrize("L", [512, 77])
+@pytest.mark.parametrize("D", [64, 128])
+def test_causal_attention_3xtf32_model_is_fp32_accurate(D, L, rounding):
+    """The kernel's 3×TF32 arithmetic is within 1e-5 of the output's
+    largest magnitude of the fp64 plain version, at both head dims, the
+    GPT prefill's 512 rows and a ragged length."""
+    rs = np.random.RandomState(D + L)
+    q, k, v = (torch.from_numpy(rs.randn(1, 2, L, D).astype(np.float32))
+               for _ in range(3))
+    scale = D ** -0.5
+    ref = cuda_attention.causal_attention_plain(q.double(), k.double(),
+                                                v.double(), scale)
+    out = _attn_3xtf32_model(q, k, v, scale, rounding)
+    err = (out.double() - ref).abs().max().item()
+    assert err / ref.abs().max().item() <= 1e-5
+
+
 def test_build_digest_hashes_the_shared_headers(tmp_path, monkeypatch):
     """An edit to a ``csrc/*.cuh`` header changes the build stamp, so the
     library is rebuilt rather than run stale."""
