@@ -56,9 +56,13 @@ the first phase that fails:
 7. ``bert_kernels``: the flash-attention forward, dq and dk/dv kernels
    against their plain versions at BERT-base's shape (a strided view
    into the qkv projection) and three more (o within 1e-4, lse within
-   1e-5, dq/dk/dv within 1e-4 of the tensor's largest magnitude), timed
-   beside their bounds, the plain versions and SDPA (forward; backward
-   for dq and dk/dv together).
+   1e-5, dq/dk/dv within 1e-4 of the tensor's largest magnitude, fed the
+   plain forward's lse and again the kernel's), timed beside their
+   bounds, the plain versions and SDPA (forward; backward for dq and
+   dk/dv together).  The forward (3xTF32 on the tensor cores) also gives
+   both bounds, its share of the ``mma.sync`` TF32 ceiling and its time
+   over SDPA's, and two launches on the same inputs must be bitwise
+   equal (a gate).
 8. ``bert_train``: launch counters set to 0, then 6 steps of
    ``examples.bert_pretrain.main``; the loss must be finite and end
    below step 0's, each attention kernel launched 12 times a step and
@@ -200,12 +204,16 @@ the first phase that fails:
 29. ``rtc``: the JAX package's rtc test kernels as CUDA source
     (``examples/rtc_kernels.cu``) through ``rtc.CudaModule``: axpy and
     ``double_it`` (out dtype float32 and int32, one templated kernel) at
-    the tests' sizes and at full width, bit for bit against plain torch;
-    the module compiles once however often it launches; a launch from a
-    second thread; an NVRTC syntax error raises with the log and a dtype
-    mismatch raises ``TypeError``.  axpy timed beside its bound, plain
-    torch and ``torch.add(y, x, alpha=2)``; the eager µs of one launch
-    against one ``torch.add``.
+    the tests' sizes and at full width, axpy also at 1,000,003 elements
+    (16-byte vectors and a scalar tail) and on an offset view at full
+    width (the scalar path), bit for bit against plain torch, the full
+    width on the 16-byte path (``vector_path``); the module compiles once
+    however often it launches; a launch from a second thread; an NVRTC
+    syntax error raises with the log and a dtype mismatch raises
+    ``TypeError``.  axpy timed (full width and the offset view) beside
+    its bound, plain torch and ``torch.add(y, x, alpha=2)``
+    (``vs_library``); the eager µs of one launch against one
+    ``torch.add``.
 30. ``ext_path``: the launch counters set to 0, then at full width
     ``nd.tvm_vadd`` and ``nd.tvm_vmul`` twice each, ``nd.tvm_sigmoid``
     forward and backward under ``autograd.record()`` (the gradient
@@ -334,8 +342,8 @@ def phase_build(state):
     _build.lib()
     ptxas, fn = {}, None
     for ln in _build.last_build_log.splitlines():
-        m = re.search(r"entry function '\S*?(causal_attn_fwd|layernorm_fwd|"
-                      r"attn_fwd|attn_dq|attn_dkv|conv_affine_kernel|"
+        m = re.search(r"entry function '\S*?(flash_fwd_tc|layernorm_fwd|"
+                      r"attn_dq|attn_dkv|conv_affine_kernel|"
                       r"conv3x3_tc_kernel|conv3x3_reduce_kernel|"
                       r"conv_stats_kernel|"
                       r"conv_wgrad_kernel|wgrad_reduce_kernel|"
@@ -607,7 +615,7 @@ KERNEL_CATEGORIES = (
     ("cuDNN conv backward", r"dgrad|wgrad|bprop"),
     ("cuDNN conv", r"fprop|convolve|implicit_gemm|cudnn"),
     ("gemm", r"gemm|gemv|splitKreduce"),
-    ("attention (ours)", r"attn_(fwd|dq|dkv)|causal_attn_fwd"),
+    ("attention (ours)", r"attn_(dq|dkv)|flash_fwd_tc"),
     ("layernorm (ours)", r"layernorm_fwd"),
     ("softmax (ours)", r"softmax_(warp|block)_kernel"),
     ("optimizer foreach", r"multi_tensor_apply"),
@@ -710,10 +718,11 @@ def _rel(a, b):
 
 def _flash_case(B, H, L, D, strided, gen):
     """The three kernels at one shape against their plain versions, fed
-    the same lse and delta; times of each beside its bound, its plain
-    version and SDPA (``attention_fwd``: the forward; ``attention_dq``
-    and ``attention_dkv``: SDPA's backward, which computes dq, dk and dv
-    together)."""
+    the same lse and delta, and the backward kernels also on the forward
+    kernel's lse; times of each beside its bound, its plain version and
+    SDPA (``attention_fwd``: the forward, a 3xTF32 kernel priced on both
+    bounds; ``attention_dq`` and ``attention_dkv``: SDPA's backward,
+    which computes dq, dk and dv together)."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -721,12 +730,15 @@ def _flash_case(B, H, L, D, strided, gen):
     g = torch.randn(B, H, L, D, device="cuda", generator=gen)
     sc = D ** -0.5
     o, lse = fa.attention_fwd(q, k, v, sc)
+    o2, lse2 = fa.attention_fwd(q, k, v, sc)
     ro, rlse = fa.attention_fwd_plain(q, k, v, sc)
     delta = (g * ro).sum(dim=-1).contiguous()
     dq = fa.attention_dq(q, k, v, g, rlse, delta, sc)
     rdq = fa.attention_dq_plain(q, k, v, g, rlse, delta, sc)
     dk, dv = fa.attention_dkv(q, k, v, g, rlse, delta, sc)
     rdk, rdv = fa.attention_dkv_plain(q, k, v, g, rlse, delta, sc)
+    kdq = fa.attention_dq(q, k, v, g, lse, delta, sc)
+    kdk, kdv = fa.attention_dkv(q, k, v, g, lse, delta, sc)
     torch.cuda.synchronize()
 
     lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
@@ -736,24 +748,27 @@ def _flash_case(B, H, L, D, strided, gen):
     bh, el = B * H, 4 * B * H * L * D       # one (B, H, L, D) fp32 in bytes
     shape = [bh, L, D]
     common = {"shape": shape, "strided": strided}
-    fwd_b = bound(4 * el + 4 * bh * L, 4 * bh * L * L * D)
     dq_b = bound(5 * el + 8 * bh * L, 6 * bh * L * L * D)
     dkv_b = bound(6 * el + 8 * bh * L, 8 * bh * L * L * D)
+    fwd = dict(
+        common, max_abs_err=(o - ro).abs().max().item(),
+        lse_max_abs_err=(lse - rlse).abs().max().item(),
+        tol=ATTN_TOL, lse_tol=LSE_TOL,
+        bitwise_equal_relaunch=bool(torch.equal(o, o2) and
+                                    torch.equal(lse, lse2)),
+        kernel_ms=cuda_ms(lambda: fa.attention_fwd(q, k, v, sc)),
+        kernel_eager_ms=eager_ms(lambda: fa.attention_fwd(q, k, v, sc)),
+        plain_ms=cuda_ms(lambda: fa.attention_fwd_plain(q, k, v, sc)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=sc)),
+        library="F.scaled_dot_product_attention")
     cases = {
-        "attention_fwd": dict(
-            common, max_abs_err=(o - ro).abs().max().item(),
-            lse_max_abs_err=(lse - rlse).abs().max().item(),
-            tol=ATTN_TOL, lse_tol=LSE_TOL,
-            kernel_ms=cuda_ms(lambda: fa.attention_fwd(q, k, v, sc)),
-            kernel_eager_ms=eager_ms(lambda: fa.attention_fwd(q, k, v, sc)),
-            plain_ms=cuda_ms(lambda: fa.attention_fwd_plain(q, k, v, sc)),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, scale=sc)),
-            library="F.scaled_dot_product_attention",
-            bound_ms=fwd_b[0], bound_by=fwd_b[1]),
+        "attention_fwd": _tc_bounds(fwd, 4 * el + 4 * bh * L,
+                                    4 * bh * L * L * D),
         "attention_dq": dict(
             common, max_abs_err=(dq - rdq).abs().max().item(),
-            rel_err=_rel(dq, rdq), tol=ATTN_TOL,
+            rel_err=_rel(dq, rdq), rel_err_kernel_lse=_rel(kdq, rdq),
+            tol=ATTN_TOL,
             kernel_ms=cuda_ms(lambda: fa.attention_dq(
                 q, k, v, g, rlse, delta, sc)),
             kernel_eager_ms=eager_ms(lambda: fa.attention_dq(
@@ -765,7 +780,9 @@ def _flash_case(B, H, L, D, strided, gen):
         "attention_dkv": dict(
             common, max_abs_err=max((dk - rdk).abs().max().item(),
                                     (dv - rdv).abs().max().item()),
-            rel_err=max(_rel(dk, rdk), _rel(dv, rdv)), tol=ATTN_TOL,
+            rel_err=max(_rel(dk, rdk), _rel(dv, rdv)),
+            rel_err_kernel_lse=max(_rel(kdk, rdk), _rel(kdv, rdv)),
+            tol=ATTN_TOL,
             kernel_ms=cuda_ms(lambda: fa.attention_dkv(
                 q, k, v, g, rlse, delta, sc)),
             kernel_eager_ms=eager_ms(lambda: fa.attention_dkv(
@@ -781,8 +798,9 @@ def _flash_case(B, H, L, D, strided, gen):
 def _flash_ok(name, c):
     if name == "attention_fwd":
         return c["max_abs_err"] <= c["tol"] and \
-            c["lse_max_abs_err"] <= c["lse_tol"]
-    return c["rel_err"] <= c["tol"]
+            c["lse_max_abs_err"] <= c["lse_tol"] and \
+            c["bitwise_equal_relaunch"]
+    return c["rel_err"] <= c["tol"] and c["rel_err_kernel_lse"] <= c["tol"]
 
 
 def phase_bert_kernels(state):
@@ -801,8 +819,10 @@ def phase_bert_kernels(state):
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
+    ceiling = _ceiling_shares(state, state["cases"]["attention_fwd"])
     return {"cases": {n: state["cases"][n] for n in
-                      ("attention_fwd", "attention_dq", "attention_dkv")}}
+                      ("attention_fwd", "attention_dq", "attention_dkv")},
+            "mma_tf32_ceiling": ceiling}
 
 
 def phase_bert_train(state):
@@ -2546,9 +2566,12 @@ RTC_BAD_SOURCE = 'extern "C" __global__ void bad(float *o) { o[0] = ; }'
 def phase_rtc(state):
     """The JAX package's rtc test kernels as CUDA source through
     ``CudaModule``: axpy and the out-dtype-templated ``double_it`` at the
-    tests' own sizes and at full width, bit for bit against plain torch;
-    one compile for the module however often it launches; a launch from
-    a second thread; an NVRTC syntax error and a dtype mismatch raise."""
+    tests' own sizes and at full width, axpy also at a ragged length (the
+    16-byte path and a scalar tail) and on an offset view (the scalar
+    path), bit for bit against plain torch; the full width on the 16-byte
+    path; one compile for the module however often it launches; a launch
+    from a second thread; an NVRTC syntax error and a dtype mismatch
+    raise."""
     import torch
     from mxnet_tpu_torch import _nvrtc, rtc
     from mxnet_tpu_torch.examples import rtc_example as rx
@@ -2576,6 +2599,19 @@ def phase_rtc(state):
     out = rx.axpy(axpy, x, y)
     ref = rx.axpy_plain(x, y)
     checks["axpy_full"] = bool(torch.equal(out, ref))
+    checks["axpy_full_vector_path"] = rx.vector_path(x, y, out)
+    # a ragged length: 16-byte vectors and a scalar tail of n % 4
+    xr = 3 * torch.randn(EXT_RAGGED, device="cuda", generator=gen)
+    yr = torch.randn(EXT_RAGGED, device="cuda", generator=gen)
+    outr = rx.axpy(axpy, xr, yr)
+    checks["axpy_ragged"] = bool(torch.equal(outr, rx.axpy_plain(xr, yr)))
+    # an offset view at full width: 4 bytes past an aligned start, scalar
+    xo, yo = (torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:]
+              for t in (x, y))
+    outo = rx.axpy(axpy, xo, yo)
+    refo = rx.axpy_plain(xo, yo)
+    checks["axpy_offset"] = bool(torch.equal(outo, refo))
+    checks["axpy_offset_scalar_path"] = not rx.vector_path(xo, yo, outo)
     for dt in (torch.float32, torch.int32):
         o = rx.double(dbl, x, dt)
         checks[f"double_full_{str(dt)[6:]}"] = bool(
@@ -2615,22 +2651,36 @@ def phase_rtc(state):
     nbytes = 3 * n * 4
     bms, by = bound(nbytes, 2 * n)
     kms = cuda_ms(lambda: rx.axpy(axpy, x, y))
+    lms = cuda_ms(lambda: torch.add(y, x, alpha=2.0))
     case = {"shape": list(EXT_SHAPE), "max_abs_err":
             (out - ref).abs().max().item(), "bitwise_equal":
-            checks["axpy_full"], "kernel_ms": kms,
+            checks["axpy_full"], "vector_path":
+            checks["axpy_full_vector_path"], "grid": rx.grid_axpy(n, True)[0],
+            "kernel_ms": kms,
             "kernel_eager_ms": eager_ms(lambda: rx.axpy(axpy, x, y)),
             "plain_ms": cuda_ms(lambda: rx.axpy_plain(x, y)),
-            "library_ms": cuda_ms(lambda: torch.add(y, x, alpha=2.0)),
-            "library": "torch.add(y, x, alpha=2)", "bytes": nbytes,
+            "library_ms": lms, "library": "torch.add(y, x, alpha=2)",
+            "vs_library": kms / lms, "bytes": nbytes,
             "bound_ms": bms, "bound_by": by,
             "gb_s": nbytes / (kms * 1e-3) / 1e9, "bound_share": bms / kms}
-    state["cases"]["rtc_axpy"] = [case]
+    okms = cuda_ms(lambda: rx.axpy(axpy, xo, yo))
+    offset = {"shape": list(EXT_SHAPE), "offset_view": True,
+              "max_abs_err": (outo - refo).abs().max().item(),
+              "bitwise_equal": checks["axpy_offset"], "vector_path": False,
+              "kernel_ms": okms, "bound_ms": bms, "bound_by": by,
+              "bound_share": bms / okms,
+              "library_ms": cuda_ms(lambda: torch.add(yo, xo, alpha=2.0))}
+    ragged = {"shape": [EXT_RAGGED], "bitwise_equal": checks["axpy_ragged"],
+              "max_abs_err": (outr - rx.axpy_plain(xr, yr)).abs().max()
+              .item()}
+    state["cases"]["rtc_axpy"] = [case, offset, ragged]
     # the eager cost of one launch at the tests' size, against torch.add
     res["eager_launch_us"] = {
         "rtc_axpy_8": 1e3 * eager_ms(lambda: rx.axpy(axpy, x8, y8),
                                      iters=200),
         "torch_add_8": 1e3 * eager_ms(lambda: torch.add(x8, y8), iters=200)}
-    res.update(checks=checks, axpy=case)
+    res.update(checks=checks, axpy=case, axpy_offset=offset,
+               axpy_ragged=ragged)
     ok = all(v is True for k, v in checks.items()
              if not k.startswith("compiles")) and \
         checks["compiles_after_first_launch"] == 1 and \
@@ -2785,7 +2835,7 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_kernels.py:104"),
     ("causal_attention", "mxnet_tpu_torch/csrc/causal_attention.cu",
      "mxnet_tpu/ops/pallas_attention.py:203"),
-    ("attention_fwd", "mxnet_tpu_torch/csrc/attention.cu",
+    ("attention_fwd", "mxnet_tpu_torch/csrc/flash_fwd_tc.cu",
      "mxnet_tpu/ops/pallas_kernels.py:167"),
     ("attention_dq", "mxnet_tpu_torch/csrc/attention.cu",
      "mxnet_tpu/ops/pallas_kernels.py:283"),
@@ -2814,9 +2864,14 @@ KERNELS = [
     ("rtc_axpy", "mxnet_tpu_torch/examples/rtc_kernels.cu",
      "mxnet_tpu/rtc.py:35"),
 ]
-# what else an entry names: the registered Pallas body a generated kernel
-# replaces, the module that compiles and launches the rtc route
+# what else an entry names: the header holding the body two attention
+# entries share, the registered Pallas body a generated kernel replaces,
+# the module that compiles and launches the rtc route
 KERNEL_NOTES = {
+    "causal_attention": {"kernel_body": "mxnet_tpu_torch/csrc/"
+                                        "flash_fwd_tc.cuh"},
+    "attention_fwd": {"kernel_body": "mxnet_tpu_torch/csrc/"
+                                     "flash_fwd_tc.cuh"},
     "tvm_vadd": {"body": "mxnet_tpu/tvmop.py:119", "compiler": "nvrtc"},
     "tvm_vmul": {"body": "mxnet_tpu/tvmop.py:124", "compiler": "nvrtc"},
     "tvm_sigmoid": {"body": "mxnet_tpu/tvmop.py:138", "compiler": "nvrtc"},

@@ -1,39 +1,31 @@
-// Non-causal flash attention, fp32: the forward with its row logsumexp,
-// and the two backward passes (dq; dk and dv).
+// Non-causal flash attention, fp32: the two backward passes (dq; dk and
+// dv), which recompute P from the forward's row logsumexp.  The forward
+// (q, k, v -> o and lse) is flash_fwd_tc.cu, on the tensor cores.
 //
-// Replaces: mxnet_tpu/ops/pallas_kernels.py `_attn_kernel` (launched by
-// `_attention_pallas`), `_attn_dq_kernel` and `_attn_dkv_kernel`
-// (launched by `_attn_bwd_pallas`), the custom VJP of `attention_fused`
-// that mxnet_tpu/models/bert.py `_attention` calls.
+// Replaces: mxnet_tpu/ops/pallas_kernels.py `_attn_dq_kernel` and
+// `_attn_dkv_kernel` (launched by `_attn_bwd_pallas`), the backward of
+// the custom VJP of `attention_fused` that mxnet_tpu/models/bert.py
+// `_attention` calls.
 //
-// Bound on an H100: arithmetic.  Per (batch, head) the forward does
-// 4 * L^2 * D flops (Q.K^T and P.V), the dq pass 6 * L^2 * D (Q.K^T,
-// G.V^T, dS.K) and the dk/dv pass 8 * L^2 * D (Q.K^T, G.V^T, P^T.G,
-// dS^T.Q), against 16 * L * D bytes or so of operands.  At BERT-base's
-// (B*H, L, D) = (192, 128, 64) that is 32 flops a byte for the forward,
-// well above the 20 flops a byte at which fp32 FMAs on the CUDA cores
-// (67 TFLOP/s) and device memory (3.35 TB/s) balance.
+// Bound on an H100: arithmetic.  Per (batch, head) the dq pass does
+// 6 * L^2 * D flops (Q.K^T, G.V^T, dS.K) and the dk/dv pass 8 * L^2 * D
+// (Q.K^T, G.V^T, P^T.G, dS^T.Q), against 20 and 24 * L * D bytes of
+// operands.  At BERT-base's (B*H, L, D) = (192, 128, 64) that is 38 and
+// 43 flops a byte, above the 20 flops a byte at which fp32 FMAs on the
+// CUDA cores (67 TFLOP/s) and device memory (3.35 TB/s) balance.
 //
-// Design (all three): a 256-thread block owns one 64-row tile of its
-// output and streams the other operand through shared memory 64 rows at
-// a time, so the (L, L) score matrix never reaches device memory.  Each
+// Design (both): a 256-thread block owns one 64-row tile of its output
+// and streams the other operand through shared memory 64 rows at a
+// time, so the (L, L) score matrix never reaches device memory.  Each
 // thread owns a 4x4 piece of the 64x64 score tile (rows ty + 16r,
 // columns tx + 16c) and a 4 x D/16 piece of each accumulator.  Rows in
 // shared memory are padded by one float, so column-strided reads hit 16
-// different banks.  Columns past Lk and rows past Lq are masked here
-// (the forward with the finite -1e30, as the TPU kernel, so exp()
-// underflows to exactly 0), so any L works.  q/k/v/o/g and the gradients
-// are taken with arbitrary (batch, head, row) strides and a unit last-dim
-// stride, so BERT passes views into its fused [q|k|v] projection.
-// Each block writes only its own tile: no atomics.
+// different banks.  Columns past Lk and rows past Lq are masked here, so
+// any L works.  q/k/v/g and the gradients are taken with arbitrary
+// (batch, head, row) strides and a unit last-dim stride, so BERT passes
+// views into its fused [q|k|v] projection.  Each block writes only its
+// own tile: no atomics.
 //
-// - Forward: grid (B*H, ceil(Lq/64)).  Q (scaled by `scale` as it is
-//   loaded: the TPU kernel scales q before the dot) stays in shared
-//   memory; K and V stream through.  Online softmax: the running max and
-//   sum per row live in the registers of the 16 threads sharing the row,
-//   reduced with half-warp shuffles; P goes through shared memory (in
-//   the K buffer) for P.V; acc / l is taken once at the end, and
-//   lse = m + log(l) is written per row.
 // - dq: grid (B*H, ceil(Lq/64)).  Q and G stay; K and V stream.
 //   p = exp(s * scale - lse) with s = q.k^T scaled after the dot (the TPU
 //   kernel's order), ds = p * (g.v^T - delta), then ds goes through
@@ -52,18 +44,17 @@ constexpr int BQ = 64;    // query rows per tile
 constexpr int BK = 64;    // key rows per tile
 constexpr int NT = 256;   // threads per block: 16 x 16
 constexpr int PP = BK + 1;  // padded row of a 64x64 probability tile
-constexpr float kNegInf = -1e30f;
 
 struct Strides {
   long long b, h, l;      // element strides; the last dim is contiguous
 };
 
-// a 64-row tile of a (rows, D) operand into shared memory, times `scale`;
-// rows past `nrows` are zeros
+// a 64-row tile of a (rows, D) operand into shared memory; rows past
+// `nrows` are zeros
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long row_stride, int row0,
-                                          int nrows, float scale) {
+                                          int nrows) {
   constexpr int DP = D + 1;
   constexpr int V4 = D / 4;
   for (int idx = threadIdx.x; idx < 64 * V4; idx += NT) {
@@ -72,143 +63,14 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
     if (row0 + r < nrows)
       t = *reinterpret_cast<const float4*>(src + (row0 + r) * row_stride + c);
     float* d = dst + r * DP + c;
-    d[0] = t.x * scale; d[1] = t.y * scale;
-    d[2] = t.z * scale; d[3] = t.w * scale;
+    d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
   }
 }
 
-template <int D>
-constexpr int fwd_smem_floats() { return 3 * 64 * (D + 1); }
 template <int D>
 constexpr int dq_smem_floats() { return 4 * 64 * (D + 1); }
 template <int D>
 constexpr int dkv_smem_floats() { return 4 * 64 * (D + 1) + 2 * BK * PP + 2 * BQ; }
-
-template <int D>
-__global__ void __launch_bounds__(NT, 2)
-attn_fwd(const float* __restrict__ q, const float* __restrict__ k,
-         const float* __restrict__ v, float* __restrict__ o,
-         float* __restrict__ lse, int H, int Lq, int Lk, Strides sq,
-         Strides sk, Strides sv, Strides so, float scale) {
-  constexpr int DP = D + 1;
-  constexpr int CPT = D / 16;       // output columns per thread
-  static_assert(BQ * PP <= BK * DP, "P tile must fit in the K buffer");
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * DP;          // K tile, then the P tile
-  float* Vs = Ks + BK * DP;
-
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * BQ;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  load_tile<D>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq, scale);
-
-  float m[4], l[4], acc[4][CPT];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
-  }
-
-  const int nblk = (Lk + BK - 1) / BK;
-  for (int j = 0; j < nblk; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();                  // previous P and V reads are done
-    load_tile<D>(Ks, kb, sk.l, k0, Lk, 1.f);
-    load_tile<D>(Vs, vb, sv.l, k0, Lk, 1.f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) qv[r] = Qs[(ty + 16 * r) * DP + d];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) kv[c] = Ks[(tx + 16 * c) * DP + d];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
-    }
-
-    float corr[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (k0 + tx + 16 * c >= Lk) s[r][c] = kNegInf;
-        mx = fmaxf(mx, s[r][c]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      corr[r] = expf(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = expf(s[r][c] - m_new);
-        sum += s[r][c];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[r] = l[r] * corr[r] + sum;
-      m[r] = m_new;
-    }
-
-    __syncthreads();                  // every thread is done with K
-    float* Ps = Ks;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        Ps[(ty + 16 * r) * PP + tx + 16 * c] = s[r][c];
-    __syncthreads();
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[r][c] *= corr[r];
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4], vv[CPT];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) pv[r] = Ps[(ty + 16 * r) * PP + kk];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) vv[c] = Vs[kk * DP + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c)
-          acc[r][c] = fmaf(pv[r], vv[c], acc[r][c]);
-    }
-  }
-
-  float* ob = o + b * so.b + h * so.h;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty + 16 * r;
-    if (row < Lq) {
-      float* orow = ob + row * so.l;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = acc[r][c] / l[r];
-      if (tx == 0) lse[(long long)bh * Lq + row] = m[r] + logf(l[r]);
-    }
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(NT, D == 64 ? 2 : 1)
@@ -233,8 +95,8 @@ attn_dq(const float* __restrict__ q, const float* __restrict__ k,
 
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
-  load_tile<D>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq, 1.f);
-  load_tile<D>(Gs, g + b * sg.b + h * sg.h, sg.l, q0, Lq, 1.f);
+  load_tile<D>(Qs, q + b * sq.b + h * sq.h, sq.l, q0, Lq);
+  load_tile<D>(Gs, g + b * sg.b + h * sg.h, sg.l, q0, Lq);
 
   float lse_r[4], dl_r[4], acc[4][CPT];
 #pragma unroll
@@ -251,8 +113,8 @@ attn_dq(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < nblk; ++j) {
     const int k0 = j * BK;
     __syncthreads();                  // previous dS and K reads are done
-    load_tile<D>(Ks, kb, sk.l, k0, Lk, 1.f);
-    load_tile<D>(Vs, vb, sv.l, k0, Lk, 1.f);
+    load_tile<D>(Ks, kb, sk.l, k0, Lk);
+    load_tile<D>(Vs, vb, sv.l, k0, Lk);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -361,8 +223,8 @@ attn_dkv(const float* __restrict__ q, const float* __restrict__ k,
 
   const float* qb = q + b * sq.b + h * sq.h;
   const float* gb = g + b * sg.b + h * sg.h;
-  load_tile<D>(Ks, k + b * sk.b + h * sk.h, sk.l, k0, Lk, 1.f);
-  load_tile<D>(Vs, v + b * sv.b + h * sv.h, sv.l, k0, Lk, 1.f);
+  load_tile<D>(Ks, k + b * sk.b + h * sk.h, sk.l, k0, Lk);
+  load_tile<D>(Vs, v + b * sv.b + h * sv.h, sv.l, k0, Lk);
 
   float dka[4][CPT], dva[4][CPT];
 #pragma unroll
@@ -374,8 +236,8 @@ attn_dkv(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < nblk; ++i) {
     const int q0 = i * BQ;
     __syncthreads();                  // previous Q, G, P, dS reads are done
-    load_tile<D>(Qs, qb, sq.l, q0, Lq, 1.f);
-    load_tile<D>(Gs, gb, sg.l, q0, Lq, 1.f);
+    load_tile<D>(Qs, qb, sq.l, q0, Lq);
+    load_tile<D>(Gs, gb, sg.l, q0, Lq);
     if (threadIdx.x < BQ) {
       const int row = q0 + threadIdx.x;
       const long long at = (long long)bh * Lq + row;
@@ -481,19 +343,6 @@ Strides strides(const long long* s) { return Strides{s[0], s[1], s[2]}; }
 unsigned tiles(int n, int t) { return (unsigned)((n + t - 1) / t); }
 
 template <int D>
-cudaError_t launch_fwd(const float* q, const float* k, const float* v,
-                       float* o, float* lse, int B, int H, int Lq, int Lk,
-                       Strides sq, Strides sk, Strides sv, Strides so,
-                       float scale, cudaStream_t stream) {
-  cudaError_t err = allow_smem(attn_fwd<D>, fwd_smem_floats<D>());
-  if (err != cudaSuccess) return err;
-  attn_fwd<D><<<dim3((unsigned)(B * H), tiles(Lq, BQ)), NT,
-                fwd_smem_floats<D>() * sizeof(float), stream>>>(
-      q, k, v, o, lse, H, Lq, Lk, sq, sk, sv, so, scale);
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* g, const float* lse, const float* delta,
                       float* dq, int B, int H, int Lq, int Lk, Strides sq,
@@ -527,36 +376,6 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
 #define MXT_W(p) static_cast<float*>(p)
 
 }  // namespace
-
-// q, o: (B, H, Lq, D); k, v: (B, H, Lk, D); lse: (B*H, Lq) contiguous;
-// fp32.  Each stride array is (batch, head, row) in elements; the last
-// dim is contiguous.  The host checked that every row starts 16-byte
-// aligned and that D is 64 or 128.
-extern "C" int mxt_attention_fwd_f32(
-    const void* q, const void* k, const void* v, void* o, void* lse, int B,
-    int H, int Lq, int Lk, int D, const long long* q_strides,
-    const long long* k_strides, const long long* v_strides,
-    const long long* o_strides, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return (int)launch_fwd<64>(MXT_F(q), MXT_F(k), MXT_F(v), MXT_W(o),
-                                 MXT_W(lse), B, H, Lq, Lk,
-                                 strides(q_strides), strides(k_strides),
-                                 strides(v_strides), strides(o_strides),
-                                 scale, s);
-    case 128:
-      return (int)launch_fwd<128>(MXT_F(q), MXT_F(k), MXT_F(v), MXT_W(o),
-                                  MXT_W(lse), B, H, Lq, Lk,
-                                  strides(q_strides), strides(k_strides),
-                                  strides(v_strides), strides(o_strides),
-                                  scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
 
 // g and dq as q; lse and delta (B*H, Lq) contiguous.
 extern "C" int mxt_attention_dq_f32(

@@ -1,5 +1,5 @@
 // Device helpers of the 3xTF32 tensor-core kernels (conv_wgrad.cu,
-// conv3x3_tc.cu, causal_attention.cu): asynchronous copies into shared
+// conv3x3_tc.cu, flash_fwd_tc.cuh): asynchronous copies into shared
 // memory, the hi/lo split of an fp32 value into TF32 parts, and the
 // m16n8k8 TF32 product.
 //

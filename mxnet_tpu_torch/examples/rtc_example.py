@@ -18,13 +18,16 @@ import torch
 
 from .. import rtc
 
-__all__ = ["SOURCE", "EXPORTS", "module", "grid_1d", "axpy", "double",
-           "axpy_plain", "double_plain"]
+__all__ = ["SOURCE", "EXPORTS", "module", "grid_1d", "grid_axpy",
+           "vector_path", "axpy", "double", "axpy_plain", "double_plain"]
 
 SOURCE = Path(__file__).resolve().with_name("rtc_kernels.cu")
 EXPORTS = ("double_it<float>", "double_it<int>")
 THREADS = 256
 BLOCKS_PER_SM = 8
+AXPY_ITEMS = 4          # items (float4 vectors, or floats) a thread
+AXPY_VEC = 4            # floats a 16-byte vector
+MAX_BLOCKS = 2 ** 31 - 1
 
 
 def module() -> rtc.CudaModule:
@@ -36,7 +39,7 @@ _sms = {}
 
 def grid_1d(n: int, device) -> tuple:
     """Enough 256-thread blocks for ``n`` elements, at most 8 an SM (the
-    kernels loop over the rest)."""
+    kernel loops over the rest): ``double_it``'s launch."""
     sms = _sms.get(device)
     if sms is None:
         sms = _sms[device] = torch.cuda.get_device_properties(
@@ -44,10 +47,27 @@ def grid_1d(n: int, device) -> tuple:
     return (max(1, min(-(-n // THREADS), sms * BLOCKS_PER_SM)),)
 
 
+def grid_axpy(n: int, vector: bool) -> tuple:
+    """One 256-thread block per four items a thread: 256 x 4 x 4 floats
+    on the 16-byte path, 256 x 4 on the scalar one (the kernel loops over
+    what the grid does not cover, so any grid is right)."""
+    per_block = THREADS * AXPY_ITEMS * (AXPY_VEC if vector else 1)
+    return (max(1, min(-(-n // per_block), MAX_BLOCKS)),)
+
+
+def vector_path(*tensors) -> bool:
+    """Whether ``axpy`` on these operands (x, y and its output) takes the
+    16-byte path: the kernel's own test, every pointer 16-byte aligned,
+    with at least one vector to move."""
+    return tensors[0].numel() >= AXPY_VEC and \
+        all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def axpy(kern, x, y):
-    """``o = 2x + y`` by the rtc kernel ``axpy``."""
+    """``o = 2x + y`` by the rtc kernel ``axpy``, on a grid sized for the
+    path the kernel will take (its output is a new, aligned tensor)."""
     n = x.numel()
-    return kern.launch([x, y, n], grid=grid_1d(n, x.device),
+    return kern.launch([x, y, n], grid=grid_axpy(n, vector_path(x, y)),
                        block=(THREADS,))
 
 

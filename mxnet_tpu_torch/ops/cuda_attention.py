@@ -3,8 +3,10 @@ version.
 
 ≙ ``mxnet_tpu/ops/pallas_attention.py`` (``_causal_attn_kernel``,
 ``_causal_attention_pallas``, ``causal_attention_xla``,
-``causal_attention``).  The kernel lives in ``csrc/causal_attention.cu``;
-see the note at its top for its bound and design.
+``causal_attention``).  The kernel's entry is ``csrc/causal_attention.cu``
+and its body, shared with the non-causal forward, is
+``csrc/flash_fwd_tc.cuh``; see the notes at their tops for its bound and
+design.
 
 ``causal_attention`` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; CPU tensors take

@@ -5,8 +5,13 @@ CUDA kernels, their plain versions, and the differentiable
 ≙ the attention section of ``mxnet_tpu/ops/pallas_kernels.py``
 (``_attn_kernel``/``_attention_pallas``, ``_attn_dq_kernel`` and
 ``_attn_dkv_kernel``/``_attn_bwd_pallas``, ``attention_fused`` with its
-custom VJP).  The kernels live in ``csrc/attention.cu``; see the note at
-its top for their bound and design.
+custom VJP).  The forward (o and the row logsumexp) is
+``csrc/flash_fwd_tc.cu``: FlashAttention-2 on the tensor cores in
+3xTF32 (``mma.sync`` m16n8k8 on operands split into TF32 hi and lo, P
+kept in registers), the body it shares with the causal kernel in
+``csrc/flash_fwd_tc.cuh``.  The dq and dk/dv kernels are
+``csrc/attention.cu``, on the CUDA cores.  The note at the top of each
+file gives its bound and design.
 
 Each wrapper (``attention_fwd``, ``attention_dq``, ``attention_dkv``)
 launches its kernel for CUDA tensors and raises on anything the kernel
@@ -143,8 +148,8 @@ def _on_cpu(fn, q):
 
 def attention_fwd(q, k, v, scale):
     """(o, lse) for (B, H, L, D) fp32 q/k/v: o (B, H, Lq, D), lse
-    (B, H, Lq) fp32.  CUDA tensors launch the forward kernel of
-    ``csrc/attention.cu``; q/k/v may be strided views (unit last-dim
+    (B, H, Lq) fp32.  CUDA tensors launch the tensor-core forward of
+    ``csrc/flash_fwd_tc.cu``; q/k/v may be strided views (unit last-dim
     stride, 16-byte aligned rows), and o is a (B, H, Lq, D) view of a
     (B, Lq, H, D) buffer.  CPU tensors take
     :func:`attention_fwd_plain`."""

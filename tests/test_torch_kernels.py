@@ -760,26 +760,28 @@ def test_conv3x3_3xtf32_model_is_fp32_accurate_and_1xtf32_is_not(
     assert (one.double() - ref).abs().max().item() / scale > 1e-4
 
 
+def _prod_3xtf32(eq, a, b, rounding):
+    """The einsum ``eq`` of fp32 ``a`` and ``b`` from their TF32 hi/lo
+    parts, lo·hi' + hi·lo' + hi·hi' (TF32 products are exact in fp32)."""
+    ah = _tf32(a, rounding)
+    bh = _tf32(b, rounding)
+    al, bl = _tf32(a - ah, rounding), _tf32(b - bh, rounding)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) +
+            torch.einsum(eq, ah, bh))
+
+
 def _attn_3xtf32_model(q, k, v, scale, rounding):
-    """``csrc/causal_attention.cu``'s arithmetic in plain torch: q scaled
-    in fp32 then split, S and P·V from hi/lo parts (lo·hi' + hi·lo' +
-    hi·hi', TF32 products exact in fp32), P = exp(S − row max) in fp32
-    split too, divided by its fp32 row sum at the end."""
-    def parts(t):
-        hi = _tf32(t, rounding)
-        return hi, _tf32(t - hi, rounding)
-
-    def prod(eq, a, b):
-        (ah, al), (bh, bl) = parts(a), parts(b)
-        return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) +
-                torch.einsum(eq, ah, bh))
-
+    """The causal kernel's arithmetic (``csrc/flash_fwd_tc.cuh`` with the
+    mask) in plain torch: q scaled in fp32 then split, S and P·V from
+    hi/lo parts, P = exp(S − row max) in fp32 split too, divided by its
+    fp32 row sum at the end."""
     Lq, Lk = q.shape[2], k.shape[2]
-    s = prod("bhqd,bhkd->bhqk", q * scale, k)
+    s = _prod_3xtf32("bhqd,bhkd->bhqk", q * scale, k, rounding)
     keep = torch.arange(Lk)[None, :] <= torch.arange(Lq)[:, None]
     s = torch.where(keep, s, torch.full_like(s, -1e30))
     p = torch.exp(s - s.amax(-1, keepdim=True))
-    return prod("bhqk,bhkd->bhqd", p, v) / p.sum(-1, keepdim=True)
+    return _prod_3xtf32("bhqk,bhkd->bhqd", p, v, rounding) / \
+        p.sum(-1, keepdim=True)
 
 
 @pytest.mark.parametrize("rounding", ["rna", "rz"])
@@ -798,6 +800,57 @@ def test_causal_attention_3xtf32_model_is_fp32_accurate(D, L, rounding):
     out = _attn_3xtf32_model(q, k, v, scale, rounding)
     err = (out.double() - ref).abs().max().item()
     assert err / ref.abs().max().item() <= 1e-5
+
+
+def _flash_fwd_3xtf32_model(q, k, v, scale, rounding, bkv=32):
+    """``csrc/flash_fwd_tc.cu``'s arithmetic in plain torch: q scaled in
+    fp32 then split; K and V streamed 32 keys at a time, padded with zero
+    rows whose scores are the finite −1e30; per tile S = Q·Kᵀ and P·V
+    from hi/lo parts, the online softmax in fp32 (running max m, sum l,
+    acc·corr + P·V); o = acc / l and lse = m + log l at the end."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    pad = -Lk % bkv
+    k = torch.cat([k, k.new_zeros(B, H, pad, D)], dim=2)
+    v = torch.cat([v, v.new_zeros(B, H, pad, D)], dim=2)
+    qs = q * scale
+    m = torch.full((B, H, Lq, 1), -float("inf"))
+    l = torch.zeros(B, H, Lq, 1)
+    acc = torch.zeros(B, H, Lq, D)
+    for k0 in range(0, Lk + pad, bkv):
+        s = _prod_3xtf32("bhqd,bhkd->bhqk", qs, k[:, :, k0:k0 + bkv],
+                         rounding)
+        past = torch.arange(k0, k0 + bkv) >= Lk
+        s = torch.where(past, torch.full_like(s, -1e30), s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _prod_3xtf32("bhqk,bhkd->bhqd", p,
+                                        v[:, :, k0:k0 + bkv], rounding)
+        m = m_new
+    return acc / l, (m + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("rounding", ["rna", "rz"])
+@pytest.mark.parametrize("L", [128, 200])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_fwd_3xtf32_model_is_fp32_accurate(D, L, rounding):
+    """The non-causal forward's 3×TF32 arithmetic, online over 32-key
+    tiles, is within 1e-5 of the output's largest magnitude (o) and 1e-5
+    absolute (lse) of the fp64 plain version, at both head dims, BERT's
+    128 rows and a length that is ragged for the key tiles."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    rs = np.random.RandomState(D + L + 1)
+    q, k, v = (torch.from_numpy(rs.randn(2, 2, L, D).astype(np.float32))
+               for _ in range(3))
+    scale = D ** -0.5
+    ref, ref_lse = fa.attention_fwd_plain(q.double(), k.double(),
+                                          v.double(), scale)
+    out, lse = _flash_fwd_3xtf32_model(q, k, v, scale, rounding)
+    err = (out.double() - ref).abs().max().item()
+    assert err / ref.abs().max().item() <= 1e-5
+    assert (lse.double() - ref_lse).abs().max().item() <= 1e-5
 
 
 def test_build_digest_hashes_the_shared_headers(tmp_path, monkeypatch):

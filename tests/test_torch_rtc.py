@@ -218,6 +218,65 @@ def test_double_plain_matches_the_reference_kernel(dtype, jdtype):
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+# ------------------------------------------------- axpy launch geometry
+def _axpy_writes(n, aligned, grid):
+    """How often ``examples/rtc_kernels.cu``'s ``axpy`` writes each of
+    ``n`` elements when launched on ``grid`` blocks of 256 threads, by
+    its index arithmetic: aligned operands take a pass over n // 4
+    16-byte vectors and a scalar pass over the last n % 4 elements, an
+    unaligned operand one scalar pass over all of them.  In a pass over
+    ``count`` items, thread t of block b takes items b·1024 + u·256 + t
+    (u < 4) below ``count``, and again a grid's items further on while
+    its first item is below ``count``."""
+    T, U = rtc_example.THREADS, rtc_example.AXPY_ITEMS
+    W = rtc_example.AXPY_VEC
+    writes = np.zeros(n, np.uint8)
+
+    def one_pass(start, count, width):
+        step = grid * T * U
+        for chunk in range(0, grid, 1024):      # blocks, 1024 at a time
+            blocks = np.arange(chunk, min(grid, chunk + 1024))
+            base0 = blocks[:, None] * T * U + np.arange(T)[None, :]
+            items0 = (base0[:, None, :] +
+                      np.arange(U)[None, :, None] * T).ravel()
+            for s in range(0, count, step):
+                base = (base0 + s).ravel()
+                live = np.repeat(base < count, U)   # the loop's own test
+                items = (items0 + s)[live]
+                items = items[items < count]
+                for j in range(width):
+                    # items are distinct, so += counts each once
+                    writes[start + items * width + j] += 1
+
+    done = 0
+    if aligned:
+        one_pass(0, n // W, W)
+        done = n // W * W
+    one_pass(done, n - done, 1)
+    return writes
+
+
+@pytest.mark.parametrize("start", ["aligned", "offset"])
+@pytest.mark.parametrize("n", [1, 3, 8, 4097, 64 * 56 * 56 * 256])
+def test_axpy_launch_geometry_covers_every_element_once(n, start):
+    """``grid_axpy``'s grid, one block per 256 × 4 × 4 floats on the
+    16-byte path and per 256 × 4 on the scalar path, makes the kernel
+    write every element exactly once on the 16-byte path with its scalar
+    tail and on the scalar path of an offset view; so does a single
+    block, as the kernel loops over what the grid leaves."""
+    aligned = start == "aligned"
+    grid = rtc_example.grid_axpy(n, aligned)[0]
+    assert grid == max(1, -(-n // (4096 if aligned else 1024)))
+    assert (_axpy_writes(n, aligned, grid) == 1).all()
+    if n < 10 ** 6:
+        assert (_axpy_writes(n, aligned, 1) == 1).all()
+    # the host's view of the kernel's own alignment test
+    base = torch.zeros(min(n, 4097) + 1)
+    x = base[1:] if start == "offset" else base[:-1]
+    o = torch.zeros(x.numel())
+    assert rtc_example.vector_path(x, x, o) == (aligned and x.numel() >= 4)
+
+
 # ------------------------------------------------------- program caching
 class _FakeNvrtc:
     """Stands in for NVRTC and the driver: counts compiles and loads."""
