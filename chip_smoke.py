@@ -99,13 +99,18 @@ the first phase that fails:
     relative and sum(z) within 1e-5 of the channel's sum |z|;
     ``bn_affine`` within 1e-6 of its largest magnitude), timed beside
     their bounds, plain versions and the nearest single library call.
-    ``conv3x3`` and ``conv_wgrad`` (3xTF32 on the tensor cores) also
-    report, per case, their plan (ranges; wgrad's partial slots), both
+    ``conv3x3``, ``conv_stats`` and ``conv_wgrad`` (3xTF32 on the tensor
+    cores) also report, per case, their plan (ranges; wgrad's partial
+    slots; ``conv_stats`` also ``conv3x3``'s plan at its shape), both
     bounds (fp32 on the CUDA cores; the three TF32 products on the
     tensor cores, the line's ``bound_ms``), fp32-equivalent TFLOP/s, the
     share of the tensor-core bound, the library call's ms, and that two
-    launches on the same inputs give bitwise-equal outputs (a gate); and
-    the TF32 ``mma.sync`` ceiling of the card (independent products on
+    launches on the same inputs give bitwise-equal outputs (a gate;
+    ``conv_stats``: z, sum(z) and sum(z^2) each); ``conv_stats``' z must
+    equal ``conv3x3(x, w)`` bit for bit wherever the two plans agree (a
+    gate); the device µs of each kernel the forward ``conv3x3`` and
+    ``conv_stats`` launch (``kernels_us``, torch.profiler); and the TF32
+    ``mma.sync`` ceiling of the card (independent products on
     registers, no memory, compiled through ``rtc.CudaModule``) with each
     case's share of it.
 16. ``image_train``: the launch counters set to 0, then
@@ -345,7 +350,7 @@ def phase_build(state):
         m = re.search(r"entry function '\S*?(flash_fwd_tc|layernorm_fwd|"
                       r"attn_dq|attn_dkv|conv_affine_kernel|"
                       r"conv3x3_tc_kernel|conv3x3_reduce_kernel|"
-                      r"conv_stats_kernel|"
+                      r"conv_stats_tc_kernel|conv_stats_cut_kernel|"
                       r"conv_wgrad_kernel|wgrad_reduce_kernel|"
                       r"layernorm_row_fwd|bn_affine_kernel|"
                       r"softmax_warp_kernel|softmax_block_kernel|"
@@ -607,7 +612,7 @@ def phase_reference(state):
 KERNEL_CATEGORIES = (
     ("conv_affine (ours)", r"conv_affine_kernel"),
     ("conv3x3 / dgrad (ours)", r"conv3x3_tc_kernel|conv3x3_reduce_kernel"),
-    ("conv_stats (ours)", r"conv_stats_kernel|stats_reduce_kernel"),
+    ("conv_stats (ours)", r"conv_stats_(tc|cut|sum)_kernel"),
     ("bn_affine (ours)", r"bn_affine_kernel"),
     ("conv_wgrad (ours)", r"conv_wgrad_kernel|wgrad_reduce_kernel"),
     ("batch norm", r"batch_norm|bn_fw"),
@@ -1208,6 +1213,17 @@ def _timed(case, fn, plain, library, nbytes, flops, iters=10):
     return case
 
 
+def _kernel_us(fn, calls=5):
+    """Device µs per call of each kernel ``fn`` launches, by name (its
+    namespace and template arguments dropped), from torch.profiler."""
+    out = {}
+    for t in _profile(fn, calls, top=8).get("top", []):
+        name = t["kernel"].replace("(anonymous namespace)::", "")
+        name = name.replace("void ", "").split("<")[0].split("(")[0]
+        out[name] = out.get(name, 0.0) + t["us_per_call"]
+    return out
+
+
 def _rel_err(out, ref):
     err = (out - ref).abs().max().item()
     return err, err / max(ref.abs().max().item(), 1e-30)
@@ -1269,20 +1285,34 @@ def _train_conv_cases(N, H, W, C, Cout, gen, dgrad_only=False):
         lambda: cb.conv3x3(x, w), lambda: cb.conv3x3_plain(x, w),
         lambda: F.conv2d(xc, wc, padding=1), conv_bytes, flops),
         conv_bytes, flops)
+    out["conv3x3"]["kernels_us"] = _kernel_us(lambda: cb.conv3x3(x, w))
 
-    z, s1, s2 = cb.conv_stats(x, w)
+    zs, s1, s2 = cb.conv_stats(x, w)
+    again = cb.conv_stats(x, w)
     rz, r1, r2 = cb.conv_stats_plain(x, w)
-    err, rel = _rel_err(z, rz)
+    err, rel = _rel_err(zs, rz)
     mag = rz.abs().sum(dim=(0, 1, 2))
     s1_rel = ((s1 - r1).abs() / mag).max().item()
     s2_rel = ((s2 - r2).abs() / r2.abs()).max().item()
-    out["conv_stats"] = _timed(
-        {"shape": shape, "max_abs_err": err, "rel_err": rel,
+    plan = _conv3x3_plan(N * H * W, C, Cout,
+                         "mxt_conv_stats_tc_blocks_per_sm")
+    conv_plan = _conv3x3_plan(N * H * W, C, Cout)
+    stats_bytes = conv_bytes + 8 * Cout
+    out["conv_stats"] = _tc_bounds(_timed(
+        {"shape": shape, "plan": plan, "conv3x3_plan": conv_plan,
+         "max_abs_err": err, "rel_err": rel,
          "tol": TRAIN_TOL, "sum_rel_err": s1_rel, "sumsq_rel_err": s2_rel,
          "stats_rtol": STATS_RTOL,
+         "bitwise_equal_relaunch": all(
+             bool(torch.equal(a, b)) for a, b in zip((zs, s1, s2), again)),
+         # None where the plans differ: the ranges cut the sums elsewhere
+         "z_equals_conv3x3": bool(torch.equal(zs, z))
+         if plan == conv_plan else None,
          "library": "F.conv2d alone (cuDNN; no sums)"},
         lambda: cb.conv_stats(x, w), lambda: cb.conv_stats_plain(x, w),
-        lambda: F.conv2d(xc, wc, padding=1), conv_bytes + 8 * Cout, flops)
+        lambda: F.conv2d(xc, wc, padding=1), stats_bytes, flops),
+        stats_bytes, flops)
+    out["conv_stats"]["kernels_us"] = _kernel_us(lambda: cb.conv_stats(x, w))
     return out
 
 
@@ -1312,14 +1342,14 @@ def _wgrad_case(x, dy, xc, wc, dyc, shape, nbytes, flops):
         nbytes, flops), nbytes, flops)
 
 
-def _conv3x3_plan(M, C, Cout):
-    """The plan ``conv3x3`` runs at this shape on card 0."""
+def _conv3x3_plan(M, C, Cout, entry="mxt_conv3x3_tc_blocks_per_sm"):
+    """The plan ``conv3x3`` (or, by its occupancy ``entry``,
+    ``conv_stats``) runs at this shape on card 0."""
     from mxnet_tpu_torch.ops import conv_block as cb
     vec = int(C % 4 == 0 and Cout % 4 == 0)
     return cb.conv3x3_splits(
         M, 9 * C, Cout, cb._sm_count(0),
-        cb._per_sm("mxt_conv3x3_tc_blocks_per_sm", 0,
-                   cb.wgrad_tile_cols(Cout), vec))._asdict()
+        cb._per_sm(entry, 0, cb.wgrad_tile_cols(Cout), vec))._asdict()
 
 
 MMA_TF32_PEAK_SRC = r"""
@@ -1395,7 +1425,9 @@ def _train_ok(name, c):
         return c["bitwise_equal_relaunch"]
     if name == "conv_stats":
         return c["sum_rel_err"] <= c["stats_rtol"] and \
-            c["sumsq_rel_err"] <= c["stats_rtol"]
+            c["sumsq_rel_err"] <= c["stats_rtol"] and \
+            c["bitwise_equal_relaunch"] and \
+            c["z_equals_conv3x3"] is not False
     return True
 
 
@@ -1429,7 +1461,8 @@ def phase_train_kernels(state):
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
-    ceiling = _ceiling_shares(state, cases["conv3x3"] + cases["conv_wgrad"])
+    ceiling = _ceiling_shares(state, cases["conv3x3"] + cases["conv_stats"] +
+                              cases["conv_wgrad"])
     return {"cases": cases, "mma_tf32_ceiling": ceiling}
 
 
@@ -2845,7 +2878,7 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_block.py:325"),
     ("conv3x3", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
      "mxnet_tpu/ops/pallas_block.py:318"),
-    ("conv_stats", "mxnet_tpu_torch/csrc/conv_train.cu",
+    ("conv_stats", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
      "mxnet_tpu/ops/pallas_block.py:343"),
     ("bn_affine", "mxnet_tpu_torch/csrc/conv_train.cu",
      "mxnet_tpu/ops/pallas_block.py:367"),

@@ -68,8 +68,12 @@ _SIGNATURES = {
     # bn, vec, out (int*)
     "mxt_conv3x3_tc_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                      ctypes.POINTER(ctypes.c_int)],
-    # x, w, z, part, stats, N, H, W, C, Cout, vec, stream
-    "mxt_conv_stats_f32": [_P] * 5 + [ctypes.c_int] * 6 + [_P],
+    # x, w, part, z, tstats, stats, N, H, W, C, Cout, bn, ranges, vec,
+    # stream
+    "mxt_conv_stats_tc_f32": [_P] * 6 + [ctypes.c_int] * 8 + [_P],
+    # bn, vec, out (int*)
+    "mxt_conv_stats_tc_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int)],
     # x, dy, part, dw, N, H, W, C, Cout, bn, ranges, jmax, vec, stream
     "mxt_conv_wgrad_f32": [_P] * 4 + [ctypes.c_int] * 9 + [_P],
     # bn, vec, out (int*)

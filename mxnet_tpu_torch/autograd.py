@@ -10,8 +10,14 @@ autograd is the tape:
   under ``torch.no_grad()``.  ``is_recording()`` and ``is_training()``
   read thread-local flags that the scopes set, as the reference's do
   (both start False on every thread).  ``train_mode()`` and
-  ``predict_mode()`` set only the training flag.  The port's Blocks keep
-  ``train()`` / ``eval()``: this flag is what ``CustomOp`` bodies read.
+  ``predict_mode()`` set only the training flag.  The mode-dependent
+  Gluon blocks (``BatchNorm``, ``Dropout``, the fused conv + BN segment)
+  and ``CustomOp`` bodies read it: inside a ``record()``, ``pause()``,
+  ``train_mode()`` or ``predict_mode()`` scope, or after
+  ``set_training``, a block trains exactly when ``is_training()`` is
+  True (so ``predict_mode()`` inside ``record()`` gives inference, as in
+  the reference); outside all of them (:func:`training_scope` is None)
+  it follows its own ``train()`` / ``eval()``.
 - ``mark_variables`` makes tensors require grad; ``grad_reqs`` of
   ``"write"`` (the default) makes each backward overwrite the variable's
   ``.grad`` rather than accumulate into it, ``"add"`` accumulates (torch's
@@ -34,14 +40,14 @@ from typing import List, Optional
 import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "grad", "Function"]
+           "is_training", "set_recording", "set_training", "training_scope",
+           "mark_variables", "backward", "grad", "Function"]
 
 
 class _State(threading.local):
     def __init__(self):
         self.recording = False
-        self.training = False
+        self.training = None     # None: never set on this thread
 
 
 _state = _State()
@@ -52,6 +58,13 @@ def is_recording() -> bool:
 
 
 def is_training() -> bool:
+    return bool(_state.training)
+
+
+def training_scope() -> Optional[bool]:
+    """The training flag where a scope or ``set_training`` has set it on
+    this thread, None where nothing has: a block's own ``train()`` /
+    ``eval()`` decides there."""
     return _state.training
 
 
@@ -65,7 +78,7 @@ def set_recording(flag: bool) -> bool:
 
 
 def set_training(flag: bool) -> bool:
-    prev = _state.training
+    prev = bool(_state.training)
     _state.training = bool(flag)
     return prev
 

@@ -1,6 +1,8 @@
-// The implicit-GEMM tile shared by the 3x3/s1/p1 convolution kernels of
-// conv_affine.cu (frozen forward) and conv_train.cu (training forward with
-// statistics).
+// The implicit-GEMM tile of the 3x3/s1/p1 convolution kernel of
+// conv_affine.cu (frozen forward + folded BatchNorm), on the CUDA cores.
+// It serves conv_affine alone: the conv alone, its data gradient and the
+// training forward with statistics run on conv3x3_tc.cu's tensor-core
+// tile.
 //
 // A block of 256 threads owns a 64 x 64 output tile and streams the
 // reduction in chunks of 16 through double-buffered shared memory: the

@@ -7,7 +7,9 @@ The module tree keeps the reference's child names, so
 ``.params`` file moves between the two packages.  A block starts in
 inference mode (``training`` False), as the reference runs outside
 ``autograd.record``; ``.train()`` turns training on (BatchNorm on batch
-statistics, see ``gluon/nn``).
+statistics, see ``gluon/nn``) wherever no ``autograd`` scope sets the
+mode: inside ``autograd.record()`` / ``train_mode()`` /
+``predict_mode()`` the scope decides, as in the reference.
 """
 from __future__ import annotations
 

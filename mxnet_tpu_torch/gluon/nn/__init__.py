@@ -4,10 +4,16 @@ use).
 
 The reference's conventions hold: NHWC activations, HWIO conv weights,
 dense weights ``(units, in_units)``, BatchNorm over the last axis with
-running statistics as buffers.  A block in training mode (``.train()``,
-the port's counterpart of the reference's ``autograd.record()``) runs
-BatchNorm on batch statistics and writes the new running statistics
-back in place, as the reference's ``set_data`` does.
+running statistics as buffers.  In training mode BatchNorm runs on batch
+statistics and writes the new running statistics back in place, as the
+reference's ``set_data`` does, and Dropout drops.  The mode
+(``_training``): inside an ``autograd.record()``, ``pause()``,
+``train_mode()`` or ``predict_mode()`` scope (or after
+``autograd.set_training``) it is ``autograd.is_training()``, as the
+reference's ``tape.is_training()``; so ``predict_mode()`` inside
+``record()`` gives inference.  Outside every scope it is the block's own
+``train()`` / ``eval()`` flag, so callers that use those keep their
+results.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import threading
 
 import torch
 
+from ... import autograd
 from ... import initializer as init
 from ...ops import nn as _nn
 from ..block import Block, HybridBlock, HybridSequential, Sequential
@@ -30,6 +37,13 @@ __all__ = ["Dense", "Dropout", "Flatten", "Activation", "GELU", "Conv2D",
 
 def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def _training(block):
+    """``block``'s mode: the ``autograd`` scope's where one set it on this
+    thread, else the block's own ``training`` flag."""
+    scoped = autograd.training_scope()
+    return block.training if scoped is None else scoped
 
 
 class Dense(HybridBlock):
@@ -61,7 +75,7 @@ class Dense(HybridBlock):
 
 class Dropout(HybridBlock):
     """≙ ``gluon.nn.Dropout``: the identity in inference mode; in training
-    mode ``ops.nn.dropout`` at ``rate`` with the block's
+    mode (``_training``) ``ops.nn.dropout`` at ``rate`` with the block's
     ``torch.Generator`` (``generator=``, or one on the input's device
     seeded with 0 at the first training forward)."""
 
@@ -73,7 +87,7 @@ class Dropout(HybridBlock):
         self._generator = generator
 
     def forward(self, x):
-        if not self.training or self._rate == 0.0:
+        if not _training(self) or self._rate == 0.0:
             return x
         if self._generator is None:
             self._generator = torch.Generator(device=x.device).manual_seed(0)
@@ -220,12 +234,13 @@ class BatchNorm(HybridBlock):
 
     def forward(self, x):
         self._infer(x.shape[self._axis], x.device)
+        training = _training(self)
         out, new_mean, new_var = _nn.batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,
             momentum=self._momentum, eps=self._eps,
-            use_global_stats=self._use_global_stats, training=self.training,
+            use_global_stats=self._use_global_stats, training=training,
             axis=self._axis)
-        if self.training and not self._use_global_stats:
+        if training and not self._use_global_stats:
             _write_back(self, new_mean, new_var)
         return out
 
@@ -331,11 +346,12 @@ def fused_conv_bn_relu(conv: Conv2D, bn: BatchNorm, x, residual=None,
         return out.relu() if relu else out
     conv._infer(x)
     bn._infer(conv._channels, x.device)
+    training = _training(bn)
     y, new_mean, new_var = _nn.residual_block(
         x, conv.weight, bn.gamma, bn.beta, bn.running_mean, bn.running_var,
         residual, momentum=bn._momentum, eps=bn._eps,
-        use_global_stats=bn._use_global_stats, training=bn.training,
+        use_global_stats=bn._use_global_stats, training=training,
         relu=relu)
-    if bn.training and not bn._use_global_stats:
+    if training and not bn._use_global_stats:
         _write_back(bn, new_mean, new_var)
     return y

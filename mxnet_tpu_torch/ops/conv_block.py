@@ -6,11 +6,11 @@ Function that trains through them (≙ ``mxnet_tpu/ops/pallas_block.py``).
   the frozen ``_fused_fwd``): conv + folded frozen BN (+ add) (+ ReLU),
   ``csrc/conv_affine.cu``.
 - ``conv3x3`` (≙ ``_conv_kernel``, ``conv3x3``; ``conv3x3_dgrad`` runs it
-  on the rotated weight): ``csrc/conv3x3_tc.cu``; ``conv_stats`` (≙
-  ``_conv_stats_kernel``, ``_conv_stats``), ``bn_affine`` (≙
-  ``_affine_kernel``, ``_affine``): ``csrc/conv_train.cu``;
-  ``conv_wgrad`` (≙ ``_wgrad_kernel``, ``conv3x3_wgrad``):
-  ``csrc/conv_wgrad.cu``.
+  on the rotated weight) and ``conv_stats`` (≙ ``_conv_stats_kernel``,
+  ``_conv_stats``; the same kernel body with a statistics epilogue):
+  ``csrc/conv3x3_tc.cu``; ``bn_affine`` (≙ ``_affine_kernel``,
+  ``_affine``): ``csrc/conv_train.cu``; ``conv_wgrad`` (≙
+  ``_wgrad_kernel``, ``conv3x3_wgrad``): ``csrc/conv_wgrad.cu``.
 - ``residual_block_fused`` (≙ ``residual_block_fused``, ``_fused``,
   ``_fused_fwd``, ``_fused_bwd``, ``_conv_bwd``, ``_sums``): training
   (batch statistics) and frozen forward, and their backward.
@@ -39,7 +39,8 @@ from .. import _build
 __all__ = ["conv_affine", "conv_affine_plain", "fold", "conv3x3",
            "conv3x3_plain", "conv3x3_dgrad", "conv3x3_splits",
            "Conv3x3Plan", "rotate", "conv_stats",
-           "conv_stats_plain", "bn_affine", "bn_affine_plain", "conv_wgrad",
+           "conv_stats_plain", "conv_stats_writers", "bn_affine",
+           "bn_affine_plain", "conv_wgrad",
            "conv_wgrad_plain", "wgrad_splits", "wgrad_tile_cols",
            "WgradPlan",
            "residual_block_fused"]
@@ -273,11 +274,49 @@ def conv_stats_plain(x, w):
     return z, z.sum(dim=(0, 1, 2)), (z * z).sum(dim=(0, 1, 2))
 
 
+def conv_stats_writers(plan):
+    """Which kernel writes each tile's row of per-tile sums in
+    ``conv_stats`` under ``plan`` (a :class:`Conv3x3Plan`), decided as
+    ``csrc/conv3x3_tc.cu`` decides it: one ``(tile, kernel, block)`` for
+    each write.  ``("main", b)``: range ``b`` of the conv kernel covers
+    the whole tile in one segment and sums it from its accumulator.
+    ``("cut", j)``: block ``j`` of ``conv_stats_cut_kernel`` finds the
+    tile cut at the start of range ``j + 1``, the first range start
+    inside it, and sums it from its summed slots."""
+    total, ranges, nch = plan.tiles * plan.chunks, plan.ranges, plan.chunks
+
+    def start(b):
+        return b * total // ranges
+
+    def range_of(u):
+        return ((u + 1) * ranges - 1) // total
+
+    writes = []
+    for b in range(ranges):
+        u, u1 = start(b), start(b + 1)
+        while u < u1:
+            tile = u // nch
+            send = min(u1, (tile + 1) * nch)
+            if u == tile * nch and send == (tile + 1) * nch:
+                writes.append((tile, "main", b))
+            u = send
+    for r in range(1, ranges):
+        sr = start(r)
+        if sr % nch and range_of(sr // nch * nch) == r - 1:
+            writes.append((sr // nch, "cut", r - 1))
+    return writes
+
+
 def conv_stats(x, w):
-    """``(z, Σz, Σz²)``: the conv of :func:`conv3x3` and its per-channel
-    sums (f32, (Cout,) each), read off the accumulator, reduced over the
-    pixel blocks in a fixed order.  CPU tensors take
-    :func:`conv_stats_plain`."""
+    """``(z, Σz, Σz²)``: the conv of :func:`conv3x3`, on the same
+    tensor-core kernel body with a statistics epilogue, and its
+    per-channel sums (f32, (Cout,) each) read off the accumulator: per
+    128-pixel tile in a fixed order (:func:`conv_stats_writers` names the
+    kernel that sums each tile), then over the tiles in a fixed order, so
+    the three are the same on every run.  Its plan is
+    :func:`conv3x3_splits` at the occupancy of the statistics instance;
+    where that equals ``conv3x3``'s plan, z is ``conv3x3(x, w)`` bit for
+    bit.  CPU tensors take :func:`conv_stats_plain`."""
     if not _on_card("conv_stats", x):
         return conv_stats_plain(x, w)
     N, H, W, C, Cout = _check(x, w, (), None, "conv_stats")
@@ -285,16 +324,23 @@ def conv_stats(x, w):
     if z.numel() == 0:
         stats = torch.zeros((2, Cout), device=x.device, dtype=torch.float32)
         return z, stats[0], stats[1]
+    vec = int(C % 4 == 0 and Cout % 4 == 0 and _aligned(x, w, z))
+    index = x.device.index
+    M = N * H * W
+    plan = conv3x3_splits(M, 9 * C, Cout, _sm_count(index),
+                          _per_sm("mxt_conv_stats_tc_blocks_per_sm", index,
+                                  wgrad_tile_cols(Cout), vec))
+    part = torch.empty((2 * plan.ranges, CONV_ROWS, plan.bn),
+                       device=x.device, dtype=torch.float32)
+    tstats = torch.empty((-(-M // CONV_ROWS), 2, Cout), device=x.device,
+                         dtype=torch.float32)
     stats = torch.empty((2, Cout), device=x.device, dtype=torch.float32)
-    part = torch.empty((-(-N * H * W // 64), 2, Cout), device=x.device,
-                       dtype=torch.float32)
-    vec = int(C % 16 == 0 and Cout % 4 == 0 and _aligned(x, w, z))
     lib = _build.lib()
     with torch.cuda.device(x.device):
-        err = lib.mxt_conv_stats_f32(x.data_ptr(), w.data_ptr(),
-                                     z.data_ptr(), part.data_ptr(),
-                                     stats.data_ptr(), N, H, W, C, Cout,
-                                     vec, _stream(x.device))
+        err = lib.mxt_conv_stats_tc_f32(
+            x.data_ptr(), w.data_ptr(), part.data_ptr(), z.data_ptr(),
+            tstats.data_ptr(), stats.data_ptr(), N, H, W, C, Cout, plan.bn,
+            plan.ranges, vec, _stream(x.device))
     _build.check(err, "conv_stats")
     with _count_mu:
         conv_stats.launches += 1

@@ -14,6 +14,8 @@ last-axis softmax and LayerNorm are the Pallas kernels of
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -86,20 +88,117 @@ def layer_norm(x, gamma, beta, axis: int = -1, eps: float = 1e-5):
     return layernorm_fused(x, gamma, beta, eps)
 
 
+# bf16 and fp16 element-wise ops follow the reference's jitted
+# expressions step by step: XLA on the CPU evaluates each step in fp32 and
+# rounds it to the input's dtype (``_r``), except where noted.  Torch's
+# own half-precision ops work in fp32 inside and round once, which moves
+# results by up to hundreds of steps of the dtype where a value cancels
+# (GELU of a negative input) or turns an exact 0 into a small value.
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def _r(t, dtype):
+    """fp32 ``t`` rounded to ``dtype`` and back: one of XLA's roundings."""
+    return t.to(dtype).float()
+
+
+def _const(v, dtype):
+    """The Python float ``v`` as the reference's constant of ``dtype``."""
+    return torch.tensor(v, dtype=torch.float64).to(dtype).item()
+
+
+def _gelu_half(x, approximate):
+    """``jax.nn.gelu`` on bf16 or fp16 ``x`` as XLA evaluates it.  Tanh
+    form: x³ as (x·x)·x, then x + 0.044715·x³ (on fp16 one fused
+    multiply-add, exact in fp32 since the product of two fp16 values is),
+    ·√(2/π), tanh, 1 +, ·0.5, ·x.  Erf form: ½x · erfc(−x·√½), where
+    −x·√½ is rounded on fp16 and kept in fp32 on bf16."""
+    dt, xf = x.dtype, x.float()
+    if approximate:
+        x3 = _r(_r(xf * xf, dt) * xf, dt)
+        p = _const(0.044715, dt) * x3
+        a = _r(xf + (p if dt == torch.float16 else _r(p, dt)), dt)
+        t = _r(torch.tanh(_r(_const(math.sqrt(2 / math.pi), dt) * a, dt)),
+               dt)
+        return (xf * _r(0.5 * _r(1.0 + t, dt), dt)).to(dt)
+    a = -xf * _const(math.sqrt(0.5), dt)
+    if dt == torch.float16:
+        a = _r(a, dt)
+    return (_r(0.5 * xf, dt) * _r(torch.special.erfc(a), dt)).to(dt)
+
+
 def gelu(x, approximate: bool = True):
     """≙ ``ops/nn.py gelu`` (``jax.nn.gelu``): the tanh approximation by
     default, as GPT and the functional BERT call it; ``approximate=False``
     is the exact erf form, which Gluon's ``GELU`` block defaults to (the
-    two differ by ~4e-4)."""
+    two differ by ~4e-4).  bf16 and fp16 follow the reference's roundings
+    (``_gelu_half``)."""
+    if x.dtype in _HALF:
+        return _gelu_half(x, approximate)
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def _sigmoid(x):
+    """``jax.nn.sigmoid``: on bf16 and fp16 XLA's 1 / (1 + exp(−x)), each
+    step rounded."""
+    if x.dtype not in _HALF:
+        return torch.sigmoid(x)
+    dt = x.dtype
+    u = _r(1.0 + _r(torch.exp(-x.float()), dt), dt)
+    return (1.0 / u).to(dt)
+
+
+# XLA's log1p on fp16 (its elemental emitter, from the Cephes library):
+# log(1 + x) with 1 + x rounded, or for |x| < √2 − 1 the rational form
+# x − x²/2 + x³·P(x)/Q(x), every step in fp16; LLVM fuses each Horner
+# step p·x + c into one multiply-add (exact in fp32 for fp16 operands).
+_LOG1P_P = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+            6.5787325942061044846969e0, 2.9911919328553073277375e1,
+            6.0949667980987787057556e1, 5.7112963590585538103336e1,
+            2.0039553499201281259648e1)
+_LOG1P_Q = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+            2.2176239823732856465394e2, 3.0909872225312059774938e2,
+            2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def _log1p_f16(x):
+    """log1p of fp32 ``x`` holding fp16 values, as XLA computes it on
+    fp16, returned in fp32 (fp16 values)."""
+    dt = torch.float16
+
+    def horner(cs):
+        p = torch.zeros_like(x)
+        for c in cs:
+            p = _r(p * x + _const(c, dt), dt)
+        return p
+
+    x2 = _r(x * x, dt)
+    small = _r(horner(_LOG1P_P) / horner(_LOG1P_Q), dt)
+    small = _r(_r(x * x2, dt) * small, dt)
+    small = _r(x + _r(-0.5 * x2 + small, dt), dt)
+    large = _r(torch.log(_r(x + 1.0, dt)), dt)
+    return torch.where(x.abs() < _const(math.sqrt(2) - 1, dt), small, large)
+
+
+def _softplus(x):
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``): on bf16 and fp16
+    max(x, 0) + log1p(exp(−|x|)), each step rounded (fp16's log1p is
+    XLA's own, ``_log1p_f16``); NaN stays NaN."""
+    if x.dtype not in _HALF:
+        return F.softplus(x)
+    dt, xf = x.dtype, x.float()
+    e = _r(torch.exp(-xf.abs()), dt)
+    l = _log1p_f16(e) if dt == torch.float16 else _r(torch.log1p(e), dt)
+    out = (torch.clamp(xf, min=0.0) + l).to(dt)
+    return torch.where(torch.isnan(x), x, out)
 
 
 _ACTIVATIONS = {
     "relu": torch.relu,
-    "sigmoid": torch.sigmoid,
+    "sigmoid": _sigmoid,
     "tanh": torch.tanh,
-    "softrelu": F.softplus,
-    "softplus": F.softplus,
+    "softrelu": _softplus,
+    "softplus": _softplus,
     "softsign": F.softsign,
 }
 
@@ -177,9 +276,9 @@ def pooling(x, kernel=2, stride=None, pad=0, pool_type: str = "max",
 
 def batch_norm(x, gamma, beta, running_mean, running_var, momentum=0.9,
                eps: float = 1e-5, use_global_stats: bool = False,
-               training: bool = False, axis: int = -1):
+               training: bool = True, axis: int = -1):
     """≙ BatchNorm over channel ``axis``; returns ``(out, new_mean,
-    new_var)``.
+    new_var)``.  ``training`` defaults to True, as the reference's does.
 
     Training (and not ``use_global_stats``), fp32: batch statistics from
     one-pass *shifted* sums (the first element of each channel is
@@ -226,12 +325,13 @@ def batch_norm(x, gamma, beta, running_mean, running_var, momentum=0.9,
 
 def residual_block(x, weight, gamma, beta, running_mean, running_var,
                    residual=None, momentum=0.9, eps: float = 1e-5,
-                   use_global_stats: bool = False, training: bool = False,
+                   use_global_stats: bool = False, training: bool = True,
                    relu: bool = True):
     """Fused 3×3/s1 SAME conv + BatchNorm (+ residual add) (+ ReLU),
     NHWC/HWIO → ``(out, new_mean, new_var)`` with ``batch_norm``'s
-    running-statistics contract.  Every call goes to ``ops/conv_block``:
-    its kernels on the card, their plain versions on the CPU.
+    running-statistics contract (and its default, ``training=True``).
+    Every call goes to ``ops/conv_block``: its kernels on the card, their
+    plain versions on the CPU.
 
     Training: ``residual_block_fused`` (conv + batch statistics, then the
     affine pass; its backward runs dgrad and wgrad).  Frozen
@@ -264,8 +364,19 @@ def residual_block(x, weight, gamma, beta, running_mean, running_var,
 
 
 def log_softmax(x, axis: int = -1):
-    """≙ ``ops/nn.py log_softmax``."""
-    return F.log_softmax(x, dim=axis)
+    """≙ ``ops/nn.py log_softmax`` (``jax.nn.log_softmax``).  bf16 and
+    fp16 follow XLA's roundings: ``d = x − max`` rounded, ``exp(d)`` kept
+    in fp32 on bf16 and rounded on fp16, summed in fp32, the sum rounded,
+    its log rounded, then ``d − log`` rounded."""
+    if x.dtype not in _HALF:
+        return F.log_softmax(x, dim=axis)
+    dt, xf = x.dtype, x.float()
+    d = _r(xf - xf.amax(dim=axis, keepdim=True), dt)
+    e = torch.exp(d)
+    if dt == torch.float16:
+        e = _r(e, dt)
+    s = _r(e.sum(dim=axis, keepdim=True), dt)
+    return (d - _r(torch.log(s), dt)).to(dt)
 
 
 def pick(x, index, axis: int = -1, keepdims: bool = False):

@@ -731,6 +731,92 @@ def test_conv3x3_splits_fill_the_card_and_cover_every_tile(per_sm):
         conv_block.Conv3x3Plan(64, 1, 3, 3)
 
 
+@pytest.mark.parametrize("per_sm", [1, 2])
+@pytest.mark.parametrize("H,C", [(56, 64), (28, 128), (14, 256), (7, 512)])
+def test_conv_stats_writes_every_stats_row_and_column_once(H, C, per_sm):
+    """``conv_stats_writers``, the host's view of which kernel writes each
+    tile's row of per-tile sums, at ResNet-50's four 3×3 stages at batch
+    64 with 1 or 2 blocks an SM: every (row tile, channel) of the
+    (ceil(M/128), 2, Cout) partials is written exactly once; the main
+    kernel writes exactly the tiles one segment covers whole, from that
+    segment's range, and the cut-tile kernel exactly the tiles
+    ``conv3x3_reduce_kernel`` sums, from the block of the same range
+    start."""
+    M = 64 * H * H
+    plan = conv_block.conv3x3_splits(M, 9 * C, C, 132, per_sm)
+    tiles_n = -(-C // plan.bn)
+    count = np.zeros((-(-M // conv_block.CONV_ROWS), C), np.int64)
+    writers = conv_block.conv_stats_writers(plan)
+    for tile, _, _ in writers:
+        rt, ct = divmod(tile, tiles_n)
+        count[rt, ct * plan.bn:(ct + 1) * plan.bn] += 1
+    assert (count == 1).all()
+    whole = {(tile, b) for b, tile, _, _, slot in _conv3x3_segments(plan)
+             if slot is None}
+    assert {(t, blk) for t, k, blk in writers if k == "main"} == whole
+    cut = {t: blk + 1 for t, k, blk in writers if k == "cut"}
+    reduced = _conv3x3_reduced(plan)
+    assert set(cut) == set(reduced)
+    total = plan.tiles * plan.chunks
+    for t, r in cut.items():        # found where range r starts
+        assert (r * total // plan.ranges) // plan.chunks == t
+    if H == 7:
+        assert not whole        # 100 tiles in 132 ranges: every one is cut
+
+
+def _conv_stats_order(z):
+    """Σz and Σz² of ``z`` (M, Cout) fp32 in ``conv_stats``' fixed order:
+    a 128-pixel tile's rows wm·32 + mi·16 + hf·8 + g summed by each lane
+    over (mi, hf) in turn, then over g by an xor-butterfly, then over the
+    4 pixel-warps wm in order; then the ceil(M/128) tile rows of each
+    column by 32 threads (thread y its rows y, y + 32, ... in turn) and
+    their 32 partials in order."""
+    M, C = z.shape
+    rows = -(-M // 128)
+    t = torch.zeros(rows * 128, C)
+    t[:M] = z
+    t = t.reshape(rows, 4, 2, 2, 8, C)          # wm, mi, hf, g
+    lane1 = lane2 = torch.zeros(rows, 4, 8, C)
+    for mi in range(2):
+        for hf in range(2):
+            a = t[:, :, mi, hf]
+            lane1 = lane1 + a
+            lane2 = lane2 + a * a
+    sums = []
+    for lane in (lane1, lane2):
+        for step in (1, 2, 4):                  # xor over the bits of g
+            lane = lane + lane[:, :, torch.arange(8) ^ step]
+        tile = lane[:, 0, 0]
+        for wm in range(1, 4):
+            tile = tile + lane[:, wm, 0]
+        part = torch.zeros(32, C)
+        for r in range(rows):
+            part[r % 32] = part[r % 32] + tile[r]
+        acc = part[0]
+        for y in range(1, 32):
+            acc = acc + part[y]
+        sums.append(acc)
+    return sums
+
+
+@pytest.mark.parametrize("M,C", [(64 * 56 * 56 // 8, 64), (64 * 7 * 7, 512),
+                                 (2 * 13 * 17, 40)])
+def test_conv_stats_fixed_order_is_fp32_accurate(M, C):
+    """The fixed summation order of ``conv_stats`` (per-tile partials,
+    then the tile rows in order), modelled in plain fp32 torch, is within
+    1e-6 of the fp64 Σz (relative to Σ|z|) and Σz² on conv-like outputs
+    (an eighth of the 56² stage's pixels, the 7² stage, a ragged M)."""
+    rs = np.random.RandomState(3)
+    z = torch.from_numpy((rs.randn(M, C) * rs.uniform(0.2, 3.0, C)
+                          + rs.randn(C)).astype(np.float32))
+    s1, s2 = _conv_stats_order(z)
+    zd = z.double()
+    e1 = ((s1.double() - zd.sum(0)).abs() / zd.abs().sum(0)).max().item()
+    e2 = ((s2.double() - (zd * zd).sum(0)).abs() /
+          (zd * zd).sum(0)).max().item()
+    assert e1 <= 1e-6 and e2 <= 1e-6, (e1, e2)
+
+
 @pytest.mark.parametrize("rounding", ["rna", "rz"])
 @pytest.mark.parametrize("use", ["forward", "dgrad"])
 @pytest.mark.parametrize("H,C", [(56, 64), (28, 128), (14, 256), (7, 512)])
