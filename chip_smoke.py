@@ -73,11 +73,18 @@ the first phase that fails:
    weights after one AdamW step within 2 * lr.
 10. ``bert_profile``: one train step under ``torch.profiler``.
 11. ``image_kernels``: the fused conv3x3 + folded BN (+ add) (+ ReLU)
-    kernel against its plain version at ResNet-50's four 3x3 stages at
-    batch 8, the 7x7x512 stage at batch 1, ResNet-18's residual tail,
-    ReLU off and a ragged shape (within 1e-4 of the output's largest
-    magnitude: the 9*C sums run in another order), timed beside its
-    bound, its plain version and ``F.conv2d`` alone.
+    kernel (the affine instance of ``conv3x3_tc.cu``'s 3xTF32 loop)
+    against its plain version at ResNet-50's four 3x3 stages at batch 8,
+    the 7x7x512 stage at batch 1, ResNet-18's residual tail, ReLU off and
+    a ragged shape (within 1e-4 of the output's largest magnitude: the
+    9*C sums run in another order), and two launches on the same inputs
+    bitwise equal (a gate); each case's plan (bn, tiles, chunks, ranges,
+    ``cut_tiles``), timed beside both bounds (fp32 on the CUDA cores;
+    the three TF32 products on the tensor cores, the line's
+    ``bound_ms``), its share of the tensor-core bound and of the card's
+    ``mma.sync`` TF32 ceiling, its plain version and ``F.conv2d`` alone
+    (``vs_library``); at the five stage shapes also the device µs of the
+    main and the cut-tile kernel (``kernels_us``).
 12. ``image_serve``: the launch counter set to 0, then
     ``ModelRegistry.load`` of a seeded ResNet-50 ``.params`` (warmup of
     every bucket), 32 closed-loop requests from one client and 64 from
@@ -163,9 +170,21 @@ the first phase that fails:
     0: the output must equal the int32 sum bit for bit); every other
     case within 1e-6 of the output's largest magnitude (its epilogue is
     the plain version's two rounded operations, so it is bitwise in
-    practice).  Timed beside its bound (bytes over 3.35 TB/s, int8
-    operations over 1,979 TOPS), its plain version, ``torch._int_mm`` on
-    the pre-built patch matrix and the fp32 ``conv_affine``.
+    practice), and two launches on the same inputs bitwise equal (a
+    gate).  Each case's plan (``qconv_splits``: bn, tiles, chunks,
+    ranges, ``cut_tiles``), timed beside its bound (bytes over 3.35
+    TB/s, int8 operations over 1,979 TOPS) and its share of it
+    (``bound_share``), the rate at which its blocks copy operands into
+    shared memory (``staged_tb_s``), its share of the card's
+    ``mma.sync`` int8 ceiling (m16n8k32 on registers, compiled through
+    ``rtc.CudaModule``, measured once a run: ``mma_s8_ceiling``), its
+    plain version,
+    ``torch._int_mm`` on the pre-built patch matrix and the fp32
+    ``conv_affine``; at the nine stage shapes also the device µs of the
+    main and the cut-tile kernel (``kernels_us``); and at the four
+    batch-64 stages the kernel's time beside that of copies of it with
+    the ring's copies or its products taken out (``parts``, built here by
+    nvcc), which says which of the two bounds its loop.
 24. ``int8_score``: ``int8_score.py`` at its defaults: ResNet-50 v1 from
     the ``image_serve`` ``.params``, batch 64, fp32 and int8 (two
     ``RandomState(1)`` calibration batches, naive) images/s over 4
@@ -348,13 +367,14 @@ def phase_build(state):
     ptxas, fn = {}, None
     for ln in _build.last_build_log.splitlines():
         m = re.search(r"entry function '\S*?(flash_fwd_tc|layernorm_fwd|"
-                      r"attn_dq|attn_dkv|conv_affine_kernel|"
+                      r"attn_dq|attn_dkv|conv_affine_tc_kernel|"
+                      r"conv_affine_reduce_kernel|"
                       r"conv3x3_tc_kernel|conv3x3_reduce_kernel|"
                       r"conv_stats_tc_kernel|conv_stats_cut_kernel|"
                       r"conv_wgrad_kernel|wgrad_reduce_kernel|"
                       r"layernorm_row_fwd|bn_affine_kernel|"
                       r"softmax_warp_kernel|softmax_block_kernel|"
-                      r"qconv_affine_kernel)"
+                      r"qconv_affine_kernel|qconv_reduce_kernel)"
                       r"I((?:L[ib]\d+E)+)E", ln)
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
@@ -610,7 +630,7 @@ def phase_reference(state):
 
 # kernel-name patterns of the profile's categories, first match wins
 KERNEL_CATEGORIES = (
-    ("conv_affine (ours)", r"conv_affine_kernel"),
+    ("conv_affine (ours)", r"conv_affine_(tc|reduce)_kernel"),
     ("conv3x3 / dgrad (ours)", r"conv3x3_tc_kernel|conv3x3_reduce_kernel"),
     ("conv_stats (ours)", r"conv_stats_(tc|cut|sum)_kernel"),
     ("bn_affine (ours)", r"bn_affine_kernel"),
@@ -933,11 +953,17 @@ IMG_REF_TOL = 1e-4
 RESNET50_SEGMENTS = 16          # 3x3/s1 frozen conv+BN segments a forward
 
 
-def _conv_case(N, H, W, C, Cout, gen, residual=False, relu=True):
-    """``conv_affine`` against ``conv_affine_plain`` at one shape, timed
-    beside its bound, its plain version and ``F.conv2d`` alone (cuDNN,
+def _conv_case(N, H, W, C, Cout, gen, residual=False, relu=True,
+               split=False):
+    """``conv_affine`` against ``conv_affine_plain`` at one shape, twice
+    on the same inputs (the two outputs must be bitwise equal), with its
+    plan, timed beside both bounds (fp32 on the CUDA cores; the three TF32
+    products of its 3xTF32 scheme on the tensor cores, the line's
+    ``bound_ms``), its plain version and ``F.conv2d`` alone (cuDNN,
     channels-last, TF32 off): the nearest single library call, which
-    does less work than the kernel (no BN fold, residual or ReLU)."""
+    does less work than the kernel (no BN fold, residual or ReLU).
+    ``split``: also the device µs of each kernel it launches (the main
+    kernel and the cut-tile reduce)."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.conv_block import conv_affine, conv_affine_plain
@@ -952,6 +978,7 @@ def _conv_case(N, H, W, C, Cout, gen, residual=False, relu=True):
         if residual else None
     args = (x, w, g, b, mu, var, res)
     out = conv_affine(*args, relu=relu)
+    again = conv_affine(*args, relu=relu)
     ref = conv_affine_plain(*args, relu=relu)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
@@ -963,11 +990,14 @@ def _conv_case(N, H, W, C, Cout, gen, residual=False, relu=True):
                                                            else 1)
                   + 4 * Cout)
     flops = 2 * npix * 9 * C * Cout
-    bms, by = bound(nbytes, flops)
     kms = cuda_ms(lambda: conv_affine(*args, relu=relu))
-    return {"shape": [N, H, W, C, Cout], "residual": residual, "relu": relu,
+    case = {"shape": [N, H, W, C, Cout], "residual": residual, "relu": relu,
+            "plan": _conv3x3_plan(npix, C, Cout,
+                                  "mxt_conv_affine_tc_blocks_per_sm"),
             "max_abs_err": err, "rel_err": err / max(scale, 1e-30),
-            "tol": CONV_TOL, "kernel_ms": kms,
+            "tol": CONV_TOL,
+            "bitwise_equal_relaunch": bool(torch.equal(out, again)),
+            "kernel_ms": kms,
             "kernel_eager_ms": eager_ms(lambda: conv_affine(*args,
                                                             relu=relu)),
             "plain_ms": cuda_ms(lambda: conv_affine_plain(*args,
@@ -975,8 +1005,11 @@ def _conv_case(N, H, W, C, Cout, gen, residual=False, relu=True):
             "library_ms": cuda_ms(lambda: F.conv2d(xc, wc, padding=1)),
             "library": "F.conv2d alone (cuDNN, channels-last; no BN fold, "
                        "residual or ReLU)",
-            "bytes": nbytes, "flop": flops, "bound_ms": bms, "bound_by": by,
             "tflop_s": flops / (kms * 1e-3) / 1e12}
+    if split:
+        case["kernels_us"] = _kernel_us(lambda: conv_affine(*args,
+                                                            relu=relu))
+    return _tc_bounds(case, nbytes, flops)
 
 
 def phase_image_kernels(state):
@@ -984,20 +1017,22 @@ def phase_image_kernels(state):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     # ResNet-50's four 3x3 stages at batch 8 (the path shape first), the
     # batch-1 tail, ResNet-18's residual tail, relu off, and a ragged one
-    cases = [_conv_case(8, 56, 56, 64, 64, gen),
-             _conv_case(8, 28, 28, 128, 128, gen),
-             _conv_case(8, 14, 14, 256, 256, gen),
-             _conv_case(8, 7, 7, 512, 512, gen),
-             _conv_case(1, 7, 7, 512, 512, gen),
+    cases = [_conv_case(8, 56, 56, 64, 64, gen, split=True),
+             _conv_case(8, 28, 28, 128, 128, gen, split=True),
+             _conv_case(8, 14, 14, 256, 256, gen, split=True),
+             _conv_case(8, 7, 7, 512, 512, gen, split=True),
+             _conv_case(1, 7, 7, 512, 512, gen, split=True),
              _conv_case(8, 56, 56, 64, 64, gen, residual=True),
              _conv_case(8, 28, 28, 128, 128, gen, relu=False),
              _conv_case(2, 13, 17, 24, 40, gen, residual=True)]
     state["cases"]["conv_affine"] = cases
-    bad = [c for c in cases if not c["rel_err"] <= c["tol"]]
+    bad = [c for c in cases if not (c["rel_err"] <= c["tol"] and
+                                    c["bitwise_equal_relaunch"])]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
-    return {"cases": cases}
+    ceiling = _ceiling_shares(state, cases)
+    return {"cases": cases, "mma_tf32_ceiling": ceiling}
 
 
 def _resnet50_params(path):
@@ -1344,12 +1379,20 @@ def _wgrad_case(x, dy, xc, wc, dyc, shape, nbytes, flops):
 
 def _conv3x3_plan(M, C, Cout, entry="mxt_conv3x3_tc_blocks_per_sm"):
     """The plan ``conv3x3`` (or, by its occupancy ``entry``,
-    ``conv_stats``) runs at this shape on card 0."""
+    ``conv_stats`` or ``conv_affine``) runs at this shape on card 0."""
     from mxnet_tpu_torch.ops import conv_block as cb
     vec = int(C % 4 == 0 and Cout % 4 == 0)
-    return cb.conv3x3_splits(
+    return _plan_dict(cb.conv3x3_splits(
         M, 9 * C, Cout, cb._sm_count(0),
-        cb._per_sm(entry, 0, cb.wgrad_tile_cols(Cout), vec))._asdict()
+        cb._per_sm(entry, 0, cb.wgrad_tile_cols(Cout), vec)))
+
+
+def _plan_dict(plan):
+    """A stream-K plan's fields and the number of tiles it cuts (finished
+    by the cut-tile kernel, not the main one)."""
+    from mxnet_tpu_torch.ops import conv_block as cb
+    return {**plan._asdict(), "cut_tiles": sum(
+        1 for _, k, _ in cb.tile_writers(plan) if k == "cut")}
 
 
 MMA_TF32_PEAK_SRC = r"""
@@ -2078,8 +2121,8 @@ INT8_AGREE_N = 256
 INT8_SERVE_ITERS = 20
 
 INT8_CATEGORIES = (
-    ("qconv3x3_affine (ours)", r"qconv_affine_kernel"),
-    ("conv_affine (ours)", r"conv_affine_kernel"),
+    ("qconv3x3_affine (ours)", r"qconv_(affine|reduce)_kernel"),
+    ("conv_affine (ours)", r"conv_affine_(tc|reduce)_kernel"),
     ("int8 gemm (_int_mm)", r"i8i8|s8|imma|int8|igemm|i8"),
     ("quantize: round / clamp", r"round|clamp"),
     ("im2col, pad, slice copies", r"CatArrayBatchedCopy|pad|copy"),
@@ -2089,15 +2132,19 @@ INT8_CATEGORIES = (
 
 
 def _qconv_case(N, H, W, C, Cout, gen, residual=False, relu=True,
-                exact=False):
+                exact=False, split=False):
     """``qconv3x3_affine`` against ``qconv3x3_plain`` at one shape on
-    random int8 data, timed beside its bound, its plain version,
+    random int8 data, twice on the same inputs (the two outputs must be
+    bitwise equal), with its plan, timed beside its bound, its plain
+    version,
     ``torch._int_mm`` on the pre-built (N*H*W, 9C) patch matrix (no
     im2col, no epilogue) and the fp32 ``conv_affine`` at the same shape.
     ``exact``: scale 1, shift 0, no ReLU or residual, so the output is
-    the int32 sum itself."""
+    the int32 sum itself.  ``split``: also the device µs of each kernel
+    it launches (the main kernel and the cut-tile reduce)."""
     import torch
     import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import conv_block as cb
     from mxnet_tpu_torch.ops import cuda_int8 as ci
     from mxnet_tpu_torch.ops.conv_block import conv_affine
     dev = "cuda"
@@ -2116,14 +2163,23 @@ def _qconv_case(N, H, W, C, Cout, gen, residual=False, relu=True,
         if residual else None
     args = (qx, qw, scale, shift, res, relu)
     out = ci.qconv3x3_affine(*args, qw_packed=wt)
+    again = ci.qconv3x3_affine(*args, qw_packed=wt)
     ref = ci.qconv3x3_plain(*args, qw_packed=wt)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     scale_ref = ref.abs().max().item()
+    vec = int(C % 16 == 0 and Cout % 4 == 0)
+    sms = cb._sm_count(0)
+    plan = ci.qconv_splits(
+        N * H * W, 9 * C, Cout, sms,
+        cb._per_sm("mxt_qconv_affine_blocks_per_sm", 0,
+                   ci.qconv_tile_cols(N * H * W, Cout, sms), vec))
     case = {"shape": [N, H, W, C, Cout], "residual": residual,
-            "relu": relu, "exact": exact, "max_abs_err": err,
+            "relu": relu, "exact": exact, "plan": _plan_dict(plan),
+            "vec": bool(vec), "max_abs_err": err,
             "rel_err": err / max(scale_ref, 1e-30), "tol": QCONV_TOL,
-            "bitwise_equal": bool(torch.equal(out, ref))}
+            "bitwise_equal": bool(torch.equal(out, ref)),
+            "bitwise_equal_relaunch": bool(torch.equal(out, again))}
     K = 9 * C
     patches = ci.im2col(qx, (3, 3), pad=(1, 1)).reshape(-1, K)
     if exact:
@@ -2143,6 +2199,8 @@ def _qconv_case(N, H, W, C, Cout, gen, residual=False, relu=True,
         2 if residual else 1)
     ops = 2 * npix * 9 * C * Cout
     bms, by = bound(nbytes, ops, peak=PEAK_INT8_OPS_S)
+    staged = plan.tiles * plan.chunks * (ci.QCONV_ROWS + plan.bn) * \
+        ci.QCONV_CHUNK
     it = 10 if N >= 64 else 20
     kms = cuda_ms(lambda: ci.qconv3x3_affine(*args, qw_packed=wt), iters=it)
     case.update(
@@ -2158,14 +2216,68 @@ def _qconv_case(N, H, W, C, Cout, gen, residual=False, relu=True,
             lambda: conv_affine(x32, w32, ones, zeros, zeros, ones,
                                 res, relu=relu), iters=it),
         bytes=nbytes, ops=ops, bound_ms=bms, bound_by=by,
-        tops=ops / (kms * 1e-3) / 1e12)
+        bound_share=bms / kms, tops=ops / (kms * 1e-3) / 1e12,
+        # the operand bytes the blocks copy into shared memory (every
+        # chunk's 128 pixel rows and bn weight rows of 64 bytes, zero
+        # fill included) and their rate
+        staged_bytes=staged, staged_tb_s=staged / (kms * 1e-3) / 1e12)
+    if split:
+        case["kernels_us"] = _kernel_us(
+            lambda: ci.qconv3x3_affine(*args, qw_packed=wt))
     return case
 
 
 def _qconv_ok(c):
+    if not c["bitwise_equal_relaunch"]:
+        return False
     if c["exact"]:
         return c["bitwise_equal"] and c["equals_int32_sum"]
     return c["bitwise_equal"] or c["rel_err"] <= c["tol"]
+
+
+MMA_S8_PEAK_SRC = r"""
+extern "C" __global__ void mma_s8_peak(int* out, int iters) {
+  const unsigned v = 0x01010101u * (threadIdx.x & 0x3f);
+  const unsigned a0 = v, a1 = v ^ 0x02020202u, a2 = v ^ 0x04040404u,
+                 a3 = v ^ 0x08080808u;
+  int acc[8][4] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      asm volatile(
+          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+          : "+r"(acc[j][0]), "+r"(acc[j][1]), "+r"(acc[j][2]),
+            "+r"(acc[j][3])
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(a1), "r"(a3));
+  }
+  int s = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    s += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+"""
+
+
+def _mma_s8_ceiling():
+    """What ``mma.sync.m16n8k32`` int8 sustains on this card: every warp
+    issues independent products on registers (8 accumulators, no memory
+    in the loop), 8 warps a block, 2 blocks an SM; compiled by NVRTC
+    through ``rtc.CudaModule``.  The ceiling of any ``mma.sync`` int8
+    kernel, beside the 1,979 TOPS dense peak that ``wgmma`` can reach."""
+    import torch
+    from mxnet_tpu_torch import rtc
+    blocks = 2 * torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 4096
+    kern = rtc.CudaModule(MMA_S8_PEAK_SRC).get_kernel("mma_s8_peak")
+    run = lambda: kern.launch([iters], grid=(blocks,), block=(256,),  # noqa
+                              out_shape=(blocks * 256,))
+    ms = cuda_ms(run, iters=3)
+    ops = blocks * 8 * iters * 8 * 2 * 16 * 8 * 32
+    return {"blocks": blocks, "ms": ms, "ops": ops,
+            "tops": ops / (ms * 1e-3) / 1e12,
+            "share_of_dense_peak": ops / (ms * 1e-3) / PEAK_INT8_OPS_S}
 
 
 def phase_int8_kernels(state):
@@ -2176,9 +2288,9 @@ def phase_int8_kernels(state):
     # batch 8 (serving), the batch-1 tail, ResNet-18's residual tail,
     # ReLU off, a ragged shape and the exact case
     stages = ((56, 64), (28, 128), (14, 256), (7, 512))
-    cases = [_qconv_case(64, h, h, c, c, gen) for h, c in stages]
-    cases += [_qconv_case(8, h, h, c, c, gen) for h, c in stages]
-    cases += [_qconv_case(1, 7, 7, 512, 512, gen),
+    cases = [_qconv_case(64, h, h, c, c, gen, split=True) for h, c in stages]
+    cases += [_qconv_case(8, h, h, c, c, gen, split=True) for h, c in stages]
+    cases += [_qconv_case(1, 7, 7, 512, 512, gen, split=True),
               _qconv_case(8, 56, 56, 64, 64, gen, residual=True),
               _qconv_case(8, 28, 28, 128, 128, gen, relu=False),
               _qconv_case(2, 13, 17, 20, 40, gen, residual=True),
@@ -2188,7 +2300,88 @@ def phase_int8_kernels(state):
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
-    return {"cases": cases}
+    ceiling = _mma_s8_ceiling()
+    for c in cases:
+        c["mma_sync_ceiling_share"] = \
+            c["ops"] / (c["kernel_ms"] * 1e-3) / 1e12 / ceiling["tops"]
+    return {"cases": cases, "mma_s8_ceiling": ceiling,
+            "parts": _qconv_parts([(64, h, c) for h, c in stages])}
+
+
+def _qconv_parts(shapes):
+    """Where the int8 kernel's loop spends its time: the kernel as built,
+    and with one part taken out (``no_copies``: the ring is never
+    filled; ``no_products``: each ``mma.sync`` a register add), each
+    built by nvcc from a copy of ``csrc/qconv_affine.cu`` into
+    ``build/chip_smoke/qconv_parts`` and timed (device ms) at ``shapes``
+    (batch, H = W, C = Cout) on the plan the wrapper runs.  The outputs
+    of the cut kernels are garbage; only their times are kept."""
+    import ctypes
+    import torch
+    from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.ops import conv_block as cb
+    from mxnet_tpu_torch.ops import cuda_int8 as ci
+    src = open(os.path.join(HERE, "mxnet_tpu_torch", "csrc",
+                            "qconv_affine.cu")).read()
+    mma = src.index('asm("mma.sync')
+    end = src.index('"r"(b[0]), "r"(b[1]));', mma) + len(
+        '"r"(b[0]), "r"(b[1]));')
+    variants = {
+        "kernel": src,
+        "no_copies": src.replace("if (pre < nk) ld.load(s, pre % STAGES);",
+                                 ";").replace("if (st < nk) ld.load(s, st);",
+                                              ";"),
+        "no_products": src[:mma] + "c[0] += (int)(a[0] + b[0]);" +
+        src[end:]}
+    work = os.path.join(HERE, "build", "chip_smoke", "qconv_parts")
+    os.makedirs(work, exist_ok=True)
+    procs = {}
+    for name, text in variants.items():
+        if name != "kernel" and text == src:
+            raise AssertionError(f"qconv_parts: {name} changed nothing")
+        with open(os.path.join(work, name + ".cu"), "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS[:4], "-shared", "-Xcompiler",
+             "-fPIC", "-o", os.path.join(work, name + ".so"),
+             os.path.join(work, name + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"qconv_parts: nvcc failed on {name}:\n{log}")
+        lib = ctypes.CDLL(os.path.join(work, name + ".so"))
+        lib.mxt_qconv_affine_s8.argtypes = \
+            _build._SIGNATURES["mxt_qconv_affine_s8"]
+        libs[name] = lib
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    out = []
+    for N, H, C in shapes:
+        qx = torch.randint(-127, 128, (N, H, H, C), device="cuda",
+                           generator=gen, dtype=torch.int8)
+        wt = torch.randint(-127, 128, (C, 9 * C), device="cuda",
+                           generator=gen, dtype=torch.int8)
+        sc, sh = torch.ones(C, device="cuda"), torch.zeros(C, device="cuda")
+        y = torch.empty(N, H, H, C, device="cuda")
+        sms = cb._sm_count(0)
+        plan = ci.qconv_splits(
+            N * H * H, 9 * C, C, sms,
+            cb._per_sm("mxt_qconv_affine_blocks_per_sm", 0,
+                       ci.qconv_tile_cols(N * H * H, C, sms), 1))
+        part = torch.empty(2 * plan.ranges, ci.QCONV_ROWS, plan.bn,
+                           device="cuda", dtype=torch.int32)
+        row = {"shape": [N, H, H, C, C], "plan": plan._asdict()}
+        for name, lib in libs.items():
+            def run(lib=lib):
+                _build.check(lib.mxt_qconv_affine_s8(
+                    qx.data_ptr(), wt.data_ptr(), sc.data_ptr(),
+                    sh.data_ptr(), None, part.data_ptr(), y.data_ptr(), N,
+                    H, H, C, C, 1, plan.bn, plan.ranges, plan.grain, 1,
+                    torch.cuda.current_stream().cuda_stream), name)
+            row[name + "_ms"] = cuda_ms(run, iters=10)
+        out.append(row)
+    return out
 
 
 def _int8_counters():
@@ -2874,7 +3067,7 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_kernels.py:283"),
     ("attention_dkv", "mxnet_tpu_torch/csrc/attention.cu",
      "mxnet_tpu/ops/pallas_kernels.py:309"),
-    ("conv_affine", "mxnet_tpu_torch/csrc/conv_affine.cu",
+    ("conv_affine", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
      "mxnet_tpu/ops/pallas_block.py:325"),
     ("conv3x3", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
      "mxnet_tpu/ops/pallas_block.py:318"),
@@ -2898,9 +3091,16 @@ KERNELS = [
      "mxnet_tpu/rtc.py:35"),
 ]
 # what else an entry names: the header holding the body two attention
-# entries share, the registered Pallas body a generated kernel replaces,
-# the module that compiles and launches the rtc route
+# entries share, the kernels of a stream-K entry (main, then the one that
+# finishes the cut tiles), the registered Pallas body a generated kernel
+# replaces, the module that compiles and launches the rtc route
 KERNEL_NOTES = {
+    "conv_affine": {"kernels": ["conv_affine_tc_kernel",
+                                "conv_affine_reduce_kernel"],
+                    "loop": "conv_ranges, shared with conv3x3 and "
+                            "conv_stats"},
+    "qconv3x3_affine": {"kernels": ["qconv_affine_kernel",
+                                    "qconv_reduce_kernel"]},
     "causal_attention": {"kernel_body": "mxnet_tpu_torch/csrc/"
                                         "flash_fwd_tc.cuh"},
     "attention_fwd": {"kernel_body": "mxnet_tpu_torch/csrc/"

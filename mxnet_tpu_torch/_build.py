@@ -59,10 +59,13 @@ _SIGNATURES = {
     # q/k/v/g/dk/dv strides, scale, stream
     "mxt_attention_dkv_f32": [_P] * 8 + [ctypes.c_int] * 5 + [_P] * 6 +
                              [ctypes.c_float, _P],
-    # x, w, gamma, beta, mean, var, res, out, N, H, W, C, Cout, eps,
-    # relu, vec, stream
-    "mxt_conv_affine_f32": [_P] * 8 + [ctypes.c_int] * 5 +
-                           [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
+    # x, w, gamma, beta, mean, var, res, part, out, N, H, W, C, Cout, eps,
+    # relu, bn, ranges, vec, stream
+    "mxt_conv_affine_f32": [_P] * 9 + [ctypes.c_int] * 5 +
+                           [ctypes.c_float] + [ctypes.c_int] * 4 + [_P],
+    # bn, vec, out (int*)
+    "mxt_conv_affine_tc_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_int)],
     # x, w, part, out, N, H, W, C, Cout, bn, ranges, vec, stream
     "mxt_conv3x3_tc_f32": [_P] * 4 + [ctypes.c_int] * 8 + [_P],
     # bn, vec, out (int*)
@@ -85,8 +88,12 @@ _SIGNATURES = {
     # x, y, rows, cols, vec4, stream
     "mxt_softmax_f32": [_P, _P, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, _P],
-    # qx, wt, scale, shift, res, out, N, H, W, C, Cout, relu, vec, stream
-    "mxt_qconv_affine_s8": [_P] * 6 + [ctypes.c_int] * 7 + [_P],
+    # qx, wt, scale, shift, res, part, out, N, H, W, C, Cout, relu, bn,
+    # ranges, grain, vec, stream
+    "mxt_qconv_affine_s8": [_P] * 7 + [ctypes.c_int] * 10 + [_P],
+    # bn, vec, out (int*)
+    "mxt_qconv_affine_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int)],
 }
 
 _mu = threading.Lock()

@@ -1,9 +1,12 @@
 // The 3x3/s1/p1 convolution, fp32 in and out, on Hopper's tensor cores in
-// 3xTF32, with no epilogue (conv3x3) or with the per-channel batch
-// statistics read off the accumulator (conv_stats):
+// 3xTF32, with one of three epilogues: none (conv3x3), the per-channel
+// batch statistics read off the accumulator (conv_stats), or a folded
+// frozen BatchNorm (+ residual) (+ ReLU) (conv_affine):
 //
-//   out[m][co] = sum over k of patches[m][k] * w[k][co]
-//   stats[0][co] = sum over m of out[m][co], stats[1][co] = ... out^2
+//   z[m][co] = sum over k of patches[m][k] * w[k][co]
+//   stats[0][co] = sum over m of z[m][co], stats[1][co] = ... z^2
+//   out[m][co] = act(z[m][co] * scale[co] + shift[co] (+ res[m][co]))
+//   scale = gamma * rsqrt(var + eps),  shift = beta - mean * scale
 //
 // m runs over the N*H*W output pixels, k = tap*C + c tap-major, x (N, H,
 // W, C) NHWC with a zero halo, w (3, 3, C, Cout) HWIO read as the
@@ -13,9 +16,13 @@
 // Replaces: mxnet_tpu/ops/pallas_block.py `_conv_kernel` (:318, launched
 // by `conv3x3` :419 and `conv3x3_dgrad` :438): the dx of the backward of
 // `residual_block_fused` (16 launches a ResNet-50 v1 training step) and
-// the frozen backward's recompute of z; and `_conv_stats_kernel` (:343,
+// the frozen backward's recompute of z; `_conv_stats_kernel` (:343,
 // `pallas_call` at :496): the training forward's z and its sums (16
-// launches a step).
+// launches a step); and `_conv_affine_kernel` (:325, launched by
+// `_conv_affine` :465, with `_fold` :539 and the frozen branch of
+// `_fused_fwd` :551), reached through mxnet_tpu/ops/nn.py
+// `residual_block` from Gluon's `fused_conv_bn_relu`: the 3x3 mid conv
+// of every ResNet-50 v1 bottleneck at inference (16 launches a forward).
 //
 // Bounds on an H100, at batch 64 of any ResNet-50 stage: 2 * N*H*W * 9C *
 // Cout = 14.8 GFLOP, 0.2209 ms at the 67 TFLOP/s fp32 CUDA-core peak.  This
@@ -23,8 +30,10 @@
 // at the 495 TFLOP/s dense TF32 tensor-core peak (0.137 ms at the 323.8
 // TFLOP/s `mma.sync` TF32 ceiling measured on the card).  Bytes (x and w
 // read once, out written once): 103 MB at 56x56x64 (0.031 ms at 3.35
-// TB/s), 22 MB at 7x7x512 (0.007 ms); the statistics add 8 * Cout bytes.
-// Operations bound it at every stage.
+// TB/s), 22 MB at 7x7x512 (0.007 ms); the statistics add 8 * Cout bytes,
+// the affine 16 * Cout and a residual as large as out.  Operations bound
+// it at every stage and batch 8 (1/8 of the above); at batch 1 on
+// 7x7x512 the 9.4 MB weight read does (0.0028 ms).
 //
 // Design.
 // - An implicit GEMM, 3xTF32 (tf32x3.cuh): every fp32 operand is split
@@ -52,14 +61,16 @@
 //   a carry: no division in the loop.
 // - Work split in one wave (stream-K, as conv_wgrad.cu): the tiles x
 //   chunks of work are cut into `ranges` = 132 x (blocks an SM, from the
-//   occupancy API) ranges of whole chunks, one a block.  A segment that
-//   covers a whole tile writes it to out; a cut one writes its partial
-//   tile to a slot of its range (the first segment of range b to slot 2b,
-//   the last to 2b + 1), and a second kernel sums a cut tile's slots in
-//   range order (no float atomics), so out is bitwise the same from run
-//   to run.  At 7x7x512 (100 tiles of 128 x 128) the grid is one full
-//   wave where 100 whole tiles would leave 32 SMs idle; at 56x56 and
-//   28x28 only ~ranges tiles are cut, ~17 MB of partials.
+//   occupancy API of the instance that runs) ranges of whole chunks, one
+//   a block.  A segment that covers a whole tile writes it to out; a cut
+//   one writes its partial tile's rows < N*H*W to a slot of its range
+//   (the first segment of range b to slot 2b, the last to 2b + 1), and a
+//   second kernel sums a cut tile's slots in range order (no float
+//   atomics), so out is bitwise the same from run to run.  At 7x7x512
+//   (100 tiles of 128 x 128 at batch 64, 16 at batch 8, 4 at batch 1)
+//   the grid is one full wave where the tiles alone would leave most SMs
+//   idle; at 56x56 and 28x28 at batch 64 only ~ranges tiles are cut, ~17
+//   MB of partials.
 // - The statistics (conv_stats, the STATS instance of the same body; no
 //   float atomics, the same sums on every run): a whole tile sums each
 //   of its BN columns over its rows < M from the fp32 accumulator before
@@ -72,11 +83,23 @@
 //   the conv3x3 kernel's bit for bit when the plans agree), writes z, and
 //   sums the finished values of each column in a fixed order into the
 //   tile's row.  conv_stats_sum_kernel then adds the ceil(M/128) rows of
-//   each column in a fixed order (0.8 MB at 56x56x64).  The plan comes
-//   from the STATS instance's own occupancy.
+//   each column in a fixed order (0.8 MB at 56x56x64).
+// - The affine (conv_affine, the AFFINE instance): a whole tile folds the
+//   BatchNorm of its two columns of each fragment once, into registers,
+//   and applies scale, shift, the residual (read in the same float2
+//   pairs as the store) and the ReLU to the fp32 accumulator before it
+//   leaves the registers, so out makes one trip to device memory.  A cut
+//   tile's slots are summed by conv_affine_reduce_kernel exactly as
+//   conv3x3_reduce_kernel sums them, which then applies the same
+//   epilogue four values a thread (16-byte residual loads and stores
+//   where VEC holds).  At batch 8 nearly every tile is cut: 196 tiles of
+//   18 chunks at 56x56 in 264 ranges.
+// - Each instance's plan comes from its own occupancy entry.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tf32x3.cuh"
 
@@ -92,6 +115,9 @@ constexpr int STAGES = 4;
 constexpr int kThreads = 256;  // 8 warps: 4 along pixels x 2 along co
 constexpr int LDA = BK + 4;    // ring row strides in floats
 
+// what a finished tile gets on its way out
+enum class Epi { kNone, kStats, kAffine };
+
 template <int BN>
 struct Ring {
   float a[STAGES][BM][LDA];      // patches: pixel rows, k contiguous
@@ -104,6 +130,13 @@ struct Args {
   float* out;           // (N*H*W, Cout)
   float* part;          // (2 * ranges, BM, BN) partial tiles
   float* tstats;        // conv_stats: (ceil(M / BM), 2, Cout) tile sums
+  const float* gamma;   // conv_affine: (Cout,) each
+  const float* beta;
+  const float* mean;
+  const float* var;
+  const float* res;     // conv_affine: (N*H*W, Cout) or null
+  float eps;
+  int relu;
   long long nch;        // chunks a tile: ceil(K / BK)
   long long total;      // tiles * nch units of work
   int M;                // N*H*W
@@ -328,10 +361,58 @@ __device__ __forceinline__ void tile_stats(const Args& a,
   }
 }
 
-// The body of both kernels: the segments of range blockIdx.x, each into
-// out (a whole tile) or a slot (a cut one).  STATS: a whole tile also
-// writes its row of per-tile sums.
-template <int BN, bool VEC, bool STATS>
+// The folded frozen BatchNorm of channel n: scale = gamma * rsqrt(var +
+// eps), shift = beta - mean * scale.
+__device__ __forceinline__ void fold(const Args& a, int n, float& sc,
+                                     float& sh) {
+  sc = a.gamma[n] * rsqrtf(a.var[n] + a.eps);
+  sh = a.beta[n] - a.mean[n] * sc;
+}
+
+__device__ __forceinline__ float affine(const Args& a, float v, float sc,
+                                        float sh, float r) {
+  v = v * sc + sh;
+  if (a.res) v += r;
+  return a.relu ? (v > 0.f ? v : 0.f) : v;
+}
+
+// Store a whole tile's out[m][n], out[m][n + 1] (m < M checked by the
+// caller), through the affine epilogue when EPI is kAffine (sc, sh: the
+// two columns' folded BatchNorm).  VEC: Cout % 4 == 0 and 16-byte aligned
+// bases, so n < Cout implies n + 1 < Cout and the pair is one float2.
+template <bool VEC, Epi EPI>
+__device__ __forceinline__ void store2(const Args& a, int m, int n,
+                                       float v0, float v1,
+                                       const float (&sc)[2],
+                                       const float (&sh)[2]) {
+  const long long at = (long long)m * a.Cout + n;
+  if constexpr (VEC) {
+    if (n >= a.Cout) return;
+    if constexpr (EPI == Epi::kAffine) {
+      float2 r = make_float2(0.f, 0.f);
+      if (a.res) r = *reinterpret_cast<const float2*>(a.res + at);
+      v0 = affine(a, v0, sc[0], sh[0], r.x);
+      v1 = affine(a, v1, sc[1], sh[1], r.y);
+    }
+    *reinterpret_cast<float2*>(a.out + at) = make_float2(v0, v1);
+  } else {
+    const float v[2] = {v0, v1};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (n + j >= a.Cout) continue;
+      float o = v[j];
+      if constexpr (EPI == Epi::kAffine)
+        o = affine(a, o, sc[j], sh[j], a.res ? a.res[at + j] : 0.f);
+      a.out[at + j] = o;
+    }
+  }
+}
+
+// The body of the three kernels: the segments of range blockIdx.x, each
+// into out (a whole tile) or a slot (a cut one).  kStats: a whole tile
+// also writes its row of per-tile sums; kAffine: a whole tile goes out
+// through the folded BatchNorm (+ residual) (+ ReLU).
+template <int BN, bool VEC, Epi EPI>
 __device__ __forceinline__ void conv_ranges(const Args& a) {
   Ring<BN>& s = *reinterpret_cast<Ring<BN>*>(mxt_conv3x3_smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -377,37 +458,37 @@ __device__ __forceinline__ void conv_ranges(const Args& a) {
     }
     cp_async_wait<0>();
 
-    // a whole tile goes to out; a cut one to its range's first (2b) or
-    // last (2b + 1) slot
+    // a whole tile goes to out; the rows < M of a cut one to its range's
+    // first (2b) or last (2b + 1) slot (no kernel that sums slots uses
+    // other rows)
     const bool whole = c0 == 0 && nk == a.nch;
-    float* p = whole ? a.out
-                     : a.part + (2 * b + (u == u0 ? 0 : 1)) *
-                                    (long long)(BM * BN);
+    float* slot = a.part + (2 * b + (u == u0 ? 0 : 1)) * (long long)(BM * BN);
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+    for (int ni = 0; ni < BN / 16; ++ni) {
+      const int cl = wn * (BN / 2) + ni * 8 + 2 * t;
+      const int nn = n0 + cl;
+      float sc[2] = {1.f, 1.f}, sh[2] = {0.f, 0.f};
+      if constexpr (EPI == Epi::kAffine) {
+        // the BatchNorm of this fragment's two columns, folded once a tile
 #pragma unroll
-      for (int ni = 0; ni < BN / 16; ++ni)
+        for (int j = 0; j < 2; ++j)
+          if (whole && nn + j < a.Cout) fold(a, nn + j, sc[j], sh[j]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int r = wm * 32 + mi * 16 + g + 8 * hf;
-          const int cl = wn * (BN / 2) + ni * 8 + 2 * t;
           const float v0 = acc[mi][ni][2 * hf], v1 = acc[mi][ni][2 * hf + 1];
-          if (!whole) {
-            *reinterpret_cast<float2*>(p + r * BN + cl) = make_float2(v0, v1);
-            continue;
-          }
-          const int m = m0 + r, nn = n0 + cl;
-          if (m >= a.M) continue;
-          float* o = p + (long long)m * a.Cout + nn;
-          if constexpr (VEC) {
-            if (nn < a.Cout)
-              *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-          } else {
-            if (nn < a.Cout) o[0] = v0;
-            if (nn + 1 < a.Cout) o[1] = v1;
-          }
+          if (m0 + r >= a.M) continue;
+          if (whole)
+            store2<VEC, EPI>(a, m0 + r, nn, v0, v1, sc, sh);
+          else
+            *reinterpret_cast<float2*>(slot + r * BN + cl) =
+                make_float2(v0, v1);
         }
-    if constexpr (STATS) {
+    }
+    if constexpr (EPI == Epi::kStats) {
       if (whole) tile_stats<BN>(a, acc, m0, n0, wm, wn, g, t);
     }
     u = send;
@@ -417,14 +498,30 @@ __device__ __forceinline__ void conv_ranges(const Args& a) {
 template <int BN, bool VEC>
 __global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
 conv3x3_tc_kernel(const Args a) {
-  conv_ranges<BN, VEC, false>(a);
+  conv_ranges<BN, VEC, Epi::kNone>(a);
 }
 
 template <int BN, bool VEC>
 __global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
 conv_stats_tc_kernel(const Args a) {
-  conv_ranges<BN, VEC, true>(a);
+  conv_ranges<BN, VEC, Epi::kStats>(a);
 }
+
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
+conv_affine_tc_kernel(const Args a) {
+  conv_ranges<BN, VEC, Epi::kAffine>(a);
+}
+
+// The main kernel of an epilogue.
+template <int BN, bool VEC, Epi EPI>
+auto main_kernel() {
+  if constexpr (EPI == Epi::kNone) return conv3x3_tc_kernel<BN, VEC>;
+  else if constexpr (EPI == Epi::kStats) return conv_stats_tc_kernel<BN, VEC>;
+  else return conv_affine_tc_kernel<BN, VEC>;
+}
+
+constexpr int SLOT_BATCH = 8;   // partial slots a reduce loads at once
 
 // The tile cut at the start of range r >= 1 if that is the first range
 // start inside it, else -1.
@@ -452,11 +549,41 @@ __device__ __forceinline__ void store4(const Args& a, int m, int n,
   }
 }
 
+// out[m][n .. n + 3] of a cut tile from its summed slots v, through the
+// affine epilogue (the four columns' BatchNorm folded here) for kAffine.
+template <bool VEC, Epi EPI>
+__device__ __forceinline__ void finish4(const Args& a, int m, int n,
+                                        float4 v) {
+  if constexpr (EPI == Epi::kAffine) {
+    const long long at = (long long)m * a.Cout + n;
+    float r[4] = {0.f, 0.f, 0.f, 0.f};
+    if (a.res) {
+      if constexpr (VEC) {
+        const float4 q = *reinterpret_cast<const float4*>(a.res + at);
+        r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (n + i < a.Cout) r[i] = a.res[at + i];
+      }
+    }
+    float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (n + i >= a.Cout) continue;
+      float sc, sh;
+      fold(a, n + i, sc, sh);
+      e[i] = affine(a, e[i], sc, sh, r[i]);
+    }
+    v = make_float4(e[0], e[1], e[2], e[3]);
+  }
+  store4<VEC>(a, m, n, v);
+}
+
 // The tile cut at the start of range blockIdx.y + 1, if that range owns
-// it (cut_tile): its slots summed, 4 values a thread.
-template <int BN, bool VEC>
-__global__ void __launch_bounds__(256)
-conv3x3_reduce_kernel(const Args a) {
+// it (cut_tile): its slots summed, 4 values a thread, then finished.
+template <int BN, bool VEC, Epi EPI>
+__device__ __forceinline__ void reduce_cut(const Args& a) {
   const long long r = (long long)blockIdx.y + 1;
   const long long tile = cut_tile(a, r);
   if (tile < 0) return;
@@ -467,19 +594,46 @@ conv3x3_reduce_kernel(const Args a) {
   if (m >= a.M || n >= a.Cout) return;
   const long long t0 = tile * a.nch;
   const long long last = range_of(a, t0 + a.nch - 1);
+  // the segment of range r - 1 is its first one iff it starts in the
+  // tile (at its first unit); ranges r .. last start in it
+  const long long first =
+      2 * (r - 1) + (range_start(a, r - 1) >= t0 ? 0 : 1);
   float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (long long q = r - 1; q <= last; ++q) {
-    // range q's segment in the tile is its first one iff q starts in it
-    const long long slot = 2 * q + (range_start(a, q) >= t0 ? 0 : 1);
-    const float4 v = *reinterpret_cast<const float4*>(
-        a.part + slot * (long long)(BM * BN) + e);
-    if (q == r - 1) {
-      sum = v;
-    } else {
-      sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+  // SLOT_BATCH slots loaded before they are added, in range order (one at
+  // a time, a thread would wait on memory for every slot)
+  for (long long q0 = r - 1; q0 <= last; q0 += SLOT_BATCH) {
+    float4 v[SLOT_BATCH];
+#pragma unroll
+    for (int i = 0; i < SLOT_BATCH; ++i) {
+      const long long q = q0 + i;
+      if (q > last) break;
+      const long long slot = q == r - 1 ? first : 2 * q;
+      v[i] = *reinterpret_cast<const float4*>(
+          a.part + slot * (long long)(BM * BN) + e);
+    }
+#pragma unroll
+    for (int i = 0; i < SLOT_BATCH; ++i) {
+      if (q0 + i > last) break;
+      if (q0 + i == r - 1) {
+        sum = v[i];
+      } else {
+        sum.x += v[i].x; sum.y += v[i].y; sum.z += v[i].z; sum.w += v[i].w;
+      }
     }
   }
-  store4<VEC>(a, m, n, sum);
+  finish4<VEC, EPI>(a, m, n, sum);
+}
+
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(256)
+conv3x3_reduce_kernel(const Args a) {
+  reduce_cut<BN, VEC, Epi::kNone>(a);
+}
+
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(256)
+conv_affine_reduce_kernel(const Args a) {
+  reduce_cut<BN, VEC, Epi::kAffine>(a);
 }
 
 // conv_stats' cut tiles: block blockIdx.x finds the tile cut at the start
@@ -505,10 +659,13 @@ conv_stats_cut_kernel(const Args a) {
   const int n = n0 + 4 * cq;
   const long long t0 = tile * a.nch;
   const long long last = range_of(a, t0 + a.nch - 1);
+  // the segment of range r - 1 is its first one iff it starts in the
+  // tile (at its first unit); ranges r .. last start in it
+  const long long first =
+      2 * (r - 1) + (range_start(a, r - 1) >= t0 ? 0 : 1);
   float4 v[RPT];
   for (long long q = r - 1; q <= last; ++q) {
-    // range q's segment in the tile is its first one iff q starts in it
-    const long long slot = 2 * q + (range_start(a, q) >= t0 ? 0 : 1);
+    const long long slot = q == r - 1 ? first : 2 * q;
     const float* ps = a.part + slot * (long long)(BM * BN) + 4 * cq;
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -584,11 +741,10 @@ conv_stats_sum_kernel(const float* __restrict__ tstats,
   }
 }
 
-template <int BN, bool VEC, bool STATS>
+template <int BN, bool VEC, Epi EPI>
 cudaError_t prepare(int* per_sm) {
   const int bytes = (int)sizeof(Ring<BN>);
-  const auto kernel = STATS ? conv_stats_tc_kernel<BN, VEC>
-                            : conv3x3_tc_kernel<BN, VEC>;
+  const auto kernel = main_kernel<BN, VEC, EPI>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess || !per_sm) return err;
@@ -596,31 +752,51 @@ cudaError_t prepare(int* per_sm) {
                                                        kThreads, bytes);
 }
 
-template <bool STATS>
-cudaError_t prepare_any(int bn, int vec, int* per_sm) {
-  if (bn == 64) return vec ? prepare<64, true, STATS>(per_sm)
-                           : prepare<64, false, STATS>(per_sm);
-  return vec ? prepare<128, true, STATS>(per_sm)
-             : prepare<128, false, STATS>(per_sm);
+// f(integral_constant<int, BN>, bool_constant<VEC>) for a runtime (bn,
+// vec); bn is 64 or 128
+template <typename F>
+auto with_tile(int bn, int vec, F f) {
+  using B64 = std::integral_constant<int, 64>;
+  using B128 = std::integral_constant<int, 128>;
+  if (bn == 64) return vec ? f(B64(), std::true_type())
+                           : f(B64(), std::false_type());
+  return vec ? f(B128(), std::true_type()) : f(B128(), std::false_type());
 }
 
-template <int BN, bool VEC>
+template <Epi EPI>
+cudaError_t prepare_any(int bn, int vec, int* per_sm) {
+  return with_tile(bn, vec, [&](auto BN, auto VEC) {
+    return prepare<decltype(BN)::value, decltype(VEC)::value, EPI>(per_sm);
+  });
+}
+
+// The main kernel, then the one that finishes the cut tiles.
+template <int BN, bool VEC, Epi EPI>
 void launch(const Args& a, cudaStream_t s) {
-  conv3x3_tc_kernel<BN, VEC>
-      <<<(unsigned)a.ranges, kThreads, sizeof(Ring<BN>), s>>>(a);
-  if (a.ranges > 1) {
+  const auto kernel = main_kernel<BN, VEC, EPI>();
+  kernel<<<(unsigned)a.ranges, kThreads, sizeof(Ring<BN>), s>>>(a);
+  if (a.ranges == 1) return;
+  if constexpr (EPI == Epi::kStats) {
+    conv_stats_cut_kernel<BN, VEC>
+        <<<(unsigned)(a.ranges - 1), 1024, 0, s>>>(a);
+  } else {
     const dim3 grid(BM * BN / 4 / 256, (unsigned)(a.ranges - 1));
-    conv3x3_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
+    if constexpr (EPI == Epi::kNone)
+      conv3x3_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
+    else
+      conv_affine_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
   }
 }
 
-template <int BN, bool VEC>
-void launch_stats(const Args& a, cudaStream_t s) {
-  conv_stats_tc_kernel<BN, VEC>
-      <<<(unsigned)a.ranges, kThreads, sizeof(Ring<BN>), s>>>(a);
-  if (a.ranges > 1)
-    conv_stats_cut_kernel<BN, VEC>
-        <<<(unsigned)(a.ranges - 1), 1024, 0, s>>>(a);
+template <Epi EPI>
+cudaError_t launch_any(const Args& a, int bn, int vec, cudaStream_t s) {
+  cudaError_t err = prepare_any<EPI>(bn, vec, nullptr);
+  if (err != cudaSuccess) return err;
+  with_tile(bn, vec, [&](auto BN, auto VEC) {
+    launch<decltype(BN)::value, decltype(VEC)::value, EPI>(a, s);
+    return 0;
+  });
+  return cudaGetLastError();
 }
 
 // Fill a (the plan's geometry) or return false for shapes the kernels do
@@ -636,6 +812,9 @@ bool plan_args(Args& a, const void* x, const void* w, void* part, void* out,
   a.out = static_cast<float*>(out);
   a.part = static_cast<float*>(part);
   a.tstats = nullptr;
+  a.gamma = a.beta = a.mean = a.var = a.res = nullptr;
+  a.eps = 0.f;
+  a.relu = 0;
   a.M = N * H * W;
   a.H = H; a.W = W; a.C = C; a.Cout = Cout; a.K = 9 * C;
   a.tiles_n = (Cout + bn - 1) / bn;
@@ -652,13 +831,19 @@ bool plan_args(Args& a, const void* x, const void* w, void* part, void* out,
 // device, into *out (the host cuts the work into 132 x this many ranges).
 extern "C" int mxt_conv3x3_tc_blocks_per_sm(int bn, int vec, int* out) {
   if (bn != 64 && bn != 128) return (int)cudaErrorInvalidValue;
-  return (int)prepare_any<false>(bn, vec, out);
+  return (int)prepare_any<Epi::kNone>(bn, vec, out);
 }
 
 // The same for conv_stats_tc_kernel<bn, vec>.
 extern "C" int mxt_conv_stats_tc_blocks_per_sm(int bn, int vec, int* out) {
   if (bn != 64 && bn != 128) return (int)cudaErrorInvalidValue;
-  return (int)prepare_any<true>(bn, vec, out);
+  return (int)prepare_any<Epi::kStats>(bn, vec, out);
+}
+
+// The same for conv_affine_tc_kernel<bn, vec>.
+extern "C" int mxt_conv_affine_tc_blocks_per_sm(int bn, int vec, int* out) {
+  if (bn != 64 && bn != 128) return (int)cudaErrorInvalidValue;
+  return (int)prepare_any<Epi::kAffine>(bn, vec, out);
 }
 
 // x (N, H, W, C), w (3, 3, C, Cout) == (9C, Cout), out (N, H, W, Cout),
@@ -674,15 +859,8 @@ extern "C" int mxt_conv3x3_tc_f32(const void* x, const void* w, void* part,
   Args a;
   if (!plan_args(a, x, w, part, out, N, H, W, C, Cout, bn, ranges))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_any<false>(bn, vec, nullptr);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bn == 64) {
-    if (vec) launch<64, true>(a, s); else launch<64, false>(a, s);
-  } else {
-    if (vec) launch<128, true>(a, s); else launch<128, false>(a, s);
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_any<Epi::kNone>(a, bn, vec,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // conv_stats: z = out as mxt_conv3x3_tc_f32 computes it, plus tstats
@@ -698,20 +876,39 @@ extern "C" int mxt_conv_stats_tc_f32(const void* x, const void* w,
   if (!plan_args(a, x, w, part, z, N, H, W, C, Cout, bn, ranges))
     return (int)cudaErrorInvalidValue;
   a.tstats = static_cast<float*>(tstats);
-  cudaError_t err = prepare_any<true>(bn, vec, nullptr);
-  if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bn == 64) {
-    if (vec) launch_stats<64, true>(a, s); else launch_stats<64, false>(a, s);
-  } else {
-    if (vec) launch_stats<128, true>(a, s);
-    else launch_stats<128, false>(a, s);
-  }
-  err = cudaGetLastError();
+  cudaError_t err = launch_any<Epi::kStats>(a, bn, vec, s);
   if (err != cudaSuccess) return (int)err;
   const int rows = (a.M + BM - 1) / BM, cols = 2 * Cout;
   conv_stats_sum_kernel<<<(unsigned)((cols + 31) / 32), dim3(32, 32), 0,
                           s>>>(a.tstats, static_cast<float*>(stats), rows,
                                cols);
   return (int)cudaGetLastError();
+}
+
+// conv_affine: out = act(z * scale + shift (+ res)) with z as
+// mxt_conv3x3_tc_f32 computes it and the BatchNorm folded from gamma,
+// beta, mean, var (Cout,) fp32 and eps; res (N, H, W, Cout) fp32 or null;
+// relu != 0 applies the ReLU.  The plan comes from
+// mxt_conv_affine_tc_blocks_per_sm; vec != 0 also needs a 16-byte
+// aligned res.
+extern "C" int mxt_conv_affine_f32(const void* x, const void* w,
+                                   const void* gamma, const void* beta,
+                                   const void* mean, const void* var,
+                                   const void* res, void* part, void* out,
+                                   int N, int H, int W, int C, int Cout,
+                                   float eps, int relu, int bn, int ranges,
+                                   int vec, void* stream) {
+  Args a;
+  if (!plan_args(a, x, w, part, out, N, H, W, C, Cout, bn, ranges))
+    return (int)cudaErrorInvalidValue;
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.mean = static_cast<const float*>(mean);
+  a.var = static_cast<const float*>(var);
+  a.res = static_cast<const float*>(res);
+  a.eps = eps;
+  a.relu = relu;
+  return (int)launch_any<Epi::kAffine>(a, bn, vec,
+                                       static_cast<cudaStream_t>(stream));
 }

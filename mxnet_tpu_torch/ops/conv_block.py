@@ -2,13 +2,15 @@
 its hand-written CUDA kernels, their plain versions, and the autograd
 Function that trains through them (≙ ``mxnet_tpu/ops/pallas_block.py``).
 
-- ``conv_affine`` (≙ ``_conv_affine_kernel``, ``_conv_affine``, ``_fold``,
-  the frozen ``_fused_fwd``): conv + folded frozen BN (+ add) (+ ReLU),
-  ``csrc/conv_affine.cu``.
 - ``conv3x3`` (≙ ``_conv_kernel``, ``conv3x3``; ``conv3x3_dgrad`` runs it
-  on the rotated weight) and ``conv_stats`` (≙ ``_conv_stats_kernel``,
-  ``_conv_stats``; the same kernel body with a statistics epilogue):
-  ``csrc/conv3x3_tc.cu``; ``bn_affine`` (≙ ``_affine_kernel``,
+  on the rotated weight), ``conv_stats`` (≙ ``_conv_stats_kernel``,
+  ``_conv_stats``; the same kernel body with a statistics epilogue) and
+  ``conv_affine`` (≙ ``_conv_affine_kernel``, ``_conv_affine``, ``_fold``,
+  the frozen ``_fused_fwd``; the same body with a folded frozen BN (+ add)
+  (+ ReLU) epilogue): one tensor-core loop in ``csrc/conv3x3_tc.cu``, each
+  instance's work cut by :func:`conv3x3_splits` at its own occupancy,
+  and :func:`tile_writers` the host's view of which kernel finishes each
+  tile; ``bn_affine`` (≙ ``_affine_kernel``,
   ``_affine``): ``csrc/conv_train.cu``; ``conv_wgrad`` (≙
   ``_wgrad_kernel``, ``conv3x3_wgrad``): ``csrc/conv_wgrad.cu``.
 - ``residual_block_fused`` (≙ ``residual_block_fused``, ``_fused``,
@@ -38,8 +40,8 @@ from .. import _build
 
 __all__ = ["conv_affine", "conv_affine_plain", "fold", "conv3x3",
            "conv3x3_plain", "conv3x3_dgrad", "conv3x3_splits",
-           "Conv3x3Plan", "rotate", "conv_stats",
-           "conv_stats_plain", "conv_stats_writers", "bn_affine",
+           "Conv3x3Plan", "tile_writers", "rotate", "conv_stats",
+           "conv_stats_plain", "bn_affine",
            "bn_affine_plain", "conv_wgrad",
            "conv_wgrad_plain", "wgrad_splits", "wgrad_tile_cols",
            "WgradPlan",
@@ -123,44 +125,6 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def conv_affine(x, w, gamma, beta, mean, var, residual=None,
-                eps: float = 1e-5, relu: bool = True):
-    """``act(conv3x3(x, w)·scale + shift (+ residual))`` with the BN
-    statistics folded as :func:`fold` does.  ``x`` (N, H, W, C) and
-    ``residual`` (N, H, W, Cout) contiguous NHWC fp32, ``w`` contiguous
-    HWIO (3, 3, C, Cout), the four BN vectors (Cout,).  CUDA tensors
-    launch ``csrc/conv_affine.cu``; CPU tensors take
-    :func:`conv_affine_plain`."""
-    if not _on_card("conv_affine", x):
-        return conv_affine_plain(x, w, gamma, beta, mean, var, residual,
-                                 eps, relu)
-    vecs = (("gamma", gamma), ("beta", beta), ("mean", mean), ("var", var))
-    N, H, W, C, Cout = _check(x, w, vecs, residual)
-    out = torch.empty((N, H, W, Cout), device=x.device, dtype=x.dtype)
-    if out.numel() == 0:
-        return out
-    vec = int(C % 16 == 0 and Cout % 4 == 0 and
-              _aligned(x, w, out, *([residual] if residual is not None
-                                    else [])))
-    lib = _build.lib()
-    with torch.cuda.device(x.device):
-        stream = _stream(x.device)
-        err = lib.mxt_conv_affine_f32(
-            x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            mean.data_ptr(), var.data_ptr(),
-            residual.data_ptr() if residual is not None else None,
-            out.data_ptr(), N, H, W, C, Cout, float(eps), int(bool(relu)),
-            vec, stream)
-    _build.check(err, "conv_affine")
-    with _count_mu:
-        conv_affine.launches += 1
-    return out
-
-
-conv_affine.launches = 0
-
-
-# ------------------------------------------------------ training kernels
 def conv3x3_plain(x, w):
     """Plain version of ``conv3x3``: the 3×3/s1/p1 conv of NHWC ``x`` with
     HWIO ``w``, contiguous NHWC as the kernel writes it."""
@@ -274,22 +238,29 @@ def conv_stats_plain(x, w):
     return z, z.sum(dim=(0, 1, 2)), (z * z).sum(dim=(0, 1, 2))
 
 
-def conv_stats_writers(plan):
-    """Which kernel writes each tile's row of per-tile sums in
-    ``conv_stats`` under ``plan`` (a :class:`Conv3x3Plan`), decided as
-    ``csrc/conv3x3_tc.cu`` decides it: one ``(tile, kernel, block)`` for
-    each write.  ``("main", b)``: range ``b`` of the conv kernel covers
-    the whole tile in one segment and sums it from its accumulator.
-    ``("cut", j)``: block ``j`` of ``conv_stats_cut_kernel`` finds the
-    tile cut at the start of range ``j + 1``, the first range start
-    inside it, and sums it from its summed slots."""
+def tile_writers(plan):
+    """Which kernel finishes each output tile under ``plan`` (a
+    :class:`Conv3x3Plan`, or ``cuda_int8``'s plan of the same fields),
+    decided as ``csrc/conv3x3_tc.cu`` and ``csrc/qconv_affine.cu`` decide
+    it: one ``(tile, kernel, block)`` for each tile.  ``("main", b)``:
+    range ``b`` of the main kernel covers the whole tile in one segment
+    and finishes it from its accumulator (``conv_stats``: its row of
+    per-tile sums; ``conv_affine`` and ``qconv3x3_affine``: its
+    epilogue).  ``("cut", j)``: range ``j`` holds the tile's first unit
+    and range ``j + 1`` starts inside it; the cut-tile kernel finishes it
+    from its summed slots (block ``j`` of ``conv_stats_cut_kernel``,
+    blocks ``(·, j)`` of ``conv3x3_reduce_kernel`` and
+    ``conv_affine_reduce_kernel``, blocks ``(·, tile)`` of
+    ``qconv_reduce_kernel``).  A plan with a ``grain`` (``QconvPlan``)
+    starts its ranges on multiples of it; others on any unit."""
     total, ranges, nch = plan.tiles * plan.chunks, plan.ranges, plan.chunks
+    g = getattr(plan, "grain", 1)
 
     def start(b):
-        return b * total // ranges
+        return b * (total // g) // ranges * g
 
     def range_of(u):
-        return ((u + 1) * ranges - 1) // total
+        return ((u // g + 1) * ranges - 1) // (total // g)
 
     writes = []
     for b in range(ranges):
@@ -311,9 +282,9 @@ def conv_stats(x, w):
     """``(z, Σz, Σz²)``: the conv of :func:`conv3x3`, on the same
     tensor-core kernel body with a statistics epilogue, and its
     per-channel sums (f32, (Cout,) each) read off the accumulator: per
-    128-pixel tile in a fixed order (:func:`conv_stats_writers` names the
-    kernel that sums each tile), then over the tiles in a fixed order, so
-    the three are the same on every run.  Its plan is
+    128-pixel tile in a fixed order, then over the tiles in a fixed order,
+    so the three are the same on every run (:func:`tile_writers` names the
+    kernel that sums each tile).  Its plan is
     :func:`conv3x3_splits` at the occupancy of the statistics instance;
     where that equals ``conv3x3``'s plan, z is ``conv3x3(x, w)`` bit for
     bit.  CPU tensors take :func:`conv_stats_plain`."""
@@ -348,6 +319,51 @@ def conv_stats(x, w):
 
 
 conv_stats.launches = 0
+
+
+def conv_affine(x, w, gamma, beta, mean, var, residual=None,
+                eps: float = 1e-5, relu: bool = True):
+    """``act(conv3x3(x, w)·scale + shift (+ residual))`` with the BN
+    statistics folded as :func:`fold` does.  ``x`` (N, H, W, C) and
+    ``residual`` (N, H, W, Cout) contiguous NHWC fp32, ``w`` contiguous
+    HWIO (3, 3, C, Cout), the four BN vectors (Cout,).  The conv of
+    :func:`conv3x3` (3×TF32 on the tensor cores, one wave of ranges at
+    the affine instance's occupancy) with the BN folded and applied to
+    each finished tile before it is written (:func:`tile_writers` names
+    the kernel that finishes each tile).  CUDA tensors launch
+    ``csrc/conv3x3_tc.cu``; CPU tensors take :func:`conv_affine_plain`."""
+    if not _on_card("conv_affine", x):
+        return conv_affine_plain(x, w, gamma, beta, mean, var, residual,
+                                 eps, relu)
+    vecs = (("gamma", gamma), ("beta", beta), ("mean", mean), ("var", var))
+    N, H, W, C, Cout = _check(x, w, vecs, residual)
+    out = torch.empty((N, H, W, Cout), device=x.device, dtype=x.dtype)
+    if out.numel() == 0:
+        return out
+    vec = int(C % 4 == 0 and Cout % 4 == 0 and
+              _aligned(x, w, out, *([residual] if residual is not None
+                                    else [])))
+    index = x.device.index
+    plan = conv3x3_splits(N * H * W, 9 * C, Cout, _sm_count(index),
+                          _per_sm("mxt_conv_affine_tc_blocks_per_sm", index,
+                                  wgrad_tile_cols(Cout), vec))
+    part = torch.empty((2 * plan.ranges, CONV_ROWS, plan.bn),
+                       device=x.device, dtype=torch.float32)
+    lib = _build.lib()
+    with torch.cuda.device(x.device):
+        err = lib.mxt_conv_affine_f32(
+            x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            mean.data_ptr(), var.data_ptr(),
+            residual.data_ptr() if residual is not None else None,
+            part.data_ptr(), out.data_ptr(), N, H, W, C, Cout, float(eps),
+            int(bool(relu)), plan.bn, plan.ranges, vec, _stream(x.device))
+    _build.check(err, "conv_affine")
+    with _count_mu:
+        conv_affine.launches += 1
+    return out
+
+
+conv_affine.launches = 0
 
 
 def bn_affine_plain(z, scale, shift, residual=None, relu: bool = True):

@@ -6,7 +6,9 @@ plain versions and the other quantized convs and dense layers use.
 
 - ``qconv3x3_affine`` launches ``csrc/qconv_affine.cu`` for CUDA tensors
   and raises on anything the kernel does not take; CPU tensors take
-  :func:`qconv3x3_plain`.  There is no other route: the TPU package's
+  :func:`qconv3x3_plain`.  Its work is cut into one wave of ranges by
+  :func:`qconv_splits` (``conv_block.tile_writers`` names the kernel that
+  finishes each tile).  There is no other route: the TPU package's
   VMEM gate (``eligible_int8``), its per-stage table and its
   ``MXNET_TPU_PALLAS_INT8`` switch are budgets of the TPU, and on the
   card every quantized 3×3/s1 conv goes to the kernel.
@@ -25,13 +27,16 @@ and design.
 from __future__ import annotations
 
 import threading
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .conv_block import _per_sm, _sm_count
 
-__all__ = ["qconv3x3_affine", "qconv3x3_plain", "pack_weight", "im2col",
+__all__ = ["qconv3x3_affine", "qconv3x3_plain", "qconv_splits",
+           "qconv_tile_cols", "QconvPlan", "pack_weight", "im2col",
            "int8_matmul"]
 
 _count_mu = threading.Lock()
@@ -98,6 +103,73 @@ def qconv3x3_plain(qx, qw, scale, shift, res=None, relu: bool = True,
     return torch.relu(y) if relu else y
 
 
+QCONV_ROWS = 128    # output pixels a tile
+QCONV_CHUNK = 64    # bytes of K (k = tap·C + c) a chunk of the reduction
+QCONV_SPLIT = 16    # most ranges a tile is split into (slots it sums)
+
+
+class QconvPlan(NamedTuple):
+    """How ``qconv3x3_affine`` cuts its work: ``tiles`` output tiles of
+    128 pixels × ``bn`` channels, each a reduction over ``chunks`` chunks
+    of 64 bytes of K; the tiles × chunks units are cut into ``ranges``
+    ranges, one a block, each a whole number of ``grain`` units (1: any
+    whole chunks; ``chunks``: whole tiles).  A range's segment that
+    covers a whole tile finishes it; a cut tile's segments write int32
+    partial slots (a range's first segment to slot 2b, its last to 2b +
+    1) that a second kernel sums in range order and finishes."""
+    bn: int
+    tiles: int
+    chunks: int
+    ranges: int
+    grain: int
+
+
+def qconv_tile_cols(M, Cout, sms):
+    """Output channels a ``qconv3x3_affine`` tile holds: 64 when ``Cout``
+    fits, else 128, unless the 128-wide tiles leave SMs idle while
+    64-wide ones give at least every other SM a whole tile (28×28×128 at
+    batch 8: 98 whole tiles beat 49 tiles split in two, whose slots and
+    second kernel cost more than the narrower tiles' extra traffic)."""
+    rows = -(-M // QCONV_ROWS)
+    if Cout <= 64:
+        return 64
+    if rows * -(-Cout // 128) < sms <= 2 * rows * -(-Cout // 64):
+        return 64
+    return 128
+
+
+def qconv_splits(M, K, Cout, sms, per_sm):
+    """The :class:`QconvPlan` of ``qconv3x3_affine`` for ``M`` output
+    pixels, ``K`` = 9C bytes of patch and ``Cout`` channels on a card of
+    ``sms`` SMs that holds ``per_sm`` of its blocks each (tiles of
+    :func:`qconv_tile_cols` channels); one wave.  A cut tile's int32
+    slots each weigh as much as its f32 output, and a second kernel must
+    read them, so the plan cuts as little as fills the card:
+
+    - where the tiles give every SM one (``tiles ≥ sms``: every stage at
+      batch 64, 56×56 at batch 8), ``min(sms·per_sm, tiles)`` ranges of
+      whole tiles (``grain = chunks``): at most one tile of imbalance, no
+      cut;
+    - below that, each tile is split into the same ``s = min(sms // tiles,
+      16, chunks)`` ranges (``tiles·s`` ranges of whole chunks, ``grain``
+      1; ``s`` = 1 is whole tiles again): about one range a spare SM,
+      each tile's ``s`` slots summed by the second kernel (at 7×7×512,
+      batch 1, the 4 tiles alone would leave 128 of 132 SMs idle; split 16
+      ways they fill 64).
+
+    In grains of ``G`` units, range ``b`` holds grains ``[b·T/ranges,
+    (b+1)·T/ranges)`` of the ``T`` = tiles·chunks / G (unit = tile·chunks
+    + chunk); with ``tiles·s`` ranges no range spans two tiles."""
+    bn = qconv_tile_cols(M, Cout, sms)
+    tiles = -(-M // QCONV_ROWS) * -(-Cout // bn)
+    chunks = -(-K // QCONV_CHUNK)
+    if tiles >= sms:
+        return QconvPlan(bn, tiles, chunks, min(sms * per_sm, tiles), chunks)
+    split = max(1, min(sms // tiles, QCONV_SPLIT, chunks))
+    return QconvPlan(bn, tiles, chunks, tiles * split,
+                     chunks if split == 1 else 1)
+
+
 def _check(qx, qw, scale, shift, res, wt):
     if qx.dim() != 4:
         raise ValueError(f"qconv3x3_affine: qx must be NHWC, got "
@@ -136,7 +208,8 @@ def qconv3x3_affine(qx, qw, scale, shift, res=None, relu: bool = True,
     and optionally its :func:`pack_weight` form ``qw_packed`` (packed here
     when not given), ``scale``/``shift`` (Cout,) f32, ``res`` (N, H, W,
     Cout) f32; all contiguous.  CUDA tensors launch
-    ``csrc/qconv_affine.cu``; CPU tensors take :func:`qconv3x3_plain`."""
+    ``csrc/qconv_affine.cu``, its work cut by :func:`qconv_splits`; CPU
+    tensors take :func:`qconv3x3_plain`."""
     if qx.device.type == "cpu":
         return qconv3x3_plain(qx, qw, scale, shift, res, relu, qw_packed)
     if qx.device.type != "cuda":
@@ -148,15 +221,26 @@ def qconv3x3_affine(qx, qw, scale, shift, res=None, relu: bool = True,
                       dtype=torch.float32)
     if out.numel() == 0:
         return out
-    vec = int(C % 16 == 0 and cout % 2 == 0 and all(
+    vec = int(C % 16 == 0 and cout % 4 == 0 and all(
         t.data_ptr() % 16 == 0
-        for t in (qx, wt, out) + ((res,) if res is not None else ())))
+        for t in (qx, wt, out, scale, shift) +
+        ((res,) if res is not None else ())))
+    index = qx.device.index
+    sms = _sm_count(index)
+    plan = qconv_splits(N * H * W, 9 * C, cout, sms,
+                        _per_sm("mxt_qconv_affine_blocks_per_sm", index,
+                                qconv_tile_cols(N * H * W, cout, sms), vec))
+    # int32 slots for the cut tiles; whole-tile ranges cut none
+    part = torch.empty((2 * plan.ranges if plan.grain == 1 else 0,
+                        QCONV_ROWS, plan.bn), device=qx.device,
+                       dtype=torch.int32)
     lib = _build.lib()
     with torch.cuda.device(qx.device):
         err = lib.mxt_qconv_affine_s8(
             qx.data_ptr(), wt.data_ptr(), scale.data_ptr(),
             shift.data_ptr(), res.data_ptr() if res is not None else None,
-            out.data_ptr(), N, H, W, C, cout, int(bool(relu)), vec,
+            part.data_ptr(), out.data_ptr(), N, H, W, C, cout,
+            int(bool(relu)), plan.bn, plan.ranges, plan.grain, vec,
             torch.cuda.current_stream(qx.device).cuda_stream)
     _build.check(err, "qconv3x3_affine")
     with _count_mu:

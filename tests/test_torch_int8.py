@@ -14,7 +14,9 @@ relative (the calibration forwards sum in another order); quantized
 forwards with the reference's own int8 weights and thresholds carried
 across (``state_from_numpy``) within 1e-5 of the largest logit, argmax
 equal."""
+import contextlib
 import json
+import types
 
 import numpy as np
 import pytest
@@ -33,9 +35,12 @@ from mxnet_tpu_torch import gluon as tgluon  # noqa: E402
 from mxnet_tpu_torch import quantization as tq  # noqa: E402
 from mxnet_tpu_torch.gluon import nn as tgnn  # noqa: E402
 from mxnet_tpu_torch.models.resnet import BasicBlockV1 as TBasic  # noqa: E402
+from mxnet_tpu_torch.ops import conv_block  # noqa: E402
 from mxnet_tpu_torch.ops import cuda_int8 as ci  # noqa: E402
 from mxnet_tpu_torch.ops import nn as tnn  # noqa: E402
 from test_torch_kernels import _FakeCuda, _no_lib  # noqa: E402
+from test_torch_kernels import _conv3x3_reduced  # noqa: E402
+from test_torch_kernels import _conv3x3_segments  # noqa: E402
 from test_torch_resnet import port_net, reference_net  # noqa: E402
 from test_torch_resnet import weights_for  # noqa: E402
 
@@ -170,6 +175,190 @@ def test_qconv3x3_wrapper_raises_on_a_cuda_tensor_without_a_card(
     meta = torch.empty(1, 4, 4, 16, dtype=torch.int8, device="meta")
     with pytest.raises(ValueError):
         ci.qconv3x3_affine(meta, meta, meta, meta)
+
+
+@pytest.mark.parametrize("bad", ["qw_packed", "scale", "shift", "res"])
+def test_qconv3x3_wrapper_refuses_a_tensor_on_another_device(
+        bad, monkeypatch):
+    """qx on the card and one argument on the CPU: refused before the
+    kernel library is touched."""
+    monkeypatch.setattr(ci._build, "lib", _no_lib)
+    a = {k: (v if k == bad else _FakeCuda(v))
+         for k, v in _fake_args().items()}
+    with pytest.raises(ValueError, match="is on cpu"):
+        ci.qconv3x3_affine(a["qx"], a["qw"], a["scale"], a["shift"],
+                           a["res"], qw_packed=a["qw_packed"])
+
+
+@pytest.mark.parametrize("shape,vec", [((64, 56, 56, 64, 64), 1),
+                                       ((1, 7, 7, 512, 512), 1),
+                                       ((2, 13, 17, 20, 40), 0)])
+def test_qconv3x3_wrapper_passes_its_plan_to_the_kernel(shape, vec,
+                                                        monkeypatch):
+    """On a (stand-in) card the wrapper asks the occupancy entry for its
+    blocks an SM, cuts the work by ``qconv_splits`` and hands the kernel
+    that plan (bn, ranges, grain), an int32 slot buffer of 2·ranges
+    tiles where the plan cuts tiles (none for whole-tile ranges), and the
+    16-byte path only where C % 16 == 0 and Cout % 4 ==
+    0; one call counts one launch.  The library is a recorder here and
+    the CUDA calls around it are stubbed."""
+    N, H, W, C, Cout = shape
+    calls, asked, made = [], [], []
+
+    class _Lib:
+        def mxt_qconv_affine_s8(self, *args):
+            calls.append(args)
+            return 0
+
+    def empty(size, device=None, dtype=None):
+        made.append((tuple(size), dtype))
+        return _FakeCuda(torch.zeros(1, dtype=dtype).expand(size))
+
+    monkeypatch.setattr(ci._build, "lib", _Lib)
+    monkeypatch.setattr(ci, "_sm_count", lambda i: 132)
+    monkeypatch.setattr(ci, "_per_sm",
+                        lambda *a: asked.append(a) or 2)
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=7))
+    a = {k: _FakeCuda(v) for k, v in _fake_args(N, H, W, C, Cout).items()}
+    before = ci.qconv3x3_affine.launches
+    ci.qconv3x3_affine(a["qx"], a["qw"], a["scale"], a["shift"], a["res"],
+                       qw_packed=a["qw_packed"])
+    plan = ci.qconv_splits(N * H * W, 9 * C, Cout, 132, 2)
+    assert asked == [("mxt_qconv_affine_blocks_per_sm", 0, plan.bn, vec)]
+    slots = 2 * plan.ranges if plan.grain == 1 else 0
+    assert made == [((N, H, W, Cout), torch.float32),
+                    ((slots, 128, plan.bn), torch.int32)]
+    assert len(calls) == 1
+    assert len(calls[0]) == len(ci._build._SIGNATURES[
+        "mxt_qconv_affine_s8"])
+    assert calls[0][7:12] == (N, H, W, C, Cout)
+    assert calls[0][13:17] == (plan.bn, plan.ranges, plan.grain, vec)
+    assert ci.qconv3x3_affine.launches == before + 1
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 3, 4])
+@pytest.mark.parametrize("N", [1, 8, 64])
+@pytest.mark.parametrize("H,C", [(56, 64), (28, 128), (14, 256), (7, 512)])
+def test_qconv_splits_fill_the_card_and_cover_every_tile(H, C, N, per_sm):
+    """``qconv_splits`` at ResNet-50's four 3×3 stages at the int8 paths'
+    batches (64 scoring, 8 and 1 serving) on 132 SMs that hold ``per_sm``
+    blocks each: one wave of ranges (of whole tiles where the tiles give
+    every SM one, else each tile split into the same few), whose segments
+    cover every 64-byte chunk of every 128-pixel tile exactly once; each
+    tile is either written whole by one segment or cut, and
+    ``tile_writers`` lists exactly one writer for it:
+    the main kernel's range, or the ``qconv_reduce_kernel`` block that
+    sums exactly its segments' slots, in chunk order, no slot written
+    twice.  Where the ranges hold whole tiles they cut none."""
+    M = N * H * H
+    plan = ci.qconv_splits(M, 9 * C, C, 132, per_sm)
+    # 128 channels a tile where Cout > 64, but 64 where that turns
+    # 28×28×128 at batch 8 from 49 tiles into 98 whole ones
+    narrow = C == 64 or (N, H) in ((8, 28), (64, 7))
+    assert plan.bn == ci.qconv_tile_cols(M, C, 132) == (64 if narrow
+                                                        else 128)
+    assert plan.tiles == -(-M // 128) * (C // plan.bn)
+    assert plan.chunks == 9 * C // 64
+    assert plan.ranges <= 132 * per_sm               # one wave
+    # whole-tile ranges where the tiles give every SM one; below that
+    # every tile split into the same few ranges
+    split = min(132 // plan.tiles, 16, plan.chunks)
+    if plan.tiles >= 132:
+        assert plan.grain == plan.chunks
+        assert plan.ranges == min(132 * per_sm, plan.tiles)
+    else:
+        assert plan.ranges == plan.tiles * split
+        assert plan.grain == (plan.chunks if split == 1 else 1)
+    covered, whole, cut, slots = {}, set(), {}, set()
+    segments = list(_conv3x3_segments(plan))
+    for b, tile, c0, nk, slot in segments:
+        for c in range(c0, c0 + nk):
+            assert (tile, c) not in covered
+            covered[tile, c] = b
+        if slot is None:
+            whole.add((tile, b))
+        else:
+            assert slot not in slots and slot // 2 == b
+            slots.add(slot)
+            cut.setdefault(tile, []).append((c0, slot))
+    assert len(covered) == plan.tiles * plan.chunks
+    if plan.tiles < 132:                # no range spans two tiles
+        assert len(segments) == plan.ranges
+    assert {t for t, _ in whole} | set(cut) == set(range(plan.tiles))
+    assert not {t for t, _ in whole} & set(cut)
+    assert _conv3x3_reduced(plan) == \
+        {t: [sl for _, sl in sorted(segs)] for t, segs in cut.items()}
+    writers = conv_block.tile_writers(plan)
+    assert sorted(t for t, _, _ in writers) == list(range(plan.tiles))
+    assert {(t, b) for t, k, b in writers if k == "main"} == whole
+    assert {t for t, k, _ in writers if k == "cut"} == set(cut)
+    if plan.grain > 1:
+        assert not cut
+    else:
+        assert all(len(cut[t]) == split for t in cut)
+    if N == 64 and H >= 14 or N == 8 and H == 56:
+        assert plan.grain == plan.chunks    # 196-1568 tiles
+    if N == 1 and H == 7:                   # 4 tiles, 16 ranges each
+        assert plan.ranges == 64 and len(cut) == 4
+
+
+@pytest.mark.parametrize("shape,residual,relu,sms", [
+    ((2, 9, 7, 32, 24), True, True, 3),
+    ((1, 7, 7, 64, 128), False, False, 13),
+    ((1, 5, 6, 20, 12), True, True, 4),       # ragged C: the gathered path
+    ((2, 16, 16, 16, 8), True, False, 2),     # whole-tile ranges
+])
+def test_qconv_stream_k_partials_match_the_plain_version(shape, residual,
+                                                         relu, sms):
+    """The kernel's arithmetic under its plan, in plain torch: each
+    segment's int32 partial product over its chunks of K, whole tiles
+    finished from their one segment, cut tiles from their slots summed in
+    range order, then ``f32(acc)·scale + shift (+ res)`` and ReLU; bitwise
+    equal to ``qconv3x3_plain`` (int32 sums are exact in any order).  Few
+    SMs, so tiles are cut where there are fewer tiles than SMs."""
+    N, H, W, C, Cout = shape
+    rs = np.random.RandomState(sum(shape))
+    qx, qw, scale, shift, res = (_t(a) for a in
+                                 _qdata(rs, N, H, W, C, Cout, residual))
+    M, K = N * H * W, 9 * C
+    plan = ci.qconv_splits(M, K, Cout, sms, 2)
+    patches = ci.im2col(qx, (3, 3), pad=(1, 1)).reshape(M, K).long()
+    wt = ci.pack_weight(qw).long()
+    tiles_n = -(-Cout // plan.bn)
+    rows = ci.QCONV_ROWS
+    part = {}
+    acc = torch.zeros(M, Cout, dtype=torch.int64)
+
+    def block(tile):
+        m0, n0 = tile // tiles_n * rows, tile % tiles_n * plan.bn
+        return slice(m0, min(m0 + rows, M)), slice(n0, min(n0 + plan.bn,
+                                                           Cout))
+
+    for b, tile, c0, nk, slot in _conv3x3_segments(plan):
+        ms, ns = block(tile)
+        ks = slice(c0 * ci.QCONV_CHUNK, min((c0 + nk) * ci.QCONV_CHUNK, K))
+        p = patches[ms, ks] @ wt[ns, ks].t()
+        if slot is None:
+            acc[ms, ns] = p
+        else:
+            part[slot] = p
+    reduced = _conv3x3_reduced(plan)
+    # the plan cuts tiles unless its ranges hold whole tiles
+    assert bool(reduced) == (plan.grain == 1)
+    for tile, slots in reduced.items():
+        ms, ns = block(tile)
+        acc[ms, ns] = sum(part[sl] for sl in slots)
+    assert acc.abs().max() < 2 ** 31
+    y = acc.int().float().reshape(N, H, W, Cout) * scale + shift
+    if res is not None:
+        y = y + res
+    y = torch.relu(y) if relu else y
+    assert torch.equal(y, ci.qconv3x3_plain(qx, qw, scale, shift, res,
+                                            relu))
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 147, 1000), (5, 9, 3),

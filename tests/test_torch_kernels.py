@@ -493,6 +493,93 @@ def test_conv_affine_plain_route_counts_no_launches():
     assert conv_block.conv_affine.launches == before
 
 
+@pytest.mark.parametrize("bad", ["w", "gamma", "var", "residual"])
+def test_conv_affine_wrapper_refuses_a_tensor_on_another_device(
+        bad, monkeypatch):
+    """x on the card and one argument on the CPU: refused before the
+    kernel library is touched."""
+    monkeypatch.setattr(conv_block._build, "lib", _no_lib)
+    x, w, vec, _ = _conv_args(None)
+    r = torch.zeros(tuple(x.shape[:3]) + (w.shape[3],))
+    args = dict(x=x, w=w, gamma=vec, beta=vec, mean=vec, var=vec,
+                residual=r)
+    args = {k: (t if k == bad else _FakeCuda(t)) for k, t in args.items()}
+    with pytest.raises(ValueError, match="is on cpu"):
+        conv_block.conv_affine(**args)
+
+
+@pytest.mark.parametrize("shape,vec", [((8, 56, 56, 64, 64), 1),
+                                       ((1, 7, 7, 512, 512), 1),
+                                       ((2, 13, 17, 22, 40), 0)])
+def test_conv_affine_wrapper_passes_its_plan_to_the_kernel(shape, vec,
+                                                           monkeypatch):
+    """On a (stand-in) card the wrapper asks the affine instance's own
+    occupancy entry for its blocks an SM, cuts the work by
+    ``conv3x3_splits`` and hands the kernel that plan (bn, ranges), a
+    slot buffer of 2·ranges tiles, and the 16-byte path only where C % 4
+    == 0 and Cout % 4 == 0; one call counts one launch.  The library is a
+    recorder here and the CUDA calls around it are stubbed."""
+    N, H, W, C, Cout = shape
+    calls, asked, made = [], [], []
+
+    class _Lib:
+        def mxt_conv_affine_f32(self, *args):
+            calls.append(args)
+            return 0
+
+    def empty(size, device=None, dtype=None):
+        made.append((tuple(size), dtype))
+        return _FakeCuda(torch.zeros(1, dtype=dtype).expand(size))
+
+    monkeypatch.setattr(conv_block._build, "lib", _Lib)
+    monkeypatch.setattr(conv_block, "_sm_count", lambda i: 132)
+    monkeypatch.setattr(conv_block, "_per_sm",
+                        lambda *a: asked.append(a) or 1)
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=7))
+    vecs = torch.zeros(Cout)
+    args = [_FakeCuda(t) for t in (torch.zeros(N, H, W, C),
+                                   torch.zeros(3, 3, C, Cout), vecs, vecs,
+                                   vecs, vecs, torch.zeros(N, H, W, Cout))]
+    before = conv_block.conv_affine.launches
+    conv_block.conv_affine(*args, eps=1e-3, relu=False)
+    plan = conv_block.conv3x3_splits(N * H * W, 9 * C, Cout, 132, 1)
+    assert asked == [("mxt_conv_affine_tc_blocks_per_sm", 0, plan.bn, vec)]
+    assert made == [((N, H, W, Cout), torch.float32),
+                    ((2 * plan.ranges, 128, plan.bn), torch.float32)]
+    assert len(calls) == 1
+    assert len(calls[0]) == len(conv_block._build._SIGNATURES[
+        "mxt_conv_affine_f32"])
+    assert calls[0][9:14] == (N, H, W, C, Cout)
+    assert calls[0][14] == pytest.approx(1e-3)
+    assert calls[0][15:19] == (0, plan.bn, plan.ranges, vec)
+    assert conv_block.conv_affine.launches == before + 1
+
+
+def test_conv_affine_wrapper_raises_on_a_cuda_tensor_without_a_card(
+        monkeypatch):
+    """Arguments the kernel takes, on a (stand-in) CUDA device: the
+    wrapper goes for the card and raises; it never computes the plain
+    version instead, and counts no launch.  A device with no kernel is
+    refused."""
+    def plain(*a, **k):
+        raise AssertionError("the plain version must not be reached")
+    monkeypatch.setattr(conv_block, "conv_affine_plain", plain)
+    x, w, vec, _ = _conv_args(None)
+    fake = [_FakeCuda(t) for t in (x, w, vec, vec, vec, vec)]
+    before = conv_block.conv_affine.launches
+    with pytest.raises((RuntimeError, AssertionError, TypeError)) as e:
+        conv_block.conv_affine(*fake)
+    assert "plain version" not in str(e.value)
+    assert conv_block.conv_affine.launches == before
+    meta = torch.empty(1, 4, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        conv_block.conv_affine(meta, meta, meta, meta, meta, meta)
+
+
 # ----------------------- training kernels: conv3x3, conv_stats, bn_affine,
 # conv_wgrad (their numbers are held against the JAX package in
 # test_torch_resnet_train.py; here: what the wrappers refuse)
@@ -648,10 +735,12 @@ def test_wgrad_3xtf32_model_is_fp32_accurate_and_1xtf32_is_not(
 def _conv3x3_segments(plan):
     """The segments ``csrc/conv3x3_tc.cu`` runs for ``plan``, as its main
     kernel walks them: (range, tile, first chunk, chunks, slot), slot None
-    for a segment that covers its whole tile (written to the output)."""
-    total = plan.tiles * plan.chunks
+    for a segment that covers its whole tile (written to the output).
+    Ranges start on multiples of the plan's ``grain`` where it has one."""
+    total, g = plan.tiles * plan.chunks, getattr(plan, "grain", 1)
     for b in range(plan.ranges):
-        u0, u1 = b * total // plan.ranges, (b + 1) * total // plan.ranges
+        u0 = b * (total // g) // plan.ranges * g
+        u1 = (b + 1) * (total // g) // plan.ranges * g
         u = u0
         while u < u1:
             tile = u // plan.chunks
@@ -668,13 +757,14 @@ def _conv3x3_reduced(plan):
     them: the block of range start r takes the tile cut there when no
     earlier range start cut it."""
     total, R = plan.tiles * plan.chunks, plan.ranges
+    g = getattr(plan, "grain", 1)
 
     def range_of(u):
-        return ((u + 1) * R - 1) // total
+        return ((u // g + 1) * R - 1) // (total // g)
 
     out = {}
     for r in range(1, R):
-        sr = r * total // R
+        sr = r * (total // g) // R * g
         if sr % plan.chunks == 0:
             continue
         tile = sr // plan.chunks
@@ -734,7 +824,7 @@ def test_conv3x3_splits_fill_the_card_and_cover_every_tile(per_sm):
 @pytest.mark.parametrize("per_sm", [1, 2])
 @pytest.mark.parametrize("H,C", [(56, 64), (28, 128), (14, 256), (7, 512)])
 def test_conv_stats_writes_every_stats_row_and_column_once(H, C, per_sm):
-    """``conv_stats_writers``, the host's view of which kernel writes each
+    """``tile_writers``, the host's view of which kernel writes each
     tile's row of per-tile sums, at ResNet-50's four 3×3 stages at batch
     64 with 1 or 2 blocks an SM: every (row tile, channel) of the
     (ceil(M/128), 2, Cout) partials is written exactly once; the main
@@ -746,7 +836,7 @@ def test_conv_stats_writes_every_stats_row_and_column_once(H, C, per_sm):
     plan = conv_block.conv3x3_splits(M, 9 * C, C, 132, per_sm)
     tiles_n = -(-C // plan.bn)
     count = np.zeros((-(-M // conv_block.CONV_ROWS), C), np.int64)
-    writers = conv_block.conv_stats_writers(plan)
+    writers = conv_block.tile_writers(plan)
     for tile, _, _ in writers:
         rt, ct = divmod(tile, tiles_n)
         count[rt, ct * plan.bn:(ct + 1) * plan.bn] += 1
@@ -762,6 +852,37 @@ def test_conv_stats_writes_every_stats_row_and_column_once(H, C, per_sm):
         assert (r * total // plan.ranges) // plan.chunks == t
     if H == 7:
         assert not whole        # 100 tiles in 132 ranges: every one is cut
+
+
+@pytest.mark.parametrize("per_sm", [1, 2])
+@pytest.mark.parametrize("N", [8, 1])
+@pytest.mark.parametrize("H,C", [(56, 64), (28, 128), (14, 256), (7, 512)])
+def test_conv_affine_plan_finishes_every_tile_once(H, C, N, per_sm):
+    """``conv_affine``'s plan (``conv3x3_splits`` at the path's batches,
+    8 for serving's largest bucket and 1) and ``tile_writers``: every
+    output tile is finished exactly once, by the main kernel when one
+    segment covers it whole (from that segment's range) or else by the
+    block of ``conv_affine_reduce_kernel`` at the range start that cut
+    it, from exactly its segments' slots.  The grid is one full wave at
+    every stage (a range a unit where there are fewer units): 7×7×512
+    at batch 1 is 4 tiles cut over 132·per_sm ranges, where one block a
+    tile left 128 SMs idle."""
+    M = N * H * H
+    plan = conv_block.conv3x3_splits(M, 9 * C, C, 132, per_sm)
+    assert plan.ranges == min(132 * per_sm, plan.tiles * plan.chunks)
+    writers = conv_block.tile_writers(plan)
+    tiles = [t for t, _, _ in writers]
+    assert sorted(tiles) == list(range(plan.tiles))
+    whole = {(t, b) for b, t, _, _, slot in _conv3x3_segments(plan)
+             if slot is None}
+    assert {(t, b) for t, k, b in writers if k == "main"} == whole
+    cut = {t: b + 1 for t, k, b in writers if k == "cut"}
+    assert set(cut) == set(_conv3x3_reduced(plan))
+    total = plan.tiles * plan.chunks
+    for t, r in cut.items():
+        assert (r * total // plan.ranges) // plan.chunks == t
+    if N == 1 and H == 7:
+        assert plan.tiles == 4 and len(cut) == 4
 
 
 def _conv_stats_order(z):
@@ -943,8 +1064,8 @@ def test_build_digest_hashes_the_shared_headers(tmp_path, monkeypatch):
     """An edit to a ``csrc/*.cuh`` header changes the build stamp, so the
     library is rebuilt rather than run stale."""
     from mxnet_tpu_torch import _build
-    assert any(h.name == "conv3x3_tile.cuh" for h in _build.HEADERS)
-    hdr = tmp_path / "conv3x3_tile.cuh"
+    assert any(h.name == "tf32x3.cuh" for h in _build.HEADERS)
+    hdr = tmp_path / "tf32x3.cuh"
     hdr.write_text("// one\n")
     monkeypatch.setattr(_build, "HEADERS", (hdr,))
     before = _build._digest()
