@@ -54,15 +54,18 @@ the first phase that fails:
 6. ``profile``: prefill and decode step at batch 1 and 8 under
    ``torch.profiler``: kernels per call, device-busy time, idle share.
 7. ``bert_kernels``: the flash-attention forward, dq and dk/dv kernels
-   against their plain versions at BERT-base's shape (a strided view
-   into the qkv projection) and three more (o within 1e-4, lse within
-   1e-5, dq/dk/dv within 1e-4 of the tensor's largest magnitude, fed the
-   plain forward's lse and again the kernel's), timed beside their
-   bounds, the plain versions and SDPA (forward; backward for dq and
-   dk/dv together).  The forward (3xTF32 on the tensor cores) also gives
-   both bounds, its share of the ``mma.sync`` TF32 ceiling and its time
-   over SDPA's, and two launches on the same inputs must be bitwise
-   equal (a gate).
+   (all three 3xTF32 on the tensor cores) against their plain versions
+   at BERT-base's shape (a strided view into the qkv projection) and
+   three more (o within 1e-4, lse within 1e-5, dq/dk/dv within 1e-4 of
+   the tensor's largest magnitude, fed the plain forward's lse and again
+   the kernel's), and for each kernel two launches on the same inputs
+   bitwise equal (a gate); timed beside both bounds (the three TF32
+   products on the tensor cores, the line's ``bound_ms``, and the fp32
+   work on the CUDA cores), their share of the ``mma.sync`` TF32
+   ceiling, the plain versions and SDPA (forward; backward for dq and
+   dk/dv, with ``pair_vs_library``: their two times over SDPA's
+   backward), and the backward kernels' plan (blocks, blocks an SM from
+   the occupancy API, waves).
 8. ``bert_train``: launch counters set to 0, then 6 steps of
    ``examples.bert_pretrain.main``; the loss must be finite and end
    below step 0's, each attention kernel launched 12 times a step and
@@ -367,7 +370,7 @@ def phase_build(state):
     ptxas, fn = {}, None
     for ln in _build.last_build_log.splitlines():
         m = re.search(r"entry function '\S*?(flash_fwd_tc|layernorm_fwd|"
-                      r"attn_dq|attn_dkv|conv_affine_tc_kernel|"
+                      r"flash_dq_tc|flash_dkv_tc|conv_affine_tc_kernel|"
                       r"conv_affine_reduce_kernel|"
                       r"conv3x3_tc_kernel|conv3x3_reduce_kernel|"
                       r"conv_stats_tc_kernel|conv_stats_cut_kernel|"
@@ -640,7 +643,7 @@ KERNEL_CATEGORIES = (
     ("cuDNN conv backward", r"dgrad|wgrad|bprop"),
     ("cuDNN conv", r"fprop|convolve|implicit_gemm|cudnn"),
     ("gemm", r"gemm|gemv|splitKreduce"),
-    ("attention (ours)", r"attn_(dq|dkv)|flash_fwd_tc"),
+    ("attention (ours)", r"flash_(fwd|dq|dkv)_tc"),
     ("layernorm (ours)", r"layernorm_fwd"),
     ("softmax (ours)", r"softmax_(warp|block)_kernel"),
     ("optimizer foreach", r"multi_tensor_apply"),
@@ -744,10 +747,14 @@ def _rel(a, b):
 def _flash_case(B, H, L, D, strided, gen):
     """The three kernels at one shape against their plain versions, fed
     the same lse and delta, and the backward kernels also on the forward
-    kernel's lse; times of each beside its bound, its plain version and
-    SDPA (``attention_fwd``: the forward, a 3xTF32 kernel priced on both
-    bounds; ``attention_dq`` and ``attention_dkv``: SDPA's backward,
-    which computes dq, dk and dv together)."""
+    kernel's lse; each launched twice on the same inputs (the outputs
+    must be bitwise equal); times of each beside both bounds (3xTF32
+    kernels: their three TF32 products on the tensor cores, and the fp32
+    work on the CUDA cores), its plain version and SDPA (``attention_fwd``:
+    the forward; ``attention_dq`` and ``attention_dkv``: SDPA's backward,
+    which computes dq, dk and dv together, also over the pair's time as
+    ``pair_vs_library``); the backward kernels' plan (blocks, blocks an
+    SM, waves)."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import flash_attention as fa
@@ -759,8 +766,10 @@ def _flash_case(B, H, L, D, strided, gen):
     ro, rlse = fa.attention_fwd_plain(q, k, v, sc)
     delta = (g * ro).sum(dim=-1).contiguous()
     dq = fa.attention_dq(q, k, v, g, rlse, delta, sc)
+    dq2 = fa.attention_dq(q, k, v, g, rlse, delta, sc)
     rdq = fa.attention_dq_plain(q, k, v, g, rlse, delta, sc)
     dk, dv = fa.attention_dkv(q, k, v, g, rlse, delta, sc)
+    dk2, dv2 = fa.attention_dkv(q, k, v, g, rlse, delta, sc)
     rdk, rdv = fa.attention_dkv_plain(q, k, v, g, rlse, delta, sc)
     kdq = fa.attention_dq(q, k, v, g, lse, delta, sc)
     kdk, kdv = fa.attention_dkv(q, k, v, g, lse, delta, sc)
@@ -773,8 +782,7 @@ def _flash_case(B, H, L, D, strided, gen):
     bh, el = B * H, 4 * B * H * L * D       # one (B, H, L, D) fp32 in bytes
     shape = [bh, L, D]
     common = {"shape": shape, "strided": strided}
-    dq_b = bound(5 * el + 8 * bh * L, 6 * bh * L * L * D)
-    dkv_b = bound(6 * el + 8 * bh * L, 8 * bh * L * L * D)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     fwd = dict(
         common, max_abs_err=(o - ro).abs().max().item(),
         lse_max_abs_err=(lse - rlse).abs().max().item(),
@@ -793,30 +801,40 @@ def _flash_case(B, H, L, D, strided, gen):
         "attention_dq": dict(
             common, max_abs_err=(dq - rdq).abs().max().item(),
             rel_err=_rel(dq, rdq), rel_err_kernel_lse=_rel(kdq, rdq),
-            tol=ATTN_TOL,
+            tol=ATTN_TOL, bitwise_equal_relaunch=bool(torch.equal(dq, dq2)),
+            plan=fa.bwd_plan("dq", B, H, L, L, D, sms)._asdict(),
             kernel_ms=cuda_ms(lambda: fa.attention_dq(
                 q, k, v, g, rlse, delta, sc)),
             kernel_eager_ms=eager_ms(lambda: fa.attention_dq(
                 q, k, v, g, rlse, delta, sc)),
             plain_ms=cuda_ms(lambda: fa.attention_dq_plain(
                 q, k, v, g, rlse, delta, sc)),
-            library_ms=lib_bwd_ms, library="SDPA backward (dq, dk, dv)",
-            bound_ms=dq_b[0], bound_by=dq_b[1]),
+            library_ms=lib_bwd_ms, library="SDPA backward (dq, dk, dv)"),
         "attention_dkv": dict(
             common, max_abs_err=max((dk - rdk).abs().max().item(),
                                     (dv - rdv).abs().max().item()),
             rel_err=max(_rel(dk, rdk), _rel(dv, rdv)),
             rel_err_kernel_lse=max(_rel(kdk, rdk), _rel(kdv, rdv)),
             tol=ATTN_TOL,
+            bitwise_equal_relaunch=bool(torch.equal(dk, dk2) and
+                                        torch.equal(dv, dv2)),
+            plan=fa.bwd_plan("dkv", B, H, L, L, D, sms)._asdict(),
             kernel_ms=cuda_ms(lambda: fa.attention_dkv(
                 q, k, v, g, rlse, delta, sc)),
             kernel_eager_ms=eager_ms(lambda: fa.attention_dkv(
                 q, k, v, g, rlse, delta, sc)),
             plain_ms=cuda_ms(lambda: fa.attention_dkv_plain(
                 q, k, v, g, rlse, delta, sc)),
-            library_ms=lib_bwd_ms, library="SDPA backward (dq, dk, dv)",
-            bound_ms=dkv_b[0], bound_by=dkv_b[1]),
+            library_ms=lib_bwd_ms, library="SDPA backward (dq, dk, dv)"),
     }
+    _tc_bounds(cases["attention_dq"], 5 * el + 8 * bh * L,
+               6 * bh * L * L * D)
+    _tc_bounds(cases["attention_dkv"], 6 * el + 8 * bh * L,
+               8 * bh * L * L * D)
+    pair = (cases["attention_dq"]["kernel_ms"] +
+            cases["attention_dkv"]["kernel_ms"]) / lib_bwd_ms
+    cases["attention_dq"]["pair_vs_library"] = pair
+    cases["attention_dkv"]["pair_vs_library"] = pair
     return cases
 
 
@@ -825,7 +843,8 @@ def _flash_ok(name, c):
         return c["max_abs_err"] <= c["tol"] and \
             c["lse_max_abs_err"] <= c["lse_tol"] and \
             c["bitwise_equal_relaunch"]
-    return c["rel_err"] <= c["tol"] and c["rel_err_kernel_lse"] <= c["tol"]
+    return c["rel_err"] <= c["tol"] and \
+        c["rel_err_kernel_lse"] <= c["tol"] and c["bitwise_equal_relaunch"]
 
 
 def phase_bert_kernels(state):
@@ -844,7 +863,10 @@ def phase_bert_kernels(state):
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
-    ceiling = _ceiling_shares(state, state["cases"]["attention_fwd"])
+    ceiling = _ceiling_shares(state, [c for n in ("attention_fwd",
+                                                  "attention_dq",
+                                                  "attention_dkv")
+                                      for c in state["cases"][n]])
     return {"cases": {n: state["cases"][n] for n in
                       ("attention_fwd", "attention_dq", "attention_dkv")},
             "mma_tf32_ceiling": ceiling}
@@ -3063,9 +3085,9 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_attention.py:203"),
     ("attention_fwd", "mxnet_tpu_torch/csrc/flash_fwd_tc.cu",
      "mxnet_tpu/ops/pallas_kernels.py:167"),
-    ("attention_dq", "mxnet_tpu_torch/csrc/attention.cu",
+    ("attention_dq", "mxnet_tpu_torch/csrc/flash_bwd_tc.cu",
      "mxnet_tpu/ops/pallas_kernels.py:283"),
-    ("attention_dkv", "mxnet_tpu_torch/csrc/attention.cu",
+    ("attention_dkv", "mxnet_tpu_torch/csrc/flash_bwd_tc.cu",
      "mxnet_tpu/ops/pallas_kernels.py:309"),
     ("conv_affine", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
      "mxnet_tpu/ops/pallas_block.py:325"),
@@ -3105,6 +3127,10 @@ KERNEL_NOTES = {
                                         "flash_fwd_tc.cuh"},
     "attention_fwd": {"kernel_body": "mxnet_tpu_torch/csrc/"
                                      "flash_fwd_tc.cuh"},
+    "attention_dq": {"kernels": ["flash_dq_tc"],
+                     "arithmetic": "3xTF32 on the tensor cores"},
+    "attention_dkv": {"kernels": ["flash_dkv_tc"],
+                      "arithmetic": "3xTF32 on the tensor cores"},
     "tvm_vadd": {"body": "mxnet_tpu/tvmop.py:119", "compiler": "nvrtc"},
     "tvm_vmul": {"body": "mxnet_tpu/tvmop.py:124", "compiler": "nvrtc"},
     "tvm_sigmoid": {"body": "mxnet_tpu/tvmop.py:138", "compiler": "nvrtc"},

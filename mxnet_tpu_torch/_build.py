@@ -59,6 +59,11 @@ _SIGNATURES = {
     # q/k/v/g/dk/dv strides, scale, stream
     "mxt_attention_dkv_f32": [_P] * 8 + [ctypes.c_int] * 5 + [_P] * 6 +
                              [ctypes.c_float, _P],
+    # D, out (int*)
+    "mxt_attention_dq_blocks_per_sm": [ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int)],
+    "mxt_attention_dkv_blocks_per_sm": [ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int)],
     # x, w, gamma, beta, mean, var, res, part, out, N, H, W, C, Cout, eps,
     # relu, bn, ranges, vec, stream
     "mxt_conv_affine_f32": [_P] * 9 + [ctypes.c_int] * 5 +

@@ -4,7 +4,7 @@
 // Replaces: mxnet_tpu/ops/pallas_kernels.py `_attn_kernel` (:167,
 // launched by `_attention_pallas` :200), the forward of the custom VJP of
 // `attention_fused` that mxnet_tpu/models/bert.py `_attention` calls.
-// The backward kernels it feeds (dq; dk and dv) are in attention.cu.
+// The backward kernels it feeds (dq; dk and dv) are in flash_bwd_tc.cu.
 //
 // Bounds on an H100.  For BERT-base's (B*H, L, D) = (192, 128, 64),
 // Q.K^T and P.V are 4 * 192 * 128^2 * 64 = 0.81 GFLOP: 0.0120 ms at the

@@ -40,7 +40,7 @@
 //   top-left: key j is visible to query i iff j <= i.
 // - Without the mask the kernel also writes each row's logsumexp,
 //   m + log(l) in fp32, to a contiguous (B*H, Lq) buffer: the backward
-//   kernels (attention.cu) recompute P from it.
+//   kernels (flash_bwd_tc.cu) recompute P from it.
 // - q/k/v/o take arbitrary (batch, head, row) strides and a unit last-dim
 //   stride, so the GPT prefill and BERT pass views into their fused qkv
 //   projections and receive the output already in (B, L, H, D) order.

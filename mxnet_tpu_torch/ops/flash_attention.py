@@ -10,8 +10,11 @@ custom VJP).  The forward (o and the row logsumexp) is
 3xTF32 (``mma.sync`` m16n8k8 on operands split into TF32 hi and lo, P
 kept in registers), the body it shares with the causal kernel in
 ``csrc/flash_fwd_tc.cuh``.  The dq and dk/dv kernels are
-``csrc/attention.cu``, on the CUDA cores.  The note at the top of each
-file gives its bound and design.
+``csrc/flash_bwd_tc.cu``, on the tensor cores in 3xTF32 too: Q and G (K
+and V) resident, the other operands streamed, P and dS (Pᵀ and dSᵀ)
+kept in registers as the A operand of the next product.  The note at
+the top of each file gives its bound and design; :func:`bwd_plan` is
+the host's view of the backward grids.
 
 Each wrapper (``attention_fwd``, ``attention_dq``, ``attention_dkv``)
 launches its kernel for CUDA tensors and raises on anything the kernel
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -32,9 +36,10 @@ from .. import _build
 
 __all__ = ["attention_fused", "attention_fwd", "attention_dq",
            "attention_dkv", "attention_fwd_plain", "attention_dq_plain",
-           "attention_dkv_plain"]
+           "attention_dkv_plain", "bwd_plan", "BwdPlan"]
 
 _HEAD_DIMS = (64, 128)
+_BWD_ROWS = 64          # resident rows a block of the backward kernels
 _count_mu = threading.Lock()
 
 
@@ -168,7 +173,8 @@ def attention_fwd(q, k, v, scale):
 def attention_dq(q, k, v, g, lse, delta, scale):
     """dq for upstream gradient g (shaped like q), the forward's lse and
     Δ = rowsum(g ⊙ o), both (B, H, Lq) fp32 contiguous.  CUDA tensors
-    launch the dq kernel; CPU tensors take :func:`attention_dq_plain`."""
+    launch ``csrc/flash_bwd_tc.cu``'s dq kernel; CPU tensors take
+    :func:`attention_dq_plain`."""
     if _on_cpu("attention_dq", q):
         return attention_dq_plain(q, k, v, g, lse, delta, scale)
     B, H, Lq, Lk, D = _check("attention_dq", q, k, v, more=(("g", g),),
@@ -184,7 +190,8 @@ def attention_dq(q, k, v, g, lse, delta, scale):
 
 def attention_dkv(q, k, v, g, lse, delta, scale):
     """(dk, dv), arguments as :func:`attention_dq`.  CUDA tensors launch
-    the dk/dv kernel; CPU tensors take :func:`attention_dkv_plain`."""
+    ``csrc/flash_bwd_tc.cu``'s dk/dv kernel; CPU tensors take
+    :func:`attention_dkv_plain`."""
     if _on_cpu("attention_dkv", q):
         return attention_dkv_plain(q, k, v, g, lse, delta, scale)
     B, H, Lq, Lk, D = _check("attention_dkv", q, k, v, more=(("g", g),),
@@ -201,6 +208,34 @@ def attention_dkv(q, k, v, g, lse, delta, scale):
 attention_fwd.launches = 0
 attention_dq.launches = 0
 attention_dkv.launches = 0
+
+
+class BwdPlan(NamedTuple):
+    blocks: int         # (B·H) × ceil(rows / 64)
+    per_sm: int         # blocks an SM holds (the occupancy API)
+    waves: float        # blocks / (SMs × per_sm)
+
+
+def bwd_plan(which, B, H, Lq, Lk, D, sms, per_sm=None):
+    """The grid of the ``which`` ("dq" or "dkv") backward kernel: a block
+    per 64 query (dq) or key (dk/dv) rows of each (batch, head), and the
+    waves it takes on ``sms`` SMs that hold ``per_sm`` blocks each —
+    asked of ``mxt_attention_{which}_blocks_per_sm`` on the current card
+    when not given.  The launches never ask: their grid is fixed."""
+    if which not in ("dq", "dkv"):
+        raise ValueError(f"bwd_plan: which is 'dq' or 'dkv', got {which!r}")
+    rows = Lq if which == "dq" else Lk
+    blocks = B * H * -(-rows // _BWD_ROWS)
+    if per_sm is None:
+        entry = f"mxt_attention_{which}_blocks_per_sm"
+        out = ctypes.c_int(0)
+        _build.check(getattr(_build.lib(), entry)(D, ctypes.byref(out)),
+                     entry)
+        if out.value < 1:
+            raise RuntimeError(f"{entry}: the D={D} kernel fits no block on "
+                               f"an SM")
+        per_sm = out.value
+    return BwdPlan(blocks, per_sm, blocks / (sms * per_sm))
 
 
 # ------------------------------------------------------------ autograd

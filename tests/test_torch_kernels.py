@@ -1060,6 +1060,215 @@ def test_flash_fwd_3xtf32_model_is_fp32_accurate(D, L, rounding):
     assert (lse.double() - ref_lse).abs().max().item() <= 1e-5
 
 
+def _chunked_3xtf32(eq, a, b, rounding, depth=32):
+    """:func:`_prod_3xtf32` over the last dim of ``a`` and ``b`` taken
+    ``depth`` at a time, each chunk's run added to the sum in fp32."""
+    out = 0
+    for d0 in range(0, a.shape[-1], depth):
+        out = out + _prod_3xtf32(eq, a[..., d0:d0 + depth],
+                                 b[..., d0:d0 + depth], rounding)
+    return out
+
+
+def _pad_rows(t, pad):
+    return torch.cat([t, t.new_zeros(*t.shape[:2], pad, t.shape[3])], dim=2)
+
+
+
+
+def _flash_dq_3xtf32_model(q, k, v, g, lse, delta, scale, rounding):
+    """``csrc/flash_bwd_tc.cu``'s dq arithmetic in plain torch: K and V
+    streamed 32 keys at a time (16 at D = 128), padded with zero rows; per
+    tile S = Q·Kᵀ and dP = G·Vᵀ from hi/lo parts, 32 deep a run added in
+    fp32; p = exp(s·scale − lse), 0 for keys ≥ Lk, and ds = p·(dp − Δ) in
+    fp32; dS·K from hi/lo parts, one run a tile added in fp32; the scale
+    once at the end."""
+    Lk, D = k.shape[2], k.shape[3]
+    bs = 32 if D == 64 else 16
+    k, v = _pad_rows(k, -Lk % bs), _pad_rows(v, -Lk % bs)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, k.shape[2], bs):
+        kt, vt = k[:, :, k0:k0 + bs], v[:, :, k0:k0 + bs]
+        s = _chunked_3xtf32("bhqd,bhkd->bhqk", q, kt, rounding)
+        dp = _chunked_3xtf32("bhqd,bhkd->bhqk", g, vt, rounding)
+        p = torch.exp(s * scale - lse[..., None])
+        p = torch.where(torch.arange(k0, k0 + bs) >= Lk, 0.0, p)
+        ds = p * (dp - delta[..., None])
+        acc = acc + _prod_3xtf32("bhqk,bhkd->bhqd", ds, kt, rounding)
+    return acc * scale
+
+
+def _flash_dkv_3xtf32_model(q, k, v, g, lse, delta, scale, rounding):
+    """``csrc/flash_bwd_tc.cu``'s dk/dv arithmetic in plain torch: Q, G
+    and their rows' lse and Δ streamed 16 queries at a time, padded with
+    zeros; per tile Sᵀ = K·Qᵀ and dPᵀ = V·Gᵀ from hi/lo
+    parts, 32 deep a run added in fp32; pᵀ and dsᵀ in fp32, both 0 for
+    queries ≥ Lq (whose padded lse is 0, never a real value); Pᵀ·G and
+    dSᵀ·Q from hi/lo parts, one run a tile added in fp32; dk's scale once
+    at the end."""
+    Lq, bs = q.shape[2], 16
+    pad = -Lq % bs
+    q, g = _pad_rows(q, pad), _pad_rows(g, pad)
+    lse = torch.cat([lse, lse.new_zeros(*lse.shape[:2], pad)], dim=2)
+    delta = torch.cat([delta, delta.new_zeros(*delta.shape[:2], pad)], dim=2)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for n0 in range(0, q.shape[2], bs):
+        qt, gt = q[:, :, n0:n0 + bs], g[:, :, n0:n0 + bs]
+        st = _chunked_3xtf32("bhkd,bhqd->bhkq", k, qt, rounding)
+        dpt = _chunked_3xtf32("bhkd,bhqd->bhkq", v, gt, rounding)
+        past = torch.arange(n0, n0 + bs) >= Lq
+        pt = torch.exp(st * scale - lse[:, :, None, n0:n0 + bs])
+        dst = pt * (dpt - delta[:, :, None, n0:n0 + bs])
+        pt = torch.where(past, 0.0, pt)
+        dst = torch.where(past, 0.0, dst)
+        dv = dv + _prod_3xtf32("bhkq,bhqd->bhkd", pt, gt, rounding)
+        dk = dk + _prod_3xtf32("bhkq,bhqd->bhkd", dst, qt, rounding)
+    return dk * scale, dv
+
+
+def _bwd_case(D, L, seed):
+    """q, k, v, g (2, 2, L, D) fp32 and, from the fp64 plain forward, lse
+    and Δ = rowsum(g ⊙ o) in fp64 with the fp64 plain dq, dk, dv."""
+    rs = np.random.RandomState(seed)
+    q, k, v, g = (torch.from_numpy(rs.randn(2, 2, L, D).astype(np.float32))
+                  for _ in range(4))
+    scale = D ** -0.5
+    qd, kd, vd, gd = (t.double() for t in (q, k, v, g))
+    o, lse = fa.attention_fwd_plain(qd, kd, vd, scale)
+    delta = (gd * o).sum(-1)
+    ref = (fa.attention_dq_plain(qd, kd, vd, gd, lse, delta, scale),
+           *fa.attention_dkv_plain(qd, kd, vd, gd, lse, delta, scale))
+    return (q, k, v, g, lse, delta, scale), ref
+
+
+def _rel_to_max(got, ref):
+    return (got.double() - ref).abs().max().item() / ref.abs().max().item()
+
+
+@pytest.mark.parametrize("rounding", ["rna", "rz"])
+@pytest.mark.parametrize("L", [128, 200])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_dq_3xtf32_model_is_fp32_accurate(D, L, rounding):
+    """The dq kernel's 3×TF32 arithmetic, over streamed key tiles with
+    the scale at the end, is within 1e-5 of dq's largest magnitude of the
+    fp64 plain version, fed the same (fp32-rounded) lse and Δ, at both
+    head dims, BERT's 128 rows and a length that is ragged for the key
+    tiles."""
+    (q, k, v, g, lse, delta, scale), (rdq, _, _) = _bwd_case(D, L, D + L)
+    dq = _flash_dq_3xtf32_model(q, k, v, g, lse.float(), delta.float(),
+                                scale, rounding)
+    assert _rel_to_max(dq, rdq) <= 1e-5
+
+
+@pytest.mark.parametrize("rounding", ["rna", "rz"])
+@pytest.mark.parametrize("L", [128, 200])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_dkv_3xtf32_model_is_fp32_accurate(D, L, rounding):
+    """The dk/dv kernel's 3×TF32 arithmetic, over streamed query tiles
+    whose padded rows contribute exactly 0, is within 1e-5 of dk's and
+    dv's largest magnitude of the fp64 plain version, as the dq test."""
+    (q, k, v, g, lse, delta, scale), (_, rdk, rdv) = _bwd_case(D, L,
+                                                               D + L + 1)
+    dk, dv = _flash_dkv_3xtf32_model(q, k, v, g, lse.float(), delta.float(),
+                                     scale, rounding)
+    assert _rel_to_max(dk, rdk) <= 1e-5
+    assert _rel_to_max(dv, rdv) <= 1e-5
+
+
+def test_flash_bwd_3xtf32_models_match_pallas_interpret():
+    """Both models, with the kernels' rounding toward zero, against the
+    reference's ``_attn_bwd_pallas`` in interpret mode, fed the same o and
+    lse (the Pallas forward's) and the same Δ."""
+    shape = (1, 2, 128, 64)
+    q, k, v = _qkv(shape, 12)
+    g = np.random.RandomState(13).randn(*shape).astype(np.float32)
+    scale = 1.0 / np.sqrt(shape[-1])
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    o, lse = jpk._attention_pallas(jq, jk, jv, scale)
+    refs = jpk._attn_bwd_pallas(scale, jq, jk, jv, jg, o, lse)
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    tlse = torch.from_numpy(np.array(lse))
+    delta = (tg * torch.from_numpy(np.array(o))).sum(-1)
+    dq = _flash_dq_3xtf32_model(tq, tk, tv, tg, tlse, delta, scale, "rz")
+    dk, dv = _flash_dkv_3xtf32_model(tq, tk, tv, tg, tlse, delta, scale,
+                                     "rz")
+    for got, ref in zip((dq, dk, dv), refs):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5,
+                                   rtol=2e-5)
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+def test_bwd_plan_is_one_wave_at_bert_base(which):
+    """BERT-base's (16, 12, 128, 64) backward is 384 blocks of 64 rows:
+    one wave on 132 SMs at 3 blocks an SM (1.45 at 2).  dq's blocks
+    follow Lq, dk/dv's Lk, rounded up to whole 64-row tiles."""
+    plan = fa.bwd_plan(which, 16, 12, 128, 128, 64, 132, per_sm=3)
+    assert plan == fa.BwdPlan(384, 3, 384 / 396) and plan.waves < 1
+    assert fa.bwd_plan(which, 16, 12, 128, 128, 64, 132, 2).waves > 1.45
+    rows = {"dq": 200, "dkv": 40}
+    assert fa.bwd_plan(which, 1, 6, 200, 40, 128, 132, 2).blocks == \
+        6 * -(-rows[which] // 64)
+    with pytest.raises(ValueError):
+        fa.bwd_plan("dk", 1, 1, 8, 8, 64, 132, 1)
+
+
+def test_bwd_occupancy_is_asked_by_the_plan_and_never_by_a_launch(
+        monkeypatch):
+    """With a recording library: CPU tensors take the plain versions and
+    reach no entry; CUDA tensors reach only the launch entries, with
+    their (B, H, Lq, Lk, D); the occupancy entries are asked only by
+    :func:`bwd_plan`, with the head dim."""
+    calls = []
+
+    class _Lib:
+        def mxt_attention_dq_f32(self, *args):
+            calls.append(("dq_f32", args[7:12]))
+            return 0
+
+        def mxt_attention_dkv_f32(self, *args):
+            calls.append(("dkv_f32", args[8:13]))
+            return 0
+
+        def mxt_attention_dq_blocks_per_sm(self, D, out):
+            calls.append(("dq_per_sm", D))
+            out._obj.value = 3
+            return 0
+
+        def mxt_attention_dkv_blocks_per_sm(self, D, out):
+            calls.append(("dkv_per_sm", D))
+            out._obj.value = 2
+            return 0
+
+    lib = _Lib()
+    monkeypatch.setattr(fa._build, "lib", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(fa, "_like_out",
+                        lambda t: _FakeCuda(torch.zeros(t.shape)))
+    t, r = torch.randn(1, 2, 8, 64), torch.zeros(1, 2, 8)
+    fa.attention_dq(t, t, t, t, r, r, 0.125)
+    fa.attention_dkv(t, t, t, t, r, r, 0.125)
+    assert calls == []
+    before = (fa.attention_dq.launches, fa.attention_dkv.launches)
+    q, kv = torch.zeros(2, 3, 40, 128), torch.zeros(2, 3, 24, 128)
+    rows = _FakeCuda(torch.zeros(2, 3, 40))
+    args = (_FakeCuda(q), _FakeCuda(kv), _FakeCuda(kv), _FakeCuda(q), rows,
+            rows, 0.125)
+    fa.attention_dq(*args)
+    fa.attention_dkv(*args)
+    assert calls == [("dq_f32", (2, 3, 40, 24, 128)),
+                     ("dkv_f32", (2, 3, 40, 24, 128))]
+    assert (fa.attention_dq.launches, fa.attention_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert fa.bwd_plan("dq", 2, 3, 40, 24, 128, 132) == \
+        fa.BwdPlan(6, 3, 6 / 396)
+    assert fa.bwd_plan("dkv", 2, 3, 40, 24, 128, 132) == \
+        fa.BwdPlan(6, 2, 6 / 264)
+    assert calls[2:] == [("dq_per_sm", 128), ("dkv_per_sm", 128)]
+
+
 def test_build_digest_hashes_the_shared_headers(tmp_path, monkeypatch):
     """An edit to a ``csrc/*.cuh`` header changes the build stamp, so the
     library is rebuilt rather than run stale."""
