@@ -90,9 +90,13 @@ _SIGNATURES = {
     # z, scale, shift, res, out, total, Cout, relu, vec, stream
     "mxt_bn_affine_f32": [_P] * 5 + [ctypes.c_longlong] +
                          [ctypes.c_int] * 3 + [_P],
-    # x, y, rows, cols, vec4, stream
+    # x, y, rows, cols, vec, prologue, div, keep, rows a mask row, stream
     "mxt_softmax_f32": [_P, _P, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_int, _P],
+                        ctypes.c_int, ctypes.c_int, ctypes.c_float, _P,
+                        ctypes.c_longlong, _P],
+    # cols, vec, out (int[3]: kernel, cluster CTAs, columns a CTA)
+    "mxt_softmax_plan": [ctypes.c_int, ctypes.c_int,
+                         ctypes.POINTER(ctypes.c_int)],
     # qx, wt, scale, shift, res, part, out, N, H, W, C, Cout, relu, bn,
     # ranges, grain, vec, stream
     "mxt_qconv_affine_s8": [_P] * 7 + [ctypes.c_int] * 10 + [_P],

@@ -9,10 +9,14 @@ decoder is the masked-LM head with untied weights.
 
 Inside, the model is PyTorch: the two score products are
 ``torch.matmul`` (plain products outside any kernel, as in the
-reference), a ``mask`` puts the finite -1e9 in the scores with
-``torch.where``, the attention probabilities are ``ops.nn.softmax`` (the
-softmax kernel on the card, 12 launches a BERT-base forward) and every
-LayerNorm block is the LayerNorm kernel (25 launches a forward).
+reference), and every LayerNorm block is the LayerNorm kernel (25
+launches a forward).  The attention probabilities are
+``softmax(where(mask, scores / sqrt(hd), -1e9))``: for fp32 scores that
+autograd does not record, one ``softmax_fused`` call with the divisor
+and the key mask folded into the softmax kernel's load (12 launches a
+BERT-base forward); otherwise the division, ``torch.where`` and
+``ops.nn.softmax`` (its autograd Function when recording), as the
+reference composes them.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 
 from ..gluon import nn
 from ..ops import nn as _nn
+from ..ops.cuda_kernels import softmax_fused
 
 __all__ = ["BERTSelfAttention", "BERTEncoderCell", "BERTEncoder",
            "BERTModel", "bert_12_768_12", "bert_small"]
@@ -48,11 +53,18 @@ class BERTSelfAttention(nn.HybridBlock):
         hd = D // H
         qkv = self.qkv(x).reshape(B, T, 3, H, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]                # (B, H, T, hd)
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
-        if mask is not None:
-            keep = mask.reshape(B, 1, 1, T) != 0
-            scores = torch.where(keep, scores, _MASKED)
-        attn = _nn.softmax(scores, axis=-1)
+        scores = torch.matmul(q, k.transpose(-1, -2))
+        keep = None if mask is None else mask.reshape(B, T) != 0
+        if scores.dtype == torch.float32 and not (
+                torch.is_grad_enabled() and scores.requires_grad):
+            # the scale and the key mask folded into the kernel's load
+            attn = softmax_fused(scores, div=math.sqrt(hd), keep=keep)
+        else:
+            scores = scores / math.sqrt(hd)
+            if keep is not None:
+                scores = torch.where(keep.reshape(B, 1, 1, T), scores,
+                                     _MASKED)
+            attn = _nn.softmax(scores, axis=-1)
         if self.dropout is not None:
             attn = self.dropout(attn)
         ctx = torch.matmul(attn, v)                     # (B, H, T, hd)

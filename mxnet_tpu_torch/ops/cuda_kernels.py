@@ -22,11 +22,13 @@ import torch
 
 from .. import _build
 
-__all__ = ["softmax_fused", "softmax_plain", "softmax_bwd", "SoftmaxFn",
+__all__ = ["softmax_fused", "softmax_plain", "softmax_prologue_plain",
+           "softmax_bwd", "SoftmaxFn",
            "layernorm_fused", "layernorm_plain", "layernorm_bwd",
            "LayerNormFn"]
 
 _count_mu = threading.Lock()
+_MASKED = -1e9      # the model's finite mask value
 
 
 def softmax_plain(x):
@@ -36,14 +38,56 @@ def softmax_plain(x):
     return e / e.sum(dim=-1, keepdim=True)
 
 
-def softmax_fused(x):
+def _keep_per(x, keep):
+    """Rows of ``x`` that share one row of ``keep``: ``keep`` is bool or
+    uint8 with ``x``'s last dim, on ``x``'s device, and its rows divide
+    ``x``'s rows into equal runs of consecutive rows (a ``(B, T)`` key
+    mask of ``(B, H, T, T)`` scores: ``H * T`` rows a mask row)."""
+    if keep.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"softmax_fused: keep must be bool or uint8, got "
+                        f"{keep.dtype}")
+    if keep.device != x.device:
+        raise ValueError(f"softmax_fused: keep is on {keep.device}, x on "
+                         f"{x.device}")
+    cols = x.shape[-1] if x.dim() else 0
+    m = keep.numel() // cols if cols and keep.dim() and \
+        keep.shape[-1] == cols else 0
+    rows = x.numel() // cols if cols else 0
+    if m == 0 or rows % m:
+        raise ValueError(f"softmax_fused: keep {tuple(keep.shape)} does not "
+                         f"divide the rows of x {tuple(x.shape)}")
+    return rows // m
+
+
+def softmax_prologue_plain(x, div=None, keep=None):
+    """The kernel's prologue in plain PyTorch: ``where(keep, x / div,
+    -1e9)``, ``keep``'s rows broadcast over their runs of ``x``'s rows
+    (no division without ``div``, no mask without ``keep``)."""
+    if div is not None:
+        x = x / div
+    if keep is not None:
+        cols = x.shape[-1]
+        m = keep.numel() // cols
+        x = torch.where(keep.reshape(m, 1, cols) != 0,
+                        x.reshape(m, -1, cols), _MASKED).reshape(x.shape)
+    return x
+
+
+def softmax_fused(x, *, div=None, keep=None):
     """Softmax over the last axis of fp32 ``x`` (any leading shape, any
-    last dim).  CUDA tensors launch ``csrc/softmax.cu``; CPU tensors take
-    :func:`softmax_plain`.  A non-contiguous CUDA input is copied to a
-    contiguous one first (the kernel reads rows of a contiguous
-    ``(rows, cols)`` view); the output is a new contiguous tensor."""
+    last dim), of ``where(keep, x / div, -1e9)`` when a divisor or a keep
+    mask is given (the attention's scale and key mask; the division is
+    IEEE).  ``keep`` is bool or uint8 with ``x``'s last dim, and its rows
+    divide ``x``'s rows into equal runs of consecutive rows that share one
+    mask row (``(B, T)`` for ``(B, H, T, T)`` scores).  CUDA tensors launch ``csrc/softmax.cu`` with the
+    prologue folded into the kernel's load; CPU tensors take
+    :func:`softmax_plain` of the same prologue in plain PyTorch.  A
+    non-contiguous CUDA input is copied to a contiguous one first (the
+    kernel reads rows of a contiguous ``(rows, cols)`` view); the output
+    is a new contiguous tensor."""
+    per = 1 if keep is None else _keep_per(x, keep)
     if x.device.type == "cpu":
-        return softmax_plain(x)
+        return softmax_plain(softmax_prologue_plain(x, div, keep))
     if x.device.type != "cuda":
         raise ValueError(f"softmax_fused: no kernel for device {x.device}")
     if x.dtype != torch.float32:
@@ -58,13 +102,23 @@ def softmax_fused(x):
     if cols >= 2 ** 31:
         raise ValueError(f"softmax_fused: last dim {cols} >= 2**31")
     rows = x.numel() // cols
-    vec4 = int(cols % 4 == 0 and x.data_ptr() % 16 == 0 and
-               y.data_ptr() % 16 == 0)
+    prologue = div is not None or keep is not None
+    kptr = 0
+    if keep is not None:
+        keep = keep.contiguous()
+        if keep.dtype == torch.bool:
+            keep = keep.view(torch.uint8)
+        kptr = keep.data_ptr()
+    # floats a load moves: 4 where the width and every base allow
+    vec = 4 if (cols % 4 == 0 and x.data_ptr() % 16 == 0 and
+                y.data_ptr() % 16 == 0 and kptr % 4 == 0) else 1
     lib = _build.lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mxt_softmax_f32(x.data_ptr(), y.data_ptr(), rows, cols,
-                                  vec4, stream)
+                                  vec, int(prologue),
+                                  1.0 if div is None else float(div),
+                                  kptr or None, per, stream)
     _build.check(err, "softmax_fused")
     with _count_mu:
         softmax_fused.launches += 1

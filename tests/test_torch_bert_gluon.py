@@ -532,3 +532,24 @@ def test_normal_initializer_std_and_seed():
     other = n((100000,), torch.Generator().manual_seed(2))
     assert torch.equal(t, again) and not torch.equal(t, other)
     assert tinit.create("normal").sigma == 0.01     # the reference default
+
+
+def test_card_bf16_gate_holds_a_quotient_to_its_own_devices_sum():
+    """``chip_smoke``'s bf16 softmax gate: a column whose fp32 sum rounds
+    to 1.0 on one device and one step above on the other moves its
+    largest value from 1.0 to 0.9921875, two bf16 steps.  The gate holds
+    each value to one step of the quotient over either device's rounded
+    sum, so that column passes, and a value two steps off both quotients
+    still fails."""
+    import chip_smoke
+    x = torch.tensor([[0.0], [-10.0], [-10.0], [-12.0]]).bfloat16()
+    ref = tnn.softmax(x, axis=0)
+    num, s = chip_smoke._softmax_bf16_parts(x, 0)
+    assert torch.equal(num / s, ref) and s.item() == 1.0
+    other = torch.tensor([[1.0078125]]).bfloat16()      # s one step up
+    got = num / other
+    assert chip_smoke._bf16_steps(got, ref).max().item() == 2
+    assert chip_smoke._softmax_bf16_steps(got, x, 0, other).max() == 0
+    bad = got.clone()
+    bad.view(torch.int16)[0] -= 2
+    assert chip_smoke._softmax_bf16_steps(bad, x, 0, other).max() == 2

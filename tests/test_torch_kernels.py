@@ -1388,4 +1388,6 @@ def test_softmax_plain_route_counts_no_launches():
 def test_softmax_kernel_is_built_and_bound():
     from mxnet_tpu_torch import _build
     assert any(s.name == "softmax.cu" for s in _build.SOURCES)
-    assert len(_build._SIGNATURES["mxt_softmax_f32"]) == 6
+    # x, y, rows, cols, vec, prologue, div, keep, rows a mask row, stream
+    assert len(_build._SIGNATURES["mxt_softmax_f32"]) == 10
+    assert "mxt_softmax_plan" in _build._SIGNATURES
