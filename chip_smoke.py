@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives ``mxnet_tpu_torch``'s two paths with random weights from a seed:
+Drives ``mxnet_tpu_torch``'s paths with random weights from a seed:
 GPT serving — ``DecodeEngine`` and ``DecodeBatcher`` — at the repo's
 benchmark configuration (GPT-2-small body: 768 wide, 12 layers, 6 heads
 of 128, FFN 3072, vocab 8192; window 576, batch buckets (1, 8), prompt
@@ -14,7 +14,11 @@ wd 0.01), then ResNet-50 v1 image serving (1000 classes, NHWC items
 224x224x3, buckets 1, 2, 4, 8) through ``ModelRegistry`` →
 ``InferenceEngine`` → ``Batcher``, then ResNet-50 v1 training through
 ``examples.image_classification`` at its defaults (batch 64 x 224x224x3,
-1000 classes, SGD lr 0.1, momentum 0.9, wd 1e-4), then Gluon BERT-base
+1000 classes, SGD lr 0.1, momentum 0.9, wd 1e-4), then the fused
+training step, each step one captured CUDA graph: ResNet-50 v1 through
+``Trainer.fuse_step`` at batch 128 and Gluon BERT-base masked-LM
+through ``parallel.FusedTrainStep`` at 8 x 512 tokens (Adam lr 1e-4),
+then Gluon BERT-base
 serving (``models.bert_gluon.bert_12_768_12``: vocab 30522, 768 wide, 12
 layers of 12 heads of 64, FFN 3072, fp32; int32 items of 512 token ids,
 buckets 1, 2, 4, 8) through ``ModelRegistry`` → ``Batcher`` →
@@ -136,7 +140,37 @@ the first phase that fails:
     the net's largest update, running statistics within 1e-5 of their
     largest magnitude.
 18. ``image_train_profile``: one training step under ``torch.profiler``.
-19. ``text_kernels``: the row-softmax kernels against their plain
+19. ``fused_image_train``: ResNet-50 v1 training through
+    ``Trainer.fuse_step`` at ``bench.py`` ``train_mode``'s configuration
+    (fp32 NHWC 224x224x3, 1000 classes, hybridized, SGD lr 0.1, momentum
+    0.9, wd 1e-4, batch 128): 5 steps of the same step function run
+    eagerly from Python (timed), then the first fused call (warm-up,
+    capture, replay) and 10 replayed steps, each one
+    ``CUDAGraph.replay()`` (CUDA events between step starts), then 3
+    replays under ``torch.profiler`` (idle share).  Gates: fused, one
+    program, no rebuild or fallback, finite losses, and the launches the
+    capture recorded a step: 16 each of ``conv3x3``, ``conv_stats``,
+    ``bn_affine``, ``conv_wgrad``, none of ``conv_affine`` (the
+    replays launch that many times their count).  Eager and replayed
+    step ms, images/s, peak memory.
+20. ``fused_bert_train``: Gluon BERT-base masked-LM training through
+    ``parallel.FusedTrainStep`` at ``bench.py`` ``bert_mode``'s
+    configuration in fp32 (8 x 512 tokens, vocabulary 30522, Adam lr
+    1e-4, ``SoftmaxCrossEntropyLoss`` over the (8, 512, 30522) logits),
+    driven and gated as ``fused_image_train``: 12 ``softmax_fused`` and
+    25 ``layernorm_fused`` launches captured a step.
+21. ``fused_parity``: replay against the eager legacy step
+    (record/backward/``trainer.step``) on the card from the same seeded
+    weights and batches, cuDNN deterministic: ResNet-50 v1 at batch 8
+    and Gluon BERT-base at 1 x 128 (3 steps), the 20 optimizer cases on
+    a small Dense net, LAMB under a ``PolyScheduler``, SGD under
+    ``CosineScheduler(warmup_steps=2)``
+    (one program while the lr moves), a Dense net with Dropout(0.5) and
+    an Adam run whose states ``load_states`` replaces between replays.
+    Losses and weights bit for bit; where they differ the worst
+    parameter is printed and the case is gated at the spread of two
+    eager runs.
+22. ``text_kernels``: the row-softmax kernels against their plain
     version (within 1e-6 absolute: softmax values lie in [0, 1]; rows sum
     to 1 within 1e-5; two launches bitwise equal) at the Gluon BERT's
     shapes at buckets 8 and 1 (49152 and 6144 rows of 512), also with the
@@ -158,7 +192,7 @@ the first phase that fails:
     within one bf16 step of the CPU's numerator over the CPU's rounded sum
     or over the card's (a sum's step moves a quotient by up to two of its
     own).
-20. ``text_serve``: the launch counters set to 0, then
+23. ``text_serve``: the launch counters set to 0, then
     ``ModelRegistry.load`` of a seeded BERT-base ``.params`` with
     ``dtype="int32"`` (warmup of every bucket), 32 closed-loop requests
     from one client and 64 from 8 client threads; every response finite
@@ -167,15 +201,15 @@ the first phase that fails:
     LayerNorm launches per forward run.  Device and eager ms per forward
     and ms of the copy of its logits to the host at each bucket, p50/p99
     request ms, sequences/s and tokens/s, batch fill, peak memory.
-21. ``text_reference``: card logits against the port on the CPU from
+24. ``text_reference``: card logits against the port on the CPU from
     the same ``.params`` at batch 1 x 512 (within 1e-4 of the largest
     logit, argmax equal at >= 99.9% of positions); the 64 concurrent
     requests served again, each response against the forward of its
     sequence alone on the card (same tolerance), and every
     ``text_serve`` response's argmax and sum against that forward.
-22. ``text_profile``: one bucket-8 and one bucket-1 forward under
+25. ``text_profile``: one bucket-8 and one bucket-1 forward under
     ``torch.profiler``, each element-wise kernel listed by name.
-23. ``int8_kernels``: the int8 3x3/s1 conv + dequantization (+ add)
+26. ``int8_kernels``: the int8 3x3/s1 conv + dequantization (+ add)
     (+ ReLU) kernel against its plain version (im2col + ``_int_mm`` +
     the same epilogue) at ResNet-50's four 3x3 stages at batch 64 and 8,
     the 7x7x512 stage at batch 1, ResNet-18's residual tail, ReLU off, a
@@ -198,14 +232,14 @@ the first phase that fails:
     batch-64 stages the kernel's time beside that of copies of it with
     the ring's copies or its products taken out (``parts``, built here by
     nvcc), which says which of the two bounds its loop.
-24. ``int8_score``: ``int8_score.py`` at its defaults: ResNet-50 v1 from
+27. ``int8_score``: ``int8_score.py`` at its defaults: ResNet-50 v1 from
     the ``image_serve`` ``.params``, batch 64, fp32 and int8 (two
     ``RandomState(1)`` calibration batches, naive) images/s over 4
     warm-up and 20 timed forwards on fresh inputs (CUDA events), the
     int8-vs-fp32 argmax agreement over 256 ``RandomState(0)`` images;
     the launch counters set to 0 before the int8 forwards and read after:
     exactly 16 int8-kernel and 0 ``conv_affine`` launches a forward.
-25. ``int8_serve``: the counters set to 0, then ``ModelRegistry.load``
+28. ``int8_serve``: the counters set to 0, then ``ModelRegistry.load``
     of that ``.params`` with ``precision="int8"`` (the default
     calibration, warmup of every bucket), 32 closed-loop requests from
     one client and 64 from 8 client threads; every response finite and
@@ -214,7 +248,7 @@ the first phase that fails:
     bucket, peak memory; then ``int8_score.py``'s ``--serve`` leg: the
     int8 engine's QPS against the fp32 engine's at bucket 8 (fp32 stands
     in for bf16, which is not ported).
-26. ``int8_reference``: card logits against the port on the CPU with the
+29. ``int8_reference``: card logits against the port on the CPU with the
     same int8 weights and thresholds (``state_from_numpy``) at batch 2
     (within 1e-3 of the largest logit, top-1 equal), and every batched
     response against the unbatched forward of its image (same
@@ -223,11 +257,11 @@ the first phase that fails:
     order can differ; one pooled feature crossing a rounding boundary
     of the dense layer's input moves a logit by one int8 step of that
     product, and 1e-3 admits a few such steps and nothing larger.
-27. ``int8_profile``: one bucket-8 and one bucket-1 int8 forward under
+30. ``int8_profile``: one bucket-8 and one bucket-1 int8 forward under
     ``torch.profiler``, with device time split into the int8 kernel,
     ``_int_mm``, the quantize passes, copies, pools and elementwise
     epilogues.
-28. ``ext_kernels``: the three stock generated kernels (``tvm_vadd``,
+31. ``ext_kernels``: the three stock generated kernels (``tvm_vadd``,
     ``tvm_vmul``, ``tvm_sigmoid``: ``csrc/tvmop_elementwise.cuh`` with
     their bodies, compiled by NVRTC) against their plain versions at full
     width, one element, 1,000,003 elements (ragged for the 16-byte path),
@@ -238,7 +272,7 @@ the first phase that fails:
     3.35 TB/s), the plain version and ``torch.add`` / ``torch.mul`` /
     ``torch.sigmoid``; each kernel's NVRTC compile, cold and from the
     CUBIN cache.
-29. ``rtc``: the JAX package's rtc test kernels as CUDA source
+32. ``rtc``: the JAX package's rtc test kernels as CUDA source
     (``examples/rtc_kernels.cu``) through ``rtc.CudaModule``: axpy and
     ``double_it`` (out dtype float32 and int32, one templated kernel) at
     the tests' sizes and at full width, axpy also at 1,000,003 elements
@@ -251,7 +285,7 @@ the first phase that fails:
     its bound, plain torch and ``torch.add(y, x, alpha=2)``
     (``vs_library``); the eager µs of one launch against one
     ``torch.add``.
-30. ``ext_path``: the launch counters set to 0, then at full width
+33. ``ext_path``: the launch counters set to 0, then at full width
     ``nd.tvm_vadd`` and ``nd.tvm_vmul`` twice each, ``nd.tvm_sigmoid``
     forward and backward under ``autograd.record()`` (the gradient
     within 1e-6 of the plain closed form), a user ``tvmop.register`` of
@@ -262,7 +296,9 @@ the first phase that fails:
     backward (the host round trip timed), and a user rtc axpy twice;
     every counter must equal the calls made.
 
-Then one ``{"kernels": [...]}`` line (16 entries), the ``nvidia-smi`` line, and the
+Then one ``{"kernels": [...]}`` line (16 entries; ``launches`` adds
+the fused phases' real launches: the first call's warm-up and the
+replays times the captured counts), the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the package beside this file, it exits non-zero and prints
 no result.
@@ -3216,6 +3252,420 @@ def phase_ext_path(state):
     return res
 
 
+# --------------------------------------------------------- fused steps
+FUSED_IMAGE_BATCH = 128     # bench.py train_mode's batch
+FUSED_STEPS = 10            # replayed steps after the first call
+FUSED_EAGER_STEPS = 5       # the same step function run op by op
+FUSED_BERT = dict(batch=8, seq=512, lr=1e-4)    # bench.py bert_mode
+FUSED_PROFILE_STEPS = 3
+# the captured launches of one ResNet-50 training step (the want of
+# image_train) and of one Gluon BERT-base step
+FUSED_IMAGE_WANT = {n: RESNET50_SEGMENTS for n in TRAIN_KERNELS}
+FUSED_BERT_WANT = {"softmax_fused": BERT_SOFTMAXES,
+                   "layernorm_fused": BERT_LAYERNORMS}
+
+
+def _fused_counts():
+    from mxnet_tpu_torch.parallel import train as pt
+    return {n: fn.launches for n, fn in pt.kernel_wrappers().items()}
+
+
+def _fused_zero():
+    from mxnet_tpu_torch.parallel import train as pt
+    for fn in pt.kernel_wrappers().values():
+        fn.launches = 0
+
+
+def _eager_body(ex, x, y):
+    """One step of ``ex``'s step function run op by op from Python (no
+    graph), as the CPU leg runs it: the optimizer's count advances and
+    its control is filled as for a replay."""
+    import torch
+    s = ex._step
+    if hasattr(ex, "_trainer"):
+        s.opt.rescale_grad = ex._trainer._scale / x.shape[0]
+    s.opt.num_update += 1
+    out = torch.zeros((), device=s.device)
+    s._body(x, y, s.opt.control(s.device, s.opt.num_update), out)
+    return out
+
+
+def _step_marks(fn, n):
+    """``n`` calls of ``fn``, a CUDA event before each and one after:
+    → (results, ms between consecutive marks)."""
+    import torch
+    marks, outs = [], []
+    for _ in range(n):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        outs.append(fn())
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    marks.append(ev)
+    torch.cuda.synchronize()
+    return outs, [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+
+def _fused_run(state, key, ex, batches, want, batch):
+    """Drive ``ex`` (a fused executor, not called yet) over ``batches``.
+    First the same step function run eagerly from Python for
+    ``FUSED_EAGER_STEPS`` steps (deferred shapes resolved first), timed
+    by CUDA events, and the cache emptied; then the fused calls: the
+    first (warm-up, capture, first replay) timed alone, the replayed
+    steps by CUDA events; then the replays under torch.profiler.  Gates
+    the path (fused, one program, no rebuild or fallback, finite losses,
+    the captured launches); records the real launches (the first call's
+    warm-up and the replays) in ``state["fused_launches"]``."""
+    import math
+    import torch
+    from mxnet_tpu_torch import telemetry
+    x, y = batches[0]
+    ex._prepare(x)
+    if ex._step is None:
+        raise AssertionError(f"no fused step: {ex.fallback_reason}")
+    torch.cuda.reset_peak_memory_stats()
+    _, eager = _step_marks(lambda: _eager_body(ex, x, y), FUSED_EAGER_STEPS)
+    eager_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = telemetry.raw_snapshot()["counters"]
+    _fused_zero()
+    t0 = time.perf_counter()
+    first = ex(x, y)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses, ms = [], []
+    for x, y in batches[1:]:
+        out, step_ms = _step_marks(lambda: ex(x, y), 1)
+        losses += out
+        ms += step_ms
+    counted = _fused_counts()
+    captured = ex.launches_per_step
+    replays = ex.replays
+    real = {n: counted[n] - captured.get(n, 0) + replays * captured.get(n, 0)
+            for n in counted if counted[n]}
+    c1 = telemetry.raw_snapshot()["counters"]
+    delta = {k: v - c0.get(k, 0) for k, v in c1.items()
+             if k.startswith("fused.") and v != c0.get(k, 0)}
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile(lambda: ex(x, y), FUSED_PROFILE_STEPS, top=8)
+    med = sorted(ms)[len(ms) // 2]
+    eager_med = sorted(eager)[len(eager) // 2]
+    losses = [float(v) for v in [first] + losses]
+    res = {"batch": batch, "first_call_s": first_s,
+           "replayed_step_ms": ms, "replayed_step_ms_median": med,
+           "eager_step_ms": eager, "eager_step_ms_median": eager_med,
+           "eager_over_replayed": eager_med / med,
+           "items_s_replayed": batch / med * 1e3,
+           "items_s_eager": batch / eager_med * 1e3,
+           "losses": losses, "replays": replays,
+           "launches_per_step": captured, "launches_per_step_want": want,
+           "launches_replayed": ex.replayed_launches(),
+           "launches_real": real, "telemetry": delta,
+           "programs": ex.programs,
+           "fallback_reason": getattr(ex, "fallback_reason", None),
+           "profile_replays": prof, "peak_mem_bytes": peak,
+           "eager_peak_mem_bytes": eager_peak}
+    prev = state.setdefault("fused_launches", {})
+    for n, k in real.items():
+        prev[n] = prev.get(n, 0) + k
+    state[key] = res
+    problems = []
+    if res["fallback_reason"] is not None or delta.get("fused.fallbacks"):
+        problems.append("a fallback")
+    if ex.programs != 1 or delta.get("fused.rebuilds"):
+        problems.append("not one program")
+    if replays != len(batches) or replays < 10:
+        problems.append(f"{replays} replays")
+    if not all(math.isfinite(v) for v in losses):
+        problems.append("a non-finite loss")
+    if {n: captured.get(n, 0) for n in want} != want or any(
+            k for n, k in captured.items() if n not in want):
+        problems.append("captured launches differ from the path's")
+    if problems:
+        raise AssertionError(f"{problems}: {res}")
+    return res
+
+
+def phase_fused_image_train(state):
+    """ResNet-50 v1 training through ``Trainer.fuse_step`` at
+    ``bench.py`` ``train_mode``'s configuration: fp32 NHWC 224x224x3,
+    1000 classes, hybridized, SGD lr 0.1, momentum 0.9, wd 1e-4,
+    ``SoftmaxCrossEntropyLoss``, batch 128; each step one CUDA-graph
+    replay."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.examples import image_classification as ic
+    args = ic.parse_args(["--batch-size", str(FUSED_IMAGE_BATCH),
+                          "--seed", str(SEED)])
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net, trainer, loss_fn = ic.build(args, dev)
+    step = trainer.fuse_step(loss_fn)
+    rng = np.random.RandomState(SEED)
+    batches = []
+    for _ in range(1 + FUSED_STEPS):
+        x, y = ic.synthetic_batch(rng, args.batch_size, args.image_size,
+                                  args.classes)
+        batches.append((torch.as_tensor(x, device=dev),
+                        torch.as_tensor(y, device=dev)))
+    res = _fused_run(state, "fused_image", step, batches, FUSED_IMAGE_WANT,
+                     args.batch_size)
+    res.update(model="resnet50_v1", optimizer="sgd", lr=args.lr,
+               momentum=0.9, wd=1e-4, image=args.image_size,
+               classes=args.classes)
+    return res
+
+
+def phase_fused_bert_train(state):
+    """Gluon BERT-base masked-LM training through ``FusedTrainStep`` at
+    ``bench.py`` ``bert_mode``'s configuration in fp32 (bf16 waits for
+    amp): ``bert_12_768_12``, vocabulary 30522, 8 x 512 tokens, Adam lr
+    1e-4, ``SoftmaxCrossEntropyLoss`` over the (8, 512, 30522) logits;
+    weights from the package's initializers seeded with ``SEED``."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import bert_gluon
+    from mxnet_tpu_torch.parallel import FusedTrainStep
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = bert_gluon.bert_12_768_12()
+    net.initialize(ctx=dev, seed=SEED)
+    net.hybridize()
+    net.train()
+    cfg = FUSED_BERT
+    opt = opt_mod.create("adam", learning_rate=cfg["lr"])
+    step = FusedTrainStep(net, SoftmaxCrossEntropyLoss(), opt)
+    rng = np.random.RandomState(SEED)
+    batches = [tuple(torch.as_tensor(rng.randint(0, 30522, (
+        cfg["batch"], cfg["seq"])).astype(np.int32), device=dev)
+        for _ in range(2)) for _ in range(1 + FUSED_STEPS)]
+    res = _fused_run(state, "fused_bert", step, batches, FUSED_BERT_WANT,
+                     cfg["batch"])
+    res.update(model="bert_12_768_12", optimizer="adam", vocab=30522,
+               tokens_s_replayed=res["items_s_replayed"] * cfg["seq"],
+               tokens_s_eager=res["items_s_eager"] * cfg["seq"], **cfg)
+    return res
+
+
+def _max_diff(a, b):
+    """{name: largest |a − b|} over the tensors of two name → tensor
+    dicts that differ."""
+    out = {}
+    for k, t in a.items():
+        d = (t.double() - b[k].double()).abs().max().item()
+        if d:
+            out[k] = d
+    return out
+
+
+def _snapshot(net):
+    return {k: t.detach().clone() for k, t in net.collect_params().items()}
+
+
+def _parity_case(make, batches, legacy):
+    """Three nets from ``make()`` (the same seeded weights): one trained
+    by its fused executor (replays), two by ``legacy(net, trainer, x,
+    y)`` (the eager steps).  → the replay's losses and weights against
+    the first eager run, and the two eager runs against each other (the
+    spread the replay is gated at where it is not bitwise)."""
+    import torch
+    runs = []
+    for i in range(3):
+        net, trainer, loss_fn = make()
+        if i == 0:
+            ex = trainer.fuse_step(loss_fn)
+            losses = [ex(x, y) for x, y in batches]
+        else:
+            losses = [legacy(net, trainer, loss_fn, x, y)
+                      for x, y in batches]
+        torch.cuda.synchronize()
+        runs.append((torch.stack([v.reshape(()) for v in losses]),
+                     _snapshot(net), ex if i == 0 else None))
+    (lr_, wr, ex), (le, we, _), (le2, we2, _) = runs
+    diff = _max_diff(wr, we)
+    spread = _max_diff(we, we2)
+    loss_d = (lr_.double() - le.double()).abs().max().item()
+    loss_spread = (le.double() - le2.double()).abs().max().item()
+    worst = max(diff.items(), key=lambda kv: kv[1]) if diff else None
+    ok = loss_d <= loss_spread and all(
+        d <= spread.get(k, 0.0) for k, d in diff.items())
+    return {"bitwise": not diff and loss_d == 0.0,
+            "loss_replay_vs_eager": loss_d, "loss_eager_spread": loss_spread,
+            "params_differing": len(diff), "worst": worst,
+            "eager_spread_params": len(spread),
+            "fused": ex.fused, "programs": ex.programs,
+            "replays": ex.replays, "ok": ok}
+
+
+def _legacy_step(net, trainer, loss_fn, x, y):
+    import torch
+    from mxnet_tpu_torch import autograd
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward(torch.ones_like(loss))
+    # BERT's token-type embedding takes no gradient without token types:
+    # the legacy step skips it, the fused step gives it a zero gradient,
+    # which leaves the weight as it is under Adam without wd
+    trainer.step(int(x.shape[0]), ignore_stale_grad=True)
+    return loss.detach().mean()
+
+
+PARITY_OPTIMIZERS = [
+    ("sgd", {"learning_rate": 0.1}),
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3}),
+    ("nag", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("adam", {"learning_rate": 1e-2, "wd": 1e-3}),
+    ("adamw", {"learning_rate": 1e-2, "wd": 1e-2}),
+    ("adamax", {}), ("nadam", {"learning_rate": 1e-2}),
+    ("adagrad", {"wd": 1e-3}), ("adadelta", {}),
+    ("adabelief", {"learning_rate": 1e-2}), ("rmsprop", {}),
+    ("rmsprop", {"centered": True, "clip_gradient": 0.5}),
+    ("ftrl", {}), ("ftml", {}), ("lamb", {"wd": 1e-2}),
+    ("lars", {"wd": 1e-3}), ("lans", {}), ("signum", {"wd_lh": 1e-3}),
+    ("sgld", {"learning_rate": 1e-3}), ("dcasgd", {"momentum": 0.9}),
+]
+
+
+def _poly_lamb():
+    """LAMB under a PolyScheduler: its lr moves on every replay."""
+    from mxnet_tpu_torch import lr_scheduler as sched
+    return {"lr_scheduler": sched.PolyScheduler(max_update=10, base_lr=0.02),
+            "wd": 1e-2}
+
+
+def phase_fused_parity(state):
+    """Replay against the eager step on the card, from the same seeded
+    weights and batches, cuDNN deterministic on both legs: ResNet-50 v1
+    at batch 8 and Gluon BERT-base at 1 x 128 (full width, 3 steps),
+    each of the 20 optimizer cases on a small Dense net (3 steps), LAMB
+    under a ``PolyScheduler``, SGD under
+    ``CosineScheduler(warmup_steps=2)`` (the lr moves on every replay,
+    one program), a Dense net with Dropout(0.5) and an Adam run
+    whose states ``load_states`` replaces between replays.  Losses and
+    weights are compared bit for bit; where they differ, the worst
+    parameter is printed and the case is gated at the spread of two
+    eager runs."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import lr_scheduler as sched
+    from mxnet_tpu_torch.examples import image_classification as ic
+    from mxnet_tpu_torch.gluon import Trainer, nn
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import bert_gluon
+    dev = torch.device("cuda")
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cases = {}
+        rng = np.random.RandomState(SEED + 7)
+        args = ic.parse_args(["--batch-size", "8", "--seed", str(SEED)])
+        img = [tuple(torch.as_tensor(a, device=dev) for a in
+                     ic.synthetic_batch(rng, 8, 224, 1000))
+               for _ in range(3)]
+        cases["resnet50_b8"] = _parity_case(lambda: ic.build(args, dev), img,
+                                            _legacy_step)
+
+        def bert():
+            net = bert_gluon.bert_12_768_12()
+            net.initialize(ctx=dev, seed=SEED)
+            net.hybridize()
+            return (net, Trainer(net.collect_params(), "adam",
+                                 {"learning_rate": 1e-4}),
+                    SoftmaxCrossEntropyLoss())
+        toks = [tuple(torch.as_tensor(rng.randint(0, 30522, (1, 128)),
+                                      device=dev) for _ in range(2))
+                for _ in range(3)]
+        cases["bert_base_1x128"] = _parity_case(bert, toks, _legacy_step)
+
+        small = [(torch.as_tensor(rng.randn(16, 32).astype(np.float32),
+                                  device=dev),
+                  torch.as_tensor(rng.randint(0, 10, (16,)), device=dev))
+                 for _ in range(3)]
+
+        def dense(opt, kw, dropout=0.0):
+            def make():
+                net = nn.HybridSequential()
+                net.add(nn.Dense(64, activation="relu", in_units=32))
+                if dropout:
+                    net.add(nn.Dropout(dropout))
+                net.add(nn.Dense(10, in_units=64))
+                net.initialize(ctx=dev, seed=SEED)
+                net.hybridize()
+                net.train()
+                return (net, Trainer(net.collect_params(), opt, dict(kw)),
+                        SoftmaxCrossEntropyLoss())
+            return make
+        for i, (opt, kw) in enumerate(PARITY_OPTIMIZERS):
+            cases[f"dense_{i}_{opt}"] = _parity_case(dense(opt, kw), small,
+                                                     _legacy_step)
+        cases["lamb_poly"] = _parity_case(dense("lamb", _poly_lamb()),
+                                          small, _legacy_step)
+        cos = {"lr_scheduler": sched.CosineScheduler(
+            max_update=6, base_lr=0.1, warmup_steps=2), "momentum": 0.9}
+        r0 = _counter("fused.rebuilds")
+        c = _parity_case(dense("sgd", cos), small * 2, _legacy_step)
+        c["rebuilds"] = _counter("fused.rebuilds") - r0
+        c["ok"] = c["ok"] and c["rebuilds"] == 0 and c["programs"] == 1
+        cases["cosine_warmup2"] = c
+        cases["dropout_0.5"] = _parity_case(dense("sgd", {}, 0.5), small,
+                                            _legacy_step)
+        cases["load_states"] = _resync_case(dense("adam", {}), small)
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    res = {"cases": cases,
+           "bitwise": sorted(k for k, c in cases.items() if c["bitwise"]),
+           "not_bitwise": sorted(k for k, c in cases.items()
+                                 if not c["bitwise"]),
+           "register_generator_state": hasattr(torch.cuda.CUDAGraph,
+                                               "register_generator_state")}
+    bad = [k for k, c in cases.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"replay disagrees with eager in {bad}: {res}")
+    return res
+
+
+def _counter(name):
+    from mxnet_tpu_torch import telemetry
+    return telemetry.raw_snapshot()["counters"].get(name, 0)
+
+
+def _resync_case(make, batches):
+    """Adam: two replays, ``save_states``, a third replay, then
+    ``load_states`` (new state tensors, copied into the captured ones)
+    and the weights of step 2 put back: the next replay must land where
+    the third first did, bit for bit."""
+    import torch
+    from mxnet_tpu_torch.gluon import load_numpy
+    net, trainer, loss_fn = make()
+    ex = trainer.fuse_step(loss_fn)
+    ex(*batches[0])
+    ex(*batches[1])
+    work = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "fused_resync.states")
+    trainer.save_states(path)
+    w2 = {k: t.detach().cpu().numpy()
+          for k, t in net.collect_params().items()}
+    l3 = ex(*batches[2])
+    w3 = _snapshot(net)
+    trainer.load_states(path)
+    load_numpy(net, w2)
+    l3b = ex(*batches[2])
+    torch.cuda.synchronize()
+    diff = _max_diff(w3, _snapshot(net))
+    return {"bitwise": not diff and bool(torch.equal(l3, l3b)),
+            "params_differing": len(diff), "programs": ex.programs,
+            "replays": ex.replays, "fused": ex.fused,
+            "ok": not diff and bool(torch.equal(l3, l3b)) and
+            ex.programs == 1}
+
+
 # ------------------------------------------------------------------ main
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
@@ -3284,7 +3734,7 @@ KERNEL_NOTES = {
 }
 PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
                  "train_launches", "text_launches", "int8_launches",
-                 "ext_launches")
+                 "ext_launches", "fused_launches")
 
 
 def kernels_line(state):
@@ -3321,7 +3771,8 @@ PHASES = ("env", "build", "kernels", "slice", "reference", "profile",
           "bert_kernels", "bert_train", "bert_reference", "bert_profile",
           "image_kernels", "image_serve", "image_reference", "image_profile",
           "train_kernels", "image_train", "image_train_reference",
-          "image_train_profile", "text_kernels", "text_serve",
+          "image_train_profile", "fused_image_train", "fused_bert_train",
+          "fused_parity", "text_kernels", "text_serve",
           "text_reference", "text_profile", "int8_kernels", "int8_score",
           "int8_serve", "int8_reference", "int8_profile", "ext_kernels",
           "rtc", "ext_path")

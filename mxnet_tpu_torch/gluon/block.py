@@ -14,6 +14,7 @@ mode: inside ``autograd.record()`` / ``train_mode()`` /
 from __future__ import annotations
 
 import re
+import weakref
 
 import numpy as np
 import torch
@@ -73,12 +74,15 @@ class Block(nn.Module):
     # -- parameters ------------------------------------------------------
     def collect_params(self, select=None) -> ParameterDict:
         """``{dotted name: tensor}``: parameters and running statistics,
-        under the reference's names; ``select`` is a regex on them."""
+        under the reference's names; ``select`` is a regex on them.  The
+        dict holds a weak reference to this block (``_block_ref``), by
+        which ``Trainer.fuse_step`` finds the net it trains."""
         out = ParameterDict(self.state_dict(keep_vars=True))
         if select is not None:
             pat = re.compile(select)
             out = ParameterDict((k, v) for k, v in out.items()
                                 if pat.match(k))
+        out._block_ref = weakref.ref(self)
         return out
 
     def initialize(self, init=None, ctx=None, force_reinit=False,
@@ -134,17 +138,19 @@ class Block(nn.Module):
             self.to(torch.device(ctx))
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for the reference's API; it records the flag and does
-        nothing else.  The port runs the forward eagerly: no
-        ``torch.compile`` and no CUDA graph capture, so inference and
-        training mode behave the same either way."""
+        """Accepted for the reference's API; it records the flag.  The
+        forward itself runs eagerly either way (no ``torch.compile``), so
+        inference and training mode behave the same; the flag lets
+        ``Trainer.fuse_step`` capture the whole training step as one CUDA
+        graph, as the reference fuses only hybridized blocks."""
         for mod in self.modules():
             if isinstance(mod, Block):
                 mod._active = bool(active)
 
 
 class HybridBlock(Block):
-    """≙ ``gluon.HybridBlock``; :meth:`Block.hybridize` is a no-op here."""
+    """≙ ``gluon.HybridBlock``; :meth:`Block.hybridize` only records the
+    flag that ``Trainer.fuse_step`` reads."""
 
 
 class _Sequence:

@@ -53,7 +53,11 @@ def is_initialized(t) -> bool:
 
 class ParameterDict(OrderedDict):
     """``{dotted name: tensor}`` in the reference's order (a block's own
-    parameters, then its children's)."""
+    parameters, then its children's).  ``Block.collect_params`` stamps
+    ``_block_ref``, a weak reference to the block it collected from (None
+    on a dict built by hand), as the reference does."""
+
+    _block_ref = None
 
     def save(self, fname):
         # write to the exact path given (np.savez would append ".npz")

@@ -15,13 +15,20 @@ one.  A step that finds a parameter without a fresh gradient raises
 
 Only the single-process stores are ported: ``kvstore`` None, "device" or
 "local" reduce nothing (one process holds every gradient).
+
+``fuse_step(loss_fn)`` returns the whole-step executor
+(``parallel.TrainerFusedStep``): forward, loss, backward and update as
+one captured CUDA graph a step, sharing this Trainer's state.  The
+optimizer's arguments (``lr_scheduler``, ``clip_gradient``, ...) pass
+through ``optimizer_params``.
 """
 from __future__ import annotations
 
 import json
 import os
 import pickle
-from typing import Dict
+import weakref
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -57,6 +64,11 @@ class Trainer:
             raise NotImplementedError(
                 "compression_params: gradient compression belongs to the "
                 "host-planes slice of the port")
+        # collect_params() stamps a weak reference to its block on the
+        # dict: fuse_step finds the net by it
+        self._net = getattr(params, "_block_ref", None)
+        self._kvstore = kvstore
+        self._update_on_kvstore = bool(update_on_kvstore)
         items = list(params.items()) if isinstance(params, dict) else \
             [(str(i), p) for i, p in enumerate(params)]
         self._trainable = [(n, p) for n, p in items
@@ -66,6 +78,9 @@ class Trainer:
                                          **(optimizer_params or {}))
         self._states: Dict[str, dict] = {}
         self._scale = 1.0
+        # the fused executors sharing this trainer's state, held weakly:
+        # load_states resyncs them
+        self._fused_execs: List[weakref.ref] = []
 
     # -- properties -----------------------------------------------------
     @property
@@ -91,10 +106,39 @@ class Trainer:
         self.step(batch_size, ignore_stale_grad)
 
     def fuse_step(self, loss_fn, net=None):
-        raise NotImplementedError(
-            "Trainer.fuse_step (FusedTrainStep, one captured program per "
-            "step) is not ported yet; it is queued as one captured CUDA "
-            "graph")
+        """The whole-step executor (``parallel.TrainerFusedStep``)::
+
+            step = trainer.fuse_step(loss_fn)
+            for x, y in batches:
+                loss = step(x, y)      # one CUDA-graph replay on the card
+
+        ``net`` defaults to the block this Trainer's parameters were
+        collected from.  The executor shares this Trainer's optimizer,
+        states and parameters, so fused and legacy steps interleave.
+        Where fusing does not apply it runs the legacy
+        record/backward/step path (``executor.fallback_reason``, the
+        ``fused.fallback.*`` counters)."""
+        from ..parallel.train import TrainerFusedStep
+        if net is None and self._net is not None:
+            net = self._net()
+        ex = TrainerFusedStep(self, loss_fn, net)
+        self._fused_execs.append(weakref.ref(ex))
+        return ex
+
+    def _live_fused(self):
+        live, refs = [], []
+        for r in self._fused_execs:
+            ex = r()
+            if ex is not None:
+                live.append(ex)
+                refs.append(r)
+        self._fused_execs = refs
+        return live
+
+    def _resync_fused(self):
+        """Hand every live fused executor the states just loaded."""
+        for ex in self._live_fused():
+            ex.resync()
 
     def _update(self, ignore_stale_grad=False):
         live = []
@@ -163,6 +207,7 @@ class Trainer:
         self._optimizer.num_update = int(meta["num_update"])
         self._optimizer._index_update_count = {
             str(k): int(v) for k, v in meta["index_update_count"].items()}
+        self._resync_fused()
 
     def _load_reference_states(self, blob):
         byname = dict(self._trainable)
@@ -176,6 +221,7 @@ class Trainer:
                             for k, v in st.items()}
         self._states = states
         self._optimizer.num_update = int(blob["num_update"])
+        self._resync_fused()
 
 
 # the globals a pickle of numpy arrays names (numpy 1.x and 2.x module

@@ -350,12 +350,6 @@ def test_trainer_refuses_what_later_slices_bring(kw):
         tgluon.Trainer(_tiny().collect_params(), "sgd", **kw)
 
 
-def test_trainer_fuse_step_is_not_ported():
-    tr = tgluon.Trainer(_tiny().collect_params(), "sgd")
-    with pytest.raises(NotImplementedError, match="CUDA graph"):
-        tr.fuse_step(None)
-
-
 def test_initialize_without_a_card_or_ctx_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     net = tgnn.Dense(3, in_units=2)
