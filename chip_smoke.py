@@ -31,7 +31,10 @@ and a quantized dense; 1000 classes, 224x224x3): scoring at batch 64 as
 ``rtc.CudaModule`` user kernels compiled by NVRTC, a ``CustomOp``, an
 external library) at the largest elementwise operand of those models,
 ResNet-50 v1 batch-64 training's stage-1 block output (64, 56, 56, 256)
-fp32.  Phases, one JSON line each; the run stops with a non-zero exit at
+fp32, then ResNet-50 v2 training (``examples.image_classification``'s
+defaults with ``--model resnet50_v2``: its 13 stride-1 3x3 convs on the
+standalone conv route, ``ops/pallas_conv.py``) with the Gluon losses
+and metrics.  Phases, one JSON line each; the run stops with a non-zero exit at
 the first phase that fails:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and
@@ -163,7 +166,8 @@ the first phase that fails:
     (record/backward/``trainer.step``) on the card from the same seeded
     weights and batches, cuDNN deterministic: ResNet-50 v1 at batch 8
     and Gluon BERT-base at 1 x 128 (3 steps), the 20 optimizer cases on
-    a small Dense net, LAMB under a ``PolyScheduler``, SGD under
+    a small Dense net, ResNet-50 v2 at batch 8 (the standalone conv
+    route captured), LAMB under a ``PolyScheduler``, SGD under
     ``CosineScheduler(warmup_steps=2)``
     (one program while the lr moves), a Dense net with Dropout(0.5) and
     an Adam run whose states ``load_states`` replaces between replays.
@@ -295,6 +299,44 @@ the first phase that fails:
     loaded, ``nd.my_relu6`` and ``nd.my_scale(k=3.0)`` forward and
     backward (the host round trip timed), and a user rtc axpy twice;
     every counter must equal the calls made.
+34. ``v2_train``: ``mx.seed(0)``, the launch counters set to 0, then 5
+    steps of ResNet-50 v2 at ``examples.image_classification``'s
+    defaults (batch 64 x 224x224x3, 1000 classes, SGD lr 0.1, momentum
+    0.9, wd 1e-4) under ``mx.lr_scheduler.FactorScheduler(step=2,
+    factor=0.5)``: ``autograd.record()`` forward and
+    ``SoftmaxCrossEntropyLoss``, ``backward``,
+    ``trainer.allreduce_grads()``, ``trainer.update(64)``, then a
+    ``CompositeEvalMetric`` of Accuracy, TopKAccuracy(5), CrossEntropy
+    and Loss updated with the labels and the softmax of the logits inside
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host synchronisation
+    in ``update`` raises).  Gates: 26 ``conv3x3`` launches (13 forward,
+    13 dgrad) and 13 ``conv_wgrad`` launches a step and no fused-segment
+    kernel, finite losses, the lr schedule, the CrossEntropy metric
+    within 1e-4 relative of the mean loss and the Loss metric (the mean
+    probability) within 1e-5 relative of 1/1000.  Step ms (CUDA events,
+    median of the last 4), images/s, peak memory; then one step under
+    ``torch.profiler`` (idle share, device time by category) and the
+    same 13 convs' forward and backward through cuDNN (``F.conv2d`` and
+    autograd) under it, the device time the route replaced.
+35. ``v2_train_reference``: one step of ResNet-50 v2 at batch 64 on the
+    card and through the port on the CPU from the same weights (a
+    ``.params`` file) and batch, and on the CPU in float64: per-sample
+    losses within 1e-3 of the largest, every parameter and running
+    statistic after the step within 1e-3 of the largest magnitude in the
+    net, or, for a tensor whose CPU float32 step already lies farther
+    than that from the float64 step (the stem conv's weight, whose
+    gradient cancels), the card's step no farther from the float64 step
+    than twice the CPU's float32 step.
+36. ``loss_metric``: each Gluon loss the port added (Huber, Hinge,
+    SquaredHinge, Logistic signed and binary, SigmoidBCE on logits and on
+    probabilities, KLDiv on log-probabilities and on logits, Triplet,
+    CosineEmbedding, PoissonNLL, SDML) at (64, 1000) fp32 on the card
+    against the port on the CPU, the value and its input's gradient
+    within 1e-5 of the largest magnitude; ``pick`` and
+    ``SoftmaxCrossEntropyLoss`` with indices in [-n, 0) and outside
+    [-n, n) on the card (NaN, no device assert) against the CPU; each
+    metric fed card tensors against the same metric fed CPU tensors
+    (counts equal, values within 1e-6 relative).
 
 Then one ``{"kernels": [...]}`` line (16 entries; ``launches`` adds
 the fused phases' real launches: the first call's warm-up and the
@@ -3543,7 +3585,8 @@ def phase_fused_parity(state):
     """Replay against the eager step on the card, from the same seeded
     weights and batches, cuDNN deterministic on both legs: ResNet-50 v1
     at batch 8 and Gluon BERT-base at 1 x 128 (full width, 3 steps),
-    each of the 20 optimizer cases on a small Dense net (3 steps), LAMB
+    each of the 20 optimizer cases on a small Dense net (3 steps),
+    ResNet-50 v2 at batch 8 (the standalone conv route), LAMB
     under a ``PolyScheduler``, SGD under
     ``CosineScheduler(warmup_steps=2)`` (the lr moves on every replay,
     one program), a Dense net with Dropout(0.5) and an Adam run
@@ -3570,6 +3613,10 @@ def phase_fused_parity(state):
                for _ in range(3)]
         cases["resnet50_b8"] = _parity_case(lambda: ic.build(args, dev), img,
                                             _legacy_step)
+        args_v2 = ic.parse_args(["--model", "resnet50_v2", "--batch-size",
+                                 "8", "--seed", str(SEED)])
+        cases["resnet50_v2_b8"] = _parity_case(
+            lambda: ic.build(args_v2, dev), img, _legacy_step)
 
         def bert():
             net = bert_gluon.bert_12_768_12()
@@ -3666,6 +3713,415 @@ def _resync_case(make, batches):
             ex.programs == 1}
 
 
+# ------------------------------------------------------ ResNet v2 phases
+V2_STEPS = 5
+V2_CONVS = 13       # stride-1 3x3 convs of ResNet-50 v2: 3, 3, 5, 2 a stage
+V2_WANT = {"conv3x3": 2 * V2_CONVS, "conv_wgrad": V2_CONVS, "conv_stats": 0,
+           "bn_affine": 0, "conv_affine": 0}
+V2_REF_TOL = 1e-3       # losses, parameters: of the largest magnitude
+LOSS_CARD_TOL = 1e-5    # loss_metric: of the largest magnitude
+METRIC_CARD_REL = 1e-6
+
+
+def _v2_args(*extra):
+    from mxnet_tpu_torch.examples import image_classification as ic
+    return ic.parse_args(["--model", "resnet50_v2", "--seed", str(SEED)]
+                         + list(extra))
+
+
+def _v2_batches(args, dev, n):
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.examples import image_classification as ic
+    rng = np.random.RandomState(SEED)
+    return [tuple(torch.as_tensor(a, device=dev) for a in
+                  ic.synthetic_batch(rng, args.batch_size, args.image_size,
+                                     args.classes))
+            for _ in range(n)]
+
+
+def _eligible_conv_shapes(net, x):
+    """(x shape, w shape) of every conv the standalone route takes in one
+    inference forward of ``net`` on ``x``."""
+    import torch
+    from mxnet_tpu_torch.gluon import nn as gnn
+    from mxnet_tpu_torch.ops import pallas_conv
+    shapes = []
+
+    def hook(m, i, o):
+        if pallas_conv.eligible(i[0].shape, m.weight.shape, m._strides,
+                                m._padding, m._dilation, m._groups,
+                                i[0].dtype):
+            shapes.append((tuple(i[0].shape), tuple(m.weight.shape)))
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, gnn.Conv2D)]
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def _cudnn_convs(shapes, dev):
+    """A function running the convs of ``shapes`` forward and backward
+    (dx and dW) through cuDNN, as the route's kernels run them."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ops = []
+    for xs, ws in shapes:
+        x = torch.randn(xs, device=dev, generator=gen).permute(0, 3, 1, 2)
+        w = torch.randn(ws, device=dev, generator=gen).permute(3, 2, 0, 1)
+        x.requires_grad_()
+        w.requires_grad_()
+        g = torch.randn((xs[0], ws[3], xs[1], xs[2]), device=dev,
+                        generator=gen).contiguous(
+            memory_format=torch.channels_last)
+        ops.append((x, w, g))
+
+    def run():
+        for x, w, g in ops:
+            y = F.conv2d(x, w, padding=1)
+            torch.autograd.grad(y, (x, w), g)
+    return run
+
+
+def phase_v2_train(state):
+    """ResNet-50 v2 training on the Gluon surface (see the docstring's
+    item 34)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples import image_classification as ic
+    from mxnet_tpu_torch.gluon import metric
+    from mxnet_tpu_torch.parallel import train as pt
+    dev = torch.device("cuda")
+    mx.context.exact_fp32()
+    mx.seed(SEED)
+    args = _v2_args()
+    sched = mx.lr_scheduler.FactorScheduler(step=2, factor=0.5,
+                                            base_lr=args.lr)
+    net, trainer, loss_fn = ic.build(args, dev, lr_scheduler=sched)
+    batches = _v2_batches(args, dev, V2_STEPS)
+    comp = metric.CompositeEvalMetric([metric.Accuracy(),
+                                       metric.TopKAccuracy(5),
+                                       metric.CrossEntropy(),
+                                       metric.Loss()])
+    counted = pt.kernel_wrappers()
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, lrs, marks = [], [], []
+    for x, y in batches:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        loss, out = ic.train_step(net, trainer, loss_fn, x, y)
+        probs = torch.softmax(out, dim=-1)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            comp.update([y], [probs])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses.append(loss)
+        lrs.append(trainer.learning_rate)
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    marks.append(ev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: fn.launches for n, fn in counted.items()
+                if fn.launches or n in V2_WANT}
+    state["v2_launches"] = launches
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    loss_means = [float(v.mean()) for v in losses]
+    names, values = comp.get()
+    got = dict(zip(names, values))
+    mean_loss = sum(float(v.sum()) for v in losses) / \
+        sum(v.numel() for v in losses)
+    want = {n: c * V2_STEPS for n, c in V2_WANT.items()}
+    want_lrs = [sched(i + 1) for i in range(V2_STEPS)]
+    res = {"args": vars(args), "steps": V2_STEPS, "losses": loss_means,
+           "lrs": lrs, "lrs_expected": want_lrs, "step_ms": step_ms,
+           "step_ms_median_last4": med,
+           "images_s": args.batch_size / med * 1e3,
+           "peak_mem_gb": peak / 1e9, "launches": launches,
+           "launches_expected": want,
+           "metrics": got, "metric_sync_debug_mode": "error",
+           "mean_loss": mean_loss,
+           "tf32_cudnn": torch.backends.cudnn.allow_tf32}
+    if not all(math.isfinite(v) for v in loss_means):
+        raise AssertionError(f"non-finite loss: {res}")
+    if {n: launches.get(n, 0) for n in want} != want:
+        raise AssertionError(f"launch counts differ from the path's: {res}")
+    if lrs != want_lrs:
+        raise AssertionError(f"the lr schedule was not followed: {res}")
+    ce = got["cross-entropy"]
+    if abs(ce - mean_loss) > 1e-4 * abs(mean_loss):
+        raise AssertionError(f"CrossEntropy metric != mean loss: {res}")
+    if abs(got["loss"] - 1e-3) > 1e-5 * 1e-3:
+        raise AssertionError(f"Loss metric != mean probability: {res}")
+    # where the time goes: one more step under the profiler, then the
+    # same convs through cuDNN (the device time the route replaced)
+    x, y = batches[0]
+    res["profile"] = _profile(
+        lambda: ic.train_step(net, trainer, loss_fn, x, y), 1, top=10)
+    busy = res["profile"].get("device_busy_us_per_call")
+    if busy is not None:
+        res["profile"]["idle_share_vs_uninstrumented_step"] = \
+            1.0 - busy / (med * 1e3)
+    shapes = _eligible_conv_shapes(net, x)
+    cats = res["profile"].get("by_category", {})
+    ours = {k: cats[k]["us_per_call"] for k in
+            ("conv3x3 / dgrad (ours)", "conv_wgrad (ours)") if k in cats}
+    cudnn = _profile(_cudnn_convs(shapes, dev), 1, top=4)
+    res["route_vs_cudnn"] = {
+        "convs": len(shapes), "shapes": shapes, "ours_us": ours,
+        "ours_us_total": sum(ours.values()),
+        "cudnn_busy_us": cudnn.get("device_busy_us_per_call"),
+        "cudnn_by_category": cudnn.get("by_category")}
+    if len(shapes) != V2_CONVS:
+        raise AssertionError(f"{len(shapes)} convs on the route: {res}")
+    return res
+
+
+def _v2_side(args, dev, params_path, x, y, dtype=None):
+    """One step of ResNet-50 v2 on ``dev`` (in ``dtype`` if given) from
+    the ``.params`` file: (per-sample loss, {name: value after}) on the
+    CPU in float64."""
+    import torch
+    from mxnet_tpu_torch.examples import image_classification as ic
+    device = torch.device(dev)
+    net, trainer, loss_fn = ic.build(args, device)
+    net.load_parameters(params_path, ctx=device)
+    if dtype is not None:
+        net.to(dtype)
+        x = x.to(dtype)
+    loss, _ = ic.train_step(net, trainer, loss_fn, x.to(device),
+                            y.to(device))
+    return (loss.double().cpu(),
+            {k: t.detach().double().cpu()
+             for k, t in net.collect_params().items()})
+
+
+def _v2_errs(a, b):
+    """(largest |loss a − loss b| over the largest |loss b|, {name:
+    largest |a − b|} over the parameters and running statistics)."""
+    (la, pa), (lb, pb) = a, b
+    return (((la - lb).abs().max() / lb.abs().max()).item(),
+            {k: (pa[k] - pb[k]).abs().max().item() for k in pb})
+
+
+def phase_v2_train_reference(state):
+    """One ResNet-50 v2 step at batch 64 on the card and on the CPU from
+    the same weights and batch, and on the CPU in float64 (the
+    docstring's item 35).  Gates: the per-sample losses within 1e-3 of
+    the largest; each parameter and running statistic within 1e-3 of the
+    largest magnitude in the net, or, where the CPU's own float32 step
+    lies farther than that from the float64 step, the card's step no
+    farther from the float64 step than twice the CPU's float32 step."""
+    import torch
+    from mxnet_tpu_torch.examples import image_classification as ic
+    torch.set_num_threads(os.cpu_count() or 1)
+    args = _v2_args()
+    dev = torch.device("cuda")
+    net, _, _ = ic.build(args, dev)
+    net.eval()
+    with torch.no_grad():
+        net(torch.zeros(1, 32, 32, 3, device=dev))
+    work = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "resnet50_v2.params")
+    net.save_parameters(path)
+    before = {k: t.detach().double().cpu()
+              for k, t in net.collect_params().items()}
+    (x, y), = _v2_batches(args, dev, 1)
+    t0 = time.perf_counter()
+    card = _v2_side(args, "cuda", path, x, y)
+    cpu = _v2_side(args, "cpu", path, x.cpu(), y.cpu())
+    cpu64 = _v2_side(args, "cpu", path, x.cpu(), y.cpu(), torch.float64)
+    secs = time.perf_counter() - t0
+    big = max(t.abs().max().item() for t in cpu64[1].values())
+    upd = max((cpu64[1][k] - before[k]).abs().max().item()
+              for k in before if "running_" not in k)
+    loss_cc, e_cc = _v2_errs(card, cpu)
+    loss_c64, e_c64 = _v2_errs(card, cpu64)
+    loss_h64, e_h64 = _v2_errs(cpu, cpu64)
+    tol = V2_REF_TOL * big
+    floor = {k: {"card_vs_cpu": e_cc[k] / big,
+                 "card_vs_cpu64": e_c64[k] / big,
+                 "cpu_vs_cpu64": e_h64[k] / big}
+             for k in e_h64 if e_h64[k] > tol}
+    bad = [k for k in e_cc
+           if e_cc[k] > tol and not (k in floor
+                                     and e_c64[k] <= 2 * e_h64[k])]
+
+    def worst(e):
+        k = max(e, key=e.get)
+        return {"param": k, "rel_to_max": e[k] / big,
+                "rel_to_max_update": e[k] / upd}
+    res = {"batch": [args.batch_size, args.image_size, args.image_size, 3],
+           "loss_card_mean": card[0].mean().item(),
+           "loss_cpu_mean": cpu[0].mean().item(),
+           "loss_rel_to_max": {"card_vs_cpu": loss_cc,
+                               "card_vs_cpu64": loss_c64,
+                               "cpu_vs_cpu64": loss_h64},
+           "card_vs_cpu": worst(e_cc), "card_vs_cpu64": worst(e_c64),
+           "cpu_vs_cpu64": worst(e_h64), "largest_param": big,
+           "largest_update": upd, "above_tol_in_cpu_fp32": floor,
+           "params": len(e_cc), "same_params": sorted(card[1]) ==
+           sorted(cpu[1]), "three_sides_s": secs, "tol": V2_REF_TOL,
+           "failing": bad}
+    if bad or not res["same_params"] or loss_cc > V2_REF_TOL:
+        raise AssertionError(f"card disagrees with the CPU: {res}")
+    return res
+
+
+LOSS_CASES = [
+    ("HuberLoss", {"rho": 0.7}, "regression"),
+    ("HingeLoss", {}, "signed"), ("SquaredHingeLoss", {}, "signed"),
+    ("LogisticLoss", {}, "signed"),
+    ("LogisticLoss", {"label_format": "binary"}, "binary"),
+    ("SigmoidBCELoss", {}, "soft"),
+    ("SigmoidBCELoss", {"from_sigmoid": True}, "prob"),
+    ("KLDivLoss", {}, "logp"), ("KLDivLoss", {"from_logits": False}, "soft"),
+    ("TripletLoss", {"margin": 0.5}, "triplet"),
+    ("CosineEmbeddingLoss", {}, "cosine"),
+    ("PoissonNLLLoss", {}, "counts"),
+    ("PoissonNLLLoss", {"from_logits": False, "compute_full": True},
+     "rates"),
+    ("SDMLLoss", {}, "regression"),
+]
+
+
+def _loss_inputs(kind, gen, shape):
+    """The loss's inputs on the CPU: the differentiable first, then the
+    others."""
+    import torch
+    p = torch.randn(shape, generator=gen)
+    q = torch.randn(shape, generator=gen)
+    u = torch.rand(shape, generator=gen)
+    sign = torch.where(u < 0.5, -1.0, 1.0)
+    return {"regression": [p, q], "signed": [p, sign],
+            "binary": [p, (sign > 0).float()], "soft": [p, u],
+            "prob": [u * 0.9 + 0.05, torch.rand(shape, generator=gen)],
+            "logp": [torch.log_softmax(p, -1), torch.softmax(q, -1)],
+            "triplet": [p, q, torch.randn(shape, generator=gen)],
+            "cosine": [p, q, sign[:, 0]],
+            "counts": [p, torch.floor(u * 6)],
+            "rates": [u * 3.5 + 0.5, torch.floor(
+                torch.rand(shape, generator=gen) * 6)]}[kind]
+
+
+def _card_vs_cpu(fn, args):
+    """``fn`` on the CPU and on the card from the same inputs: → (largest
+    |card − CPU| of the value and of the first input's gradient, each
+    over its largest magnitude)."""
+    import torch
+    outs = []
+    for dev in ("cpu", "cuda"):
+        xs = [a.to(dev) for a in args]
+        first = xs[0].clone().requires_grad_()
+        out = fn(first, *xs[1:])
+        g = torch.linspace(-1, 1, out.numel(), device=dev).reshape(
+            out.shape)
+        out.backward(g)
+        outs.append((out.detach().cpu(), first.grad.cpu()))
+    (oc, gc), (ok, gk) = outs
+    return (_rel(ok, oc), _rel(gk, gc))
+
+
+def phase_loss_metric(state):
+    """The Gluon losses, ``pick`` and the metrics on the card against the
+    CPU (the docstring's item 36)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.gluon import loss as gloss
+    from mxnet_tpu_torch.gluon import metric
+    from mxnet_tpu_torch.ops import nn as onn
+    gen = torch.Generator().manual_seed(SEED)
+    shape = (64, 1000)
+    losses = {}
+    for name, kw, kind in LOSS_CASES:
+        key = name + "".join(f"-{k}={v}" for k, v in kw.items())
+        val, grad = _card_vs_cpu(getattr(gloss, name)(**kw),
+                                 _loss_inputs(kind, gen, shape))
+        losses[key] = {"value_rel": val, "grad_rel": grad}
+    x = torch.arange(28, dtype=torch.float32).reshape(4, 7)
+    idx = torch.tensor([0, 6, 7, -1], dtype=torch.int32)
+    pick_card = onn.pick(x.cuda(), idx.cuda())
+    ce_card = gloss.SoftmaxCrossEntropyLoss()(
+        (x / 10).cuda(), torch.tensor([0, 6, 3, -1], device="cuda"))
+    far = onn.pick(x.cuda(), torch.tensor([100, -100, 3, -7],
+                                          device="cuda"))
+    torch.cuda.synchronize()        # a device assert would surface here
+    pick = {"pick": pick_card.cpu().tolist(),
+            "pick_far": far.cpu().tolist(),
+            "softmax_ce": ce_card.cpu().tolist(),
+            "pick_equal_cpu": torch.equal(
+                pick_card.cpu().nan_to_num(-1.0),
+                onn.pick(x, idx).nan_to_num(-1.0)),
+            "softmax_ce_cpu": gloss.SoftmaxCrossEntropyLoss()(
+                x / 10, torch.tensor([0, 6, 3, -1])).tolist()}
+    rng = np.random.RandomState(SEED + 9)
+    p = rng.rand(64, 1000).astype(np.float32)
+    p /= p.sum(-1, keepdims=True)
+    lab = rng.randint(0, 1000, (64,))
+    reg = (rng.randn(64, 8).astype(np.float32),
+           rng.randn(64, 8).astype(np.float32))
+    binary = (rng.randint(0, 2, (64,)), rng.rand(64, 2).astype(np.float32))
+    feeds = {"class": (lab, p), "regression": reg, "binary": binary,
+             "loss": (None, rng.rand(64).astype(np.float32)),
+             "score": (binary[0], rng.rand(64).astype(np.float32))}
+    cases = [("Accuracy", "class"), ("TopKAccuracy", "class"),
+             ("CrossEntropy", "class"), ("Perplexity", "class"),
+             ("NegativeLogLikelihood", "class"), ("MAE", "regression"),
+             ("MSE", "regression"), ("RMSE", "regression"),
+             ("MeanPairwiseDistance", "regression"),
+             ("MeanCosineSimilarity", "regression"),
+             ("PearsonCorrelation", "regression"), ("F1", "binary"),
+             ("Fbeta", "binary"), ("MCC", "binary"), ("Loss", "loss"),
+             ("BinaryAccuracy", "score")]
+    metrics = {}
+    for name, kind in cases:
+        l, pr = feeds[kind]
+        kw = {"top_k": 5} if name == "TopKAccuracy" else {}
+        ms = []
+        for dev in ("cpu", "cuda"):
+            m = getattr(metric, name)(**kw)
+            for _ in range(2):
+                m.update(None if l is None else
+                         torch.as_tensor(l, device=dev),
+                         torch.as_tensor(pr, device=dev))
+            ms.append(m)
+        (nh, vh), (nc, vc) = ms[0].get(), ms[1].get()
+        metrics[name] = {"cpu": vh, "card": vc,
+                         "num_inst_equal": ms[0].num_inst == ms[1].num_inst,
+                         "ok": nh == nc and ms[0].num_inst == ms[1].num_inst
+                         and abs(vc - vh) <= METRIC_CARD_REL * abs(vh)}
+        if hasattr(ms[0], "confusion"):
+            metrics[name]["ok"] &= ms[0].confusion() == ms[1].confusion()
+    res = {"shape": list(shape), "losses": losses, "pick": pick,
+           "metrics": metrics, "tol": {"loss": LOSS_CARD_TOL,
+                                       "metric_rel": METRIC_CARD_REL}}
+    bad = [k for k, v in losses.items()
+           if not (v["value_rel"] <= LOSS_CARD_TOL
+                   and v["grad_rel"] <= LOSS_CARD_TOL)]
+    bad += [k for k, v in metrics.items() if not v["ok"]]
+    if not (pick["pick_equal_cpu"] and math.isnan(pick["pick"][2])
+            and pick["pick"][3] == 27.0 and all(
+                math.isnan(v) for v in pick["pick_far"][:2])
+            and np.allclose(pick["softmax_ce"], pick["softmax_ce_cpu"],
+                            rtol=1e-6)):
+        bad.append("pick")
+    if bad:
+        raise AssertionError(f"card disagrees with the CPU in {bad}: {res}")
+    return res
+
+
 # ------------------------------------------------------------------ main
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
@@ -3734,7 +4190,7 @@ KERNEL_NOTES = {
 }
 PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
                  "train_launches", "text_launches", "int8_launches",
-                 "ext_launches", "fused_launches")
+                 "ext_launches", "fused_launches", "v2_launches")
 
 
 def kernels_line(state):
@@ -3743,7 +4199,8 @@ def kernels_line(state):
     ``bert_train``, ResNet-50 serving in ``image_serve``, ResNet-50
     training in ``image_train``, Gluon BERT serving in ``text_serve``,
     int8 ResNet-50 scoring and serving in ``int8_score`` and
-    ``int8_serve``, the extension surface in ``ext_path``);
+    ``int8_serve``, the extension surface in ``ext_path``, ResNet-50 v2
+    training in ``v2_train``);
     the times are at the first case, the
     path's own shape (``conv3x3``: its dgrad use, which is how training
     launches it)."""
@@ -3775,7 +4232,8 @@ PHASES = ("env", "build", "kernels", "slice", "reference", "profile",
           "fused_parity", "text_kernels", "text_serve",
           "text_reference", "text_profile", "int8_kernels", "int8_score",
           "int8_serve", "int8_reference", "int8_profile", "ext_kernels",
-          "rtc", "ext_path")
+          "rtc", "ext_path", "v2_train", "v2_train_reference",
+          "loss_metric")
 
 
 def _args(argv):

@@ -30,11 +30,20 @@ the hand-written template ``csrc/tvmop_elementwise.cuh``; stock
 shared library (``library``) and the function registry (``_ffi``), all
 joining the ``nd`` namespace.  The kernels of ``csrc/*.cu`` are built
 with ``nvcc`` at their first launch, the generated and rtc kernels by
-NVRTC at theirs.  Entry points run on the GPU unless ``device="cpu"`` is
-passed.  Importing the package builds and compiles nothing.
+NVRTC at theirs.  The rest of the training surface is
+``gluon.loss`` (all of the reference's losses but CTC), ``gluon.metric``,
+``random`` (``mx.random``, seeded with ``mx.seed``), ``lr_scheduler``,
+the ``Trainer``'s ``allreduce_grads`` / ``update`` / ``shard_batch``, and
+the lone 3×3/s1 conv of ``ops.pallas_conv`` (ResNet v2's convs) on the
+conv3x3 and conv_wgrad kernels.  Entry points run on the GPU unless
+``device="cpu"`` is passed.  Importing the package builds and compiles
+nothing.
 """
-from . import context, gluon, initializer, optimizer, telemetry
-from .context import cpu, gpu, num_gpus
+from . import (context, gluon, initializer, lr_scheduler, optimizer,
+               random, telemetry)
+from .context import (cpu, current_context, current_device, gpu, num_gpus,
+                      waitall)
+from .optimizer import Optimizer
 from .generate import DecodeEngine
 from .models.bert import BertConfig, BertModel
 from .models.gpt import GPTConfig, GPTModel, init_params, params_from_numpy
@@ -44,8 +53,26 @@ from .serve import (Batcher, DecodeBatcher, InferenceEngine,
 from . import autograd, nd, operator, library, rtc, tvmop, _ffi
 from ._ffi import get_global_func, register_func
 
-__all__ = ["context", "gluon", "initializer", "optimizer", "telemetry",
-           "cpu", "gpu", "num_gpus", "DecodeEngine", "DecodeBatcher",
+init = initializer   # ≙ mx.init
+
+
+def seed(s):
+    """≙ ``mx.seed``: seed every randomness source the package draws
+    from: ``random``'s per-device generators, Python's ``random`` and
+    numpy's global state.  (A Block's ``initialize`` and a ``Dropout``
+    keep their own explicitly seeded generators.)"""
+    import random as _pyrandom
+
+    import numpy as _onp
+    random.seed(s)
+    _pyrandom.seed(s)
+    _onp.random.seed(int(s) % (2 ** 32))
+
+
+__all__ = ["context", "gluon", "initializer", "init", "lr_scheduler",
+           "optimizer", "Optimizer", "random", "seed", "telemetry", "cpu",
+           "gpu", "num_gpus", "current_context", "current_device",
+           "waitall", "DecodeEngine", "DecodeBatcher",
            "BertConfig", "BertModel", "GPTConfig", "GPTModel",
            "init_params", "params_from_numpy", "get_model", "Batcher",
            "InferenceEngine", "ModelRegistry", "autograd", "nd", "operator",

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["cpu", "gpu", "num_gpus", "default_device", "resolve",
-           "exact_fp32"]
+__all__ = ["cpu", "gpu", "num_gpus", "default_device", "current_context",
+           "current_device", "resolve", "waitall", "exact_fp32"]
 
 
 def cpu(device_id: int = 0) -> torch.device:
@@ -33,6 +33,24 @@ def default_device() -> torch.device:
             "no CUDA device: mxnet_tpu_torch runs on the GPU by default; "
             "pass device=\"cpu\" to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def current_context() -> torch.device:
+    """≙ ``mx.current_context()``: the device entry points run on when
+    given none, :func:`default_device` (the port has no ``with``-scoped
+    device stack)."""
+    return default_device()
+
+
+current_device = current_context
+
+
+def waitall():
+    """≙ ``mx.waitall()``: wait until every card this process has used
+    has finished its queued work; nothing to wait for without one."""
+    if torch.cuda.is_initialized():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def resolve(device=None) -> torch.device:

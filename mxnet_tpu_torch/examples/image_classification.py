@@ -1,15 +1,19 @@
 """Image classification training on synthetic ImageNet-shaped data
 (≙ ``example/gluon/image_classification.py``, single process).
 
-A model-zoo CNN (default ResNet-50 v1, 1000 classes) in training mode,
-``SoftmaxCrossEntropyLoss``, and ``gluon.Trainer`` with SGD (lr 0.1,
-momentum 0.9, wd 1e-4).  A step is the forward in training mode,
-``backward`` of the per-sample loss (summed over the batch), then
-``trainer.step(batch_size)``.  The batches are NHWC float32 images in
-[0, 1) and integer labels drawn from ``numpy.random.RandomState(seed)``
-in the reference's order (images, then labels, per step); they are all
-drawn and copied to the device before the first step, so the timed
-steps hold no host data generation.  It runs on the GPU unless
+A model-zoo CNN (default ResNet-50 v1, 1000 classes; ``--model
+resnet50_v2`` trains v2, whose stride-1 3x3 convs take the standalone
+conv route) in training mode, ``SoftmaxCrossEntropyLoss``, and
+``gluon.Trainer`` with SGD (lr 0.1, momentum 0.9, wd 1e-4).  A step is
+the forward in training mode under ``autograd.record()``, ``backward`` of
+the per-sample loss (summed over the batch), then
+``trainer.allreduce_grads()`` and ``trainer.update(batch_size)``, the
+Gluon idiom that ``trainer.step(batch_size)`` abbreviates.  The batches
+are NHWC float32 images in [0, 1) and integer labels drawn from
+``numpy.random.RandomState(seed)`` in the reference's order (images,
+then labels, per step); they are all drawn and copied to the device
+before the first step, so the timed steps hold no host data
+generation.  It runs on the GPU unless
 ``--device cpu`` is given, and prints images/s over the steps after the
 warm-up ones, as the reference does.
 
@@ -24,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from .. import autograd
 from .. import context as _context
 from ..gluon import Trainer
 from ..gluon.loss import SoftmaxCrossEntropyLoss
@@ -58,17 +63,20 @@ def synthetic_batch(rng, batch_size, image_size, classes):
     return x, y
 
 
-def build(args, device):
+def build(args, device, lr_scheduler=None):
     """(net, trainer, loss_fn): the model in training mode with weights
     from ``args.seed`` (deferred shapes take theirs at the first
-    forward), and the reference's SGD trainer."""
+    forward), and the reference's SGD trainer, under ``lr_scheduler``
+    when one is given."""
     net = get_model(args.model, classes=args.classes)
     net.initialize(ctx=device, seed=args.seed)
     net.hybridize()
     net.train()
-    trainer = Trainer(net.collect_params(), "sgd",
-                      {"learning_rate": args.lr, "momentum": 0.9,
-                       "wd": 1e-4}, kvstore=args.kvstore)
+    opt = {"learning_rate": args.lr, "momentum": 0.9, "wd": 1e-4}
+    if lr_scheduler is not None:
+        opt["lr_scheduler"] = lr_scheduler
+    trainer = Trainer(net.collect_params(), "sgd", opt,
+                      kvstore=args.kvstore)
     return net, trainer, SoftmaxCrossEntropyLoss()
 
 
@@ -79,6 +87,20 @@ def forward_backward(net, loss_fn, x, y):
     loss = loss_fn(net(x), y)
     loss.backward(torch.ones_like(loss))
     return loss.detach()
+
+
+def train_step(net, trainer, loss_fn, x, y):
+    """One step as a Gluon user writes it: the forward and the loss under
+    ``autograd.record()``, ``backward``, ``trainer.allreduce_grads()``
+    and ``trainer.update(batch)``; → (per-sample loss, logits),
+    detached."""
+    with autograd.record():
+        out = net(x)
+        loss = loss_fn(out, y)
+    loss.backward(torch.ones_like(loss))
+    trainer.allreduce_grads()
+    trainer.update(int(x.shape[0]))
+    return loss.detach(), out.detach()
 
 
 def _mark(device):
@@ -130,8 +152,7 @@ def main(argv=None):
                 torch.cuda.synchronize(device)
             tic = time.perf_counter()
         marks.append(_mark(device))
-        losses.append(forward_backward(net, loss_fn, x, y))
-        trainer.step(args.batch_size)
+        losses.append(train_step(net, trainer, loss_fn, x, y)[0])
     marks.append(_mark(device))
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -50,7 +50,8 @@ class Trainer:
         if mesh is not None or sharding_plan is not None:
             raise NotImplementedError(
                 "Trainer(mesh=, sharding_plan=): sharded training belongs "
-                "to the tensor-parallel slice of the port, not ported yet")
+                "to the tensor-parallel slice of the port (item 7 of its "
+                "queue of modules), not ported yet")
         if not (kvstore in _LOCAL_STORES):
             raise NotImplementedError(
                 f"kvstore={kvstore!r}: only the single-process stores "
@@ -101,9 +102,22 @@ class Trainer:
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
+    def allreduce_grads(self):
+        """≙ ``Trainer.allreduce_grads``: reduce the gradients across the
+        store's devices.  One process holding every gradient on a local
+        store has nothing to reduce, so the gradients stay as they are;
+        the Gluon idiom ``allreduce_grads(); ...; update(bs)`` is then
+        :meth:`step`."""
+
     def update(self, batch_size, ignore_stale_grad=False):
-        """As :meth:`step` (there is no reduction to leave out)."""
+        """As :meth:`step` without the reduction (:meth:`allreduce_grads`,
+        which reduces nothing here)."""
         self.step(batch_size, ignore_stale_grad)
+
+    def shard_batch(self, *arrays):
+        """≙ ``Trainer.shard_batch``: with no mesh (the only kind this
+        Trainer takes) the arrays as given, one unwrapped."""
+        return arrays if len(arrays) > 1 else arrays[0]
 
     def fuse_step(self, loss_fn, net=None):
         """The whole-step executor (``parallel.TrainerFusedStep``)::

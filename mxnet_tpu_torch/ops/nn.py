@@ -5,7 +5,8 @@ Layouts are the JAX package's: activations NHWC (channels last), conv
 weights HWIO ``(kh, kw, in/groups, out)``, dense weights ``(out, in)``.
 Convolution and pooling run as PyTorch calls on channels-last NCHW
 views of the NHWC tensors (cuDNN on the card, with TF32 off: see
-``context.exact_fp32``), as the JAX package leaves them to XLA, and so
+``context.exact_fp32``), as the JAX package leaves them to XLA, except
+the lone fp32 3×3/s1 conv, which is ``ops/pallas_conv.py``; and so
 do BatchNorm, GELU, the embedding gather, dropout and the losses.  The
 last-axis softmax and LayerNorm are the Pallas kernels of
 ``ops/pallas_kernels.py`` in the reference and the CUDA kernels of
@@ -19,13 +20,14 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import conv_block, cuda_int8
+from . import conv_block, cuda_int8, pallas_conv
 from .cuda_kernels import (LayerNormFn, SoftmaxFn, layernorm_fused,
                            softmax_fused)
 
 __all__ = ["softmax", "layer_norm", "gelu", "activation", "fully_connected",
            "convolution", "pooling", "batch_norm", "residual_block",
-           "log_softmax", "pick", "softmax_cross_entropy", "embedding",
+           "log_softmax", "pick", "softmax_cross_entropy",
+           "sigmoid_binary_cross_entropy", "embedding",
            "dropout", "quantized_dense", "quantized_conv"]
 
 
@@ -241,12 +243,20 @@ def _check_layout(layout):
 
 def convolution(x, weight, bias=None, stride=1, pad=0, dilate=1,
                 groups: int = 1, layout: str = "NHWC"):
-    """2-D convolution ≙ Convolution, NHWC × HWIO.  One ``F.conv2d`` on
-    the channels-last view; the result is NHWC-contiguous when the
-    backend keeps channels last (cuDNN does).  The JAX package's
-    space-to-depth stem rewrite is a TPU layout trick computing the same
-    conv and is not carried over."""
+    """2-D convolution ≙ Convolution, NHWC × HWIO.  A conv that
+    ``pallas_conv.eligible`` takes (3×3, stride 1, pad 1, no dilation, one
+    group, fp32) is ``pallas_conv.conv3x3_s1``, with the bias added after,
+    as the reference routes it: the conv3x3 / conv_wgrad kernels on the
+    card, their plain versions on the CPU.  Any other is one ``F.conv2d``
+    on the channels-last view (cuDNN on the card); the result is
+    NHWC-contiguous when the backend keeps channels last (cuDNN does).
+    The JAX package's space-to-depth stem rewrite is a TPU layout trick
+    computing the same conv and is not carried over."""
     _check_layout(layout)
+    if pallas_conv.eligible(x.shape, weight.shape, stride, pad, dilate,
+                            groups, x.dtype):
+        out = pallas_conv.conv3x3_s1(x, weight)
+        return out if bias is None else out + bias
     return _nhwc(F.conv2d(_nchw(x), weight.permute(3, 2, 0, 1), bias,
                           _pair(stride), _pair(pad), _pair(dilate), groups))
 
@@ -380,10 +390,17 @@ def log_softmax(x, axis: int = -1):
 
 
 def pick(x, index, axis: int = -1, keepdims: bool = False):
-    """≙ pick: the element of ``x`` along ``axis`` at ``index`` for every
-    other position."""
-    idx = index.long().unsqueeze(axis)
-    out = torch.gather(x, axis, idx)
+    """≙ pick (``jnp.take_along_axis`` in fill mode): the element of ``x``
+    along ``axis`` at ``index`` for every other position.  An index in
+    [-n, 0) reads entry n + index; one outside [-n, n) gives NaN with a
+    zero gradient, on the CPU and on the card alike (the index is clamped
+    before the gather, so no device assert)."""
+    n = x.shape[axis]
+    idx = index.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = ((idx >= 0) & (idx < n)).unsqueeze(axis)
+    out = torch.gather(x, axis, torch.where(ok, idx.unsqueeze(axis), 0))
+    out = torch.where(ok, out, float("nan"))
     return out if keepdims else out.squeeze(axis)
 
 
@@ -395,6 +412,18 @@ def softmax_cross_entropy(logits, labels, sparse: bool = True,
     if sparse:
         return -pick(logp, labels, axis=axis)
     return -(labels * logp).sum(dim=axis)
+
+
+def sigmoid_binary_cross_entropy(logits, labels, from_sigmoid=False):
+    """≙ ``ops/nn.py sigmoid_binary_cross_entropy``: on probabilities
+    (``from_sigmoid``) ``−(z·log(p + ε) + (1 − z)·log(1 − p + ε))`` with
+    ε = 1e-12; on logits the stable ``max(x, 0) − x·z + log1p(exp(−|x|))``."""
+    if from_sigmoid:
+        eps = 1e-12
+        return -(labels * torch.log(logits + eps)
+                 + (1 - labels) * torch.log(1 - logits + eps))
+    return (torch.clamp(logits, min=0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))
 
 
 def embedding(indices, weight):

@@ -1,4 +1,4 @@
-"""Three parity repairs of the port against the JAX package, each held on
+"""Four parity repairs of the port against the JAX package, each held on
 the CPU with the same ``numpy.random.RandomState`` inputs fed to both:
 
 - ``ops.nn.batch_norm`` and ``ops.nn.residual_block`` default to
@@ -9,7 +9,10 @@ the CPU with the same ``numpy.random.RandomState`` inputs fed to both:
   outside every scope they keep their own ``train()`` / ``eval()``;
 - bf16 and fp16 GELU (tanh and erf forms), log-softmax (both axes),
   sigmoid and softrelu round where XLA rounds them, so they equal the
-  reference's jitted public ops bit for bit.
+  reference's jitted public ops bit for bit;
+- ``ops.nn.pick`` wraps an index in [-n, 0) and gives NaN (with a zero
+  gradient) for one outside [-n, n), as the reference's fill-mode
+  ``take_along_axis`` does, and so does ``SoftmaxCrossEntropyLoss``.
 """
 import contextlib
 
@@ -221,3 +224,33 @@ def test_fp32_ops_keep_torch_s_own_functions():
     assert torch.equal(tnn.activation(x, "sigmoid"), torch.sigmoid(x))
     assert torch.equal(tnn.activation(x, "softrelu"),
                        torch.nn.functional.softplus(x))
+
+
+def test_pick_wraps_and_fills_as_the_reference():
+    """x = arange(28).reshape(4, 7), index [0, 6, 7, -1] → [0, 13, nan,
+    27]; the loss at x / 10 with labels [0, 6, 3, -1] equals the
+    reference's (exactly, fp32 on both sides up to 1e-6 relative); the
+    filled entry takes no gradient."""
+    from mxnet_tpu.gluon import loss as jloss
+    from mxnet_tpu_torch.gluon import loss as tloss
+    x = np.arange(28, dtype=np.float32).reshape(4, 7)
+    idx = np.array([0, 6, 7, -1], np.int32)
+    ref = np.asarray(jnn.pick(jnp.asarray(x), jnp.asarray(idx)))
+    np.testing.assert_array_equal(ref, [0, 13, np.nan, 27])
+    xt = torch.from_numpy(x).requires_grad_()
+    out = tnn.pick(xt, torch.from_numpy(idx))
+    np.testing.assert_array_equal(out.detach().numpy(), ref)
+    torch.where(torch.isnan(out), 0.0, out).sum().backward()
+    g = np.zeros_like(x)
+    g[0, 0] = g[1, 6] = g[3, 6] = 1.0
+    np.testing.assert_array_equal(xt.grad.numpy(), g)
+    labels = np.array([0, 6, 3, -1], np.int32)
+    want = np.asarray(jloss.SoftmaxCrossEntropyLoss()(
+        mx.np.array(x / 10), mx.np.array(labels))._data)
+    got = tloss.SoftmaxCrossEntropyLoss()(torch.from_numpy(x / 10),
+                                          torch.from_numpy(labels)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    np.testing.assert_allclose(got, [2.2658, 1.6658, 1.9658, 1.6658],
+                               atol=1e-4)
+    assert np.isnan(tnn.softmax_cross_entropy(
+        torch.from_numpy(x), torch.tensor([0, 7, 1, -8]))[[1, 3]]).all()
