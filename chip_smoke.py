@@ -34,8 +34,15 @@ ResNet-50 v1 batch-64 training's stage-1 block output (64, 56, 56, 256)
 fp32, then ResNet-50 v2 training (``examples.image_classification``'s
 defaults with ``--model resnet50_v2``: its 13 stride-1 3x3 convs on the
 standalone conv route, ``ops/pallas_conv.py``) with the Gluon losses
-and metrics.  Phases, one JSON line each; the run stops with a non-zero exit at
-the first phase that fails:
+and metrics, then the rest of the model zoo: Inception-v3 (1000 classes,
+299x299x3) scoring at ``bench.py``'s inception row (batch 32, a fresh
+batch each forward) and serving through ``ModelRegistry`` → ``Batcher``
+→ ``InferenceEngine`` at buckets (1, 8), AlexNet, VGG-16 (±BN),
+SqueezeNet 1.0 and 1.1, MobileNet v1 and v2 (width 1.0) at 224x224x3 and
+LeNet at 28x28x1 forward, and DenseNet-121 training through
+``examples.image_classification`` at its defaults (its 58 growth convs on
+the standalone conv route).  Phases, one JSON line each; the run stops
+with a non-zero exit at the first phase that fails:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, the NVRTC library's path and version; TF32 is switched
@@ -169,9 +176,13 @@ the first phase that fails:
     a small Dense net, ResNet-50 v2 at batch 8 (the standalone conv
     route captured), LAMB under a ``PolyScheduler``, SGD under
     ``CosineScheduler(warmup_steps=2)``
-    (one program while the lr moves), a Dense net with Dropout(0.5) and
-    an Adam run whose states ``load_states`` replaces between replays.
-    Losses and weights bit for bit; where they differ the worst
+    (one program while the lr moves), a Dense net with Dropout(0.5)
+    (each net its own seeded generator), an Adam run whose states
+    ``load_states`` replaces between replays, two captures beside what
+    breaks one in torch's default capture mode (a thread that syncs with
+    the card throughout; a forward that leaves an earlier CUDAGraph to
+    the collector mid-capture), and DenseNet-121 at batch 8, 64x64 (3
+    steps).  Losses and weights bit for bit; where they differ the worst
     parameter is printed and the case is gated at the spread of two
     eager runs.
 22. ``text_kernels``: the row-softmax kernels against their plain
@@ -337,6 +348,51 @@ the first phase that fails:
     [-n, n) on the card (NaN, no device assert) against the CPU; each
     metric fed card tensors against the same metric fed CPU tensors
     (counts equal, values within 1e-6 relative).
+
+37. ``zoo_kernels``: ``conv3x3`` (row 7) against its plain version at
+    the zoo's shapes: VGG-16's 3→64 stem at (32, 224, 224) (the scalar
+    path, ``vec = 0``, K = 27 in one 32-column chunk), DenseNet-121's
+    128→32 growth conv at (64, 56, 56) forward and as dgrad (with
+    ``conv_wgrad``, row 11, at the same shape), Inception-v3's 64→96 and
+    96→96 at (32, 35, 35), 448→384 at (32, 8, 8) and 32→64 at (32, 147,
+    147), and SqueezeNet 1.0's 16→64 at (32, 54, 54): within 1e-4 of the
+    output's largest magnitude and two launches bitwise equal (gates);
+    each timed beside both bounds, its plain version and the cuDNN call
+    of the same function (``F.conv2d``, ``conv2d_input``,
+    ``conv2d_weight``; ``vs_library``), with its plan; the shapes where
+    the kernel is slower than cuDNN are listed (``slower_than_library``).
+38. ``zoo_serve``: every launch counter set to 0, then Inception-v3
+    from a seeded ``.params`` scored at batch 32 x 299x299x3 (3 warm-up
+    and 10 timed forwards, each on a fresh batch: images/s, device and
+    eager ms a forward, peak memory, two forwards under
+    ``torch.profiler``), then ``ModelRegistry.load(...,
+    arch="inceptionv3", item_shape=(299, 299, 3))`` at buckets (1, 8),
+    32 closed-loop requests from one client (p50/p99) and 64 from 8
+    client threads (and a bucket-1 forward under the profiler); every
+    response finite (1, 1000), ``conv3x3``
+    launched exactly 10 times a forward and no other kernel, in the
+    scored forwards and (the counters set to 0 again before the load)
+    in the engine's.
+39. ``zoo_reference``: card logits against the port on the CPU from the
+    same seeded weights at batch 2 for Inception-v3 (299x299) and each
+    forward-only family at its standard input (within 1e-4 of the
+    largest logit, top-1 equal), each family's ``conv3x3`` launches in
+    that forward exactly its count (Inception 10, VGG-16 13, AlexNet 3,
+    SqueezeNet 8, MobileNet and LeNet 0), and every batched
+    ``zoo_serve`` response against the unbatched forward of its image
+    (same tolerance).
+40. ``zoo_train``: every counter set to 0, then 5 steps (2 warm-up and
+    3 timed) of ``examples.image_classification.main`` with ``--model
+    densenet121`` at its defaults (batch 64 x 224x224x3, 1000 classes,
+    SGD lr 0.1, momentum 0.9, wd 1e-4): finite losses, exactly 116
+    ``conv3x3`` and 58 ``conv_wgrad`` launches a step and no other
+    kernel.  Step ms (CUDA events, median of the last 4), images/s, peak
+    memory; one step of a fresh net under ``torch.profiler`` (device
+    time by category, idle share against the uninstrumented step).
+41. ``zoo_train_reference``: one DenseNet-121 step at batch 2, 64x64 (a
+    reduced image size), on the card, on the CPU and on the CPU in
+    float64, from the same weights and batch, gated as
+    ``v2_train_reference`` with the losses within 1e-5 relative.
 
 Then one ``{"kernels": [...]}`` line (16 entries; ``launches`` adds
 the fused phases' real launches: the first call's warm-up and the
@@ -1154,15 +1210,17 @@ def phase_image_kernels(state):
     return {"cases": cases, "mma_tf32_ceiling": ceiling}
 
 
-def _resnet50_params(path):
-    """ResNet-50 v1 (1000 classes) with the port's seeded initializer
+def _seeded_net(arch, item, device="cpu"):
+    """``arch`` (1000 classes; LeNet 10) with the port's seeded
+    initializer, its deferred shapes taken from one forward of ``item``,
     and plausible frozen BatchNorm statistics (γ near 1, β and μ small,
-    σ² uniform in [0.5, 1.5]), saved to ``path`` as a ``.params``."""
+    σ² uniform in [0.5, 1.5]), in inference mode on ``device``."""
     import torch
     from mxnet_tpu_torch.models import get_model
-    net = get_model("resnet50_v1", classes=1000)
+    net = get_model(arch, classes=10 if arch == "lenet" else 1000)
     net.initialize(seed=SEED, ctx="cpu")
-    net(torch.zeros(1, 32, 32, 3))      # deferred shapes take their values
+    with torch.no_grad():
+        net(torch.zeros((1,) + item))   # deferred shapes take their values
     gen = torch.Generator().manual_seed(SEED)
     with torch.no_grad():
         for name, t in net.collect_params().items():
@@ -1173,7 +1231,14 @@ def _resnet50_params(path):
                 t.copy_(0.1 * torch.randn(t.shape, generator=gen))
             elif leaf == "running_var":
                 t.copy_(0.5 + torch.rand(t.shape, generator=gen))
-    net.save_parameters(path)
+    net.eval()
+    return net.to(device)
+
+
+def _resnet50_params(path):
+    """ResNet-50 v1 (1000 classes) from :func:`_seeded_net`, saved to
+    ``path`` as a ``.params``."""
+    _seeded_net("resnet50_v1", (32, 32, 3)).save_parameters(path)
 
 
 def _pct(xs, q):
@@ -1426,19 +1491,8 @@ def _train_conv_cases(N, H, W, C, Cout, gen, dgrad_only=False):
     if dgrad_only:
         return out
 
+    out["conv3x3"] = _conv3x3_fwd_case(x, w, xc, wc)
     z = cb.conv3x3(x, w)
-    again = cb.conv3x3(x, w)
-    rz = cb.conv3x3_plain(x, w)
-    err, rel = _rel_err(z, rz)
-    out["conv3x3"] = _tc_bounds(_timed(
-        {"shape": shape, "use": "forward",
-         "plan": _conv3x3_plan(N * H * W, C, Cout), "max_abs_err": err,
-         "rel_err": rel, "tol": TRAIN_TOL,
-         "bitwise_equal_relaunch": bool(torch.equal(z, again)),
-         "library": "F.conv2d (cuDNN, channels-last)"},
-        lambda: cb.conv3x3(x, w), lambda: cb.conv3x3_plain(x, w),
-        lambda: F.conv2d(xc, wc, padding=1), conv_bytes, flops),
-        conv_bytes, flops)
     out["conv3x3"]["kernels_us"] = _kernel_us(lambda: cb.conv3x3(x, w))
 
     zs, s1, s2 = cb.conv_stats(x, w)
@@ -1468,6 +1522,34 @@ def _train_conv_cases(N, H, W, C, Cout, gen, dgrad_only=False):
         stats_bytes, flops)
     out["conv_stats"]["kernels_us"] = _kernel_us(lambda: cb.conv_stats(x, w))
     return out
+
+
+def _conv3x3_fwd_case(x, w, xc, wc):
+    """The forward ``conv3x3`` of NHWC ``x`` with HWIO ``w`` against its
+    plain version, twice on the same inputs (bitwise equal, a gate),
+    timed beside both bounds, the plain version and ``F.conv2d`` on the
+    channels-last views ``xc``, ``wc``; with its plan."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import conv_block as cb
+    N, H, W, C = x.shape
+    Cout = w.shape[-1]
+    npix = N * H * W
+    flops = 2 * npix * 9 * C * Cout
+    conv_bytes = 4 * (npix * (C + Cout) + 9 * C * Cout)
+    z = cb.conv3x3(x, w)
+    again = cb.conv3x3(x, w)
+    rz = cb.conv3x3_plain(x, w)
+    err, rel = _rel_err(z, rz)
+    return _tc_bounds(_timed(
+        {"shape": [N, H, W, C, Cout], "use": "forward",
+         "plan": _conv3x3_plan(npix, C, Cout), "max_abs_err": err,
+         "rel_err": rel, "tol": TRAIN_TOL,
+         "bitwise_equal_relaunch": bool(torch.equal(z, again)),
+         "library": "F.conv2d (cuDNN, channels-last)"},
+        lambda: cb.conv3x3(x, w), lambda: cb.conv3x3_plain(x, w),
+        lambda: F.conv2d(xc, wc, padding=1), conv_bytes, flops),
+        conv_bytes, flops)
 
 
 def _wgrad_case(x, dy, xc, wc, dyc, shape, nbytes, flops):
@@ -3589,8 +3671,11 @@ def phase_fused_parity(state):
     ResNet-50 v2 at batch 8 (the standalone conv route), LAMB
     under a ``PolyScheduler``, SGD under
     ``CosineScheduler(warmup_steps=2)`` (the lr moves on every replay,
-    one program), a Dense net with Dropout(0.5) and an Adam run
-    whose states ``load_states`` replaces between replays.  Losses and
+    one program), a Dense net with Dropout(0.5), an Adam run
+    whose states ``load_states`` replaces between replays, two captures
+    beside what breaks one in torch's default capture mode (a thread
+    that synchronizes, a CUDAGraph collected mid-capture), and
+    DenseNet-121 at batch 8, 64x64 (its 58 growth convs on the route).  Losses and
     weights are compared bit for bit; where they differ, the worst
     parameter is printed and the case is gated at the spread of two
     eager runs."""
@@ -3639,8 +3724,9 @@ def phase_fused_parity(state):
             def make():
                 net = nn.HybridSequential()
                 net.add(nn.Dense(64, activation="relu", in_units=32))
-                if dropout:
-                    net.add(nn.Dropout(dropout))
+                if dropout:     # each net its own stream, seeded alike
+                    net.add(nn.Dropout(dropout, generator=torch.Generator(
+                        device=dev).manual_seed(SEED)))
                 net.add(nn.Dense(10, in_units=64))
                 net.initialize(ctx=dev, seed=SEED)
                 net.hybridize()
@@ -3663,6 +3749,18 @@ def phase_fused_parity(state):
         cases["dropout_0.5"] = _parity_case(dense("sgd", {}, 0.5), small,
                                             _legacy_step)
         cases["load_states"] = _resync_case(dense("adam", {}), small)
+        cases["capture_beside_syncing_thread"] = _syncing_thread_case(
+            dense, small)
+        cases["capture_beside_dead_graph"] = _dead_graph_case(dense, small)
+        args_dn = ic.parse_args(["--model", "densenet121", "--batch-size",
+                                 "8", "--image-size", "64", "--seed",
+                                 str(SEED)])
+        rng_dn = np.random.RandomState(SEED + 16)
+        dn = [tuple(torch.as_tensor(a, device=dev) for a in
+                    ic.synthetic_batch(rng_dn, 8, 64, 1000))
+              for _ in range(3)]
+        cases["densenet121_b8"] = _parity_case(
+            lambda: ic.build(args_dn, dev), dn, _legacy_step)
     finally:
         torch.backends.cudnn.deterministic = prev_det
     res = {"cases": cases,
@@ -3680,6 +3778,71 @@ def phase_fused_parity(state):
 def _counter(name):
     from mxnet_tpu_torch import telemetry
     return telemetry.raw_snapshot()["counters"].get(name, 0)
+
+
+def _syncing_thread_case(dense, batches):
+    """A capture beside a thread that synchronizes with the card
+    throughout (in torch's default capture mode, any such call breaks
+    the capture): SGD with momentum on the small Dense net, its replays
+    bit for bit as its eager runs (``_parity_case``)."""
+    import threading
+    import torch
+    stop, syncs = threading.Event(), [0]
+
+    def sync_loop():
+        z = torch.ones(4, device="cuda")
+        while not stop.is_set():
+            z.cpu()
+            syncs[0] += 1
+    t = threading.Thread(target=sync_loop, daemon=True)
+    t.start()
+    try:
+        c = _parity_case(dense("sgd", {"momentum": 0.9}), batches,
+                         _legacy_step)
+    finally:
+        stop.set()
+        t.join(60)
+    c["thread_syncs"] = syncs[0]
+    c["ok"] = c["ok"] and syncs[0] > 0
+    return c
+
+
+def _dead_graph_case(dense, batches):
+    """A capture whose forward leaves an earlier executor's CUDAGraph in
+    a dead reference cycle and allocates past the collector's threshold
+    (a CUDAGraph the collector frees during a capture breaks it): as
+    :func:`_syncing_thread_case`, and the earlier graph taken."""
+    import gc
+    import torch
+    from mxnet_tpu_torch.gluon import nn
+
+    class LeavesDeadGraph(nn.HybridBlock):
+        def __init__(self, victim):
+            super().__init__()
+            self.victim = victim
+
+        def forward(self, x):
+            if self.victim and torch.cuda.is_current_stream_capturing():
+                cycle = [self.victim.pop()]
+                cycle.append(cycle)
+                del cycle
+                _ = [[] for _ in range(4 * gc.get_threshold()[0])]
+            return x
+
+    net, trainer, loss_fn = dense("sgd", {})()
+    ex = trainer.fuse_step(loss_fn)
+    ex(*batches[0])
+    victim = [ex]
+    del ex, net, trainer, loss_fn
+
+    def make():
+        net, trainer, loss_fn = dense("sgd", {"momentum": 0.9})()
+        net.add(LeavesDeadGraph(victim))
+        return net, trainer, loss_fn
+    c = _parity_case(make, batches, _legacy_step)
+    c["victim_taken"] = not victim
+    c["ok"] = c["ok"] and not victim
+    return c
 
 
 def _resync_case(make, batches):
@@ -3924,9 +4087,19 @@ def phase_v2_train_reference(state):
     lies farther than that from the float64 step, the card's step no
     farther from the float64 step than twice the CPU's float32 step."""
     import torch
+    args = _v2_args()
+    (x, y), = _v2_batches(args, torch.device("cuda"), 1)
+    return _step_reference(args, x, y, V2_REF_TOL, "resnet50_v2.params")
+
+
+def _step_reference(args, x, y, loss_tol, fname):
+    """One training step of ``args.model`` (``ic.build``'s seeded weights,
+    saved to ``fname`` and loaded by each side) on the card, on the CPU
+    and on the CPU in float64, from the batch ``x``, ``y``; gated as
+    ``phase_v2_train_reference`` says, the losses within ``loss_tol``."""
+    import torch
     from mxnet_tpu_torch.examples import image_classification as ic
     torch.set_num_threads(os.cpu_count() or 1)
-    args = _v2_args()
     dev = torch.device("cuda")
     net, _, _ = ic.build(args, dev)
     net.eval()
@@ -3934,11 +4107,10 @@ def phase_v2_train_reference(state):
         net(torch.zeros(1, 32, 32, 3, device=dev))
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
-    path = os.path.join(work, "resnet50_v2.params")
+    path = os.path.join(work, fname)
     net.save_parameters(path)
     before = {k: t.detach().double().cpu()
               for k, t in net.collect_params().items()}
-    (x, y), = _v2_batches(args, dev, 1)
     t0 = time.perf_counter()
     card = _v2_side(args, "cuda", path, x, y)
     cpu = _v2_side(args, "cpu", path, x.cpu(), y.cpu())
@@ -3963,7 +4135,8 @@ def phase_v2_train_reference(state):
         k = max(e, key=e.get)
         return {"param": k, "rel_to_max": e[k] / big,
                 "rel_to_max_update": e[k] / upd}
-    res = {"batch": [args.batch_size, args.image_size, args.image_size, 3],
+    res = {"model": args.model,
+           "batch": list(x.shape),
            "loss_card_mean": card[0].mean().item(),
            "loss_cpu_mean": cpu[0].mean().item(),
            "loss_rel_to_max": {"card_vs_cpu": loss_cc,
@@ -3974,8 +4147,8 @@ def phase_v2_train_reference(state):
            "largest_update": upd, "above_tol_in_cpu_fp32": floor,
            "params": len(e_cc), "same_params": sorted(card[1]) ==
            sorted(cpu[1]), "three_sides_s": secs, "tol": V2_REF_TOL,
-           "failing": bad}
-    if bad or not res["same_params"] or loss_cc > V2_REF_TOL:
+           "loss_tol": loss_tol, "failing": bad}
+    if bad or not res["same_params"] or loss_cc > loss_tol:
         raise AssertionError(f"card disagrees with the CPU: {res}")
     return res
 
@@ -4122,6 +4295,347 @@ def phase_loss_metric(state):
     return res
 
 
+# ------------------------------------------------------- model-zoo phases
+# (input item, row-7 launches a forward): the 3x3/s1/p1 fp32 convs each
+# net sends to the standalone conv route (``ops/pallas_conv.py``)
+ZOO_FORWARD = {
+    "inceptionv3": ((299, 299, 3), 10),
+    "alexnet": ((224, 224, 3), 3),
+    "vgg16": ((224, 224, 3), 13),
+    "vgg16_bn": ((224, 224, 3), 13),
+    "squeezenet1.0": ((224, 224, 3), 8),
+    "squeezenet1.1": ((224, 224, 3), 8),
+    "mobilenet1.0": ((224, 224, 3), 0),
+    "mobilenetv2_1.0": ((224, 224, 3), 0),
+    "lenet": ((28, 28, 1), 0),
+}
+ZOO_BATCH = 32              # bench.py's inception row: batch 32 at 299²
+ZOO_SCORE_WARMUP = 3
+ZOO_SCORE_ITERS = 10
+ZOO_REF_TOL = 1e-4          # logits, card vs CPU: of the largest logit
+DENSENET_CONVS = 58         # DenseNet-121's 3x3 growth convs
+ZOO_TRAIN_ITERS = 3         # + image_classification's 2 warm-up steps
+ZOO_TRAIN_IMAGE = 64        # zoo_train_reference's reduced image size
+ZOO_TRAIN_LOSS_RTOL = 1e-5
+
+
+def _zoo_counters():
+    """Every kernel wrapper's launch count, set to 0."""
+    from mxnet_tpu_torch.parallel import train as pt
+    counted = pt.kernel_wrappers()
+    for fn in counted.values():
+        fn.launches = 0
+    return counted
+
+
+def _moved(counted):
+    return {n: fn.launches for n, fn in counted.items() if fn.launches}
+
+
+def phase_zoo_kernels(state):
+    """Row 7 (``conv3x3``) at the zoo's shapes, and row 11
+    (``conv_wgrad``) at DenseNet's (the docstring's item 37)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+
+    def fwd(N, H, W, C, Cout, net):
+        x = torch.randn(N, H, W, C, device="cuda", generator=gen)
+        w = torch.randn(3, 3, C, Cout, device="cuda", generator=gen) * \
+            (2.0 / (9 * C)) ** 0.5
+        wc = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        return dict(_conv3x3_fwd_case(x, w, x.permute(0, 3, 1, 2), wc),
+                    net=net)
+    fwd_cases = [fwd(32, 224, 224, 3, 64, "vgg16 stem (vec = 0)"),
+                 fwd(64, 56, 56, 128, 32, "densenet121 growth conv"),
+                 fwd(32, 35, 35, 64, 96, "inceptionv3 A/B"),
+                 fwd(32, 35, 35, 96, 96, "inceptionv3 A"),
+                 fwd(32, 8, 8, 448, 384, "inceptionv3 E"),
+                 fwd(32, 147, 147, 32, 64, "inceptionv3 stem"),
+                 fwd(32, 54, 54, 16, 64, "squeezenet1.0 fire e3")]
+    dn = _train_conv_cases(64, 56, 56, 128, 32, gen, dgrad_only=True)
+    for c in dn.values():
+        c["net"] = "densenet121 growth conv"
+    cases = {"conv3x3": fwd_cases + [dn["conv3x3_dgrad"]],
+             "conv_wgrad": [dn["conv_wgrad"]]}
+    for n, cs in cases.items():
+        state["cases"].setdefault(n, []).extend(cs)
+    bad = [(n, c) for n, cs in cases.items() for c in cs
+           if not _train_ok(n, c)]
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{bad}")
+    ceiling = _ceiling_shares(state, cases["conv3x3"] + cases["conv_wgrad"])
+    slower = [{"shape": c["shape"], "use": c["use"], "net": c["net"],
+               "kernel_ms": c["kernel_ms"], "library_ms": c["library_ms"],
+               "vs_library": c["vs_library"]}
+              for cs in cases.values() for c in cs if c["vs_library"] > 1]
+    return {"cases": cases, "mma_tf32_ceiling": ceiling,
+            "slower_than_library": slower}
+
+
+def phase_zoo_serve(state):
+    """Inception-v3 scoring at batch 32 × 299², then serving through
+    ``ModelRegistry`` at buckets (1, 8) (the docstring's item 38)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.models import get_model
+    from mxnet_tpu_torch.serve import ModelRegistry
+    mx.context.exact_fp32()
+    item, per_fwd = ZOO_FORWARD["inceptionv3"]
+    work = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "inceptionv3.params")
+    t0 = time.perf_counter()
+    _seeded_net("inceptionv3", (75, 75, 3)).save_parameters(path)
+    init_s = time.perf_counter() - t0
+
+    counted = _zoo_counters()
+    torch.cuda.reset_peak_memory_stats()
+    net = get_model("inceptionv3", classes=1000)
+    net.load_parameters(path, ctx="cuda")
+    net.hybridize()
+    net.eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    xs = [torch.rand((ZOO_BATCH,) + item, device="cuda", generator=gen)
+          for _ in range(ZOO_SCORE_WARMUP + ZOO_SCORE_ITERS)]
+    with torch.inference_mode():
+        for x in xs[:ZOO_SCORE_WARMUP]:
+            out = net(x)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for x in xs[ZOO_SCORE_WARMUP:]:
+            out = net(x)
+        end.record()
+        end.synchronize()
+        finite = bool(torch.isfinite(out).all())
+        ms = start.elapsed_time(end) / ZOO_SCORE_ITERS
+        score_fwds = ZOO_SCORE_WARMUP + ZOO_SCORE_ITERS
+        score_launches = _moved(counted)
+        x = xs[0]
+        device_ms = cuda_ms(lambda: net(x), iters=2, repeats=5)
+        eager = eager_ms(lambda: net(x), iters=5)
+        profile = _profile(lambda: net(x), 2, top=8)
+    score = {"batch": ZOO_BATCH, "image": list(item),
+             "warmup": ZOO_SCORE_WARMUP, "iters": ZOO_SCORE_ITERS,
+             "ms_per_batch": ms, "images_s": ZOO_BATCH / (ms * 1e-3),
+             "device_ms_per_forward": device_ms,
+             "eager_ms_per_forward": eager,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+             "launches": score_launches, "forwards": score_fwds,
+             "profile": profile}
+    del xs, net
+    torch.cuda.empty_cache()
+
+    rs = np.random.RandomState(SEED + 13)
+    images = rs.rand(64, *item).astype(np.float32)
+    counted = _zoo_counters()
+    telemetry.reset()
+    torch.cuda.reset_peak_memory_stats()
+    reg = ModelRegistry(buckets=(1, 8))
+    t0 = time.perf_counter()
+    entry = reg.load("inceptionv3", path, arch="inceptionv3",
+                     item_shape=item)
+    load_s = time.perf_counter() - t0
+    lat, outs = [], []
+    for i in range(32):
+        t1 = time.perf_counter()
+        outs.append(reg.predict("inceptionv3", images[i])[0])
+        lat.append((time.perf_counter() - t1) * 1e3)
+    got, errs = {}, []
+
+    def client(c):
+        try:
+            for j in range(8):
+                k = 8 * c + j
+                got[k] = reg.predict("inceptionv3", images[k],
+                                     timeout=300)[0]
+        except Exception as e:
+            errs.append(repr(e))
+    ts = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    t1 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    conc_s = time.perf_counter() - t1
+    snap = telemetry.raw_snapshot()
+    eng = entry.engine
+    forwards = eng.forwards
+    launches = _moved(counted)
+    state.update(zoo_params=path, zoo_images=images, zoo_engine=eng,
+                 zoo_registry=reg, zoo_batched=got)
+    state["zoo_launches"] = {n: score_launches.get(n, 0) + launches.get(n, 0)
+                             for n in set(score_launches) | set(launches)}
+    per_bucket = {}
+    for b in eng.buckets:
+        xb = torch.as_tensor(images[:b], device="cuda")
+        per_bucket[b] = {
+            "device_ms": cuda_ms(lambda: eng.run(xb), iters=2, repeats=5),
+            "eager_ms": eager_ms(lambda: eng.run(xb), iters=5)}
+    x1 = torch.as_tensor(images[:1], device="cuda")
+    profile1 = _profile(lambda: eng.run(x1), 2, top=6)
+    h = snap["histograms"].get("serve.batch_fill", {})
+    res = {"model": "inceptionv3", "classes": 1000, "init_s": init_s,
+           "score": score, "buckets": list(eng.buckets),
+           "load_and_warmup_s": load_s,
+           "closed_loop": {"requests": 32, "p50_ms": _pct(lat, 50),
+                           "p99_ms": _pct(lat, 99),
+                           "mean_ms": sum(lat) / len(lat),
+                           "first_ms": lat[0], "max_ms": max(lat)},
+           "concurrent": {"clients": 8, "requests": 64, "seconds": conc_s,
+                          "images_s": 64 / conc_s,
+                          "p50_ms_not_measured": "per-request latency is "
+                          "timed in the closed loop only",
+                          "batches": snap["counters"].get("serve.batches",
+                                                          0),
+                          "mean_batch_fill": h.get("sum", 0) /
+                          max(1, h.get("count", 0))},
+           "per_bucket": per_bucket, "bucket1_profile": profile1,
+           "launches": {"serving": launches, "engine_forwards": forwards,
+                        "conv3x3_per_forward": launches.get("conv3x3", 0) /
+                        forwards},
+           "peak_mem_bytes_serving": torch.cuda.max_memory_allocated()}
+    want_score = {"conv3x3": per_fwd * score_fwds}
+    want = {"conv3x3": per_fwd * forwards}
+    if errs or len(got) != 64:
+        raise AssertionError(f"concurrent requests failed: {errs}")
+    bad = [o for o in outs + list(got.values())
+           if o.shape != (1, 1000) or not np.isfinite(o).all()]
+    if bad or not finite:
+        raise AssertionError(f"{len(bad)} responses not finite (1, 1000)")
+    if score_launches != want_score or launches != want:
+        raise AssertionError(f"launch counts differ from the path's: {res}")
+    return res
+
+
+def phase_zoo_reference(state):
+    """Card logits against the port on the CPU for Inception-v3 and each
+    forward-only family, each family's row-7 launches a forward, and the
+    batched Inception responses against their unbatched forwards (the
+    docstring's item 39)."""
+    import copy
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    mx.context.exact_fp32()
+    torch.set_num_threads(os.cpu_count() or 1)
+    rs = np.random.RandomState(SEED + 14)
+    fams = {}
+    for arch, (item, per_fwd) in ZOO_FORWARD.items():
+        cpu_net = _seeded_net(arch, item)
+        card_net = copy.deepcopy(cpu_net).to("cuda")
+        x = rs.rand(2, *item).astype(np.float32)
+        counted = _zoo_counters()
+        with torch.inference_mode():
+            card = card_net(torch.as_tensor(x, device="cuda")).cpu().numpy()
+            moved = _moved(counted)
+            cpu = cpu_net(torch.from_numpy(x)).numpy()
+        err = float(np.abs(card - cpu).max())
+        scale = float(np.abs(cpu).max())
+        fams[arch] = {"input": [2, *item], "max_abs_diff": err,
+                      "max_abs": scale, "rel": err / scale,
+                      "top1_equal": bool((card.argmax(-1) ==
+                                          cpu.argmax(-1)).all()),
+                      "finite": bool(np.isfinite(card).all()),
+                      "launches": moved,
+                      "launches_expected": {"conv3x3": per_fwd}
+                      if per_fwd else {}}
+        del card_net, cpu_net
+    torch.cuda.empty_cache()
+    eng, images = state["zoo_engine"], state["zoo_images"]
+    bat_err, bat_scale, bitwise = 0.0, 0.0, 0
+    for k, out in state["zoo_batched"].items():
+        one = eng.run(images[k:k + 1])[0].cpu().numpy()
+        bat_err = max(bat_err, float(np.abs(out - one).max()))
+        bat_scale = max(bat_scale, float(np.abs(one).max()))
+        bitwise += int(np.array_equal(out, one))
+    state["zoo_registry"].close()
+    res = {"families": fams, "tol": ZOO_REF_TOL,
+           "batched_vs_unbatched_max_abs_diff": bat_err,
+           "batched_max_abs": bat_scale,
+           "batched_bitwise_equal": bitwise,
+           "batched_responses": len(state["zoo_batched"])}
+    bad = [a for a, f in fams.items()
+           if not (f["rel"] <= ZOO_REF_TOL and f["top1_equal"] and
+                   f["finite"] and f["launches"] == f["launches_expected"])]
+    if bad or bat_err > ZOO_REF_TOL * bat_scale:
+        raise AssertionError(f"card disagrees in {bad}: {res}")
+    return res
+
+
+def phase_zoo_train(state):
+    """DenseNet-121 training through ``examples.image_classification``
+    at its defaults (the docstring's item 40)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.examples import image_classification as ic
+    argv = ["--model", "densenet121", "--iters", str(ZOO_TRAIN_ITERS),
+            "--seed", str(SEED)]
+    counted = _zoo_counters()
+    torch.cuda.reset_peak_memory_stats()
+    out = ic.main(argv)
+    launches = _moved(counted)
+    peak = torch.cuda.max_memory_allocated()
+    steps = out["steps"]
+    state["zoo_launches"] = {n: state.get("zoo_launches", {}).get(n, 0)
+                             + launches.get(n, 0)
+                             for n in set(launches) |
+                             set(state.get("zoo_launches", {}))}
+    args = ic.parse_args(argv)
+    last = sorted(out["step_ms"][1:])
+    med = last[len(last) // 2]
+    want = {"conv3x3": 2 * DENSENET_CONVS * steps,
+            "conv_wgrad": DENSENET_CONVS * steps}
+    res = {"args": vars(args), "steps": steps, "losses": out["losses"],
+           "step_ms": out["step_ms"], "step_ms_median_last4": med,
+           "images_s": args.batch_size / med * 1e3,
+           "images_s_example": out["img_s"], "peak_mem_bytes": peak,
+           "launches": launches, "launches_expected": want,
+           "tf32_cudnn": torch.backends.cudnn.allow_tf32}
+    if not all(math.isfinite(v) for v in out["losses"]):
+        raise AssertionError(f"non-finite loss: {res}")
+    if launches != want:
+        raise AssertionError(f"launch counts differ from the path's: {res}")
+    # where a step's time goes: the same step on a fresh net under the
+    # profiler
+    dev = torch.device("cuda")
+    net, trainer, loss_fn = ic.build(args, dev)
+    x, y = (torch.as_tensor(a, device=dev) for a in ic.synthetic_batch(
+        np.random.RandomState(SEED), args.batch_size, args.image_size,
+        args.classes))
+    ic.train_step(net, trainer, loss_fn, x, y)
+    res["profile"] = _profile(
+        lambda: ic.train_step(net, trainer, loss_fn, x, y), 1, top=10)
+    busy = res["profile"].get("device_busy_us_per_call")
+    if busy is not None:
+        res["profile"]["idle_share_vs_uninstrumented_step"] = \
+            1.0 - busy / (med * 1e3)
+    del net, trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_zoo_train_reference(state):
+    """One DenseNet-121 step at batch 2, 64x64, on the card, on the CPU
+    and on the CPU in float64 (the docstring's item 41)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.examples import image_classification as ic
+    args = ic.parse_args(["--model", "densenet121", "--batch-size", "2",
+                          "--image-size", str(ZOO_TRAIN_IMAGE), "--seed",
+                          str(SEED)])
+    rng = np.random.RandomState(SEED + 15)
+    x, y = (torch.as_tensor(a) for a in ic.synthetic_batch(
+        rng, 2, ZOO_TRAIN_IMAGE, args.classes))
+    return _step_reference(args, x.cuda(), y.cuda(), ZOO_TRAIN_LOSS_RTOL,
+                           "densenet121.params")
+
+
 # ------------------------------------------------------------------ main
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
@@ -4190,7 +4704,8 @@ KERNEL_NOTES = {
 }
 PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
                  "train_launches", "text_launches", "int8_launches",
-                 "ext_launches", "fused_launches", "v2_launches")
+                 "ext_launches", "fused_launches", "v2_launches",
+                 "zoo_launches")
 
 
 def kernels_line(state):
@@ -4200,7 +4715,8 @@ def kernels_line(state):
     training in ``image_train``, Gluon BERT serving in ``text_serve``,
     int8 ResNet-50 scoring and serving in ``int8_score`` and
     ``int8_serve``, the extension surface in ``ext_path``, ResNet-50 v2
-    training in ``v2_train``);
+    training in ``v2_train``, Inception-v3 scoring and serving in
+    ``zoo_serve`` and DenseNet-121 training in ``zoo_train``);
     the times are at the first case, the
     path's own shape (``conv3x3``: its dgrad use, which is how training
     launches it)."""
@@ -4233,7 +4749,8 @@ PHASES = ("env", "build", "kernels", "slice", "reference", "profile",
           "text_reference", "text_profile", "int8_kernels", "int8_score",
           "int8_serve", "int8_reference", "int8_profile", "ext_kernels",
           "rtc", "ext_path", "v2_train", "v2_train_reference",
-          "loss_metric")
+          "loss_metric", "zoo_kernels", "zoo_serve", "zoo_reference",
+          "zoo_train", "zoo_train_reference")
 
 
 def _args(argv):

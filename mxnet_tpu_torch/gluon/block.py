@@ -23,6 +23,7 @@ from torch.nn.parameter import UninitializedBuffer, UninitializedParameter
 
 from .. import context as _context
 from .. import initializer as _init
+from .. import random as _random
 from .parameter import (DeferredInitializationError, ParameterDict,
                         ParamSpec, is_initialized, load_numpy)
 
@@ -86,20 +87,27 @@ class Block(nn.Module):
         return out
 
     def initialize(self, init=None, ctx=None, force_reinit=False,
-                   seed: int = 0, generator=None):
+                   seed=None, generator=None):
         """Fill every parameter from ``init`` when one is given (it
         overrides each parameter's own, as in the JAX package's
         ``Parameter.initialize``), else from its own initializer
-        (``Xavier`` where it has none), drawing from ``generator``
-        (default: a CPU generator seeded with ``seed``).
+        (``Xavier`` where it has none), drawing from ``generator``, else
+        from a CPU generator seeded with ``seed``, else from the CPU
+        generator of ``mx.random``, which ``mx.seed`` seeds (as the
+        reference draws from its seeded key chain).  Weights are drawn
+        on the CPU and then moved.
         Parameters of unknown shape are filled at their first forward, on
         the device of its input.  ``ctx`` is the device to allocate on:
         by default the card (``context.resolve``), as the reference
         allocates on JAX's default device; with no card and no ``ctx``
         this raises.  Pass ``ctx="cpu"`` to work on the CPU."""
         device = _context.resolve(ctx)
-        gen = generator if generator is not None else \
-            torch.Generator().manual_seed(int(seed))
+        if generator is not None:
+            gen = generator
+        elif seed is not None:
+            gen = torch.Generator().manual_seed(int(seed))
+        else:
+            gen = _random._gen(torch.device("cpu"))
         given = _init.create(init) if init is not None else None
         for mod in self.modules():
             if not isinstance(mod, Block):

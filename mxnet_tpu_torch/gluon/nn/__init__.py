@@ -1,6 +1,5 @@
-"""Gluon layers of the image and text slices (≙ the subset of
-``mxnet_tpu/gluon/nn/__init__.py`` the ResNet zoo and the Gluon BERT
-use).
+"""Gluon layers (≙ ``mxnet_tpu/gluon/nn/__init__.py``, all of its blocks
+but ``SyncBatchNorm``).
 
 The reference's conventions hold: NHWC activations, HWIO conv weights,
 dense weights ``(units, in_units)``, BatchNorm over the last axis with
@@ -25,12 +24,20 @@ import torch
 
 from ... import autograd
 from ... import initializer as init
+from ... import random as _random
 from ...ops import nn as _nn
-from ..block import Block, HybridBlock, HybridSequential, Sequential
+from ..block import (Block, HybridBlock, HybridSequential, Sequential,
+                     _Sequence)
 
-__all__ = ["Dense", "Dropout", "Flatten", "Activation", "GELU", "Conv2D",
-           "MaxPool2D", "GlobalAvgPool2D", "BatchNorm", "LayerNorm",
-           "Embedding",
+__all__ = ["Dense", "Dropout", "Flatten", "Activation", "LeakyReLU", "PReLU",
+           "ELU", "SELU", "GELU", "Swish", "SiLU", "Conv1D", "Conv2D",
+           "Conv2DTranspose", "Conv3D", "Conv1DTranspose", "MaxPool1D",
+           "MaxPool2D", "AvgPool2D", "GlobalMaxPool2D", "GlobalAvgPool2D",
+           "MaxPool3D", "AvgPool3D", "AvgPool1D", "GlobalMaxPool1D",
+           "GlobalAvgPool1D", "GlobalMaxPool3D", "GlobalAvgPool3D",
+           "BatchNorm", "LayerNorm", "GroupNorm", "InstanceNorm",
+           "Embedding", "Lambda", "HybridLambda", "Identity",
+           "ReflectionPad2D", "HybridConcatenate", "Concatenate",
            "Sequential", "HybridSequential", "Block", "HybridBlock",
            "fused_conv_bn_relu", "fused_block_active"]
 
@@ -75,9 +82,9 @@ class Dense(HybridBlock):
 
 class Dropout(HybridBlock):
     """≙ ``gluon.nn.Dropout``: the identity in inference mode; in training
-    mode (``_training``) ``ops.nn.dropout`` at ``rate`` with the block's
-    ``torch.Generator`` (``generator=``, or one on the input's device
-    seeded with 0 at the first training forward)."""
+    mode (``_training``) ``ops.nn.dropout`` at ``rate``, drawing from
+    ``generator=`` when one is given, else from the ``mx.random``
+    generator of the input's device, which ``mx.seed`` seeds."""
 
     def __init__(self, rate, axes=(), generator=None, **kwargs):
         super().__init__(**kwargs)
@@ -89,9 +96,14 @@ class Dropout(HybridBlock):
     def forward(self, x):
         if not _training(self) or self._rate == 0.0:
             return x
-        if self._generator is None:
-            self._generator = torch.Generator(device=x.device).manual_seed(0)
-        return _nn.dropout(x, self._rate, self._generator, training=True)
+        return _nn.dropout(x, self._rate, self.generator(x.device),
+                           training=True)
+
+    def generator(self, device):
+        """The generator a training forward on ``device`` draws from."""
+        if self._generator is not None:
+            return self._generator
+        return _random._gen(torch.device(device))
 
 
 class Flatten(HybridBlock):
@@ -106,6 +118,51 @@ class Activation(HybridBlock):
 
     def forward(self, x):
         return _nn.activation(x, self._act)
+
+
+class LeakyReLU(HybridBlock):
+    def __init__(self, alpha=0.01, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def forward(self, x):
+        return _nn.leaky_relu(x, self._alpha)
+
+
+class PReLU(HybridBlock):
+    """≙ ``gluon.nn.PReLU``: a learned slope ``alpha`` of ``in_channels``
+    entries (Constant 0.25), broadcast along the last axis."""
+
+    def __init__(self, alpha_initializer=None, in_channels=1, **kwargs):
+        super().__init__(**kwargs)
+        self._param("alpha", (in_channels,),
+                    alpha_initializer or init.Constant(0.25))
+
+    def forward(self, x):
+        self._finish("alpha", self._specs["alpha"].shape, x.device)
+        return _nn.prelu(x, self.alpha)
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def forward(self, x):
+        return _nn.elu(x, self._alpha)
+
+
+class SELU(HybridBlock):
+    def forward(self, x):
+        return _nn.selu(x)
+
+
+class Swish(HybridBlock):
+    def forward(self, x):
+        return _nn.silu(x)
+
+
+SiLU = Swish
 
 
 class GELU(HybridBlock):
@@ -146,11 +203,15 @@ class _ConvBase(HybridBlock):
         else:
             self.register_parameter("bias", None)
 
-    def _infer(self, x):
-        self._finish("weight", self._kernel + (x.shape[-1] // self._groups,
-                                               self._channels), x.device)
+    def _infer(self, x, lead=()):
+        c_in = x.shape[-1] if self._layout.endswith("C") else x.shape[1]
+        self._finish("weight", lead + self._kernel + (
+            c_in // self._groups, self._channels), x.device)
         if self.bias is not None:
             self._finish("bias", (self._channels,), x.device)
+
+    def _act(self, out):
+        return _nn.activation(out, self.act) if self.act else out
 
 
 class Conv2D(_ConvBase):
@@ -170,13 +231,105 @@ class Conv2D(_ConvBase):
                               stride=self._strides, pad=self._padding,
                               dilate=self._dilation, groups=self._groups,
                               layout=self._layout)
-        return _nn.activation(out, self.act) if self.act else out
+        return self._act(out)
+
+
+def _first(v):
+    return v if isinstance(v, int) else v[0]
+
+
+class Conv1D(_ConvBase):
+    """≙ ``gluon.nn.Conv1D`` (NWC): a 2-D conv of height 1, its weight
+    ``(1, k, in/groups, out)`` as the reference's."""
+
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 dilation=1, groups=1, layout="NWC", in_channels=0,
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zero", **kwargs):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, "NHWC", in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, 1, **kwargs)
+        self._specs["weight"].shape = (1,) + self._specs["weight"].shape
+
+    def forward(self, x):
+        self._infer(x, lead=(1,))
+        out = _nn.convolution(x.unsqueeze(1), self.weight, self.bias,
+                              stride=(1, _first(self._strides)),
+                              pad=(0, _first(self._padding)),
+                              dilate=(1, _first(self._dilation)),
+                              groups=self._groups)
+        return self._act(out.squeeze(1))
+
+
+class Conv2DTranspose(_ConvBase):
+    """≙ ``gluon.nn.Conv2DTranspose``: ``ops.nn.conv_transpose`` with the
+    HWIO weight ``(kh, kw, in/groups, out)``."""
+
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NHWC",
+                 in_channels=0, activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zero", **kwargs):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, 2, **kwargs)
+        self._output_padding = output_padding
+
+    def forward(self, x):
+        self._infer(x)
+        out = _nn.conv_transpose(x, self.weight, self.bias,
+                                 stride=self._strides, pad=self._padding,
+                                 dilate=self._dilation,
+                                 output_padding=self._output_padding,
+                                 groups=self._groups, layout=self._layout)
+        return self._act(out)
+
+
+class Conv3D(_ConvBase):
+    """≙ ``gluon.nn.Conv3D`` (NDHWC, weight DHWIO)."""
+
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 dilation=1, groups=1, layout="NDHWC", in_channels=0,
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zero", **kwargs):
+        super().__init__(channels, kernel_size, strides, padding, dilation,
+                         groups, layout, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer, 3, **kwargs)
+
+    def forward(self, x):
+        self._infer(x)
+        out = _nn.convolution_nd(x, self.weight, self.bias,
+                                 stride=self._strides, pad=self._padding,
+                                 dilate=self._dilation, groups=self._groups,
+                                 ndims=3)
+        return self._act(out)
+
+
+class Conv1DTranspose(HybridBlock):
+    """≙ ``gluon.nn.Conv1DTranspose`` (NWC): a ``Conv2DTranspose`` of
+    height 1, held as the child ``_inner`` as in the reference."""
+
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, in_channels=0, use_bias=True,
+                 weight_initializer=None, bias_initializer="zero", **kwargs):
+        super().__init__(**kwargs)
+        self._inner = Conv2DTranspose(
+            channels, (1, kernel_size), strides=(1, strides),
+            padding=(0, padding), output_padding=(0, output_padding),
+            in_channels=in_channels, use_bias=use_bias,
+            weight_initializer=weight_initializer,
+            bias_initializer=bias_initializer)
+
+    def forward(self, x):
+        return self._inner(x.unsqueeze(1)).squeeze(1)
 
 
 class _Pool(HybridBlock):
+    """``ceil_mode`` is accepted and ignored, as the reference's
+    ``_Pool`` ignores it: its windows are always the floor's."""
+
     def __init__(self, pool_size=2, strides=None, padding=0, layout="NHWC",
-                 count_include_pad=True, pool_type="max", global_pool=False,
-                 **kwargs):
+                 ceil_mode=False, count_include_pad=True, pool_type="max",
+                 global_pool=False, **kwargs):
         super().__init__(**kwargs)
         self._kw = dict(kernel=pool_size, stride=strides, pad=padding,
                         pool_type=pool_type, global_pool=global_pool,
@@ -193,10 +346,90 @@ class MaxPool2D(_Pool):
                          pool_type="max", **kwargs)
 
 
+class MaxPool1D(HybridBlock):
+    """≙ ``gluon.nn.MaxPool1D`` (NWC): a 2-D max pool of height 1."""
+
+    def __init__(self, pool_size=2, strides=None, padding=0, **kwargs):
+        super().__init__(**kwargs)
+        self._kw = dict(kernel=(1, pool_size),
+                        stride=(1, strides if strides else pool_size),
+                        pad=(0, padding), pool_type="max")
+
+    def forward(self, x):
+        return _nn.pooling(x.unsqueeze(1), **self._kw).squeeze(1)
+
+
+class AvgPool2D(_Pool):
+    def __init__(self, pool_size=2, strides=None, padding=0, layout="NHWC",
+                 count_include_pad=True, **kwargs):
+        super().__init__(pool_size, strides, padding, layout,
+                         count_include_pad=count_include_pad,
+                         pool_type="avg", **kwargs)
+
+
+class GlobalMaxPool2D(_Pool):
+    def __init__(self, layout="NHWC", **kwargs):
+        super().__init__(layout=layout, pool_type="max", global_pool=True,
+                         **kwargs)
+
+
 class GlobalAvgPool2D(_Pool):
     def __init__(self, layout="NHWC", **kwargs):
         super().__init__(layout=layout, pool_type="avg", global_pool=True,
                          **kwargs)
+
+
+class _PoolND(HybridBlock):
+    """The 1-D and 3-D pools (channels last) on ``ops.nn.pooling_nd``."""
+
+    def __init__(self, ndims, pool_size, strides, padding, pool_type,
+                 global_pool=False, count_include_pad=True, **kwargs):
+        super().__init__(**kwargs)
+        self._kw = dict(kernel=pool_size, stride=strides, pad=padding,
+                        pool_type=pool_type, global_pool=global_pool,
+                        count_include_pad=count_include_pad, ndims=ndims)
+
+    def forward(self, x):
+        return _nn.pooling_nd(x, **self._kw)
+
+
+class MaxPool3D(_PoolND):
+    def __init__(self, pool_size=2, strides=None, padding=0, **kwargs):
+        super().__init__(3, pool_size, strides, padding, "max", **kwargs)
+
+
+class AvgPool3D(_PoolND):
+    def __init__(self, pool_size=2, strides=None, padding=0,
+                 count_include_pad=True, **kwargs):
+        super().__init__(3, pool_size, strides, padding, "avg",
+                         count_include_pad=count_include_pad, **kwargs)
+
+
+class AvgPool1D(_PoolND):
+    def __init__(self, pool_size=2, strides=None, padding=0,
+                 count_include_pad=True, **kwargs):
+        super().__init__(1, pool_size, strides, padding, "avg",
+                         count_include_pad=count_include_pad, **kwargs)
+
+
+class GlobalMaxPool1D(_PoolND):
+    def __init__(self, **kwargs):
+        super().__init__(1, 1, None, 0, "max", global_pool=True, **kwargs)
+
+
+class GlobalAvgPool1D(_PoolND):
+    def __init__(self, **kwargs):
+        super().__init__(1, 1, None, 0, "avg", global_pool=True, **kwargs)
+
+
+class GlobalMaxPool3D(_PoolND):
+    def __init__(self, **kwargs):
+        super().__init__(3, 1, None, 0, "max", global_pool=True, **kwargs)
+
+
+class GlobalAvgPool3D(_PoolND):
+    def __init__(self, **kwargs):
+        super().__init__(3, 1, None, 0, "avg", global_pool=True, **kwargs)
 
 
 def _write_back(bn, new_mean, new_var):
@@ -268,6 +501,44 @@ class LayerNorm(HybridBlock):
                               eps=self._eps)
 
 
+class GroupNorm(HybridBlock):
+    """≙ ``gluon.nn.GroupNorm`` over the last axis (``ops.nn.group_norm``):
+    gamma One, beta Zero, of the channels' length."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._ng = num_groups
+        self._eps = epsilon
+        self._param("gamma", (in_channels,), init.One())
+        self._param("beta", (in_channels,), init.Zero())
+
+    def forward(self, x):
+        for name in ("gamma", "beta"):
+            self._finish(name, (x.shape[-1],), x.device)
+        return _nn.group_norm(x, self.gamma, self.beta,
+                              num_groups=self._ng, eps=self._eps)
+
+
+class InstanceNorm(HybridBlock):
+    """≙ ``gluon.nn.InstanceNorm`` (``ops.nn.instance_norm``), channels on
+    ``axis``."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._eps = epsilon
+        self._param("gamma", (in_channels,), init.One())
+        self._param("beta", (in_channels,), init.Zero())
+
+    def forward(self, x):
+        for name in ("gamma", "beta"):
+            self._finish(name, (x.shape[self._axis],), x.device)
+        return _nn.instance_norm(x, self.gamma, self.beta, eps=self._eps,
+                                 axis=self._axis)
+
+
 class Embedding(HybridBlock):
     """≙ ``gluon.nn.Embedding``: weight ``(input_dim, output_dim)``,
     ``Normal(0.02)`` by default; the forward gathers its rows at integer
@@ -288,6 +559,54 @@ class Embedding(HybridBlock):
 
     def forward(self, x):
         return _nn.embedding(x, self.weight)
+
+
+class Lambda(Block):
+    """≙ ``gluon.nn.Lambda``: a block whose forward is ``function``."""
+
+    def __init__(self, function, **kwargs):
+        super().__init__(**kwargs)
+        self._fn = function
+
+    def forward(self, *args):
+        return self._fn(*args)
+
+
+class HybridLambda(Lambda, HybridBlock):
+    """≙ ``gluon.nn.HybridLambda``."""
+
+
+class Identity(HybridBlock):
+    def forward(self, x):
+        return x
+
+
+class ReflectionPad2D(HybridBlock):
+    """≙ ``gluon.nn.ReflectionPad2D`` (NHWC)."""
+
+    def __init__(self, padding=0, **kwargs):
+        super().__init__(**kwargs)
+        self._pad = padding
+
+    def forward(self, x):
+        return _nn.reflection_pad2d(x, self._pad)
+
+
+class HybridConcatenate(_Sequence, HybridBlock):
+    """≙ ``gluon.nn.HybridConcatenate``: the children, named "0", "1",
+    ..., run on the same input and their outputs are concatenated along
+    ``axis`` (default -1, the channels of NHWC)."""
+
+    def __init__(self, axis=-1):
+        super().__init__()
+        self._axis = axis
+        self._layers = []
+
+    def forward(self, x):
+        return torch.cat([b(x) for b in self._layers], dim=self._axis)
+
+
+Concatenate = HybridConcatenate
 
 
 _route = threading.local()

@@ -12,6 +12,10 @@ last-axis softmax and LayerNorm are the Pallas kernels of
 ``ops/pallas_kernels.py`` in the reference and the CUDA kernels of
 ``ops/cuda_kernels.py`` here; the fused conv + BN (+ add) (+ ReLU) of
 ``residual_block``, in inference and training, is ``ops/conv_block.py``.
+The rest of the reference's ops (the activation zoo, transposed and N-d
+convolution and pooling, the instance, group and RMS norms, one-hot,
+top-k, the sequence ops, global-norm clipping) are plain torch or one
+library call each, as the reference leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -28,7 +32,12 @@ __all__ = ["softmax", "layer_norm", "gelu", "activation", "fully_connected",
            "convolution", "pooling", "batch_norm", "residual_block",
            "log_softmax", "pick", "softmax_cross_entropy",
            "sigmoid_binary_cross_entropy", "embedding",
-           "dropout", "quantized_dense", "quantized_conv"]
+           "dropout", "quantized_dense", "quantized_conv", "silu", "swish",
+           "mish", "leaky_relu", "elu", "selu", "prelu", "hard_sigmoid",
+           "log_sigmoid", "conv_transpose", "convolution_nd", "pooling_nd",
+           "reflection_pad2d", "rms_norm", "instance_norm", "group_norm",
+           "l2_normalize", "one_hot", "topk", "sequence_mask",
+           "sequence_last", "sequence_reverse", "clip_global_norm"]
 
 
 def _records(*ts):
@@ -195,6 +204,70 @@ def _softplus(x):
     return torch.where(torch.isnan(x), x, out)
 
 
+def silu(x):
+    """``jax.nn.silu``: x · sigmoid(x); on bf16 and fp16 the sigmoid's
+    steps and the product each rounded."""
+    if x.dtype not in _HALF:
+        return F.silu(x)
+    return x * _sigmoid(x)
+
+
+swish = silu
+
+
+def mish(x):
+    """≙ ``ops/nn.py mish``: x · tanh(softplus(x)), each step in the
+    input's dtype."""
+    return x * torch.tanh(_softplus(x))
+
+
+def _weak(v, x):
+    """The Python float ``v`` as JAX applies it to ``x``: a weakly typed
+    constant, rounded to ``x``'s dtype first where that is bf16 or
+    fp16."""
+    return _const(v, x.dtype) if x.dtype in _HALF else v
+
+
+def leaky_relu(x, slope=0.01):
+    """≙ ``ops/nn.py leaky_relu``: x where x ≥ 0, else slope · x."""
+    return torch.where(x >= 0, x, _weak(slope, x) * x)
+
+
+def elu(x, alpha=1.0):
+    """≙ ``ops/nn.py elu``: x where x > 0, else alpha · expm1(x)."""
+    return torch.where(x > 0, x, _weak(alpha, x) * torch.expm1(x))
+
+
+_SELU_ALPHA = 1.6732632423543772848170429916717
+_SELU_SCALE = 1.0507009873554804934193349852946
+
+
+def selu(x):
+    """``jax.nn.selu``: scale · elu(x, alpha) with the SELU constants."""
+    return _weak(_SELU_SCALE, x) * elu(x, _SELU_ALPHA)
+
+
+def prelu(x, alpha):
+    """≙ ``ops/nn.py prelu``: x where x ≥ 0, else alpha · x (``alpha``
+    broadcast along the last axis, the channels)."""
+    return torch.where(x >= 0, x, alpha * x)
+
+
+def hard_sigmoid(x, alpha=0.2, beta=0.5):
+    """≙ ``ops/nn.py hard_sigmoid``: clip(alpha · x + beta, 0, 1); on fp16
+    alpha · x + beta is one fused multiply-add rounded once, as XLA
+    evaluates it (exact in fp32)."""
+    a, b = _weak(alpha, x), _weak(beta, x)
+    if x.dtype == torch.float16:
+        return torch.clamp((a * x.float() + b).to(x.dtype), 0.0, 1.0)
+    return torch.clamp(a * x + b, 0.0, 1.0)
+
+
+def log_sigmoid(x):
+    """``jax.nn.log_sigmoid``: −softplus(−x)."""
+    return -_softplus(-x)
+
+
 _ACTIVATIONS = {
     "relu": torch.relu,
     "sigmoid": _sigmoid,
@@ -202,11 +275,21 @@ _ACTIVATIONS = {
     "softrelu": _softplus,
     "softplus": _softplus,
     "softsign": F.softsign,
+    "gelu": gelu,
+    "silu": silu,
+    "swish": swish,
+    "mish": mish,
+    "elu": elu,
+    "selu": selu,
+    "leaky": leaky_relu,
+    "log_sigmoid": log_sigmoid,
 }
 
 
 def activation(x, act_type: str = "relu"):
-    """≙ ``npx.activation`` for the element-wise activations above."""
+    """≙ ``npx.activation`` for the reference's element-wise activations
+    (``gelu`` is the tanh form, ``leaky`` has slope 0.01, ``elu`` alpha
+    1, as the reference's table gives them)."""
     try:
         return _ACTIVATIONS[act_type](x)
     except KeyError:
@@ -235,12 +318,6 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-def _check_layout(layout):
-    if layout != "NHWC":
-        raise ValueError(f"layout {layout!r}: the port's image ops take "
-                         f"NHWC")
-
-
 def convolution(x, weight, bias=None, stride=1, pad=0, dilate=1,
                 groups: int = 1, layout: str = "NHWC"):
     """2-D convolution ≙ Convolution, NHWC × HWIO.  A conv that
@@ -250,9 +327,15 @@ def convolution(x, weight, bias=None, stride=1, pad=0, dilate=1,
     card, their plain versions on the CPU.  Any other is one ``F.conv2d``
     on the channels-last view (cuDNN on the card); the result is
     NHWC-contiguous when the backend keeps channels last (cuDNN does).
-    The JAX package's space-to-depth stem rewrite is a TPU layout trick
-    computing the same conv and is not carried over."""
-    _check_layout(layout)
+    ``layout="NCHW"`` transposes the activation to NHWC and back, as the
+    reference does; the weight stays HWIO.  The JAX package's
+    space-to-depth stem rewrite is a TPU layout trick computing the same
+    conv and is not carried over."""
+    if layout == "NCHW":
+        return _nchw(convolution(_nhwc(x), weight, bias, stride, pad,
+                                 dilate, groups))
+    if layout != "NHWC":
+        raise ValueError(f"layout {layout!r}: NHWC or NCHW")
     if pallas_conv.eligible(x.shape, weight.shape, stride, pad, dilate,
                             groups, x.dtype):
         out = pallas_conv.conv3x3_s1(x, weight)
@@ -261,27 +344,132 @@ def convolution(x, weight, bias=None, stride=1, pad=0, dilate=1,
                           _pair(stride), _pair(pad), _pair(dilate), groups))
 
 
+def _transpose_weight(weight, groups):
+    """HWIO ``(kh, kw, in/groups, out)`` → ``F.conv_transpose2d``'s
+    ``(in, out/groups, kh, kw)``, group by group."""
+    kh, kw, cin_g, cout = weight.shape
+    w = weight.reshape(kh, kw, cin_g, groups, cout // groups)
+    return w.permute(3, 2, 4, 0, 1).reshape(groups * cin_g, cout // groups,
+                                            kh, kw)
+
+
+def conv_transpose(x, weight, bias=None, stride=1, pad=0, dilate=1,
+                   output_padding=0, groups: int = 1, layout: str = "NHWC"):
+    """2-D transposed conv ≙ ``ops/nn.py conv_transpose`` (Deconvolution):
+    the reference's lhs-dilated direct conv with the spatially flipped
+    HWIO weight is ``F.conv_transpose2d`` with the unflipped weight read
+    as ``(in, out/groups, kh, kw)``: no in/out swap of the channel
+    mixing.  ``layout="NCHW"`` transposes as ``convolution`` does."""
+    if layout == "NCHW":
+        return _nchw(conv_transpose(_nhwc(x), weight, bias, stride, pad,
+                                    dilate, output_padding, groups))
+    if layout != "NHWC":
+        raise ValueError(f"layout {layout!r}: NHWC or NCHW")
+    return _nhwc(F.conv_transpose2d(
+        _nchw(x), _transpose_weight(weight, groups), bias, _pair(stride),
+        _pair(pad), _pair(output_padding), groups, _pair(dilate)))
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _cfirst(x):
+    """(N, ..., C) → (N, C, ...)."""
+    return x.movedim(-1, 1)
+
+
+def _clast(x):
+    return x.movedim(1, -1)
+
+
+def convolution_nd(x, weight, bias=None, stride=1, pad=0, dilate=1,
+                   groups: int = 1, ndims: int = 3):
+    """N-d convolution ≙ ``ops/nn.py convolution_nd``: channels-last
+    ``(N, ..., C)`` × ``(..., in/groups, out)``, one ``F.conv{1,2,3}d``
+    on the channels-first view."""
+    w = weight.movedim(-1, 0).movedim(-1, 1)
+    return _clast(_CONV[ndims](_cfirst(x), w, bias, _pair(stride, ndims),
+                               _pair(pad, ndims), _pair(dilate, ndims),
+                               groups))
+
+
+def _pool_cf(x, kernel, stride, pad, pool_type, count_include_pad):
+    """Pooling of channels-first ``x`` with 2 or 3 spatial dims:
+    ``max`` (−inf padding), ``avg`` (divided by the whole window, or by
+    its real count without ``count_include_pad``), ``sum`` and ``lp``
+    (√Σx², the reference's)."""
+    nd = x.dim() - 2
+    if pool_type == "max":
+        return (F.max_pool2d if nd == 2 else F.max_pool3d)(
+            x, kernel, stride, pad)
+    avg = F.avg_pool2d if nd == 2 else F.avg_pool3d
+    if pool_type == "avg":
+        return avg(x, kernel, stride, pad,
+                   count_include_pad=count_include_pad)
+    if pool_type == "sum":
+        return avg(x, kernel, stride, pad, divisor_override=1)
+    if pool_type == "lp":
+        return torch.sqrt(avg(x * x, kernel, stride, pad,
+                              divisor_override=1))
+    raise ValueError(f"unknown pool_type {pool_type!r}")
+
+
 def pooling(x, kernel=2, stride=None, pad=0, pool_type: str = "max",
             global_pool: bool = False, count_include_pad: bool = True,
             layout: str = "NHWC"):
-    """≙ Pooling over NHWC: max (−inf padding) or avg windows, or the
-    global average of the whole H×W plane."""
-    _check_layout(layout)
+    """≙ Pooling (``ops/nn.py pooling``) over NHWC: ``max``, ``avg``,
+    ``sum`` or ``lp`` windows, or with ``global_pool`` the whole H×W
+    plane (``keepdim``).  ``layout="NCHW"`` transposes to NHWC and
+    back."""
+    if layout == "NCHW":
+        return _nchw(pooling(_nhwc(x), kernel, stride, pad, pool_type,
+                             global_pool, count_include_pad))
+    if layout != "NHWC":
+        raise ValueError(f"layout {layout!r}: NHWC or NCHW")
     if global_pool:
-        if pool_type != "avg":
-            raise ValueError(f"global {pool_type} pooling is not ported")
-        return x.mean(dim=(1, 2), keepdim=True)
+        if pool_type == "max":
+            return x.amax(dim=(1, 2), keepdim=True)
+        if pool_type == "avg":
+            return x.mean(dim=(1, 2), keepdim=True)
+        if pool_type == "sum":
+            return x.sum(dim=(1, 2), keepdim=True)
+        if pool_type == "lp":
+            return torch.sqrt((x * x).sum(dim=(1, 2), keepdim=True))
+        raise ValueError(f"unknown pool_type {pool_type!r}")
     kernel = _pair(kernel)
     stride = _pair(stride if stride is not None else kernel)
-    pad = _pair(pad)
-    if pool_type == "max":
-        out = F.max_pool2d(_nchw(x), kernel, stride, pad)
-    elif pool_type == "avg":
-        out = F.avg_pool2d(_nchw(x), kernel, stride, pad,
-                           count_include_pad=count_include_pad)
+    return _nhwc(_pool_cf(_nchw(x), kernel, stride, _pair(pad), pool_type,
+                          count_include_pad))
+
+
+def pooling_nd(x, kernel, stride=None, pad=0, pool_type: str = "max",
+               global_pool: bool = False, count_include_pad: bool = True,
+               ndims: int = 3):
+    """N-d pooling (channels-last) ≙ ``ops/nn.py pooling_nd``: ``max``,
+    ``sum``, and every other type the average, as in the reference.  A
+    1-d input pools as a 2-d one of height 1."""
+    if global_pool:
+        kernel, stride, pad = x.shape[1:1 + ndims], (1,) * ndims, 0
+    kernel = _pair(kernel, ndims)
+    stride = _pair(stride if stride is not None else kernel, ndims)
+    pad = _pair(pad, ndims)
+    if pool_type not in ("max", "sum"):
+        pool_type = "avg"
+    xc = _cfirst(x)
+    if ndims == 1:
+        out = _pool_cf(xc.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                       (0,) + pad, pool_type, count_include_pad).squeeze(2)
     else:
-        raise ValueError(f"pool_type {pool_type!r} is not ported")
-    return _nhwc(out)
+        out = _pool_cf(xc, kernel, stride, pad, pool_type,
+                       count_include_pad)
+    return _clast(out)
+
+
+def reflection_pad2d(x, pad):
+    """≙ ReflectionPad2D: NHWC ``x`` padded by reflection, ``pad`` rows
+    and columns on each side (an int or an (h, w) pair)."""
+    ph, pw = _pair(pad)
+    return _nhwc(F.pad(_nchw(x), (pw, pw, ph, ph), mode="reflect"))
 
 
 def batch_norm(x, gamma, beta, running_mean, running_var, momentum=0.9,
@@ -371,6 +559,46 @@ def residual_block(x, weight, gamma, beta, running_mean, running_var,
     new_mean = momentum * running_mean + (1 - momentum) * bmean
     new_var = momentum * running_var + (1 - momentum) * bvar
     return out, new_mean, new_var
+
+
+def rms_norm(x, gamma, axis: int = -1, eps: float = 1e-6):
+    """≙ ``ops/nn.py rms_norm``: x / √(mean(x²) + eps) in fp32, cast back,
+    times gamma."""
+    xf = x.float()
+    ms = (xf * xf).mean(dim=axis, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)).to(x.dtype) * gamma
+
+
+def instance_norm(x, gamma, beta, eps: float = 1e-5, axis: int = -1):
+    """≙ ``ops/nn.py instance_norm``: each sample's channel normalized
+    over the spatial axes (biased variance), then the channel's gamma
+    and beta."""
+    ch = axis % x.dim()
+    rax = tuple(i for i in range(1, x.dim()) if i != ch)
+    mean = x.mean(dim=rax, keepdim=True)
+    var = x.var(dim=rax, unbiased=False, keepdim=True)
+    shape = [1] * x.dim()
+    shape[ch] = x.shape[ch]
+    return ((x - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape)
+            + beta.reshape(shape))
+
+
+def group_norm(x, gamma, beta, num_groups: int, eps: float = 1e-5):
+    """≙ ``ops/nn.py group_norm`` (channels last): the channels split into
+    ``num_groups`` groups, each normalized over the spatial axes and its
+    channels, then gamma and beta along the last axis."""
+    c = x.shape[-1]
+    xg = x.reshape(*x.shape[:-1], num_groups, c // num_groups)
+    rax = tuple(range(1, x.dim() - 1)) + (x.dim(),)
+    mean = xg.mean(dim=rax, keepdim=True)
+    var = xg.var(dim=rax, unbiased=False, keepdim=True)
+    xg = (xg - mean) * torch.rsqrt(var + eps)
+    return xg.reshape(x.shape) * gamma + beta
+
+
+def l2_normalize(x, axis: int = -1, eps: float = 1e-10):
+    """≙ ``ops/nn.py l2_normalize``: x / √(Σx² + eps) along ``axis``."""
+    return x * torch.rsqrt((x * x).sum(dim=axis, keepdim=True) + eps)
 
 
 def log_softmax(x, axis: int = -1):
@@ -537,3 +765,84 @@ def quantized_conv(x, qw, w_scale, bias=None, residual=None, *, in_t,
     if act is not None and act != "relu":
         out = activation(out, act)
     return out
+
+
+# ------------------------------------------------------------ the tail
+def one_hot(indices, depth: int, on_value=1.0, off_value=0.0,
+            dtype=torch.float32):
+    """≙ ``ops/nn.py one_hot`` (``jax.nn.one_hot``): a row of zeros for an
+    index outside [0, depth); ``on_value`` / ``off_value`` as
+    ``oh · (on − off) + off``."""
+    oh = (indices.long().unsqueeze(-1) == torch.arange(
+        depth, device=indices.device)).to(dtype)
+    if on_value != 1.0 or off_value != 0.0:
+        oh = oh * (on_value - off_value) + off_value
+    return oh
+
+
+def topk(x, k: int = 1, axis: int = -1, ret_typ: str = "indices",
+         is_ascend: bool = False):
+    """≙ ``ops/nn.py topk``: the ``k`` largest (smallest with
+    ``is_ascend``) along ``axis``, sorted; int32 indices.  ``ret_typ``
+    ``"indices"``, ``"value"``, or anything else for (values, indices)."""
+    vals, idx = torch.topk(x, k, dim=axis, largest=not is_ascend,
+                           sorted=True)
+    idx = idx.to(torch.int32)
+    if ret_typ == "indices":
+        return idx
+    if ret_typ == "value":
+        return vals
+    return vals, idx
+
+
+def sequence_mask(x, sequence_length=None, use_sequence_length=False,
+                  value=0.0, axis: int = 0):
+    """≙ SequenceMask: positions at or past each sequence's length along
+    the time ``axis`` (batch on axis 1 when time is 0, else 0) set to
+    ``value``."""
+    if not use_sequence_length or sequence_length is None:
+        return x
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    pos = torch.arange(x.shape[axis], device=x.device).reshape(shape)
+    lens_shape = [1] * x.dim()
+    batch = 1 if axis == 0 else 0
+    lens_shape[batch] = x.shape[batch]
+    keep = pos < sequence_length.reshape(lens_shape)
+    return torch.where(keep, x, torch.as_tensor(value, dtype=x.dtype,
+                                                device=x.device))
+
+
+def sequence_last(x, sequence_length=None, use_sequence_length=False,
+                  axis: int = 0):
+    """≙ SequenceLast: each sequence's last valid step along ``axis``."""
+    if not use_sequence_length or sequence_length is None:
+        return x.select(axis, x.shape[axis] - 1)
+    xm = x.movedim(axis, 0)
+    idx = (sequence_length.long() - 1).reshape(
+        (1, -1) + (1,) * (xm.dim() - 2)).expand(1, *xm.shape[1:])
+    return torch.gather(xm, 0, idx)[0]
+
+
+def sequence_reverse(x, sequence_length=None, use_sequence_length=False,
+                     axis: int = 0):
+    """≙ SequenceReverse: each sequence's valid steps reversed along
+    ``axis``, the padding after them left in place."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(x, dims=(axis,))
+    xm = x.movedim(axis, 0)
+    T = xm.shape[0]
+    pos = torch.arange(T, device=x.device)[:, None]
+    lens = sequence_length.long()[None, :]
+    src = torch.where(pos < lens, lens - 1 - pos, pos)
+    src = src.reshape(src.shape + (1,) * (xm.dim() - 2)).expand(xm.shape)
+    return torch.gather(xm, 0, src).movedim(0, axis)
+
+
+def clip_global_norm(arrays, max_norm):
+    """≙ ``ops/nn.py clip_global_norm``: every array scaled by
+    min(1, max_norm / (‖all‖₂ + 1e-12)), the norm summed in fp32 →
+    (scaled arrays, the norm)."""
+    total = torch.sqrt(sum((a.float() ** 2).sum() for a in arrays))
+    scale = torch.clamp(max_norm / (total + 1e-12), max=1.0)
+    return [a * scale.to(a.dtype) for a in arrays], total

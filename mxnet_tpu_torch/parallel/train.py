@@ -20,7 +20,9 @@ device, optimizer._fused_sig())`` warms the step up eagerly on a side
 stream (the kernels are built at first launch, each conv's plan is fixed
 and the kernels' attributes are set), puts back every parameter, buffer,
 optimizer state and generator the warm-up changed, and captures the
-step with ``torch.cuda.graph`` into one ``CUDAGraph``.  Every call,
+step with ``torch.cuda.graph`` into one ``CUDAGraph`` (the garbage
+collector off and other threads' calls left out of the capture's
+checks; see :meth:`_Step._build`).  Every call,
 that first one included, then fills the control tensor and the static
 inputs and calls ``replay()``: one graph launch a step.  A new key
 captures a new graph, counted as ``fused.rebuilds``, as the reference
@@ -47,6 +49,7 @@ does, so fused and legacy steps interleave; a state that
 """
 from __future__ import annotations
 
+import gc
 import os
 from typing import Callable, Dict, Optional
 
@@ -157,10 +160,11 @@ class _Step:
             loss_out.copy_(loss.detach().mean())
 
     def _generators(self):
-        gens = [m._generator for m in _dropouts(self.net)]
+        gens = [m.generator(self.device) for m in _dropouts(self.net)]
         if hasattr(self.opt, "generator"):          # SGLD's noise
             gens.append(self.opt.generator(self.device))
-        return gens
+        # Dropouts given no generator share mx.random's: register it once
+        return list({id(g): g for g in gens}.values())
 
     # --------------------------------------------------------- the calls
     def run(self, x, y, t):
@@ -197,18 +201,34 @@ class _Step:
         states = self.get_states()
         prog.states = {n: states[n] for n in self.names}
         prog.x, prog.y = x.clone(), y.clone()
-        for m in _dropouts(self.net):
-            if m._generator is None:
-                m._generator = torch.Generator(
-                    device=self.device).manual_seed(0)
         gens = self._generators()
         self._warm_up(prog, ctl, gens)
         graph = torch.cuda.CUDAGraph()
         for g in gens:
             graph.register_generator_state(g)
         before = _counts()
-        with torch.cuda.graph(graph):
-            self._body(prog.x, prog.y, ctl, prog.loss)
+        # Dead reference cycles go first, and the collector stays off
+        # while the step is captured: a CUDAGraph it frees there breaks
+        # the capture, and torch.cuda.graph no longer collects before
+        # one.  "thread_local": an unsafe call (a synchronization, say)
+        # that another thread makes leaves the capture valid; this
+        # thread's unsafe calls, and any thread's operation on the
+        # captured stream, still break it.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._body(prog.x, prog.y, ctl, prog.loss)
+        except Exception as e:
+            # capture_end's own error hides the one that broke the
+            # capture: name that one
+            cause = e.__context__ or e
+            raise RuntimeError(f"capturing the fused step failed: "
+                               f"{type(cause).__name__}: {cause}") from e
+        finally:
+            if collecting:
+                gc.enable()
         after = _counts()
         prog.launches_per_step = {n: after[n] - before[n] for n in after
                                   if after[n] != before[n]}

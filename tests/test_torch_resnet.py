@@ -317,7 +317,7 @@ def test_get_model_refuses_pretrained_and_unknown_names():
     with pytest.raises(NotImplementedError):
         tmodels.get_model("resnet50_v1", pretrained=True)
     with pytest.raises(ValueError):
-        tmodels.get_model("vgg16")
+        tmodels.get_model("vgg17")
 
 
 # -------------------------------------------------------------- image ops
