@@ -41,7 +41,10 @@ batch each forward) and serving through ``ModelRegistry`` → ``Batcher``
 SqueezeNet 1.0 and 1.1, MobileNet v1 and v2 (width 1.0) at 224x224x3 and
 LeNet at 28x28x1 forward, and DenseNet-121 training through
 ``examples.image_classification`` at its defaults (its 58 growth convs on
-the standalone conv route).  Phases, one JSON line each; the run stops
+the standalone conv route), then bf16 serving: ResNet-50 v1 and Gluon
+BERT-base through ``ModelRegistry.load(..., precision="bf16")`` →
+``Batcher`` → ``InferenceEngine`` on the bf16 instances of the softmax
+and ``conv_affine`` kernels.  Phases, one JSON line each; the run stops
 with a non-zero exit at the first phase that fails:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and
@@ -199,14 +202,14 @@ with a non-zero exit at the first phase that fails:
     its bound, its plain version, ``torch.softmax`` and, with a
     prologue, the separate passes the prologue replaces.  Then
     ``ops.nn.softmax`` on bf16 at (4, 768), (2, 3, 512) and (8, 30522),
-    last axis and axis 0, on the card (the closed form: the fp32 kernel
-    is not launched)
+    last axis and axis 0, on the card
     against the port on the CPU: the two devices' rounded sums within one
     bf16 step (the fp32 sums run in another order on the two devices,
     which may move a rounding of the sum by one step), and each value
     within one bf16 step of the CPU's numerator over the CPU's rounded sum
     or over the card's (a sum's step moves a quotient by up to two of its
-    own).
+    own); over the last axis that is now the kernel's bf16 instance (one
+    launch), over axis 0 the closed form (none).
 23. ``text_serve``: the launch counters set to 0, then
     ``ModelRegistry.load`` of a seeded BERT-base ``.params`` with
     ``dtype="int32"`` (warmup of every bucket), 32 closed-loop requests
@@ -248,12 +251,15 @@ with a non-zero exit at the first phase that fails:
     the ring's copies or its products taken out (``parts``, built here by
     nvcc), which says which of the two bounds its loop.
 27. ``int8_score``: ``int8_score.py`` at its defaults: ResNet-50 v1 from
-    the ``image_serve`` ``.params``, batch 64, fp32 and int8 (two
-    ``RandomState(1)`` calibration batches, naive) images/s over 4
-    warm-up and 20 timed forwards on fresh inputs (CUDA events), the
-    int8-vs-fp32 argmax agreement over 256 ``RandomState(0)`` images;
-    the launch counters set to 0 before the int8 forwards and read after:
-    exactly 16 int8-kernel and 0 ``conv_affine`` launches a forward.
+    the ``image_serve`` ``.params``, batch 64, fp32, bf16
+    (``amp.convert_model``) and int8 (two ``RandomState(1)``
+    calibration batches, naive) images/s over 4 warm-up and 20 timed
+    forwards on fresh inputs (CUDA events), the int8-vs-fp32 and
+    bf16-vs-fp32 argmax agreements over 256 ``RandomState(0)`` images;
+    the launch counters set to 0 before the bf16 forwards and read
+    after: 16 bf16 ``conv_affine`` launches a forward and no fp32 one;
+    then before the int8 forwards: exactly 16 int8-kernel and 0
+    ``conv_affine`` launches a forward.
 28. ``int8_serve``: the counters set to 0, then ``ModelRegistry.load``
     of that ``.params`` with ``precision="int8"`` (the default
     calibration, warmup of every bucket), 32 closed-loop requests from
@@ -261,8 +267,8 @@ with a non-zero exit at the first phase that fails:
     16 int8-kernel, 0 ``conv_affine`` launches per forward run.  p50/p99
     request ms, images/s, batch fill, device and eager ms per forward per
     bucket, peak memory; then ``int8_score.py``'s ``--serve`` leg: the
-    int8 engine's QPS against the fp32 engine's at bucket 8 (fp32 stands
-    in for bf16, which is not ported).
+    int8 engine's QPS against the bf16 engine's at bucket 8 (16 bf16
+    ``conv_affine`` launches a bf16 forward).
 29. ``int8_reference``: card logits against the port on the CPU with the
     same int8 weights and thresholds (``state_from_numpy``) at batch 2
     (within 1e-3 of the largest logit, top-1 equal), and every batched
@@ -394,7 +400,45 @@ with a non-zero exit at the first phase that fails:
     float64, from the same weights and batch, gated as
     ``v2_train_reference`` with the losses within 1e-5 relative.
 
-Then one ``{"kernels": [...]}`` line (16 entries; ``launches`` adds
+42. ``bf16_kernels``: the half-precision instances against their plain
+    versions on the card, each launched twice (bitwise equal: a gate).
+    Row 1 (``softmax_fused``) in bf16 at the Gluon BERT's bucket-8 call
+    ((49152, 512), ÷8, a (B, T) key mask), bucket 1 ((6144, 512) with and
+    without ÷8), (4096, 30522), a ragged 77 and rows of 131072 (three
+    passes), and in fp16 at (49152, 512) ÷8 with the mask, (6144, 512)
+    and (4096, 30522): each value within one step of the plain
+    numerator over the plain rounded sum or over that sum moved one step
+    (the fp32 sums run in another order).  Row 8 (``conv_affine``) in
+    bf16 at ResNet-50's four 3x3 stages at batch 8, stage 1 at batch 64,
+    with a residual, and on the scalar path (C = 20): each value within
+    one bf16 step of its plain version (bf16 widened, the conv in fp32,
+    one rounding), or within 1e-5 of the largest output near 0.  Each
+    timed beside its bound (bytes at 2 an element over 3.35 TB/s; bf16
+    operations over 989 TFLOP/s dense), its plain version and the
+    library call on bf16 (``torch.softmax``; ``F.conv2d`` alone), with
+    its plan.
+43. ``bf16_serve``: the counters set to 0, then ResNet-50 v1 through
+    ``ModelRegistry.load(..., precision="bf16")`` (``amp.convert_model``
+    on the card), 32 closed-loop requests and 64 from 8 clients: exactly
+    16 bf16 ``conv_affine`` launches a forward and no fp32 one; then the
+    counters set to 0 again and Gluon BERT-base on 512-token int32 items
+    the same way: exactly 12 bf16 softmax launches a forward and no fp32
+    one (its LayerNorms are the reference's closed form in bf16).  Every
+    response finite; p50/p99, items/s (tokens/s), batch fill, device and
+    eager ms a forward per bucket, the idle share of a bucket-8 and a
+    bucket-1 forward, the logits' copy to the host, peak memory.
+44. ``bf16_reference``: the card's bf16 engines against the port's bf16
+    on the CPU from the same ``.params``: ResNet-50 at batch 2 (top-1
+    equal) and BERT-base at 1 x 512, and each batched response against
+    the unbatched forward of its item on the card (ResNet-50's 64
+    concurrent responses, four of BERT-base's, whole).  Each distance
+    below the CPU's own bf16-vs-fp32 distance on the same items; argmax
+    agreement no lower than bf16's against fp32 on the CPU.  ``flops()``
+    of each card net equals that of its fp32 copy on the CPU, and taking
+    it launches no kernel.
+
+Then one ``{"kernels": [...]}`` line (18 entries: the bf16 instances of
+rows 1 and 8 their own; ``launches`` adds
 the fused phases' real launches: the first call's warm-up and the
 replays times the captured counts), the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -779,7 +823,8 @@ def phase_reference(state):
 
 # kernel-name patterns of the profile's categories, first match wins
 KERNEL_CATEGORIES = (
-    ("conv_affine (ours)", r"conv_affine_(tc|reduce)_kernel"),
+    ("conv_affine (ours)",
+     r"conv_affine_(tc|reduce|bf16|bf16_reduce)_kernel"),
     ("conv3x3 / dgrad (ours)", r"conv3x3_tc_kernel|conv3x3_reduce_kernel"),
     ("conv_stats (ours)", r"conv_stats_(tc|cut|sum)_kernel"),
     ("bn_affine (ours)", r"bn_affine_kernel"),
@@ -1578,11 +1623,13 @@ def _wgrad_case(x, dy, xc, wc, dyc, shape, nbytes, flops):
         nbytes, flops), nbytes, flops)
 
 
-def _conv3x3_plan(M, C, Cout, entry="mxt_conv3x3_tc_blocks_per_sm"):
+def _conv3x3_plan(M, C, Cout, entry="mxt_conv3x3_tc_blocks_per_sm",
+                  wide=4):
     """The plan ``conv3x3`` (or, by its occupancy ``entry``,
-    ``conv_stats`` or ``conv_affine``) runs at this shape on card 0."""
+    ``conv_stats`` or ``conv_affine``, fp32 or bf16: ``wide`` channels a
+    16-byte copy) runs at this shape on card 0."""
     from mxnet_tpu_torch.ops import conv_block as cb
-    vec = int(C % 4 == 0 and Cout % 4 == 0)
+    vec = int(C % wide == 0 and Cout % wide == 0)
     return _plan_dict(cb.conv3x3_splits(
         M, 9 * C, Cout, cb._sm_count(0),
         cb._per_sm(entry, 0, cb.wgrad_tile_cols(Cout), vec)))
@@ -1932,13 +1979,14 @@ BERT_SOFTMAXES = 12         # attention softmaxes a BERT-base forward
 BERT_LAYERNORMS = 25        # LayerNorms a BERT-base forward
 
 
-def _softmax_plan(cols):
+def _softmax_plan(cols, wide=4):
     """The card's plan for contiguous rows of ``cols`` (``csrc/softmax.cu``
-    ``plan_for``): the floats a load moves, the kernel, the CTAs of its
-    cluster and the columns a CTA holds."""
+    ``plan_for``): the values a load moves (``wide``: 4 floats, 8
+    halves), the kernel, the CTAs of its cluster and the columns a CTA
+    holds."""
     import ctypes
     from mxnet_tpu_torch import _build
-    vec = 4 if cols % 4 == 0 else 1
+    vec = wide if cols % wide == 0 else 1
     out = (ctypes.c_int * 3)()
     _build.check(_build.lib().mxt_softmax_plan(cols, vec, out),
                  "mxt_softmax_plan")
@@ -2059,19 +2107,21 @@ def _softmax_bf16_steps(got, x_cpu, axis, card_sum):
 
 
 def _softmax_bf16_case(shape, axis, gen):
-    """``ops.nn.softmax`` on a bf16 tensor on the card (the reference's
-    closed form; the fp32 kernel must not launch) against the port on the
-    CPU on the same values (see :func:`_softmax_bf16_steps`), with the two
-    devices' rounded sums within one step of each other, and the closed
-    form taken apart equal to the CPU's ``ops.nn.softmax`` bit for bit."""
+    """``ops.nn.softmax`` on a bf16 tensor on the card (over the last axis
+    the kernel's bf16 instance, one launch; over another axis the
+    reference's closed form in plain torch, no launch) against the port
+    on the CPU on the same values (see :func:`_softmax_bf16_steps`), with
+    the two devices' rounded sums within one step of each other, and the
+    closed form taken apart equal to the CPU's ``ops.nn.softmax`` bit for
+    bit."""
     import torch
     from mxnet_tpu_torch.ops import nn as tnn
     from mxnet_tpu_torch.ops.cuda_kernels import softmax_fused
     x = (torch.randn(*shape, device="cuda", generator=gen) * 4).bfloat16()
-    before = softmax_fused.launches
+    before = softmax_fused.launches_by_dtype[torch.bfloat16]
     out = tnn.softmax(x, axis=axis)
     torch.cuda.synchronize()
-    launched = softmax_fused.launches - before
+    launched = softmax_fused.launches_by_dtype[torch.bfloat16] - before
     xc = x.cpu()
     ref = tnn.softmax(xc, axis=axis)
     got = out.cpu()
@@ -2142,7 +2192,7 @@ def phase_text_kernels(state):
                    c["closed_form_is_cpu_softmax"] and
                    c["all_nonnegative"] and c["finite"] and
                    c["dtype"] == "torch.bfloat16" and
-                   c["kernel_launches"] == 0)]
+                   c["kernel_launches"] == (1 if c["axis"] == -1 else 0))]
     if bad:
         raise AssertionError(f"bf16 softmax on the card disagrees with the "
                              f"CPU: {bad}")
@@ -2189,14 +2239,15 @@ def _digest(out):
 
 def _to_host_ms(out, repeats=5):
     """Host-clock ms of the batcher's copy of one bucket's logits to the
-    host (``.cpu().numpy()`` of a finished forward), median of
-    ``repeats``."""
+    host (``.cpu().numpy()`` of a finished forward, bf16 widened to fp32
+    there), median of ``repeats``."""
     import torch
     torch.cuda.synchronize()
     runs = []
     for _ in range(repeats):
         t0 = time.perf_counter()
-        out.cpu().numpy()
+        host = out.cpu()        # bf16 widened on the host, as the batcher
+        (host.float() if host.dtype == torch.bfloat16 else host).numpy()
         runs.append((time.perf_counter() - t0) * 1e3)
     return sorted(runs)[len(runs) // 2]
 
@@ -2443,7 +2494,8 @@ INT8_SERVE_ITERS = 20
 
 INT8_CATEGORIES = (
     ("qconv3x3_affine (ours)", r"qconv_(affine|reduce)_kernel"),
-    ("conv_affine (ours)", r"conv_affine_(tc|reduce)_kernel"),
+    ("conv_affine (ours)",
+     r"conv_affine_(tc|reduce|bf16|bf16_reduce)_kernel"),
     ("int8 gemm (_int_mm)", r"i8i8|s8|imma|int8|igemm|i8"),
     ("quantize: round / clamp", r"round|clamp"),
     ("im2col, pad, slice copies", r"CatArrayBatchedCopy|pad|copy"),
@@ -2721,14 +2773,18 @@ def _load_resnet50(path, device):
 
 def phase_int8_score(state):
     """``benchmark/int8_score.py`` at its defaults on the card: ResNet-50
-    v1, 1000 classes, batch 64 of 224x224x3, fp32 and int8 (two
+    v1, 1000 classes, batch 64 of 224x224x3, fp32, bf16
+    (``amp.convert_model``, bf16 inputs) and int8 (two
     ``RandomState(1)`` [0, 1) calibration batches, naive) scoring with
     4 warm-up and 20 timed forwards on fresh inputs, and the int8-vs-fp32
-    argmax agreement over 256 ``RandomState(0)`` images.  The launch
-    counters are set to 0 before the int8 forwards and read after: 16
-    ``qconv3x3_affine`` and 0 ``conv_affine`` launches a forward."""
+    and bf16-vs-fp32 argmax agreements over 256 ``RandomState(0)``
+    images.  The launch counters are set to 0 before the bf16 forwards
+    and read after: 16 bf16 ``conv_affine`` launches a forward and no fp32
+    one; then before the int8 forwards: 16 ``qconv3x3_affine`` and 0
+    ``conv_affine`` launches a forward."""
     import numpy as np
     import torch
+    from mxnet_tpu_torch import amp
     from mxnet_tpu_torch import quantization as q
     path = state["image_params"]
     B, S = INT8_BATCH, 224
@@ -2736,15 +2792,16 @@ def phase_int8_score(state):
     xs = [torch.rand(B, S, S, 3, device="cuda", generator=gen)
           for _ in range(INT8_WARMUP + INT8_ITERS)]
 
-    def score(net):
+    def score(net, dtype=torch.float32):
+        ins = [x.to(dtype) for x in xs]         # made before the window
         with torch.inference_mode():
-            for x in xs[:INT8_WARMUP]:
+            for x in ins[:INT8_WARMUP]:
                 net(x)
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            for x in xs[INT8_WARMUP:]:
+            for x in ins[INT8_WARMUP:]:
                 net(x)
             end.record()
             end.synchronize()
@@ -2753,6 +2810,10 @@ def phase_int8_score(state):
 
     fp32_net = _load_resnet50(path, "cuda")
     fp32 = score(fp32_net)
+    bf16_net = amp.convert_model(_load_resnet50(path, "cuda"), "bfloat16")
+    _zero_half_counts()
+    bf16 = score(bf16_net, torch.bfloat16)
+    bf16_counts = _half_counts()
     int8_net = _load_resnet50(path, "cuda")
     rs = np.random.RandomState(1)
     calib = [rs.rand(B, S, S, 3).astype(np.float32) for _ in range(2)]
@@ -2769,32 +2830,43 @@ def phase_int8_score(state):
     state["int8_launches"] = {"qconv3x3_affine": qk.launches}
 
     rs = np.random.RandomState(0)
-    agree = total = 0
+    agree = agree16 = total = 0
     with torch.inference_mode():
         for _ in range(INT8_AGREE_N // B):
             x = torch.as_tensor(rs.rand(B, S, S, 3).astype(np.float32),
                                 device="cuda")
             a = fp32_net(x).argmax(-1)
             b = int8_net(x)
-            if not torch.isfinite(b).all():
-                raise AssertionError("int8 logits not finite")
+            c = bf16_net(x.bfloat16())
+            if not (torch.isfinite(b).all() and torch.isfinite(c).all()):
+                raise AssertionError("int8 or bf16 logits not finite")
             agree += int((a == b.argmax(-1)).sum())
+            agree16 += int((a == c.argmax(-1)).sum())
             total += B
+    bf16_counts["forwards"] = INT8_WARMUP + INT8_ITERS
+    # the scoring's and the agreement's bf16 forwards (the int8 ones
+    # launch no conv_affine)
+    _add_bf16_launches(state, _half_counts())
     twins = sum(isinstance(b, q._Twin) for b in int8_net.modules())
-    del fp32_net, int8_net, xs
+    del fp32_net, int8_net, bf16_net, xs
     torch.cuda.empty_cache()
     res = {"model": "resnet50_v1", "classes": 1000, "batch": B,
            "image": S, "warmup": INT8_WARMUP, "iters": INT8_ITERS,
-           "fp32": fp32, "int8": int8,
+           "fp32": fp32, "bf16": bf16, "int8": int8,
            "int8_vs_fp32": int8["images_s"] / fp32["images_s"],
+           "int8_vs_bf16": int8["images_s"] / bf16["images_s"],
+           "bf16_vs_fp32": bf16["images_s"] / fp32["images_s"],
            "int8_argmax_agreement_vs_fp32": agree / total,
+           "bf16_argmax_agreement_vs_fp32": agree16 / total,
            "agreement_images": total, "quantize_s": quant_s,
            "twins": twins, "launches": launches,
-           "bf16": "not ported: the bf16 leg (amp.convert_model) is a "
-                   "later item of the port's queue"}
+           "bf16_launches": bf16_counts}
     if launches["qconv3x3_affine"] != RESNET50_SEGMENTS * forwards or \
             launches["conv_affine"] != 0 or twins != 54:
         raise AssertionError(f"int8 forward launches: {res}")
+    if bf16_counts["conv_affine_bf16"] != RESNET50_SEGMENTS * forwards or \
+            bf16_counts["conv_affine_fp32"] != 0:
+        raise AssertionError(f"bf16 forward launches: {res}")
     return res
 
 
@@ -2803,8 +2875,9 @@ def phase_int8_serve(state):
     precision="int8")`` (default calibration, buckets 1, 2, 4, 8, warmup
     of every bucket) and its ``Batcher``: 32 closed-loop requests from
     one client, then 64 from 8 client threads; then int8_score.py's
-    ``--serve`` leg, the int8 engine's QPS against the fp32 engine's at
-    bucket 8 (fp32 standing in for bf16, which is not ported)."""
+    ``--serve`` leg, the int8 engine's QPS against the bf16 engine's at
+    bucket 8 (each response fetched to the host; the bf16 engine's
+    conv_affine launches counted: 16 bf16 ones a forward)."""
     import numpy as np
     import torch
     from mxnet_tpu_torch import telemetry
@@ -2882,11 +2955,11 @@ def phase_int8_serve(state):
 
     # int8_score.py --serve: one engine a precision at bucket 8, the
     # response fetched to the host after every run
-    serve_leg = {"bucket": 8, "iters": INT8_SERVE_ITERS,
-                 "bf16": "not ported; fp32 stands in for it"}
+    serve_leg = {"bucket": 8, "iters": INT8_SERVE_ITERS}
     xs = [images[8 * i:8 * i + 8] for i in range(4)]
-    for prec in ("fp32", "int8"):
+    for prec in ("bf16", "int8"):
         net = _load_resnet50(path, "cpu")
+        _zero_half_counts()
         e = InferenceEngine(net, (224, 224, 3), buckets=(8,),
                             name=f"int8row-{prec}", precision=prec)
         e.warmup()
@@ -2896,9 +2969,17 @@ def phase_int8_serve(state):
                 o.cpu()
         dt = time.perf_counter() - t2
         serve_leg[f"{prec}_qps"] = 8 * INT8_SERVE_ITERS / dt
+        if prec == "bf16":
+            counts = _half_counts()
+            serve_leg["bf16_launches"] = {**counts, "forwards": e.forwards}
+            _add_bf16_launches(state, counts)
+            if counts["conv_affine_bf16"] != \
+                    RESNET50_SEGMENTS * e.forwards or \
+                    counts["conv_affine_fp32"] != 0:
+                raise AssertionError(f"bf16 serve leg launches: {counts}")
         del e, net
-    serve_leg["int8_vs_fp32"] = serve_leg["int8_qps"] / \
-        serve_leg["fp32_qps"]
+    serve_leg["int8_vs_bf16"] = serve_leg["int8_qps"] / \
+        serve_leg["bf16_qps"]
     torch.cuda.empty_cache()
     return {"model": "resnet50_v1", "precision": "int8", "classes": 1000,
             "item_shape": [224, 224, 3], "buckets": list(eng.buckets),
@@ -4637,6 +4718,562 @@ def phase_zoo_train_reference(state):
 
 
 # ------------------------------------------------------------------ main
+# ----------------------------------------------------- bf16 serving phases
+PEAK_BF16_FLOP_S = 989e12       # H100 SXM dense bf16 on the tensor cores
+HALF_STEPS = 1                  # a kernel's value from its plain version's
+BF16_NEAR_ZERO = 1e-5           # conv_affine bf16: of the largest output
+BERT_SOFTMAX_HALF = 12          # half softmax launches a BERT-base forward
+
+
+def _steps(a, b):
+    """Distance of two non-negative half tensors (bf16 or fp16) in steps
+    of their own size: the difference of their bit patterns."""
+    import torch
+    return (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+
+
+def _nudged(s, k):
+    """The positive half tensor ``s`` moved ``k`` steps."""
+    import torch
+    return (s.view(torch.int16) + k).view(s.dtype)
+
+
+def _half_softmax_case(rows, cols, dtype, gen, div=None, keep_rows=None):
+    """``softmax_fused``'s bf16 or fp16 instance against its plain version
+    on the card (the reference's roundings, ``cuda_kernels
+    .softmax_plain``), launched twice (the outputs must be bitwise equal),
+    timed beside its bound (2 bytes an element each way, plus the mask's),
+    its plain version and ``torch.softmax`` on the prologue's result in
+    the dtype (‡: it neither divides nor masks, and rounds once).  Each
+    value must lie within one step of the plain numerator over the plain
+    rounded sum, or over that sum moved one step either way: the two sum
+    in fp32 in another order, which may move the rounding of a sum by one
+    step.  ``div`` and ``keep_rows`` give the kernel its prologue: the
+    divisor (rounded to the dtype) and a random keep mask of
+    ``keep_rows`` rows."""
+    import torch
+    from mxnet_tpu_torch.ops.cuda_kernels import (softmax_fused,
+                                                  softmax_plain,
+                                                  softmax_prologue_plain)
+    x = (torch.randn(rows, cols, device="cuda", generator=gen) * 4 *
+         (div or 1.0)).to(dtype)
+    keep = None
+    if keep_rows:
+        keep = torch.rand(keep_rows, cols, device="cuda",
+                          generator=gen) > 0.25
+
+    def fused():
+        return softmax_fused(x, div=div, keep=keep)
+
+    def plain():
+        return softmax_plain(softmax_prologue_plain(x, div, keep))
+
+    out, again, ref = fused(), fused(), plain()
+    p = softmax_prologue_plain(x, div, keep)
+    d = p - p.amax(-1, keepdim=True)
+    if dtype == torch.bfloat16:
+        e = torch.exp(d.float())
+        num, s = e.to(dtype), e.sum(-1, keepdim=True).to(dtype)
+    else:
+        e = torch.exp(d)
+        num, s = e, e.sum(-1, keepdim=True)
+    steps = torch.stack([_steps(out, num / _nudged(s, k))
+                         for k in (-1, 0, 1)]).amin(0)
+    torch.cuda.synchronize()
+    case = {"shape": [rows, cols], "dtype": str(dtype).rpartition(".")[2],
+            "div": div, "keep_rows": keep_rows,
+            "plan": _softmax_plan(cols, 8),
+            "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+            "max_steps": steps.max().item(), "tol_steps": HALF_STEPS,
+            "values_differing": int((out != ref).sum()),
+            "values": out.numel(),
+            "finite": bool(torch.isfinite(out).all()),
+            "bitwise_equal_relaunch": torch.equal(out, again)}
+    nbytes = 2 * 2 * rows * cols + (keep.numel() if keep_rows else 0)
+    flops = (5 + (div is not None)) * rows * cols
+    _timed(case, fused, plain, lambda: torch.softmax(p, -1), nbytes, flops)
+    case["bound_share"] = case["bound_ms"] / case["kernel_ms"]
+    case["vs_library"] = case["kernel_ms"] / case["library_ms"]
+    if div is not None or keep_rows:
+        case["library_does_less"] = True
+    return case
+
+
+def _conv_bf16_case(N, H, W, C, Cout, gen, residual=False, relu=True):
+    """``conv_affine``'s bf16 instance against its plain version (bf16
+    widened to fp32, the conv in fp32 with TF32 off, the same fold, one
+    rounding) at one shape, twice on the same inputs (bitwise equal),
+    with its plan, timed beside its bound (bf16 operations over 989
+    TFLOP/s dense, or its bytes at 2 an element), its plain version and
+    ``F.conv2d`` on the bf16 tensors alone (cuDNN, channels-last: no fold,
+    residual or ReLU).  Each value within one bf16 step of the plain
+    version's, or within 1e-5 of the largest output where both lie near
+    0: the two sum the same exact products in fp32 in another order, so a
+    value may round to the neighbouring bf16 value, and near 0 the sums'
+    own rounding is all there is."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.conv_block import conv_affine, conv_affine_plain
+    bf = torch.bfloat16
+    x = torch.randn(N, H, W, C, device="cuda", generator=gen).to(bf)
+    w = (torch.randn(3, 3, C, Cout, device="cuda", generator=gen) *
+         (2.0 / (9 * C)) ** 0.5).to(bf)
+    g = (1 + 0.1 * torch.randn(Cout, device="cuda", generator=gen)).to(bf)
+    b = (0.1 * torch.randn(Cout, device="cuda", generator=gen)).to(bf)
+    mu = (0.1 * torch.randn(Cout, device="cuda", generator=gen)).to(bf)
+    var = (0.5 + torch.rand(Cout, device="cuda", generator=gen)).to(bf)
+    res = torch.randn(N, H, W, Cout, device="cuda",
+                      generator=gen).to(bf) if residual else None
+    args = (x, w, g, b, mu, var, res)
+    out = conv_affine(*args, relu=relu)
+    again = conv_affine(*args, relu=relu)
+    ref = conv_affine_plain(*args, relu=relu)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item()
+    step = torch.exp2(torch.floor(torch.log2(ref.float().abs())) - 7)
+    allowed = torch.clamp(HALF_STEPS * step, min=BF16_NEAR_ZERO * scale)
+    xc = x.permute(0, 3, 1, 2)                      # channels-last view
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    npix = N * H * W
+    nbytes = 2 * (npix * C + 9 * C * Cout + npix * Cout * (2 if residual
+                                                           else 1)
+                  + 4 * Cout)
+    flops = 2 * npix * 9 * C * Cout
+    case = {"shape": [N, H, W, C, Cout], "dtype": "bfloat16",
+            "residual": residual, "relu": relu,
+            "plan": _conv3x3_plan(npix, C, Cout,
+                                  "mxt_conv_affine_bf16_blocks_per_sm", 8),
+            "max_abs_err": err.max().item(),
+            "rel_err": err.max().item() / max(scale, 1e-30),
+            "within_steps": bool((err <= allowed).all()),
+            "tol_steps": HALF_STEPS, "near_zero_tol": BF16_NEAR_ZERO,
+            "values_differing": int((out != ref).sum()),
+            "values": out.numel(),
+            "finite": bool(torch.isfinite(out).all()),
+            "bitwise_equal_relaunch": bool(torch.equal(out, again))}
+    bms, by = bound(nbytes, flops, PEAK_BF16_FLOP_S)
+    kms = cuda_ms(lambda: conv_affine(*args, relu=relu))
+    case.update(kernel_ms=kms,
+                kernel_eager_ms=eager_ms(lambda: conv_affine(*args,
+                                                             relu=relu)),
+                plain_ms=cuda_ms(lambda: conv_affine_plain(*args,
+                                                           relu=relu)),
+                library_ms=cuda_ms(lambda: F.conv2d(xc, wc, padding=1)),
+                library="F.conv2d alone on bf16 (cuDNN, channels-last; no "
+                        "BN fold, residual or ReLU)",
+                bytes=nbytes, flop=flops, bound_ms=bms, bound_by=by,
+                bound_share=bms / kms, tflop_s=flops / (kms * 1e-3) / 1e12)
+    return case
+
+
+def phase_bf16_kernels(state):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    bf, f16 = torch.bfloat16, torch.float16
+    rows8 = 8 * 12 * TEXT_T
+    # row 1's half instances: the path's call first (bucket 8 of the Gluon
+    # BERT-base: the scores divided by sqrt(64), a (B, T) key mask), bucket
+    # 1, the vocabulary rows (cluster kernel), a ragged width (the scalar
+    # path) and rows past the cluster's reach (three passes); fp16 at the
+    # three path shapes
+    soft = [_half_softmax_case(rows8, TEXT_T, bf, gen, div=8.0,
+                               keep_rows=8),
+            _half_softmax_case(12 * TEXT_T, TEXT_T, bf, gen, div=8.0),
+            _half_softmax_case(12 * TEXT_T, TEXT_T, bf, gen),
+            _half_softmax_case(4096, 30522, bf, gen),
+            _half_softmax_case(4096, 77, bf, gen),
+            _half_softmax_case(256, 131072, bf, gen),
+            _half_softmax_case(rows8, TEXT_T, f16, gen, div=8.0,
+                               keep_rows=8),
+            _half_softmax_case(12 * TEXT_T, TEXT_T, f16, gen),
+            _half_softmax_case(4096, 30522, f16, gen)]
+    # row 8's bf16 instance: ResNet-50's four 3x3 stages at batch 8 (the
+    # path shape first), stage 1 at batch 64, a residual tail, and a ragged
+    # shape on the scalar path (C = 20)
+    conv = [_conv_bf16_case(8, 56, 56, 64, 64, gen),
+            _conv_bf16_case(8, 28, 28, 128, 128, gen),
+            _conv_bf16_case(8, 14, 14, 256, 256, gen),
+            _conv_bf16_case(8, 7, 7, 512, 512, gen),
+            _conv_bf16_case(64, 56, 56, 64, 64, gen),
+            _conv_bf16_case(8, 56, 56, 64, 64, gen, residual=True),
+            _conv_bf16_case(2, 9, 11, 20, 12, gen, residual=True)]
+    state["cases"]["softmax_fused_bf16"] = soft
+    state["cases"]["conv_affine_bf16"] = conv
+    bad = [c for c in soft if not (c["max_steps"] <= c["tol_steps"] and
+                                   c["finite"] and
+                                   c["bitwise_equal_relaunch"])]
+    bad += [c for c in conv if not (c["within_steps"] and c["finite"] and
+                                    c["bitwise_equal_relaunch"])]
+    if bad:
+        raise AssertionError(f"half-precision kernel disagrees with its "
+                             f"plain version: {bad}")
+    return {"softmax": soft, "conv_affine": conv}
+
+
+def _zero_half_counts():
+    from mxnet_tpu_torch.ops.conv_block import conv_affine
+    from mxnet_tpu_torch.ops.cuda_kernels import layernorm_fused, softmax_fused
+    for fn in (conv_affine, softmax_fused):
+        fn.launches = 0
+        fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
+    layernorm_fused.launches = 0
+
+
+def _half_counts():
+    import torch
+    from mxnet_tpu_torch.ops.conv_block import conv_affine
+    from mxnet_tpu_torch.ops.cuda_kernels import layernorm_fused, softmax_fused
+    conv, soft = conv_affine.launches_by_dtype, \
+        softmax_fused.launches_by_dtype
+    return {"conv_affine_bf16": conv[torch.bfloat16],
+            "conv_affine_fp32": conv[torch.float32],
+            "softmax_fused_bf16": soft[torch.bfloat16],
+            "softmax_fused_fp32": soft[torch.float32],
+            "layernorm_fused": layernorm_fused.launches}
+
+
+def _add_bf16_launches(state, counts):
+    """Add a main-path run's bf16 launches to the ``kernels`` line's."""
+    tot = state.setdefault("bf16_launches", {})
+    for k in ("conv_affine_bf16", "softmax_fused_bf16"):
+        tot[k] = tot.get(k, 0) + counts[k]
+
+
+def _serve_traffic(reg, name, items, keep, offset):
+    """32 closed-loop requests from one client (items 0-31), then 64 from
+    8 client threads (items ``offset`` to ``offset + 63``, as the fp32
+    serving phases send them); ``keep(k, out)`` gives what is kept of the
+    response to item k.  → (closed-loop responses by item, concurrent
+    responses by item, closed-loop stats, concurrent stats)."""
+    from mxnet_tpu_torch import telemetry
+    closed_kept, kept, lat, errs = {}, {}, [], []
+    for k in range(32):
+        t1 = time.perf_counter()
+        closed_kept[k] = keep(k, reg.predict(name, items[k])[0])
+        lat.append((time.perf_counter() - t1) * 1e3)
+
+    def client(c):
+        try:
+            for j in range(8):
+                k = offset + 8 * c + j
+                kept[k] = keep(k, reg.predict(name, items[k],
+                                              timeout=300)[0])
+        except Exception as e:
+            errs.append(repr(e))
+
+    snap0 = telemetry.raw_snapshot()
+    h0 = snap0["histograms"].get("serve.batch_fill", {})
+    b0 = snap0["counters"].get("serve.batches", 0)
+    ts = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    t1 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    conc_s = time.perf_counter() - t1
+    snap = telemetry.raw_snapshot()
+    h1 = snap["histograms"].get("serve.batch_fill", {})
+    if errs or len(kept) != 64:
+        raise AssertionError(f"requests to {name} failed: {errs}")
+    closed = {"requests": 32, "p50_ms": _pct(lat, 50),
+              "p99_ms": _pct(lat, 99), "mean_ms": sum(lat) / len(lat),
+              "first_ms": lat[0], "max_ms": max(lat),
+              "items_s": 1e3 * len(lat) / sum(lat)}
+    conc = {"clients": 8, "requests": 64, "seconds": conc_s,
+            "items_s": 64 / conc_s,
+            "batches": snap["counters"].get("serve.batches", 0) - b0,
+            "mean_batch_fill": (h1.get("sum", 0) - h0.get("sum", 0)) /
+            max(1, h1.get("count", 0) - h0.get("count", 0))}
+    return closed_kept, kept, closed, conc
+
+
+def _per_bucket(eng, items, eager_iters=10):
+    """Device and eager ms of one forward at each bucket, and the idle
+    share and device-busy µs of one bucket-8 and one bucket-1 forward
+    from torch.profiler."""
+    import torch
+    out = {}
+    for b in eng.buckets:
+        x = torch.as_tensor(items[:b], device="cuda")
+        out[b] = {
+            # two forwards per CUDA-event window: the host queues both
+            # inside the device-side sleep, so the window is device time
+            "device_ms": cuda_ms(lambda: eng.run(x), iters=2, repeats=5,
+                                 sleep=2 * SLEEP_CYCLES),
+            "eager_ms": eager_ms(lambda: eng.run(x), iters=eager_iters)}
+        if b in (1, 8):
+            prof = _profile(lambda: eng.run(x), 1, top=6)
+            out[b].update({k: prof[k] for k in (
+                "idle_share", "device_busy_us_per_call",
+                "kernels_per_call", "wall_us_per_call") if k in prof})
+    return out
+
+
+def _bf16_params(state):
+    """The ResNet-50 and BERT-base ``.params`` of the fp32 serving phases
+    (made here when those phases did not run), and their items."""
+    import numpy as np
+    work = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    if "image_params" not in state:
+        path = os.path.join(work, "resnet50_v1.params")
+        _resnet50_params(path)
+        images = np.random.RandomState(SEED).rand(64, 224, 224, 3) \
+            .astype(np.float32)
+        state.update(image_params=path, images=images)
+    if "text_params" not in state:
+        path = os.path.join(work, "bert_12_768_12.params")
+        _bert_base_params(path)
+        seqs = np.random.RandomState(SEED).randint(
+            0, 30522, (96, TEXT_T)).astype(np.int32)
+        state.update(text_params=path, text_seqs=seqs)
+
+
+def phase_bf16_serve(state):
+    """ResNet-50 v1 (224x224x3 float items) and Gluon BERT-base (512-token
+    int32 items) through ``ModelRegistry.load(..., precision="bf16")``
+    (``amp.convert_model`` on the card; the default ladder 1, 2, 4, 8)
+    and its ``Batcher``, at the fp32 phases' loads: 32 closed-loop
+    requests from one client, then 64 from 8 client threads.  The launch
+    counters are set to 0 before each load and read after its traffic:
+    exactly 16 bf16 ``conv_affine`` launches a ResNet-50 forward run and
+    no fp32 one; exactly 12 bf16 softmax launches a BERT-base forward and
+    no fp32 one (its LayerNorms take the reference's closed form in
+    bf16: no LayerNorm launch).  Every response finite; p50/p99, items/s,
+    batch fill, device and eager ms a forward per bucket, the idle share
+    of a bucket-8 and a bucket-1 forward, peak memory."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.models import bert_gluon
+    from mxnet_tpu_torch.serve import ModelRegistry
+    _bf16_params(state)
+    res = {}
+
+    # ResNet-50 v1
+    images = state["images"]
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    _zero_half_counts()
+    telemetry.reset()
+    reg = ModelRegistry(precision="bf16")
+    t0 = time.perf_counter()
+    entry = reg.load("resnet50_bf16", state["image_params"],
+                     arch="resnet50_v1", item_shape=(224, 224, 3))
+    load_s = time.perf_counter() - t0
+    first, kept, closed, conc = _serve_traffic(
+        reg, "resnet50_bf16", images, lambda k, o: o, 0)
+    counts, eng = _half_counts(), entry.engine
+    forwards = eng.forwards
+    _add_bf16_launches(state, counts)
+    bad = [o for o in list(first.values()) + list(kept.values())
+           if o.shape != (1, 1000) or not np.isfinite(o).all()]
+    if bad:
+        raise AssertionError(f"{len(bad)} responses not finite (1, 1000)")
+    if counts["conv_affine_bf16"] != RESNET50_SEGMENTS * forwards or \
+            counts["conv_affine_fp32"] != 0:
+        raise AssertionError(f"bf16 ResNet-50 launches {counts} in "
+                             f"{forwards} forwards")
+    state.update(bf16_image_registry=reg, bf16_image_engine=eng,
+                 bf16_image_batched=kept)
+    res["resnet50_v1"] = {
+        "item_shape": [224, 224, 3], "buckets": list(eng.buckets),
+        "load_cast_and_warmup_s": load_s, "closed_loop": closed,
+        "concurrent": conc, "per_bucket": _per_bucket(eng, images),
+        "launches": {**counts, "forwards": forwards,
+                     "conv_affine_bf16_per_forward":
+                     counts["conv_affine_bf16"] / forwards},
+        "engine": {k: v for k, v in eng.stats().items()
+                   if k in ("retraces", "programs", "precision", "dtype",
+                            "param_bytes_per_device")},
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "mem_before_bytes": mem_before}
+
+    # Gluon BERT-base: responses digested (their sum and argmax), four of
+    # the concurrent ones kept whole for bf16_reference
+    seqs = state["text_seqs"]
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    _zero_half_counts()
+    telemetry.reset()
+    treg = ModelRegistry(precision="bf16")
+    t0 = time.perf_counter()
+    tentry = treg.load("bert_bf16", state["text_params"],
+                       net=bert_gluon.bert_12_768_12(),
+                       item_shape=(TEXT_T,), dtype="int32")
+    load_s = time.perf_counter() - t0
+    whole = {}
+
+    def keep(k, out):
+        if out.shape != (1, TEXT_T, 30522):
+            raise AssertionError(f"response shape {out.shape}")
+        if k in (32, 33, 34, 35):
+            whole[k] = out
+        return _digest(out)
+
+    first, digests, closed, conc = _serve_traffic(treg, "bert_bf16", seqs,
+                                                  keep, 32)
+    digests.update(first)
+    counts, teng = _half_counts(), tentry.engine
+    forwards = teng.forwards
+    _add_bf16_launches(state, counts)
+    bad = [k for k, (s, _) in digests.items() if not np.isfinite(s)]
+    if bad:
+        raise AssertionError(f"responses {bad} not finite")
+    if counts["softmax_fused_bf16"] != BERT_SOFTMAX_HALF * forwards or \
+            counts["softmax_fused_fp32"] != 0:
+        raise AssertionError(f"bf16 BERT-base launches {counts} in "
+                             f"{forwards} forwards")
+    state.update(bf16_text_registry=treg, bf16_text_engine=teng,
+                 bf16_text_whole=whole)
+    closed["tokens_s"] = closed["items_s"] * TEXT_T
+    conc["tokens_s"] = conc["items_s"] * TEXT_T
+    per_bucket = _per_bucket(teng, seqs, eager_iters=5)
+    for b in teng.buckets:
+        x = torch.as_tensor(seqs[:b], device="cuda")
+        per_bucket[b]["to_host_ms"] = _to_host_ms(teng.run(x)[0])
+    res["bert_12_768_12"] = {
+        "item_shape": [TEXT_T], "dtype": "int32",
+        "buckets": list(teng.buckets), "load_cast_and_warmup_s": load_s,
+        "closed_loop": closed, "concurrent": conc, "per_bucket": per_bucket,
+        "launches": {**counts, "forwards": forwards,
+                     "softmax_bf16_per_forward":
+                     counts["softmax_fused_bf16"] / forwards},
+        "engine": {k: v for k, v in teng.stats().items()
+                   if k in ("retraces", "programs", "precision", "dtype",
+                            "param_bytes_per_device")},
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "mem_before_bytes": mem_before}
+    return res
+
+
+def _flops_card_cpu(card_net, cpu_net, x):
+    """``Block.flops`` of the card's bf16 net on card inputs ``x`` and of
+    the same net in fp32 on the CPU: equal counts, and no kernel launched
+    for the card's (it runs on fake tensors)."""
+    import torch
+    before = _half_counts()
+    t0 = time.perf_counter()
+    card = card_net.flops(x)
+    seconds = time.perf_counter() - t0
+    cpu = cpu_net.flops(x.cpu().to(torch.int32 if not x.is_floating_point()
+                                   else torch.float32))
+    launched = _half_counts() != before
+    return {"card": card, "cpu": cpu, "card_s": seconds,
+            "launched": launched, "equal": card == cpu and not launched}
+
+
+def _cpu_engine(net, item_shape, precision, dtype="float32", b=2):
+    from mxnet_tpu_torch.serve import InferenceEngine
+    return InferenceEngine(net, item_shape, dtype=dtype, buckets=(b,),
+                           precision=precision, device="cpu")
+
+
+def phase_bf16_reference(state):
+    """The card's bf16 engines against the port's bf16 on the CPU from the
+    same ``.params``: ResNet-50 at batch 2 (top-1 equal) and BERT-base at
+    1 x 512; then each batched response against the unbatched forward of
+    its item on the card (ResNet-50: the 64 concurrent responses; BERT:
+    four of them, whole).  The card and the CPU round at the same places
+    but sum in fp32 in other orders (cuDNN, cuBLAS, the kernels), so a few
+    values round to a neighbouring bf16 value and the flips compound
+    through the layers: each distance is gated below the distance of the
+    CPU's own bf16 from its fp32 on the same items (the error bf16
+    itself brings), with the same top-1 (ResNet-50) or an argmax agreement
+    no lower than that of bf16 against fp32 on the CPU (BERT-base).
+    ``Block.flops`` of each card net equals its fp32 CPU copy's and
+    launches nothing."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import bert_gluon, get_model
+    torch.set_num_threads(os.cpu_count() or 1)
+    res = {}
+
+    eng, images = state["bf16_image_engine"], state["images"]
+    x2 = images[:2]
+    card = eng.run(x2)[0].float().cpu().numpy()
+    sides, nets = {}, {}
+    for prec in ("bf16", "fp32"):
+        nets[prec] = net = get_model("resnet50_v1", classes=1000)
+        net.load_parameters(state["image_params"])
+        sides[prec] = _cpu_engine(net, (224, 224, 3), prec).run(x2)[0] \
+            .float().numpy()
+    flops = _flops_card_cpu(eng.net, nets["fp32"],
+                            torch.zeros(2, 224, 224, 3, dtype=torch.bfloat16,
+                                        device="cuda"))
+    own = float(np.abs(sides["bf16"] - sides["fp32"]).max())
+    err = float(np.abs(card - sides["bf16"]).max())
+    top1 = bool((card.argmax(-1) == sides["bf16"].argmax(-1)).all())
+    bat_err, bat_top1, bitwise = 0.0, True, 0
+    for k, out in state["bf16_image_batched"].items():
+        one = eng.run(images[k:k + 1])[0].float().cpu().numpy()
+        bat_err = max(bat_err, float(np.abs(out - one).max()))
+        bat_top1 &= bool(out.argmax() == one.argmax())
+        bitwise += int(np.array_equal(out, one))
+    state["bf16_image_registry"].close()
+    res["resnet50_v1"] = {
+        "batch": 2, "logits_max_abs_diff": err,
+        "logits_max_abs": float(np.abs(sides["bf16"]).max()),
+        "cpu_bf16_vs_fp32_max_abs_diff": own, "top1_equal": top1,
+        "cpu_bf16_top1_equals_fp32": bool(
+            (sides["bf16"].argmax(-1) == sides["fp32"].argmax(-1)).all()),
+        "batched_vs_unbatched_max_abs_diff": bat_err,
+        "batched_top1_equal": bat_top1, "batched_bitwise_equal": bitwise,
+        "batched_responses": len(state["bf16_image_batched"]),
+        "flops": flops}
+
+    teng, seqs = state["bf16_text_engine"], state["text_seqs"]
+    x1 = seqs[:1]
+    card = teng.run(x1)[0].float().cpu().numpy()
+    sides, nets = {}, {}
+    for prec in ("bf16", "fp32"):
+        nets[prec] = net = bert_gluon.bert_12_768_12()
+        net.load_parameters(state["text_params"])
+        sides[prec] = _cpu_engine(net, (TEXT_T,), prec, "int32", 1) \
+            .run(x1)[0].float().numpy()
+    flops = _flops_card_cpu(teng.net, nets["fp32"],
+                            torch.zeros(1, TEXT_T, dtype=torch.int32,
+                                        device="cuda"))
+    own = float(np.abs(sides["bf16"] - sides["fp32"]).max())
+    own_agree = float((sides["bf16"].argmax(-1) ==
+                       sides["fp32"].argmax(-1)).mean())
+    err = float(np.abs(card - sides["bf16"]).max())
+    agree = float((card.argmax(-1) == sides["bf16"].argmax(-1)).mean())
+    bat_err, bat_agree = 0.0, 1.0
+    for k, out in state["bf16_text_whole"].items():
+        one = teng.run(seqs[k:k + 1])[0].float().cpu().numpy()
+        bat_err = max(bat_err, float(np.abs(out - one).max()))
+        bat_agree = min(bat_agree,
+                        float((out.argmax(-1) == one.argmax(-1)).mean()))
+    state["bf16_text_registry"].close()
+    res["bert_12_768_12"] = {
+        "batch": 1, "tokens": TEXT_T, "logits_max_abs_diff": err,
+        "logits_max_abs": float(np.abs(sides["bf16"]).max()),
+        "cpu_bf16_vs_fp32_max_abs_diff": own,
+        "argmax_agreement": agree,
+        "cpu_bf16_vs_fp32_argmax_agreement": own_agree,
+        "batched_vs_unbatched_max_abs_diff": bat_err,
+        "batched_argmax_agreement": bat_agree,
+        "batched_responses": len(state["bf16_text_whole"]),
+        "flops": flops}
+    r, t = res["resnet50_v1"], res["bert_12_768_12"]
+    if not (r["logits_max_abs_diff"] < r["cpu_bf16_vs_fp32_max_abs_diff"]
+            and r["top1_equal"] and r["batched_top1_equal"] and
+            r["batched_vs_unbatched_max_abs_diff"] <
+            r["cpu_bf16_vs_fp32_max_abs_diff"] and
+            t["logits_max_abs_diff"] < t["cpu_bf16_vs_fp32_max_abs_diff"]
+            and t["argmax_agreement"] >=
+            t["cpu_bf16_vs_fp32_argmax_agreement"] and
+            t["batched_vs_unbatched_max_abs_diff"] <
+            t["cpu_bf16_vs_fp32_max_abs_diff"] and
+            t["batched_argmax_agreement"] >=
+            t["cpu_bf16_vs_fp32_argmax_agreement"] and
+            r["flops"]["equal"] and t["flops"]["equal"]):
+        raise AssertionError(f"card disagrees: {res}")
+    return res
+
+
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
      "mxnet_tpu/ops/pallas_kernels.py:104"),
@@ -4670,6 +5307,10 @@ KERNELS = [
      "mxnet_tpu/tvmop.py:50"),
     ("rtc_axpy", "mxnet_tpu_torch/examples/rtc_kernels.cu",
      "mxnet_tpu/rtc.py:35"),
+    ("softmax_fused_bf16", "mxnet_tpu_torch/csrc/softmax.cu",
+     "mxnet_tpu/ops/pallas_kernels.py:61"),
+    ("conv_affine_bf16", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
+     "mxnet_tpu/ops/pallas_block.py:325"),
 ]
 # what else an entry names: the header holding the body two attention
 # entries share, the kernels of a stream-K entry (main, then the one that
@@ -4701,11 +5342,25 @@ KERNEL_NOTES = {
     "tvm_sigmoid": {"body": "mxnet_tpu/tvmop.py:138", "compiler": "nvrtc"},
     "rtc_axpy": {"body": "tests/test_pallas_rtc.py:85",
                  "launcher": "mxnet_tpu_torch/rtc.py", "compiler": "nvrtc"},
+    "softmax_fused_bf16": {"instance": "bf16 (cases: bf16, then fp16)",
+                           "kernels": ["softmax_warp_kernel",
+                                       "softmax_cluster_kernel",
+                                       "softmax_block_kernel"],
+                           "prologue": "x / sqrt(64) and the key mask, "
+                                       "rounded to bf16 in the load",
+                           "library": "torch.softmax on bf16 on the "
+                                      "prologue's result"},
+    "conv_affine_bf16": {"instance": "bf16",
+                         "kernels": ["conv_affine_bf16_kernel",
+                                     "conv_affine_bf16_reduce_kernel"],
+                         "arithmetic": "mma.sync m16n8k16 bf16, fp32 sums",
+                         "loop": "conv_ranges, shared with the fp32 "
+                                 "instances"},
 }
 PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
                  "train_launches", "text_launches", "int8_launches",
                  "ext_launches", "fused_launches", "v2_launches",
-                 "zoo_launches")
+                 "zoo_launches", "bf16_launches")
 
 
 def kernels_line(state):
@@ -4716,7 +5371,10 @@ def kernels_line(state):
     int8 ResNet-50 scoring and serving in ``int8_score`` and
     ``int8_serve``, the extension surface in ``ext_path``, ResNet-50 v2
     training in ``v2_train``, Inception-v3 scoring and serving in
-    ``zoo_serve`` and DenseNet-121 training in ``zoo_train``);
+    ``zoo_serve``, DenseNet-121 training in ``zoo_train``, and the bf16
+    instances in bf16 ResNet-50 scoring and serving (``int8_score``,
+    ``int8_serve``, ``bf16_serve``) and Gluon BERT-base serving
+    (``bf16_serve``));
     the times are at the first case, the
     path's own shape (``conv3x3``: its dgrad use, which is how training
     launches it)."""
@@ -4750,7 +5408,8 @@ PHASES = ("env", "build", "kernels", "slice", "reference", "profile",
           "int8_serve", "int8_reference", "int8_profile", "ext_kernels",
           "rtc", "ext_path", "v2_train", "v2_train_reference",
           "loss_metric", "zoo_kernels", "zoo_serve", "zoo_reference",
-          "zoo_train", "zoo_train_reference")
+          "zoo_train", "zoo_train_reference", "bf16_kernels", "bf16_serve",
+          "bf16_reference")
 
 
 def _args(argv):

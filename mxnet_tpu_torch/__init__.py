@@ -50,7 +50,7 @@ from .models.gpt import GPTConfig, GPTModel, init_params, params_from_numpy
 from .models import get_model
 from .serve import (Batcher, DecodeBatcher, InferenceEngine,
                     ModelRegistry)
-from . import autograd, nd, operator, library, rtc, tvmop, _ffi
+from . import autograd, nd, operator, library, rtc, tvmop, _ffi, amp
 from ._ffi import get_global_func, register_func
 
 init = initializer   # ≙ mx.init
@@ -77,4 +77,4 @@ __all__ = ["context", "gluon", "initializer", "init", "lr_scheduler",
            "init_params", "params_from_numpy", "get_model", "Batcher",
            "InferenceEngine", "ModelRegistry", "autograd", "nd", "operator",
            "library", "rtc", "tvmop", "_ffi", "get_global_func",
-           "register_func"]
+           "register_func", "amp"]

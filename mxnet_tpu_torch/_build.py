@@ -71,6 +71,11 @@ _SIGNATURES = {
     # bn, vec, out (int*)
     "mxt_conv_affine_tc_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                          ctypes.POINTER(ctypes.c_int)],
+    # the same arguments for bf16 x, w, gamma, beta, mean, var, res, out
+    "mxt_conv_affine_bf16": [_P] * 9 + [ctypes.c_int] * 5 +
+                            [ctypes.c_float] + [ctypes.c_int] * 4 + [_P],
+    "mxt_conv_affine_bf16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_int)],
     # x, w, part, out, N, H, W, C, Cout, bn, ranges, vec, stream
     "mxt_conv3x3_tc_f32": [_P] * 4 + [ctypes.c_int] * 8 + [_P],
     # bn, vec, out (int*)
@@ -92,6 +97,13 @@ _SIGNATURES = {
                          [ctypes.c_int] * 3 + [_P],
     # x, y, rows, cols, vec, prologue, div, keep, rows a mask row, stream
     "mxt_softmax_f32": [_P, _P, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_float, _P,
+                        ctypes.c_longlong, _P],
+    # the same for bf16 and fp16 x, y (vec 1 or 8)
+    "mxt_softmax_bf16": [_P, _P, ctypes.c_longlong, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_float, _P,
+                         ctypes.c_longlong, _P],
+    "mxt_softmax_f16": [_P, _P, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, ctypes.c_float, _P,
                         ctypes.c_longlong, _P],
     # cols, vec, out (int[3]: kernel, cluster CTAs, columns a CTA)

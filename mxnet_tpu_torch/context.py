@@ -68,8 +68,12 @@ def exact_fp32():
     """Keep fp32 matrix products and convolutions in full fp32: TF32 off
     for cuBLAS and for cuDNN.  PyTorch leaves ``cudnn.allow_tf32`` True
     by default, so without this every cuDNN convolution would silently
-    run in TF32 (about three decimal digits).  Process-wide, as
+    run in TF32 (about three decimal digits).  bf16 and fp16 products
+    keep fp32 sums too (cuBLAS may otherwise reduce split sums in the
+    half type), as the reference accumulates them.  Process-wide, as
     PyTorch's flags are; every entry point that runs on the card calls
     it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False

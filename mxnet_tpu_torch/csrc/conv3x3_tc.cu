@@ -95,7 +95,24 @@
 //   where VEC holds).  At batch 8 nearly every tile is cut: 196 tiles of
 //   18 chunks at 56x56 in 264 ranges.
 // - Each instance's plan comes from its own occupancy entry.
+//
+// The bf16 instance of conv_affine (since the bf16 serving slice; the
+// reference's kernel takes bf16 operands with an fp32 accumulator and
+// writes out_ref.dtype): the same ranges, ring, reduce and epilogue, with
+// x, w, the BatchNorm vectors, res and out in bf16.  A 16-byte copy moves
+// 8 channels (C % 8 == 0 and Cout % 8 == 0 for the vector path; the
+// scalar path loads and stores each element, as cp.async has no 2-byte
+// copy), the ring's A rows are 40 halves apart, and each 16-deep step of
+// a chunk is one `mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32` product,
+// exact in fp32, in place of three TF32 ones; the partial slots and their
+// fixed-order reduce stay fp32, so a relaunch is bitwise.  The BatchNorm
+// is folded in fp32 from the bf16 vectors (as _fold casts them), the
+// residual widened to fp32, and each output rounded once to bf16 at the
+// store.  Bound at batch 8 of a ResNet-50 stage: 1.85 GFLOP, 0.0019 ms at
+// the 989 TFLOP/s dense bf16 peak; 2.8-6.5 MB, 0.0008-0.0019 ms at 3.35
+// TB/s.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -113,28 +130,45 @@ constexpr int BM = 128;        // output pixels a tile
 constexpr int BK = 32;         // patch columns (k) a chunk
 constexpr int STAGES = 4;
 constexpr int kThreads = 256;  // 8 warps: 4 along pixels x 2 along co
-constexpr int LDA = BK + 4;    // ring row strides in floats
+
+using bf16 = __nv_bfloat16;
 
 // what a finished tile gets on its way out
 enum class Epi { kNone, kStats, kAffine };
 
-template <int BN>
+// The ring's A row stride in elements of T: 36 floats, 40 halves (80
+// bytes: the fragment reads of a warp still hit 32 banks).
+template <typename T>
+constexpr int lda() {
+  return sizeof(T) == 4 ? BK + 4 : BK + 8;
+}
+
+template <int BN, typename T = float>
 struct Ring {
-  float a[STAGES][BM][LDA];      // patches: pixel rows, k contiguous
-  float b[STAGES][BK][BN + 8];   // weight: k rows, channels contiguous
+  T a[STAGES][BM][lda<T>()];     // patches: pixel rows, k contiguous
+  T b[STAGES][BK][BN + 8];       // weight: k rows, channels contiguous
 };
 
-struct Args {
-  const float* x;       // (N, H, W, C)
-  const float* w;       // (9C, Cout)
-  float* out;           // (N*H*W, Cout)
+// fp32 and bf16 values as fp32 (the bf16 instance widens on the way out
+// of shared memory or device memory; its products are exact in fp32)
+__device__ __forceinline__ float wide(float v) { return v; }
+__device__ __forceinline__ float wide(bf16 v) { return __bfloat162float(v); }
+
+// T is the storage type of x, w, the BatchNorm vectors, res and out: fp32
+// (every instance) or bf16 (conv_affine); the partial tiles and the
+// statistics are fp32 in both.
+template <typename T>
+struct ArgsT {
+  const T* x;           // (N, H, W, C)
+  const T* w;           // (9C, Cout)
+  T* out;               // (N*H*W, Cout)
   float* part;          // (2 * ranges, BM, BN) partial tiles
   float* tstats;        // conv_stats: (ceil(M / BM), 2, Cout) tile sums
-  const float* gamma;   // conv_affine: (Cout,) each
-  const float* beta;
-  const float* mean;
-  const float* var;
-  const float* res;     // conv_affine: (N*H*W, Cout) or null
+  const T* gamma;       // conv_affine: (Cout,) each
+  const T* beta;
+  const T* mean;
+  const T* var;
+  const T* res;         // conv_affine: (N*H*W, Cout) or null
   float eps;
   int relu;
   long long nch;        // chunks a tile: ceil(K / BK)
@@ -145,30 +179,41 @@ struct Args {
   int ranges;           // blocks: the work is cut into this many ranges
 };
 
+using Args = ArgsT<float>;
+
 // The range of block b is units [b*total/ranges, (b+1)*total/ranges);
 // unit u lies in range ((u+1)*ranges - 1) / total.
-__device__ __forceinline__ long long range_start(const Args& a,
-                                                 long long b) {
+template <typename A>
+__device__ __forceinline__ long long range_start(const A& a, long long b) {
   return b * a.total / a.ranges;
 }
 
-__device__ __forceinline__ long long range_of(const Args& a, long long u) {
+template <typename A>
+__device__ __forceinline__ long long range_of(const A& a, long long u) {
   return ((u + 1) * a.ranges - 1) / a.total;
 }
 
-// One thread's share of filling a ring stage with one chunk.  A: piece q
-// (k = kc + 4q .. +3) of pixel rows r0 + 32i, i < 4.  B: piece nb
-// (channels n0 + 4nb .. +3) of k rows rb + BSTEP*i.  VEC: C % 4 == 0 and
-// Cout % 4 == 0 (a piece lies in one tap and is wholly in or out), 16-byte
-// aligned bases: one 16-byte copy a piece; otherwise four 4-byte copies,
-// each with its own tap.
-template <int BN, bool VEC>
+// One thread's share of filling a ring stage with one chunk.  A piece is
+// 16 bytes: PW = 4 floats or 8 halves.  A: piece q (k = kc + PW*q ..) of
+// pixel rows r0 + RS*i, i < AROWS (fp32: 8 pieces a row, rows 32 apart;
+// bf16: 4 pieces, rows 64 apart).  B: piece nb (channels n0 + PW*nb ..)
+// of k rows rb + BSTEP*i.  VEC: C % PW == 0 and Cout % PW == 0 (a piece
+// lies in one tap and is wholly in or out), 16-byte aligned bases: one
+// 16-byte copy a piece; otherwise each element on its own, with its own
+// tap (fp32: 4-byte copies; bf16, which cp.async cannot copy 2 bytes at a
+// time: a plain load and store, which the ring's barriers order like the
+// copies).
+template <int BN, bool VEC, typename T = float>
 struct Loader {
-  static constexpr int NE = VEC ? 1 : 4;       // taps held a piece
-  static constexpr int AROWS = BM * 8 / kThreads;
-  static constexpr int BSTEP = kThreads / (BN / 4);
+  static constexpr int PW = 16 / (int)sizeof(T);
+  static constexpr int KP = BK / PW;           // pieces along k a row
+  static constexpr int RS = kThreads / KP;     // rows between a thread's
+  static constexpr int NE = VEC ? 1 : PW;      // taps held a piece
+  static constexpr int AROWS = BM / RS;
+  static constexpr int NBP = BN / PW;          // pieces along B's row
+  static constexpr int BSTEP = kThreads / NBP;
   static constexpr int BROWS = BK / BSTEP;
-  const Args& a;
+  const ArgsT<T>& a;
   int q, r0, nb, rb;
   int n;                // B's first channel of the piece
   int kc;               // first k of the next chunk to copy
@@ -176,24 +221,24 @@ struct Loader {
   int h[AROWS], w[AROWS];
   int th[NE], tw[NE], c[NE];   // tap (row, column) and channel of k + e
 
-  __device__ __forceinline__ Loader(const Args& args, int m0, int n0,
+  __device__ __forceinline__ Loader(const ArgsT<T>& args, int m0, int n0,
                                     int kbeg)
       : a(args), kc(kbeg) {
-    q = threadIdx.x & 7;
-    r0 = threadIdx.x >> 3;
-    nb = threadIdx.x % (BN / 4);
-    rb = threadIdx.x / (BN / 4);
-    n = n0 + 4 * nb;
+    q = threadIdx.x % KP;
+    r0 = threadIdx.x / KP;
+    nb = threadIdx.x % NBP;
+    rb = threadIdx.x / NBP;
+    n = n0 + PW * nb;
 #pragma unroll
     for (int i = 0; i < AROWS; ++i) {
-      p[i] = m0 + r0 + 32 * i;
+      p[i] = m0 + r0 + RS * i;
       w[i] = p[i] % a.W;
       // a pixel past the range gets an h no tap can bring into [0, H)
       h[i] = p[i] < a.M ? (p[i] / a.W) % a.H : -4;
     }
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
-      const int k = kbeg + 4 * q + e;
+      const int k = kbeg + PW * q + e;
       const int tap = k / a.C;
       c[e] = k - tap * a.C;
       th[e] = tap / 3;   // 3 or more: k past 9C, zero-filled
@@ -201,8 +246,15 @@ struct Loader {
     }
   }
 
+  // one element of T, or 0, without cp.async (bf16's scalar path)
+  __device__ __forceinline__ static void put(T* dst, const T* src,
+                                             bool ok) {
+    *reinterpret_cast<uint16_t*>(dst) =
+        ok ? *reinterpret_cast<const uint16_t*>(src) : (uint16_t)0;
+  }
+
   // copy the chunk at kc into stage st and step to the next one
-  __device__ __forceinline__ void load(Ring<BN>& s, int st) {
+  __device__ __forceinline__ void load(Ring<BN, T>& s, int st) {
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
       const long long off =
@@ -212,28 +264,33 @@ struct Loader {
         const int ih = h[i] + th[e] - 1, iw = w[i] + tw[e] - 1;
         const bool ok = th[e] < 3 && (unsigned)ih < (unsigned)a.H &&
                         (unsigned)iw < (unsigned)a.W;
-        const float* src = ok ? a.x + (long long)p[i] * a.C + off : a.x;
-        float* dst = &s.a[st][r0 + 32 * i][4 * q + e];
+        const T* src = ok ? a.x + (long long)p[i] * a.C + off : a.x;
+        T* dst = &s.a[st][r0 + RS * i][PW * q + e];
         if constexpr (VEC)
           cp_async16(dst, src, ok);
-        else
+        else if constexpr (sizeof(T) == 4)
           cp_async4(dst, src, ok);
+        else
+          put(dst, src, ok);
       }
     }
 #pragma unroll
     for (int i = 0; i < BROWS; ++i) {
       const int row = rb + BSTEP * i;
       const int k = kc + row;
-      float* db = &s.b[st][row][4 * nb];
-      const float* wrow = a.w + (long long)k * a.Cout;
+      T* db = &s.b[st][row][PW * nb];
+      const T* wrow = a.w + (long long)k * a.Cout;
       if constexpr (VEC) {
         const bool ok = k < a.K && n < a.Cout;
         cp_async16(db, ok ? wrow + n : a.w, ok);
       } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
+        for (int e = 0; e < PW; ++e) {
           const bool ok = k < a.K && n + e < a.Cout;
-          cp_async4(db + e, ok ? wrow + n + e : a.w, ok);
+          if constexpr (sizeof(T) == 4)
+            cp_async4(db + e, ok ? wrow + n + e : a.w, ok);
+          else
+            put(db + e, ok ? wrow + n + e : a.w, ok);
         }
       }
     }
@@ -311,6 +368,75 @@ __device__ __forceinline__ void mma_chunk(const Ring<BN>& s, int st,
         acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], run[mi][ni][e]);
 }
 
+// c += a . b on one 16 x 8 x 16 bf16 tile with fp32 sums: a the row-major
+// 16 x 16 A fragment (lane (g, t) holds (g, 2t..2t+1), (g + 8, 2t..),
+// (g, 2t + 8..), (g + 8, 2t + 8..), two halves a register, the lower k in
+// the lower half), b the column-major 16 x 8 B fragment ((2t..2t+1, g),
+// (2t + 8..2t + 9, g)), c as the TF32 product's.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_pair(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         (uint32_t)__bfloat16_as_ushort(hi) << 16;
+}
+
+// The bf16 instance of mma_chunk: acc += this warp's 32 x BN/2 share of
+// the chunk in stage st as two 16-deep steps of one bf16 product each
+// (the products are exact in fp32), gathered in a run accumulator from
+// zero and added with IEEE adds.  A's pairs are contiguous in k (one
+// 4-byte read); B's two k of a pair lie a row apart (two 2-byte reads).
+template <int BN>
+__device__ __forceinline__ void mma_chunk(const Ring<BN, bf16>& s, int st,
+                                          int wm, int wn, int g, int t,
+                                          float (&acc)[2][BN / 16][4]) {
+  float run[2][BN / 16][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < BN / 16; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) run[mi][ni][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 16) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int r = wm * 32 + mi * 16 + g;
+      af[mi][0] = ld_pair(&s.a[st][r][ks + 2 * t]);
+      af[mi][1] = ld_pair(&s.a[st][r + 8][ks + 2 * t]);
+      af[mi][2] = ld_pair(&s.a[st][r][ks + 2 * t + 8]);
+      af[mi][3] = ld_pair(&s.a[st][r + 8][ks + 2 * t + 8]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < BN / 16; ++ni) {
+      const int cn = wn * (BN / 2) + ni * 8 + g;
+      const uint32_t bf[2] = {
+          pack_pair(s.b[st][ks + 2 * t][cn], s.b[st][ks + 2 * t + 1][cn]),
+          pack_pair(s.b[st][ks + 2 * t + 8][cn],
+                    s.b[st][ks + 2 * t + 9][cn])};
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) mma_bf16(run[mi][ni], af[mi], bf);
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < BN / 16; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], run[mi][ni][e]);
+}
+
 // Sum and sum of squares of each of a whole tile's BN columns over its
 // rows < M, from the fp32 accumulator, in a fixed order: each lane its
 // four rows (mi, hf) in turn, an xor-shuffle over the 8 row groups g,
@@ -361,15 +487,18 @@ __device__ __forceinline__ void tile_stats(const Args& a,
   }
 }
 
-// The folded frozen BatchNorm of channel n: scale = gamma * rsqrt(var +
+// The folded frozen BatchNorm of channel n, in fp32 from the vectors as
+// stored (bf16 widened, as _fold casts them): scale = gamma * rsqrt(var +
 // eps), shift = beta - mean * scale.
-__device__ __forceinline__ void fold(const Args& a, int n, float& sc,
+template <typename T>
+__device__ __forceinline__ void fold(const ArgsT<T>& a, int n, float& sc,
                                      float& sh) {
-  sc = a.gamma[n] * rsqrtf(a.var[n] + a.eps);
-  sh = a.beta[n] - a.mean[n] * sc;
+  sc = wide(a.gamma[n]) * rsqrtf(wide(a.var[n]) + a.eps);
+  sh = wide(a.beta[n]) - wide(a.mean[n]) * sc;
 }
 
-__device__ __forceinline__ float affine(const Args& a, float v, float sc,
+template <typename T>
+__device__ __forceinline__ float affine(const ArgsT<T>& a, float v, float sc,
                                         float sh, float r) {
   v = v * sc + sh;
   if (a.res) v += r;
@@ -380,6 +509,34 @@ __device__ __forceinline__ float affine(const Args& a, float v, float sc,
 // caller), through the affine epilogue when EPI is kAffine (sc, sh: the
 // two columns' folded BatchNorm).  VEC: Cout % 4 == 0 and 16-byte aligned
 // bases, so n < Cout implies n + 1 < Cout and the pair is one float2.
+// bf16: the residual pair widened to fp32, the result rounded once to a
+// bf16 pair at the store.
+template <bool VEC, Epi EPI>
+__device__ __forceinline__ void store2(const ArgsT<bf16>& a, int m, int n,
+                                       float v0, float v1,
+                                       const float (&sc)[2],
+                                       const float (&sh)[2]) {
+  static_assert(EPI == Epi::kAffine, "bf16 has the affine instance only");
+  const long long at = (long long)m * a.Cout + n;
+  if constexpr (VEC) {
+    if (n >= a.Cout) return;
+    float2 r = make_float2(0.f, 0.f);
+    if (a.res)
+      r = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(a.res + at));
+    *reinterpret_cast<__nv_bfloat162*>(a.out + at) = __floats2bfloat162_rn(
+        affine(a, v0, sc[0], sh[0], r.x), affine(a, v1, sc[1], sh[1], r.y));
+  } else {
+    const float v[2] = {v0, v1};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (n + j >= a.Cout) continue;
+      a.out[at + j] = __float2bfloat16_rn(affine(
+          a, v[j], sc[j], sh[j], a.res ? wide(a.res[at + j]) : 0.f));
+    }
+  }
+}
+
 template <bool VEC, Epi EPI>
 __device__ __forceinline__ void store2(const Args& a, int m, int n,
                                        float v0, float v1,
@@ -412,9 +569,9 @@ __device__ __forceinline__ void store2(const Args& a, int m, int n,
 // into out (a whole tile) or a slot (a cut one).  kStats: a whole tile
 // also writes its row of per-tile sums; kAffine: a whole tile goes out
 // through the folded BatchNorm (+ residual) (+ ReLU).
-template <int BN, bool VEC, Epi EPI>
-__device__ __forceinline__ void conv_ranges(const Args& a) {
-  Ring<BN>& s = *reinterpret_cast<Ring<BN>*>(mxt_conv3x3_smem);
+template <int BN, bool VEC, Epi EPI, typename T = float>
+__device__ __forceinline__ void conv_ranges(const ArgsT<T>& a) {
+  Ring<BN, T>& s = *reinterpret_cast<Ring<BN, T>*>(mxt_conv3x3_smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 1, wn = warp & 1;   // 32-row, BN/2-column share
   const int g = lane >> 2, t = lane & 3;     // mma fragment coordinates
@@ -439,7 +596,7 @@ __device__ __forceinline__ void conv_ranges(const Args& a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
-    Loader<BN, VEC> ld(a, m0, n0, c0 * BK);
+    Loader<BN, VEC, T> ld(a, m0, n0, c0 * BK);
     __syncthreads();   // every warp is done with the ring's last segment
 #pragma unroll
     for (int st = 0; st < STAGES - 1; ++st) {
@@ -513,19 +670,33 @@ conv_affine_tc_kernel(const Args a) {
   conv_ranges<BN, VEC, Epi::kAffine>(a);
 }
 
-// The main kernel of an epilogue.
-template <int BN, bool VEC, Epi EPI>
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
+conv_affine_bf16_kernel(const ArgsT<bf16> a) {
+  conv_ranges<BN, VEC, Epi::kAffine, bf16>(a);
+}
+
+// The main kernel of an epilogue and storage type.
+template <int BN, bool VEC, Epi EPI, typename T = float>
 auto main_kernel() {
-  if constexpr (EPI == Epi::kNone) return conv3x3_tc_kernel<BN, VEC>;
-  else if constexpr (EPI == Epi::kStats) return conv_stats_tc_kernel<BN, VEC>;
-  else return conv_affine_tc_kernel<BN, VEC>;
+  if constexpr (!std::is_same_v<T, float>) {
+    static_assert(EPI == Epi::kAffine, "bf16 has the affine instance only");
+    return conv_affine_bf16_kernel<BN, VEC>;
+  } else if constexpr (EPI == Epi::kNone) {
+    return conv3x3_tc_kernel<BN, VEC>;
+  } else if constexpr (EPI == Epi::kStats) {
+    return conv_stats_tc_kernel<BN, VEC>;
+  } else {
+    return conv_affine_tc_kernel<BN, VEC>;
+  }
 }
 
 constexpr int SLOT_BATCH = 8;   // partial slots a reduce loads at once
 
 // The tile cut at the start of range r >= 1 if that is the first range
 // start inside it, else -1.
-__device__ __forceinline__ long long cut_tile(const Args& a, long long r) {
+template <typename A>
+__device__ __forceinline__ long long cut_tile(const A& a, long long r) {
   const long long sr = range_start(a, r);
   if (sr % a.nch == 0) return -1;              // starts on a tile edge
   const long long tile = sr / a.nch;
@@ -549,24 +720,54 @@ __device__ __forceinline__ void store4(const Args& a, int m, int n,
   }
 }
 
+// The same for bf16 out, each value rounded once (VEC: Cout % 8 == 0, so
+// the four are one 8-byte store).
+template <bool VEC>
+__device__ __forceinline__ void store4(const ArgsT<bf16>& a, int m, int n,
+                                       float4 v) {
+  bf16* o = a.out + (long long)m * a.Cout + n;
+  if constexpr (VEC) {
+    __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
+                           __floats2bfloat162_rn(v.z, v.w)};
+    *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(h);
+  } else {
+    const float sv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (n + i < a.Cout) o[i] = __float2bfloat16_rn(sv[i]);
+  }
+}
+
+// res[at .. at + 3] as fp32 (VEC: one 16-byte or, for bf16, 8-byte load)
+template <bool VEC, typename T>
+__device__ __forceinline__ void load4(const T* res, long long at, int n,
+                                      int Cout, float (&r)[4]) {
+  if constexpr (VEC && sizeof(T) == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(res + at);
+    r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
+  } else if constexpr (VEC) {
+    const uint2 q = *reinterpret_cast<const uint2*>(res + at);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    r[0] = lo.x; r[1] = lo.y; r[2] = hi.x; r[3] = hi.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (n + i < Cout) r[i] = wide(res[at + i]);
+  }
+}
+
 // out[m][n .. n + 3] of a cut tile from its summed slots v, through the
 // affine epilogue (the four columns' BatchNorm folded here) for kAffine.
-template <bool VEC, Epi EPI>
-__device__ __forceinline__ void finish4(const Args& a, int m, int n,
+template <bool VEC, Epi EPI, typename T>
+__device__ __forceinline__ void finish4(const ArgsT<T>& a, int m, int n,
                                         float4 v) {
   if constexpr (EPI == Epi::kAffine) {
     const long long at = (long long)m * a.Cout + n;
     float r[4] = {0.f, 0.f, 0.f, 0.f};
-    if (a.res) {
-      if constexpr (VEC) {
-        const float4 q = *reinterpret_cast<const float4*>(a.res + at);
-        r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (n + i < a.Cout) r[i] = a.res[at + i];
-      }
-    }
+    if (a.res) load4<VEC>(a.res, at, n, a.Cout, r);
     float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -582,8 +783,8 @@ __device__ __forceinline__ void finish4(const Args& a, int m, int n,
 
 // The tile cut at the start of range blockIdx.y + 1, if that range owns
 // it (cut_tile): its slots summed, 4 values a thread, then finished.
-template <int BN, bool VEC, Epi EPI>
-__device__ __forceinline__ void reduce_cut(const Args& a) {
+template <int BN, bool VEC, Epi EPI, typename T = float>
+__device__ __forceinline__ void reduce_cut(const ArgsT<T>& a) {
   const long long r = (long long)blockIdx.y + 1;
   const long long tile = cut_tile(a, r);
   if (tile < 0) return;
@@ -634,6 +835,12 @@ template <int BN, bool VEC>
 __global__ void __launch_bounds__(256)
 conv_affine_reduce_kernel(const Args a) {
   reduce_cut<BN, VEC, Epi::kAffine>(a);
+}
+
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(256)
+conv_affine_bf16_reduce_kernel(const ArgsT<bf16> a) {
+  reduce_cut<BN, VEC, Epi::kAffine, bf16>(a);
 }
 
 // conv_stats' cut tiles: block blockIdx.x finds the tile cut at the start
@@ -741,10 +948,10 @@ conv_stats_sum_kernel(const float* __restrict__ tstats,
   }
 }
 
-template <int BN, bool VEC, Epi EPI>
+template <int BN, bool VEC, Epi EPI, typename T = float>
 cudaError_t prepare(int* per_sm) {
-  const int bytes = (int)sizeof(Ring<BN>);
-  const auto kernel = main_kernel<BN, VEC, EPI>();
+  const int bytes = (int)sizeof(Ring<BN, T>);
+  const auto kernel = main_kernel<BN, VEC, EPI, T>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess || !per_sm) return err;
@@ -763,20 +970,24 @@ auto with_tile(int bn, int vec, F f) {
   return vec ? f(B128(), std::true_type()) : f(B128(), std::false_type());
 }
 
-template <Epi EPI>
+template <Epi EPI, typename T = float>
 cudaError_t prepare_any(int bn, int vec, int* per_sm) {
   return with_tile(bn, vec, [&](auto BN, auto VEC) {
-    return prepare<decltype(BN)::value, decltype(VEC)::value, EPI>(per_sm);
+    return prepare<decltype(BN)::value, decltype(VEC)::value, EPI, T>(
+        per_sm);
   });
 }
 
 // The main kernel, then the one that finishes the cut tiles.
-template <int BN, bool VEC, Epi EPI>
-void launch(const Args& a, cudaStream_t s) {
-  const auto kernel = main_kernel<BN, VEC, EPI>();
-  kernel<<<(unsigned)a.ranges, kThreads, sizeof(Ring<BN>), s>>>(a);
+template <int BN, bool VEC, Epi EPI, typename T = float>
+void launch(const ArgsT<T>& a, cudaStream_t s) {
+  const auto kernel = main_kernel<BN, VEC, EPI, T>();
+  kernel<<<(unsigned)a.ranges, kThreads, sizeof(Ring<BN, T>), s>>>(a);
   if (a.ranges == 1) return;
-  if constexpr (EPI == Epi::kStats) {
+  if constexpr (!std::is_same_v<T, float>) {
+    const dim3 grid(BM * BN / 4 / 256, (unsigned)(a.ranges - 1));
+    conv_affine_bf16_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
+  } else if constexpr (EPI == Epi::kStats) {
     conv_stats_cut_kernel<BN, VEC>
         <<<(unsigned)(a.ranges - 1), 1024, 0, s>>>(a);
   } else {
@@ -788,12 +999,12 @@ void launch(const Args& a, cudaStream_t s) {
   }
 }
 
-template <Epi EPI>
-cudaError_t launch_any(const Args& a, int bn, int vec, cudaStream_t s) {
-  cudaError_t err = prepare_any<EPI>(bn, vec, nullptr);
+template <Epi EPI, typename T = float>
+cudaError_t launch_any(const ArgsT<T>& a, int bn, int vec, cudaStream_t s) {
+  cudaError_t err = prepare_any<EPI, T>(bn, vec, nullptr);
   if (err != cudaSuccess) return err;
   with_tile(bn, vec, [&](auto BN, auto VEC) {
-    launch<decltype(BN)::value, decltype(VEC)::value, EPI>(a, s);
+    launch<decltype(BN)::value, decltype(VEC)::value, EPI, T>(a, s);
     return 0;
   });
   return cudaGetLastError();
@@ -801,15 +1012,17 @@ cudaError_t launch_any(const Args& a, int bn, int vec, cudaStream_t s) {
 
 // Fill a (the plan's geometry) or return false for shapes the kernels do
 // not take.
-bool plan_args(Args& a, const void* x, const void* w, void* part, void* out,
-               int N, int H, int W, int C, int Cout, int bn, int ranges) {
+template <typename T>
+bool plan_args(ArgsT<T>& a, const void* x, const void* w, void* part,
+               void* out, int N, int H, int W, int C, int Cout, int bn,
+               int ranges) {
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Cout <= 0 || ranges <= 0 ||
       (bn != 64 && bn != 128) || 9LL * C > 0x7fffffffLL ||
       (long long)N * H * W + BM > 0x7fffffffLL)
     return false;
-  a.x = static_cast<const float*>(x);
-  a.w = static_cast<const float*>(w);
-  a.out = static_cast<float*>(out);
+  a.x = static_cast<const T*>(x);
+  a.w = static_cast<const T*>(w);
+  a.out = static_cast<T*>(out);
   a.part = static_cast<float*>(part);
   a.tstats = nullptr;
   a.gamma = a.beta = a.mean = a.var = a.res = nullptr;
@@ -911,4 +1124,39 @@ extern "C" int mxt_conv_affine_f32(const void* x, const void* w,
   a.relu = relu;
   return (int)launch_any<Epi::kAffine>(a, bn, vec,
                                        static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of conv_affine_bf16_kernel<bn, vec> that fit an SM of the current
+// device, into *out.
+extern "C" int mxt_conv_affine_bf16_blocks_per_sm(int bn, int vec, int* out) {
+  if (bn != 64 && bn != 128) return (int)cudaErrorInvalidValue;
+  return (int)prepare_any<Epi::kAffine, bf16>(bn, vec, out);
+}
+
+// conv_affine on bf16: x, w, the four BatchNorm vectors, res (or null) and
+// out bf16, everything else as mxt_conv_affine_f32.  The products are
+// exact bf16 products summed in fp32 (mma.sync m16n8k16), the BatchNorm
+// folded in fp32, the residual widened to fp32, and each output rounded
+// once to bf16.  vec != 0: C % 8 == 0, Cout % 8 == 0 and 16-byte aligned
+// x, w, res and out.  The plan comes from
+// mxt_conv_affine_bf16_blocks_per_sm.
+extern "C" int mxt_conv_affine_bf16(const void* x, const void* w,
+                                    const void* gamma, const void* beta,
+                                    const void* mean, const void* var,
+                                    const void* res, void* part, void* out,
+                                    int N, int H, int W, int C, int Cout,
+                                    float eps, int relu, int bn, int ranges,
+                                    int vec, void* stream) {
+  ArgsT<bf16> a;
+  if (!plan_args(a, x, w, part, out, N, H, W, C, Cout, bn, ranges))
+    return (int)cudaErrorInvalidValue;
+  a.gamma = static_cast<const bf16*>(gamma);
+  a.beta = static_cast<const bf16*>(beta);
+  a.mean = static_cast<const bf16*>(mean);
+  a.var = static_cast<const bf16*>(var);
+  a.res = static_cast<const bf16*>(res);
+  a.eps = eps;
+  a.relu = relu;
+  return (int)launch_any<Epi::kAffine, bf16>(
+      a, bn, vec, static_cast<cudaStream_t>(stream));
 }

@@ -3,11 +3,12 @@ reference's parameter names and ``.params`` format, the layers of the
 image slices, the model zoo, the losses, the metrics and the ``Trainer`` (≙
 ``mxnet_tpu/gluon``)."""
 from . import loss, metric, nn
-from .block import Block, HybridBlock, HybridSequential, Sequential
+from .block import (Block, HybridBlock, HybridSequential, Sequential,
+                    SymbolBlock)
 from .parameter import DeferredInitializationError, ParameterDict, load_numpy
 from .trainer import Trainer
 from . import model_zoo
 
 __all__ = ["nn", "loss", "metric", "model_zoo", "Block", "HybridBlock", "Sequential",
-           "HybridSequential", "DeferredInitializationError",
+           "HybridSequential", "SymbolBlock", "DeferredInitializationError",
            "ParameterDict", "load_numpy", "Trainer"]

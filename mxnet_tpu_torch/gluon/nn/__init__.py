@@ -28,6 +28,7 @@ from ... import random as _random
 from ...ops import nn as _nn
 from ..block import (Block, HybridBlock, HybridSequential, Sequential,
                      _Sequence)
+from ..parameter import as_dtype
 
 __all__ = ["Dense", "Dropout", "Flatten", "Activation", "LeakyReLU", "PReLU",
            "ELU", "SELU", "GELU", "Swish", "SiLU", "Conv1D", "Conv2D",
@@ -540,22 +541,24 @@ class InstanceNorm(HybridBlock):
 
 
 class Embedding(HybridBlock):
-    """≙ ``gluon.nn.Embedding``: weight ``(input_dim, output_dim)``,
+    """≙ ``gluon.nn.Embedding``: weight ``(input_dim, output_dim)`` of
+    ``dtype`` (a float dtype: float32, float64, bfloat16, float16),
     ``Normal(0.02)`` by default; the forward gathers its rows at integer
-    ids.  float32 only; ``sparse_grad`` (a row-sparse gradient for the
-    optimizer) is not ported."""
+    ids.  ``sparse_grad`` (a row-sparse gradient for the optimizer) is
+    not ported."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
         super().__init__(**kwargs)
-        if str(dtype) != "float32":
-            raise TypeError(f"Embedding dtype {dtype!r}: the port's "
-                            f"embeddings are float32")
+        dt = as_dtype(dtype)
+        if not dt.is_floating_point:
+            raise TypeError(f"Embedding dtype {dtype!r}: the table is of "
+                            f"a float dtype")
         if sparse_grad:
             raise NotImplementedError("Embedding(sparse_grad=True) is not "
                                       "ported")
         self._param("weight", (input_dim, output_dim),
-                    weight_initializer or init.Normal(0.02))
+                    weight_initializer or init.Normal(0.02), dtype=dt)
 
     def forward(self, x):
         return _nn.embedding(x, self.weight)

@@ -11,12 +11,15 @@ Inside, the model is PyTorch: the two score products are
 ``torch.matmul`` (plain products outside any kernel, as in the
 reference), and every LayerNorm block is the LayerNorm kernel (25
 launches a forward).  The attention probabilities are
-``softmax(where(mask, scores / sqrt(hd), -1e9))``: for fp32 scores that
-autograd does not record, one ``softmax_fused`` call with the divisor
-and the key mask folded into the softmax kernel's load (12 launches a
-BERT-base forward); otherwise the division, ``torch.where`` and
-``ops.nn.softmax`` (its autograd Function when recording), as the
-reference composes them.
+``softmax(where(mask, scores / sqrt(hd), -1e9))``: for fp32, bf16 or
+fp16 scores that autograd does not record, one ``softmax_fused`` call
+with the divisor and the key mask folded into the softmax kernel's load
+(12 launches a BERT-base forward; in half precision the kernel rounds
+the quotient and the mask value to the dtype, as the reference's
+``scores / sqrt(hd)`` and ``where(mask, ·, -1e9)`` do); otherwise the
+division, the mask and ``ops.nn.softmax`` (its autograd Function when
+recording), as the reference composes them.  After ``net.cast("bfloat16")``
+(``amp.convert_model``) every block runs on bf16 weights.
 """
 from __future__ import annotations
 
@@ -26,12 +29,13 @@ import torch
 
 from ..gluon import nn
 from ..ops import nn as _nn
-from ..ops.cuda_kernels import softmax_fused
+from ..ops.cuda_kernels import softmax_fused, softmax_prologue_plain
 
 __all__ = ["BERTSelfAttention", "BERTEncoderCell", "BERTEncoder",
            "BERTModel", "bert_12_768_12", "bert_small"]
 
-_MASKED = -1e9
+# scores the softmax kernel takes with its prologue: fp32, bf16, fp16
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 class BERTSelfAttention(nn.HybridBlock):
@@ -55,16 +59,15 @@ class BERTSelfAttention(nn.HybridBlock):
         q, k, v = qkv[0], qkv[1], qkv[2]                # (B, H, T, hd)
         scores = torch.matmul(q, k.transpose(-1, -2))
         keep = None if mask is None else mask.reshape(B, T) != 0
-        if scores.dtype == torch.float32 and not (
+        if scores.dtype in _KERNEL_DTYPES and not (
                 torch.is_grad_enabled() and scores.requires_grad):
             # the scale and the key mask folded into the kernel's load
             attn = softmax_fused(scores, div=math.sqrt(hd), keep=keep)
         else:
-            scores = scores / math.sqrt(hd)
-            if keep is not None:
-                scores = torch.where(keep.reshape(B, 1, 1, T), scores,
-                                     _MASKED)
-            attn = _nn.softmax(scores, axis=-1)
+            # the division and the mask as the reference composes them
+            # (rounded to a half dtype), then the softmax
+            attn = _nn.softmax(softmax_prologue_plain(
+                scores, math.sqrt(hd), keep), axis=-1)
         if self.dropout is not None:
             attn = self.dropout(attn)
         ctx = torch.matmul(attn, v)                     # (B, H, T, hd)

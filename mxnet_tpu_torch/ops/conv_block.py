@@ -60,7 +60,16 @@ def fold(gamma, beta, mean, var, eps: float = 1e-5):
 def conv_affine_plain(x, w, gamma, beta, mean, var, residual=None,
                       eps: float = 1e-5, relu: bool = True):
     """Plain PyTorch version of the kernel: 3×3/s1/p1 conv of NHWC ``x``
-    with HWIO ``w``, then ``·scale + shift``, ``+ residual``, ReLU."""
+    with HWIO ``w``, then ``·scale + shift``, ``+ residual``, ReLU.  On
+    bf16 (the kernel's bf16 instance, ≙ ``_conv_affine_kernel`` on bf16
+    operands): everything widened to fp32, where the products of bf16
+    values are exact, the conv in fp32 (the card's TF32 switched off by
+    ``context.exact_fp32``), the same fold, and one rounding to bf16."""
+    if x.dtype == torch.bfloat16:
+        out = conv_affine_plain(
+            x.float(), w.float(), gamma, beta, mean, var,
+            None if residual is None else residual.float(), eps, relu)
+        return out.to(x.dtype)
     scale, shift = fold(gamma, beta, mean, var, eps)
     z = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                  padding=1).permute(0, 2, 3, 1)
@@ -70,22 +79,25 @@ def conv_affine_plain(x, w, gamma, beta, mean, var, residual=None,
     return torch.relu(y) if relu else y
 
 
-def _same(what, x, named):
-    """Every tensor of ``named`` on x's device, float32 and contiguous."""
+def _same(what, x, named, dtype=torch.float32):
+    """Every tensor of ``named`` on x's device, of ``dtype`` and
+    contiguous."""
     for name, t in named:
         if t.device != x.device:
             raise ValueError(f"{what}: {name} is on {t.device}, x on "
                              f"{x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: {name} must be float32, got "
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} must be "
+                            f"{str(dtype).rpartition('.')[2]}, got "
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous "
                              f"({'NHWC' if t.dim() == 4 else 'dense'})")
 
 
-def _check(x, w, vecs, residual, what="conv_affine"):
-    """Refuse what the kernel does not take; → (N, H, W, C, Cout)."""
+def _check(x, w, vecs, residual, what="conv_affine", dtype=torch.float32):
+    """Refuse what the kernel does not take (every tensor of ``dtype``);
+    → (N, H, W, C, Cout)."""
     if x.dim() != 4:
         raise ValueError(f"{what}: x must be NHWC, got {tuple(x.shape)}")
     N, H, W, C = x.shape
@@ -104,7 +116,7 @@ def _check(x, w, vecs, residual, what="conv_affine"):
         if tuple(t.shape) != (Cout,):
             raise ValueError(f"{what}: {name} must be ({Cout},), got "
                              f"{tuple(t.shape)}")
-    _same(what, x, named)
+    _same(what, x, named, dtype)
     return N, H, W, C, Cout
 
 
@@ -325,33 +337,47 @@ def conv_affine(x, w, gamma, beta, mean, var, residual=None,
                 eps: float = 1e-5, relu: bool = True):
     """``act(conv3x3(x, w)·scale + shift (+ residual))`` with the BN
     statistics folded as :func:`fold` does.  ``x`` (N, H, W, C) and
-    ``residual`` (N, H, W, Cout) contiguous NHWC fp32, ``w`` contiguous
-    HWIO (3, 3, C, Cout), the four BN vectors (Cout,).  The conv of
-    :func:`conv3x3` (3×TF32 on the tensor cores, one wave of ranges at
-    the affine instance's occupancy) with the BN folded and applied to
-    each finished tile before it is written (:func:`tile_writers` names
-    the kernel that finishes each tile).  CUDA tensors launch
-    ``csrc/conv3x3_tc.cu``; CPU tensors take :func:`conv_affine_plain`."""
+    ``residual`` (N, H, W, Cout) contiguous NHWC, ``w`` contiguous HWIO
+    (3, 3, C, Cout), the four BN vectors (Cout,), all fp32 or all bf16.
+    fp32: the conv of :func:`conv3x3` (3×TF32 on the tensor cores, one
+    wave of ranges at the affine instance's occupancy) with the BN folded
+    and applied to each finished tile before it is written
+    (:func:`tile_writers` names the kernel that finishes each tile).
+    bf16: the same loop's bf16 instance (one bf16 ``mma.sync`` product a
+    16-deep step, fp32 sums, the fold and the residual in fp32, one
+    rounding at the store), planned at its own occupancy.  fp16 raises
+    ``TypeError``.  CUDA tensors launch ``csrc/conv3x3_tc.cu``; CPU
+    tensors take :func:`conv_affine_plain`.  ``launches`` counts every
+    launch, ``launches_by_dtype`` each dtype's."""
     if not _on_card("conv_affine", x):
         return conv_affine_plain(x, w, gamma, beta, mean, var, residual,
                                  eps, relu)
+    half = x.dtype == torch.bfloat16
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"conv_affine: x must be float32 or bfloat16, got "
+                        f"{x.dtype} (fp16 comes with the bf16 training "
+                        f"slice, Queue 1 item 3b)")
     vecs = (("gamma", gamma), ("beta", beta), ("mean", mean), ("var", var))
-    N, H, W, C, Cout = _check(x, w, vecs, residual)
+    N, H, W, C, Cout = _check(x, w, vecs, residual, dtype=x.dtype)
     out = torch.empty((N, H, W, Cout), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
-    vec = int(C % 4 == 0 and Cout % 4 == 0 and
+    wide = 8 if half else 4             # channels a 16-byte copy moves
+    vec = int(C % wide == 0 and Cout % wide == 0 and
               _aligned(x, w, out, *([residual] if residual is not None
                                     else [])))
     index = x.device.index
+    entry = "mxt_conv_affine_bf16" if half else "mxt_conv_affine_f32"
     plan = conv3x3_splits(N * H * W, 9 * C, Cout, _sm_count(index),
-                          _per_sm("mxt_conv_affine_tc_blocks_per_sm", index,
+                          _per_sm("mxt_conv_affine_bf16_blocks_per_sm"
+                                  if half else
+                                  "mxt_conv_affine_tc_blocks_per_sm", index,
                                   wgrad_tile_cols(Cout), vec))
     part = torch.empty((2 * plan.ranges, CONV_ROWS, plan.bn),
                        device=x.device, dtype=torch.float32)
     lib = _build.lib()
     with torch.cuda.device(x.device):
-        err = lib.mxt_conv_affine_f32(
+        err = getattr(lib, entry)(
             x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             mean.data_ptr(), var.data_ptr(),
             residual.data_ptr() if residual is not None else None,
@@ -360,10 +386,12 @@ def conv_affine(x, w, gamma, beta, mean, var, residual=None,
     _build.check(err, "conv_affine")
     with _count_mu:
         conv_affine.launches += 1
+        conv_affine.launches_by_dtype[x.dtype] += 1
     return out
 
 
 conv_affine.launches = 0
+conv_affine.launches_by_dtype = {torch.float32: 0, torch.bfloat16: 0}
 
 
 def bn_affine_plain(z, scale, shift, residual=None, relu: bool = True):

@@ -4,8 +4,9 @@ their plain versions.
 ≙ the softmax and layernorm sections of ``mxnet_tpu/ops/pallas_kernels.py``
 (``_softmax_kernel``, ``_softmax_pallas``, ``softmax_fused``;
 ``_layernorm_kernel``, ``_layernorm_pallas``, ``layernorm_fused``).  The
-kernels live in ``csrc/softmax.cu`` and ``csrc/layernorm.cu``; see the
-note at the top of each for its bound and design.
+kernels live in ``csrc/softmax.cu`` (fp32, bf16 and fp16 instances) and
+``csrc/layernorm.cu`` (fp32); see the note at the top of each for its
+bound and design.
 
 ``softmax_fused`` and ``layernorm_fused`` launch their kernel for a CUDA
 tensor and raise on anything it does not take; a CPU tensor takes the
@@ -31,11 +32,33 @@ _count_mu = threading.Lock()
 _MASKED = -1e9      # the model's finite mask value
 
 
-def softmax_plain(x):
-    """Plain PyTorch softmax over the last axis with the kernel's
-    arithmetic: ``exp(x - max) / sum(exp(x - max))``."""
-    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True)
+_HALF = (torch.bfloat16, torch.float16)
+# the C entry of the softmax kernel for each dtype it takes
+_SOFTMAX_ENTRY = {torch.float32: "mxt_softmax_f32",
+                  torch.bfloat16: "mxt_softmax_bf16",
+                  torch.float16: "mxt_softmax_f16"}
+
+
+def _as_dtype(v, dtype):
+    """The Python float ``v`` as the reference's weak constant of
+    ``dtype``: rounded to it, returned as a Python float."""
+    return torch.tensor(float(v), dtype=torch.float64).to(dtype).item()
+
+
+def softmax_plain(x, axis: int = -1):
+    """Plain PyTorch softmax over ``axis`` (the last by default) with the
+    kernel's arithmetic: ``exp(x - max) / sum(exp(x - max))``.  On bf16
+    and fp16 it is the reference's jitted ``jax.nn.softmax`` as XLA on the
+    CPU rounds it: ``d = x - max`` in the dtype; for bf16 ``exp(d)`` kept
+    in fp32, its fp32 sum rounded, and ``exp(d)`` rounded before the
+    divide; for fp16 ``exp(d)`` rounded first and summed from the rounded
+    values; each quotient rounded."""
+    d = x - x.amax(dim=axis, keepdim=True)
+    if x.dtype == torch.bfloat16:
+        e = torch.exp(d.float())
+        return e.to(x.dtype) / e.sum(dim=axis, keepdim=True).to(x.dtype)
+    e = torch.exp(d)
+    return e / e.sum(dim=axis, keepdim=True)
 
 
 def _keep_per(x, keep):
@@ -62,36 +85,52 @@ def _keep_per(x, keep):
 def softmax_prologue_plain(x, div=None, keep=None):
     """The kernel's prologue in plain PyTorch: ``where(keep, x / div,
     -1e9)``, ``keep``'s rows broadcast over their runs of ``x``'s rows
-    (no division without ``div``, no mask without ``keep``)."""
+    (no division without ``div``, no mask without ``keep``).  On bf16 and
+    fp16 the quotient and -1e9 are rounded to the dtype (-1e9 is -inf in
+    fp16), as the reference's weakly typed constants are."""
     if div is not None:
-        x = x / div
+        if x.dtype in _HALF:
+            # the reference's x / div in the dtype: div rounded to it
+            # first, an IEEE division of the two, rounded
+            d = torch.as_tensor(div, device=x.device).double()
+            x = (x.float() / d.to(x.dtype).float()).to(x.dtype)
+        else:
+            x = x / div
     if keep is not None:
         cols = x.shape[-1]
         m = keep.numel() // cols
         x = torch.where(keep.reshape(m, 1, cols) != 0,
-                        x.reshape(m, -1, cols), _MASKED).reshape(x.shape)
+                        x.reshape(m, -1, cols),
+                        _as_dtype(_MASKED, x.dtype) if x.dtype in _HALF
+                        else _MASKED).reshape(x.shape)
     return x
 
 
 def softmax_fused(x, *, div=None, keep=None):
-    """Softmax over the last axis of fp32 ``x`` (any leading shape, any
-    last dim), of ``where(keep, x / div, -1e9)`` when a divisor or a keep
-    mask is given (the attention's scale and key mask; the division is
-    IEEE).  ``keep`` is bool or uint8 with ``x``'s last dim, and its rows
-    divide ``x``'s rows into equal runs of consecutive rows that share one
-    mask row (``(B, T)`` for ``(B, H, T, T)`` scores).  CUDA tensors launch ``csrc/softmax.cu`` with the
-    prologue folded into the kernel's load; CPU tensors take
-    :func:`softmax_plain` of the same prologue in plain PyTorch.  A
-    non-contiguous CUDA input is copied to a contiguous one first (the
-    kernel reads rows of a contiguous ``(rows, cols)`` view); the output
-    is a new contiguous tensor."""
+    """Softmax over the last axis of fp32, bf16 or fp16 ``x`` (any
+    leading shape, any last dim), of ``where(keep, x / div, -1e9)`` when
+    a divisor or a keep mask is given (the attention's scale and key mask;
+    the division is IEEE).  ``keep`` is bool or uint8 with ``x``'s last
+    dim, and its rows divide ``x``'s rows into equal runs of consecutive
+    rows that share one mask row (``(B, T)`` for ``(B, H, T, T)``
+    scores).  CUDA tensors launch ``csrc/softmax.cu`` with the prologue
+    folded into the kernel's load (the half instances round where the
+    reference rounds: :func:`softmax_plain`); any other dtype raises
+    ``TypeError``.  CPU tensors take :func:`softmax_plain` of the same
+    prologue in plain PyTorch.  A non-contiguous CUDA input is copied to
+    a contiguous one first (the kernel reads rows of a contiguous
+    ``(rows, cols)`` view); the output is a new contiguous tensor.
+    ``launches`` counts every launch, ``launches_by_dtype`` each dtype's
+    (keyed by the torch dtype)."""
     per = 1 if keep is None else _keep_per(x, keep)
     if x.device.type == "cpu":
         return softmax_plain(softmax_prologue_plain(x, div, keep))
     if x.device.type != "cuda":
         raise ValueError(f"softmax_fused: no kernel for device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"softmax_fused: x must be float32, got {x.dtype}")
+    entry = _SOFTMAX_ENTRY.get(x.dtype)
+    if entry is None:
+        raise TypeError(f"softmax_fused: x must be float32, bfloat16 or "
+                        f"float16, got {x.dtype}")
     if x.dim() == 0:
         raise ValueError("softmax_fused: x needs at least one axis")
     x = x.contiguous()
@@ -109,23 +148,29 @@ def softmax_fused(x, *, div=None, keep=None):
         if keep.dtype == torch.bool:
             keep = keep.view(torch.uint8)
         kptr = keep.data_ptr()
-    # floats a load moves: 4 where the width and every base allow
-    vec = 4 if (cols % 4 == 0 and x.data_ptr() % 16 == 0 and
-                y.data_ptr() % 16 == 0 and kptr % 4 == 0) else 1
+    # values a load moves: 16 bytes (4 floats, 8 halves) where the width
+    # and every base allow
+    wide = 4 if x.dtype == torch.float32 else 8
+    vec = wide if (cols % wide == 0 and x.data_ptr() % 16 == 0 and
+                   y.data_ptr() % 16 == 0 and kptr % wide == 0) else 1
+    dv = 1.0 if div is None else float(div)
+    if x.dtype in _HALF:
+        dv = _as_dtype(dv, x.dtype)
     lib = _build.lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mxt_softmax_f32(x.data_ptr(), y.data_ptr(), rows, cols,
-                                  vec, int(prologue),
-                                  1.0 if div is None else float(div),
-                                  kptr or None, per, stream)
+        err = getattr(lib, entry)(x.data_ptr(), y.data_ptr(), rows, cols,
+                                  vec, int(prologue), dv, kptr or None, per,
+                                  stream)
     _build.check(err, "softmax_fused")
     with _count_mu:
         softmax_fused.launches += 1
+        softmax_fused.launches_by_dtype[x.dtype] += 1
     return y
 
 
 softmax_fused.launches = 0
+softmax_fused.launches_by_dtype = dict.fromkeys(_SOFTMAX_ENTRY, 0)
 
 
 def softmax_bwd(y, g):
@@ -137,7 +182,8 @@ def softmax_bwd(y, g):
 
 class SoftmaxFn(torch.autograd.Function):
     """Softmax with the kernel forward (≙ ``softmax_fused``'s custom VJP):
-    saves the output, and the backward is :func:`softmax_bwd`."""
+    saves the output, and the backward is :func:`softmax_bwd`, in the
+    output's dtype (fp32, bf16 or fp16)."""
 
     @staticmethod
     def forward(ctx, x):

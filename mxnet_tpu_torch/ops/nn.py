@@ -25,8 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from . import conv_block, cuda_int8, pallas_conv
+from .cuda_kernels import _HALF, _as_dtype as _const
 from .cuda_kernels import (LayerNormFn, SoftmaxFn, layernorm_fused,
-                           softmax_fused)
+                           softmax_fused, softmax_plain)
 
 __all__ = ["softmax", "layer_norm", "gelu", "activation", "fully_connected",
            "convolution", "pooling", "batch_norm", "residual_block",
@@ -47,32 +48,25 @@ def _records(*ts):
 
 def softmax(x, axis: int = -1, temperature=None):
     """≙ ``ops/nn.py softmax`` (``npx.softmax``): ``x`` is divided by
-    ``temperature`` first when one other than 1 is given.  For fp32 ``x``
-    over the last axis a CUDA tensor launches the softmax kernel and a CPU
-    tensor takes its plain version, through ``SoftmaxFn`` (closed-form
-    backward) only when autograd records, as ``layer_norm`` does; over any
-    other axis it is ``torch.softmax``, where the reference has
-    ``jax.nn.softmax``.  A non-fp32 ``x`` takes the reference's jitted
-    ``jax.nn.softmax`` written out on every axis (the kernel and its plain
-    version are fp32 only), rounded where XLA on the CPU rounds it:
-    ``d = x - max`` in the dtype; for bf16, which XLA carries in fp32
-    between its roundings, ``exp(d)`` stays fp32, its sum is taken in fp32
-    and rounded, and ``exp(d)`` is rounded before the divide; for other
-    dtypes ``exp(d)`` is rounded first and summed from the rounded values."""
+    ``temperature`` first when one other than 1 is given.  For fp32, bf16
+    or fp16 ``x`` over the last axis a CUDA tensor launches the softmax
+    kernel (its instance of the dtype) and a CPU tensor takes its plain
+    version, through ``SoftmaxFn`` (closed-form backward) only when
+    autograd records, as ``layer_norm`` does.  The half instances round
+    where the reference's jitted ``jax.nn.softmax`` rounds
+    (``cuda_kernels.softmax_plain``).  Over any other axis fp32 is
+    ``torch.softmax``, where the reference has ``jax.nn.softmax``, and
+    every other dtype, on every axis, that closed form written out."""
     if temperature is not None and temperature != 1.0:
         x = x / temperature
-    if x.dtype == torch.float32:
-        if axis not in (-1, x.dim() - 1):
-            return torch.softmax(x, dim=axis)
+    last = axis in (-1, x.dim() - 1)
+    if last and (x.dtype == torch.float32 or x.dtype in _HALF):
         if _records(x):
             return SoftmaxFn.apply(x)
         return softmax_fused(x)
-    d = x - x.amax(dim=axis, keepdim=True)
-    if x.dtype == torch.bfloat16:
-        e = torch.exp(d.float())
-        return e.to(x.dtype) / e.sum(dim=axis, keepdim=True).to(x.dtype)
-    e = torch.exp(d)
-    return e / e.sum(dim=axis, keepdim=True)
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=axis)
+    return softmax_plain(x, axis)
 
 
 def layer_norm(x, gamma, beta, axis: int = -1, eps: float = 1e-5):
@@ -105,17 +99,9 @@ def layer_norm(x, gamma, beta, axis: int = -1, eps: float = 1e-5):
 # own half-precision ops work in fp32 inside and round once, which moves
 # results by up to hundreds of steps of the dtype where a value cancels
 # (GELU of a negative input) or turns an exact 0 into a small value.
-_HALF = (torch.bfloat16, torch.float16)
-
-
 def _r(t, dtype):
     """fp32 ``t`` rounded to ``dtype`` and back: one of XLA's roundings."""
     return t.to(dtype).float()
-
-
-def _const(v, dtype):
-    """The Python float ``v`` as the reference's constant of ``dtype``."""
-    return torch.tensor(v, dtype=torch.float64).to(dtype).item()
 
 
 def _gelu_half(x, approximate):
@@ -303,9 +289,14 @@ def _pair(v, n=2):
 
 def fully_connected(x, weight, bias=None, flatten: bool = True):
     """≙ FullyConnected: ``x·weightᵀ + bias`` with weight (out, in);
-    ``flatten`` folds every axis after the first into one."""
+    ``flatten`` folds every axis after the first into one.  On bf16 and
+    fp16, as the reference: the product summed in fp32 and rounded to the
+    dtype, then the bias added in the dtype (``F.linear`` would add it
+    before its one rounding)."""
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
+    if x.dtype in _HALF and bias is not None:
+        return F.linear(x, weight) + bias
     return F.linear(x, weight, bias)
 
 
@@ -328,9 +319,10 @@ def convolution(x, weight, bias=None, stride=1, pad=0, dilate=1,
     on the channels-last view (cuDNN on the card); the result is
     NHWC-contiguous when the backend keeps channels last (cuDNN does).
     ``layout="NCHW"`` transposes the activation to NHWC and back, as the
-    reference does; the weight stays HWIO.  The JAX package's
-    space-to-depth stem rewrite is a TPU layout trick computing the same
-    conv and is not carried over."""
+    reference does; the weight stays HWIO.  On bf16 and fp16 the bias is
+    added in the dtype after the conv's one rounding, as the reference
+    adds it.  The JAX package's space-to-depth stem rewrite is a TPU
+    layout trick computing the same conv and is not carried over."""
     if layout == "NCHW":
         return _nchw(convolution(_nhwc(x), weight, bias, stride, pad,
                                  dilate, groups))
@@ -340,6 +332,9 @@ def convolution(x, weight, bias=None, stride=1, pad=0, dilate=1,
                             groups, x.dtype):
         out = pallas_conv.conv3x3_s1(x, weight)
         return out if bias is None else out + bias
+    if x.dtype in _HALF and bias is not None:
+        return convolution(x, weight, None, stride, pad, dilate,
+                           groups) + bias
     return _nhwc(F.conv2d(_nchw(x), weight.permute(3, 2, 0, 1), bias,
                           _pair(stride), _pair(pad), _pair(dilate), groups))
 
@@ -487,17 +482,24 @@ def batch_norm(x, gamma, beta, running_mean, running_var, momentum=0.9,
     differentiate).  The gradient flows through the batch statistics by
     autograd, as the reference's fp32 branch leaves it to JAX's AD.
     ``F.batch_norm`` is not used here: its momentum is ``1 − momentum``
-    and it stores the unbiased variance.
+    and it stores the unbiased variance.  Training below fp32 raises:
+    the reference's low-precision ``_bn_train`` comes with the bf16
+    training slice (Queue 1 item 3b).
 
     Otherwise: normalization by the running statistics, which come back
-    unchanged."""
+    unchanged.  On bf16 and fp16 ``x`` that is the reference's expression
+    in the dtype, each step rounded: ``(x − μ)·inv·γ + β`` with μ cast to
+    the dtype and ``inv = rsqrt(σ² + ε)`` cast to it (ε rounded to σ²'s
+    dtype first, as JAX's weak constant is); γ, β or the statistics kept
+    in fp32 promote the result as they do in the reference."""
     ch = axis % x.dim()
     if training and not use_global_stats:
         if x.dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(
                 f"batch_norm in training mode on {x.dtype}: the port "
-                f"trains in fp32; low-precision BatchNorm comes with the "
-                f"bf16 serving / amp item of the port's queue")
+                f"trains in fp32; low-precision training BatchNorm (the "
+                f"reference's _bn_train) comes with the bf16 training "
+                f"slice, Queue 1 item 3b")
         C = x.shape[ch]
         shape = [1] * x.dim()
         shape[ch] = C
@@ -514,6 +516,16 @@ def batch_norm(x, gamma, beta, running_mean, running_var, momentum=0.9,
         new_mean = momentum * running_mean + (1 - momentum) * mean.detach()
         new_var = momentum * running_var + (1 - momentum) * var.detach()
         return out, new_mean, new_var
+    if x.dtype in _HALF:
+        shape = [1] * x.dim()
+        shape[ch] = x.shape[ch]
+        var = running_var.reshape(shape)
+        inv = torch.rsqrt(var + (_const(eps, var.dtype)
+                                 if var.dtype in _HALF else eps))
+        out = ((x - running_mean.reshape(shape).to(x.dtype))
+               * inv.to(x.dtype) * gamma.reshape(shape)
+               + beta.reshape(shape))
+        return out, running_mean, running_var
     xc = x.movedim(ch, 1) if ch != 1 else x
     out = F.batch_norm(xc, running_mean, running_var, gamma, beta,
                        training=False, eps=eps)
@@ -529,24 +541,45 @@ def residual_block(x, weight, gamma, beta, running_mean, running_var,
     NHWC/HWIO → ``(out, new_mean, new_var)`` with ``batch_norm``'s
     running-statistics contract (and its default, ``training=True``).
     Every call goes to ``ops/conv_block``: its kernels on the card, their
-    plain versions on the CPU.
+    plain versions on the CPU; under ``amp.init`` (``convolution``
+    patched) it is the reference's layer route, conv then
+    ``batch_norm``, add and ReLU, as there.
 
     Training: ``residual_block_fused`` (conv + batch statistics, then the
     affine pass; its backward runs dgrad and wgrad).  Frozen
     (``use_global_stats`` or inference) with autograd recording: the same
     Function's frozen branch.  Frozen without gradients: ``conv_affine``
-    alone, with no autograd node.  ``x``, ``weight`` and ``residual`` are
-    made contiguous here (a no-op on the path, where the producing cuDNN
-    and element-wise calls keep NHWC contiguous), since the kernels take
-    contiguous NHWC only."""
+    alone, with no autograd node; the only route below fp32 (bf16: the
+    kernel's bf16 instance; a bf16 segment in training or under autograd
+    raises until the bf16 training slice).  ``x``, ``weight`` and
+    ``residual`` are made contiguous here (a no-op on the path, where the
+    producing cuDNN and element-wise calls keep NHWC contiguous), since
+    the kernels take contiguous NHWC only."""
+    if hasattr(convolution, "__wrapped__"):
+        # amp.init patched the conv: the reference's layer route, whose
+        # conv then runs in the target dtype
+        z = convolution(x, weight, None, stride=1, pad=1)
+        out, new_mean, new_var = batch_norm(
+            z, gamma, beta, running_mean, running_var, momentum=momentum,
+            eps=eps, use_global_stats=use_global_stats, training=training)
+        if residual is not None:
+            out = out + residual
+        return (torch.relu(out) if relu else out), new_mean, new_var
     x = x.contiguous()
     weight = weight.contiguous()
     if residual is not None:
         residual = residual.contiguous()
     frozen = use_global_stats or not training
-    if frozen and not (torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, weight, gamma, beta, residual))):
+    recording = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (x, weight, gamma, beta, residual))
+    if x.dtype in _HALF and (recording or not frozen):
+        raise NotImplementedError(
+            f"residual_block on {x.dtype} in training or under autograd: "
+            f"the port serves below fp32 (the frozen conv_affine); bf16 "
+            f"training comes with the bf16 training slice, Queue 1 item "
+            f"3b")
+    if frozen and not recording:
         out = conv_block.conv_affine(x, weight, gamma, beta, running_mean,
                                      running_var, residual, eps=eps,
                                      relu=relu)

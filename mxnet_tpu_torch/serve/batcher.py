@@ -52,6 +52,13 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
+def _host(t):
+    """A forward's output as a numpy array on the host: bf16 copied as
+    bf16 and widened to fp32 there (exact; numpy has no bf16)."""
+    t = t.cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 class QueueFull(Exception):
     """Admission control: the bounded request queue is at capacity."""
 
@@ -265,7 +272,7 @@ class Batcher:
             with _telemetry.span("serve.execute", fill=n_items,
                                  requests=len(batch), bucket=bucket):
                 outs = self.engine.run(x)
-                outs = tuple(o.cpu().numpy() for o in outs)  # waits
+                outs = tuple(_host(o) for o in outs)    # waits
             _telemetry.observe("serve.device_us",
                                (time.perf_counter() - t0) * _US)
         except Exception as e:      # deliver, don't kill the loop

@@ -13,12 +13,17 @@ nothing can retrace: ``retraces`` and ``rebuilds`` stay 0 and
 
 Items are float32 (images) or integer token ids (int32 or int64): the
 engine casts every batch to its ``dtype`` and resolves deferred shapes,
-warms and runs on batches of that dtype.  ``precision="int8"`` quantizes
-the net in place on its device (``quantization.quantize_net``, naive
-calibration on ``calib_data``, or on the reference's two seeded uniform
-batches), unless it already holds int8 twins.  ``precision="bf16"``,
-``mesh=`` and ``sharding_plan=`` raise and name the later slices that
-bring them.
+warms and runs on batches of that dtype.  ``precision="bf16"`` casts the
+net on its device with ``amp.convert_model`` (every floating parameter
+and running statistic to bf16) and serves float items as bf16 (integer
+items stay integer), as the reference does; on the card the net then
+runs the bf16 instances of the softmax and ``conv_affine`` kernels, and
+the batcher widens bf16 outputs to fp32 on the host (exact: numpy has no
+bf16).  ``precision="int8"`` quantizes the net in place on its device
+(``quantization.quantize_net``, naive calibration on ``calib_data``, or
+on the reference's two seeded uniform batches), unless it already holds
+int8 twins.  ``mesh=`` and ``sharding_plan=`` raise and name the slice
+that brings them.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import torch
 from .. import context as _context
 from .. import quantization as _q
 from .. import telemetry as _telemetry
-from ..gluon.parameter import is_initialized
+from ..gluon.parameter import dtype_name, is_initialized
 
 __all__ = ["InferenceEngine", "DEFAULT_BUCKETS", "PRECISIONS",
            "bucket_ladder", "resolve_precision"]
@@ -90,8 +95,10 @@ class InferenceEngine:
     buckets : sequence of int, optional
         Batch-size ladder; default from ``MXNET_SERVE_BUCKETS``.
     precision : str, optional
-        ``fp32`` or ``int8`` (explicit, else ``MXNET_SERVE_PRECISION``,
-        else fp32); ``bf16`` raises.
+        ``fp32``, ``bf16`` (also ``bfloat16``) or ``int8`` (explicit,
+        else ``MXNET_SERVE_PRECISION``, else fp32).  bf16 casts the net
+        in place (``amp.convert_model``) and serves float items as bf16;
+        ``stats()`` then reports ``dtype`` ``"bfloat16"``.
     calib_data : iterable, optional
         Calibration batches for ``precision="int8"``; default two batches
         of ``RandomState(0)`` uniform [-1, 1) shaped ``(buckets[0],
@@ -107,11 +114,6 @@ class InferenceEngine:
                  calib_data=None, mesh=None, sharding_plan=None,
                  device=None):
         self.precision = resolve_precision(precision)
-        if self.precision == "bf16":
-            raise NotImplementedError(
-                "precision 'bf16': the port serves fp32 and int8; bf16 "
-                "casts (amp.convert_model) come with the bf16 item of the "
-                "port's queue")
         if mesh is not None or sharding_plan is not None:
             raise NotImplementedError(
                 "mesh=/sharding_plan=: tensor-parallel serving comes with "
@@ -121,6 +123,10 @@ class InferenceEngine:
             raise TypeError(f"dtype {dtype!r}: the port serves items of "
                             f"{sorted(_ITEM_DTYPES)}")
         self._tdtype = _ITEM_DTYPES[self.dtype.name]
+        # the dtype batches reach the net in: bf16 for float items served
+        # in bf16, as the reference serves them
+        self._run_dtype = torch.bfloat16 if self.precision == "bf16" and \
+            self._tdtype.is_floating_point else self._tdtype
         self.device = _context.resolve(device)
         if self.device.type == "cuda":
             _context.exact_fp32()
@@ -134,9 +140,12 @@ class InferenceEngine:
             # deferred shapes resolve on the CPU, then the net moves (not
             # under inference_mode: its tensors could not be moved after)
             with torch.no_grad():
-                net(self._zeros(self.buckets[0], "cpu"))
+                net(self._zeros(self.buckets[0], "cpu", self._tdtype))
         net.to(self.device)
-        if self.precision == "int8":
+        if self.precision == "bf16":
+            from .. import amp as _amp
+            _amp.convert_model(net, "bfloat16")
+        elif self.precision == "int8":
             self._quantize(net, calib_data)
         # parameters and buffers: an int8 net's weights are buffers
         self.param_bytes = sum(t.numel() * t.element_size()
@@ -164,9 +173,9 @@ class InferenceEngine:
                            - 1.0).astype("float32") for _ in range(2)]
         _q.quantize_net(net, calib_data=calib_data, calib_mode="naive")
 
-    def _zeros(self, b, device):
-        return torch.zeros((b,) + self.item_shape, dtype=self._tdtype,
-                           device=device)
+    def _zeros(self, b, device, dtype=None):
+        return torch.zeros((b,) + self.item_shape,
+                           dtype=dtype or self._run_dtype, device=device)
 
     def _forward(self, x):
         with self._mu:
@@ -222,7 +231,7 @@ class InferenceEngine:
         pads to one).  ``x`` is a numpy array or tensor of
         ``(b,) + item_shape``; returns the tuple of output tensors on the
         engine's device, not synchronized."""
-        x = torch.as_tensor(x, dtype=self._tdtype, device=self.device)
+        x = torch.as_tensor(x, dtype=self._run_dtype, device=self.device)
         b = int(x.shape[0])
         if b not in self.buckets:
             raise ValueError(f"batch size {b} is not a bucket of "
@@ -240,14 +249,16 @@ class InferenceEngine:
             return {b: int(b in self._warmed) for b in self.buckets}
 
     def stats(self) -> dict:
-        """The reference's keys.  ``retraces``/``rebuilds`` are always 0:
+        """The reference's keys (``dtype``: what batches reach the net
+        in, ``"bfloat16"`` for float items at bf16).  ``retraces``/
+        ``rebuilds`` are always 0:
         the forward runs eagerly and nothing is traced or compiled per
         bucket.  ``programs`` is the number of buckets warmed; ``tp`` is 1
         and ``plan_fingerprint`` None (no tensor parallelism)."""
         return {
             "name": self.name,
             "item_shape": list(self.item_shape),
-            "dtype": self.dtype.name,
+            "dtype": dtype_name(self._run_dtype),
             "precision": self.precision,
             "buckets": list(self.buckets),
             "warm": self._warm,

@@ -423,9 +423,11 @@ def test_softmax_half_matches_reference(shape, axis, dtype):
 
 
 def test_softmax_half_never_reaches_the_fp32_kernel(monkeypatch):
-    """The softmax kernel and its wrapper are fp32 only (a bf16 CUDA
-    tensor makes ``softmax_fused`` raise), so a bf16 call must not reach
-    them, on any axis, recording or not; an fp32 last-axis call does."""
+    """A bf16 softmax over the last axis reaches the kernel's wrapper
+    with its bf16 tensor (the kernel's bf16 instance: never widened to
+    the fp32 one), recording or not; over another axis it takes the
+    closed form and does not reach it; an fp32 last-axis call reaches it
+    as fp32."""
     calls = []
 
     def fused(x):
@@ -440,9 +442,9 @@ def test_softmax_half_never_reaches_the_fp32_kernel(monkeypatch):
         tnn.softmax(x.bfloat16(), axis=axis)
         tnn.softmax(x.bfloat16().requires_grad_(), axis=axis).sum()\
             .backward()
-    assert calls == []
+    assert calls == [torch.bfloat16, torch.bfloat16]
     tnn.softmax(x)
-    assert calls == [torch.float32]
+    assert calls[2:] == [torch.float32]
 
 
 def test_embedding_block_matches_reference():
@@ -463,7 +465,18 @@ def test_embedding_block_matches_reference():
     with pytest.raises(NotImplementedError):
         tgnn.Embedding(50, 12, sparse_grad=True)
     with pytest.raises(TypeError):
-        tgnn.Embedding(50, 12, dtype="float16")
+        tgnn.Embedding(50, 12, dtype="int32")
+    # a float16 table, as the reference builds one
+    th = tgnn.Embedding(50, 12, dtype="float16")
+    th.initialize(ctx="cpu")
+    tgluon.load_numpy(th, {"weight": w})
+    jh = jgnn.Embedding(50, 12, dtype="float16")
+    jh.initialize()
+    jh.weight.set_data(_jarr(w.astype(np.float16))._data)
+    out = th(torch.from_numpy(ids))
+    assert out.dtype == torch.float16
+    np.testing.assert_array_equal(out.detach().float().numpy(),
+                                  _jout(jh(_jarr(ids))).astype(np.float32))
 
 
 def test_embedding_out_of_range_ids_match_reference():

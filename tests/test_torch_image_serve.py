@@ -122,10 +122,21 @@ def test_engine_resolves_deferred_shapes_on_a_fresh_net():
                                 dict(mesh=object()),
                                 dict(sharding_plan=object())])
 def test_engine_refuses_what_later_slices_bring(nets, kw):
-    """bf16 (either spelling), meshes and sharding plans still raise;
-    int8 is served (``test_torch_int8_serve.py``)."""
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(_port(nets[1]), ITEM, device="cpu", **kw)
+    """Meshes and sharding plans still raise.  bf16 (either spelling) is
+    served: the net cast to bf16, float items run as bf16, bf16 outputs
+    (``test_torch_bf16_serve.py`` holds them against the reference's);
+    int8 is served too (``test_torch_int8_serve.py``)."""
+    if "precision" not in kw:
+        with pytest.raises(NotImplementedError):
+            InferenceEngine(_port(nets[1]), ITEM, device="cpu", **kw)
+        return
+    eng = InferenceEngine(_port(nets[1]), ITEM, buckets=(2,), device="cpu",
+                          **kw)
+    assert eng.precision == "bf16"
+    assert eng.stats()["dtype"] == "bfloat16"
+    out = eng.run(_images(2))[0]
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (2, 4)
+    assert torch.isfinite(out).all()
 
 
 def test_precision_env_and_bucket_ladder(nets, monkeypatch):
@@ -134,8 +145,9 @@ def test_precision_env_and_bucket_ladder(nets, monkeypatch):
     assert eng.precision == eng.stats()["precision"] == "int8"
     assert eng.run(_images(1))[0].shape == (1, 4)
     monkeypatch.setenv("MXNET_SERVE_PRECISION", "bf16")
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(_port(nets[1]), ITEM, device="cpu")
+    eng = InferenceEngine(_port(nets[1]), ITEM, buckets=(1,), device="cpu")
+    assert eng.precision == eng.stats()["precision"] == "bf16"
+    assert eng.run(_images(1))[0].dtype == torch.bfloat16
     monkeypatch.delenv("MXNET_SERVE_PRECISION")
     assert bucket_ladder((8, 1, 4, 2, 4)) == (1, 2, 4, 8)
     monkeypatch.setenv("MXNET_SERVE_BUCKETS", "2, 4,16")

@@ -242,7 +242,7 @@ class _FakeCudaMask(_FakeCuda):
 
 @pytest.mark.parametrize("x,keep,exc", [
     (torch.zeros(4, 8, dtype=torch.float64), None, TypeError),   # x dtype
-    (torch.zeros(4, 8, dtype=torch.bfloat16), None, TypeError),
+    (torch.zeros(4, 8, dtype=torch.int32), None, TypeError),
     (torch.zeros(4, 8), torch.ones(2, 8, dtype=torch.bool),
      ValueError),                                       # mask on the CPU
     (torch.zeros(4, 8), _FakeCudaMask(torch.ones(3, 8, dtype=torch.bool)),
