@@ -44,8 +44,11 @@ LeNet at 28x28x1 forward, and DenseNet-121 training through
 the standalone conv route), then bf16 serving: ResNet-50 v1 and Gluon
 BERT-base through ``ModelRegistry.load(..., precision="bf16")`` →
 ``Batcher`` → ``InferenceEngine`` on the bf16 instances of the softmax
-and ``conv_affine`` kernels.  Phases, one JSON line each; the run stops
-with a non-zero exit at the first phase that fails:
+and ``conv_affine`` kernels, then bf16 training: ResNet-50 v1 at batch 128
+and Gluon BERT-base at 8 x 512 through ``parallel.FusedTrainStep(dtype=
+"bfloat16")`` on the bf16 instances of ``conv3x3``, ``conv_stats``,
+``bn_affine``, ``conv_wgrad`` and the softmax.  Phases, one JSON line
+each; the run stops with a non-zero exit at the first phase that fails:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, the NVRTC library's path and version; TF32 is switched
@@ -184,8 +187,11 @@ with a non-zero exit at the first phase that fails:
     ``load_states`` replaces between replays, two captures beside what
     breaks one in torch's default capture mode (a thread that syncs with
     the card throughout; a forward that leaves an earlier CUDAGraph to
-    the collector mid-capture), and DenseNet-121 at batch 8, 64x64 (3
-    steps).  Losses and weights bit for bit; where they differ the worst
+    the collector mid-capture), DenseNet-121 at batch 8, 64x64 (3
+    steps), and ``cast_after_capture``: two replays, ``Block.cast`` to
+    bf16 and back to fp32 (the old storage kept alive), a third step,
+    bit for bit against the same on the eager path, with one rebuild.
+    Losses and weights bit for bit; where they differ the worst
     parameter is printed and the case is gated at the spread of two
     eager runs.
 22. ``text_kernels``: the row-softmax kernels against their plain
@@ -426,7 +432,10 @@ with a non-zero exit at the first phase that fails:
     one (its LayerNorms are the reference's closed form in bf16).  Every
     response finite; p50/p99, items/s (tokens/s), batch fill, device and
     eager ms a forward per bucket, the idle share of a bucket-8 and a
-    bucket-1 forward, the logits' copy to the host, peak memory.
+    bucket-1 forward, the logits' copy to the host, peak memory.  Then
+    Inception-v3 cast to bf16, three forwards at batch 2: exactly 10
+    bf16 ``conv3x3`` launches a forward (its lone 3x3/s1 convs; cuDNN
+    ran them before the bf16 training slice), no other kernel.
 44. ``bf16_reference``: the card's bf16 engines against the port's bf16
     on the CPU from the same ``.params``: ResNet-50 at batch 2 (top-1
     equal) and BERT-base at 1 x 512, and each batched response against
@@ -436,9 +445,39 @@ with a non-zero exit at the first phase that fails:
     agreement no lower than bf16's against fp32 on the CPU.  ``flops()``
     of each card net equals that of its fp32 copy on the CPU, and taking
     it launches no kernel.
+45. ``bf16_train_kernels``: the bf16 instances of ``conv3x3`` (as the
+    dgrad), ``conv_stats``, ``bn_affine`` and ``conv_wgrad`` at
+    ResNet-50's four 3x3 stages at batch 128 and a ragged shape (C = 20,
+    the scalar paths), ``bn_affine`` also with a residual and with the
+    ReLU off, each against its plain version (bf16 widened, fp32 sums,
+    one rounding): bf16 outputs within one bf16 step (or 1e-5 of the
+    largest near 0), Σz and Σz² (Σz of the channel's Σ|z|) and the fp32
+    dW within 1e-5; each launched twice, bitwise equal (a gate); timed
+    beside its bound (bytes at 2 an element, 4 for fp32 dW and
+    statistics, over 3.35 TB/s; bf16 operations over 989 TFLOP/s), its
+    plain version and the nearest library call on bf16
+    (``conv2d_input``, ``F.conv2d``, ``torch.addcmul``,
+    ``conv2d_weight``), with its plan.  With ``--parent DIR`` the fp32
+    instances of the same files (conv3x3, dgrad, conv_stats, bn_affine,
+    conv_wgrad, conv_affine at four shapes) must equal the build of the
+    checkout at DIR bit for bit.
+46. ``bf16_train``: ResNet-50 v1 at batch 128 (SGD lr 0.1, momentum 0.9,
+    wd 1e-4) and Gluon BERT-base at 8 x 512 (Adam lr 1e-4) through
+    ``FusedTrainStep(dtype="bfloat16")``, each driven as the fused phases
+    drive theirs on one fixed batch for 21 calls: exactly 16 launches of
+    each of the four training kernels captured a ResNet step, all bf16
+    (no fp32 launch), 12 bf16 softmaxes a BERT step and no LayerNorm
+    kernel; finite losses that fall; replayed and eager step ms, images/s
+    or tokens/s, peak memory, idle share, beside the fp32 fused step of
+    the same run.
+47. ``bf16_train_reference``: two bf16 fused SGD steps of ResNet-18 v1
+    (64x64, batch 2, damped residual γ) and of ``bert_small`` on the card
+    against the port on the CPU from the same weights and batches: the
+    card's losses and weights no farther from the CPU's bf16 step than
+    that is from the CPU's fp32 step.
 
-Then one ``{"kernels": [...]}`` line (18 entries: the bf16 instances of
-rows 1 and 8 their own; ``launches`` adds
+Then one ``{"kernels": [...]}`` line (22 entries: the bf16 instances of
+rows 1, 7, 8, 9, 10 and 11 their own; ``launches`` adds
 the fused phases' real launches: the first call's warm-up and the
 replays times the captured counts), the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -825,10 +864,11 @@ def phase_reference(state):
 KERNEL_CATEGORIES = (
     ("conv_affine (ours)",
      r"conv_affine_(tc|reduce|bf16|bf16_reduce)_kernel"),
-    ("conv3x3 / dgrad (ours)", r"conv3x3_tc_kernel|conv3x3_reduce_kernel"),
-    ("conv_stats (ours)", r"conv_stats_(tc|cut|sum)_kernel"),
-    ("bn_affine (ours)", r"bn_affine_kernel"),
-    ("conv_wgrad (ours)", r"conv_wgrad_kernel|wgrad_reduce_kernel"),
+    ("conv3x3 / dgrad (ours)",
+     r"conv3x3_(tc|reduce|bf16|bf16_reduce)_kernel"),
+    ("conv_stats (ours)", r"conv_stats_(tc|cut|sum|bf16)_kernel"),
+    ("bn_affine (ours)", r"bn_affine(_bf16)?_kernel"),
+    ("conv_wgrad (ours)", r"conv_wgrad(_bf16)?_kernel|wgrad_reduce_kernel"),
     ("batch norm", r"batch_norm|bn_fw"),
     ("layout transform", r"nchwToNhwc|nhwcToNchw"),
     ("cuDNN conv backward", r"dgrad|wgrad|bprop"),
@@ -3471,14 +3511,18 @@ FUSED_BERT_WANT = {"softmax_fused": BERT_SOFTMAXES,
 
 
 def _fused_counts():
+    """The wrappers' launch counts as a fused step's capture records them
+    (a bf16 instance's also under ``<name>_bf16``)."""
     from mxnet_tpu_torch.parallel import train as pt
-    return {n: fn.launches for n, fn in pt.kernel_wrappers().items()}
+    return pt._counts()
 
 
 def _fused_zero():
     from mxnet_tpu_torch.parallel import train as pt
     for fn in pt.kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_dtype"):
+            fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
 
 
 def _eager_body(ex, x, y):
@@ -3512,7 +3556,8 @@ def _step_marks(fn, n):
     return outs, [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
 
 
-def _fused_run(state, key, ex, batches, want, batch):
+def _fused_run(state, key, ex, batches, want, batch,
+               launches_key="fused_launches"):
     """Drive ``ex`` (a fused executor, not called yet) over ``batches``.
     First the same step function run eagerly from Python for
     ``FUSED_EAGER_STEPS`` steps (deferred shapes resolved first), timed
@@ -3521,7 +3566,8 @@ def _fused_run(state, key, ex, batches, want, batch):
     steps by CUDA events; then the replays under torch.profiler.  Gates
     the path (fused, one program, no rebuild or fallback, finite losses,
     the captured launches); records the real launches (the first call's
-    warm-up and the replays) in ``state["fused_launches"]``."""
+    warm-up and the replays) in ``state[launches_key]`` (None: the caller
+    records them)."""
     import math
     import torch
     from mxnet_tpu_torch import telemetry
@@ -3572,9 +3618,10 @@ def _fused_run(state, key, ex, batches, want, batch):
            "fallback_reason": getattr(ex, "fallback_reason", None),
            "profile_replays": prof, "peak_mem_bytes": peak,
            "eager_peak_mem_bytes": eager_peak}
-    prev = state.setdefault("fused_launches", {})
-    for n, k in real.items():
-        prev[n] = prev.get(n, 0) + k
+    if launches_key is not None:
+        prev = state.setdefault(launches_key, {})
+        for n, k in real.items():
+            prev[n] = prev.get(n, 0) + k
     state[key] = res
     problems = []
     if res["fallback_reason"] is not None or delta.get("fused.fallbacks"):
@@ -3833,6 +3880,8 @@ def phase_fused_parity(state):
         cases["capture_beside_syncing_thread"] = _syncing_thread_case(
             dense, small)
         cases["capture_beside_dead_graph"] = _dead_graph_case(dense, small)
+        cases["cast_after_capture"] = _cast_case(
+            dense("sgd", {"momentum": 0.9}), small)
         args_dn = ic.parse_args(["--model", "densenet121", "--batch-size",
                                  "8", "--image-size", "64", "--seed",
                                  str(SEED)])
@@ -4827,12 +4876,6 @@ def _conv_bf16_case(N, H, W, C, Cout, gen, residual=False, relu=True):
     args = (x, w, g, b, mu, var, res)
     out = conv_affine(*args, relu=relu)
     again = conv_affine(*args, relu=relu)
-    ref = conv_affine_plain(*args, relu=relu)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs()
-    scale = ref.float().abs().max().item()
-    step = torch.exp2(torch.floor(torch.log2(ref.float().abs())) - 7)
-    allowed = torch.clamp(HALF_STEPS * step, min=BF16_NEAR_ZERO * scale)
     xc = x.permute(0, 3, 1, 2)                      # channels-last view
     wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     npix = N * H * W
@@ -4844,26 +4887,14 @@ def _conv_bf16_case(N, H, W, C, Cout, gen, residual=False, relu=True):
             "residual": residual, "relu": relu,
             "plan": _conv3x3_plan(npix, C, Cout,
                                   "mxt_conv_affine_bf16_blocks_per_sm", 8),
-            "max_abs_err": err.max().item(),
-            "rel_err": err.max().item() / max(scale, 1e-30),
-            "within_steps": bool((err <= allowed).all()),
-            "tol_steps": HALF_STEPS, "near_zero_tol": BF16_NEAR_ZERO,
-            "values_differing": int((out != ref).sum()),
-            "values": out.numel(),
-            "finite": bool(torch.isfinite(out).all()),
-            "bitwise_equal_relaunch": bool(torch.equal(out, again))}
-    bms, by = bound(nbytes, flops, PEAK_BF16_FLOP_S)
-    kms = cuda_ms(lambda: conv_affine(*args, relu=relu))
-    case.update(kernel_ms=kms,
-                kernel_eager_ms=eager_ms(lambda: conv_affine(*args,
-                                                             relu=relu)),
-                plain_ms=cuda_ms(lambda: conv_affine_plain(*args,
-                                                           relu=relu)),
-                library_ms=cuda_ms(lambda: F.conv2d(xc, wc, padding=1)),
-                library="F.conv2d alone on bf16 (cuDNN, channels-last; no "
-                        "BN fold, residual or ReLU)",
-                bytes=nbytes, flop=flops, bound_ms=bms, bound_by=by,
-                bound_share=bms / kms, tflop_s=flops / (kms * 1e-3) / 1e12)
+            **_bf16_within(out, conv_affine_plain(*args, relu=relu)),
+            "bitwise_equal_relaunch": bool(torch.equal(out, again)),
+            "library": "F.conv2d alone on bf16 (cuDNN, channels-last; no "
+                       "BN fold, residual or ReLU)"}
+    _bf16_timed(case, lambda: conv_affine(*args, relu=relu),
+                lambda: conv_affine_plain(*args, relu=relu),
+                lambda: F.conv2d(xc, wc, padding=1), nbytes, flops)
+    case["tflop_s"] = flops / (case["kernel_ms"] * 1e-3) / 1e12
     return case
 
 
@@ -5145,6 +5176,43 @@ def phase_bf16_serve(state):
                             "param_bytes_per_device")},
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "mem_before_bytes": mem_before}
+    res["inceptionv3"] = _inception_bf16(state)
+    return res
+
+
+def _inception_bf16(state):
+    """Inception-v3 (seeded, cast to bf16 by ``amp.convert_model``) at
+    batch 2 x 299x299x3: its 10 lone 3x3/s1 convs take ``conv3x3``'s bf16
+    instance (the lone conv route admits bf16 since the bf16 training
+    slice; cuDNN ran them before), so exactly 10 bf16 and no fp32
+    ``conv3x3`` launch a forward, no other kernel, and finite logits."""
+    import torch
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.ops import conv_block as cb
+    from mxnet_tpu_torch.parallel import train as pt
+    net = _seeded_net("inceptionv3", (299, 299, 3), device="cuda")
+    amp.convert_model(net, "bfloat16")
+    x = torch.randn(2, 299, 299, 3, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        SEED + 19)).bfloat16()
+    forwards = 3
+    _fused_zero()
+    with torch.inference_mode():
+        for _ in range(forwards):
+            out = net(x)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in pt._counts().items() if v}
+    res = {"batch": 2, "forwards": forwards, "launches": counts,
+           "dtype": str(out.dtype), "finite":
+           bool(torch.isfinite(out.float()).all()),
+           "conv3x3_bf16_per_forward":
+           cb.conv3x3.launches_by_dtype[torch.bfloat16] / forwards}
+    tot = state.setdefault("bf16_launches", {})
+    tot["conv3x3_bf16"] = tot.get("conv3x3_bf16", 0) + \
+        counts.get("conv3x3_bf16", 0)
+    if counts != {"conv3x3": 10 * forwards, "conv3x3_bf16": 10 * forwards} \
+            or not res["finite"] or out.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 Inception-v3 forward: {res}")
     return res
 
 
@@ -5274,6 +5342,485 @@ def phase_bf16_reference(state):
     return res
 
 
+# ------------------------------------------------- bf16 training phases
+# ResNet-50's four 3x3/s1 stages at bench.py train_mode's batch of 128
+BF16_TRAIN_STAGES = [(128, 56, 56, 64, 64), (128, 28, 28, 128, 128),
+                     (128, 14, 14, 256, 256), (128, 7, 7, 512, 512)]
+BF16_SUM_TOL = 1e-5     # bf16 instances' fp32 results: sums, dW
+BF16_TRAIN_STEPS = 20   # replays on one fixed batch; the loss must fall
+BF16_TRAIN_KERNELS = ("conv3x3", "conv_stats", "bn_affine", "conv_wgrad")
+# a captured bf16 ResNet-50 step: 16 launches of each training kernel, all
+# of them its bf16 instance; a bf16 BERT-base step: 12 bf16 softmaxes, no
+# LayerNorm kernel (bf16 LayerNorm is the reference's closed form)
+BF16_IMAGE_WANT = {**{n: RESNET50_SEGMENTS for n in BF16_TRAIN_KERNELS},
+                   **{n + "_bf16": RESNET50_SEGMENTS
+                      for n in BF16_TRAIN_KERNELS}}
+BF16_BERT_WANT = {"softmax_fused": BERT_SOFTMAXES,
+                  "softmax_fused_bf16": BERT_SOFTMAXES}
+
+
+def _bf16_within(out, ref):
+    """A bf16 kernel's output against its plain version's: each value
+    within one bf16 step, or within ``BF16_NEAR_ZERO`` of the largest
+    where both lie near 0 (the two sum the same exact products in fp32 in
+    another order)."""
+    import torch
+    err = (out.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item()
+    step = torch.exp2(torch.floor(torch.log2(ref.float().abs())) - 7)
+    allowed = torch.clamp(HALF_STEPS * step, min=BF16_NEAR_ZERO * scale)
+    return {"max_abs_err": err.max().item(),
+            "rel_err": err.max().item() / max(scale, 1e-30),
+            "within_steps": bool((err <= allowed).all()),
+            "tol_steps": HALF_STEPS, "near_zero_tol": BF16_NEAR_ZERO,
+            "values_differing": int((out != ref).sum()),
+            "values": out.numel(),
+            "finite": bool(torch.isfinite(out.float()).all())}
+
+
+def _bf16_timed(case, fn, plain, library, nbytes, flops):
+    """Device, eager, plain and library ms of a bf16 case beside its bound
+    (bytes over 3.35 TB/s, bf16 operations over 989 TFLOP/s dense)."""
+    bms, by = bound(nbytes, flops, PEAK_BF16_FLOP_S)
+    kms = cuda_ms(fn, iters=10)
+    lms = cuda_ms(library, iters=10)
+    case.update(kernel_ms=kms, kernel_eager_ms=eager_ms(fn, iters=10),
+                plain_ms=cuda_ms(plain, iters=10), library_ms=lms,
+                bytes=nbytes, flop=flops, bound_ms=bms, bound_by=by,
+                bound_share=bms / kms, vs_library=kms / lms)
+    return case
+
+
+def _bf16_train_conv_cases(N, H, W, C, Cout, gen):
+    """The bf16 instances of ``conv3x3`` (in its training use, the dgrad:
+    dy with the rotated weight), ``conv_stats`` and ``conv_wgrad`` at one
+    stage shape, each launched twice on the same inputs (bitwise equal: a
+    gate) and held against its plain version (bf16 widened to fp32, the
+    conv in fp32 with TF32 off, one rounding): bf16 outputs within one
+    step, the fp32 sums and dW within ``BF16_SUM_TOL`` (Σz of the
+    channel's Σ|z|, Σz² and dW of their largest).  Library yardsticks on
+    the same bf16 tensors (cuDNN, channels-last): ``conv2d_input``,
+    ``F.conv2d`` alone (no sums), ``conv2d_weight`` (bf16 out)."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import conv_block as cb
+    bf = torch.bfloat16
+    x = torch.randn(N, H, W, C, device="cuda", generator=gen).to(bf)
+    w = (torch.randn(3, 3, C, Cout, device="cuda", generator=gen) *
+         (2.0 / (9 * C)) ** 0.5).to(bf)
+    dy = torch.randn(N, H, W, Cout, device="cuda", generator=gen).to(bf)
+    xc, dyc = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    npix = N * H * W
+    flops = 2 * npix * 9 * C * Cout
+    nbytes = 2 * (npix * (C + Cout) + 9 * C * Cout)
+    shape = [N, H, W, C, Cout]
+    out = {}
+
+    wr = cb.rotate(w)
+    dx, again = cb.conv3x3(dy, wr), cb.conv3x3(dy, wr)
+    out["conv3x3_bf16"] = _bf16_timed(
+        {"shape": shape, "dtype": "bfloat16",
+         "use": "dgrad: conv3x3(dy, rotate(w))",
+         "plan": _conv3x3_plan(npix, Cout, C,
+                               "mxt_conv3x3_bf16_blocks_per_sm", 8),
+         **_bf16_within(dx, cb.conv3x3_plain(dy, wr)),
+         "bitwise_equal_relaunch": bool(torch.equal(dx, again)),
+         "library": "torch.nn.grad.conv2d_input on bf16 (cuDNN)"},
+        lambda: cb.conv3x3(dy, wr), lambda: cb.conv3x3_plain(dy, wr),
+        lambda: torch.nn.grad.conv2d_input(xc.shape, wc, dyc, padding=1),
+        nbytes, flops)
+
+    got, again = cb.conv_stats(x, w), cb.conv_stats(x, w)
+    rz, r1, r2 = cb.conv_stats_plain(x, w)
+    mag = rz.float().abs().sum(dim=(0, 1, 2))
+    s1_rel = ((got[1] - r1).abs() / mag).max().item()
+    s2_rel = ((got[2] - r2).abs() / r2.abs()).max().item()
+    out["conv_stats_bf16"] = _bf16_timed(
+        {"shape": shape, "dtype": "bfloat16",
+         "plan": _conv3x3_plan(npix, C, Cout,
+                               "mxt_conv_stats_bf16_blocks_per_sm", 8),
+         **_bf16_within(got[0], rz), "sum_rel_err": s1_rel,
+         "sumsq_rel_err": s2_rel, "stats_tol": BF16_SUM_TOL,
+         "bitwise_equal_relaunch": all(
+             bool(torch.equal(a, b)) for a, b in zip(got, again)),
+         "library": "F.conv2d alone on bf16 (cuDNN; no sums)"},
+        lambda: cb.conv_stats(x, w), lambda: cb.conv_stats_plain(x, w),
+        lambda: F.conv2d(xc, wc, padding=1), nbytes + 8 * Cout, flops)
+
+    dw, again = cb.conv_wgrad(x, dy), cb.conv_wgrad(x, dy)
+    err, rel = _rel_err(dw, cb.conv_wgrad_plain(x, dy))
+    vec = int(C % 8 == 0 and Cout % 8 == 0)
+    plan = cb.wgrad_splits(npix, 9 * C, Cout, cb._sm_count(0),
+                           cb._per_sm("mxt_conv_wgrad_bf16_blocks_per_sm",
+                                      0, cb.wgrad_tile_cols(Cout), vec))
+    out["conv_wgrad_bf16"] = _bf16_timed(
+        {"shape": shape, "dtype": "bfloat16 x and dy, fp32 dW",
+         "plan": plan._asdict(), "max_abs_err": err, "rel_err": rel,
+         "tol": BF16_SUM_TOL, "finite": bool(torch.isfinite(dw).all()),
+         "bitwise_equal_relaunch": bool(torch.equal(dw, again)),
+         "library": "torch.nn.grad.conv2d_weight on bf16 (cuDNN; bf16 "
+                    "dW)"},
+        lambda: cb.conv_wgrad(x, dy), lambda: cb.conv_wgrad_plain(x, dy),
+        lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, dyc, padding=1),
+        2 * npix * (C + Cout) + 4 * 9 * C * Cout, flops)
+    return out
+
+
+def _bf16_affine_case(N, H, W, C, gen, residual=False, relu=True):
+    """``bn_affine``'s bf16 instance (bf16 z and residual, fp32 scale and
+    shift) against its plain version, twice (bitwise equal), beside its
+    bytes bound and ``torch.addcmul`` on bf16 (no residual or ReLU)."""
+    import torch
+    from mxnet_tpu_torch.ops import conv_block as cb
+    bf = torch.bfloat16
+    z = torch.randn(N, H, W, C, device="cuda", generator=gen).to(bf)
+    scale = 1 + 0.1 * torch.randn(C, device="cuda", generator=gen)
+    shift = 0.1 * torch.randn(C, device="cuda", generator=gen)
+    res = torch.randn(N, H, W, C, device="cuda",
+                      generator=gen).to(bf) if residual else None
+    sc16, sh16 = scale.to(bf), shift.to(bf)
+    out = cb.bn_affine(z, scale, shift, res, relu)
+    again = cb.bn_affine(z, scale, shift, res, relu)
+    n = N * H * W * C
+    return _bf16_timed(
+        {"shape": [N, H, W, C], "dtype": "bfloat16", "residual": residual,
+         "relu": relu,
+         **_bf16_within(out, cb.bn_affine_plain(z, scale, shift, res,
+                                                relu)),
+         "bitwise_equal_relaunch": bool(torch.equal(out, again)),
+         "library": "torch.addcmul(shift, z, scale) on bf16 (no residual "
+                    "or ReLU)"},
+        lambda: cb.bn_affine(z, scale, shift, res, relu),
+        lambda: cb.bn_affine_plain(z, scale, shift, res, relu),
+        lambda: torch.addcmul(sh16, z, sc16),
+        2 * n * (3 if residual else 2) + 8 * C,
+        n * (2 + int(residual) + int(relu)))
+
+
+def _bf16_case_ok(c):
+    ok = c["finite"] and c["bitwise_equal_relaunch"]
+    if "within_steps" in c:
+        ok = ok and c["within_steps"]
+    else:
+        ok = ok and c["rel_err"] <= c["tol"]
+    if "sum_rel_err" in c:
+        ok = ok and c["sum_rel_err"] <= c["stats_tol"] and \
+            c["sumsq_rel_err"] <= c["stats_tol"]
+    return ok
+
+
+FP32_DUMP = r"""
+import math, sys
+sys.path.insert(0, ".")
+import torch
+from mxnet_tpu_torch import context
+from mxnet_tpu_torch.ops import conv_block as cb
+context.exact_fp32()
+gen = torch.Generator(device="cuda").manual_seed(7)
+outs = {}
+for N, H, W, C, Co in ((64, 56, 56, 64, 64), (8, 28, 28, 128, 128),
+                       (64, 7, 7, 512, 512), (2, 9, 11, 20, 12)):
+    x = torch.randn(N, H, W, C, device="cuda", generator=gen)
+    w = torch.randn(3, 3, C, Co, device="cuda", generator=gen) / math.sqrt(9 * C)
+    dy = torch.randn(N, H, W, Co, device="cuda", generator=gen)
+    r = torch.randn(N, H, W, Co, device="cuda", generator=gen)
+    v = [1 + 0.1 * torch.randn(Co, device="cuda", generator=gen)
+         for _ in range(3)] + [0.5 + torch.rand(Co, device="cuda", generator=gen)]
+    key = f"{N}x{H}x{W}x{C}x{Co}"
+    outs["conv3x3 " + key] = cb.conv3x3(x, w).cpu()
+    outs["dgrad " + key] = cb.conv3x3_dgrad(w, dy).cpu()
+    for i, t in enumerate(cb.conv_stats(x, w)):
+        outs[f"conv_stats{i} " + key] = t.cpu()
+    outs["bn_affine " + key] = cb.bn_affine(dy, v[0], v[1], r).cpu()
+    outs["conv_wgrad " + key] = cb.conv_wgrad(x, dy).cpu()
+    outs["conv_affine " + key] = cb.conv_affine(x, w, *v, r).cpu()
+torch.save(outs, sys.argv[1])
+"""
+
+
+def _fp32_against_parent(parent):
+    """The fp32 instances of the conv kernels (conv3x3 and its dgrad,
+    conv_stats, bn_affine, conv_wgrad, conv_affine) on seeded inputs at
+    four shapes, run by this checkout and by the checkout at ``parent``
+    (each its own package and build, in its own process): → {output:
+    bitwise equal}."""
+    import torch
+    work = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    outs = []
+    for root, tag in ((os.path.abspath(parent), "parent"), (HERE, "change")):
+        path = os.path.join(work, f"fp32_{tag}.pt")
+        run = subprocess.run([sys.executable, "-c", FP32_DUMP, path],
+                             cwd=root, capture_output=True, text=True)
+        if run.returncode != 0:
+            raise RuntimeError(f"fp32 dump of the {tag} failed: "
+                               f"{run.stderr[-3000:]}")
+        outs.append(torch.load(path))
+    a, b = outs
+    return {k: bool(torch.equal(a[k], b[k])) for k in a}
+
+
+def phase_bf16_train_kernels(state):
+    """The bf16 instances of rows 7 (``conv3x3``, in its dgrad use), 9
+    (``conv_stats``), 10 (``bn_affine``) and 11 (``conv_wgrad``) at
+    ResNet-50's four 3x3 stages at batch 128 (``bn_affine`` also with a
+    residual, and with the ReLU off, at stage 1; and a ragged shape on
+    the scalar paths, C = 20), against their plain versions, bitwise on
+    relaunch; timed beside their bounds, plain versions and the nearest
+    library call on bf16.  With ``--parent DIR``, also the fp32 instances
+    of the same file against the checkout at DIR, bit for bit."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    cases = {k: [] for k in ("conv3x3_bf16", "conv_stats_bf16",
+                             "bn_affine_bf16", "conv_wgrad_bf16")}
+    for shape in BF16_TRAIN_STAGES + [(2, 9, 11, 20, 12)]:
+        for k, c in _bf16_train_conv_cases(*shape, gen).items():
+            cases[k].append(c)
+    for N, H, W, _, C in BF16_TRAIN_STAGES:
+        cases["bn_affine_bf16"].append(_bf16_affine_case(N, H, W, C, gen))
+    cases["bn_affine_bf16"] += [
+        _bf16_affine_case(128, 56, 56, 64, gen, residual=True),
+        _bf16_affine_case(128, 56, 56, 64, gen, relu=False),
+        _bf16_affine_case(2, 9, 11, 12, gen, residual=True)]
+    state["cases"].update(cases)
+    res = {"cases": cases}
+    bad = [c for cs in cases.values() for c in cs if not _bf16_case_ok(c)]
+    if state.get("parent"):
+        res["fp32_equal_to_parent"] = eq = _fp32_against_parent(
+            state["parent"])
+        res["fp32_bitwise_as_parent"] = all(eq.values())
+        if not all(eq.values()):
+            bad.append({"fp32 differs from the parent":
+                        [k for k, v in eq.items() if not v]})
+    if bad:
+        raise AssertionError(f"bf16 training kernel disagrees: {bad}")
+    return res
+
+
+def _bf16_fused(state, key, step, batch_xy, want, batch, fp32_key):
+    """``step`` (a ``FusedTrainStep(dtype="bfloat16")``) driven as the
+    fused phases drive theirs (:func:`_fused_run`), on one fixed batch for
+    ``1 + BF16_TRAIN_STEPS`` calls: gates its captured launches (the bf16
+    instances only) and a loss that falls; records the bf16 instances'
+    real launches; sets the fp32 fused step of the same run beside it."""
+    res = _fused_run(state, key, step, [batch_xy] * (1 + BF16_TRAIN_STEPS),
+                     want, batch, launches_key=None)
+    tot = state.setdefault("bf16_train_launches", {})
+    for n, k in res["launches_real"].items():
+        if n.endswith("_bf16"):
+            tot[n] = tot.get(n, 0) + k
+    losses = res["losses"]
+    res["loss_falls"] = losses[-1] < losses[0]
+    f32 = state[fp32_key]
+    res["fp32"] = {k: f32[k] for k in (
+        "replayed_step_ms_median", "eager_step_ms_median",
+        "items_s_replayed", "peak_mem_bytes")}
+    res["fp32"]["idle_share"] = f32["profile_replays"].get("idle_share")
+    res["idle_share"] = res["profile_replays"].get("idle_share")
+    res["fp32_over_bf16_step"] = (f32["replayed_step_ms_median"] /
+                                  res["replayed_step_ms_median"])
+    if not res["loss_falls"]:
+        raise AssertionError(f"{key}: the loss does not fall: {losses}")
+    return res
+
+
+def phase_bf16_train(state):
+    """bf16 training through ``FusedTrainStep(dtype="bfloat16")`` (fp32
+    masters and optimizer states, the step in bf16, one captured CUDA
+    graph a step): ResNet-50 v1 at ``bench.py`` ``train_mode``'s
+    configuration (batch 128 x 224x224x3, 1000 classes, SGD lr 0.1,
+    momentum 0.9, wd 1e-4) and Gluon BERT-base at ``bert_mode``'s (8 x
+    512 tokens, Adam lr 1e-4), each on one fixed batch for 21 calls.
+    Gates: exactly 16 launches of each of the four training kernels a
+    ResNet step, all of them the bf16 instance; 12 bf16 softmaxes a BERT
+    step; finite losses that fall.  Replayed and eager step ms, items/s,
+    tokens/s, peak memory, idle share, beside the fp32 fused step of the
+    same run (``fused_image_train``, ``fused_bert_train``; run here when
+    they were not)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.examples import image_classification as ic
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import bert_gluon
+    from mxnet_tpu_torch.parallel import FusedTrainStep
+    if "fused_image" not in state:
+        phase_fused_image_train(state)
+    if "fused_bert" not in state:
+        phase_fused_bert_train(state)
+    dev = torch.device("cuda")
+    res = {}
+    torch.cuda.empty_cache()
+    args = ic.parse_args(["--batch-size", str(FUSED_IMAGE_BATCH),
+                          "--seed", str(SEED)])
+    net, _, loss_fn = ic.build(args, dev)
+    opt = opt_mod.create("sgd", learning_rate=args.lr, momentum=0.9,
+                         wd=1e-4)
+    step = FusedTrainStep(net, loss_fn, opt, dtype="bfloat16")
+    rng = np.random.RandomState(SEED + 20)
+    x, y = ic.synthetic_batch(rng, args.batch_size, args.image_size,
+                              args.classes)
+    res["resnet50_v1"] = _bf16_fused(
+        state, "bf16_image", step, (torch.as_tensor(x, device=dev),
+                                    torch.as_tensor(y, device=dev)),
+        BF16_IMAGE_WANT, args.batch_size, "fused_image")
+    res["resnet50_v1"].update(optimizer="sgd", lr=args.lr, momentum=0.9,
+                              wd=1e-4, image=args.image_size,
+                              classes=args.classes, dtype="bfloat16")
+    del net, step, opt
+    torch.cuda.empty_cache()
+    cfg = FUSED_BERT
+    net = bert_gluon.bert_12_768_12()
+    net.initialize(ctx=dev, seed=SEED)
+    net.hybridize()
+    net.train()
+    step = FusedTrainStep(net, SoftmaxCrossEntropyLoss(),
+                          opt_mod.create("adam", learning_rate=cfg["lr"]),
+                          dtype="bfloat16")
+    rng = np.random.RandomState(SEED + 21)
+    toks = tuple(torch.as_tensor(rng.randint(0, 30522, (
+        cfg["batch"], cfg["seq"])).astype(np.int32), device=dev)
+        for _ in range(2))
+    r = _bf16_fused(state, "bf16_bert", step, toks, BF16_BERT_WANT,
+                    cfg["batch"], "fused_bert")
+    r.update(optimizer="adam", vocab=30522, dtype="bfloat16",
+             tokens_s_replayed=r["items_s_replayed"] * cfg["seq"],
+             tokens_s_eager=r["items_s_eager"] * cfg["seq"], **cfg)
+    res["bert_12_768_12"] = r
+    return res
+
+
+def _bf16_side(kind, dev, arrays, batches, dtype):
+    """Two ``FusedTrainStep`` SGD steps of ResNet-18 v1 (10 classes) or
+    ``bert_small`` on ``dev`` from ``arrays``: → (losses, {name: array
+    after})."""
+    import torch
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.gluon import load_numpy
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import bert_gluon, get_model
+    from mxnet_tpu_torch.parallel import FusedTrainStep
+    net = bert_gluon.bert_small() if kind == "bert_small" else \
+        get_model("resnet18_v1", classes=10)
+    load_numpy(net, arrays)
+    net = net.to(dev)
+    net.hybridize()
+    net.train()
+    kw = {"learning_rate": 0.05, "momentum": 0.9} if kind == "bert_small" \
+        else {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+    step = FusedTrainStep(net, SoftmaxCrossEntropyLoss(),
+                          opt_mod.create("sgd", **kw), dtype=dtype)
+    losses = [float(step(torch.as_tensor(x, device=dev),
+                         torch.as_tensor(y, device=dev)))
+              for x, y in batches]
+    return losses, {k: t.detach().float().cpu().numpy()
+                    for k, t in net.collect_params().items()}
+
+
+def _bf16_dist(a, b):
+    import numpy as np
+    return (max(abs(x - y) for x, y in zip(a[0], b[0])),
+            max(float(np.abs(a[1][k] - b[1][k]).max()) for k in a[1]))
+
+
+def phase_bf16_train_reference(state):
+    """Two bf16 ``FusedTrainStep`` SGD steps on the card (captured graphs)
+    and through the port on the CPU (the step function run directly) from
+    the same weights and batches, and the same on the CPU in fp32:
+    ResNet-18 v1 (10 classes, 64x64x3, batch 2, each residual branch's
+    last BatchNorm γ damped by 0.1, lr 0.01, momentum 0.9, wd 1e-4) and
+    ``bert_small`` on (2, 16) tokens (lr 0.05, momentum 0.9).  The card's
+    bf16 step no farther from the CPU's bf16 step than that is from the
+    CPU's fp32 step: the losses of both steps and every master weight and
+    running statistic after them.  (``fused_parity``'s
+    ``cast_after_capture`` case holds ``Block.cast`` after a capture.)"""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import bert_gluon, get_model
+    res = {}
+    rs = np.random.RandomState(SEED + 22)
+    img = [(rs.rand(2, 64, 64, 3).astype(np.float32),
+            rs.randint(0, 10, (2,))) for _ in range(2)]
+    net = get_model("resnet18_v1", classes=10)
+    net.initialize(ctx="cpu", seed=SEED)
+    with torch.no_grad():
+        net(torch.zeros(1, 64, 64, 3))
+    arrays = {k: t.detach().numpy().copy()
+              for k, t in net.collect_params().items()}
+    for k in arrays:
+        if k.endswith(".body.4.gamma"):
+            arrays[k] = (0.1 * arrays[k]).astype(np.float32)
+    toks = [(rs.randint(0, 1000, (2, 16)).astype(np.int32),
+             rs.randint(0, 1000, (2, 16)).astype(np.int32))
+            for _ in range(2)]
+    bnet = bert_gluon.bert_small()
+    bnet.initialize(ctx="cpu", seed=SEED)
+    with torch.no_grad():
+        bnet(torch.as_tensor(toks[0][0]))
+    barrays = {k: t.detach().numpy().copy()
+               for k, t in bnet.collect_params().items()}
+    bad = []
+    for kind, a, batches in (("resnet18_v1", arrays, img),
+                             ("bert_small", barrays, toks)):
+        card = _bf16_side(kind, torch.device("cuda"), a, batches,
+                          "bfloat16")
+        cpu16 = _bf16_side(kind, torch.device("cpu"), a, batches,
+                           "bfloat16")
+        cpu32 = _bf16_side(kind, torch.device("cpu"), a, batches, None)
+        d, floor = _bf16_dist(card, cpu16), _bf16_dist(cpu16, cpu32)
+        finite = all(np.isfinite(v) for v in card[0]) and all(
+            np.isfinite(t).all() for t in card[1].values())
+        res[kind] = {"losses_card": card[0], "losses_cpu": cpu16[0],
+                     "losses_cpu_fp32": cpu32[0],
+                     "card_vs_cpu": {"loss": d[0], "weights": d[1]},
+                     "cpu_bf16_vs_fp32": {"loss": floor[0],
+                                          "weights": floor[1]},
+                     "finite": finite}
+        if not (finite and d[0] <= floor[0] and d[1] <= floor[1]):
+            bad.append(kind)
+    if bad:
+        raise AssertionError(f"card bf16 step off the CPU's in {bad}: {res}")
+    return res
+
+
+def _cast_case(make, batches):
+    """``Block.cast`` after a capture: two fused steps, the net cast to
+    bf16 and back to fp32 (its old storage kept alive, so the new tensors
+    cannot land on it), a third step; against the same on the eager
+    legacy path, bit for bit.  The executor must capture anew on the new
+    storage (one program, a rebuild): a graph left on the old storage
+    would update tensors the net no longer holds."""
+    import torch
+    runs = []
+    for fused in (True, False):
+        net, trainer, loss_fn = make()
+        ex = trainer.fuse_step(loss_fn) if fused else None
+
+        def step(x, y):
+            if fused:
+                return ex(x, y)
+            return _legacy_step(net, trainer, loss_fn, x, y)
+        r0 = _counter("fused.rebuilds")
+        losses = [step(*batches[0]), step(*batches[1])]
+        kept = [t.data for t in net.collect_params().values()]
+        net.cast("bfloat16")
+        net.cast("float32")
+        losses.append(step(*batches[2]))
+        torch.cuda.synchronize()
+        runs.append((torch.stack([v.reshape(()) for v in losses]),
+                     _snapshot(net), ex, _counter("fused.rebuilds") - r0))
+        del kept
+    (lf, wf, ex, rebuilds), (le, we, _, _) = runs
+    diff = _max_diff(wf, we)
+    bitwise = not diff and bool(torch.equal(lf, le))
+    return {"bitwise": bitwise, "params_differing": len(diff),
+            "loss_replay_vs_eager": (lf.double() - le.double()).abs()
+            .max().item(), "programs": ex.programs, "replays": ex.replays,
+            "rebuilds": rebuilds, "fused": ex.fused,
+            "ok": bitwise and ex.programs == 1 and rebuilds == 1}
+
+
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
      "mxnet_tpu/ops/pallas_kernels.py:104"),
@@ -5311,6 +5858,14 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_kernels.py:61"),
     ("conv_affine_bf16", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
      "mxnet_tpu/ops/pallas_block.py:325"),
+    ("conv3x3_bf16", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
+     "mxnet_tpu/ops/pallas_block.py:318"),
+    ("conv_stats_bf16", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
+     "mxnet_tpu/ops/pallas_block.py:343"),
+    ("bn_affine_bf16", "mxnet_tpu_torch/csrc/conv_train.cu",
+     "mxnet_tpu/ops/pallas_block.py:367"),
+    ("conv_wgrad_bf16", "mxnet_tpu_torch/csrc/conv_wgrad.cu",
+     "mxnet_tpu/ops/pallas_block.py:381"),
 ]
 # what else an entry names: the header holding the body two attention
 # entries share, the kernels of a stream-K entry (main, then the one that
@@ -5356,11 +5911,34 @@ KERNEL_NOTES = {
                          "arithmetic": "mma.sync m16n8k16 bf16, fp32 sums",
                          "loop": "conv_ranges, shared with the fp32 "
                                  "instances"},
+    "conv3x3_bf16": {"instance": "bf16",
+                     "kernels": ["conv3x3_bf16_kernel",
+                                 "conv3x3_bf16_reduce_kernel"],
+                     "arithmetic": "mma.sync m16n8k16 bf16, fp32 sums",
+                     "loop": "conv_ranges, shared with the fp32 "
+                             "instances"},
+    "conv_stats_bf16": {"instance": "bf16",
+                        "kernels": ["conv_stats_bf16_kernel",
+                                    "conv_stats_cut_kernel",
+                                    "conv_stats_sum_kernel"],
+                        "arithmetic": "mma.sync m16n8k16 bf16, fp32 sums "
+                                      "taken before z is rounded",
+                        "loop": "conv_ranges, shared with the fp32 "
+                                "instances"},
+    "bn_affine_bf16": {"instance": "bf16 z, residual and out; fp32 scale "
+                                   "and shift",
+                       "kernels": ["bn_affine_bf16_kernel"]},
+    "conv_wgrad_bf16": {"instance": "bf16 x and dy, fp32 dW",
+                        "kernels": ["conv_wgrad_bf16_kernel",
+                                    "wgrad_reduce_kernel"],
+                        "arithmetic": "mma.sync m16n8k16 bf16 on "
+                                      "ldmatrix.trans fragments, fp32 "
+                                      "sums"},
 }
 PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
                  "train_launches", "text_launches", "int8_launches",
                  "ext_launches", "fused_launches", "v2_launches",
-                 "zoo_launches", "bf16_launches")
+                 "zoo_launches", "bf16_launches", "bf16_train_launches")
 
 
 def kernels_line(state):
@@ -5373,8 +5951,9 @@ def kernels_line(state):
     training in ``v2_train``, Inception-v3 scoring and serving in
     ``zoo_serve``, DenseNet-121 training in ``zoo_train``, and the bf16
     instances in bf16 ResNet-50 scoring and serving (``int8_score``,
-    ``int8_serve``, ``bf16_serve``) and Gluon BERT-base serving
-    (``bf16_serve``));
+    ``int8_serve``, ``bf16_serve``), Gluon BERT-base serving
+    (``bf16_serve``), Inception-v3's bf16 forward (``bf16_serve``) and
+    bf16 ResNet-50 and BERT-base training (``bf16_train``));
     the times are at the first case, the
     path's own shape (``conv3x3``: its dgrad use, which is how training
     launches it)."""
@@ -5409,7 +5988,8 @@ PHASES = ("env", "build", "kernels", "slice", "reference", "profile",
           "rtc", "ext_path", "v2_train", "v2_train_reference",
           "loss_metric", "zoo_kernels", "zoo_serve", "zoo_reference",
           "zoo_train", "zoo_train_reference", "bf16_kernels", "bf16_serve",
-          "bf16_reference")
+          "bf16_reference", "bf16_train_kernels", "bf16_train",
+          "bf16_train_reference")
 
 
 def _args(argv):
@@ -5418,6 +5998,10 @@ def _args(argv):
                                  "card (see the module docstring).")
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run alone, in order")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit: "
+                         "bf16_train_kernels also holds the fp32 conv "
+                         "kernels bit for bit against its build")
     return ap.parse_args(argv)
 
 
@@ -5444,7 +6028,7 @@ def main(argv=None):
         print(f"chip_smoke: no phases {unknown}", file=sys.stderr)
         return 2
 
-    state = {"card": None, "cases": {}}
+    state = {"card": None, "cases": {}, "parent": args.parent}
     for name in names:
         t0 = time.perf_counter()
         try:

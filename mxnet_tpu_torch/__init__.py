@@ -35,9 +35,12 @@ NVRTC at theirs.  The rest of the training surface is
 ``random`` (``mx.random``, seeded with ``mx.seed``), ``lr_scheduler``,
 the ``Trainer``'s ``allreduce_grads`` / ``update`` / ``shard_batch``, and
 the lone 3×3/s1 conv of ``ops.pallas_conv`` (ResNet v2's convs) on the
-conv3x3 and conv_wgrad kernels.  Entry points run on the GPU unless
-``device="cpu"`` is passed.  Importing the package builds and compiles
-nothing.
+conv3x3 and conv_wgrad kernels.  bf16: ``amp`` and
+``InferenceEngine(precision="bf16")`` serve, and
+``parallel.FusedTrainStep(dtype="bfloat16")`` trains (fp32 masters, the
+step in bf16), on the kernels' bf16 instances.  Entry points run on the
+GPU unless ``device="cpu"`` is passed.  Importing the package builds and
+compiles nothing.
 """
 from . import (context, gluon, initializer, lr_scheduler, optimizer,
                random, telemetry)

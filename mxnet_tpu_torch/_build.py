@@ -81,20 +81,35 @@ _SIGNATURES = {
     # bn, vec, out (int*)
     "mxt_conv3x3_tc_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                      ctypes.POINTER(ctypes.c_int)],
+    # the same arguments for bf16 x, w, out
+    "mxt_conv3x3_tc_bf16": [_P] * 4 + [ctypes.c_int] * 8 + [_P],
+    "mxt_conv3x3_bf16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int)],
     # x, w, part, z, tstats, stats, N, H, W, C, Cout, bn, ranges, vec,
     # stream
     "mxt_conv_stats_tc_f32": [_P] * 6 + [ctypes.c_int] * 8 + [_P],
     # bn, vec, out (int*)
     "mxt_conv_stats_tc_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int)],
+    # the same arguments for bf16 x, w, z
+    "mxt_conv_stats_tc_bf16": [_P] * 6 + [ctypes.c_int] * 8 + [_P],
+    "mxt_conv_stats_bf16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)],
     # x, dy, part, dw, N, H, W, C, Cout, bn, ranges, jmax, vec, stream
     "mxt_conv_wgrad_f32": [_P] * 4 + [ctypes.c_int] * 9 + [_P],
     # bn, vec, out (int*)
     "mxt_conv_wgrad_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                      ctypes.POINTER(ctypes.c_int)],
+    # the same arguments for bf16 x, dy (dw fp32)
+    "mxt_conv_wgrad_bf16": [_P] * 4 + [ctypes.c_int] * 9 + [_P],
+    "mxt_conv_wgrad_bf16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)],
     # z, scale, shift, res, out, total, Cout, relu, vec, stream
     "mxt_bn_affine_f32": [_P] * 5 + [ctypes.c_longlong] +
                          [ctypes.c_int] * 3 + [_P],
+    # the same for bf16 z, res, out (scale, shift fp32)
+    "mxt_bn_affine_bf16": [_P] * 5 + [ctypes.c_longlong] +
+                          [ctypes.c_int] * 3 + [_P],
     # x, y, rows, cols, vec, prologue, div, keep, rows a mask row, stream
     "mxt_softmax_f32": [_P, _P, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, ctypes.c_float, _P,

@@ -96,11 +96,12 @@
 //   18 chunks at 56x56 in 264 ranges.
 // - Each instance's plan comes from its own occupancy entry.
 //
-// The bf16 instance of conv_affine (since the bf16 serving slice; the
-// reference's kernel takes bf16 operands with an fp32 accumulator and
-// writes out_ref.dtype): the same ranges, ring, reduce and epilogue, with
-// x, w, the BatchNorm vectors, res and out in bf16.  A 16-byte copy moves
-// 8 channels (C % 8 == 0 and Cout % 8 == 0 for the vector path; the
+// The bf16 instances (conv_affine since the bf16 serving slice; conv3x3,
+// also as dgrad, and conv_stats since the bf16 training slice; the
+// reference's kernels take bf16 operands with an fp32 accumulator and
+// write out_ref.dtype): the same ranges, ring, reduce and epilogues, with
+// x, w, the BatchNorm vectors, res and out (z) in bf16.  A 16-byte copy
+// moves 8 channels (C % 8 == 0 and Cout % 8 == 0 for the vector path; the
 // scalar path loads and stores each element, as cp.async has no 2-byte
 // copy), the ring's A rows are 40 halves apart, and each 16-deep step of
 // a chunk is one `mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32` product,
@@ -108,9 +109,13 @@
 // fixed-order reduce stay fp32, so a relaunch is bitwise.  The BatchNorm
 // is folded in fp32 from the bf16 vectors (as _fold casts them), the
 // residual widened to fp32, and each output rounded once to bf16 at the
-// store.  Bound at batch 8 of a ResNet-50 stage: 1.85 GFLOP, 0.0019 ms at
-// the 989 TFLOP/s dense bf16 peak; 2.8-6.5 MB, 0.0008-0.0019 ms at 3.35
-// TB/s.
+// store.  conv_stats sums each column's fp32 values before z is rounded:
+// a whole tile from its accumulator, a cut tile from its summed slots
+// (conv_stats_cut_kernel), as _conv_stats_kernel sums its f32
+// accumulator.  Bound at batch 8 of a ResNet-50 stage: 1.85 GFLOP, 0.0019
+// ms at the 989 TFLOP/s dense bf16 peak; 2.8-6.5 MB, 0.0008-0.0019 ms at
+// 3.35 TB/s; at batch 128 (the bf16 training step) 29.6 GFLOP, 0.0299 ms,
+// and 0.0307 ms of bytes at 56x56x64, where bytes bind.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -155,8 +160,8 @@ __device__ __forceinline__ float wide(float v) { return v; }
 __device__ __forceinline__ float wide(bf16 v) { return __bfloat162float(v); }
 
 // T is the storage type of x, w, the BatchNorm vectors, res and out: fp32
-// (every instance) or bf16 (conv_affine); the partial tiles and the
-// statistics are fp32 in both.
+// or bf16 (every instance); the partial tiles and the statistics are fp32
+// in both.
 template <typename T>
 struct ArgsT {
   const T* x;           // (N, H, W, C)
@@ -368,19 +373,6 @@ __device__ __forceinline__ void mma_chunk(const Ring<BN>& s, int st,
         acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], run[mi][ni][e]);
 }
 
-// c += a . b on one 16 x 8 x 16 bf16 tile with fp32 sums: a the row-major
-// 16 x 16 A fragment (lane (g, t) holds (g, 2t..2t+1), (g + 8, 2t..),
-// (g, 2t + 8..), (g + 8, 2t + 8..), two halves a register, the lower k in
-// the lower half), b the column-major 16 x 8 B fragment ((2t..2t+1, g),
-// (2t + 8..2t + 9, g)), c as the TF32 product's.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -443,8 +435,8 @@ __device__ __forceinline__ void mma_chunk(const Ring<BN, bf16>& s, int st,
 // then the 4 pixel-warps wm in order through shared memory (the ring,
 // free once every warp has read its last chunk).  Writes the tile's row
 // m0 / BM of tstats for its columns n0 ..
-template <int BN>
-__device__ __forceinline__ void tile_stats(const Args& a,
+template <int BN, typename T>
+__device__ __forceinline__ void tile_stats(const ArgsT<T>& a,
                                            const float (&acc)[2][BN / 16][4],
                                            int m0, int n0, int wm, int wn,
                                            int g, int t) {
@@ -510,29 +502,34 @@ __device__ __forceinline__ float affine(const ArgsT<T>& a, float v, float sc,
 // two columns' folded BatchNorm).  VEC: Cout % 4 == 0 and 16-byte aligned
 // bases, so n < Cout implies n + 1 < Cout and the pair is one float2.
 // bf16: the residual pair widened to fp32, the result rounded once to a
-// bf16 pair at the store.
+// bf16 pair at the store (VEC: Cout % 8 == 0).
 template <bool VEC, Epi EPI>
 __device__ __forceinline__ void store2(const ArgsT<bf16>& a, int m, int n,
                                        float v0, float v1,
                                        const float (&sc)[2],
                                        const float (&sh)[2]) {
-  static_assert(EPI == Epi::kAffine, "bf16 has the affine instance only");
   const long long at = (long long)m * a.Cout + n;
   if constexpr (VEC) {
     if (n >= a.Cout) return;
-    float2 r = make_float2(0.f, 0.f);
-    if (a.res)
-      r = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(a.res + at));
-    *reinterpret_cast<__nv_bfloat162*>(a.out + at) = __floats2bfloat162_rn(
-        affine(a, v0, sc[0], sh[0], r.x), affine(a, v1, sc[1], sh[1], r.y));
+    if constexpr (EPI == Epi::kAffine) {
+      float2 r = make_float2(0.f, 0.f);
+      if (a.res)
+        r = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(a.res + at));
+      v0 = affine(a, v0, sc[0], sh[0], r.x);
+      v1 = affine(a, v1, sc[1], sh[1], r.y);
+    }
+    *reinterpret_cast<__nv_bfloat162*>(a.out + at) =
+        __floats2bfloat162_rn(v0, v1);
   } else {
     const float v[2] = {v0, v1};
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       if (n + j >= a.Cout) continue;
-      a.out[at + j] = __float2bfloat16_rn(affine(
-          a, v[j], sc[j], sh[j], a.res ? wide(a.res[at + j]) : 0.f));
+      float o = v[j];
+      if constexpr (EPI == Epi::kAffine)
+        o = affine(a, o, sc[j], sh[j], a.res ? wide(a.res[at + j]) : 0.f);
+      a.out[at + j] = __float2bfloat16_rn(o);
     }
   }
 }
@@ -676,12 +673,28 @@ conv_affine_bf16_kernel(const ArgsT<bf16> a) {
   conv_ranges<BN, VEC, Epi::kAffine, bf16>(a);
 }
 
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
+conv3x3_bf16_kernel(const ArgsT<bf16> a) {
+  conv_ranges<BN, VEC, Epi::kNone, bf16>(a);
+}
+
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
+conv_stats_bf16_kernel(const ArgsT<bf16> a) {
+  conv_ranges<BN, VEC, Epi::kStats, bf16>(a);
+}
+
 // The main kernel of an epilogue and storage type.
 template <int BN, bool VEC, Epi EPI, typename T = float>
 auto main_kernel() {
   if constexpr (!std::is_same_v<T, float>) {
-    static_assert(EPI == Epi::kAffine, "bf16 has the affine instance only");
-    return conv_affine_bf16_kernel<BN, VEC>;
+    if constexpr (EPI == Epi::kNone)
+      return conv3x3_bf16_kernel<BN, VEC>;
+    else if constexpr (EPI == Epi::kStats)
+      return conv_stats_bf16_kernel<BN, VEC>;
+    else
+      return conv_affine_bf16_kernel<BN, VEC>;
   } else if constexpr (EPI == Epi::kNone) {
     return conv3x3_tc_kernel<BN, VEC>;
   } else if constexpr (EPI == Epi::kStats) {
@@ -843,16 +856,24 @@ conv_affine_bf16_reduce_kernel(const ArgsT<bf16> a) {
   reduce_cut<BN, VEC, Epi::kAffine, bf16>(a);
 }
 
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(256)
+conv3x3_bf16_reduce_kernel(const ArgsT<bf16> a) {
+  reduce_cut<BN, VEC, Epi::kNone, bf16>(a);
+}
+
 // conv_stats' cut tiles: block blockIdx.x finds the tile cut at the start
 // of range blockIdx.x + 1 (cut_tile), sums its slots in range order as
 // conv3x3_reduce_kernel does (a slot at a time, each thread its RPT rows
 // of one 4-column piece), writes z, and sums each column's finished
 // values over the rows < M in a fixed order (a thread its rows rg, rg +
 // RG, ... in turn, then the RG row groups in order through shared
-// memory) into the tile's row of tstats.
-template <int BN, bool VEC>
+// memory) into the tile's row of tstats.  bf16: the sums are of the fp32
+// values summed from the slots, before z is rounded at its store, as a
+// whole tile's are of its fp32 accumulator.
+template <int BN, bool VEC, typename T = float>
 __global__ void __launch_bounds__(1024)
-conv_stats_cut_kernel(const Args a) {
+conv_stats_cut_kernel(const ArgsT<T> a) {
   constexpr int CQ = BN / 4;        // 4-column pieces of a row
   constexpr int RG = 1024 / CQ;     // row groups: 32 (BN 128), 64 (BN 64)
   constexpr int RPT = BM / RG;      // rows a thread: 4 or 2
@@ -984,18 +1005,21 @@ void launch(const ArgsT<T>& a, cudaStream_t s) {
   const auto kernel = main_kernel<BN, VEC, EPI, T>();
   kernel<<<(unsigned)a.ranges, kThreads, sizeof(Ring<BN, T>), s>>>(a);
   if (a.ranges == 1) return;
-  if constexpr (!std::is_same_v<T, float>) {
-    const dim3 grid(BM * BN / 4 / 256, (unsigned)(a.ranges - 1));
-    conv_affine_bf16_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
-  } else if constexpr (EPI == Epi::kStats) {
-    conv_stats_cut_kernel<BN, VEC>
+  if constexpr (EPI == Epi::kStats) {
+    conv_stats_cut_kernel<BN, VEC, T>
         <<<(unsigned)(a.ranges - 1), 1024, 0, s>>>(a);
   } else {
     const dim3 grid(BM * BN / 4 / 256, (unsigned)(a.ranges - 1));
-    if constexpr (EPI == Epi::kNone)
+    if constexpr (!std::is_same_v<T, float>) {
+      if constexpr (EPI == Epi::kNone)
+        conv3x3_bf16_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
+      else
+        conv_affine_bf16_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
+    } else if constexpr (EPI == Epi::kNone) {
       conv3x3_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
-    else
+    } else {
       conv_affine_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
+    }
   }
 }
 
@@ -1036,6 +1060,26 @@ bool plan_args(ArgsT<T>& a, const void* x, const void* w, void* part,
   a.total = tiles * a.nch;
   a.ranges = ranges;
   return ranges <= a.total && ranges <= 65536;
+}
+
+// conv_stats of storage type T: the main kernel and the cut tiles' into
+// tstats, then their sum into stats.
+template <typename T>
+int conv_stats_any(const void* x, const void* w, void* part, void* z,
+                   void* tstats, void* stats, int N, int H, int W, int C,
+                   int Cout, int bn, int ranges, int vec, void* stream) {
+  ArgsT<T> a;
+  if (!plan_args(a, x, w, part, z, N, H, W, C, Cout, bn, ranges))
+    return (int)cudaErrorInvalidValue;
+  a.tstats = static_cast<float*>(tstats);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_any<Epi::kStats, T>(a, bn, vec, s);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = (a.M + BM - 1) / BM, cols = 2 * Cout;
+  conv_stats_sum_kernel<<<(unsigned)((cols + 31) / 32), dim3(32, 32), 0,
+                          s>>>(a.tstats, static_cast<float*>(stats), rows,
+                               cols);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1085,18 +1129,8 @@ extern "C" int mxt_conv_stats_tc_f32(const void* x, const void* w,
                                      void* stats, int N, int H, int W,
                                      int C, int Cout, int bn, int ranges,
                                      int vec, void* stream) {
-  Args a;
-  if (!plan_args(a, x, w, part, z, N, H, W, C, Cout, bn, ranges))
-    return (int)cudaErrorInvalidValue;
-  a.tstats = static_cast<float*>(tstats);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_any<Epi::kStats>(a, bn, vec, s);
-  if (err != cudaSuccess) return (int)err;
-  const int rows = (a.M + BM - 1) / BM, cols = 2 * Cout;
-  conv_stats_sum_kernel<<<(unsigned)((cols + 31) / 32), dim3(32, 32), 0,
-                          s>>>(a.tstats, static_cast<float*>(stats), rows,
-                               cols);
-  return (int)cudaGetLastError();
+  return conv_stats_any<float>(x, w, part, z, tstats, stats, N, H, W, C,
+                               Cout, bn, ranges, vec, stream);
 }
 
 // conv_affine: out = act(z * scale + shift (+ res)) with z as
@@ -1159,4 +1193,46 @@ extern "C" int mxt_conv_affine_bf16(const void* x, const void* w,
   a.relu = relu;
   return (int)launch_any<Epi::kAffine, bf16>(
       a, bn, vec, static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of conv3x3_bf16_kernel<bn, vec> that fit an SM of the current
+// device, into *out.
+extern "C" int mxt_conv3x3_bf16_blocks_per_sm(int bn, int vec, int* out) {
+  if (bn != 64 && bn != 128) return (int)cudaErrorInvalidValue;
+  return (int)prepare_any<Epi::kNone, bf16>(bn, vec, out);
+}
+
+// The same for conv_stats_bf16_kernel<bn, vec>.
+extern "C" int mxt_conv_stats_bf16_blocks_per_sm(int bn, int vec, int* out) {
+  if (bn != 64 && bn != 128) return (int)cudaErrorInvalidValue;
+  return (int)prepare_any<Epi::kStats, bf16>(bn, vec, out);
+}
+
+// conv3x3 on bf16: x, w and out bf16, everything else as
+// mxt_conv3x3_tc_f32; each output is the fp32 sum of exact bf16 products
+// rounded once to bf16 (also the dgrad, on the rotated bf16 weight).  vec
+// != 0: C % 8 == 0, Cout % 8 == 0 and 16-byte aligned x, w, out.  The plan
+// comes from mxt_conv3x3_bf16_blocks_per_sm.
+extern "C" int mxt_conv3x3_tc_bf16(const void* x, const void* w, void* part,
+                                   void* out, int N, int H, int W, int C,
+                                   int Cout, int bn, int ranges, int vec,
+                                   void* stream) {
+  ArgsT<bf16> a;
+  if (!plan_args(a, x, w, part, out, N, H, W, C, Cout, bn, ranges))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_any<Epi::kNone, bf16>(a, bn, vec,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+// conv_stats on bf16: x, w and z bf16; tstats and stats fp32, the sums of
+// the fp32 accumulator before z is rounded (as _conv_stats_kernel sums
+// its f32 MXU accumulator).  vec as mxt_conv3x3_tc_bf16; the plan comes
+// from mxt_conv_stats_bf16_blocks_per_sm.
+extern "C" int mxt_conv_stats_tc_bf16(const void* x, const void* w,
+                                      void* part, void* z, void* tstats,
+                                      void* stats, int N, int H, int W,
+                                      int C, int Cout, int bn, int ranges,
+                                      int vec, void* stream) {
+  return conv_stats_any<bf16>(x, w, part, z, tstats, stats, N, H, W, C,
+                              Cout, bn, ranges, vec, stream);
 }

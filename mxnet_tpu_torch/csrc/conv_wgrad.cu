@@ -51,8 +51,31 @@
 //   would need 11 splits at 7x7 (104 MB of partials); the ranges write
 //   about (ranges + tiles) partial tiles, 9-18 MB at batch 64.
 
+//
+// The bf16 instance (the bf16 training slice; `_wgrad_kernel` takes bf16
+// x and dy and accumulates dW in f32, which `_conv_bwd` then casts to the
+// weight's dtype): x and dy bf16, dW fp32, the same ranges, slots and
+// fixed-order reduce.  A 16-byte copy moves 8 halves (C % 8 == 0 and
+// Cout % 8 == 0 for the vector path; otherwise each element on its own,
+// a plain 2-byte load and store, as cp.async has no 2-byte copy), and
+// each 16-pixel step of a chunk is one
+// `mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32` product, exact in fp32.
+// That product wants two consecutive pixels (its k) in one register for
+// A = patches^T and for B = dy alike, while both ring tiles are
+// pixel-major: `ldmatrix.trans` reads them transposed, four 8 x 8
+// matrices a call (rows 272 or 144 bytes apart: 16-byte aligned, and the
+// eight rows of a matrix on distinct banks).  The chains are as long as
+// the fp32 instance's (N*H*W = 401,408 pixels at batch 128 and 56x56), so
+// a chunk's products gather in the run accumulator and are added with
+// IEEE adds as there.  Bound at (128, 56, 56, 64 -> 64): 29.6 GFLOP,
+// 0.0299 ms at the 989 TFLOP/s dense bf16 peak; 103 MB, 0.0307 ms at 3.35
+// TB/s: bytes bind, barely.
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tf32x3.cuh"
 
@@ -66,17 +89,21 @@ constexpr int BM = 128;        // patch columns (k = tap*C + c) a tile
 constexpr int BK = 32;         // pixels a chunk
 constexpr int STAGES = 3;
 constexpr int kThreads = 256;  // 8 warps: 4 along k x 2 along co
-constexpr int LDA = BM + 8;    // ring row strides in floats
+constexpr int LDA = BM + 8;    // ring row strides in elements
 
-template <int BN>
+using bf16 = __nv_bfloat16;
+
+// T: the storage type of x and dy, fp32 or bf16
+template <int BN, typename T = float>
 struct Ring {
-  float a[STAGES][BK][LDA];      // x patches: pixel rows, k contiguous
-  float b[STAGES][BK][BN + 8];   // dy: pixel rows, channels contiguous
+  T a[STAGES][BK][LDA];          // x patches: pixel rows, k contiguous
+  T b[STAGES][BK][BN + 8];       // dy: pixel rows, channels contiguous
 };
 
-struct Args {
-  const float* x;       // (N, H, W, C)
-  const float* dy;      // (N, H, W, Cout)
+template <typename T>
+struct ArgsT {
+  const T* x;           // (N, H, W, C)
+  const T* dy;          // (N, H, W, Cout)
   float* part;          // (tiles, jmax, BM, BN) partial tiles
   long long M;          // N*H*W
   long long nch;        // chunks a tile: ceil(M / BK)
@@ -88,42 +115,53 @@ struct Args {
   int qw, rw;           // BK / W and BK % W: one chunk's step in (h, w)
 };
 
+using Args = ArgsT<float>;
+
 // The range of block b is units [b*total/ranges, (b+1)*total/ranges);
 // unit u lies in range ((u+1)*ranges - 1) / total.
-__device__ __forceinline__ long long range_of(const Args& a, long long u) {
+template <typename T>
+__device__ __forceinline__ long long range_of(const ArgsT<T>& a,
+                                              long long u) {
   return ((u + 1) * a.ranges - 1) / a.total;
 }
 
-// One thread's share of filling a ring stage with one chunk: piece q
-// (k0 + 4q .. +3 of x's patch row, n0 + 4q .. +3 of dy's row) of pixel
-// rows r0 + 8i, i < ROWS.  VEC: C % 4 == 0 and Cout % 4 == 0 (a piece lies
-// in one tap and is wholly in or out), 16-byte aligned bases: one 16-byte
-// copy a piece; otherwise four 4-byte copies, each with its own tap.
-template <int BN, bool VEC>
+// One thread's share of filling a ring stage with one chunk.  A piece is
+// 16 bytes: PW = 4 floats or 8 halves.  Piece q (k0 + PW*q .. of x's
+// patch row, n0 + PW*q .. of dy's row) of pixel rows r0 + RSTEP*i, i <
+// ROWS (fp32: 32 pieces a row, rows 8 apart; bf16: 16 pieces, rows 16
+// apart).  VEC: C % PW == 0 and Cout % PW == 0 (a piece lies in one tap
+// and is wholly in or out), 16-byte aligned bases: one 16-byte copy a
+// piece; otherwise each element on its own, with its own tap (fp32:
+// 4-byte copies; bf16: a plain load and store, which the ring's barriers
+// order like the copies).
+template <int BN, bool VEC, typename T = float>
 struct Loader {
-  static constexpr int NE = VEC ? 1 : 4;   // taps held a piece
-  static constexpr int ROWS = BK / 8;      // pixel rows a thread copies
-  const Args& a;
+  static constexpr int PW = 16 / (int)sizeof(T);
+  static constexpr int QN = BM / PW;           // pieces along a patch row
+  static constexpr int RSTEP = kThreads / QN;  // rows between a thread's
+  static constexpr int NE = VEC ? 1 : PW;      // taps held a piece
+  static constexpr int ROWS = BK / RSTEP;      // pixel rows a thread copies
+  const ArgsT<T>& a;
   long long m;          // first pixel of the next chunk to copy
   long long mend;       // end of the segment's pixels
   int q, r0;
   int nq;               // dy column of the piece
   bool b_on;            // this thread copies a dy piece
-  int h[ROWS], w[ROWS]; // (h, w) of pixel m + r0 + 8i
+  int h[ROWS], w[ROWS]; // (h, w) of pixel m + r0 + RSTEP*i
   int dh[NE], dw[NE];
   long long off[NE];    // x offset of the tap and channel from the pixel's
   bool kin[NE];
 
-  __device__ __forceinline__ Loader(const Args& args, int k0, int n0,
+  __device__ __forceinline__ Loader(const ArgsT<T>& args, int k0, int n0,
                                     long long mbeg, long long mlim)
       : a(args), m(mbeg), mend(mlim) {
-    q = threadIdx.x & 31;
-    r0 = threadIdx.x >> 5;
-    nq = n0 + 4 * q;
-    b_on = 4 * q < BN;
+    q = threadIdx.x % QN;
+    r0 = threadIdx.x / QN;
+    nq = n0 + PW * q;
+    b_on = PW * q < BN;
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
-      const int k = k0 + 4 * q + e;
+      const int k = k0 + PW * q + e;
       kin[e] = k < a.K;
       const int tap = kin[e] ? k / a.C : 0;
       const int c = k - tap * a.C;
@@ -133,41 +171,57 @@ struct Loader {
     }
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      const long long p = mbeg + r0 + 8 * i;
+      const long long p = mbeg + r0 + RSTEP * i;
       w[i] = (int)(p % a.W);
       h[i] = (int)((p / a.W) % a.H);
     }
   }
 
+  // one element of T, or 0, without cp.async (bf16's scalar path)
+  __device__ __forceinline__ static void put(T* dst, const T* src,
+                                             bool ok) {
+    *reinterpret_cast<uint16_t*>(dst) =
+        ok ? *reinterpret_cast<const uint16_t*>(src) : (uint16_t)0;
+  }
+
+  // one element on the scalar path
+  __device__ __forceinline__ static void copy1(T* dst, const T* src,
+                                               bool ok) {
+    if constexpr (sizeof(T) == 4)
+      cp_async4(dst, src, ok);
+    else
+      put(dst, src, ok);
+  }
+
   // copy the next chunk into stage st and step to the one after
-  __device__ __forceinline__ void load(Ring<BN>& s, int st) {
+  __device__ __forceinline__ void load(Ring<BN, T>& s, int st) {
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      const int row = r0 + 8 * i;
+      const int row = r0 + RSTEP * i;
       const long long p = m + row;
       const bool pin = p < mend;
-      float* da = &s.a[st][row][4 * q];
+      T* da = &s.a[st][row][PW * q];
 #pragma unroll
       for (int e = 0; e < NE; ++e) {
         const int ih = h[i] + dh[e], iw = w[i] + dw[e];
         const bool ok = pin && kin[e] && (unsigned)ih < (unsigned)a.H &&
                         (unsigned)iw < (unsigned)a.W;
-        const float* src = ok ? a.x + p * a.C + off[e] : a.x;
+        const T* src = ok ? a.x + p * a.C + off[e] : a.x;
         if constexpr (VEC)
           cp_async16(da, src, ok);
         else
-          cp_async4(da + e, src, ok);
+          copy1(da + e, src, ok);
       }
       if (b_on) {
-        float* db = &s.b[st][row][4 * q];
+        T* db = &s.b[st][row][PW * q];
         if constexpr (VEC) {
           const bool ok = pin && nq < a.Cout;
           cp_async16(db, ok ? a.dy + p * a.Cout + nq : a.dy, ok);
         } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
+          for (int e = 0; e < PW; ++e) {
             const bool ok = pin && nq + e < a.Cout;
-            cp_async4(db + e, ok ? a.dy + p * a.Cout + nq + e : a.dy, ok);
+            copy1(db + e, ok ? a.dy + p * a.Cout + nq + e : a.dy, ok);
           }
         }
       }
@@ -250,10 +304,57 @@ __device__ __forceinline__ void mma_chunk(const Ring<BN>& s, int st,
         acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], run[mi][ni][e]);
 }
 
-template <int BN, bool VEC>
-__global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
-conv_wgrad_kernel(const Args a) {
-  Ring<BN>& s = *reinterpret_cast<Ring<BN>*>(mxt_wgrad_smem);
+// The bf16 instance of mma_chunk: the chunk's two 16-pixel steps, each
+// one bf16 product a fragment pair, gathered in the run accumulator and
+// added with IEEE adds.  Lane l reads row l % 8 of matrix l / 8 of each
+// ldmatrix.trans: A's matrices are (pixels ks .. + 7, k rows r .. + 7),
+// (ks .., r + 8 ..), (ks + 8 .., r ..), (ks + 8 .., r + 8 ..), its four
+// registers in the fragment's order; B's are (ks .., channels of n-step
+// j), (ks + 8 .., j), (ks .., j + 1), (ks + 8 .., j + 1): two fragments.
+template <int BN>
+__device__ __forceinline__ void mma_chunk(const Ring<BN, bf16>& s, int st,
+                                          int wk, int wn, int g, int t,
+                                          float (&acc)[2][BN / 16][4]) {
+  float run[2][BN / 16][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < BN / 16; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) run[mi][ni][e] = 0.f;
+  const int lane = g * 4 + t;
+  const int mat = lane >> 3, rr = lane & 7;
+#pragma unroll
+  for (int ks = 0; ks < BK; ks += 16) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      ldsm_x4_trans(af[mi], &s.a[st][ks + rr + 8 * (mat >> 1)]
+                                [wk * 32 + mi * 16 + 8 * (mat & 1)]);
+#pragma unroll
+    for (int j = 0; j < BN / 16; j += 2) {
+      uint32_t bf[4];
+      ldsm_x4_trans(bf, &s.b[st][ks + rr + 8 * (mat & 1)]
+                            [wn * (BN / 2) + (j + (mat >> 1)) * 8]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        mma_bf16(run[mi][j], af[mi], bf);
+        mma_bf16(run[mi][j + 1], af[mi], bf + 2);
+      }
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < BN / 16; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], run[mi][ni][e]);
+}
+
+template <int BN, bool VEC, typename T>
+__device__ __forceinline__ void wgrad_ranges(const ArgsT<T>& a) {
+  Ring<BN, T>& s = *reinterpret_cast<Ring<BN, T>*>(mxt_wgrad_smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wk = warp >> 1, wn = warp & 1;   // 32-row, BN/2-column share
   const int g = lane >> 2, t = lane & 3;     // mma fragment coordinates
@@ -279,7 +380,7 @@ conv_wgrad_kernel(const Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
-    Loader<BN, VEC> ld(a, k0, n0, c0 * BK, mlim);
+    Loader<BN, VEC, T> ld(a, k0, n0, c0 * BK, mlim);
     __syncthreads();   // every warp is done with the ring's last segment
 #pragma unroll
     for (int st = 0; st < STAGES - 1; ++st) {
@@ -321,11 +422,31 @@ conv_wgrad_kernel(const Args a) {
   }
 }
 
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
+conv_wgrad_kernel(const Args a) {
+  wgrad_ranges<BN, VEC>(a);
+}
+
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
+conv_wgrad_bf16_kernel(const ArgsT<bf16> a) {
+  wgrad_ranges<BN, VEC>(a);
+}
+
+template <int BN, bool VEC, typename T>
+auto main_kernel() {
+  if constexpr (std::is_same_v<T, float>)
+    return conv_wgrad_kernel<BN, VEC>;
+  else
+    return conv_wgrad_bf16_kernel<BN, VEC>;
+}
+
 // dW of tile blockIdx.y: its slots summed in slot order, 4 values a
 // thread.  VEC: Cout % 4 == 0 and dw 16-byte aligned.
-template <int BN, bool VEC>
+template <int BN, bool VEC, typename T>
 __global__ void __launch_bounds__(256)
-wgrad_reduce_kernel(const Args a, float* __restrict__ dw) {
+wgrad_reduce_kernel(const ArgsT<T> a, float* __restrict__ dw) {
   const long long tile = blockIdx.y;
   const int e = (blockIdx.x * 256 + threadIdx.x) * 4;
   if (e >= BM * BN) return;
@@ -352,29 +473,66 @@ wgrad_reduce_kernel(const Args a, float* __restrict__ dw) {
   }
 }
 
-template <int BN, bool VEC>
+template <int BN, bool VEC, typename T>
 cudaError_t prepare(int* per_sm) {
-  const int bytes = (int)sizeof(Ring<BN>);
+  const int bytes = (int)sizeof(Ring<BN, T>);
+  const auto kernel = main_kernel<BN, VEC, T>();
   cudaError_t err = cudaFuncSetAttribute(
-      conv_wgrad_kernel<BN, VEC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess || !per_sm) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, conv_wgrad_kernel<BN, VEC>, kThreads, bytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                       kThreads, bytes);
 }
 
+template <typename T>
 cudaError_t prepare_any(int bn, int vec, int* per_sm) {
-  if (bn == 64) return vec ? prepare<64, true>(per_sm)
-                           : prepare<64, false>(per_sm);
-  return vec ? prepare<128, true>(per_sm) : prepare<128, false>(per_sm);
+  if (bn == 64) return vec ? prepare<64, true, T>(per_sm)
+                           : prepare<64, false, T>(per_sm);
+  return vec ? prepare<128, true, T>(per_sm)
+             : prepare<128, false, T>(per_sm);
 }
 
-template <int BN, bool VEC>
-void launch(const Args& a, float* dw, cudaStream_t s) {
-  conv_wgrad_kernel<BN, VEC>
-      <<<(unsigned)a.ranges, kThreads, sizeof(Ring<BN>), s>>>(a);
+template <int BN, bool VEC, typename T>
+void launch(const ArgsT<T>& a, float* dw, cudaStream_t s) {
+  main_kernel<BN, VEC, T>()
+      <<<(unsigned)a.ranges, kThreads, sizeof(Ring<BN, T>), s>>>(a);
   const dim3 grid(BM * BN / 4 / 256, (unsigned)(a.total / a.nch));
-  wgrad_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a, dw);
+  wgrad_reduce_kernel<BN, VEC, T><<<grid, 256, 0, s>>>(a, dw);
+}
+
+// conv_wgrad of storage type T (x, dy); dw fp32.
+template <typename T>
+int wgrad_any(const void* x, const void* dy, void* part, void* dw, int N,
+              int H, int W, int C, int Cout, int bn, int ranges, int jmax,
+              int vec, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Cout <= 0 || ranges <= 0 ||
+      jmax <= 0 || (bn != 64 && bn != 128) || 9LL * C > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  ArgsT<T> a;
+  a.x = static_cast<const T*>(x);
+  a.dy = static_cast<const T*>(dy);
+  a.part = static_cast<float*>(part);
+  a.M = (long long)N * H * W;
+  a.H = H; a.W = W; a.C = C; a.Cout = Cout; a.K = 9 * C;
+  a.tiles_n = (Cout + bn - 1) / bn;
+  const long long tiles = (long long)((a.K + BM - 1) / BM) * a.tiles_n;
+  a.nch = (a.M + BK - 1) / BK;
+  a.total = tiles * a.nch;
+  a.ranges = ranges;
+  a.jmax = jmax;
+  a.qw = BK / W;
+  a.rw = BK % W;
+  if (tiles > 65535 || ranges > a.total) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_any<T>(bn, vec, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(dw);
+  if (bn == 64) {
+    if (vec) launch<64, true>(a, o, s); else launch<64, false>(a, o, s);
+  } else {
+    if (vec) launch<128, true>(a, o, s); else launch<128, false>(a, o, s);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -383,7 +541,7 @@ void launch(const Args& a, float* dw, cudaStream_t s) {
 // device, into *out (the host cuts the work into 132 x this many ranges).
 extern "C" int mxt_conv_wgrad_blocks_per_sm(int bn, int vec, int* out) {
   if (bn != 64 && bn != 128) return (int)cudaErrorInvalidValue;
-  return (int)prepare_any(bn, vec, out);
+  return (int)prepare_any<float>(bn, vec, out);
 }
 
 // x (N, H, W, C), dy (N, H, W, Cout), dw (3, 3, C, Cout) == (9C, Cout),
@@ -397,32 +555,25 @@ extern "C" int mxt_conv_wgrad_f32(const void* x, const void* dy, void* part,
                                   void* dw, int N, int H, int W, int C,
                                   int Cout, int bn, int ranges, int jmax,
                                   int vec, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || Cout <= 0 || ranges <= 0 ||
-      jmax <= 0 || (bn != 64 && bn != 128) || 9LL * C > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  a.x = static_cast<const float*>(x);
-  a.dy = static_cast<const float*>(dy);
-  a.part = static_cast<float*>(part);
-  a.M = (long long)N * H * W;
-  a.H = H; a.W = W; a.C = C; a.Cout = Cout; a.K = 9 * C;
-  a.tiles_n = (Cout + bn - 1) / bn;
-  const long long tiles = (long long)((a.K + BM - 1) / BM) * a.tiles_n;
-  a.nch = (a.M + BK - 1) / BK;
-  a.total = tiles * a.nch;
-  a.ranges = ranges;
-  a.jmax = jmax;
-  a.qw = BK / W;
-  a.rw = BK % W;
-  if (tiles > 65535 || ranges > a.total) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_any(bn, vec, nullptr);
-  if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(dw);
-  if (bn == 64) {
-    if (vec) launch<64, true>(a, o, s); else launch<64, false>(a, o, s);
-  } else {
-    if (vec) launch<128, true>(a, o, s); else launch<128, false>(a, o, s);
-  }
-  return (int)cudaGetLastError();
+  return wgrad_any<float>(x, dy, part, dw, N, H, W, C, Cout, bn, ranges,
+                          jmax, vec, stream);
+}
+
+// The same for conv_wgrad_bf16_kernel<bn, vec>.
+extern "C" int mxt_conv_wgrad_bf16_blocks_per_sm(int bn, int vec, int* out) {
+  if (bn != 64 && bn != 128) return (int)cudaErrorInvalidValue;
+  return (int)prepare_any<bf16>(bn, vec, out);
+}
+
+// conv_wgrad on bf16 x and dy: dw fp32 (the caller casts it to the
+// weight's dtype), everything else as mxt_conv_wgrad_f32; vec != 0: C % 8
+// == 0, Cout % 8 == 0 and 16-byte aligned x, dy, dw.  The plan comes from
+// mxt_conv_wgrad_bf16_blocks_per_sm.
+extern "C" int mxt_conv_wgrad_bf16(const void* x, const void* dy,
+                                   void* part, void* dw, int N, int H,
+                                   int W, int C, int Cout, int bn,
+                                   int ranges, int jmax, int vec,
+                                   void* stream) {
+  return wgrad_any<bf16>(x, dy, part, dw, N, H, W, C, Cout, bn, ranges,
+                         jmax, vec, stream);
 }

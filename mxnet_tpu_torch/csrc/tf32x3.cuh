@@ -1,7 +1,8 @@
-// Device helpers of the 3xTF32 tensor-core kernels (conv_wgrad.cu,
+// Device helpers of the tensor-core kernels (conv_wgrad.cu,
 // conv3x3_tc.cu, flash_fwd_tc.cuh): asynchronous copies into shared
-// memory, the hi/lo split of an fp32 value into TF32 parts, and the
-// m16n8k8 TF32 product.
+// memory, the hi/lo split of an fp32 value into TF32 parts, the m16n8k8
+// TF32 product, and, for the bf16 instances of the conv kernels, the
+// m16n8k16 bf16 product and the transposing ldmatrix.
 //
 // 3xTF32 ("fast fp32"): every fp32 operand v is split into TF32 hi and lo,
 // and each product is lo*hi' + hi*lo' + hi*hi', small terms first.  The
@@ -60,6 +61,34 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a . b on one 16 x 8 x 16 bf16 tile with fp32 sums: a the row-major
+// 16 x 16 A fragment (lane (g, t) holds (g, 2t..2t+1), (g + 8, 2t..),
+// (g, 2t + 8..), (g + 8, 2t + 8..), two halves a register, the lower k in
+// the lower half), b the column-major 16 x 8 B fragment ((2t..2t+1, g),
+// (2t + 8..2t + 9, g)), c as the TF32 product's.  The products of bf16
+// values are exact in fp32.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 matrices of 2-byte values from shared memory, transposed:
+// lane l gives the address of row l % 8 of matrix l / 8 (8 contiguous
+// values, 16-byte aligned), and register j of lane (g, t) = (l / 4, l % 4)
+// receives rows 2t and 2t + 1 of column g of matrix j, row 2t in the
+// lower half.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* row) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
 }
 
 // c += the three TF32 products of the split operands, small terms first

@@ -20,7 +20,11 @@ here) is read back by its bits.
 floating tensors in place: each keeps its object (``.data`` is
 replaced), so an optimizer or Trainer that holds it keeps working; a
 deferred one takes the dtype when it materializes.  Integer tensors (the
-int8 twins' weights) keep theirs.
+int8 twins' weights) keep theirs.  Replacing ``.data`` (``cast``,
+``reset_ctx``) gives a tensor new storage, which a captured CUDA graph
+does not follow: each such call advances :func:`storage_epoch`, and a
+fused training step that sees it advance checks its tensors' storage
+and, where it moved, drops its graphs and captures anew.
 """
 from __future__ import annotations
 
@@ -31,7 +35,21 @@ import torch
 from torch.nn.parameter import UninitializedTensorMixin
 
 __all__ = ["DeferredInitializationError", "ParamSpec", "ParameterDict",
-           "is_initialized", "load_numpy", "as_dtype", "dtype_name"]
+           "is_initialized", "load_numpy", "as_dtype", "dtype_name",
+           "storage_epoch"]
+
+_epoch = 0
+
+
+def storage_epoch() -> int:
+    """How many ``cast`` / ``reset_ctx`` calls gave some tensor new
+    storage in this process."""
+    return _epoch
+
+
+def _storage_moved():
+    global _epoch
+    _epoch += 1
 
 
 class DeferredInitializationError(Exception):
@@ -110,6 +128,7 @@ class ParameterDict(OrderedDict):
         integer tensors stay as they are."""
         dt = as_dtype(dtype)
         net = self._owner()
+        moved = False
         with torch.no_grad():
             for k, t in self.items():
                 if not is_initialized(t):
@@ -118,8 +137,11 @@ class ParameterDict(OrderedDict):
                         spec.dtype = dt
                 elif t.is_floating_point() and t.dtype != dt:
                     t.data = t.data.to(dt)
+                    moved = True
                     if t.grad is not None:
                         t.grad = t.grad.to(dt)
+        if moved:
+            _storage_moved()
 
     def zero_grad(self):
         """≙ ``zero_grad``: every gradient that exists set to 0 in
@@ -132,12 +154,16 @@ class ParameterDict(OrderedDict):
         """≙ ``reset_ctx``: every initialized tensor (and its gradient)
         moved to device ``ctx`` in place, keeping its object."""
         dev = torch.device(ctx)
+        moved = False
         with torch.no_grad():
             for t in self.values():
                 if is_initialized(t) and t.device != dev:
                     t.data = t.data.to(dev)
+                    moved = True
                     if t.grad is not None:
                         t.grad = t.grad.to(dev)
+        if moved:
+            _storage_moved()
 
 
 def _spec(net, name):

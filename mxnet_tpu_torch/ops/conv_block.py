@@ -17,6 +17,15 @@ Function that trains through them (≙ ``mxnet_tpu/ops/pallas_block.py``).
   ``_fused_fwd``, ``_fused_bwd``, ``_conv_bwd``, ``_sums``): training
   (batch statistics) and frozen forward, and their backward.
 
+Every kernel has an fp32 and a bf16 instance (the reference's kernels
+take any input dtype and accumulate in f32): bf16 operands are exact
+bf16 products summed in fp32, each output rounded once to bf16; the
+statistics, the affine's scale and shift and dW stay fp32.  fp16 raises
+``TypeError`` on the card (its instances are Queue 1 item 3c); the plain
+versions take any float dtype, a half one widened to fp32 and the result
+rounded once, as the bf16 instances compute it.  ``launches`` counts a
+wrapper's launches, ``launches_by_dtype`` each instance's.
+
 See the notes at the top of the ``.cu`` files for bounds and designs.
 Each wrapper launches its kernel for CUDA tensors and raises on anything
 the kernel does not take; CPU tensors take the ``*_plain`` version.
@@ -48,6 +57,36 @@ __all__ = ["conv_affine", "conv_affine_plain", "fold", "conv3x3",
            "residual_block_fused"]
 
 _count_mu = threading.Lock()
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def _wide(t):
+    """A half tensor widened to fp32; any other as it is."""
+    return t.float() if t.dtype in _HALF else t
+
+
+def _count(fn, dtype):
+    """One launch of ``fn``'s ``dtype`` instance."""
+    with _count_mu:
+        fn.launches += 1
+        fn.launches_by_dtype[dtype] += 1
+
+
+def _counted(fn):
+    """Give a wrapper its counts: every launch, and each instance's."""
+    fn.launches = 0
+    fn.launches_by_dtype = {torch.float32: 0, torch.bfloat16: 0}
+    return fn
+
+
+def _card_half(what, x):
+    """True for a bf16 tensor, False for an fp32 one: the two instances
+    of the kernel; raise on any other dtype (fp16: Queue 1 item 3c)."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: x must be float32 or bfloat16, got "
+                        f"{x.dtype} (the fp16 instances of the conv "
+                        f"kernels are ROADMAP Queue 1 item 3c)")
+    return x.dtype == torch.bfloat16
 
 
 def fold(gamma, beta, mean, var, eps: float = 1e-5):
@@ -65,7 +104,7 @@ def conv_affine_plain(x, w, gamma, beta, mean, var, residual=None,
     operands): everything widened to fp32, where the products of bf16
     values are exact, the conv in fp32 (the card's TF32 switched off by
     ``context.exact_fp32``), the same fold, and one rounding to bf16."""
-    if x.dtype == torch.bfloat16:
+    if x.dtype in _HALF:
         out = conv_affine_plain(
             x.float(), w.float(), gamma, beta, mean, var,
             None if residual is None else residual.float(), eps, relu)
@@ -139,7 +178,11 @@ def _stream(dev):
 
 def conv3x3_plain(x, w):
     """Plain version of ``conv3x3``: the 3×3/s1/p1 conv of NHWC ``x`` with
-    HWIO ``w``, contiguous NHWC as the kernel writes it."""
+    HWIO ``w``, contiguous NHWC as the kernel writes it; half operands
+    widened to fp32 (their products exact there), the fp32 conv rounded
+    once to x's dtype."""
+    if x.dtype in _HALF:
+        return conv3x3_plain(x.float(), w.float()).to(x.dtype)
     return F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                     padding=1).permute(0, 2, 3, 1).contiguous()
 
@@ -198,38 +241,41 @@ def _per_sm(entry, index, bn, vec):
     return out.value
 
 
+@_counted
 def conv3x3(x, w):
     """3×3/s1/p1 conv with no epilogue, ``x`` (N, H, W, C) and ``w``
-    (3, 3, C, Cout) contiguous fp32: an implicit GEMM on the tensor cores
-    in 3×TF32 (fp32-accurate), its work cut into one wave of ranges
-    (:func:`conv3x3_splits`) whose cut tiles are summed in a fixed order.
-    CUDA tensors launch ``csrc/conv3x3_tc.cu``; CPU tensors take
+    (3, 3, C, Cout) contiguous, both fp32 or both bf16: an implicit GEMM
+    on the tensor cores (fp32: 3×TF32, fp32-accurate; bf16: one bf16
+    product a 16-deep step, fp32 sums, one rounding at the store), its
+    work cut into one wave of ranges (:func:`conv3x3_splits`, at the
+    instance's own occupancy) whose cut tiles are summed in a fixed
+    order.  CUDA tensors launch ``csrc/conv3x3_tc.cu``; CPU tensors take
     :func:`conv3x3_plain`."""
     if not _on_card("conv3x3", x):
         return conv3x3_plain(x, w)
-    N, H, W, C, Cout = _check(x, w, (), None, "conv3x3")
+    half = _card_half("conv3x3", x)
+    N, H, W, C, Cout = _check(x, w, (), None, "conv3x3", x.dtype)
     out = torch.empty((N, H, W, Cout), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
-    vec = int(C % 4 == 0 and Cout % 4 == 0 and _aligned(x, w, out))
+    wide = 8 if half else 4             # channels a 16-byte copy moves
+    vec = int(C % wide == 0 and Cout % wide == 0 and _aligned(x, w, out))
     index = x.device.index
     plan = conv3x3_splits(N * H * W, 9 * C, Cout, _sm_count(index),
-                          _per_sm("mxt_conv3x3_tc_blocks_per_sm", index,
-                                  wgrad_tile_cols(Cout), vec))
+                          _per_sm("mxt_conv3x3_bf16_blocks_per_sm" if half
+                                  else "mxt_conv3x3_tc_blocks_per_sm",
+                                  index, wgrad_tile_cols(Cout), vec))
     part = torch.empty((2 * plan.ranges, CONV_ROWS, plan.bn),
                        device=x.device, dtype=torch.float32)
     lib = _build.lib()
+    entry = lib.mxt_conv3x3_tc_bf16 if half else lib.mxt_conv3x3_tc_f32
     with torch.cuda.device(x.device):
-        err = lib.mxt_conv3x3_tc_f32(
+        err = entry(
             x.data_ptr(), w.data_ptr(), part.data_ptr(), out.data_ptr(),
             N, H, W, C, Cout, plan.bn, plan.ranges, vec, _stream(x.device))
     _build.check(err, "conv3x3")
-    with _count_mu:
-        conv3x3.launches += 1
+    _count(conv3x3, x.dtype)
     return out
-
-
-conv3x3.launches = 0
 
 
 def rotate(w):
@@ -239,13 +285,19 @@ def rotate(w):
 
 
 def conv3x3_dgrad(w, dy):
-    """dx = ``conv3x3(dy, rotate(w))`` (≙ ``pallas_block.conv3x3_dgrad``)."""
-    return conv3x3(dy, rotate(w))
+    """dx = ``conv3x3(dy, rotate(w))`` (≙ ``pallas_block.conv3x3_dgrad``,
+    which casts the rotated weight to dy's dtype)."""
+    return conv3x3(dy, rotate(w).to(dy.dtype))
 
 
 def conv_stats_plain(x, w):
     """Plain version of ``conv_stats``: ``(z, Σz, Σz²)``, the sums per
-    output channel over every pixel."""
+    output channel over every pixel.  Half operands: the conv and the
+    sums in fp32 from the widened operands, then z rounded once to x's
+    dtype (the sums are of z before its rounding)."""
+    if x.dtype in _HALF:
+        z, s1, s2 = conv_stats_plain(x.float(), w.float())
+        return z.to(x.dtype), s1, s2
     z = conv3x3_plain(x, w)
     return z, z.sum(dim=(0, 1, 2)), (z * z).sum(dim=(0, 1, 2))
 
@@ -290,49 +342,52 @@ def tile_writers(plan):
     return writes
 
 
+@_counted
 def conv_stats(x, w):
     """``(z, Σz, Σz²)``: the conv of :func:`conv3x3`, on the same
     tensor-core kernel body with a statistics epilogue, and its
-    per-channel sums (f32, (Cout,) each) read off the accumulator: per
-    128-pixel tile in a fixed order, then over the tiles in a fixed order,
-    so the three are the same on every run (:func:`tile_writers` names the
-    kernel that sums each tile).  Its plan is
-    :func:`conv3x3_splits` at the occupancy of the statistics instance;
-    where that equals ``conv3x3``'s plan, z is ``conv3x3(x, w)`` bit for
-    bit.  CPU tensors take :func:`conv_stats_plain`."""
+    per-channel sums (f32, (Cout,) each) read off the fp32 accumulator
+    (bf16: before z is rounded to bf16): per 128-pixel tile in a fixed
+    order, then over the tiles in a fixed order, so the three are the
+    same on every run (:func:`tile_writers` names the kernel that sums
+    each tile).  Its plan is :func:`conv3x3_splits` at the occupancy of
+    the statistics instance; where that equals ``conv3x3``'s plan, z is
+    ``conv3x3(x, w)`` bit for bit.  CPU tensors take
+    :func:`conv_stats_plain`."""
     if not _on_card("conv_stats", x):
         return conv_stats_plain(x, w)
-    N, H, W, C, Cout = _check(x, w, (), None, "conv_stats")
+    half = _card_half("conv_stats", x)
+    N, H, W, C, Cout = _check(x, w, (), None, "conv_stats", x.dtype)
     z = torch.empty((N, H, W, Cout), device=x.device, dtype=x.dtype)
     if z.numel() == 0:
         stats = torch.zeros((2, Cout), device=x.device, dtype=torch.float32)
         return z, stats[0], stats[1]
-    vec = int(C % 4 == 0 and Cout % 4 == 0 and _aligned(x, w, z))
+    wide = 8 if half else 4
+    vec = int(C % wide == 0 and Cout % wide == 0 and _aligned(x, w, z))
     index = x.device.index
     M = N * H * W
     plan = conv3x3_splits(M, 9 * C, Cout, _sm_count(index),
-                          _per_sm("mxt_conv_stats_tc_blocks_per_sm", index,
-                                  wgrad_tile_cols(Cout), vec))
+                          _per_sm("mxt_conv_stats_bf16_blocks_per_sm" if half
+                                  else "mxt_conv_stats_tc_blocks_per_sm",
+                                  index, wgrad_tile_cols(Cout), vec))
     part = torch.empty((2 * plan.ranges, CONV_ROWS, plan.bn),
                        device=x.device, dtype=torch.float32)
     tstats = torch.empty((-(-M // CONV_ROWS), 2, Cout), device=x.device,
                          dtype=torch.float32)
     stats = torch.empty((2, Cout), device=x.device, dtype=torch.float32)
     lib = _build.lib()
+    entry = lib.mxt_conv_stats_tc_bf16 if half else lib.mxt_conv_stats_tc_f32
     with torch.cuda.device(x.device):
-        err = lib.mxt_conv_stats_tc_f32(
+        err = entry(
             x.data_ptr(), w.data_ptr(), part.data_ptr(), z.data_ptr(),
             tstats.data_ptr(), stats.data_ptr(), N, H, W, C, Cout, plan.bn,
             plan.ranges, vec, _stream(x.device))
     _build.check(err, "conv_stats")
-    with _count_mu:
-        conv_stats.launches += 1
+    _count(conv_stats, x.dtype)
     return z, stats[0], stats[1]
 
 
-conv_stats.launches = 0
-
-
+@_counted
 def conv_affine(x, w, gamma, beta, mean, var, residual=None,
                 eps: float = 1e-5, relu: bool = True):
     """``act(conv3x3(x, w)·scale + shift (+ residual))`` with the BN
@@ -346,17 +401,13 @@ def conv_affine(x, w, gamma, beta, mean, var, residual=None,
     bf16: the same loop's bf16 instance (one bf16 ``mma.sync`` product a
     16-deep step, fp32 sums, the fold and the residual in fp32, one
     rounding at the store), planned at its own occupancy.  fp16 raises
-    ``TypeError``.  CUDA tensors launch ``csrc/conv3x3_tc.cu``; CPU
+    ``TypeError`` (Queue 1 item 3c).  CUDA tensors launch ``csrc/conv3x3_tc.cu``; CPU
     tensors take :func:`conv_affine_plain`.  ``launches`` counts every
     launch, ``launches_by_dtype`` each dtype's."""
     if not _on_card("conv_affine", x):
         return conv_affine_plain(x, w, gamma, beta, mean, var, residual,
                                  eps, relu)
-    half = x.dtype == torch.bfloat16
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"conv_affine: x must be float32 or bfloat16, got "
-                        f"{x.dtype} (fp16 comes with the bf16 training "
-                        f"slice, Queue 1 item 3b)")
+    half = _card_half("conv_affine", x)
     vecs = (("gamma", gamma), ("beta", beta), ("mean", mean), ("var", var))
     N, H, W, C, Cout = _check(x, w, vecs, residual, dtype=x.dtype)
     out = torch.empty((N, H, W, Cout), device=x.device, dtype=x.dtype)
@@ -384,69 +435,75 @@ def conv_affine(x, w, gamma, beta, mean, var, residual=None,
             part.data_ptr(), out.data_ptr(), N, H, W, C, Cout, float(eps),
             int(bool(relu)), plan.bn, plan.ranges, vec, _stream(x.device))
     _build.check(err, "conv_affine")
-    with _count_mu:
-        conv_affine.launches += 1
-        conv_affine.launches_by_dtype[x.dtype] += 1
+    _count(conv_affine, x.dtype)
     return out
 
 
-conv_affine.launches = 0
-conv_affine.launches_by_dtype = {torch.float32: 0, torch.bfloat16: 0}
-
-
 def bn_affine_plain(z, scale, shift, residual=None, relu: bool = True):
-    """Plain version of ``bn_affine``."""
+    """Plain version of ``bn_affine``; a half ``z`` (and residual) widened
+    to fp32, the result rounded once to z's dtype."""
+    if z.dtype in _HALF:
+        return bn_affine_plain(
+            z.float(), scale, shift,
+            None if residual is None else residual.float(), relu).to(z.dtype)
     y = z * scale + shift
     if residual is not None:
         y = y + residual
     return torch.relu(y) if relu else y
 
 
+@_counted
 def bn_affine(z, scale, shift, residual=None, relu: bool = True):
     """``act(z·scale + shift (+ residual))`` over the last axis of ``z``
-    (the channels, NHWC), all contiguous fp32, ``scale`` and ``shift``
-    (Cout,).  CUDA tensors launch ``csrc/conv_train.cu``; CPU tensors take
-    :func:`bn_affine_plain`."""
+    (the channels, NHWC): ``z`` and ``residual`` contiguous fp32 or bf16
+    (the arithmetic in fp32, one rounding at a bf16 store), ``scale`` and
+    ``shift`` contiguous fp32 (Cout,).  CUDA tensors launch
+    ``csrc/conv_train.cu``; CPU tensors take :func:`bn_affine_plain`."""
     if not _on_card("bn_affine", z):
         return bn_affine_plain(z, scale, shift, residual, relu)
+    half = _card_half("bn_affine", z)
     if z.dim() < 1:
         raise ValueError("bn_affine: z must have a channel axis")
     Cout = z.shape[-1]
-    named = [("z", z), ("scale", scale), ("shift", shift)]
-    for name, t in named[1:]:
+    vecs = [("scale", scale), ("shift", shift)]
+    for name, t in vecs:
         if tuple(t.shape) != (Cout,):
             raise ValueError(f"bn_affine: {name} must be ({Cout},), got "
                              f"{tuple(t.shape)}")
+    named = [("z", z)]
     if residual is not None:
         if residual.shape != z.shape:
             raise ValueError(f"bn_affine: residual must be "
                              f"{tuple(z.shape)}, got "
                              f"{tuple(residual.shape)}")
         named.append(("residual", residual))
-    _same("bn_affine", z, named)
+    _same("bn_affine", z, named, z.dtype)
+    _same("bn_affine", z, vecs)
     out = torch.empty_like(z)
     if out.numel() == 0:
         return out
-    vec = int(Cout % 4 == 0 and _aligned(out, *(t for _, t in named)))
+    wide = 8 if half else 4
+    vec = int(Cout % wide == 0 and
+              _aligned(out, *(t for _, t in named + vecs)))
     lib = _build.lib()
+    entry = lib.mxt_bn_affine_bf16 if half else lib.mxt_bn_affine_f32
     with torch.cuda.device(z.device):
-        err = lib.mxt_bn_affine_f32(
+        err = entry(
             z.data_ptr(), scale.data_ptr(), shift.data_ptr(),
             residual.data_ptr() if residual is not None else None,
             out.data_ptr(), z.numel(), Cout, int(bool(relu)), vec,
             _stream(z.device))
     _build.check(err, "bn_affine")
-    with _count_mu:
-        bn_affine.launches += 1
+    _count(bn_affine, z.dtype)
     return out
-
-
-bn_affine.launches = 0
 
 
 def conv_wgrad_plain(x, dy):
     """Plain version of ``conv_wgrad``: dW (3, 3, C, Cout) as nine
-    patchesᵀ·dy products over the padded input, tap-major."""
+    patchesᵀ·dy products over the padded input, tap-major; half operands
+    widened to fp32, dW fp32 as the kernel writes it."""
+    if x.dtype in _HALF:
+        return conv_wgrad_plain(x.float(), dy.float())
     _, H, W, C = x.shape
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     taps = [torch.einsum("nhwc,nhwo->co", xp[:, dh:dh + H, dw:dw + W], dy)
@@ -496,47 +553,50 @@ def wgrad_splits(M, K, Cout, sms, per_sm):
                      min(ranges, (chunks - 1) // least + 2))
 
 
+@_counted
 def conv_wgrad(x, dy):
-    """dW (3, 3, C, Cout) of the 3×3/s1/p1 conv from NHWC ``x`` (N, H, W,
-    C) and ``dy`` (N, H, W, Cout), contiguous fp32: patchesᵀ·dy on the
-    tensor cores in 3×TF32 (fp32-accurate), the pixel reduction cut into
-    one wave of ranges whose partial tiles are summed in a fixed order.
-    CUDA tensors launch ``csrc/conv_wgrad.cu``; CPU tensors take
-    :func:`conv_wgrad_plain`."""
+    """dW (3, 3, C, Cout), fp32, of the 3×3/s1/p1 conv from NHWC ``x``
+    (N, H, W, C) and ``dy`` (N, H, W, Cout), contiguous, both fp32 or both
+    bf16: patchesᵀ·dy on the tensor cores (fp32: 3×TF32, fp32-accurate;
+    bf16: one bf16 product a 16-pixel step, fp32 sums), the pixel
+    reduction cut into one wave of ranges whose partial tiles are summed
+    in a fixed order.  The caller casts dW to the weight's dtype, as the
+    reference's ``_conv_bwd`` does.  CUDA tensors launch
+    ``csrc/conv_wgrad.cu``; CPU tensors take :func:`conv_wgrad_plain`."""
     if not _on_card("conv_wgrad", x):
         return conv_wgrad_plain(x, dy)
+    half = _card_half("conv_wgrad", x)
     if x.dim() != 4 or dy.dim() != 4 or tuple(dy.shape[:3]) != \
             tuple(x.shape[:3]):
         raise ValueError(f"conv_wgrad: x (N, H, W, C) and dy (N, H, W, "
                          f"Cout) must share N, H, W; got {tuple(x.shape)} "
                          f"and {tuple(dy.shape)}")
-    _same("conv_wgrad", x, [("x", x), ("dy", dy)])
+    _same("conv_wgrad", x, [("x", x), ("dy", dy)], x.dtype)
     N, H, W, C = x.shape
     Cout = dy.shape[3]
     M = N * H * W
     dw = torch.empty((3, 3, C, Cout), device=x.device, dtype=torch.float32)
     if M == 0 or dw.numel() == 0:
         return dw.zero_()
-    vec = int(C % 4 == 0 and Cout % 4 == 0 and _aligned(x, dy, dw))
+    wide = 8 if half else 4
+    vec = int(C % wide == 0 and Cout % wide == 0 and _aligned(x, dy, dw))
     index = x.device.index
     plan = wgrad_splits(M, 9 * C, Cout, _sm_count(index),
-                        _per_sm("mxt_conv_wgrad_blocks_per_sm", index,
+                        _per_sm("mxt_conv_wgrad_bf16_blocks_per_sm" if half
+                                else "mxt_conv_wgrad_blocks_per_sm", index,
                                 wgrad_tile_cols(Cout), vec))
     part = torch.empty((plan.tiles, plan.jmax, WGRAD_ROWS, plan.bn),
                        device=x.device, dtype=torch.float32)
     lib = _build.lib()
+    entry = lib.mxt_conv_wgrad_bf16 if half else lib.mxt_conv_wgrad_f32
     with torch.cuda.device(x.device):
-        err = lib.mxt_conv_wgrad_f32(
+        err = entry(
             x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
             N, H, W, C, Cout, plan.bn, plan.ranges, plan.jmax, vec,
             _stream(x.device))
     _build.check(err, "conv_wgrad")
-    with _count_mu:
-        conv_wgrad.launches += 1
+    _count(conv_wgrad, x.dtype)
     return dw
-
-
-conv_wgrad.launches = 0
 
 
 # ------------------------------------------------------ the fused block
@@ -545,11 +605,16 @@ class _FusedBlock(torch.autograd.Function):
     Σz, Σz² from ``conv_stats``, BN folded from the batch statistics
     (``var = Σz²/n − μ²``), then ``bn_affine``; returns ``(out, μ, σ²)``.
     Frozen: ``conv_affine`` with the given statistics; returns
-    ``(out,)``.  The backward is the reference's: the ReLU mask, (Σdy,
-    Σdy·x̂) and dz in plain torch, then dx by ``conv3x3`` on the rotated
-    weight and dW by ``conv_wgrad``; frozen mode first recomputes z with
-    ``conv3x3``.  Cotangents of the batch statistics are ignored (they
-    feed the running averages only)."""
+    ``(out,)``.  The backward is the reference's ``_fused_bwd``: the ReLU
+    mask, (Σdy, Σdy·x̂) in fp32 and dz in plain torch, then dx by
+    ``conv3x3`` on the rotated weight and dW by ``conv_wgrad``, each cast
+    to its input's dtype; frozen mode first recomputes z with
+    ``conv3x3``.  On bf16 every op of the dz chain rounds where the
+    reference's eager ops round: x̂ from μ and 1/σ cast to bf16, the means
+    of the two sums and γ/σ cast to bf16 before they meet dy; dγ and dβ
+    come back in γ's dtype.  On fp32 the casts are no-ops.  Cotangents of
+    the batch statistics are ignored (they feed the running averages
+    only)."""
 
     @staticmethod
     def forward(ctx, x, w, gamma, beta, mean, var, residual, eps, frozen,
@@ -584,24 +649,29 @@ class _FusedBlock(torch.autograd.Function):
             with _count_mu:
                 _FusedBlock.dout_copies += 1
         dz_post = torch.where(out > 0, dout, 0.0) if relu else dout
+        dt = dz_post.dtype
         if frozen:
             # z is recomputed rather than saved, as the reference does
             z = conv3x3(x, w)
-        xhat = (z - mean) * inv
-        sum_dy = dz_post.sum(dim=(0, 1, 2))
-        sum_dy_xhat = (dz_post * xhat).sum(dim=(0, 1, 2))
+            xhat = (_wide(z) - _wide(mean)) * inv
+        else:
+            xhat = (z - mean.to(z.dtype)) * inv.to(z.dtype)
+        dyf = _wide(dz_post)
+        sum_dy = dyf.sum(dim=(0, 1, 2))
+        sum_dy_xhat = (dyf * _wide(xhat)).sum(dim=(0, 1, 2))
         scale = gamma.float() * inv
         if frozen:
-            dz = dz_post * scale
+            dz = (dz_post * scale.to(dt)).to(x.dtype)
         else:
             n = x.shape[0] * x.shape[1] * x.shape[2]
-            dz = scale * (dz_post - sum_dy / n - xhat * (sum_dy_xhat / n))
+            dz = (scale.to(dt) * (dz_post - (sum_dy / n).to(dt) -
+                                  xhat * (sum_dy_xhat / n).to(dt))).to(x.dtype)
         need = ctx.needs_input_grad
-        dx = conv3x3_dgrad(w, dz) if need[0] else None
-        dw = conv_wgrad(x, dz) if need[1] else None
+        dx = conv3x3_dgrad(w, dz).to(x.dtype) if need[0] else None
+        dw = conv_wgrad(x, dz).to(w.dtype) if need[1] else None
         dres = dz_post if has_res and need[6] else None
-        return (dx, dw, sum_dy_xhat, sum_dy, None, None, dres, None, None,
-                None)
+        return (dx, dw, sum_dy_xhat.to(gamma.dtype), sum_dy.to(gamma.dtype),
+                None, None, dres, None, None, None)
 
 
 _FusedBlock.dout_copies = 0
@@ -614,7 +684,8 @@ def residual_block_fused(x, w, gamma, beta, mean, var, residual=None, *,
     (≙ ``pallas_block.residual_block_fused``).  Returns ``(out,
     batch_mean, batch_var)`` in training mode (the biased batch variance)
     and ``(out, mean, var)``, the given statistics, when ``frozen``.
-    ``x``, ``w`` and ``residual`` contiguous NHWC/HWIO fp32."""
+    ``x``, ``w`` and ``residual`` contiguous NHWC/HWIO, all fp32 or all
+    bf16 (the statistics fp32)."""
     outs = _FusedBlock.apply(x, w, gamma, beta, mean, var, residual,
                              float(eps), bool(frozen), bool(relu))
     if frozen:

@@ -91,9 +91,10 @@ def softmax_prologue_plain(x, div=None, keep=None):
     if div is not None:
         if x.dtype in _HALF:
             # the reference's x / div in the dtype: div rounded to it
-            # first, an IEEE division of the two, rounded
-            d = torch.as_tensor(div, device=x.device).double()
-            x = (x.float() / d.to(x.dtype).float()).to(x.dtype)
+            # first (on the host: nothing is copied to the card, so a
+            # CUDA graph can capture it), an IEEE division of the two,
+            # rounded
+            x = (x.float() / _as_dtype(div, x.dtype)).to(x.dtype)
         else:
             x = x / div
     if keep is not None:

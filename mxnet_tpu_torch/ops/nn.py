@@ -6,8 +6,9 @@ weights HWIO ``(kh, kw, in/groups, out)``, dense weights ``(out, in)``.
 Convolution and pooling run as PyTorch calls on channels-last NCHW
 views of the NHWC tensors (cuDNN on the card, with TF32 off: see
 ``context.exact_fp32``), as the JAX package leaves them to XLA, except
-the lone fp32 3×3/s1 conv, which is ``ops/pallas_conv.py``; and so
-do BatchNorm, GELU, the embedding gather, dropout and the losses.  The
+the lone fp32 or bf16 3×3/s1 conv, which is ``ops/pallas_conv.py``; and
+so do BatchNorm (below fp32 in training the reference's ``_bn_train``
+custom VJP, :class:`_BNTrain`), GELU, the embedding gather, dropout and the losses.  The
 last-axis softmax and LayerNorm are the Pallas kernels of
 ``ops/pallas_kernels.py`` in the reference and the CUDA kernels of
 ``ops/cuda_kernels.py`` here; the fused conv + BN (+ add) (+ ReLU) of
@@ -313,7 +314,8 @@ def convolution(x, weight, bias=None, stride=1, pad=0, dilate=1,
                 groups: int = 1, layout: str = "NHWC"):
     """2-D convolution ≙ Convolution, NHWC × HWIO.  A conv that
     ``pallas_conv.eligible`` takes (3×3, stride 1, pad 1, no dilation, one
-    group, fp32) is ``pallas_conv.conv3x3_s1``, with the bias added after,
+    group, fp32 or bf16, the weight in x's dtype) is
+    ``pallas_conv.conv3x3_s1``, with the bias added after,
     as the reference routes it: the conv3x3 / conv_wgrad kernels on the
     card, their plain versions on the CPU.  Any other is one ``F.conv2d``
     on the channels-last view (cuDNN on the card); the result is
@@ -328,8 +330,8 @@ def convolution(x, weight, bias=None, stride=1, pad=0, dilate=1,
                                  dilate, groups))
     if layout != "NHWC":
         raise ValueError(f"layout {layout!r}: NHWC or NCHW")
-    if pallas_conv.eligible(x.shape, weight.shape, stride, pad, dilate,
-                            groups, x.dtype):
+    if weight.dtype == x.dtype and pallas_conv.eligible(
+            x.shape, weight.shape, stride, pad, dilate, groups, x.dtype):
         out = pallas_conv.conv3x3_s1(x, weight)
         return out if bias is None else out + bias
     if x.dtype in _HALF and bias is not None:
@@ -467,6 +469,67 @@ def reflection_pad2d(x, pad):
     return _nhwc(F.pad(_nchw(x), (pw, pw, ph, ph), mode="reflect"))
 
 
+def _bn_stats(x, ch):
+    """≙ ``_bn_stats``: per-channel ``(mean, E[x²])`` of ``x`` over every
+    axis but ``ch``, summed in fp32 from the widened values."""
+    rax = tuple(i for i in range(x.dim()) if i != ch)
+    n = x.numel() // x.shape[ch]
+    xf = x.float()
+    return xf.sum(dim=rax) / n, (xf * xf).sum(dim=rax) / n
+
+
+class _BNTrain(torch.autograd.Function):
+    """≙ the reference's ``_bn_train`` custom VJP: training BatchNorm of a
+    low-precision ``x`` (bf16, fp16), its saved tensors ``(x, γ, μ, 1/σ)``
+    in their own dtypes.  Forward (``_bn_train_fwd``): μ and
+    ``σ² = max(E[x²] − μ², 0)`` in fp32, ``inv = rsqrt(σ² + ε)``, then
+    ``(x − μ)·inv·γ + β`` with μ and inv cast to x's dtype, each op
+    rounded in the dtype of its operands (an fp32 γ or β promotes, as in
+    the reference).  Backward (``_bn_train_bwd``): ``x̂ = (x − μ)·inv`` in
+    x's dtype; Σdy and Σdy·x̂ in fp32 over the widened operands;
+    ``dγ`` in γ's dtype, ``dβ`` in dy's; ``dx = (γ·inv)·(dy − Σdy/n −
+    x̂·Σdy·x̂/n)`` with ``γ·inv`` (fp32) and the two means cast to dy's
+    dtype, each op rounded there.  Returns ``(out, μ, σ²)``, the batch
+    statistics fp32 and not differentiated (they feed the running
+    averages only)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, ch):
+        mean, m2 = _bn_stats(x, ch)
+        var = torch.clamp(m2 - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + eps)
+        shape = [1] * x.dim()
+        shape[ch] = x.shape[ch]
+        out = ((x - mean.reshape(shape).to(x.dtype))
+               * inv.reshape(shape).to(x.dtype)
+               * gamma.reshape(shape) + beta.reshape(shape))
+        ctx.ch = ch
+        ctx.save_for_backward(x, gamma, mean, inv)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, *stat_cotangents):
+        x, gamma, mean, inv = ctx.saved_tensors
+        ch = ctx.ch
+        rax = tuple(i for i in range(x.dim()) if i != ch)
+        n = x.numel() // x.shape[ch]
+        shape = [1] * x.dim()
+        shape[ch] = x.shape[ch]
+        xhat = ((x - mean.reshape(shape).to(x.dtype))
+                * inv.reshape(shape).to(x.dtype))
+        dyf = dy.float()
+        sum_dy = dyf.sum(dim=rax)
+        sum_dy_xhat = (dyf * xhat.float()).sum(dim=rax)
+        dt = dy.dtype
+        scale = gamma.float() * inv
+        dx = (scale.reshape(shape).to(dt)
+              * (dy - (sum_dy / n).reshape(shape).to(dt)
+                 - xhat * (sum_dy_xhat / n).reshape(shape).to(dt)))
+        return (dx.to(x.dtype), sum_dy_xhat.to(gamma.dtype), sum_dy.to(dt),
+                None, None)
+
+
 def batch_norm(x, gamma, beta, running_mean, running_var, momentum=0.9,
                eps: float = 1e-5, use_global_stats: bool = False,
                training: bool = True, axis: int = -1):
@@ -482,9 +545,10 @@ def batch_norm(x, gamma, beta, running_mean, running_var, momentum=0.9,
     differentiate).  The gradient flows through the batch statistics by
     autograd, as the reference's fp32 branch leaves it to JAX's AD.
     ``F.batch_norm`` is not used here: its momentum is ``1 − momentum``
-    and it stores the unbiased variance.  Training below fp32 raises:
-    the reference's low-precision ``_bn_train`` comes with the bf16
-    training slice (Queue 1 item 3b).
+    and it stores the unbiased variance.  Below fp32 (bf16, fp16) it is
+    the reference's ``_bn_train`` (:class:`_BNTrain`): the statistics and
+    the running averages in fp32, the normalization and its backward in
+    x's dtype.
 
     Otherwise: normalization by the running statistics, which come back
     unchanged.  On bf16 and fp16 ``x`` that is the reference's expression
@@ -495,11 +559,10 @@ def batch_norm(x, gamma, beta, running_mean, running_var, momentum=0.9,
     ch = axis % x.dim()
     if training and not use_global_stats:
         if x.dtype not in (torch.float32, torch.float64):
-            raise NotImplementedError(
-                f"batch_norm in training mode on {x.dtype}: the port "
-                f"trains in fp32; low-precision training BatchNorm (the "
-                f"reference's _bn_train) comes with the bf16 training "
-                f"slice, Queue 1 item 3b")
+            out, mean, var = _BNTrain.apply(x, gamma, beta, float(eps), ch)
+            new_mean = momentum * running_mean + (1 - momentum) * mean
+            new_var = momentum * running_var + (1 - momentum) * var
+            return out, new_mean, new_var
         C = x.shape[ch]
         shape = [1] * x.dim()
         shape[ch] = C
@@ -549,9 +612,9 @@ def residual_block(x, weight, gamma, beta, running_mean, running_var,
     affine pass; its backward runs dgrad and wgrad).  Frozen
     (``use_global_stats`` or inference) with autograd recording: the same
     Function's frozen branch.  Frozen without gradients: ``conv_affine``
-    alone, with no autograd node; the only route below fp32 (bf16: the
-    kernel's bf16 instance; a bf16 segment in training or under autograd
-    raises until the bf16 training slice).  ``x``, ``weight`` and
+    alone, with no autograd node.  bf16 takes the kernels' bf16
+    instances on every route (fp16 raises on the card: Queue 1 item 3c;
+    the CPU's plain versions take it).  ``x``, ``weight`` and
     ``residual`` are made contiguous here (a no-op on the path, where the
     producing cuDNN and element-wise calls keep NHWC contiguous), since
     the kernels take contiguous NHWC only."""
@@ -573,12 +636,6 @@ def residual_block(x, weight, gamma, beta, running_mean, running_var,
     recording = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad
         for t in (x, weight, gamma, beta, residual))
-    if x.dtype in _HALF and (recording or not frozen):
-        raise NotImplementedError(
-            f"residual_block on {x.dtype} in training or under autograd: "
-            f"the port serves below fp32 (the frozen conv_affine); bf16 "
-            f"training comes with the bf16 training slice, Queue 1 item "
-            f"3b")
     if frozen and not recording:
         out = conv_block.conv_affine(x, weight, gamma, beta, running_mean,
                                      running_var, residual, eps=eps,

@@ -37,15 +37,31 @@ package.
 the calls Python makes to it: at warm-up (real launches) and at capture
 (launches recorded into the graph, not run).  A replay runs exactly
 what was captured without calling Python.  So each graph records the
-count of each wrapper during its capture (``launches_per_step``) and its
-replays; an executor's ``replayed_launches()`` is the launches the
-replays made, replays × ``launches_per_step``.
+count of each wrapper during its capture (``launches_per_step``; a
+wrapper's bf16 instance also under ``<name>_bf16``) and its replays; an
+executor's ``replayed_launches()`` is the launches the replays made,
+replays × ``launches_per_step``.
 
 The graph holds the parameters', buffers' and states' storage as it
 found them: the optimizer updates them in place, as the legacy path
 does, so fused and legacy steps interleave; a state that
 ``Trainer.load_states`` replaces is copied back into the captured one
-(:meth:`_Step.resync`).
+(:meth:`_Step.resync`).  ``Block.cast`` and ``reset_ctx`` give the
+parameters new storage, which a graph does not follow: after either,
+the next call finds the storage moved
+(``gluon.parameter.storage_epoch``), drops its graphs and captures
+anew (counted as ``fused.rebuilds``).
+
+**Mixed precision** (``FusedTrainStep(dtype="bfloat16",
+grad_scale=...)``, ≙ the reference's ``cast_low`` / ``cast_frozen``):
+the master weights and the optimizer states stay fp32; inside the step
+every floating parameter and buffer but the BatchNorm running statistics
+is cast to ``dtype`` and the forward runs on the casts
+(``torch.func.functional_call``), the batch is cast to ``dtype`` on the
+card (integer batches too, as the reference casts them), the outputs
+are cast to fp32 before the loss, the loss is scaled by ``grad_scale``
+and the gradients unscaled, and each gradient reaches its fp32 master
+through the cast.
 """
 from __future__ import annotations
 
@@ -59,7 +75,7 @@ from .. import autograd
 from .. import telemetry as _telemetry
 from ..gluon import nn as _gnn
 from ..gluon.block import HybridBlock
-from ..gluon.parameter import is_initialized
+from ..gluon.parameter import as_dtype, is_initialized, storage_epoch
 
 __all__ = ["FusedTrainStep", "TrainerFusedStep", "kernel_wrappers"]
 
@@ -79,7 +95,15 @@ def kernel_wrappers() -> Dict[str, Callable]:
 
 
 def _counts():
-    return {n: fn.launches for n, fn in kernel_wrappers().items()}
+    """Each wrapper's launches by name, and its bf16 instance's (also
+    counted in the former) as ``<name>_bf16``."""
+    out = {}
+    for n, fn in kernel_wrappers().items():
+        out[n] = fn.launches
+        by_dtype = getattr(fn, "launches_by_dtype", {})
+        if torch.bfloat16 in by_dtype:
+            out[n + "_bf16"] = by_dtype[torch.bfloat16]
+    return out
 
 
 def _fused_step_env() -> Optional[bool]:
@@ -131,27 +155,56 @@ class _Step:
     rather than of the sum (``Trainer.fuse_step``, whose optimizer
     divides by the batch through ``rescale_grad``)."""
 
-    def __init__(self, net, loss_fn, opt, trainable, get_states, mean):
+    def __init__(self, net, loss_fn, opt, trainable, get_states, mean,
+                 dtype=None, grad_scale=None):
         self.net, self.loss_fn, self.opt = net, loss_fn, opt
         self.names = [n for n, _ in trainable]
         self.params = [p for _, p in trainable]
         self.get_states = get_states
         self.mean = mean
+        self.dtype, self.grad_scale = dtype, grad_scale
         self.device = self.params[0].device
         self.programs: Dict[tuple, _Program] = {}
         self._counted = False       # fused.programs counts an executor once
+        self._epoch = storage_epoch()
+        self._ptrs = ()             # the storage the graphs were captured on
         states = get_states()
         for n, p in trainable:
             if states.get(n) is None:
                 states[n] = opt.create_state(n, p)
 
     # ---------------------------------------------------------- the step
+    def _forward(self, x):
+        """The net on ``x``; under ``dtype``, the reference's mixed
+        precision: every floating parameter and buffer but the running
+        statistics cast to ``dtype`` (one cast a tensor, so tied weights
+        stay tied; a trainable one's gradient flows back through it), the
+        batch cast to ``dtype``, the outputs cast back to fp32."""
+        if self.dtype is None:
+            return self.net(x)
+        casts, sub = {}, {}
+        for name, t in self.net.state_dict(keep_vars=True).items():
+            if not t.is_floating_point() or name.endswith(
+                    ("running_mean", "running_var")):
+                continue
+            if id(t) not in casts:
+                casts[id(t)] = t.to(self.dtype)
+            sub[name] = casts[id(t)]
+        out = torch.func.functional_call(self.net, sub, (x.to(self.dtype),))
+        if isinstance(out, (tuple, list)):
+            return type(out)(o.float() for o in out)
+        return out.float()
+
     def _body(self, x, y, ctl, loss_out):
+        scale = self.grad_scale
         with autograd.record():
-            loss = self.loss_fn(self.net(x), y)
+            loss = self.loss_fn(self._forward(x), y)
             head = loss.mean() if self.mean else loss.sum()
+            if scale:
+                head = head * scale
         grads = torch.autograd.grad(head, self.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else
+                 (g / scale if scale else g)
                  for p, g in zip(self.params, grads)]
         states = self.get_states()
         self.opt.rule([p.data for p in self.params], grads,
@@ -167,9 +220,24 @@ class _Step:
         return list({id(g): g for g in gens}.values())
 
     # --------------------------------------------------------- the calls
+    def _storage(self):
+        """Where the parameters and buffers live now."""
+        return tuple(t.data_ptr() for t in self.params) + tuple(
+            t.data_ptr() for t in self.net.buffers())
+
+    def _follow_storage(self):
+        """After a ``cast`` or ``reset_ctx`` somewhere: if this step's
+        tensors moved, its graphs (which hold the old storage) go."""
+        self._epoch = storage_epoch()
+        if self.programs and self._storage() != self._ptrs:
+            self.programs.clear()
+            _telemetry.counter_add("fused.rebuilds")
+
     def run(self, x, y, t):
         """One step at step count ``t`` (already advanced): returns the
         mean loss, a fresh 0-d tensor."""
+        if self.device.type == "cuda" and self._epoch != storage_epoch():
+            self._follow_storage()
         x = torch.as_tensor(x, device=self.device)
         y = torch.as_tensor(y, device=self.device)
         key = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype,
@@ -198,6 +266,7 @@ class _Step:
         prog.loss = torch.zeros((), device=self.device)
         if self.device.type != "cuda":
             return prog
+        self._ptrs = self._storage()
         states = self.get_states()
         prog.states = {n: states[n] for n in self.names}
         prog.x, prog.y = x.clone(), y.clone()
@@ -344,22 +413,31 @@ class FusedTrainStep(_Stats):
     The gradients are of the mean loss; the optimizer's own
     ``rescale_grad`` is left as it is.  The trainable parameters are the
     net's ``nn.Parameter`` s that require grad; the optimizer states are
-    this object's own.  ``dtype=`` (mixed precision) and ``mesh=`` are
-    not ported and raise; the reference's ``batch_axis`` and
-    ``grad_scale`` (loss scaling for low precision) come with them."""
+    this object's own.  ``dtype`` (``"bfloat16"`` or a torch dtype) runs
+    the step in mixed precision as the module notes say, fp32 master
+    weights updated through the casts; the conv kernels have no fp16
+    instance yet, so ``"float16"`` raises on the card where a net reaches
+    them (Queue 1 item 3c).  ``grad_scale`` multiplies the loss before
+    the backward and divides the gradients after it (the returned loss
+    is unscaled).  ``mesh=`` is not ported and raises;
+    ``batch_axis`` names the mesh axis of the batch and is accepted for
+    the reference's signature."""
 
     def __init__(self, net, loss: Callable, optimizer, mesh=None,
+                 batch_axis: str = "dp", grad_scale: Optional[float] = None,
                  dtype=None):
-        if dtype is not None:
-            raise NotImplementedError(
-                f"FusedTrainStep(dtype={dtype!r}): mixed precision belongs "
-                f"to the amp item of the port's queue (ROADMAP Queue 1 "
-                f"item 3)")
         if mesh is not None:
             raise NotImplementedError(
                 "FusedTrainStep(mesh=): sharded training belongs to the "
                 "mesh item of the port's queue (ROADMAP Queue 1 item 7)")
+        if dtype is not None:
+            dtype = as_dtype(dtype)
+            if not dtype.is_floating_point:
+                raise TypeError(f"FusedTrainStep(dtype={dtype}): a floating "
+                                f"dtype")
         self._net, self._loss, self._opt = net, loss, optimizer
+        self._grad_scale = grad_scale
+        self._dtype = dtype
         self._states: Dict[str, dict] = {}
 
     def _prepare(self, x):
@@ -367,7 +445,8 @@ class FusedTrainStep(_Stats):
         trainable = [(n, p) for n, p in self._net.collect_params().items()
                      if isinstance(p, torch.nn.Parameter) and p.requires_grad]
         self._step = _Step(self._net, self._loss, self._opt, trainable,
-                           lambda: self._states, mean=True)
+                           lambda: self._states, mean=True,
+                           dtype=self._dtype, grad_scale=self._grad_scale)
 
     def __call__(self, x, y):
         if self._step is None:

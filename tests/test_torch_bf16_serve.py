@@ -326,27 +326,22 @@ def test_bf16_forwards_take_the_half_kernels(monkeypatch):
 
 
 def test_what_stays_refused_below_fp32():
-    """fp16 ``conv_affine`` on the card raises ``TypeError`` (it comes with
-    the bf16 training slice); bf16 BatchNorm in training mode and a bf16
-    fused segment under autograd raise ``NotImplementedError`` naming
-    that slice (float64 still trains); the softmax kernel takes no
-    integer scores."""
+    """fp16 ``conv_affine`` on the card raises ``TypeError`` naming its
+    queue item (the fp16 instances of the conv kernels, Queue 1 item 3c);
+    the softmax kernel takes no integer scores; float64 still trains on
+    the CPU (the float64 floor of the card checks).  bf16 training
+    BatchNorm and a bf16 fused segment under autograd, refused here until
+    the bf16 training slice, now run (``test_torch_bf16_train_kernels``)."""
     x = torch.zeros(1, 4, 4, 8, dtype=torch.float16)
     w = torch.zeros(3, 3, 8, 8, dtype=torch.float16)
     v = torch.ones(8, dtype=torch.float16)
-    with pytest.raises(TypeError, match="3b"):
+    with pytest.raises(TypeError, match="3c"):
         conv_block.conv_affine(_FakeCuda(x), _FakeCuda(w), *(_FakeCuda(v),)
                                * 4)
     with pytest.raises(TypeError):
         cuda_kernels.softmax_fused(_FakeCuda(torch.zeros(4, 8,
                                                          dtype=torch.int32)))
     xb = torch.randn(2, 4, 4, 8).bfloat16()
-    vb = torch.ones(8).bfloat16()
-    with pytest.raises(NotImplementedError, match="3b"):
-        tnn.batch_norm(xb, vb, vb, vb, vb, training=True)
-    wb = torch.zeros(3, 3, 8, 8).bfloat16().requires_grad_()
-    with pytest.raises(NotImplementedError, match="3b"):
-        tnn.residual_block(xb, wb, vb, vb, vb, vb, training=False)
     # float64 still trains (the CPU's float64 floor in the card checks)
     v64 = torch.ones(8, dtype=torch.float64)
     out, _, _ = tnn.residual_block(
