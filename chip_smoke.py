@@ -434,8 +434,8 @@ each; the run stops with a non-zero exit at the first phase that fails:
     eager ms a forward per bucket, the idle share of a bucket-8 and a
     bucket-1 forward, the logits' copy to the host, peak memory.  Then
     Inception-v3 cast to bf16, three forwards at batch 2: exactly 10
-    bf16 ``conv3x3`` launches a forward (its lone 3x3/s1 convs; cuDNN
-    ran them before the bf16 training slice), no other kernel.
+    bf16 ``conv3x3`` launches a forward (its lone 3x3/s1 convs), all on
+    the ``wgmma`` kernel, no other kernel.
 44. ``bf16_reference``: the card's bf16 engines against the port's bf16
     on the CPU from the same ``.params``: ResNet-50 at batch 2 (top-1
     equal) and BERT-base at 1 x 512, and each batched response against
@@ -445,28 +445,38 @@ each; the run stops with a non-zero exit at the first phase that fails:
     agreement no lower than bf16's against fp32 on the CPU.  ``flops()``
     of each card net equals that of its fp32 copy on the CPU, and taking
     it launches no kernel.
-45. ``bf16_train_kernels``: the bf16 instances of ``conv3x3`` (as the
+45. ``bf16_train_kernels``: the bf16 kernels of ``conv3x3`` (as the
     dgrad), ``conv_stats``, ``bn_affine`` and ``conv_wgrad`` at
-    ResNet-50's four 3x3 stages at batch 128 and a ragged shape (C = 20,
-    the scalar paths), ``bn_affine`` also with a residual and with the
-    ReLU off, each against its plain version (bf16 widened, fp32 sums,
-    one rounding): bf16 outputs within one bf16 step (or 1e-5 of the
-    largest near 0), Σz and Σz² (Σz of the channel's Σ|z|) and the fp32
-    dW within 1e-5; each launched twice, bitwise equal (a gate); timed
-    beside its bound (bytes at 2 an element, 4 for fp32 dW and
-    statistics, over 3.35 TB/s; bf16 operations over 989 TFLOP/s), its
-    plain version and the nearest library call on bf16
+    ResNet-50's four 3x3 stages at batch 128, two edges of the ``wgmma``
+    kernels (one 128 x 64 tile; 3x7x9 pixels, C 40, Cout 24) and a
+    ragged shape (C = 20, the scalar paths), ``bn_affine`` also with a
+    residual and with the ReLU off, each against its plain version (bf16
+    widened, fp32 sums, one rounding): bf16 outputs within one bf16 step
+    (or 1e-5 of the largest near 0), Σz and Σz² (Σz of the channel's
+    Σ|z|) and the fp32 dW within 1e-5; each launched twice, bitwise
+    equal (a gate); timed beside its bound (bytes at 2 an element, 4 for
+    fp32 dW and statistics, over 3.35 TB/s; bf16 operations over 989
+    TFLOP/s), its plain version and the nearest library call on bf16
     (``conv2d_input``, ``F.conv2d``, ``torch.addcmul``,
-    ``conv2d_weight``), with its plan.  With ``--parent DIR`` the fp32
-    instances of the same files (conv3x3, dgrad, conv_stats, bn_affine,
-    conv_wgrad, conv_affine at four shapes) must equal the build of the
-    checkout at DIR bit for bit.
+    ``conv2d_weight``), with its plan.  ``conv3x3`` and ``conv_wgrad``
+    twice: the ``wgmma`` kernels through the wrappers (which must launch
+    them) with PR 19's ``mma.sync`` instances timed on the same inputs
+    (``parent_ms``), their main and reduce kernels' µs, TFLOP/s and share
+    of the card's ``wgmma`` bf16 ceiling (measured: m64n128k16 products
+    from shared memory, no copies), and the ``mma.sync`` instances
+    launched directly as their own cases; the host µs of an eager call
+    of each.  With ``--parent DIR`` the fp32 instances of the conv files
+    (conv3x3, dgrad, conv_stats, bn_affine, conv_wgrad, conv_affine at
+    four shapes) must equal the build of the checkout at DIR bit for
+    bit.
 46. ``bf16_train``: ResNet-50 v1 at batch 128 (SGD lr 0.1, momentum 0.9,
     wd 1e-4) and Gluon BERT-base at 8 x 512 (Adam lr 1e-4) through
     ``FusedTrainStep(dtype="bfloat16")``, each driven as the fused phases
     drive theirs on one fixed batch for 21 calls: exactly 16 launches of
     each of the four training kernels captured a ResNet step, all bf16
-    (no fp32 launch), 12 bf16 softmaxes a BERT step and no LayerNorm
+    (no fp32 launch), ``conv3x3``'s and ``conv_wgrad``'s all on the
+    ``wgmma`` kernels (none on PR 19's ``mma.sync`` ones), 12 bf16
+    softmaxes a BERT step and no LayerNorm
     kernel; finite losses that fall; replayed and eager step ms, images/s
     or tokens/s, peak memory, idle share, beside the fp32 fused step of
     the same run.
@@ -476,8 +486,9 @@ each; the run stops with a non-zero exit at the first phase that fails:
     card's losses and weights no farther from the CPU's bf16 step than
     that is from the CPU's fp32 step.
 
-Then one ``{"kernels": [...]}`` line (22 entries: the bf16 instances of
-rows 1, 7, 8, 9, 10 and 11 their own; ``launches`` adds
+Then one ``{"kernels": [...]}`` line (24 entries: the bf16 instances of
+rows 1, 7, 8, 9, 10 and 11 their own, rows 7 and 11 twice: the ``wgmma``
+kernels and the ``mma.sync`` ones; ``launches`` adds
 the fused phases' real launches: the first call's warm-up and the
 replays times the captured counts), the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -866,6 +877,8 @@ KERNEL_CATEGORIES = (
      r"conv_affine_(tc|reduce|bf16|bf16_reduce)_kernel"),
     ("conv3x3 / dgrad (ours)",
      r"conv3x3_(tc|reduce|bf16|bf16_reduce)_kernel"),
+    ("conv3x3 / dgrad wgmma (ours)", r"conv3x3_wgmma(_reduce)?_kernel"),
+    ("conv_wgrad wgmma (ours)", r"conv_wgrad_wgmma(_reduce)?_kernel"),
     ("conv_stats (ours)", r"conv_stats_(tc|cut|sum|bf16)_kernel"),
     ("bn_affine (ours)", r"bn_affine(_bf16)?_kernel"),
     ("conv_wgrad (ours)", r"conv_wgrad(_bf16)?_kernel|wgrad_reduce_kernel"),
@@ -2721,53 +2734,71 @@ def phase_int8_kernels(state):
             "parts": _qconv_parts([(64, h, c) for h, c in stages])}
 
 
+def _build_variants(what, source, cuts, entries):
+    """The kernels of ``csrc/<source>`` as the library built them
+    (``"kernel"``: ``_build.lib()``) and copies with parts cut out:
+    ``cuts`` maps a name to the (text, replacement) pairs made in a copy
+    of the source, each copy built by its own nvcc (all started together,
+    the library's code flags) into ``build/chip_smoke/<what>``, with
+    ``entries`` bound.  → ({name: library}, {name: why it was not built}):
+    a cut whose text is no longer in the source, or that nvcc refuses, is
+    reported there, and fails nothing."""
+    import ctypes
+    from mxnet_tpu_torch import _build
+    src = open(os.path.join(_build.CSRC, source)).read()
+    work = os.path.join(HERE, "build", "chip_smoke", what)
+    os.makedirs(work, exist_ok=True)
+    procs, missing = {}, {}
+    for name, pairs in cuts.items():
+        if not all(a and a in src for a, _ in pairs):
+            missing[name] = "its text is no longer in " + source
+            continue
+        text = src
+        for a, b in pairs:
+            text = text.replace(a, b)
+        path = os.path.join(work, name)
+        with open(path + ".cu", "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS[:4], "-I", str(_build.CSRC),
+             "-shared", "-Xcompiler", "-fPIC", "-o", path + ".so",
+             path + ".cu"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {"kernel": _build.lib()}
+    for name, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            missing[name] = "nvcc failed: " + log[-2000:]
+            continue
+        lib = ctypes.CDLL(os.path.join(work, name + ".so"))
+        for e in entries:
+            getattr(lib, e).argtypes = _build._SIGNATURES[e]
+        libs[name] = lib
+    return libs, missing
+
+
 def _qconv_parts(shapes):
     """Where the int8 kernel's loop spends its time: the kernel as built,
     and with one part taken out (``no_copies``: the ring is never
-    filled; ``no_products``: each ``mma.sync`` a register add), each
-    built by nvcc from a copy of ``csrc/qconv_affine.cu`` into
-    ``build/chip_smoke/qconv_parts`` and timed (device ms) at ``shapes``
-    (batch, H = W, C = Cout) on the plan the wrapper runs.  The outputs
-    of the cut kernels are garbage; only their times are kept."""
-    import ctypes
+    filled; ``no_products``: each ``mma.sync`` a register add), built by
+    :func:`_build_variants` and timed (device ms) at ``shapes`` (batch,
+    H = W, C = Cout) on the plan the wrapper runs.  The outputs of the cut
+    kernels are garbage; only their times are kept."""
     import torch
     from mxnet_tpu_torch import _build
     from mxnet_tpu_torch.ops import conv_block as cb
     from mxnet_tpu_torch.ops import cuda_int8 as ci
-    src = open(os.path.join(HERE, "mxnet_tpu_torch", "csrc",
-                            "qconv_affine.cu")).read()
-    mma = src.index('asm("mma.sync')
-    end = src.index('"r"(b[0]), "r"(b[1]));', mma) + len(
-        '"r"(b[0]), "r"(b[1]));')
-    variants = {
-        "kernel": src,
-        "no_copies": src.replace("if (pre < nk) ld.load(s, pre % STAGES);",
-                                 ";").replace("if (st < nk) ld.load(s, st);",
-                                              ";"),
-        "no_products": src[:mma] + "c[0] += (int)(a[0] + b[0]);" +
-        src[end:]}
-    work = os.path.join(HERE, "build", "chip_smoke", "qconv_parts")
-    os.makedirs(work, exist_ok=True)
-    procs = {}
-    for name, text in variants.items():
-        if name != "kernel" and text == src:
-            raise AssertionError(f"qconv_parts: {name} changed nothing")
-        with open(os.path.join(work, name + ".cu"), "w") as f:
-            f.write(text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS[:4], "-shared", "-Xcompiler",
-             "-fPIC", "-o", os.path.join(work, name + ".so"),
-             os.path.join(work, name + ".cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, p in procs.items():
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"qconv_parts: nvcc failed on {name}:\n{log}")
-        lib = ctypes.CDLL(os.path.join(work, name + ".so"))
-        lib.mxt_qconv_affine_s8.argtypes = \
-            _build._SIGNATURES["mxt_qconv_affine_s8"]
-        libs[name] = lib
+    src = open(os.path.join(_build.CSRC, "qconv_affine.cu")).read()
+    mma = src.find('asm("mma.sync')
+    tail = '"r"(b[0]), "r"(b[1]));'
+    end = src.find(tail, mma)
+    product = src[mma:end + len(tail)] if min(mma, end) >= 0 else None
+    libs, missing = _build_variants(
+        "qconv_parts", "qconv_affine.cu",
+        {"no_copies": [("if (pre < nk) ld.load(s, pre % STAGES);", ";"),
+                       ("if (st < nk) ld.load(s, st);", ";")],
+         "no_products": [(product, "c[0] += (int)(a[0] + b[0]);")]},
+        ["mxt_qconv_affine_s8"])
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     out = []
     for N, H, C in shapes:
@@ -2794,7 +2825,7 @@ def _qconv_parts(shapes):
                     torch.cuda.current_stream().cuda_stream), name)
             row[name + "_ms"] = cuda_ms(run, iters=10)
         out.append(row)
-    return out
+    return {"shapes": out, "not_built": missing}
 
 
 def _int8_counters():
@@ -3521,8 +3552,9 @@ def _fused_zero():
     from mxnet_tpu_torch.parallel import train as pt
     for fn in pt.kernel_wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "launches_by_dtype"):
-            fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
+        for by in ("launches_by_dtype", "launches_by_instance"):
+            if hasattr(fn, by):
+                setattr(fn, by, dict.fromkeys(getattr(fn, by), 0))
 
 
 def _eager_body(ex, x, y):
@@ -5183,9 +5215,9 @@ def phase_bf16_serve(state):
 def _inception_bf16(state):
     """Inception-v3 (seeded, cast to bf16 by ``amp.convert_model``) at
     batch 2 x 299x299x3: its 10 lone 3x3/s1 convs take ``conv3x3``'s bf16
-    instance (the lone conv route admits bf16 since the bf16 training
-    slice; cuDNN ran them before), so exactly 10 bf16 and no fp32
-    ``conv3x3`` launch a forward, no other kernel, and finite logits."""
+    ``wgmma`` kernel (every one has C and Cout multiples of 8), so exactly
+    10 bf16 ``wgmma`` and no fp32 or ``mma.sync`` ``conv3x3`` launch a
+    forward, no other kernel, and finite logits."""
     import torch
     from mxnet_tpu_torch import amp
     from mxnet_tpu_torch.ops import conv_block as cb
@@ -5206,11 +5238,12 @@ def _inception_bf16(state):
            "dtype": str(out.dtype), "finite":
            bool(torch.isfinite(out.float()).all()),
            "conv3x3_bf16_per_forward":
-           cb.conv3x3.launches_by_dtype[torch.bfloat16] / forwards}
+           counts.get("conv3x3_bf16", 0) / forwards}
     tot = state.setdefault("bf16_launches", {})
-    tot["conv3x3_bf16"] = tot.get("conv3x3_bf16", 0) + \
-        counts.get("conv3x3_bf16", 0)
-    if counts != {"conv3x3": 10 * forwards, "conv3x3_bf16": 10 * forwards} \
+    tot["conv3x3_bf16_wgmma"] = tot.get("conv3x3_bf16_wgmma", 0) + \
+        counts.get("conv3x3_bf16_wgmma", 0)
+    if counts != {"conv3x3": 10 * forwards, "conv3x3_bf16": 10 * forwards,
+                  "conv3x3_bf16_wgmma": 10 * forwards} \
             or not res["finite"] or out.dtype != torch.bfloat16:
         raise AssertionError(f"bf16 Inception-v3 forward: {res}")
     return res
@@ -5347,6 +5380,18 @@ def phase_bf16_reference(state):
 BF16_TRAIN_STAGES = [(128, 56, 56, 64, 64), (128, 28, 28, 128, 128),
                      (128, 14, 14, 256, 256), (128, 7, 7, 512, 512)]
 BF16_SUM_TOL = 1e-5     # bf16 instances' fp32 results: sums, dW
+# the wgmma kernels' edges: one 128 x 64 tile; M, C and Cout off their
+# tiles (189 pixels, a 40-channel slab, a 24-channel box); 64 < Cout < 128
+# off a multiple of 64 for both kernels (BN = 128, the second 64-column
+# box partly past the channels: dW's Cout = 96, the dgrad's output C = 72)
+BF16_WGMMA_EDGES = [(1, 8, 16, 64, 64), (3, 7, 9, 40, 24),
+                    (2, 11, 13, 72, 96)]
+# Inception-v3's lone 3x3/s1 convs at bf16_serve's batch of 2: the forward
+# of conv3x3 on the wgmma kernel (Cout = 96, 384: BN = 128 off its tiles)
+BF16_INCEPTION_CONVS = [(2, 147, 147, 32, 64), (2, 35, 35, 64, 96),
+                        (2, 35, 35, 96, 96), (2, 8, 8, 448, 384)]
+# the ragged shape: C, Cout not multiples of 8, PR 19's mma.sync kernels
+BF16_RAGGED = (2, 9, 11, 20, 12)
 BF16_TRAIN_STEPS = 20   # replays on one fixed batch; the loss must fall
 BF16_TRAIN_KERNELS = ("conv3x3", "conv_stats", "bn_affine", "conv_wgrad")
 # a captured bf16 ResNet-50 step: 16 launches of each training kernel, all
@@ -5354,7 +5399,9 @@ BF16_TRAIN_KERNELS = ("conv3x3", "conv_stats", "bn_affine", "conv_wgrad")
 # LayerNorm kernel (bf16 LayerNorm is the reference's closed form)
 BF16_IMAGE_WANT = {**{n: RESNET50_SEGMENTS for n in BF16_TRAIN_KERNELS},
                    **{n + "_bf16": RESNET50_SEGMENTS
-                      for n in BF16_TRAIN_KERNELS}}
+                      for n in BF16_TRAIN_KERNELS},
+                   **{n + "_bf16_wgmma": RESNET50_SEGMENTS
+                      for n in ("conv3x3", "conv_wgrad")}}
 BF16_BERT_WANT = {"softmax_fused": BERT_SOFTMAXES,
                   "softmax_fused_bf16": BERT_SOFTMAXES}
 
@@ -5387,20 +5434,55 @@ def _bf16_timed(case, fn, plain, library, nbytes, flops):
     case.update(kernel_ms=kms, kernel_eager_ms=eager_ms(fn, iters=10),
                 plain_ms=cuda_ms(plain, iters=10), library_ms=lms,
                 bytes=nbytes, flop=flops, bound_ms=bms, bound_by=by,
-                bound_share=bms / kms, vs_library=kms / lms)
+                bound_share=bms / kms, vs_library=kms / lms,
+                tflop_s=flops / (kms * 1e-3) / 1e12)
     return case
 
 
+def _wgmma_plan(M, C, Cout, wgrad=False):
+    """The plan the ``wgmma`` kernel of ``conv3x3`` (or ``conv_wgrad``)
+    runs for ``M`` pixels, ``C`` input and ``Cout`` output channels on
+    card 0 (chunks of one tap's 64-channel slab, or of 64 pixels)."""
+    from mxnet_tpu_torch.ops import conv_block as cb
+    bn = cb.wgrad_tile_cols(Cout)
+    K = 9 * cb.WGMMA_SLAB * cb._slabs(C)
+    if wgrad:
+        return cb.wgrad_splits(M, K, Cout, cb._sm_count(0), cb._per_sm(
+            "mxt_conv_wgrad_wgmma_blocks_per_sm", 0, bn, 1),
+            chunk=cb.WGMMA_SLAB)._asdict()
+    return _plan_dict(cb.conv3x3_splits(
+        M, K, Cout, cb._sm_count(0),
+        cb._per_sm("mxt_conv3x3_wgmma_blocks_per_sm", 0, bn, 1),
+        chunk=cb.WGMMA_SLAB))
+
+
+def _instance_launches(fn, run, instance):
+    """``run()``'s result and whether it launched ``fn``'s ``instance``
+    kernel and no other (``launches_by_instance``)."""
+    before = dict(fn.launches_by_instance)
+    out = run()
+    moved = {k: v - before[k] for k, v in fn.launches_by_instance.items()
+             if v != before[k]}
+    return out, set(moved) == {instance}
+
+
 def _bf16_train_conv_cases(N, H, W, C, Cout, gen):
-    """The bf16 instances of ``conv3x3`` (in its training use, the dgrad:
+    """The bf16 kernels of ``conv3x3`` (in its training use, the dgrad:
     dy with the rotated weight), ``conv_stats`` and ``conv_wgrad`` at one
-    stage shape, each launched twice on the same inputs (bitwise equal: a
-    gate) and held against its plain version (bf16 widened to fp32, the
-    conv in fp32 with TF32 off, one rounding): bf16 outputs within one
-    step, the fp32 sums and dW within ``BF16_SUM_TOL`` (Σz of the
-    channel's Σ|z|, Σz² and dW of their largest).  Library yardsticks on
-    the same bf16 tensors (cuDNN, channels-last): ``conv2d_input``,
-    ``F.conv2d`` alone (no sums), ``conv2d_weight`` (bf16 out)."""
+    shape, each launched twice on the same inputs (bitwise equal: a gate)
+    and held against its plain version (bf16 widened to fp32, the conv in
+    fp32 with TF32 off, one rounding): bf16 outputs within one step, the
+    fp32 sums and dW within ``BF16_SUM_TOL`` (Σz of the channel's Σ|z|,
+    Σz² and dW of their largest).  ``conv3x3`` and ``conv_wgrad`` twice
+    where ``wgmma_takes`` the shape: PR 19's ``mma.sync`` instances
+    launched directly (``conv_block._conv3x3_tc``, ``_wgrad_tc``), and the
+    wrappers, which must launch the ``wgmma`` kernels
+    (``launches_by_instance``), timed on the same inputs beside the former
+    (``parent_ms``), with their main and reduce kernels' µs.  Elsewhere
+    once, through the wrappers, which must launch the ``mma.sync``
+    kernels.  Library yardsticks on the same bf16 tensors (cuDNN,
+    channels-last): ``conv2d_input``, ``F.conv2d`` alone (no sums),
+    ``conv2d_weight`` (bf16 out)."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import conv_block as cb
@@ -5418,18 +5500,46 @@ def _bf16_train_conv_cases(N, H, W, C, Cout, gen):
     out = {}
 
     wr = cb.rotate(w)
-    dx, again = cb.conv3x3(dy, wr), cb.conv3x3(dy, wr)
-    out["conv3x3_bf16"] = _bf16_timed(
+    ref = cb.conv3x3_plain(dy, wr)
+    library = lambda: torch.nn.grad.conv2d_input(  # noqa: E731
+        xc.shape, wc, dyc, padding=1)
+    takes = cb.wgmma_takes(Cout, C, dy, wr, x)
+    if takes:
+        sync = lambda: cb._conv3x3_tc(dy, wr, torch.empty_like(x))  # noqa
+        dx, via = sync(), {"launched": "directly"}
+    else:
+        sync = lambda: cb.conv3x3(dy, wr)  # noqa: E731
+        dx, took = _instance_launches(cb.conv3x3, sync, "bf16_mma_sync")
+        via = {"launched": "by the wrapper", "instance_launched": took}
+    again = sync()
+    out["conv3x3_bf16_mma_sync"] = _bf16_timed(
         {"shape": shape, "dtype": "bfloat16",
-         "use": "dgrad: conv3x3(dy, rotate(w))",
+         "use": "dgrad: conv3x3(dy, rotate(w)), PR 19's mma.sync instance",
+         **via,
          "plan": _conv3x3_plan(npix, Cout, C,
                                "mxt_conv3x3_bf16_blocks_per_sm", 8),
-         **_bf16_within(dx, cb.conv3x3_plain(dy, wr)),
+         **_bf16_within(dx, ref),
          "bitwise_equal_relaunch": bool(torch.equal(dx, again)),
          "library": "torch.nn.grad.conv2d_input on bf16 (cuDNN)"},
-        lambda: cb.conv3x3(dy, wr), lambda: cb.conv3x3_plain(dy, wr),
-        lambda: torch.nn.grad.conv2d_input(xc.shape, wc, dyc, padding=1),
-        nbytes, flops)
+        sync, lambda: cb.conv3x3_plain(dy, wr), library, nbytes, flops)
+    if takes:
+        dx, took = _instance_launches(cb.conv3x3,
+                                      lambda: cb.conv3x3(dy, wr),
+                                      "bf16_wgmma")
+        again = cb.conv3x3(dy, wr)
+        case = _bf16_timed(
+            {"shape": shape, "dtype": "bfloat16",
+             "use": "dgrad: conv3x3(dy, rotate(w))",
+             "plan": _wgmma_plan(npix, Cout, C), **_bf16_within(dx, ref),
+             "instance_launched": took,
+             "bitwise_equal_relaunch": bool(torch.equal(dx, again)),
+             "library": "torch.nn.grad.conv2d_input on bf16 (cuDNN)"},
+            lambda: cb.conv3x3(dy, wr), lambda: cb.conv3x3_plain(dy, wr),
+            library, nbytes, flops)
+        case.update(parent_ms=cuda_ms(sync, iters=10),
+                    kernels_us=_kernel_us(lambda: cb.conv3x3(dy, wr)))
+        case["parent_over_kernel"] = case["parent_ms"] / case["kernel_ms"]
+        out["conv3x3_bf16_wgmma"] = case
 
     got, again = cb.conv_stats(x, w), cb.conv_stats(x, w)
     rz, r1, r2 = cb.conv_stats_plain(x, w)
@@ -5448,23 +5558,93 @@ def _bf16_train_conv_cases(N, H, W, C, Cout, gen):
         lambda: cb.conv_stats(x, w), lambda: cb.conv_stats_plain(x, w),
         lambda: F.conv2d(xc, wc, padding=1), nbytes + 8 * Cout, flops)
 
-    dw, again = cb.conv_wgrad(x, dy), cb.conv_wgrad(x, dy)
-    err, rel = _rel_err(dw, cb.conv_wgrad_plain(x, dy))
+    wref = cb.conv_wgrad_plain(x, dy)
+    library = lambda: torch.nn.grad.conv2d_weight(  # noqa: E731
+        xc, wc.shape, dyc, padding=1)
+    wbytes = 2 * npix * (C + Cout) + 4 * 9 * C * Cout
+    takes = cb.wgmma_takes(C, Cout, x, dy)
+    if takes:
+        sync = lambda: cb._wgrad_tc(  # noqa: E731
+            x, dy, torch.empty((3, 3, C, Cout), device="cuda"))
+        dw, via = sync(), {"launched": "directly"}
+    else:
+        sync = lambda: cb.conv_wgrad(x, dy)  # noqa: E731
+        dw, took = _instance_launches(cb.conv_wgrad, sync, "bf16_mma_sync")
+        via = {"launched": "by the wrapper", "instance_launched": took}
+    again = sync()
+    err, rel = _rel_err(dw, wref)
     vec = int(C % 8 == 0 and Cout % 8 == 0)
     plan = cb.wgrad_splits(npix, 9 * C, Cout, cb._sm_count(0),
                            cb._per_sm("mxt_conv_wgrad_bf16_blocks_per_sm",
                                       0, cb.wgrad_tile_cols(Cout), vec))
-    out["conv_wgrad_bf16"] = _bf16_timed(
+    out["conv_wgrad_bf16_mma_sync"] = _bf16_timed(
         {"shape": shape, "dtype": "bfloat16 x and dy, fp32 dW",
+         "use": "PR 19's mma.sync instance", **via,
          "plan": plan._asdict(), "max_abs_err": err, "rel_err": rel,
          "tol": BF16_SUM_TOL, "finite": bool(torch.isfinite(dw).all()),
          "bitwise_equal_relaunch": bool(torch.equal(dw, again)),
          "library": "torch.nn.grad.conv2d_weight on bf16 (cuDNN; bf16 "
                     "dW)"},
-        lambda: cb.conv_wgrad(x, dy), lambda: cb.conv_wgrad_plain(x, dy),
-        lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, dyc, padding=1),
-        2 * npix * (C + Cout) + 4 * 9 * C * Cout, flops)
+        sync, lambda: cb.conv_wgrad_plain(x, dy), library, wbytes, flops)
+    if takes:
+        dw, took = _instance_launches(cb.conv_wgrad,
+                                      lambda: cb.conv_wgrad(x, dy),
+                                      "bf16_wgmma")
+        again = cb.conv_wgrad(x, dy)
+        err, rel = _rel_err(dw, wref)
+        case = _bf16_timed(
+            {"shape": shape, "dtype": "bfloat16 x and dy, fp32 dW",
+             "plan": _wgmma_plan(npix, C, Cout, wgrad=True),
+             "max_abs_err": err, "rel_err": rel, "tol": BF16_SUM_TOL,
+             "finite": bool(torch.isfinite(dw).all()),
+             "instance_launched": took,
+             "bitwise_equal_relaunch": bool(torch.equal(dw, again)),
+             "library": "torch.nn.grad.conv2d_weight on bf16 (cuDNN; "
+                        "bf16 dW)"},
+            lambda: cb.conv_wgrad(x, dy), lambda: cb.conv_wgrad_plain(x, dy),
+            library, wbytes, flops)
+        case.update(parent_ms=cuda_ms(sync, iters=10),
+                    kernels_us=_kernel_us(lambda: cb.conv_wgrad(x, dy)))
+        case["parent_over_kernel"] = case["parent_ms"] / case["kernel_ms"]
+        out["conv_wgrad_bf16_wgmma"] = case
     return out
+
+
+def _bf16_forward_case(N, H, W, C, Cout, gen):
+    """``conv3x3``'s bf16 forward as a bf16 Inception-v3 runs it (its lone
+    3x3/s1 convs): the wrapper, which must launch the ``wgmma`` kernel,
+    twice (bitwise equal), against ``conv3x3_plain`` to one bf16 step;
+    timed beside PR 19's ``mma.sync`` instance launched directly on the
+    same inputs (``parent_ms``) and ``F.conv2d`` on bf16 (cuDNN,
+    channels-last)."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops import conv_block as cb
+    bf = torch.bfloat16
+    x = torch.randn(N, H, W, C, device="cuda", generator=gen).to(bf)
+    w = (torch.randn(3, 3, C, Cout, device="cuda", generator=gen) *
+         (2.0 / (9 * C)) ** 0.5).to(bf)
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    npix = N * H * W
+    run = lambda: cb.conv3x3(x, w)  # noqa: E731
+    y, took = _instance_launches(cb.conv3x3, run, "bf16_wgmma")
+    again = run()
+    case = _bf16_timed(
+        {"shape": [N, H, W, C, Cout], "dtype": "bfloat16",
+         "use": "forward: conv3x3(x, w), a lone 3x3/s1 conv of Inception-v3",
+         "plan": _wgmma_plan(npix, C, Cout),
+         **_bf16_within(y, cb.conv3x3_plain(x, w)),
+         "instance_launched": took,
+         "bitwise_equal_relaunch": bool(torch.equal(y, again)),
+         "library": "F.conv2d on bf16 (cuDNN, channels-last)"},
+        run, lambda: cb.conv3x3_plain(x, w),
+        lambda: F.conv2d(xc, wc, padding=1),
+        2 * (npix * (C + Cout) + 9 * C * Cout), 2 * npix * 9 * C * Cout)
+    case["parent_ms"] = cuda_ms(lambda: cb._conv3x3_tc(
+        x, w, torch.empty_like(y)), iters=10)
+    case["parent_over_kernel"] = case["parent_ms"] / case["kernel_ms"]
+    return case
 
 
 def _bf16_affine_case(N, H, W, C, gen, residual=False, relu=True):
@@ -5499,7 +5679,8 @@ def _bf16_affine_case(N, H, W, C, gen, residual=False, relu=True):
 
 
 def _bf16_case_ok(c):
-    ok = c["finite"] and c["bitwise_equal_relaunch"]
+    ok = c["finite"] and c["bitwise_equal_relaunch"] and \
+        c.get("instance_launched", True)
     if "within_steps" in c:
         ok = ok and c["within_steps"]
     else:
@@ -5561,22 +5742,180 @@ def _fp32_against_parent(parent):
     return {k: bool(torch.equal(a[k], b[k])) for k in a}
 
 
+def _wgmma_bf16_src():
+    """A register-and-shared-memory kernel for the card's ``wgmma`` bf16
+    rate: each of two warpgroups a block issues m64n128k16 products from
+    one K-major A and one MN-major B tile (128-byte swizzled, zeros) into
+    its own accumulators, four a group, one group kept in flight."""
+    regs = ", ".join(f"%{i}" for i in range(64))
+    outs = ", ".join(f'"+f"(d[{i}])' for i in range(64))
+    return r"""
+extern "C" __global__ void __launch_bounds__(256, 1)
+wgmma_bf16_peak(float* out, int iters) {
+  __shared__ __align__(1024) unsigned short a[64 * 64];
+  __shared__ __align__(1024) unsigned short b[2 * 64 * 64];
+  for (int i = threadIdx.x; i < 64 * 64; i += 256) a[i] = b[i] = b[i + 4096] = 0;
+  __syncthreads();
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(a);
+  const unsigned sb = (unsigned)__cvta_generic_to_shared(b);
+  float d[64];
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  for (int it = 0; it < iters; ++it) {
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const unsigned long long da = (unsigned long long)(((sa + 32 * k) & 0x3FFFF) >> 4) |
+          (1ull << 16) | (64ull << 32) | (1ull << 62);
+      const unsigned long long db = (unsigned long long)(((sb + 2048 * k) & 0x3FFFF) >> 4) |
+          (512ull << 16) | (64ull << 32) | (1ull << 62);
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+          "{REGS}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+          : OUTS
+          : "l"(da), "l"(db));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  float s = 0.f;
+  for (int i = 0; i < 64; ++i) s += d[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+""".replace("REGS", regs).replace("OUTS", outs)
+
+
+def _wgmma_bf16_ceiling():
+    """What ``wgmma.m64n128k16`` bf16 sustains on this card (the product
+    shape of the wgmma conv kernels at BN = 128): one block of two
+    warpgroups an SM issuing products from shared memory with no copies
+    (:func:`_wgmma_bf16_src`), compiled by NVRTC through
+    ``rtc.CudaModule``; beside the 989 TFLOP/s dense peak."""
+    import torch
+    from mxnet_tpu_torch import rtc
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 4096
+    kern = rtc.CudaModule(_wgmma_bf16_src()).get_kernel("wgmma_bf16_peak")
+    run = lambda: kern.launch([iters], grid=(blocks,), block=(256,),  # noqa
+                              out_shape=(blocks * 256,))
+    ms = cuda_ms(run, iters=3)
+    flop = blocks * 2 * iters * 4 * 2 * 64 * 128 * 16
+    return {"blocks": blocks, "ms": ms, "flop": flop,
+            "tflop_s": flop / (ms * 1e-3) / 1e12,
+            "share_of_dense_peak": flop / (ms * 1e-3) / PEAK_BF16_FLOP_S}
+
+
+def _wgmma_parts(shapes):
+    """Where the bf16 ``wgmma`` kernels' loop spends its time: the kernels
+    as built and with one part taken out (``no_copies``: the producer
+    arrives on the ring without loading it; ``no_products``: no
+    ``wgmma``; ``one_run``: the run accumulator flushed with IEEE adds
+    only at a segment's end, up to a whole range's products in one
+    tensor-core sum), built by :func:`_build_variants` and timed (device
+    ms, the dgrad use and the dW) at ``shapes`` (N, H, W, C, Cout) on the
+    plans the wrappers run.  The cut kernels' outputs are
+    garbage but ``one_run``'s, whose dW error against the plain version
+    (of its largest) is kept beside the kernel's."""
+    import torch
+    from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch.ops import conv_block as cb
+    libs, missing = _build_variants(
+        "wgmma_parts", "conv_bf16_wgmma.cu",
+        {"no_copies": [("load_unit<OP, BN>(g, ta, tb, sm.st[st], "
+                        "&sm.full[st], u);", "bar_arrive(&sm.full[st]);")],
+         "no_products": [("mma_chunk<OP, BN>(sm.st[st], wg, in_run == 0, "
+                          "run);", ";")],
+         "one_run": [("constexpr int kRun = 8;",
+                      "constexpr int kRun = 1 << 30;")]},
+        ["mxt_conv3x3_wgmma_bf16", "mxt_conv_wgrad_wgmma_bf16"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    out = []
+    for N, H, W, C, Cout in shapes:
+        bf = torch.bfloat16
+        x = torch.randn(N, H, W, C, device="cuda", generator=gen).to(bf)
+        dy = torch.randn(N, H, W, Cout, device="cuda", generator=gen).to(bf)
+        wr = cb.rotate((torch.randn(3, 3, C, Cout, device="cuda",
+                                    generator=gen) * 0.05).to(bf))
+        M = N * H * W
+        dx = torch.empty(N, H, W, C, device="cuda", dtype=bf)
+        dw = torch.empty(3, 3, C, Cout, device="cuda")
+        cp = cb.conv3x3_splits(M, 9 * cb.WGMMA_SLAB * cb._slabs(Cout), C,
+                               cb._sm_count(0),
+                               cb._per_sm("mxt_conv3x3_wgmma_blocks_per_sm",
+                                          0, cb.wgrad_tile_cols(C), 1),
+                               chunk=cb.WGMMA_SLAB)
+        wp = cb.wgrad_splits(M, 9 * cb.WGMMA_SLAB * cb._slabs(C), Cout,
+                             cb._sm_count(0),
+                             cb._per_sm("mxt_conv_wgrad_wgmma_blocks_per_sm",
+                                        0, cb.wgrad_tile_cols(Cout), 1),
+                             chunk=cb.WGMMA_SLAB)
+        cpart = torch.empty(2 * cp.ranges, cb.CONV_ROWS, cp.bn,
+                            device="cuda")
+        wpart = torch.empty(wp.tiles, wp.jmax, cb.WGRAD_ROWS, wp.bn,
+                            device="cuda")
+        row = {"shape": [N, H, W, C, Cout]}
+        for name, lib in libs.items():
+            def dgrad(lib=lib, name=name):
+                _build.check(lib.mxt_conv3x3_wgmma_bf16(
+                    dy.data_ptr(), wr.data_ptr(), cpart.data_ptr(),
+                    dx.data_ptr(), N, H, W, Cout, C, cp.bn, cp.ranges,
+                    stream()), name)
+
+            def wgrad(lib=lib, name=name):
+                _build.check(lib.mxt_conv_wgrad_wgmma_bf16(
+                    x.data_ptr(), dy.data_ptr(), wpart.data_ptr(),
+                    dw.data_ptr(), N, H, W, C, Cout, wp.bn, wp.ranges,
+                    wp.jmax, stream()), name)
+            row[name + "_dgrad_ms"] = cuda_ms(dgrad, iters=10)
+            row[name + "_wgrad_ms"] = cuda_ms(wgrad, iters=10)
+            if name in ("kernel", "one_run"):
+                wgrad()
+                row[name + "_wgrad_rel_err"] = _rel_err(
+                    dw, cb.conv_wgrad_plain(x, dy))[1]
+        out.append(row)
+    return {"shapes": out, "not_built": missing}
+
+
+def _host_us(fn, calls=200):
+    """Host µs per call of ``fn`` at a shape whose kernels take far less:
+    the wrapper's checks, plan, allocation, encoding and launch."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_bf16_train_kernels(state):
     """The bf16 instances of rows 7 (``conv3x3``, in its dgrad use), 9
     (``conv_stats``), 10 (``bn_affine``) and 11 (``conv_wgrad``) at
     ResNet-50's four 3x3 stages at batch 128 (``bn_affine`` also with a
-    residual, and with the ReLU off, at stage 1; and a ragged shape on
-    the scalar paths, C = 20), against their plain versions, bitwise on
-    relaunch; timed beside their bounds, plain versions and the nearest
+    residual, and with the ReLU off, at stage 1; the ``wgmma`` kernels'
+    edges; and a ragged shape on the scalar paths, C = 20, through the
+    wrappers to PR 19's ``mma.sync`` kernels), and row 7's bf16 forward
+    at Inception-v3's lone 3x3/s1 convs, against their plain versions,
+    bitwise on relaunch, each wrapper launching the kernel its shape
+    takes; timed beside their bounds, plain versions and the nearest
     library call on bf16.  With ``--parent DIR``, also the fp32 instances
     of the same file against the checkout at DIR, bit for bit."""
     import torch
+    from mxnet_tpu_torch.ops import conv_block as cb
     gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
-    cases = {k: [] for k in ("conv3x3_bf16", "conv_stats_bf16",
-                             "bn_affine_bf16", "conv_wgrad_bf16")}
-    for shape in BF16_TRAIN_STAGES + [(2, 9, 11, 20, 12)]:
+    cases = {k: [] for k in ("conv3x3_bf16_wgmma", "conv3x3_bf16_mma_sync",
+                             "conv_stats_bf16", "bn_affine_bf16",
+                             "conv_wgrad_bf16_wgmma",
+                             "conv_wgrad_bf16_mma_sync")}
+    for shape in BF16_TRAIN_STAGES + BF16_WGMMA_EDGES + [BF16_RAGGED]:
         for k, c in _bf16_train_conv_cases(*shape, gen).items():
             cases[k].append(c)
+    cases["conv3x3_bf16_wgmma"] += [_bf16_forward_case(*shape, gen)
+                                    for shape in BF16_INCEPTION_CONVS]
     for N, H, W, _, C in BF16_TRAIN_STAGES:
         cases["bn_affine_bf16"].append(_bf16_affine_case(N, H, W, C, gen))
     cases["bn_affine_bf16"] += [
@@ -5584,8 +5923,39 @@ def phase_bf16_train_kernels(state):
         _bf16_affine_case(128, 56, 56, 64, gen, relu=False),
         _bf16_affine_case(2, 9, 11, 12, gen, residual=True)]
     state["cases"].update(cases)
-    res = {"cases": cases}
+    ceiling = _wgmma_bf16_ceiling()
+    for k in ("conv3x3_bf16_wgmma", "conv_wgrad_bf16_wgmma"):
+        for c in cases[k]:
+            c["wgmma_ceiling_share"] = c["tflop_s"] / ceiling["tflop_s"]
+    x = torch.randn(1, 8, 16, 64, device="cuda").bfloat16()
+    w = torch.randn(3, 3, 64, 64, device="cuda").bfloat16()
+    o = torch.empty_like(x)
+    host = {"shape": [1, 8, 16, 64, 64],
+            "conv3x3_wgmma": _host_us(lambda: cb.conv3x3(x, w)),
+            "conv3x3_mma_sync": _host_us(lambda: cb._conv3x3_tc(x, w, o)),
+            "conv_wgrad_wgmma": _host_us(lambda: cb.conv_wgrad(x, x)),
+            "conv_wgrad_mma_sync": _host_us(lambda: cb._wgrad_tc(
+                x, x, torch.empty(3, 3, 64, 64, device="cuda")))}
+    stages = [{"shape": a["shape"],
+               "dgrad_ms": [a["parent_ms"], a["kernel_ms"]],
+               "dgrad_vs_library": a["vs_library"],
+               "wgrad_ms": [b["parent_ms"], b["kernel_ms"]],
+               "wgrad_vs_library": b["vs_library"]}
+              for a, b in zip(cases["conv3x3_bf16_wgmma"],
+                              cases["conv_wgrad_bf16_wgmma"])][:4]
+    res = {"cases": cases, "wgmma_ceiling": ceiling,
+           "host_us_per_eager_call": host,
+           "stages_parent_to_wgmma": stages,
+           "parts": _wgmma_parts(BF16_TRAIN_STAGES)}
     bad = [c for cs in cases.values() for c in cs if not _bf16_case_ok(c)]
+    taken = len(BF16_TRAIN_STAGES) + len(BF16_WGMMA_EDGES)
+    if len(cases["conv3x3_bf16_wgmma"]) != taken + \
+            len(BF16_INCEPTION_CONVS) or \
+            len(cases["conv_wgrad_bf16_wgmma"]) != taken:
+        bad.append("a shape the wgmma kernels should take was not taken")
+    if [c["launched"] for c in cases["conv3x3_bf16_mma_sync"] +
+            cases["conv_wgrad_bf16_mma_sync"]].count("by the wrapper") != 2:
+        bad.append("the ragged shape did not go through the wrappers")
     if state.get("parent"):
         res["fp32_equal_to_parent"] = eq = _fp32_against_parent(
             state["parent"])
@@ -5608,7 +5978,7 @@ def _bf16_fused(state, key, step, batch_xy, want, batch, fp32_key):
                      want, batch, launches_key=None)
     tot = state.setdefault("bf16_train_launches", {})
     for n, k in res["launches_real"].items():
-        if n.endswith("_bf16"):
+        if n.endswith(("_bf16", "_wgmma", "_mma_sync")):
             tot[n] = tot.get(n, 0) + k
     losses = res["losses"]
     res["loss_falls"] = losses[-1] < losses[0]
@@ -5858,13 +6228,17 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_kernels.py:61"),
     ("conv_affine_bf16", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
      "mxnet_tpu/ops/pallas_block.py:325"),
-    ("conv3x3_bf16", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
+    ("conv3x3_bf16_mma_sync", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
      "mxnet_tpu/ops/pallas_block.py:318"),
     ("conv_stats_bf16", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
      "mxnet_tpu/ops/pallas_block.py:343"),
     ("bn_affine_bf16", "mxnet_tpu_torch/csrc/conv_train.cu",
      "mxnet_tpu/ops/pallas_block.py:367"),
-    ("conv_wgrad_bf16", "mxnet_tpu_torch/csrc/conv_wgrad.cu",
+    ("conv_wgrad_bf16_mma_sync", "mxnet_tpu_torch/csrc/conv_wgrad.cu",
+     "mxnet_tpu/ops/pallas_block.py:381"),
+    ("conv3x3_bf16_wgmma", "mxnet_tpu_torch/csrc/conv_bf16_wgmma.cu",
+     "mxnet_tpu/ops/pallas_block.py:318"),
+    ("conv_wgrad_bf16_wgmma", "mxnet_tpu_torch/csrc/conv_bf16_wgmma.cu",
      "mxnet_tpu/ops/pallas_block.py:381"),
 ]
 # what else an entry names: the header holding the body two attention
@@ -5911,12 +6285,27 @@ KERNEL_NOTES = {
                          "arithmetic": "mma.sync m16n8k16 bf16, fp32 sums",
                          "loop": "conv_ranges, shared with the fp32 "
                                  "instances"},
-    "conv3x3_bf16": {"instance": "bf16",
-                     "kernels": ["conv3x3_bf16_kernel",
-                                 "conv3x3_bf16_reduce_kernel"],
-                     "arithmetic": "mma.sync m16n8k16 bf16, fp32 sums",
-                     "loop": "conv_ranges, shared with the fp32 "
-                             "instances"},
+    "conv3x3_bf16_mma_sync": {
+        "instance": "bf16 shapes the wgmma kernel does not take (C or "
+                    "Cout not a multiple of 8, unaligned); timed at the "
+                    "stage shapes by a direct launch",
+        "kernels": ["conv3x3_bf16_kernel", "conv3x3_bf16_reduce_kernel"],
+        "arithmetic": "mma.sync m16n8k16 bf16, fp32 sums",
+        "loop": "conv_ranges, shared with the fp32 instances"},
+    "conv3x3_bf16_wgmma": {
+        "instance": "bf16, C and Cout multiples of 8, aligned (the path)",
+        "kernels": ["conv3x3_wgmma_kernel", "conv3x3_wgmma_reduce_kernel"],
+        "arithmetic": "wgmma m64nNk16 bf16 from a TMA ring (x by im2col "
+                      "loads), fp32 runs of 512 k flushed with IEEE adds",
+        "loop": "wgmma_ranges, shared with conv_wgrad_bf16_wgmma"},
+    "conv_wgrad_bf16_wgmma": {
+        "instance": "bf16 x and dy, fp32 dW; C and Cout multiples of 8",
+        "kernels": ["conv_wgrad_wgmma_kernel",
+                    "conv_wgrad_wgmma_reduce_kernel"],
+        "arithmetic": "wgmma m64nNk16 bf16, both operands MN-major from a "
+                      "TMA ring, fp32 runs of 512 pixels flushed with IEEE "
+                      "adds",
+        "loop": "wgmma_ranges, shared with conv3x3_bf16_wgmma"},
     "conv_stats_bf16": {"instance": "bf16",
                         "kernels": ["conv_stats_bf16_kernel",
                                     "conv_stats_cut_kernel",
@@ -5928,7 +6317,10 @@ KERNEL_NOTES = {
     "bn_affine_bf16": {"instance": "bf16 z, residual and out; fp32 scale "
                                    "and shift",
                        "kernels": ["bn_affine_bf16_kernel"]},
-    "conv_wgrad_bf16": {"instance": "bf16 x and dy, fp32 dW",
+    "conv_wgrad_bf16_mma_sync": {
+                        "instance": "bf16 x and dy, fp32 dW, shapes the "
+                                    "wgmma kernel does not take; timed at "
+                                    "the stage shapes by a direct launch",
                         "kernels": ["conv_wgrad_bf16_kernel",
                                     "wgrad_reduce_kernel"],
                         "arithmetic": "mma.sync m16n8k16 bf16 on "

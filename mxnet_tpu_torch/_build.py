@@ -104,6 +104,16 @@ _SIGNATURES = {
     "mxt_conv_wgrad_bf16": [_P] * 4 + [ctypes.c_int] * 9 + [_P],
     "mxt_conv_wgrad_bf16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                           ctypes.POINTER(ctypes.c_int)],
+    # the wgmma kernels on bf16 (C % 8 == 0, Cout % 8 == 0): x, w, part,
+    # out, N, H, W, C, Cout, bn, ranges, stream
+    "mxt_conv3x3_wgmma_bf16": [_P] * 4 + [ctypes.c_int] * 7 + [_P],
+    # bn, vec (1), out (int*)
+    "mxt_conv3x3_wgmma_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int)],
+    # x, dy, part, dw, N, H, W, C, Cout, bn, ranges, jmax, stream
+    "mxt_conv_wgrad_wgmma_bf16": [_P] * 4 + [ctypes.c_int] * 8 + [_P],
+    "mxt_conv_wgrad_wgmma_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_int)],
     # z, scale, shift, res, out, total, Cout, relu, vec, stream
     "mxt_bn_affine_f32": [_P] * 5 + [ctypes.c_longlong] +
                          [ctypes.c_int] * 3 + [_P],

@@ -20,11 +20,21 @@ Function that trains through them (≙ ``mxnet_tpu/ops/pallas_block.py``).
 Every kernel has an fp32 and a bf16 instance (the reference's kernels
 take any input dtype and accumulate in f32): bf16 operands are exact
 bf16 products summed in fp32, each output rounded once to bf16; the
-statistics, the affine's scale and shift and dW stay fp32.  fp16 raises
+statistics, the affine's scale and shift and dW stay fp32.  On bf16,
+``conv3x3`` (and so the dgrad) and ``conv_wgrad`` have two instances,
+chosen by shape before the launch (:func:`wgmma_takes`): where C and
+Cout are multiples of 8 and every tensor is 16-byte aligned (every
+ResNet-50 and Inception-v3 shape), the Hopper kernels of
+``csrc/conv_bf16_wgmma.cu`` (``wgmma`` products on tiles that TMA copies
+into a ring of stages); other shapes (C = 20, say) the ``mma.sync``
+instances of ``conv3x3_tc.cu`` and ``conv_wgrad.cu``.  fp16 raises
 ``TypeError`` on the card (its instances are Queue 1 item 3c); the plain
 versions take any float dtype, a half one widened to fp32 and the result
 rounded once, as the bf16 instances compute it.  ``launches`` counts a
-wrapper's launches, ``launches_by_dtype`` each instance's.
+wrapper's launches and ``launches_by_dtype`` each dtype's; ``conv3x3``
+and ``conv_wgrad``, which have two kernels on bf16, count each kernel's
+in ``launches_by_instance`` (``fp32``, ``bf16_mma_sync``, ``bf16_wgmma``)
+instead.
 
 See the notes at the top of the ``.cu`` files for bounds and designs.
 Each wrapper launches its kernel for CUDA tensors and raises on anything
@@ -53,7 +63,7 @@ __all__ = ["conv_affine", "conv_affine_plain", "fold", "conv3x3",
            "conv_stats_plain", "bn_affine",
            "bn_affine_plain", "conv_wgrad",
            "conv_wgrad_plain", "wgrad_splits", "wgrad_tile_cols",
-           "WgradPlan",
+           "WgradPlan", "wgmma_takes", "WGMMA_SLAB",
            "residual_block_fused"]
 
 _count_mu = threading.Lock()
@@ -65,17 +75,35 @@ def _wide(t):
     return t.float() if t.dtype in _HALF else t
 
 
-def _count(fn, dtype):
-    """One launch of ``fn``'s ``dtype`` instance."""
+# the kernels behind conv3x3 and conv_wgrad, as launches_by_instance
+# names them
+INSTANCES = ("fp32", "bf16_mma_sync", "bf16_wgmma")
+
+
+def _count(fn, key):
+    """One launch of ``fn``'s instance ``key``: its dtype or, for a
+    wrapper with several kernels on a dtype, the kernel's name
+    (:data:`INSTANCES`)."""
     with _count_mu:
         fn.launches += 1
-        fn.launches_by_dtype[dtype] += 1
+        by = fn.launches_by_instance if hasattr(
+            fn, "launches_by_instance") else fn.launches_by_dtype
+        by[key] += 1
 
 
 def _counted(fn):
-    """Give a wrapper its counts: every launch, and each instance's."""
+    """Give a wrapper its counts: every launch, and each dtype's."""
     fn.launches = 0
     fn.launches_by_dtype = {torch.float32: 0, torch.bfloat16: 0}
+    return fn
+
+
+def _instanced(fn):
+    """Give a wrapper with several kernels on one dtype its counts: every
+    launch, and each kernel's (:data:`INSTANCES`; a dtype's is their
+    sum)."""
+    fn.launches = 0
+    fn.launches_by_instance = dict.fromkeys(INSTANCES, 0)
     return fn
 
 
@@ -172,6 +200,24 @@ def _aligned(*ts):
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
+WGMMA_SLAB = 64     # channels a TMA box of the wgmma kernels holds (128 B)
+
+
+def wgmma_takes(C, Cout, *tensors):
+    """True where a bf16 ``conv3x3`` or ``conv_wgrad`` of ``C`` input and
+    ``Cout`` output channels on ``tensors`` launches the ``wgmma`` kernels
+    of ``csrc/conv_bf16_wgmma.cu``: TMA wants 16-byte strides (C % 8 == 0,
+    Cout % 8 == 0) and 16-byte aligned bases.  Decided from the shapes and
+    pointers before the launch; the other bf16 shapes launch the
+    ``mma.sync`` instances."""
+    return C % 8 == 0 and Cout % 8 == 0 and _aligned(*tensors)
+
+
+def _slabs(C):
+    """64-channel slabs a tap of the wgmma kernels: ceil(C / 64)."""
+    return -(-C // WGMMA_SLAB)
+
+
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -205,18 +251,20 @@ class Conv3x3Plan(NamedTuple):
     ranges: int
 
 
-def conv3x3_splits(M, K, Cout, sms, per_sm):
+def conv3x3_splits(M, K, Cout, sms, per_sm, chunk=CONV_CHUNK):
     """The :class:`Conv3x3Plan` of ``conv3x3`` for ``M`` output pixels,
     ``K`` = 9C patch columns and ``Cout`` channels on a card of ``sms`` SMs
     that holds ``per_sm`` of its blocks each: exactly ``sms·per_sm`` ranges
     of near-equal work (one full wave; fewer only when there are fewer
-    units), each whole chunks (stream-K: at 7×7×512, batch 64, the 100
-    tiles alone would leave 32 of 132 SMs idle).  Range ``b`` holds units
-    ``[b·T/ranges, (b+1)·T/ranges)`` of the ``T`` = tiles·chunks (unit =
-    tile·chunks + chunk)."""
+    units), each whole chunks of ``chunk`` patch columns (stream-K: at
+    7×7×512, batch 64, the 100 tiles alone would leave 32 of 132 SMs
+    idle).  Range ``b`` holds units ``[b·T/ranges, (b+1)·T/ranges)`` of
+    the ``T`` = tiles·chunks (unit = tile·chunks + chunk).  The wgmma
+    kernel's chunk is one tap's 64-channel slab: ``K`` = 9·64·ceil(C/64),
+    ``chunk`` = 64."""
     bn = wgrad_tile_cols(Cout)
     tiles = -(-M // CONV_ROWS) * -(-Cout // bn)
-    chunks = -(-K // CONV_CHUNK)
+    chunks = -(-K // chunk)
     return Conv3x3Plan(bn, tiles, chunks,
                        max(1, min(sms * per_sm, tiles * chunks)))
 
@@ -241,16 +289,19 @@ def _per_sm(entry, index, bn, vec):
     return out.value
 
 
-@_counted
+@_instanced
 def conv3x3(x, w):
     """3×3/s1/p1 conv with no epilogue, ``x`` (N, H, W, C) and ``w``
     (3, 3, C, Cout) contiguous, both fp32 or both bf16: an implicit GEMM
-    on the tensor cores (fp32: 3×TF32, fp32-accurate; bf16: one bf16
-    product a 16-deep step, fp32 sums, one rounding at the store), its
-    work cut into one wave of ranges (:func:`conv3x3_splits`, at the
-    instance's own occupancy) whose cut tiles are summed in a fixed
-    order.  CUDA tensors launch ``csrc/conv3x3_tc.cu``; CPU tensors take
-    :func:`conv3x3_plain`."""
+    on the tensor cores, its work cut into one wave of ranges
+    (:func:`conv3x3_splits`, at the instance's own occupancy) whose cut
+    tiles are summed in a fixed order.  fp32: 3×TF32, fp32-accurate
+    (``csrc/conv3x3_tc.cu``).  bf16: exact bf16 products, fp32 sums, one
+    rounding at the store; where :func:`wgmma_takes` the shape (C and
+    Cout multiples of 8, 16-byte aligned tensors) the ``wgmma`` kernel of
+    ``csrc/conv_bf16_wgmma.cu`` (x by TMA im2col loads, chunks of one
+    tap's 64-channel slab), else the ``mma.sync`` instance of
+    ``conv3x3_tc.cu``.  CPU tensors take :func:`conv3x3_plain`."""
     if not _on_card("conv3x3", x):
         return conv3x3_plain(x, w)
     half = _card_half("conv3x3", x)
@@ -258,6 +309,38 @@ def conv3x3(x, w):
     out = torch.empty((N, H, W, Cout), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
+    if half and wgmma_takes(C, Cout, x, w, out):
+        return _conv3x3_wgmma(x, w, out)
+    return _conv3x3_tc(x, w, out)
+
+
+def _conv3x3_wgmma(x, w, out):
+    """Launch ``csrc/conv_bf16_wgmma.cu``'s conv3x3 into ``out``."""
+    N, H, W, C = x.shape
+    Cout = w.shape[3]
+    index = x.device.index
+    bn = wgrad_tile_cols(Cout)
+    plan = conv3x3_splits(N * H * W, 9 * WGMMA_SLAB * _slabs(C), Cout,
+                          _sm_count(index),
+                          _per_sm("mxt_conv3x3_wgmma_blocks_per_sm", index,
+                                  bn, 1), chunk=WGMMA_SLAB)
+    part = torch.empty((2 * plan.ranges, CONV_ROWS, plan.bn),
+                       device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = _build.lib().mxt_conv3x3_wgmma_bf16(
+            x.data_ptr(), w.data_ptr(), part.data_ptr(), out.data_ptr(),
+            N, H, W, C, Cout, plan.bn, plan.ranges, _stream(x.device))
+    _build.check(err, "conv3x3")
+    _count(conv3x3, "bf16_wgmma")
+    return out
+
+
+def _conv3x3_tc(x, w, out):
+    """Launch ``csrc/conv3x3_tc.cu``'s conv3x3 (fp32, or bf16 on
+    ``mma.sync``) into ``out``."""
+    N, H, W, C = x.shape
+    Cout = w.shape[3]
+    half = x.dtype == torch.bfloat16
     wide = 8 if half else 4             # channels a 16-byte copy moves
     vec = int(C % wide == 0 and Cout % wide == 0 and _aligned(x, w, out))
     index = x.device.index
@@ -274,7 +357,7 @@ def conv3x3(x, w):
             x.data_ptr(), w.data_ptr(), part.data_ptr(), out.data_ptr(),
             N, H, W, C, Cout, plan.bn, plan.ranges, vec, _stream(x.device))
     _build.check(err, "conv3x3")
-    _count(conv3x3, x.dtype)
+    _count(conv3x3, "bf16_mma_sync" if half else "fp32")
     return out
 
 
@@ -518,7 +601,7 @@ WGRAD_CHUNK = 32     # pixels a chunk of the reduction
 class WgradPlan(NamedTuple):
     """How ``conv_wgrad`` cuts its work: ``tiles`` output tiles of 128
     patch columns × ``bn`` channels, each a reduction over ``chunks``
-    32-pixel chunks; the tiles × chunks units are cut into ``ranges``
+    pixel chunks; the tiles × chunks units are cut into ``ranges``
     ranges of whole chunks, one a block, and ``jmax`` is the most ranges
     one tile is cut between (its partial slots)."""
     bn: int
@@ -534,18 +617,20 @@ def wgrad_tile_cols(Cout):
     return 64 if Cout <= 64 else 128
 
 
-def wgrad_splits(M, K, Cout, sms, per_sm):
+def wgrad_splits(M, K, Cout, sms, per_sm, chunk=WGRAD_CHUNK):
     """The :class:`WgradPlan` of ``conv_wgrad`` for ``M`` pixels, ``K`` =
     9C patch columns and ``Cout`` channels on a card of ``sms`` SMs that
     holds ``per_sm`` of its blocks each: exactly ``sms·per_sm`` ranges of
     near-equal work (one full wave; fewer only when there are fewer
-    units), each range whole chunks (stream-K rather than equal splits per
-    tile, whose whole waves would need 11 splits and 104 MB of partials
-    at 7×7×512).  Range ``b`` holds units ``[b·T/ranges, (b+1)·T/ranges)``
-    of the ``T`` = tiles·chunks (unit = tile·chunks + chunk)."""
+    units), each range whole chunks of ``chunk`` pixels (stream-K rather
+    than equal splits per tile, whose whole waves would need 11 splits
+    and 104 MB of partials at 7×7×512).  Range ``b`` holds units
+    ``[b·T/ranges, (b+1)·T/ranges)`` of the ``T`` = tiles·chunks (unit =
+    tile·chunks + chunk).  The wgmma kernel's tile rows are two 64-channel
+    slabs of a tap: ``K`` = 9·64·ceil(C/64), ``chunk`` = 64."""
     bn = wgrad_tile_cols(Cout)
     tiles = -(-K // WGRAD_ROWS) * -(-Cout // bn)
-    chunks = -(-M // WGRAD_CHUNK)
+    chunks = -(-M // chunk)
     total = tiles * chunks
     ranges = max(1, min(sms * per_sm, total))
     least = total // ranges
@@ -553,16 +638,20 @@ def wgrad_splits(M, K, Cout, sms, per_sm):
                      min(ranges, (chunks - 1) // least + 2))
 
 
-@_counted
+@_instanced
 def conv_wgrad(x, dy):
     """dW (3, 3, C, Cout), fp32, of the 3×3/s1/p1 conv from NHWC ``x``
     (N, H, W, C) and ``dy`` (N, H, W, Cout), contiguous, both fp32 or both
-    bf16: patchesᵀ·dy on the tensor cores (fp32: 3×TF32, fp32-accurate;
-    bf16: one bf16 product a 16-pixel step, fp32 sums), the pixel
-    reduction cut into one wave of ranges whose partial tiles are summed
-    in a fixed order.  The caller casts dW to the weight's dtype, as the
-    reference's ``_conv_bwd`` does.  CUDA tensors launch
-    ``csrc/conv_wgrad.cu``; CPU tensors take :func:`conv_wgrad_plain`."""
+    bf16: patchesᵀ·dy on the tensor cores, the pixel reduction cut into
+    one wave of ranges whose partial tiles are summed in a fixed order.
+    fp32: 3×TF32, fp32-accurate (``csrc/conv_wgrad.cu``).  bf16: exact
+    bf16 products, fp32 sums; where :func:`wgmma_takes` the shape the
+    ``wgmma`` kernel of ``csrc/conv_bf16_wgmma.cu`` (both operands
+    pixel-major as NHWC lays them, read through ``wgmma``'s transpose
+    bits; 64-pixel chunks), else the ``mma.sync`` instance of
+    ``conv_wgrad.cu``.  The caller casts dW to the weight's dtype, as the
+    reference's ``_conv_bwd`` does.  CPU tensors take
+    :func:`conv_wgrad_plain`."""
     if not _on_card("conv_wgrad", x):
         return conv_wgrad_plain(x, dy)
     half = _card_half("conv_wgrad", x)
@@ -578,10 +667,43 @@ def conv_wgrad(x, dy):
     dw = torch.empty((3, 3, C, Cout), device=x.device, dtype=torch.float32)
     if M == 0 or dw.numel() == 0:
         return dw.zero_()
+    if half and wgmma_takes(C, Cout, x, dy, dw):
+        return _wgrad_wgmma(x, dy, dw)
+    return _wgrad_tc(x, dy, dw)
+
+
+def _wgrad_wgmma(x, dy, dw):
+    """Launch ``csrc/conv_bf16_wgmma.cu``'s conv_wgrad into ``dw``."""
+    N, H, W, C = x.shape
+    Cout = dy.shape[3]
+    index = x.device.index
+    bn = wgrad_tile_cols(Cout)
+    plan = wgrad_splits(N * H * W, 9 * WGMMA_SLAB * _slabs(C), Cout,
+                        _sm_count(index),
+                        _per_sm("mxt_conv_wgrad_wgmma_blocks_per_sm", index,
+                                bn, 1), chunk=WGMMA_SLAB)
+    part = torch.empty((plan.tiles, plan.jmax, WGRAD_ROWS, plan.bn),
+                       device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = _build.lib().mxt_conv_wgrad_wgmma_bf16(
+            x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+            N, H, W, C, Cout, plan.bn, plan.ranges, plan.jmax,
+            _stream(x.device))
+    _build.check(err, "conv_wgrad")
+    _count(conv_wgrad, "bf16_wgmma")
+    return dw
+
+
+def _wgrad_tc(x, dy, dw):
+    """Launch ``csrc/conv_wgrad.cu``'s kernel (fp32, or bf16 on
+    ``mma.sync``) into ``dw``."""
+    N, H, W, C = x.shape
+    Cout = dy.shape[3]
+    half = x.dtype == torch.bfloat16
     wide = 8 if half else 4
     vec = int(C % wide == 0 and Cout % wide == 0 and _aligned(x, dy, dw))
     index = x.device.index
-    plan = wgrad_splits(M, 9 * C, Cout, _sm_count(index),
+    plan = wgrad_splits(N * H * W, 9 * C, Cout, _sm_count(index),
                         _per_sm("mxt_conv_wgrad_bf16_blocks_per_sm" if half
                                 else "mxt_conv_wgrad_blocks_per_sm", index,
                                 wgrad_tile_cols(Cout), vec))
@@ -595,7 +717,7 @@ def conv_wgrad(x, dy):
             N, H, W, C, Cout, plan.bn, plan.ranges, plan.jmax, vec,
             _stream(x.device))
     _build.check(err, "conv_wgrad")
-    _count(conv_wgrad, x.dtype)
+    _count(conv_wgrad, "bf16_mma_sync" if half else "fp32")
     return dw
 
 

@@ -95,14 +95,22 @@ def kernel_wrappers() -> Dict[str, Callable]:
 
 
 def _counts():
-    """Each wrapper's launches by name, and its bf16 instance's (also
-    counted in the former) as ``<name>_bf16``."""
+    """Each wrapper's launches by name, its bf16 instance's (also counted
+    in the former) as ``<name>_bf16`` and, where bf16 has several
+    kernels, each one's as ``<name>_<instance>`` (``conv3x3_bf16_wgmma``,
+    ``conv3x3_bf16_mma_sync``; ``<name>_bf16`` is their sum)."""
     out = {}
     for n, fn in kernel_wrappers().items():
         out[n] = fn.launches
         by_dtype = getattr(fn, "launches_by_dtype", {})
         if torch.bfloat16 in by_dtype:
             out[n + "_bf16"] = by_dtype[torch.bfloat16]
+        by_kernel = getattr(fn, "launches_by_instance", {})
+        kernels = {f"{n}_{inst}": k for inst, k in by_kernel.items()
+                   if inst.startswith("bf16_")}
+        if kernels:
+            out[n + "_bf16"] = sum(kernels.values())
+            out.update(kernels)
     return out
 
 
