@@ -44,7 +44,8 @@ LeNet at 28x28x1 forward, and DenseNet-121 training through
 the standalone conv route), then bf16 serving: ResNet-50 v1 and Gluon
 BERT-base through ``ModelRegistry.load(..., precision="bf16")`` →
 ``Batcher`` → ``InferenceEngine`` on the bf16 instances of the softmax
-and ``conv_affine`` kernels, then bf16 training: ResNet-50 v1 at batch 128
+and ``conv_affine`` kernels (``conv_affine`` on its ``wgmma`` AFFINE
+instance), then bf16 training: ResNet-50 v1 at batch 128
 and Gluon BERT-base at 8 x 512 through ``parallel.FusedTrainStep(dtype=
 "bfloat16")`` on the bf16 instances of ``conv3x3``, ``conv_stats``,
 ``bn_affine``, ``conv_wgrad`` and the softmax.  Phases, one JSON line
@@ -263,7 +264,8 @@ each; the run stops with a non-zero exit at the first phase that fails:
     forwards on fresh inputs (CUDA events), the int8-vs-fp32 and
     bf16-vs-fp32 argmax agreements over 256 ``RandomState(0)`` images;
     the launch counters set to 0 before the bf16 forwards and read
-    after: 16 bf16 ``conv_affine`` launches a forward and no fp32 one;
+    after: 16 bf16 ``wgmma`` ``conv_affine`` launches a forward and no
+    other ``conv_affine`` one;
     then before the int8 forwards: exactly 16 int8-kernel and 0
     ``conv_affine`` launches a forward.
 28. ``int8_serve``: the counters set to 0, then ``ModelRegistry.load``
@@ -274,7 +276,7 @@ each; the run stops with a non-zero exit at the first phase that fails:
     request ms, images/s, batch fill, device and eager ms per forward per
     bucket, peak memory; then ``int8_score.py``'s ``--serve`` leg: the
     int8 engine's QPS against the bf16 engine's at bucket 8 (16 bf16
-    ``conv_affine`` launches a bf16 forward).
+    ``wgmma`` ``conv_affine`` launches a bf16 forward, no other).
 29. ``int8_reference``: card logits against the port on the CPU with the
     same int8 weights and thresholds (``state_from_numpy``) at batch 2
     (within 1e-3 of the largest logit, top-1 equal), and every batched
@@ -415,18 +417,25 @@ each; the run stops with a non-zero exit at the first phase that fails:
     and (4096, 30522): each value within one step of the plain
     numerator over the plain rounded sum or over that sum moved one step
     (the fp32 sums run in another order).  Row 8 (``conv_affine``) in
-    bf16 at ResNet-50's four 3x3 stages at batch 8, stage 1 at batch 64,
-    with a residual, and on the scalar path (C = 20): each value within
-    one bf16 step of its plain version (bf16 widened, the conv in fp32,
-    one rounding), or within 1e-5 of the largest output near 0.  Each
-    timed beside its bound (bytes at 2 an element over 3.35 TB/s; bf16
-    operations over 989 TFLOP/s dense), its plain version and the
-    library call on bf16 (``torch.softmax``; ``F.conv2d`` alone), with
-    its plan.
+    bf16 at ResNet-50's four 3x3 stages at batch 8 and stage 1 at batch
+    64, each without and with a residual, stage 1 with the ReLU off, and
+    a ragged shape (C = 20): where the ``wgmma`` kernel takes the shape,
+    the ``mma.sync`` instance launched directly and then the wrapper,
+    which must launch the ``wgmma`` kernel (the loop's AFFINE epilogue),
+    timed on the same inputs beside the former (``parent_ms``), with its
+    main and reduce kernels' µs and its share of the ``wgmma`` ceiling;
+    the ragged shape through the wrapper to the ``mma.sync`` kernel.
+    Each value within one bf16 step of its plain version (bf16 widened,
+    the conv in fp32, one rounding), or within 1e-5 of the largest
+    output near 0.  Each timed beside its bound (bytes at 2 an element
+    over 3.35 TB/s; bf16 operations over 989 TFLOP/s dense), its plain
+    version and the library call on bf16 (``torch.softmax``;
+    ``F.conv2d`` alone), with its plan.
 43. ``bf16_serve``: the counters set to 0, then ResNet-50 v1 through
     ``ModelRegistry.load(..., precision="bf16")`` (``amp.convert_model``
     on the card), 32 closed-loop requests and 64 from 8 clients: exactly
-    16 bf16 ``conv_affine`` launches a forward and no fp32 one; then the
+    16 ``conv_affine`` launches a forward, all of them its bf16 ``wgmma``
+    kernel (none of the ``mma.sync`` or fp32 one); then the
     counters set to 0 again and Gluon BERT-base on 512-token int32 items
     the same way: exactly 12 bf16 softmax launches a forward and no fp32
     one (its LayerNorms are the reference's closed form in bf16).  Every
@@ -458,37 +467,43 @@ each; the run stops with a non-zero exit at the first phase that fails:
     fp32 dW and statistics, over 3.35 TB/s; bf16 operations over 989
     TFLOP/s), its plain version and the nearest library call on bf16
     (``conv2d_input``, ``F.conv2d``, ``torch.addcmul``,
-    ``conv2d_weight``), with its plan.  ``conv3x3`` and ``conv_wgrad``
-    twice: the ``wgmma`` kernels through the wrappers (which must launch
-    them) with PR 19's ``mma.sync`` instances timed on the same inputs
-    (``parent_ms``), their main and reduce kernels' µs, TFLOP/s and share
-    of the card's ``wgmma`` bf16 ceiling (measured: m64n128k16 products
-    from shared memory, no copies), and the ``mma.sync`` instances
-    launched directly as their own cases; the host µs of an eager call
-    of each.  With ``--parent DIR`` the fp32 instances of the conv files
-    (conv3x3, dgrad, conv_stats, bn_affine, conv_wgrad, conv_affine at
-    four shapes) must equal the build of the checkout at DIR bit for
-    bit.
+    ``conv2d_weight``), with its plan.  ``conv3x3``, ``conv_stats`` and
+    ``conv_wgrad`` twice: the ``wgmma`` kernels through the wrappers
+    (which must launch them) with the ``mma.sync`` instances timed on the
+    same inputs (``parent_ms``), their main and reduce (cut, sum) kernels'
+    µs, TFLOP/s and share of the card's ``wgmma`` bf16 ceiling (measured:
+    m64n128k16 products from shared memory, no copies), and the
+    ``mma.sync`` instances launched directly as their own cases;
+    ``conv_stats``' z also bit for bit ``conv3x3(x, w)`` where the two
+    plans agree (a gate); the host µs of an eager call of each ``wgmma``
+    wrapper, warm and cold, with the tensor-map cache's hits and misses;
+    ``parts`` (the loop without its copies or products) for the dgrad,
+    ``conv_stats`` and the dW.  With ``--parent DIR`` the fp32 instances
+    of the conv files (conv3x3, dgrad, conv_stats, bn_affine,
+    conv_wgrad, conv_affine at four shapes) must equal the build of the
+    checkout at DIR bit for bit, and the bf16 wrappers are timed at the
+    stages in both checkouts in turns (parent, change, change,
+    parent).
 46. ``bf16_train``: ResNet-50 v1 at batch 128 (SGD lr 0.1, momentum 0.9,
     wd 1e-4) and Gluon BERT-base at 8 x 512 (Adam lr 1e-4) through
     ``FusedTrainStep(dtype="bfloat16")``, each driven as the fused phases
     drive theirs on one fixed batch for 21 calls: exactly 16 launches of
     each of the four training kernels captured a ResNet step, all bf16
-    (no fp32 launch), ``conv3x3``'s and ``conv_wgrad``'s all on the
-    ``wgmma`` kernels (none on PR 19's ``mma.sync`` ones), 12 bf16
+    (no fp32 launch), ``conv3x3``'s, ``conv_stats``' and ``conv_wgrad``'s
+    all on the ``wgmma`` kernels (none on the ``mma.sync`` ones), 12 bf16
     softmaxes a BERT step and no LayerNorm
     kernel; finite losses that fall; replayed and eager step ms, images/s
-    or tokens/s, peak memory, idle share, beside the fp32 fused step of
-    the same run.
+    or tokens/s, peak memory, idle share, the hand-written kernels' µs a
+    replay, beside the fp32 fused step of the same run.
 47. ``bf16_train_reference``: two bf16 fused SGD steps of ResNet-18 v1
     (64x64, batch 2, damped residual γ) and of ``bert_small`` on the card
     against the port on the CPU from the same weights and batches: the
     card's losses and weights no farther from the CPU's bf16 step than
     that is from the CPU's fp32 step.
 
-Then one ``{"kernels": [...]}`` line (24 entries: the bf16 instances of
-rows 1, 7, 8, 9, 10 and 11 their own, rows 7 and 11 twice: the ``wgmma``
-kernels and the ``mma.sync`` ones; ``launches`` adds
+Then one ``{"kernels": [...]}`` line (26 entries: the bf16 instances of
+rows 1, 7, 8, 9, 10 and 11 their own, rows 7, 8, 9 and 11 twice: the
+``wgmma`` kernels and the ``mma.sync`` ones; ``launches`` adds
 the fused phases' real launches: the first call's warm-up and the
 replays times the captured counts), the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -873,6 +888,8 @@ def phase_reference(state):
 
 # kernel-name patterns of the profile's categories, first match wins
 KERNEL_CATEGORIES = (
+    ("conv_stats wgmma (ours)", r"conv_stats_wgmma(_cut|_sum)?_kernel"),
+    ("conv_affine wgmma (ours)", r"conv_affine_wgmma(_reduce)?_kernel"),
     ("conv_affine (ours)",
      r"conv_affine_(tc|reduce|bf16|bf16_reduce)_kernel"),
     ("conv3x3 / dgrad (ours)",
@@ -2864,6 +2881,8 @@ def phase_int8_score(state):
           for _ in range(INT8_WARMUP + INT8_ITERS)]
 
     def score(net, dtype=torch.float32):
+        """ms a batch by CUDA events, and the host's ms to queue a batch's
+        forward (near the former: the scoring is host-bound)."""
         ins = [x.to(dtype) for x in xs]         # made before the window
         with torch.inference_mode():
             for x in ins[:INT8_WARMUP]:
@@ -2871,13 +2890,16 @@ def phase_int8_score(state):
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
             start.record()
             for x in ins[INT8_WARMUP:]:
                 net(x)
             end.record()
+            host = (time.perf_counter() - t0) * 1e3 / INT8_ITERS
             end.synchronize()
         ms = start.elapsed_time(end) / INT8_ITERS
-        return {"ms_per_batch": ms, "images_s": B / (ms * 1e-3)}
+        return {"ms_per_batch": ms, "images_s": B / (ms * 1e-3),
+                "host_ms_per_batch": host}
 
     fp32_net = _load_resnet50(path, "cuda")
     fp32 = score(fp32_net)
@@ -2935,8 +2957,7 @@ def phase_int8_score(state):
     if launches["qconv3x3_affine"] != RESNET50_SEGMENTS * forwards or \
             launches["conv_affine"] != 0 or twins != 54:
         raise AssertionError(f"int8 forward launches: {res}")
-    if bf16_counts["conv_affine_bf16"] != RESNET50_SEGMENTS * forwards or \
-            bf16_counts["conv_affine_fp32"] != 0:
+    if not _affine_path_ok(bf16_counts, forwards):
         raise AssertionError(f"bf16 forward launches: {res}")
     return res
 
@@ -3044,9 +3065,7 @@ def phase_int8_serve(state):
             counts = _half_counts()
             serve_leg["bf16_launches"] = {**counts, "forwards": e.forwards}
             _add_bf16_launches(state, counts)
-            if counts["conv_affine_bf16"] != \
-                    RESNET50_SEGMENTS * e.forwards or \
-                    counts["conv_affine_fp32"] != 0:
+            if not _affine_path_ok(counts, e.forwards):
                 raise AssertionError(f"bf16 serve leg launches: {counts}")
         del e, net
     serve_leg["int8_vs_bf16"] = serve_leg["int8_qps"] / \
@@ -4880,21 +4899,26 @@ def _half_softmax_case(rows, cols, dtype, gen, div=None, keep_rows=None):
     return case
 
 
-def _conv_bf16_case(N, H, W, C, Cout, gen, residual=False, relu=True):
-    """``conv_affine``'s bf16 instance against its plain version (bf16
+def _conv_bf16_cases(N, H, W, C, Cout, gen, residual=False, relu=True):
+    """``conv_affine``'s bf16 kernels against their plain version (bf16
     widened to fp32, the conv in fp32 with TF32 off, the same fold, one
-    rounding) at one shape, twice on the same inputs (bitwise equal),
-    with its plan, timed beside its bound (bf16 operations over 989
-    TFLOP/s dense, or its bytes at 2 an element), its plain version and
-    ``F.conv2d`` on the bf16 tensors alone (cuDNN, channels-last: no fold,
-    residual or ReLU).  Each value within one bf16 step of the plain
-    version's, or within 1e-5 of the largest output where both lie near
-    0: the two sum the same exact products in fp32 in another order, so a
-    value may round to the neighbouring bf16 value, and near 0 the sums'
-    own rounding is all there is."""
+    rounding) at one shape, each launched twice on the same inputs
+    (bitwise equal), with its plan, timed beside its bound (bf16
+    operations over 989 TFLOP/s dense, or its bytes at 2 an element), its
+    plain version and ``F.conv2d`` on the bf16 tensors alone (cuDNN,
+    channels-last: no fold, residual or ReLU).  Where ``wgmma_takes`` the
+    shape: the ``mma.sync`` instance launched directly, then the wrapper,
+    which must launch the ``wgmma`` kernel, timed on the same inputs
+    beside the former (``parent_ms``) with its main and reduce kernels'
+    µs; elsewhere the wrapper, which must launch the ``mma.sync`` one.
+    Each value within one bf16 step of the plain version's, or within
+    1e-5 of the largest output where both lie near 0: the two sum the
+    same exact products in fp32 in another order, so a value may round to
+    the neighbouring bf16 value, and near 0 the sums' own rounding is all
+    there is."""
     import torch
     import torch.nn.functional as F
-    from mxnet_tpu_torch.ops.conv_block import conv_affine, conv_affine_plain
+    from mxnet_tpu_torch.ops import conv_block as cb
     bf = torch.bfloat16
     x = torch.randn(N, H, W, C, device="cuda", generator=gen).to(bf)
     w = (torch.randn(3, 3, C, Cout, device="cuda", generator=gen) *
@@ -4906,8 +4930,7 @@ def _conv_bf16_case(N, H, W, C, Cout, gen, residual=False, relu=True):
     res = torch.randn(N, H, W, Cout, device="cuda",
                       generator=gen).to(bf) if residual else None
     args = (x, w, g, b, mu, var, res)
-    out = conv_affine(*args, relu=relu)
-    again = conv_affine(*args, relu=relu)
+    ref = cb.conv_affine_plain(*args, relu=relu)
     xc = x.permute(0, 3, 1, 2)                      # channels-last view
     wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     npix = N * H * W
@@ -4915,19 +4938,62 @@ def _conv_bf16_case(N, H, W, C, Cout, gen, residual=False, relu=True):
                                                            else 1)
                   + 4 * Cout)
     flops = 2 * npix * 9 * C * Cout
-    case = {"shape": [N, H, W, C, Cout], "dtype": "bfloat16",
-            "residual": residual, "relu": relu,
-            "plan": _conv3x3_plan(npix, C, Cout,
-                                  "mxt_conv_affine_bf16_blocks_per_sm", 8),
-            **_bf16_within(out, conv_affine_plain(*args, relu=relu)),
-            "bitwise_equal_relaunch": bool(torch.equal(out, again)),
-            "library": "F.conv2d alone on bf16 (cuDNN, channels-last; no "
-                       "BN fold, residual or ReLU)"}
-    _bf16_timed(case, lambda: conv_affine(*args, relu=relu),
-                lambda: conv_affine_plain(*args, relu=relu),
-                lambda: F.conv2d(xc, wc, padding=1), nbytes, flops)
-    case["tflop_s"] = flops / (case["kernel_ms"] * 1e-3) / 1e12
-    return case
+    shape = [N, H, W, C, Cout]
+    library = lambda: F.conv2d(xc, wc, padding=1)  # noqa: E731
+    plain = lambda: cb.conv_affine_plain(*args, relu=relu)  # noqa: E731
+    about = {"shape": shape, "dtype": "bfloat16", "residual": residual,
+             "relu": relu,
+             "library": "F.conv2d alone on bf16 (cuDNN, channels-last; no "
+                        "BN fold, residual or ReLU)"}
+    wrapper = lambda: cb.conv_affine(*args, relu=relu)  # noqa: E731
+    takes = cb.wgmma_takes(C, Cout, x, w, *([res] if residual else []))
+    if takes:
+        sync = lambda: cb._conv_affine_tc(  # noqa: E731
+            x, w, (g, b, mu, var), res, 1e-5, relu,
+            torch.empty(N, H, W, Cout, device="cuda", dtype=bf))
+        out, via = sync(), {"launched": "directly"}
+    else:
+        sync = wrapper
+        out, took = _instance_launches(cb.conv_affine, sync, "bf16_mma_sync")
+        via = {"launched": "by the wrapper", "instance_launched": took}
+    cases = {"conv_affine_bf16_mma_sync": _bf16_timed(
+        {**about, "use": "the mma.sync instance", **via,
+         "plan": _conv3x3_plan(npix, C, Cout,
+                               "mxt_conv_affine_bf16_blocks_per_sm", 8),
+         **_bf16_within(out, ref),
+         "bitwise_equal_relaunch": bool(torch.equal(out, sync()))},
+        sync, plain, library, nbytes, flops)}
+    if takes:
+        out, took = _instance_launches(cb.conv_affine, wrapper, "bf16_wgmma")
+        case = _bf16_timed(
+            {**about, "plan": _wgmma_plan(npix, C, Cout, op="conv_affine"),
+             **_bf16_within(out, ref), "instance_launched": took,
+             "bitwise_equal_relaunch": bool(torch.equal(out, wrapper()))},
+            wrapper, plain, library, nbytes, flops)
+        case.update(parent_ms=cuda_ms(sync, iters=10),
+                    kernels_us=_kernel_us(wrapper))
+        case["parent_over_kernel"] = case["parent_ms"] / case["kernel_ms"]
+        cases["conv_affine_bf16_wgmma"] = case
+    return cases
+
+
+# the wgmma kernels' edges: one 128 x 64 tile; M, C and Cout off their
+# tiles (189 pixels, a 40-channel slab, a 24-channel box); 64 < Cout < 128
+# off a multiple of 64 (BN = 128, the second 64-column box partly past the
+# channels: dW's and the conv's Cout = 96, the dgrad's output C = 72)
+BF16_WGMMA_EDGES = [(1, 8, 16, 64, 64), (3, 7, 9, 40, 24),
+                    (2, 11, 13, 72, 96)]
+# row 8's bf16 cases: ResNet-50's four 3x3 stages at batch 8 (the path
+# shape first), stage 1 at batch 64 and the wgmma kernels' edges, each
+# without and with a residual; stage 1 with the ReLU off; a ragged shape
+# (C = 20) that the wgmma kernel does not take
+BF16_AFFINE_SHAPES = [(8, 56, 56, 64, 64), (8, 28, 28, 128, 128),
+                      (8, 14, 14, 256, 256), (8, 7, 7, 512, 512),
+                      (64, 56, 56, 64, 64)] + BF16_WGMMA_EDGES
+BF16_AFFINE_CASES = ([(s, {}) for s in BF16_AFFINE_SHAPES] +
+                     [(s, {"residual": True}) for s in BF16_AFFINE_SHAPES] +
+                     [(BF16_AFFINE_SHAPES[0], {"relu": False}),
+                      ((2, 9, 11, 20, 12), {"residual": True})])
 
 
 def phase_bf16_kernels(state):
@@ -4951,55 +5017,77 @@ def phase_bf16_kernels(state):
                                keep_rows=8),
             _half_softmax_case(12 * TEXT_T, TEXT_T, f16, gen),
             _half_softmax_case(4096, 30522, f16, gen)]
-    # row 8's bf16 instance: ResNet-50's four 3x3 stages at batch 8 (the
-    # path shape first), stage 1 at batch 64, a residual tail, and a ragged
-    # shape on the scalar path (C = 20)
-    conv = [_conv_bf16_case(8, 56, 56, 64, 64, gen),
-            _conv_bf16_case(8, 28, 28, 128, 128, gen),
-            _conv_bf16_case(8, 14, 14, 256, 256, gen),
-            _conv_bf16_case(8, 7, 7, 512, 512, gen),
-            _conv_bf16_case(64, 56, 56, 64, 64, gen),
-            _conv_bf16_case(8, 56, 56, 64, 64, gen, residual=True),
-            _conv_bf16_case(2, 9, 11, 20, 12, gen, residual=True)]
+    conv = {"conv_affine_bf16_wgmma": [], "conv_affine_bf16_mma_sync": []}
+    for shape, kw in BF16_AFFINE_CASES:
+        for k, c in _conv_bf16_cases(*shape, gen, **kw).items():
+            conv[k].append(c)
+    ceiling = _wgmma_ceiling(state)
+    for c in conv["conv_affine_bf16_wgmma"]:
+        c["wgmma_ceiling_share"] = c["tflop_s"] / ceiling["tflop_s"]
     state["cases"]["softmax_fused_bf16"] = soft
-    state["cases"]["conv_affine_bf16"] = conv
+    state["cases"].update(conv)
     bad = [c for c in soft if not (c["max_steps"] <= c["tol_steps"] and
                                    c["finite"] and
                                    c["bitwise_equal_relaunch"])]
-    bad += [c for c in conv if not (c["within_steps"] and c["finite"] and
-                                    c["bitwise_equal_relaunch"])]
+    bad += [c for cs in conv.values() for c in cs if not _bf16_case_ok(c)]
+    if len(conv["conv_affine_bf16_wgmma"]) != len(BF16_AFFINE_CASES) - 1 \
+            or [c["launched"] for c in conv["conv_affine_bf16_mma_sync"]
+                ].count("by the wrapper") != 1:
+        bad.append("a shape did not reach the kernel its wrapper should "
+                   "launch")
     if bad:
         raise AssertionError(f"half-precision kernel disagrees with its "
                              f"plain version: {bad}")
-    return {"softmax": soft, "conv_affine": conv}
+    stages = [{"shape": c["shape"], "residual": c["residual"],
+               "relu": c["relu"], "ms": [c["parent_ms"], c["kernel_ms"]],
+               "kernels_us": c["kernels_us"], "vs_library": c["vs_library"]}
+              for c in conv["conv_affine_bf16_wgmma"]]
+    return {"softmax": soft, "conv_affine": conv, "wgmma_ceiling": ceiling,
+            "affine_parent_to_wgmma": stages}
 
 
 def _zero_half_counts():
     from mxnet_tpu_torch.ops.conv_block import conv_affine
     from mxnet_tpu_torch.ops.cuda_kernels import layernorm_fused, softmax_fused
-    for fn in (conv_affine, softmax_fused):
-        fn.launches = 0
-        fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
+    conv_affine.launches = softmax_fused.launches = 0
+    conv_affine.launches_by_instance = dict.fromkeys(
+        conv_affine.launches_by_instance, 0)
+    softmax_fused.launches_by_dtype = dict.fromkeys(
+        softmax_fused.launches_by_dtype, 0)
     layernorm_fused.launches = 0
 
 
 def _half_counts():
+    """The serving kernels' launches: ``conv_affine`` by kernel
+    (``conv_affine_bf16`` the sum of its two bf16 kernels), the softmax
+    by dtype, LayerNorm."""
     import torch
     from mxnet_tpu_torch.ops.conv_block import conv_affine
     from mxnet_tpu_torch.ops.cuda_kernels import layernorm_fused, softmax_fused
-    conv, soft = conv_affine.launches_by_dtype, \
+    conv, soft = conv_affine.launches_by_instance, \
         softmax_fused.launches_by_dtype
-    return {"conv_affine_bf16": conv[torch.bfloat16],
-            "conv_affine_fp32": conv[torch.float32],
+    return {"conv_affine_bf16": conv["bf16_wgmma"] + conv["bf16_mma_sync"],
+            "conv_affine_bf16_wgmma": conv["bf16_wgmma"],
+            "conv_affine_bf16_mma_sync": conv["bf16_mma_sync"],
+            "conv_affine_fp32": conv["fp32"],
             "softmax_fused_bf16": soft[torch.bfloat16],
             "softmax_fused_fp32": soft[torch.float32],
             "layernorm_fused": layernorm_fused.launches}
 
 
+def _affine_path_ok(counts, forwards):
+    """Exactly 16 ``conv_affine`` launches a bf16 ResNet-50 forward, all
+    of them the ``wgmma`` kernel (none of the ``mma.sync`` or fp32 one)."""
+    return counts["conv_affine_bf16_wgmma"] == RESNET50_SEGMENTS * forwards \
+        and counts["conv_affine_bf16_mma_sync"] == 0 and \
+        counts["conv_affine_fp32"] == 0
+
+
 def _add_bf16_launches(state, counts):
     """Add a main-path run's bf16 launches to the ``kernels`` line's."""
     tot = state.setdefault("bf16_launches", {})
-    for k in ("conv_affine_bf16", "softmax_fused_bf16"):
+    for k in ("conv_affine_bf16_wgmma", "conv_affine_bf16_mma_sync",
+              "softmax_fused_bf16"):
         tot[k] = tot.get(k, 0) + counts[k]
 
 
@@ -5073,6 +5161,53 @@ def _per_bucket(eng, items, eager_iters=10):
     return out
 
 
+def _affine_instances_host_ms(eng, images, rounds=8, per=5):
+    """Wall ms of one eager bucket-8 bf16 ResNet-50 forward (host-bound:
+    the host's time to queue it) with row 8 on each of its bf16 kernels,
+    in turns: ``wgmma``, the kernel the wrapper picks, and ``mma_sync``,
+    PR 18's, which the wrapper takes while ``wgmma_takes`` is made false
+    for the window; ``rounds`` windows of ``per`` forwards each, the
+    order alternating, Python's collector off; → the medians, their
+    ratio and each window's launches by kernel.  Its launches come after
+    the main path's counts are read."""
+    import gc
+    import torch
+    from mxnet_tpu_torch.ops import conv_block as cb
+    x = torch.as_tensor(images[:8], device="cuda")
+    takes, fn = cb.wgmma_takes, cb.conv_affine
+    ms = {"wgmma": [], "mma_sync": []}
+    launched = {"wgmma": dict.fromkeys(cb.INSTANCES, 0),
+                "mma_sync": dict.fromkeys(cb.INSTANCES, 0)}
+
+    def window(tag):
+        cb.wgmma_takes = takes if tag == "wgmma" else (lambda *a: False)
+        before = dict(fn.launches_by_instance)
+        try:
+            eng.run(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(per):
+                eng.run(x)
+            torch.cuda.synchronize()
+            ms[tag].append((time.perf_counter() - t0) * 1e3 / per)
+        finally:
+            cb.wgmma_takes = takes
+        for k, v in fn.launches_by_instance.items():
+            launched[tag][k] += v - before[k]
+
+    gc.collect()
+    gc.disable()
+    try:
+        for k in range(rounds):
+            for tag in ("wgmma", "mma_sync")[::1 if k % 2 == 0 else -1]:
+                window(tag)
+    finally:
+        gc.enable()
+    med = {k: sorted(v)[rounds // 2] for k, v in ms.items()}
+    return {**med, "mma_sync_over_wgmma": med["mma_sync"] / med["wgmma"],
+            "windows_ms": ms, "launches": launched}
+
+
 def _bf16_params(state):
     """The ResNet-50 and BERT-base ``.params`` of the fp32 serving phases
     (made here when those phases did not run), and their items."""
@@ -5105,7 +5240,9 @@ def phase_bf16_serve(state):
     no fp32 one (its LayerNorms take the reference's closed form in
     bf16: no LayerNorm launch).  Every response finite; p50/p99, items/s,
     batch fill, device and eager ms a forward per bucket, the idle share
-    of a bucket-8 and a bucket-1 forward, peak memory."""
+    of a bucket-8 and a bucket-1 forward, peak memory; and the host's ms
+    a bucket-8 ResNet-50 forward with row 8 on each of its bf16 kernels
+    in turns (:func:`_affine_instances_host_ms`)."""
     import numpy as np
     import torch
     from mxnet_tpu_torch import telemetry
@@ -5134,8 +5271,7 @@ def phase_bf16_serve(state):
            if o.shape != (1, 1000) or not np.isfinite(o).all()]
     if bad:
         raise AssertionError(f"{len(bad)} responses not finite (1, 1000)")
-    if counts["conv_affine_bf16"] != RESNET50_SEGMENTS * forwards or \
-            counts["conv_affine_fp32"] != 0:
+    if not _affine_path_ok(counts, forwards):
         raise AssertionError(f"bf16 ResNet-50 launches {counts} in "
                              f"{forwards} forwards")
     state.update(bf16_image_registry=reg, bf16_image_engine=eng,
@@ -5152,6 +5288,13 @@ def phase_bf16_serve(state):
                             "param_bytes_per_device")},
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "mem_before_bytes": mem_before}
+    ab = res["resnet50_v1"]["affine_instances_host_ms"] = \
+        _affine_instances_host_ms(eng, images)
+    if ab["launches"]["wgmma"]["bf16_mma_sync"] or \
+            ab["launches"]["mma_sync"]["bf16_wgmma"] or \
+            not ab["launches"]["mma_sync"]["bf16_mma_sync"]:
+        raise AssertionError(f"row 8's instances in turns launched "
+                             f"{ab['launches']}")
 
     # Gluon BERT-base: responses digested (their sum and argmax), four of
     # the concurrent ones kept whole for bf16_reference
@@ -5380,12 +5523,6 @@ def phase_bf16_reference(state):
 BF16_TRAIN_STAGES = [(128, 56, 56, 64, 64), (128, 28, 28, 128, 128),
                      (128, 14, 14, 256, 256), (128, 7, 7, 512, 512)]
 BF16_SUM_TOL = 1e-5     # bf16 instances' fp32 results: sums, dW
-# the wgmma kernels' edges: one 128 x 64 tile; M, C and Cout off their
-# tiles (189 pixels, a 40-channel slab, a 24-channel box); 64 < Cout < 128
-# off a multiple of 64 for both kernels (BN = 128, the second 64-column
-# box partly past the channels: dW's Cout = 96, the dgrad's output C = 72)
-BF16_WGMMA_EDGES = [(1, 8, 16, 64, 64), (3, 7, 9, 40, 24),
-                    (2, 11, 13, 72, 96)]
 # Inception-v3's lone 3x3/s1 convs at bf16_serve's batch of 2: the forward
 # of conv3x3 on the wgmma kernel (Cout = 96, 384: BN = 128 off its tiles)
 BF16_INCEPTION_CONVS = [(2, 147, 147, 32, 64), (2, 35, 35, 64, 96),
@@ -5401,7 +5538,7 @@ BF16_IMAGE_WANT = {**{n: RESNET50_SEGMENTS for n in BF16_TRAIN_KERNELS},
                    **{n + "_bf16": RESNET50_SEGMENTS
                       for n in BF16_TRAIN_KERNELS},
                    **{n + "_bf16_wgmma": RESNET50_SEGMENTS
-                      for n in ("conv3x3", "conv_wgrad")}}
+                      for n in ("conv3x3", "conv_stats", "conv_wgrad")}}
 BF16_BERT_WANT = {"softmax_fused": BERT_SOFTMAXES,
                   "softmax_fused_bf16": BERT_SOFTMAXES}
 
@@ -5439,10 +5576,11 @@ def _bf16_timed(case, fn, plain, library, nbytes, flops):
     return case
 
 
-def _wgmma_plan(M, C, Cout, wgrad=False):
-    """The plan the ``wgmma`` kernel of ``conv3x3`` (or ``conv_wgrad``)
-    runs for ``M`` pixels, ``C`` input and ``Cout`` output channels on
-    card 0 (chunks of one tap's 64-channel slab, or of 64 pixels)."""
+def _wgmma_plan(M, C, Cout, wgrad=False, op="conv3x3"):
+    """The plan the ``wgmma`` kernel of ``op`` (``conv3x3``,
+    ``conv_stats``, ``conv_affine``; or ``conv_wgrad``) runs for ``M``
+    pixels, ``C`` input and ``Cout`` output channels on card 0 (chunks of
+    one tap's 64-channel slab, or of 64 pixels)."""
     from mxnet_tpu_torch.ops import conv_block as cb
     bn = cb.wgrad_tile_cols(Cout)
     K = 9 * cb.WGMMA_SLAB * cb._slabs(C)
@@ -5450,10 +5588,7 @@ def _wgmma_plan(M, C, Cout, wgrad=False):
         return cb.wgrad_splits(M, K, Cout, cb._sm_count(0), cb._per_sm(
             "mxt_conv_wgrad_wgmma_blocks_per_sm", 0, bn, 1),
             chunk=cb.WGMMA_SLAB)._asdict()
-    return _plan_dict(cb.conv3x3_splits(
-        M, K, Cout, cb._sm_count(0),
-        cb._per_sm("mxt_conv3x3_wgmma_blocks_per_sm", 0, bn, 1),
-        chunk=cb.WGMMA_SLAB))
+    return _plan_dict(cb._wgmma_conv_plan(op, 0, M, C, Cout))
 
 
 def _instance_launches(fn, run, instance):
@@ -5473,10 +5608,11 @@ def _bf16_train_conv_cases(N, H, W, C, Cout, gen):
     and held against its plain version (bf16 widened to fp32, the conv in
     fp32 with TF32 off, one rounding): bf16 outputs within one step, the
     fp32 sums and dW within ``BF16_SUM_TOL`` (Σz of the channel's Σ|z|,
-    Σz² and dW of their largest).  ``conv3x3`` and ``conv_wgrad`` twice
-    where ``wgmma_takes`` the shape: PR 19's ``mma.sync`` instances
-    launched directly (``conv_block._conv3x3_tc``, ``_wgrad_tc``), and the
-    wrappers, which must launch the ``wgmma`` kernels
+    Σz² and dW of their largest).  Each twice where ``wgmma_takes`` the
+    shape: the ``mma.sync`` instances launched directly
+    (``conv_block._conv3x3_tc``, ``_conv_stats_tc``, ``_wgrad_tc``; the
+    statistics by :func:`_bf16_stats_cases`), and the wrappers, which
+    must launch the ``wgmma`` kernels
     (``launches_by_instance``), timed on the same inputs beside the former
     (``parent_ms``), with their main and reduce kernels' µs.  Elsewhere
     once, through the wrappers, which must launch the ``mma.sync``
@@ -5541,22 +5677,8 @@ def _bf16_train_conv_cases(N, H, W, C, Cout, gen):
         case["parent_over_kernel"] = case["parent_ms"] / case["kernel_ms"]
         out["conv3x3_bf16_wgmma"] = case
 
-    got, again = cb.conv_stats(x, w), cb.conv_stats(x, w)
-    rz, r1, r2 = cb.conv_stats_plain(x, w)
-    mag = rz.float().abs().sum(dim=(0, 1, 2))
-    s1_rel = ((got[1] - r1).abs() / mag).max().item()
-    s2_rel = ((got[2] - r2).abs() / r2.abs()).max().item()
-    out["conv_stats_bf16"] = _bf16_timed(
-        {"shape": shape, "dtype": "bfloat16",
-         "plan": _conv3x3_plan(npix, C, Cout,
-                               "mxt_conv_stats_bf16_blocks_per_sm", 8),
-         **_bf16_within(got[0], rz), "sum_rel_err": s1_rel,
-         "sumsq_rel_err": s2_rel, "stats_tol": BF16_SUM_TOL,
-         "bitwise_equal_relaunch": all(
-             bool(torch.equal(a, b)) for a, b in zip(got, again)),
-         "library": "F.conv2d alone on bf16 (cuDNN; no sums)"},
-        lambda: cb.conv_stats(x, w), lambda: cb.conv_stats_plain(x, w),
-        lambda: F.conv2d(xc, wc, padding=1), nbytes + 8 * Cout, flops)
+    out.update(_bf16_stats_cases(x, w, shape, nbytes + 8 * Cout, flops,
+                                 lambda: F.conv2d(xc, wc, padding=1)))
 
     wref = cb.conv_wgrad_plain(x, dy)
     library = lambda: torch.nn.grad.conv2d_weight(  # noqa: E731
@@ -5607,6 +5729,74 @@ def _bf16_train_conv_cases(N, H, W, C, Cout, gen):
                     kernels_us=_kernel_us(lambda: cb.conv_wgrad(x, dy)))
         case["parent_over_kernel"] = case["parent_ms"] / case["kernel_ms"]
         out["conv_wgrad_bf16_wgmma"] = case
+    return out
+
+
+def _bf16_stats_cases(x, w, shape, nbytes, flops, library):
+    """``conv_stats``' bf16 kernels at one shape: where ``wgmma_takes`` it,
+    the ``mma.sync`` instance launched directly, then the wrapper, which
+    must launch the ``wgmma`` kernel, timed on the same inputs beside the
+    former (``parent_ms``) with its main, cut and sum kernels' µs; z also
+    against ``conv3x3(x, w)``, bit for bit where the two plans agree
+    (``plans_agree``: a gate).  Elsewhere the wrapper, which must launch
+    the ``mma.sync`` kernel.  Each: z within one bf16 step of
+    ``conv_stats_plain``, Σz (of the channel's Σ|z|) and Σz² within
+    ``BF16_SUM_TOL``, two launches bitwise equal."""
+    import torch
+    from mxnet_tpu_torch.ops import conv_block as cb
+    N, H, W, C, Cout = shape
+    npix = N * H * W
+    rz, r1, r2 = cb.conv_stats_plain(x, w)
+    mag = rz.float().abs().sum(dim=(0, 1, 2))
+
+    def check(got, again):
+        return {**_bf16_within(got[0], rz),
+                "sum_rel_err": ((got[1] - r1).abs() / mag).max().item(),
+                "sumsq_rel_err": ((got[2] - r2).abs() / r2.abs()).max()
+                .item(), "stats_tol": BF16_SUM_TOL,
+                "bitwise_equal_relaunch": all(
+                    bool(torch.equal(a, b)) for a, b in zip(got, again))}
+
+    def direct():
+        z = torch.empty(N, H, W, Cout, device="cuda", dtype=x.dtype)
+        tstats = torch.empty(-(-npix // cb.CONV_ROWS), 2, Cout,
+                             device="cuda")
+        stats = torch.empty(2, Cout, device="cuda")
+        cb._conv_stats_tc(x, w, z, tstats, stats)
+        return z, stats[0], stats[1]
+
+    takes = cb.wgmma_takes(C, Cout, x, w)
+    if takes:
+        sync, via = direct, {"launched": "directly"}
+        got = sync()
+    else:
+        sync = lambda: cb.conv_stats(x, w)  # noqa: E731
+        got, took = _instance_launches(cb.conv_stats, sync, "bf16_mma_sync")
+        via = {"launched": "by the wrapper", "instance_launched": took}
+    out = {"conv_stats_bf16_mma_sync": _bf16_timed(
+        {"shape": shape, "dtype": "bfloat16", "use": "the mma.sync "
+         "instance", **via,
+         "plan": _conv3x3_plan(npix, C, Cout,
+                               "mxt_conv_stats_bf16_blocks_per_sm", 8),
+         **check(got, sync()),
+         "library": "F.conv2d alone on bf16 (cuDNN; no sums)"},
+        sync, lambda: cb.conv_stats_plain(x, w), library, nbytes, flops)}
+    if takes:
+        run = lambda: cb.conv_stats(x, w)  # noqa: E731
+        got, took = _instance_launches(cb.conv_stats, run, "bf16_wgmma")
+        plan = _wgmma_plan(npix, C, Cout, op="conv_stats")
+        agree = plan == _wgmma_plan(npix, C, Cout)
+        case = _bf16_timed(
+            {"shape": shape, "dtype": "bfloat16", "plan": plan,
+             "instance_launched": took, **check(got, run()),
+             "plans_agree": agree,
+             "z_equals_conv3x3": bool(torch.equal(got[0], cb.conv3x3(x, w))),
+             "library": "F.conv2d alone on bf16 (cuDNN; no sums)"},
+            run, lambda: cb.conv_stats_plain(x, w), library, nbytes, flops)
+        case.update(parent_ms=cuda_ms(sync, iters=10),
+                    kernels_us=_kernel_us(run))
+        case["parent_over_kernel"] = case["parent_ms"] / case["kernel_ms"]
+        out["conv_stats_bf16_wgmma"] = case
     return out
 
 
@@ -5688,6 +5878,8 @@ def _bf16_case_ok(c):
     if "sum_rel_err" in c:
         ok = ok and c["sum_rel_err"] <= c["stats_tol"] and \
             c["sumsq_rel_err"] <= c["stats_tol"]
+    if c.get("plans_agree"):
+        ok = ok and c["z_equals_conv3x3"]
     return ok
 
 
@@ -5786,6 +5978,13 @@ wgmma_bf16_peak(float* out, int iters) {
 """.replace("REGS", regs).replace("OUTS", outs)
 
 
+def _wgmma_ceiling(state):
+    """:func:`_wgmma_bf16_ceiling`, measured once a run."""
+    if "wgmma_ceiling" not in state:
+        state["wgmma_ceiling"] = _wgmma_bf16_ceiling()
+    return state["wgmma_ceiling"]
+
+
 def _wgmma_bf16_ceiling():
     """What ``wgmma.m64n128k16`` bf16 sustains on this card (the product
     shape of the wgmma conv kernels at BN = 128): one block of two
@@ -5813,10 +6012,12 @@ def _wgmma_parts(shapes):
     ``wgmma``; ``one_run``: the run accumulator flushed with IEEE adds
     only at a segment's end, up to a whole range's products in one
     tensor-core sum), built by :func:`_build_variants` and timed (device
-    ms, the dgrad use and the dW) at ``shapes`` (N, H, W, C, Cout) on the
-    plans the wrappers run.  The cut kernels' outputs are
-    garbage but ``one_run``'s, whose dW error against the plain version
-    (of its largest) is kept beside the kernel's."""
+    ms: the dgrad use, ``conv_stats`` and the dW) at ``shapes`` (N, H, W,
+    C, Cout) on the plans the wrappers run.  ``conv_stats`` beside the
+    dgrad says whether its epilogue moved what binds the loop.  The cut
+    kernels' outputs are garbage but ``one_run``'s, whose dW error
+    against the plain version (of its largest) is kept beside the
+    kernel's."""
     import torch
     from mxnet_tpu_torch import _build
     from mxnet_tpu_torch.ops import conv_block as cb
@@ -5828,7 +6029,8 @@ def _wgmma_parts(shapes):
                           "run);", ";")],
          "one_run": [("constexpr int kRun = 8;",
                       "constexpr int kRun = 1 << 30;")]},
-        ["mxt_conv3x3_wgmma_bf16", "mxt_conv_wgrad_wgmma_bf16"])
+        ["mxt_conv3x3_wgmma_bf16", "mxt_conv_stats_wgmma_bf16",
+         "mxt_conv_wgrad_wgmma_bf16"])
     gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     out = []
@@ -5853,6 +6055,14 @@ def _wgmma_parts(shapes):
                              chunk=cb.WGMMA_SLAB)
         cpart = torch.empty(2 * cp.ranges, cb.CONV_ROWS, cp.bn,
                             device="cuda")
+        sp = cb._wgmma_conv_plan("conv_stats", 0, M, C, Cout)
+        spart = torch.empty(2 * sp.ranges, cb.CONV_ROWS, sp.bn,
+                            device="cuda")
+        wst = (torch.randn(3, 3, C, Cout, device="cuda", generator=gen) *
+               0.05).to(bf)
+        z = torch.empty(N, H, W, Cout, device="cuda", dtype=bf)
+        tstats = torch.empty(-(-M // cb.CONV_ROWS), 2, Cout, device="cuda")
+        stats = torch.empty(2, Cout, device="cuda")
         wpart = torch.empty(wp.tiles, wp.jmax, cb.WGRAD_ROWS, wp.bn,
                             device="cuda")
         row = {"shape": [N, H, W, C, Cout]}
@@ -5863,12 +6073,19 @@ def _wgmma_parts(shapes):
                     dx.data_ptr(), N, H, W, Cout, C, cp.bn, cp.ranges,
                     stream()), name)
 
+            def conv_stats(lib=lib, name=name):
+                _build.check(lib.mxt_conv_stats_wgmma_bf16(
+                    x.data_ptr(), wst.data_ptr(), spart.data_ptr(),
+                    z.data_ptr(), tstats.data_ptr(), stats.data_ptr(), N, H,
+                    W, C, Cout, sp.bn, sp.ranges, stream()), name)
+
             def wgrad(lib=lib, name=name):
                 _build.check(lib.mxt_conv_wgrad_wgmma_bf16(
                     x.data_ptr(), dy.data_ptr(), wpart.data_ptr(),
                     dw.data_ptr(), N, H, W, C, Cout, wp.bn, wp.ranges,
                     wp.jmax, stream()), name)
             row[name + "_dgrad_ms"] = cuda_ms(dgrad, iters=10)
+            row[name + "_stats_ms"] = cuda_ms(conv_stats, iters=10)
             row[name + "_wgrad_ms"] = cuda_ms(wgrad, iters=10)
             if name in ("kernel", "one_run"):
                 wgrad()
@@ -5878,18 +6095,95 @@ def _wgmma_parts(shapes):
     return {"shapes": out, "not_built": missing}
 
 
-def _host_us(fn, calls=200):
-    """Host µs per call of ``fn`` at a shape whose kernels take far less:
-    the wrapper's checks, plan, allocation, encoding and launch."""
+def _host_us(fns, calls=800, windows=16):
+    """Host µs per call of each of ``fns`` (name → fn(i), i the call's
+    index) at a shape whose kernels take far less: the wrapper's checks,
+    plan, allocation, encoding and launch.  The functions take turns, a
+    window of ``calls / windows`` calls each, each round starting one
+    function later, so a slow spell of the shared host falls on all of
+    them; each window runs behind a
+    device-side sleep (the device's queue does not hold the host back),
+    Python's collector off (its passes over the run's objects are not the
+    wrapper's); → {name: the median over the windows}."""
+    import gc
     import torch
-    fn()
+    for fn in fns.values():
+        fn(0)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    us = (time.perf_counter() - t0) / calls * 1e6
+    per, us = calls // windows, {name: [] for name in fns}
+    gc.collect()
+    gc.disable()
+    try:
+        names = list(fns)
+        for k in range(windows):
+            for name in names[k % len(names):] + names[:k % len(names)]:
+                fn = fns[name]
+                torch.cuda._sleep(SLEEP_CYCLES // 4)
+                t0 = time.perf_counter()
+                for i in range(k * per, (k + 1) * per):
+                    fn(i)
+                us[name].append((time.perf_counter() - t0) / per * 1e6)
+                torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    return {name: sorted(v)[windows // 2] for name, v in us.items()}
+
+
+def _wgmma_host_us(calls=800):
+    """Host µs per eager call at (1, 8, 16, 64→64) of the four bf16 conv
+    wrappers, each launching its ``wgmma`` kernel: ``warm``, every call on
+    the same tensors (the encoded tensor maps come from the cache), and
+    ``cold``, a fresh x on every call (x's map encoded each time: more
+    tensors than the cache holds); and of the launch helpers of both
+    instances, called directly on the same tensors (``wgmma``,
+    ``mma_sync``: no checks).  All of them in turns (:func:`_host_us`),
+    with the cache's hits and misses over 20 more calls of each."""
+    import torch
+    from mxnet_tpu_torch.ops import conv_block as cb
+    bf = torch.bfloat16
+    shape = (1, 8, 16, 64)
+    xs = [torch.randn(*shape, device="cuda").to(bf)
+          for _ in range(4 * calls + 1)]
+    x = xs[0]
+    w = torch.randn(3, 3, 64, 64, device="cuda").to(bf)
+    v = (torch.rand(64, device="cuda") + 0.5).to(bf)
+    bn = (v, v, v, v)
+    o, z = torch.empty_like(x), torch.empty_like(x)
+    ts = torch.empty(1, 2, 64, device="cuda")
+    st = torch.empty(2, 64, device="cuda")
+    dw = torch.empty(3, 3, 64, 64, device="cuda")
+    wrappers = {"conv3x3": lambda x: cb.conv3x3(x, w),
+                "conv_stats": lambda x: cb.conv_stats(x, w),
+                "conv_affine": lambda x: cb.conv_affine(x, w, *bn),
+                "conv_wgrad": lambda x: cb.conv_wgrad(x, xs[0])}
+    fns = {}
+    for j, (name, fn) in enumerate(wrappers.items()):
+        fns[f"{name}_wgmma_warm"] = lambda i, fn=fn: fn(x)
+        fns[f"{name}_wgmma_cold"] = \
+            lambda i, fn=fn, j=j: fn(xs[1 + j * calls + i])
+    for tag, conv3x3, stats, tst, affine, wgrad in (
+            ("wgmma", cb._conv3x3_wgmma, cb._conv_stats_wgmma, (st,),
+             cb._conv_affine_wgmma, cb._wgrad_wgmma),
+            ("mma_sync", cb._conv3x3_tc, cb._conv_stats_tc, (ts, st),
+             cb._conv_affine_tc, cb._wgrad_tc)):
+        fns.update({
+            f"conv3x3_{tag}": lambda i, f=conv3x3: f(x, w, o),
+            f"conv_stats_{tag}": lambda i, f=stats, t=tst: f(x, w, z, *t),
+            f"conv_affine_{tag}": lambda i, f=affine: f(
+                x, w, bn, None, 1e-5, True, o),
+            f"conv_wgrad_{tag}": lambda i, f=wgrad: f(x, x, dw)})
+    out = {"shape": [*shape, 64], "calls": calls,
+           "us": _host_us(fns, calls), "map_cache_over_20_calls": {}}
+    for name, fn in fns.items():
+        c0 = cb.map_cache_stats()
+        for i in range(20):
+            fn(calls - 20 + i)
+        c1 = cb.map_cache_stats()
+        out["map_cache_over_20_calls"][name] = {
+            k: c1[k] - c0[k] for k in ("hits", "misses")}
     torch.cuda.synchronize()
-    return us
+    out["map_cache"] = cb.map_cache_stats()
+    return out
 
 
 def phase_bf16_train_kernels(state):
@@ -5898,8 +6192,8 @@ def phase_bf16_train_kernels(state):
     ResNet-50's four 3x3 stages at batch 128 (``bn_affine`` also with a
     residual, and with the ReLU off, at stage 1; the ``wgmma`` kernels'
     edges; and a ragged shape on the scalar paths, C = 20, through the
-    wrappers to PR 19's ``mma.sync`` kernels), and row 7's bf16 forward
-    at Inception-v3's lone 3x3/s1 convs, against their plain versions,
+    wrappers to the ``mma.sync`` kernels), and row 7's bf16 forward at
+    Inception-v3's lone 3x3/s1 convs, against their plain versions,
     bitwise on relaunch, each wrapper launching the kernel its shape
     takes; timed beside their bounds, plain versions and the nearest
     library call on bf16.  With ``--parent DIR``, also the fp32 instances
@@ -5908,7 +6202,8 @@ def phase_bf16_train_kernels(state):
     from mxnet_tpu_torch.ops import conv_block as cb
     gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
     cases = {k: [] for k in ("conv3x3_bf16_wgmma", "conv3x3_bf16_mma_sync",
-                             "conv_stats_bf16", "bn_affine_bf16",
+                             "conv_stats_bf16_wgmma",
+                             "conv_stats_bf16_mma_sync", "bn_affine_bf16",
                              "conv_wgrad_bf16_wgmma",
                              "conv_wgrad_bf16_mma_sync")}
     for shape in BF16_TRAIN_STAGES + BF16_WGMMA_EDGES + [BF16_RAGGED]:
@@ -5923,38 +6218,36 @@ def phase_bf16_train_kernels(state):
         _bf16_affine_case(128, 56, 56, 64, gen, relu=False),
         _bf16_affine_case(2, 9, 11, 12, gen, residual=True)]
     state["cases"].update(cases)
-    ceiling = _wgmma_bf16_ceiling()
-    for k in ("conv3x3_bf16_wgmma", "conv_wgrad_bf16_wgmma"):
+    ceiling = _wgmma_ceiling(state)
+    for k in ("conv3x3_bf16_wgmma", "conv_stats_bf16_wgmma",
+              "conv_wgrad_bf16_wgmma"):
         for c in cases[k]:
             c["wgmma_ceiling_share"] = c["tflop_s"] / ceiling["tflop_s"]
-    x = torch.randn(1, 8, 16, 64, device="cuda").bfloat16()
-    w = torch.randn(3, 3, 64, 64, device="cuda").bfloat16()
-    o = torch.empty_like(x)
-    host = {"shape": [1, 8, 16, 64, 64],
-            "conv3x3_wgmma": _host_us(lambda: cb.conv3x3(x, w)),
-            "conv3x3_mma_sync": _host_us(lambda: cb._conv3x3_tc(x, w, o)),
-            "conv_wgrad_wgmma": _host_us(lambda: cb.conv_wgrad(x, x)),
-            "conv_wgrad_mma_sync": _host_us(lambda: cb._wgrad_tc(
-                x, x, torch.empty(3, 3, 64, 64, device="cuda")))}
     stages = [{"shape": a["shape"],
                "dgrad_ms": [a["parent_ms"], a["kernel_ms"]],
                "dgrad_vs_library": a["vs_library"],
+               "stats_ms": [c["parent_ms"], c["kernel_ms"]],
+               "stats_vs_library": c["vs_library"],
+               "stats_kernels_us": c["kernels_us"],
                "wgrad_ms": [b["parent_ms"], b["kernel_ms"]],
                "wgrad_vs_library": b["vs_library"]}
-              for a, b in zip(cases["conv3x3_bf16_wgmma"],
-                              cases["conv_wgrad_bf16_wgmma"])][:4]
+              for a, c, b in zip(cases["conv3x3_bf16_wgmma"],
+                                 cases["conv_stats_bf16_wgmma"],
+                                 cases["conv_wgrad_bf16_wgmma"])][:4]
     res = {"cases": cases, "wgmma_ceiling": ceiling,
-           "host_us_per_eager_call": host,
+           "host_us_per_eager_call": _wgmma_host_us(),
            "stages_parent_to_wgmma": stages,
            "parts": _wgmma_parts(BF16_TRAIN_STAGES)}
     bad = [c for cs in cases.values() for c in cs if not _bf16_case_ok(c)]
     taken = len(BF16_TRAIN_STAGES) + len(BF16_WGMMA_EDGES)
     if len(cases["conv3x3_bf16_wgmma"]) != taken + \
             len(BF16_INCEPTION_CONVS) or \
+            len(cases["conv_stats_bf16_wgmma"]) != taken or \
             len(cases["conv_wgrad_bf16_wgmma"]) != taken:
         bad.append("a shape the wgmma kernels should take was not taken")
     if [c["launched"] for c in cases["conv3x3_bf16_mma_sync"] +
-            cases["conv_wgrad_bf16_mma_sync"]].count("by the wrapper") != 2:
+            cases["conv_stats_bf16_mma_sync"] +
+            cases["conv_wgrad_bf16_mma_sync"]].count("by the wrapper") != 3:
         bad.append("the ragged shape did not go through the wrappers")
     if state.get("parent"):
         res["fp32_equal_to_parent"] = eq = _fp32_against_parent(
@@ -5990,6 +6283,9 @@ def _bf16_fused(state, key, step, batch_xy, want, batch, fp32_key):
     res["idle_share"] = res["profile_replays"].get("idle_share")
     res["fp32_over_bf16_step"] = (f32["replayed_step_ms_median"] /
                                   res["replayed_step_ms_median"])
+    cats = res["profile_replays"].get("by_category", {})
+    res["ours_us_per_replay"] = {k: v["us_per_call"] for k, v in cats.items()
+                                 if k.endswith("(ours)")}
     if not res["loss_falls"]:
         raise AssertionError(f"{key}: the loss does not fall: {losses}")
     return res
@@ -6226,11 +6522,11 @@ KERNELS = [
      "mxnet_tpu/rtc.py:35"),
     ("softmax_fused_bf16", "mxnet_tpu_torch/csrc/softmax.cu",
      "mxnet_tpu/ops/pallas_kernels.py:61"),
-    ("conv_affine_bf16", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
+    ("conv_affine_bf16_mma_sync", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
      "mxnet_tpu/ops/pallas_block.py:325"),
     ("conv3x3_bf16_mma_sync", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
      "mxnet_tpu/ops/pallas_block.py:318"),
-    ("conv_stats_bf16", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
+    ("conv_stats_bf16_mma_sync", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
      "mxnet_tpu/ops/pallas_block.py:343"),
     ("bn_affine_bf16", "mxnet_tpu_torch/csrc/conv_train.cu",
      "mxnet_tpu/ops/pallas_block.py:367"),
@@ -6240,6 +6536,10 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_block.py:318"),
     ("conv_wgrad_bf16_wgmma", "mxnet_tpu_torch/csrc/conv_bf16_wgmma.cu",
      "mxnet_tpu/ops/pallas_block.py:381"),
+    ("conv_stats_bf16_wgmma", "mxnet_tpu_torch/csrc/conv_bf16_wgmma.cu",
+     "mxnet_tpu/ops/pallas_block.py:343"),
+    ("conv_affine_bf16_wgmma", "mxnet_tpu_torch/csrc/conv_bf16_wgmma.cu",
+     "mxnet_tpu/ops/pallas_block.py:325"),
 ]
 # what else an entry names: the header holding the body two attention
 # entries share, the kernels of a stream-K entry (main, then the one that
@@ -6279,12 +6579,14 @@ KERNEL_NOTES = {
                                        "rounded to bf16 in the load",
                            "library": "torch.softmax on bf16 on the "
                                       "prologue's result"},
-    "conv_affine_bf16": {"instance": "bf16",
-                         "kernels": ["conv_affine_bf16_kernel",
-                                     "conv_affine_bf16_reduce_kernel"],
-                         "arithmetic": "mma.sync m16n8k16 bf16, fp32 sums",
-                         "loop": "conv_ranges, shared with the fp32 "
-                                 "instances"},
+    "conv_affine_bf16_mma_sync": {
+        "instance": "bf16 shapes the wgmma kernel does not take (C or "
+                    "Cout not a multiple of 8, unaligned); timed at the "
+                    "path shapes by a direct launch",
+        "kernels": ["conv_affine_bf16_kernel",
+                    "conv_affine_bf16_reduce_kernel"],
+        "arithmetic": "mma.sync m16n8k16 bf16, fp32 sums",
+        "loop": "conv_ranges, shared with the fp32 instances"},
     "conv3x3_bf16_mma_sync": {
         "instance": "bf16 shapes the wgmma kernel does not take (C or "
                     "Cout not a multiple of 8, unaligned); timed at the "
@@ -6306,14 +6608,31 @@ KERNEL_NOTES = {
                       "TMA ring, fp32 runs of 512 pixels flushed with IEEE "
                       "adds",
         "loop": "wgmma_ranges, shared with conv3x3_bf16_wgmma"},
-    "conv_stats_bf16": {"instance": "bf16",
-                        "kernels": ["conv_stats_bf16_kernel",
-                                    "conv_stats_cut_kernel",
-                                    "conv_stats_sum_kernel"],
-                        "arithmetic": "mma.sync m16n8k16 bf16, fp32 sums "
-                                      "taken before z is rounded",
-                        "loop": "conv_ranges, shared with the fp32 "
-                                "instances"},
+    "conv_stats_bf16_mma_sync": {
+        "instance": "bf16 shapes the wgmma kernel does not take; timed at "
+                    "the path shapes by a direct launch",
+        "kernels": ["conv_stats_bf16_kernel", "conv_stats_cut_kernel",
+                    "conv_stats_sum_kernel"],
+        "arithmetic": "mma.sync m16n8k16 bf16, fp32 sums taken before z is "
+                      "rounded",
+        "loop": "conv_ranges, shared with the fp32 instances"},
+    "conv_stats_bf16_wgmma": {
+        "instance": "bf16, C and Cout multiples of 8, aligned (the path)",
+        "kernels": ["conv_stats_wgmma_kernel", "conv_stats_wgmma_cut_kernel",
+                    "conv_stats_wgmma_sum_kernel"],
+        "arithmetic": "wgmma m64nNk16 bf16 from a TMA ring, fp32 runs of "
+                      "512 k; sums of the fp32 values before z is rounded, "
+                      "in a fixed order (lanes, shuffles, 8 warps through "
+                      "shared memory at a named barrier)",
+        "loop": "wgmma_ranges, shared with conv3x3_bf16_wgmma"},
+    "conv_affine_bf16_wgmma": {
+        "instance": "bf16, C and Cout multiples of 8, aligned (the path)",
+        "kernels": ["conv_affine_wgmma_kernel",
+                    "conv_affine_wgmma_reduce_kernel"],
+        "arithmetic": "wgmma m64nNk16 bf16 from a TMA ring, fp32 runs of "
+                      "512 k; BN folded per column pair, residual and ReLU "
+                      "in fp32, one rounding",
+        "loop": "wgmma_ranges, shared with conv3x3_bf16_wgmma"},
     "bn_affine_bf16": {"instance": "bf16 z, residual and out; fp32 scale "
                                    "and shift",
                        "kernels": ["bn_affine_bf16_kernel"]},
@@ -6369,6 +6688,76 @@ def kernels_line(state):
     return {"kernels": out}
 
 
+# what an A/B run (``--against-parent``) keeps of each phase's line: the
+# paths of keys to its numbers
+AB_PICKS = {
+    "bf16_serve": [("resnet50_v1", "per_bucket", b, k) for b in ("8", "1")
+                   for k in ("device_ms", "eager_ms", "idle_share")] +
+                  [("resnet50_v1", "closed_loop", "p50_ms"),
+                   ("resnet50_v1", "concurrent", "items_s")] +
+                  [("resnet50_v1", "affine_instances_host_ms", k)
+                   for k in ("wgmma", "mma_sync")],
+    "int8_score": [(p, k) for p in ("fp32", "bf16", "int8")
+                   for k in ("ms_per_batch", "images_s",
+                             "host_ms_per_batch")],
+    "bf16_train": [("resnet50_v1", k) for k in (
+        "replayed_step_ms_median", "eager_step_ms_median", "idle_share")],
+    # the wgmma dgrad and dW at ResNet-50's four stages
+    "bf16_train_kernels": [("cases", k, i, "kernel_ms")
+                           for k in ("conv3x3_bf16_wgmma",
+                                     "conv_wgrad_bf16_wgmma")
+                           for i in range(4)],
+}
+
+
+def against_parent(parent, phases):
+    """``phases`` of the checkout at ``parent`` and of this one in turns
+    (parent, change, change, parent), each a ``chip_smoke.py --phases
+    env,<phases>`` process of its own checkout, package and build: → the
+    order, and for each number of :data:`AB_PICKS` its four values (null
+    where a checkout's line has no such number) and the mean of the
+    parent's over the mean of the change's."""
+    order = ("parent", "change", "change", "parent")
+    runs = []
+    for tag in order:
+        root = os.path.abspath(parent) if tag == "parent" else HERE
+        run = subprocess.run(
+            [sys.executable, "chip_smoke.py", "--phases",
+             ",".join(("env",) + tuple(phases))], cwd=root,
+            capture_output=True, text=True)
+        if run.returncode != 0:
+            raise RuntimeError(f"{','.join(phases)} of the {tag} failed: "
+                               f"{run.stderr[-3000:]}")
+        lines = {}
+        for ln in run.stdout.splitlines():
+            try:
+                d = json.loads(ln)
+            except ValueError:
+                continue
+            if isinstance(d, dict) and "phase" in d:
+                lines[d["phase"]] = d
+        runs.append(lines)
+    values = {}
+    for phase in phases:
+        for path in AB_PICKS.get(phase, ()):
+            got = []
+            for lines in runs:
+                v = lines.get(phase)
+                for k in path:
+                    if isinstance(v, dict):
+                        v = v.get(k)
+                    elif isinstance(v, list) and isinstance(k, int):
+                        v = v[k] if k < len(v) else None
+                    else:
+                        v = None
+                got.append(v)
+            values[f"{phase}:{'.'.join(map(str, path))}"] = got
+    return {"order": list(order), "values": values,
+            "parent_over_change": {k: (v[0] + v[3]) / (v[1] + v[2])
+                                   for k, v in values.items()
+                                   if None not in v}}
+
+
 PHASES = ("env", "build", "kernels", "slice", "reference", "profile",
           "bert_kernels", "bert_train", "bert_reference", "bert_profile",
           "image_kernels", "image_serve", "image_reference", "image_profile",
@@ -6394,6 +6783,11 @@ def _args(argv):
                     help="a checkout of the parent commit: "
                          "bf16_train_kernels also holds the fp32 conv "
                          "kernels bit for bit against its build")
+    ap.add_argument("--against-parent", default=None, metavar="PHASES",
+                    help="with --parent: run these comma-separated phases "
+                         "of the parent's checkout and of this one in "
+                         "turns (parent, change, change, parent) and print "
+                         "the numbers of AB_PICKS as one JSON line")
     return ap.parse_args(argv)
 
 
@@ -6421,6 +6815,19 @@ def main(argv=None):
         return 2
 
     state = {"card": None, "cases": {}, "parent": args.parent}
+    if args.against_parent:
+        if not args.parent:
+            print("chip_smoke: --against-parent needs --parent",
+                  file=sys.stderr)
+            return 2
+        ab = args.against_parent.split(",")
+        if [n for n in ab if n not in PHASES]:
+            print(f"chip_smoke: no phases {ab}", file=sys.stderr)
+            return 2
+        phase_env(state)
+        emit({"against_parent": ab, "card": state["card"],
+              **against_parent(args.parent, ab)})
+        return 0
     for name in names:
         t0 = time.perf_counter()
         try:

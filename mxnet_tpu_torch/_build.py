@@ -114,6 +114,20 @@ _SIGNATURES = {
     "mxt_conv_wgrad_wgmma_bf16": [_P] * 4 + [ctypes.c_int] * 8 + [_P],
     "mxt_conv_wgrad_wgmma_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                            ctypes.POINTER(ctypes.c_int)],
+    # x, w, part, z, tstats, stats, N, H, W, C, Cout, bn, ranges, stream
+    "mxt_conv_stats_wgmma_bf16": [_P] * 6 + [ctypes.c_int] * 7 + [_P],
+    "mxt_conv_stats_wgmma_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                           ctypes.POINTER(ctypes.c_int)],
+    # x, w, gamma, beta, mean, var, res, part, out, N, H, W, C, Cout, eps,
+    # relu, bn, ranges, stream
+    "mxt_conv_affine_wgmma_bf16": [_P] * 9 + [ctypes.c_int] * 5 +
+                                  [ctypes.c_float] + [ctypes.c_int] * 3 +
+                                  [_P],
+    "mxt_conv_affine_wgmma_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)],
+    # out (int64[3]): the wgmma kernels' tensor-map cache hits, misses,
+    # entries
+    "mxt_wgmma_map_cache_stats": [ctypes.POINTER(ctypes.c_longlong)],
     # z, scale, shift, res, out, total, Cout, relu, vec, stream
     "mxt_bn_affine_f32": [_P] * 5 + [ctypes.c_longlong] +
                          [ctypes.c_int] * 3 + [_P],

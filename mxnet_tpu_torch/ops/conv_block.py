@@ -21,20 +21,21 @@ Every kernel has an fp32 and a bf16 instance (the reference's kernels
 take any input dtype and accumulate in f32): bf16 operands are exact
 bf16 products summed in fp32, each output rounded once to bf16; the
 statistics, the affine's scale and shift and dW stay fp32.  On bf16,
-``conv3x3`` (and so the dgrad) and ``conv_wgrad`` have two instances,
-chosen by shape before the launch (:func:`wgmma_takes`): where C and
-Cout are multiples of 8 and every tensor is 16-byte aligned (every
-ResNet-50 and Inception-v3 shape), the Hopper kernels of
-``csrc/conv_bf16_wgmma.cu`` (``wgmma`` products on tiles that TMA copies
-into a ring of stages); other shapes (C = 20, say) the ``mma.sync``
-instances of ``conv3x3_tc.cu`` and ``conv_wgrad.cu``.  fp16 raises
-``TypeError`` on the card (its instances are Queue 1 item 3c); the plain
-versions take any float dtype, a half one widened to fp32 and the result
-rounded once, as the bf16 instances compute it.  ``launches`` counts a
-wrapper's launches and ``launches_by_dtype`` each dtype's; ``conv3x3``
-and ``conv_wgrad``, which have two kernels on bf16, count each kernel's
-in ``launches_by_instance`` (``fp32``, ``bf16_mma_sync``, ``bf16_wgmma``)
-instead.
+``conv3x3`` (and so the dgrad), ``conv_stats``, ``conv_affine`` and
+``conv_wgrad`` have two instances, chosen by shape before the launch
+(:func:`wgmma_takes`): where C and Cout are multiples of 8 and every
+tensor is 16-byte aligned (every ResNet-50 and Inception-v3 shape), the
+Hopper kernels of ``csrc/conv_bf16_wgmma.cu`` (``wgmma`` products on
+tiles that TMA copies into a ring of stages; the conv with no epilogue,
+a statistics one or a folded-BatchNorm one, and dW); other shapes (C =
+20, say) the ``mma.sync`` instances of ``conv3x3_tc.cu`` and
+``conv_wgrad.cu``.  fp16 raises ``TypeError`` on the card (its instances
+are Queue 1 item 3c); the plain versions take any float dtype, a half
+one widened to fp32 and the result rounded once, as the bf16 instances
+compute it.  ``launches`` counts a wrapper's launches; the four conv
+wrappers, which have two kernels on bf16, count each kernel's in
+``launches_by_instance`` (``fp32``, ``bf16_mma_sync``, ``bf16_wgmma``),
+and ``bn_affine`` each dtype's in ``launches_by_dtype``.
 
 See the notes at the top of the ``.cu`` files for bounds and designs.
 Each wrapper launches its kernel for CUDA tensors and raises on anything
@@ -47,6 +48,7 @@ activations NHWC, the weight HWIO ``(3, 3, C, Cout)``, all contiguous
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -63,7 +65,7 @@ __all__ = ["conv_affine", "conv_affine_plain", "fold", "conv3x3",
            "conv_stats_plain", "bn_affine",
            "bn_affine_plain", "conv_wgrad",
            "conv_wgrad_plain", "wgrad_splits", "wgrad_tile_cols",
-           "WgradPlan", "wgmma_takes", "WGMMA_SLAB",
+           "WgradPlan", "wgmma_takes", "WGMMA_SLAB", "map_cache_stats",
            "residual_block_fused"]
 
 _count_mu = threading.Lock()
@@ -75,8 +77,8 @@ def _wide(t):
     return t.float() if t.dtype in _HALF else t
 
 
-# the kernels behind conv3x3 and conv_wgrad, as launches_by_instance
-# names them
+# the kernels behind conv3x3, conv_stats, conv_affine and conv_wgrad, as
+# launches_by_instance names them
 INSTANCES = ("fp32", "bf16_mma_sync", "bf16_wgmma")
 
 
@@ -149,10 +151,11 @@ def conv_affine_plain(x, w, gamma, beta, mean, var, residual=None,
 def _same(what, x, named, dtype=torch.float32):
     """Every tensor of ``named`` on x's device, of ``dtype`` and
     contiguous."""
+    dev = x.device
     for name, t in named:
-        if t.device != x.device:
+        if t.device != dev:
             raise ValueError(f"{what}: {name} is on {t.device}, x on "
-                             f"{x.device}")
+                             f"{dev}")
         if t.dtype != dtype:
             raise TypeError(f"{what}: {name} must be "
                             f"{str(dtype).rpartition('.')[2]}, got "
@@ -204,12 +207,13 @@ WGMMA_SLAB = 64     # channels a TMA box of the wgmma kernels holds (128 B)
 
 
 def wgmma_takes(C, Cout, *tensors):
-    """True where a bf16 ``conv3x3`` or ``conv_wgrad`` of ``C`` input and
-    ``Cout`` output channels on ``tensors`` launches the ``wgmma`` kernels
-    of ``csrc/conv_bf16_wgmma.cu``: TMA wants 16-byte strides (C % 8 == 0,
-    Cout % 8 == 0) and 16-byte aligned bases.  Decided from the shapes and
-    pointers before the launch; the other bf16 shapes launch the
-    ``mma.sync`` instances."""
+    """True where a bf16 ``conv3x3``, ``conv_stats``, ``conv_affine`` or
+    ``conv_wgrad`` of ``C`` input and ``Cout`` output channels on
+    ``tensors`` (their images, weights, outputs and residual) launches the
+    ``wgmma`` kernels of ``csrc/conv_bf16_wgmma.cu``: TMA wants 16-byte
+    strides (C % 8 == 0, Cout % 8 == 0) and 16-byte aligned bases.
+    Decided from the shapes and pointers before the launch; the other
+    bf16 shapes launch the ``mma.sync`` instances."""
     return C % 8 == 0 and Cout % 8 == 0 and _aligned(*tensors)
 
 
@@ -218,8 +222,57 @@ def _slabs(C):
     return -(-C // WGMMA_SLAB)
 
 
+def map_cache_stats():
+    """The ``wgmma`` kernels' tensor-map cache since the library was
+    loaded: ``{"hits", "misses", "entries"}`` (a hit reuses the map of an
+    earlier call with the same pointer, shape and box)."""
+    out = (ctypes.c_longlong * 3)()
+    _build.check(_build.lib().mxt_wgmma_map_cache_stats(out),
+                 "mxt_wgmma_map_cache_stats")
+    return dict(zip(("hits", "misses", "entries"), out))
+
+
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+# The wgmma wrappers' launch helpers: the same as torch.cuda.device,
+# _stream and torch.empty, at less host cost (these kernels run on eager
+# serving paths, where the host's time per call is the forward's).
+def _device(dev):
+    """A context in which card ``dev`` is the current device (no switch
+    where it already is)."""
+    if torch.cuda.current_device() == dev.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev.index)
+
+
+def _raw_stream(dev):
+    """The handle of card ``dev``'s current stream."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+_scratch = threading.local()
+
+
+def _part(dev, shape):
+    """fp32 scratch of at least ``shape``'s size for the partial sums of
+    a launch on the current stream of card ``dev`` (the current device):
+    one buffer for each thread, card and stream, grown as needed and
+    reused, since the stream runs a launch's kernels after those of the
+    one before; a fresh one while a graph is captured (its pool keeps
+    it)."""
+    n = 1
+    for d in shape:
+        n *= d
+    if torch.cuda.is_current_stream_capturing():
+        return torch.empty(n, device=dev, dtype=torch.float32)
+    bufs = _scratch.__dict__.setdefault("bufs", {})
+    key = (dev.index, _raw_stream(dev))
+    buf = bufs.get(key)
+    if buf is None or buf.numel() < n:
+        buf = bufs[key] = torch.empty(n, device=dev, dtype=torch.float32)
+    return buf
 
 
 def conv3x3_plain(x, w):
@@ -314,22 +367,29 @@ def conv3x3(x, w):
     return _conv3x3_tc(x, w, out)
 
 
+@functools.lru_cache(maxsize=256)
+def _wgmma_conv_plan(op, index, M, C, Cout):
+    """The plan of the ``wgmma`` conv kernel ``op`` (``conv3x3``,
+    ``conv_stats``, ``conv_affine``) for ``M`` pixels on card ``index``:
+    :func:`conv3x3_splits` with chunks of one tap's 64-channel slab, at
+    the kernel's own occupancy (its ``mxt_<op>_wgmma_blocks_per_sm``)."""
+    bn = wgrad_tile_cols(Cout)
+    return conv3x3_splits(M, 9 * WGMMA_SLAB * _slabs(C), Cout,
+                          _sm_count(index),
+                          _per_sm(f"mxt_{op}_wgmma_blocks_per_sm", index,
+                                  bn, 1), chunk=WGMMA_SLAB)
+
+
 def _conv3x3_wgmma(x, w, out):
     """Launch ``csrc/conv_bf16_wgmma.cu``'s conv3x3 into ``out``."""
     N, H, W, C = x.shape
     Cout = w.shape[3]
-    index = x.device.index
-    bn = wgrad_tile_cols(Cout)
-    plan = conv3x3_splits(N * H * W, 9 * WGMMA_SLAB * _slabs(C), Cout,
-                          _sm_count(index),
-                          _per_sm("mxt_conv3x3_wgmma_blocks_per_sm", index,
-                                  bn, 1), chunk=WGMMA_SLAB)
-    part = torch.empty((2 * plan.ranges, CONV_ROWS, plan.bn),
-                       device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
+    plan = _wgmma_conv_plan("conv3x3", x.device.index, N * H * W, C, Cout)
+    with _device(x.device):
+        part = _part(x.device, (2 * plan.ranges, CONV_ROWS, plan.bn))
         err = _build.lib().mxt_conv3x3_wgmma_bf16(
             x.data_ptr(), w.data_ptr(), part.data_ptr(), out.data_ptr(),
-            N, H, W, C, Cout, plan.bn, plan.ranges, _stream(x.device))
+            N, H, W, C, Cout, plan.bn, plan.ranges, _raw_stream(x.device))
     _build.check(err, "conv3x3")
     _count(conv3x3, "bf16_wgmma")
     return out
@@ -425,18 +485,20 @@ def tile_writers(plan):
     return writes
 
 
-@_counted
+@_instanced
 def conv_stats(x, w):
     """``(z, Σz, Σz²)``: the conv of :func:`conv3x3`, on the same
-    tensor-core kernel body with a statistics epilogue, and its
-    per-channel sums (f32, (Cout,) each) read off the fp32 accumulator
-    (bf16: before z is rounded to bf16): per 128-pixel tile in a fixed
-    order, then over the tiles in a fixed order, so the three are the
-    same on every run (:func:`tile_writers` names the kernel that sums
-    each tile).  Its plan is :func:`conv3x3_splits` at the occupancy of
-    the statistics instance; where that equals ``conv3x3``'s plan, z is
-    ``conv3x3(x, w)`` bit for bit.  CPU tensors take
-    :func:`conv_stats_plain`."""
+    tensor-core loop with a statistics epilogue, and its per-channel sums
+    (f32, (Cout,) each) read off the fp32 accumulator (bf16: before z is
+    rounded to bf16): per 128-pixel tile in a fixed order, then over the
+    tiles in a fixed order, so the three are the same on every run
+    (:func:`tile_writers` names the kernel that sums each tile).  fp32:
+    ``csrc/conv3x3_tc.cu``'s 3×TF32 loop.  bf16: where :func:`wgmma_takes`
+    the shape, the ``wgmma`` kernel of ``csrc/conv_bf16_wgmma.cu``, else
+    the ``mma.sync`` instance of ``conv3x3_tc.cu``.  Its plan is
+    :func:`conv3x3_splits` at the occupancy of the statistics instance;
+    where that equals ``conv3x3``'s plan, z is ``conv3x3(x, w)`` bit for
+    bit.  CPU tensors take :func:`conv_stats_plain`."""
     if not _on_card("conv_stats", x):
         return conv_stats_plain(x, w)
     half = _card_half("conv_stats", x)
@@ -445,19 +507,51 @@ def conv_stats(x, w):
     if z.numel() == 0:
         stats = torch.zeros((2, Cout), device=x.device, dtype=torch.float32)
         return z, stats[0], stats[1]
+    stats = torch.empty((2, Cout), device=x.device, dtype=torch.float32)
+    if half and wgmma_takes(C, Cout, x, w, z):
+        _conv_stats_wgmma(x, w, z, stats)
+    else:
+        tstats = torch.empty((-(-(N * H * W) // CONV_ROWS), 2, Cout),
+                             device=x.device, dtype=torch.float32)
+        _conv_stats_tc(x, w, z, tstats, stats)
+    return z, stats[0], stats[1]
+
+
+def _conv_stats_wgmma(x, w, z, stats):
+    """Launch ``csrc/conv_bf16_wgmma.cu``'s conv_stats into ``z`` and
+    ``stats``; its per-tile sums (``tstats``) follow the partial sums in
+    the scratch."""
+    N, H, W, C = x.shape
+    Cout = w.shape[3]
+    plan = _wgmma_conv_plan("conv_stats", x.device.index, N * H * W, C,
+                            Cout)
+    slots = 2 * plan.ranges * CONV_ROWS * plan.bn
+    with _device(x.device):
+        part = _part(x.device, (slots + -(-(N * H * W) // CONV_ROWS) * 2 *
+                                Cout,))
+        err = _build.lib().mxt_conv_stats_wgmma_bf16(
+            x.data_ptr(), w.data_ptr(), part.data_ptr(), z.data_ptr(),
+            part.data_ptr() + 4 * slots, stats.data_ptr(), N, H, W, C, Cout,
+            plan.bn, plan.ranges, _raw_stream(x.device))
+    _build.check(err, "conv_stats")
+    _count(conv_stats, "bf16_wgmma")
+
+
+def _conv_stats_tc(x, w, z, tstats, stats):
+    """Launch ``csrc/conv3x3_tc.cu``'s conv_stats (fp32, or bf16 on
+    ``mma.sync``) into ``z``, ``tstats`` and ``stats``."""
+    N, H, W, C = x.shape
+    Cout = w.shape[3]
+    half = x.dtype == torch.bfloat16
     wide = 8 if half else 4
     vec = int(C % wide == 0 and Cout % wide == 0 and _aligned(x, w, z))
     index = x.device.index
-    M = N * H * W
-    plan = conv3x3_splits(M, 9 * C, Cout, _sm_count(index),
+    plan = conv3x3_splits(N * H * W, 9 * C, Cout, _sm_count(index),
                           _per_sm("mxt_conv_stats_bf16_blocks_per_sm" if half
                                   else "mxt_conv_stats_tc_blocks_per_sm",
                                   index, wgrad_tile_cols(Cout), vec))
     part = torch.empty((2 * plan.ranges, CONV_ROWS, plan.bn),
                        device=x.device, dtype=torch.float32)
-    tstats = torch.empty((-(-M // CONV_ROWS), 2, Cout), device=x.device,
-                         dtype=torch.float32)
-    stats = torch.empty((2, Cout), device=x.device, dtype=torch.float32)
     lib = _build.lib()
     entry = lib.mxt_conv_stats_tc_bf16 if half else lib.mxt_conv_stats_tc_f32
     with torch.cuda.device(x.device):
@@ -466,11 +560,10 @@ def conv_stats(x, w):
             tstats.data_ptr(), stats.data_ptr(), N, H, W, C, Cout, plan.bn,
             plan.ranges, vec, _stream(x.device))
     _build.check(err, "conv_stats")
-    _count(conv_stats, x.dtype)
-    return z, stats[0], stats[1]
+    _count(conv_stats, "bf16_mma_sync" if half else "fp32")
 
 
-@_counted
+@_instanced
 def conv_affine(x, w, gamma, beta, mean, var, residual=None,
                 eps: float = 1e-5, relu: bool = True):
     """``act(conv3x3(x, w)·scale + shift (+ residual))`` with the BN
@@ -481,12 +574,13 @@ def conv_affine(x, w, gamma, beta, mean, var, residual=None,
     wave of ranges at the affine instance's occupancy) with the BN folded
     and applied to each finished tile before it is written
     (:func:`tile_writers` names the kernel that finishes each tile).
-    bf16: the same loop's bf16 instance (one bf16 ``mma.sync`` product a
-    16-deep step, fp32 sums, the fold and the residual in fp32, one
-    rounding at the store), planned at its own occupancy.  fp16 raises
-    ``TypeError`` (Queue 1 item 3c).  CUDA tensors launch ``csrc/conv3x3_tc.cu``; CPU
-    tensors take :func:`conv_affine_plain`.  ``launches`` counts every
-    launch, ``launches_by_dtype`` each dtype's."""
+    bf16: exact bf16 products, fp32 sums, the fold, the residual and the
+    ReLU in fp32, one rounding at the store; where :func:`wgmma_takes` the
+    shape (x, w, out and the residual) the ``wgmma`` kernel of
+    ``csrc/conv_bf16_wgmma.cu``, else the ``mma.sync`` instance of
+    ``csrc/conv3x3_tc.cu``, each planned at its own occupancy.  fp16
+    raises ``TypeError`` (Queue 1 item 3c).  CPU tensors take
+    :func:`conv_affine_plain`."""
     if not _on_card("conv_affine", x):
         return conv_affine_plain(x, w, gamma, beta, mean, var, residual,
                                  eps, relu)
@@ -496,12 +590,54 @@ def conv_affine(x, w, gamma, beta, mean, var, residual=None,
     out = torch.empty((N, H, W, Cout), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
+    bn = (gamma, beta, mean, var)
+    if half and wgmma_takes(C, Cout, x, w, out,
+                            *([residual] if residual is not None else [])):
+        return _conv_affine_wgmma(x, w, bn, residual, eps, relu, out)
+    return _conv_affine_tc(x, w, bn, residual, eps, relu, out)
+
+
+def _affine_launch(entry, plan, vec, x, w, bn, residual, eps, relu, out,
+                   part, stream):
+    """Call ``entry`` (a conv_affine entry of ``_build``) on ``plan``
+    with scratch ``part`` on ``stream``, x's card the current device;
+    ``vec`` is ``(vec,)`` for the ``conv3x3_tc.cu`` entries, ``()`` for
+    the ``wgmma`` one."""
+    N, H, W, C = x.shape
+    err = getattr(_build.lib(), entry)(
+        x.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in bn),
+        residual.data_ptr() if residual is not None else None,
+        part.data_ptr(), out.data_ptr(), N, H, W, C, w.shape[3],
+        float(eps), int(bool(relu)), plan.bn, plan.ranges, *vec, stream)
+    _build.check(err, "conv_affine")
+
+
+def _conv_affine_wgmma(x, w, bn, residual, eps, relu, out):
+    """Launch ``csrc/conv_bf16_wgmma.cu``'s conv_affine into ``out``
+    (``bn``: gamma, beta, mean, var)."""
+    N, H, W, C = x.shape
+    plan = _wgmma_conv_plan("conv_affine", x.device.index, N * H * W, C,
+                            w.shape[3])
+    with _device(x.device):
+        _affine_launch("mxt_conv_affine_wgmma_bf16", plan, (), x, w, bn,
+                       residual, eps, relu, out,
+                       _part(x.device, (2 * plan.ranges, CONV_ROWS, plan.bn)),
+                       _raw_stream(x.device))
+    _count(conv_affine, "bf16_wgmma")
+    return out
+
+
+def _conv_affine_tc(x, w, bn, residual, eps, relu, out):
+    """Launch ``csrc/conv3x3_tc.cu``'s conv_affine (fp32, or bf16 on
+    ``mma.sync``) into ``out``."""
+    N, H, W, C = x.shape
+    Cout = w.shape[3]
+    half = x.dtype == torch.bfloat16
     wide = 8 if half else 4             # channels a 16-byte copy moves
     vec = int(C % wide == 0 and Cout % wide == 0 and
               _aligned(x, w, out, *([residual] if residual is not None
                                     else [])))
     index = x.device.index
-    entry = "mxt_conv_affine_bf16" if half else "mxt_conv_affine_f32"
     plan = conv3x3_splits(N * H * W, 9 * C, Cout, _sm_count(index),
                           _per_sm("mxt_conv_affine_bf16_blocks_per_sm"
                                   if half else
@@ -509,16 +645,11 @@ def conv_affine(x, w, gamma, beta, mean, var, residual=None,
                                   wgrad_tile_cols(Cout), vec))
     part = torch.empty((2 * plan.ranges, CONV_ROWS, plan.bn),
                        device=x.device, dtype=torch.float32)
-    lib = _build.lib()
     with torch.cuda.device(x.device):
-        err = getattr(lib, entry)(
-            x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            mean.data_ptr(), var.data_ptr(),
-            residual.data_ptr() if residual is not None else None,
-            part.data_ptr(), out.data_ptr(), N, H, W, C, Cout, float(eps),
-            int(bool(relu)), plan.bn, plan.ranges, vec, _stream(x.device))
-    _build.check(err, "conv_affine")
-    _count(conv_affine, x.dtype)
+        _affine_launch("mxt_conv_affine_bf16" if half else
+                       "mxt_conv_affine_f32", plan, (vec,), x, w, bn,
+                       residual, eps, relu, out, part, _stream(x.device))
+    _count(conv_affine, "bf16_mma_sync" if half else "fp32")
     return out
 
 
@@ -682,13 +813,12 @@ def _wgrad_wgmma(x, dy, dw):
                         _sm_count(index),
                         _per_sm("mxt_conv_wgrad_wgmma_blocks_per_sm", index,
                                 bn, 1), chunk=WGMMA_SLAB)
-    part = torch.empty((plan.tiles, plan.jmax, WGRAD_ROWS, plan.bn),
-                       device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
+    with _device(x.device):
+        part = _part(x.device, (plan.tiles, plan.jmax, WGRAD_ROWS, plan.bn))
         err = _build.lib().mxt_conv_wgrad_wgmma_bf16(
             x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
             N, H, W, C, Cout, plan.bn, plan.ranges, plan.jmax,
-            _stream(x.device))
+            _raw_stream(x.device))
     _build.check(err, "conv_wgrad")
     _count(conv_wgrad, "bf16_wgmma")
     return dw

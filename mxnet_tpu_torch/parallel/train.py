@@ -97,8 +97,9 @@ def kernel_wrappers() -> Dict[str, Callable]:
 def _counts():
     """Each wrapper's launches by name, its bf16 instance's (also counted
     in the former) as ``<name>_bf16`` and, where bf16 has several
-    kernels, each one's as ``<name>_<instance>`` (``conv3x3_bf16_wgmma``,
-    ``conv3x3_bf16_mma_sync``; ``<name>_bf16`` is their sum)."""
+    kernels (the four conv wrappers), each one's as ``<name>_<instance>``
+    (``conv_stats_bf16_wgmma``, ``conv_stats_bf16_mma_sync``;
+    ``<name>_bf16`` is their sum)."""
     out = {}
     for n, fn in kernel_wrappers().items():
         out[n] = fn.launches

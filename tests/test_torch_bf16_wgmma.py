@@ -359,9 +359,10 @@ def test_fused_counts_name_each_bf16_kernel():
     assert conv_block.INSTANCES == ("fp32", "bf16_mma_sync", "bf16_wgmma")
 
 
-@pytest.mark.parametrize("name", ["conv3x3", "conv_wgrad"])
+@pytest.mark.parametrize("name", ["conv3x3", "conv_wgrad", "conv_stats",
+                                  "conv_affine"])
 def test_each_kernel_has_one_counter_and_the_dtype_is_their_sum(name):
-    """``conv3x3`` and ``conv_wgrad`` keep one count a kernel
+    """The four conv wrappers keep one count a kernel
     (``launches_by_instance``) and no count a dtype: a fused step's
     ``<name>_bf16`` is the sum of its two bf16 kernels', and an fp32
     launch adds to neither."""
