@@ -500,10 +500,34 @@ each; the run stops with a non-zero exit at the first phase that fails:
     against the port on the CPU from the same weights and batches: the
     card's losses and weights no farther from the CPU's bf16 step than
     that is from the CPU's fp32 step.
+48. ``fp16_train_kernels``: the fp16 kernels of rows 7 (dgrad), 9, 10
+    and 11 at ResNet-50's four stages at batch 128, the ``wgmma`` edges
+    and the ragged C = 20, and row 8 at the converted forward's shapes
+    with fp16 and fp32 statistics, against their plain versions (fp16
+    outputs within one fp16 step, inf where the plain version's are; fp32
+    sums and dW within 1e-5), bitwise on relaunch, each through the
+    kernel its shape takes, timed beside bound, plain version, the fp16
+    library call and the ``wgmma`` f16 ceiling; an overflowing and a
+    subnormal case; bf16 ``conv_affine`` with fp32 statistics (the frozen
+    segment's repair).
+49. ``fp16_train``: ResNet-50 v1 at batch 128 through
+    ``FusedTrainStep(dtype="float16", grad_scale=1024)`` (21 calls, one
+    captured graph a step: 16 fp16 launches of each training kernel, the
+    convs on ``wgmma``; finite, falling losses) beside the bf16 step; the
+    same step with one ``use_global_stats`` segment in bf16 and fp16;
+    the eager ``amp.init("float16")`` Trainer at batch 64 (the loss
+    scale's trajectory from 2^16; rows 7 and 11 in fp16); the
+    ``amp.convert_model(..., "float16")`` forward at batch 8 (16 fp16
+    ``conv_affine`` launches).
+50. ``fp16_train_reference``: two fp16 fused SGD steps of ResNet-18 v1
+    (64x64, batch 2, damped residual γ, ``grad_scale`` 1024) on the card
+    against the port on the CPU: no farther from the CPU's fp16 step
+    than that is from the CPU's fp32 step.
 
-Then one ``{"kernels": [...]}`` line (26 entries: the bf16 instances of
-rows 1, 7, 8, 9, 10 and 11 their own, rows 7, 8, 9 and 11 twice: the
-``wgmma`` kernels and the ``mma.sync`` ones; ``launches`` adds
+Then one ``{"kernels": [...]}`` line (35 entries: the bf16 and fp16
+instances of rows 7, 8, 9, 10 and 11 and the bf16 one of row 1 their
+own, rows 7, 8, 9 and 11 twice a half type: the ``wgmma`` kernels and
+the ``mma.sync`` ones; ``launches`` adds
 the fused phases' real launches: the first call's warm-up and the
 replays times the captured counts), the ``nvidia-smi`` line, and the
 result line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -891,14 +915,15 @@ KERNEL_CATEGORIES = (
     ("conv_stats wgmma (ours)", r"conv_stats_wgmma(_cut|_sum)?_kernel"),
     ("conv_affine wgmma (ours)", r"conv_affine_wgmma(_reduce)?_kernel"),
     ("conv_affine (ours)",
-     r"conv_affine_(tc|reduce|bf16|bf16_reduce)_kernel"),
+     r"conv_affine_(tc|reduce|bf16|bf16_reduce|f16|f16_reduce)_kernel"),
     ("conv3x3 / dgrad (ours)",
-     r"conv3x3_(tc|reduce|bf16|bf16_reduce)_kernel"),
+     r"conv3x3_(tc|reduce|bf16|bf16_reduce|f16|f16_reduce)_kernel"),
     ("conv3x3 / dgrad wgmma (ours)", r"conv3x3_wgmma(_reduce)?_kernel"),
     ("conv_wgrad wgmma (ours)", r"conv_wgrad_wgmma(_reduce)?_kernel"),
-    ("conv_stats (ours)", r"conv_stats_(tc|cut|sum|bf16)_kernel"),
-    ("bn_affine (ours)", r"bn_affine(_bf16)?_kernel"),
-    ("conv_wgrad (ours)", r"conv_wgrad(_bf16)?_kernel|wgrad_reduce_kernel"),
+    ("conv_stats (ours)", r"conv_stats_(tc|cut|sum|bf16|f16)_kernel"),
+    ("bn_affine (ours)", r"bn_affine(_bf16|_f16)?_kernel"),
+    ("conv_wgrad (ours)",
+     r"conv_wgrad(_bf16|_f16)?_kernel|wgrad_reduce_kernel"),
     ("batch norm", r"batch_norm|bn_fw"),
     ("layout transform", r"nchwToNhwc|nhwcToNchw"),
     ("cuDNN conv backward", r"dgrad|wgrad|bprop"),
@@ -4899,7 +4924,8 @@ def _half_softmax_case(rows, cols, dtype, gen, div=None, keep_rows=None):
     return case
 
 
-def _conv_bf16_cases(N, H, W, C, Cout, gen, residual=False, relu=True):
+def _conv_bf16_cases(N, H, W, C, Cout, gen, residual=False, relu=True,
+                     dtype=None, stats_fp32=False):
     """``conv_affine``'s bf16 kernels against their plain version (bf16
     widened to fp32, the conv in fp32 with TF32 off, the same fold, one
     rounding) at one shape, each launched twice on the same inputs
@@ -4915,18 +4941,23 @@ def _conv_bf16_cases(N, H, W, C, Cout, gen, residual=False, relu=True):
     1e-5 of the largest output where both lie near 0: the two sum the
     same exact products in fp32 in another order, so a value may round to
     the neighbouring bf16 value, and near 0 the sums' own rounding is all
-    there is."""
+    there is.  ``dtype`` fp16: the fp16 kernels, fp16's step;
+    ``stats_fp32``: μ and σ² fp32 beside half γ and β, as a half training
+    step's frozen segment passes them (the kernels read each vector in
+    its own dtype)."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import conv_block as cb
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
+    h, e, dn = cb.HALF_NAMES[bf], cb._ENTRY[bf], str(bf)[6:]
+    sd = torch.float32 if stats_fp32 else bf
     x = torch.randn(N, H, W, C, device="cuda", generator=gen).to(bf)
     w = (torch.randn(3, 3, C, Cout, device="cuda", generator=gen) *
          (2.0 / (9 * C)) ** 0.5).to(bf)
     g = (1 + 0.1 * torch.randn(Cout, device="cuda", generator=gen)).to(bf)
     b = (0.1 * torch.randn(Cout, device="cuda", generator=gen)).to(bf)
-    mu = (0.1 * torch.randn(Cout, device="cuda", generator=gen)).to(bf)
-    var = (0.5 + torch.rand(Cout, device="cuda", generator=gen)).to(bf)
+    mu = (0.1 * torch.randn(Cout, device="cuda", generator=gen)).to(sd)
+    var = (0.5 + torch.rand(Cout, device="cuda", generator=gen)).to(sd)
     res = torch.randn(N, H, W, Cout, device="cuda",
                       generator=gen).to(bf) if residual else None
     args = (x, w, g, b, mu, var, res)
@@ -4936,15 +4967,15 @@ def _conv_bf16_cases(N, H, W, C, Cout, gen, residual=False, relu=True):
     npix = N * H * W
     nbytes = 2 * (npix * C + 9 * C * Cout + npix * Cout * (2 if residual
                                                            else 1)
-                  + 4 * Cout)
+                  + (6 if stats_fp32 else 4) * Cout)
     flops = 2 * npix * 9 * C * Cout
     shape = [N, H, W, C, Cout]
     library = lambda: F.conv2d(xc, wc, padding=1)  # noqa: E731
     plain = lambda: cb.conv_affine_plain(*args, relu=relu)  # noqa: E731
-    about = {"shape": shape, "dtype": "bfloat16", "residual": residual,
-             "relu": relu,
-             "library": "F.conv2d alone on bf16 (cuDNN, channels-last; no "
-                        "BN fold, residual or ReLU)"}
+    about = {"shape": shape, "dtype": dn, "residual": residual,
+             "relu": relu, "stats": str(sd)[6:],
+             "library": f"F.conv2d alone on {dn} (cuDNN, channels-last; no "
+                        f"BN fold, residual or ReLU)"}
     wrapper = lambda: cb.conv_affine(*args, relu=relu)  # noqa: E731
     takes = cb.wgmma_takes(C, Cout, x, w, *([res] if residual else []))
     if takes:
@@ -4954,26 +4985,27 @@ def _conv_bf16_cases(N, H, W, C, Cout, gen, residual=False, relu=True):
         out, via = sync(), {"launched": "directly"}
     else:
         sync = wrapper
-        out, took = _instance_launches(cb.conv_affine, sync, "bf16_mma_sync")
+        out, took = _instance_launches(cb.conv_affine, sync, h + "_mma_sync")
         via = {"launched": "by the wrapper", "instance_launched": took}
-    cases = {"conv_affine_bf16_mma_sync": _bf16_timed(
+    cases = {f"conv_affine_{h}_mma_sync": _bf16_timed(
         {**about, "use": "the mma.sync instance", **via,
          "plan": _conv3x3_plan(npix, C, Cout,
-                               "mxt_conv_affine_bf16_blocks_per_sm", 8),
+                               f"mxt_conv_affine_{e}_blocks_per_sm", 8),
          **_bf16_within(out, ref),
          "bitwise_equal_relaunch": bool(torch.equal(out, sync()))},
         sync, plain, library, nbytes, flops)}
     if takes:
-        out, took = _instance_launches(cb.conv_affine, wrapper, "bf16_wgmma")
+        out, took = _instance_launches(cb.conv_affine, wrapper, h + "_wgmma")
         case = _bf16_timed(
-            {**about, "plan": _wgmma_plan(npix, C, Cout, op="conv_affine"),
+            {**about, "plan": _wgmma_plan(npix, C, Cout, op="conv_affine",
+                                          dtype=bf),
              **_bf16_within(out, ref), "instance_launched": took,
              "bitwise_equal_relaunch": bool(torch.equal(out, wrapper()))},
             wrapper, plain, library, nbytes, flops)
         case.update(parent_ms=cuda_ms(sync, iters=10),
                     kernels_us=_kernel_us(wrapper))
         case["parent_over_kernel"] = case["parent_ms"] / case["kernel_ms"]
-        cases["conv_affine_bf16_wgmma"] = case
+        cases[f"conv_affine_{h}_wgmma"] = case
     return cases
 
 
@@ -5544,21 +5576,33 @@ BF16_BERT_WANT = {"softmax_fused": BERT_SOFTMAXES,
 
 
 def _bf16_within(out, ref):
-    """A bf16 kernel's output against its plain version's: each value
-    within one bf16 step, or within ``BF16_NEAR_ZERO`` of the largest
-    where both lie near 0 (the two sum the same exact products in fp32 in
-    another order)."""
+    """A half kernel's output (bf16 or fp16) against its plain version's:
+    each finite value within one step of ref's dtype (bf16: 8 significant
+    bits; fp16: 11, its subnormals below 2^-14 a fixed step of 2^-24), or
+    within ``BF16_NEAR_ZERO`` of the largest where both lie near 0 (the
+    two sum the same exact products in fp32 in another order); an
+    infinite value (fp16 past 65504) exactly where and as the plain
+    version has it (``infinite`` counts them; ``finite`` is False
+    then)."""
     import torch
-    err = (out.float() - ref.float()).abs()
-    scale = ref.float().abs().max().item()
-    step = torch.exp2(torch.floor(torch.log2(ref.float().abs())) - 7)
+    o, r = out.float(), ref.float()
+    fin = torch.isfinite(r)
+    inf_same = bool(torch.equal(o[~fin], r[~fin])) and \
+        bool(torch.isfinite(o[fin]).all())
+    o, r = torch.where(fin, o, 0.0), torch.where(fin, r, 0.0)
+    err = (o - r).abs()
+    scale = r.abs().max().item()
+    e = torch.floor(torch.log2(r.abs()))
+    if ref.dtype == torch.float16:
+        e = e.clamp(min=-14)
+    step = torch.exp2(e - (10 if ref.dtype == torch.float16 else 7))
     allowed = torch.clamp(HALF_STEPS * step, min=BF16_NEAR_ZERO * scale)
     return {"max_abs_err": err.max().item(),
             "rel_err": err.max().item() / max(scale, 1e-30),
-            "within_steps": bool((err <= allowed).all()),
+            "within_steps": bool((err <= allowed).all()) and inf_same,
             "tol_steps": HALF_STEPS, "near_zero_tol": BF16_NEAR_ZERO,
             "values_differing": int((out != ref).sum()),
-            "values": out.numel(),
+            "values": out.numel(), "infinite": int((~fin).sum()),
             "finite": bool(torch.isfinite(out.float()).all())}
 
 
@@ -5576,19 +5620,21 @@ def _bf16_timed(case, fn, plain, library, nbytes, flops):
     return case
 
 
-def _wgmma_plan(M, C, Cout, wgrad=False, op="conv3x3"):
+def _wgmma_plan(M, C, Cout, wgrad=False, op="conv3x3", dtype=None):
     """The plan the ``wgmma`` kernel of ``op`` (``conv3x3``,
-    ``conv_stats``, ``conv_affine``; or ``conv_wgrad``) runs for ``M``
-    pixels, ``C`` input and ``Cout`` output channels on card 0 (chunks of
-    one tap's 64-channel slab, or of 64 pixels)."""
+    ``conv_stats``, ``conv_affine``; or ``conv_wgrad``) on half ``dtype``
+    (default bf16) runs for ``M`` pixels, ``C`` input and ``Cout`` output
+    channels on card 0 (chunks of one tap's 64-channel slab, or of 64
+    pixels)."""
+    import torch
     from mxnet_tpu_torch.ops import conv_block as cb
+    dtype = dtype or torch.bfloat16
     bn = cb.wgrad_tile_cols(Cout)
     K = 9 * cb.WGMMA_SLAB * cb._slabs(C)
     if wgrad:
-        return cb.wgrad_splits(M, K, Cout, cb._sm_count(0), cb._per_sm(
-            "mxt_conv_wgrad_wgmma_blocks_per_sm", 0, bn, 1),
-            chunk=cb.WGMMA_SLAB)._asdict()
-    return _plan_dict(cb._wgmma_conv_plan(op, 0, M, C, Cout))
+        return cb.wgrad_splits(M, K, Cout, cb._sm_count(0), cb._wgmma_per_sm(
+            "conv_wgrad", 0, bn, dtype), chunk=cb.WGMMA_SLAB)._asdict()
+    return _plan_dict(cb._wgmma_conv_plan(op, 0, M, C, Cout, dtype))
 
 
 def _instance_launches(fn, run, instance):
@@ -5601,8 +5647,9 @@ def _instance_launches(fn, run, instance):
     return out, set(moved) == {instance}
 
 
-def _bf16_train_conv_cases(N, H, W, C, Cout, gen):
-    """The bf16 kernels of ``conv3x3`` (in its training use, the dgrad:
+def _bf16_train_conv_cases(N, H, W, C, Cout, gen, dtype=None):
+    """The half kernels (bf16, or ``dtype``: fp16) of ``conv3x3`` (in its
+    training use, the dgrad:
     dy with the rotated weight), ``conv_stats`` and ``conv_wgrad`` at one
     shape, each launched twice on the same inputs (bitwise equal: a gate)
     and held against its plain version (bf16 widened to fp32, the conv in
@@ -5618,11 +5665,12 @@ def _bf16_train_conv_cases(N, H, W, C, Cout, gen):
     once, through the wrappers, which must launch the ``mma.sync``
     kernels.  Library yardsticks on the same bf16 tensors (cuDNN,
     channels-last): ``conv2d_input``, ``F.conv2d`` alone (no sums),
-    ``conv2d_weight`` (bf16 out)."""
+    ``conv2d_weight`` (bf16 out).  On fp16 the same with fp16's step."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import conv_block as cb
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
+    h, e, dn = cb.HALF_NAMES[bf], cb._ENTRY[bf], str(bf)[6:]
     x = torch.randn(N, H, W, C, device="cuda", generator=gen).to(bf)
     w = (torch.randn(3, 3, C, Cout, device="cuda", generator=gen) *
          (2.0 / (9 * C)) ** 0.5).to(bf)
@@ -5645,37 +5693,37 @@ def _bf16_train_conv_cases(N, H, W, C, Cout, gen):
         dx, via = sync(), {"launched": "directly"}
     else:
         sync = lambda: cb.conv3x3(dy, wr)  # noqa: E731
-        dx, took = _instance_launches(cb.conv3x3, sync, "bf16_mma_sync")
+        dx, took = _instance_launches(cb.conv3x3, sync, h + "_mma_sync")
         via = {"launched": "by the wrapper", "instance_launched": took}
     again = sync()
-    out["conv3x3_bf16_mma_sync"] = _bf16_timed(
-        {"shape": shape, "dtype": "bfloat16",
-         "use": "dgrad: conv3x3(dy, rotate(w)), PR 19's mma.sync instance",
+    out[f"conv3x3_{h}_mma_sync"] = _bf16_timed(
+        {"shape": shape, "dtype": dn,
+         "use": "dgrad: conv3x3(dy, rotate(w)), the mma.sync instance",
          **via,
          "plan": _conv3x3_plan(npix, Cout, C,
-                               "mxt_conv3x3_bf16_blocks_per_sm", 8),
+                               f"mxt_conv3x3_{e}_blocks_per_sm", 8),
          **_bf16_within(dx, ref),
          "bitwise_equal_relaunch": bool(torch.equal(dx, again)),
-         "library": "torch.nn.grad.conv2d_input on bf16 (cuDNN)"},
+         "library": f"torch.nn.grad.conv2d_input on {dn} (cuDNN)"},
         sync, lambda: cb.conv3x3_plain(dy, wr), library, nbytes, flops)
     if takes:
         dx, took = _instance_launches(cb.conv3x3,
                                       lambda: cb.conv3x3(dy, wr),
-                                      "bf16_wgmma")
+                                      h + "_wgmma")
         again = cb.conv3x3(dy, wr)
         case = _bf16_timed(
-            {"shape": shape, "dtype": "bfloat16",
+            {"shape": shape, "dtype": dn,
              "use": "dgrad: conv3x3(dy, rotate(w))",
-             "plan": _wgmma_plan(npix, Cout, C), **_bf16_within(dx, ref),
-             "instance_launched": took,
+             "plan": _wgmma_plan(npix, Cout, C, dtype=bf),
+             **_bf16_within(dx, ref), "instance_launched": took,
              "bitwise_equal_relaunch": bool(torch.equal(dx, again)),
-             "library": "torch.nn.grad.conv2d_input on bf16 (cuDNN)"},
+             "library": f"torch.nn.grad.conv2d_input on {dn} (cuDNN)"},
             lambda: cb.conv3x3(dy, wr), lambda: cb.conv3x3_plain(dy, wr),
             library, nbytes, flops)
         case.update(parent_ms=cuda_ms(sync, iters=10),
                     kernels_us=_kernel_us(lambda: cb.conv3x3(dy, wr)))
         case["parent_over_kernel"] = case["parent_ms"] / case["kernel_ms"]
-        out["conv3x3_bf16_wgmma"] = case
+        out[f"conv3x3_{h}_wgmma"] = case
 
     out.update(_bf16_stats_cases(x, w, shape, nbytes + 8 * Cout, flops,
                                  lambda: F.conv2d(xc, wc, padding=1)))
@@ -5691,44 +5739,44 @@ def _bf16_train_conv_cases(N, H, W, C, Cout, gen):
         dw, via = sync(), {"launched": "directly"}
     else:
         sync = lambda: cb.conv_wgrad(x, dy)  # noqa: E731
-        dw, took = _instance_launches(cb.conv_wgrad, sync, "bf16_mma_sync")
+        dw, took = _instance_launches(cb.conv_wgrad, sync, h + "_mma_sync")
         via = {"launched": "by the wrapper", "instance_launched": took}
     again = sync()
     err, rel = _rel_err(dw, wref)
     vec = int(C % 8 == 0 and Cout % 8 == 0)
     plan = cb.wgrad_splits(npix, 9 * C, Cout, cb._sm_count(0),
-                           cb._per_sm("mxt_conv_wgrad_bf16_blocks_per_sm",
+                           cb._per_sm(f"mxt_conv_wgrad_{e}_blocks_per_sm",
                                       0, cb.wgrad_tile_cols(Cout), vec))
-    out["conv_wgrad_bf16_mma_sync"] = _bf16_timed(
-        {"shape": shape, "dtype": "bfloat16 x and dy, fp32 dW",
-         "use": "PR 19's mma.sync instance", **via,
+    out[f"conv_wgrad_{h}_mma_sync"] = _bf16_timed(
+        {"shape": shape, "dtype": f"{dn} x and dy, fp32 dW",
+         "use": "the mma.sync instance", **via,
          "plan": plan._asdict(), "max_abs_err": err, "rel_err": rel,
          "tol": BF16_SUM_TOL, "finite": bool(torch.isfinite(dw).all()),
          "bitwise_equal_relaunch": bool(torch.equal(dw, again)),
-         "library": "torch.nn.grad.conv2d_weight on bf16 (cuDNN; bf16 "
-                    "dW)"},
+         "library": f"torch.nn.grad.conv2d_weight on {dn} (cuDNN; {dn} "
+                    f"dW)"},
         sync, lambda: cb.conv_wgrad_plain(x, dy), library, wbytes, flops)
     if takes:
         dw, took = _instance_launches(cb.conv_wgrad,
                                       lambda: cb.conv_wgrad(x, dy),
-                                      "bf16_wgmma")
+                                      h + "_wgmma")
         again = cb.conv_wgrad(x, dy)
         err, rel = _rel_err(dw, wref)
         case = _bf16_timed(
-            {"shape": shape, "dtype": "bfloat16 x and dy, fp32 dW",
-             "plan": _wgmma_plan(npix, C, Cout, wgrad=True),
+            {"shape": shape, "dtype": f"{dn} x and dy, fp32 dW",
+             "plan": _wgmma_plan(npix, C, Cout, wgrad=True, dtype=bf),
              "max_abs_err": err, "rel_err": rel, "tol": BF16_SUM_TOL,
              "finite": bool(torch.isfinite(dw).all()),
              "instance_launched": took,
              "bitwise_equal_relaunch": bool(torch.equal(dw, again)),
-             "library": "torch.nn.grad.conv2d_weight on bf16 (cuDNN; "
-                        "bf16 dW)"},
+             "library": f"torch.nn.grad.conv2d_weight on {dn} (cuDNN; "
+                        f"{dn} dW)"},
             lambda: cb.conv_wgrad(x, dy), lambda: cb.conv_wgrad_plain(x, dy),
             library, wbytes, flops)
         case.update(parent_ms=cuda_ms(sync, iters=10),
                     kernels_us=_kernel_us(lambda: cb.conv_wgrad(x, dy)))
         case["parent_over_kernel"] = case["parent_ms"] / case["kernel_ms"]
-        out["conv_wgrad_bf16_wgmma"] = case
+        out[f"conv_wgrad_{h}_wgmma"] = case
     return out
 
 
@@ -5741,11 +5789,13 @@ def _bf16_stats_cases(x, w, shape, nbytes, flops, library):
     (``plans_agree``: a gate).  Elsewhere the wrapper, which must launch
     the ``mma.sync`` kernel.  Each: z within one bf16 step of
     ``conv_stats_plain``, Σz (of the channel's Σ|z|) and Σz² within
-    ``BF16_SUM_TOL``, two launches bitwise equal."""
+    ``BF16_SUM_TOL``, two launches bitwise equal.  On fp16 x the same
+    with the fp16 kernels and fp16's step."""
     import torch
     from mxnet_tpu_torch.ops import conv_block as cb
     N, H, W, C, Cout = shape
     npix = N * H * W
+    h, e, dn = cb.HALF_NAMES[x.dtype], cb._ENTRY[x.dtype], str(x.dtype)[6:]
     rz, r1, r2 = cb.conv_stats_plain(x, w)
     mag = rz.float().abs().sum(dim=(0, 1, 2))
 
@@ -5771,32 +5821,32 @@ def _bf16_stats_cases(x, w, shape, nbytes, flops, library):
         got = sync()
     else:
         sync = lambda: cb.conv_stats(x, w)  # noqa: E731
-        got, took = _instance_launches(cb.conv_stats, sync, "bf16_mma_sync")
+        got, took = _instance_launches(cb.conv_stats, sync, h + "_mma_sync")
         via = {"launched": "by the wrapper", "instance_launched": took}
-    out = {"conv_stats_bf16_mma_sync": _bf16_timed(
-        {"shape": shape, "dtype": "bfloat16", "use": "the mma.sync "
+    out = {f"conv_stats_{h}_mma_sync": _bf16_timed(
+        {"shape": shape, "dtype": dn, "use": "the mma.sync "
          "instance", **via,
          "plan": _conv3x3_plan(npix, C, Cout,
-                               "mxt_conv_stats_bf16_blocks_per_sm", 8),
+                               f"mxt_conv_stats_{e}_blocks_per_sm", 8),
          **check(got, sync()),
-         "library": "F.conv2d alone on bf16 (cuDNN; no sums)"},
+         "library": f"F.conv2d alone on {dn} (cuDNN; no sums)"},
         sync, lambda: cb.conv_stats_plain(x, w), library, nbytes, flops)}
     if takes:
         run = lambda: cb.conv_stats(x, w)  # noqa: E731
-        got, took = _instance_launches(cb.conv_stats, run, "bf16_wgmma")
-        plan = _wgmma_plan(npix, C, Cout, op="conv_stats")
-        agree = plan == _wgmma_plan(npix, C, Cout)
+        got, took = _instance_launches(cb.conv_stats, run, h + "_wgmma")
+        plan = _wgmma_plan(npix, C, Cout, op="conv_stats", dtype=x.dtype)
+        agree = plan == _wgmma_plan(npix, C, Cout, dtype=x.dtype)
         case = _bf16_timed(
-            {"shape": shape, "dtype": "bfloat16", "plan": plan,
+            {"shape": shape, "dtype": dn, "plan": plan,
              "instance_launched": took, **check(got, run()),
              "plans_agree": agree,
              "z_equals_conv3x3": bool(torch.equal(got[0], cb.conv3x3(x, w))),
-             "library": "F.conv2d alone on bf16 (cuDNN; no sums)"},
+             "library": f"F.conv2d alone on {dn} (cuDNN; no sums)"},
             run, lambda: cb.conv_stats_plain(x, w), library, nbytes, flops)
         case.update(parent_ms=cuda_ms(sync, iters=10),
                     kernels_us=_kernel_us(run))
         case["parent_over_kernel"] = case["parent_ms"] / case["kernel_ms"]
-        out["conv_stats_bf16_wgmma"] = case
+        out[f"conv_stats_{h}_wgmma"] = case
     return out
 
 
@@ -5837,13 +5887,16 @@ def _bf16_forward_case(N, H, W, C, Cout, gen):
     return case
 
 
-def _bf16_affine_case(N, H, W, C, gen, residual=False, relu=True):
-    """``bn_affine``'s bf16 instance (bf16 z and residual, fp32 scale and
-    shift) against its plain version, twice (bitwise equal), beside its
-    bytes bound and ``torch.addcmul`` on bf16 (no residual or ReLU)."""
+def _bf16_affine_case(N, H, W, C, gen, residual=False, relu=True,
+                      dtype=None):
+    """``bn_affine``'s bf16 instance (or ``dtype``'s: fp16; half z and
+    residual, fp32 scale and shift) against its plain version, twice
+    (bitwise equal), beside its bytes bound and ``torch.addcmul`` on the
+    half type (no residual or ReLU)."""
     import torch
     from mxnet_tpu_torch.ops import conv_block as cb
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
+    dn = str(bf)[6:]
     z = torch.randn(N, H, W, C, device="cuda", generator=gen).to(bf)
     scale = 1 + 0.1 * torch.randn(C, device="cuda", generator=gen)
     shift = 0.1 * torch.randn(C, device="cuda", generator=gen)
@@ -5854,13 +5907,13 @@ def _bf16_affine_case(N, H, W, C, gen, residual=False, relu=True):
     again = cb.bn_affine(z, scale, shift, res, relu)
     n = N * H * W * C
     return _bf16_timed(
-        {"shape": [N, H, W, C], "dtype": "bfloat16", "residual": residual,
+        {"shape": [N, H, W, C], "dtype": dn, "residual": residual,
          "relu": relu,
          **_bf16_within(out, cb.bn_affine_plain(z, scale, shift, res,
                                                 relu)),
          "bitwise_equal_relaunch": bool(torch.equal(out, again)),
-         "library": "torch.addcmul(shift, z, scale) on bf16 (no residual "
-                    "or ReLU)"},
+         "library": f"torch.addcmul(shift, z, scale) on {dn} (no residual "
+                    f"or ReLU)"},
         lambda: cb.bn_affine(z, scale, shift, res, relu),
         lambda: cb.bn_affine_plain(z, scale, shift, res, relu),
         lambda: torch.addcmul(sh16, z, sc16),
@@ -5908,16 +5961,30 @@ for N, H, W, C, Co in ((64, 56, 56, 64, 64), (8, 28, 28, 128, 128),
     outs["bn_affine " + key] = cb.bn_affine(dy, v[0], v[1], r).cpu()
     outs["conv_wgrad " + key] = cb.conv_wgrad(x, dy).cpu()
     outs["conv_affine " + key] = cb.conv_affine(x, w, *v, r).cpu()
+    # the bf16 instances with bf16 BatchNorm vectors (the parent's only
+    # bf16 conv_affine)
+    b = torch.bfloat16
+    xb, wb, dyb, rb = x.to(b), w.to(b), dy.to(b), r.to(b)
+    vb = [t.to(b) for t in v]
+    outs["bf16 conv3x3 " + key] = cb.conv3x3(xb, wb).cpu()
+    outs["bf16 dgrad " + key] = cb.conv3x3_dgrad(wb, dyb).cpu()
+    for i, t in enumerate(cb.conv_stats(xb, wb)):
+        outs[f"bf16 conv_stats{i} " + key] = t.cpu()
+    outs["bf16 bn_affine " + key] = cb.bn_affine(dyb, v[0], v[1], rb).cpu()
+    outs["bf16 conv_wgrad " + key] = cb.conv_wgrad(xb, dyb).cpu()
+    outs["bf16 conv_affine " + key] = cb.conv_affine(xb, wb, *vb, rb).cpu()
 torch.save(outs, sys.argv[1])
 """
 
 
 def _fp32_against_parent(parent):
-    """The fp32 instances of the conv kernels (conv3x3 and its dgrad,
-    conv_stats, bn_affine, conv_wgrad, conv_affine) on seeded inputs at
-    four shapes, run by this checkout and by the checkout at ``parent``
-    (each its own package and build, in its own process): → {output:
-    bitwise equal}."""
+    """The fp32 and bf16 instances of the conv kernels (conv3x3 and its
+    dgrad, conv_stats, bn_affine, conv_wgrad, conv_affine; bf16 with bf16
+    BatchNorm vectors, on the wgmma kernels at three shapes and the
+    mma.sync ones at C = 20) on seeded inputs at four shapes, run by this
+    checkout and by the checkout at ``parent`` (each its own package and
+    build, in its own process): → {output: bitwise equal} (the bf16 ones
+    named ``bf16 ...``)."""
     import torch
     work = os.path.join(HERE, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
@@ -5934,16 +6001,17 @@ def _fp32_against_parent(parent):
     return {k: bool(torch.equal(a[k], b[k])) for k in a}
 
 
-def _wgmma_bf16_src():
+def _wgmma_bf16_src(ty="bf16"):
     """A register-and-shared-memory kernel for the card's ``wgmma`` bf16
-    rate: each of two warpgroups a block issues m64n128k16 products from
-    one K-major A and one MN-major B tile (128-byte swizzled, zeros) into
-    its own accumulators, four a group, one group kept in flight."""
+    (or ``ty`` "f16") rate: each of two warpgroups a block issues
+    m64n128k16 products from one K-major A and one MN-major B tile
+    (128-byte swizzled, zeros) into its own accumulators, four a group,
+    one group kept in flight."""
     regs = ", ".join(f"%{i}" for i in range(64))
     outs = ", ".join(f'"+f"(d[{i}])' for i in range(64))
     return r"""
 extern "C" __global__ void __launch_bounds__(256, 1)
-wgmma_bf16_peak(float* out, int iters) {
+wgmma_TY_peak(float* out, int iters) {
   __shared__ __align__(1024) unsigned short a[64 * 64];
   __shared__ __align__(1024) unsigned short b[2 * 64 * 64];
   for (int i = threadIdx.x; i < 64 * 64; i += 256) a[i] = b[i] = b[i + 4096] = 0;
@@ -5962,7 +6030,7 @@ wgmma_bf16_peak(float* out, int iters) {
           (512ull << 16) | (64ull << 32) | (1ull << 62);
       asm volatile(
           "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-          "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32.TY.TY "
           "{REGS}, %64, %65, p, 1, 1, 0, 1;\n}\n"
           : OUTS
           : "l"(da), "l"(db));
@@ -5975,27 +6043,31 @@ wgmma_bf16_peak(float* out, int iters) {
   for (int i = 0; i < 64; ++i) s += d[i];
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
-""".replace("REGS", regs).replace("OUTS", outs)
+""".replace("REGS", regs).replace("OUTS", outs).replace("TY", ty)
 
 
-def _wgmma_ceiling(state):
-    """:func:`_wgmma_bf16_ceiling`, measured once a run."""
-    if "wgmma_ceiling" not in state:
-        state["wgmma_ceiling"] = _wgmma_bf16_ceiling()
-    return state["wgmma_ceiling"]
+def _wgmma_ceiling(state, ty="bf16"):
+    """:func:`_wgmma_bf16_ceiling` of ``ty`` (bf16, f16), measured once a
+    run."""
+    key = "wgmma_ceiling" if ty == "bf16" else f"wgmma_{ty}_ceiling"
+    if key not in state:
+        state[key] = _wgmma_bf16_ceiling(ty)
+    return state[key]
 
 
-def _wgmma_bf16_ceiling():
-    """What ``wgmma.m64n128k16`` bf16 sustains on this card (the product
-    shape of the wgmma conv kernels at BN = 128): one block of two
-    warpgroups an SM issuing products from shared memory with no copies
-    (:func:`_wgmma_bf16_src`), compiled by NVRTC through
-    ``rtc.CudaModule``; beside the 989 TFLOP/s dense peak."""
+def _wgmma_bf16_ceiling(ty="bf16"):
+    """What ``wgmma.m64n128k16`` bf16 (or ``ty`` "f16") sustains on this
+    card (the product shape of the wgmma conv kernels at BN = 128): one
+    block of two warpgroups an SM issuing products from shared memory
+    with no copies (:func:`_wgmma_bf16_src`), compiled by NVRTC through
+    ``rtc.CudaModule``; beside the 989 TFLOP/s dense peak (bf16 and fp16
+    alike)."""
     import torch
     from mxnet_tpu_torch import rtc
     blocks = torch.cuda.get_device_properties(0).multi_processor_count
     iters = 4096
-    kern = rtc.CudaModule(_wgmma_bf16_src()).get_kernel("wgmma_bf16_peak")
+    kern = rtc.CudaModule(_wgmma_bf16_src(ty)).get_kernel(
+        f"wgmma_{ty}_peak")
     run = lambda: kern.launch([iters], grid=(blocks,), block=(256,),  # noqa
                               out_shape=(blocks * 256,))
     ms = cuda_ms(run, iters=3)
@@ -6025,7 +6097,7 @@ def _wgmma_parts(shapes):
         "wgmma_parts", "conv_bf16_wgmma.cu",
         {"no_copies": [("load_unit<OP, BN>(g, ta, tb, sm.st[st], "
                         "&sm.full[st], u);", "bar_arrive(&sm.full[st]);")],
-         "no_products": [("mma_chunk<OP, BN>(sm.st[st], wg, in_run == 0, "
+         "no_products": [("mma_chunk<H, OP, BN>(sm.st[st], wg, in_run == 0, "
                           "run);", ";")],
          "one_run": [("constexpr int kRun = 8;",
                       "constexpr int kRun = 1 << 30;")]},
@@ -6252,26 +6324,31 @@ def phase_bf16_train_kernels(state):
     if state.get("parent"):
         res["fp32_equal_to_parent"] = eq = _fp32_against_parent(
             state["parent"])
-        res["fp32_bitwise_as_parent"] = all(eq.values())
+        res["fp32_bitwise_as_parent"] = all(
+            v for k, v in eq.items() if not k.startswith("bf16"))
+        res["bf16_bitwise_as_parent"] = all(
+            v for k, v in eq.items() if k.startswith("bf16"))
         if not all(eq.values()):
-            bad.append({"fp32 differs from the parent":
+            bad.append({"fp32 or bf16 differs from the parent":
                         [k for k, v in eq.items() if not v]})
     if bad:
         raise AssertionError(f"bf16 training kernel disagrees: {bad}")
     return res
 
 
-def _bf16_fused(state, key, step, batch_xy, want, batch, fp32_key):
-    """``step`` (a ``FusedTrainStep(dtype="bfloat16")``) driven as the
-    fused phases drive theirs (:func:`_fused_run`), on one fixed batch for
-    ``1 + BF16_TRAIN_STEPS`` calls: gates its captured launches (the bf16
-    instances only) and a loss that falls; records the bf16 instances'
-    real launches; sets the fp32 fused step of the same run beside it."""
+def _bf16_fused(state, key, step, batch_xy, want, batch, fp32_key,
+                half="bf16"):
+    """``step`` (a ``FusedTrainStep(dtype="bfloat16")``, or of ``half``
+    "fp16") driven as the fused phases drive theirs (:func:`_fused_run`),
+    on one fixed batch for ``1 + BF16_TRAIN_STEPS`` calls: gates its
+    captured launches (the half instances only) and a loss that falls;
+    records the half instances' real launches (``<half>_train_launches``);
+    sets the fp32 fused step of the same run beside it."""
     res = _fused_run(state, key, step, [batch_xy] * (1 + BF16_TRAIN_STEPS),
                      want, batch, launches_key=None)
-    tot = state.setdefault("bf16_train_launches", {})
+    tot = state.setdefault(f"{half}_train_launches", {})
     for n, k in res["launches_real"].items():
-        if n.endswith(("_bf16", "_wgmma", "_mma_sync")):
+        if f"_{half}" in n:
             tot[n] = tot.get(n, 0) + k
     losses = res["losses"]
     res["loss_falls"] = losses[-1] < losses[0]
@@ -6357,10 +6434,10 @@ def phase_bf16_train(state):
     return res
 
 
-def _bf16_side(kind, dev, arrays, batches, dtype):
+def _bf16_side(kind, dev, arrays, batches, dtype, grad_scale=None):
     """Two ``FusedTrainStep`` SGD steps of ResNet-18 v1 (10 classes) or
-    ``bert_small`` on ``dev`` from ``arrays``: → (losses, {name: array
-    after})."""
+    ``bert_small`` on ``dev`` from ``arrays`` (the loss scaled by
+    ``grad_scale``): → (losses, {name: array after})."""
     import torch
     from mxnet_tpu_torch import optimizer as opt_mod
     from mxnet_tpu_torch.gluon import load_numpy
@@ -6376,7 +6453,8 @@ def _bf16_side(kind, dev, arrays, batches, dtype):
     kw = {"learning_rate": 0.05, "momentum": 0.9} if kind == "bert_small" \
         else {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
     step = FusedTrainStep(net, SoftmaxCrossEntropyLoss(),
-                          opt_mod.create("sgd", **kw), dtype=dtype)
+                          opt_mod.create("sgd", **kw), dtype=dtype,
+                          grad_scale=grad_scale)
     losses = [float(step(torch.as_tensor(x, device=dev),
                          torch.as_tensor(y, device=dev)))
               for x, y in batches]
@@ -6487,6 +6565,506 @@ def _cast_case(make, batches):
             "ok": bitwise and ex.programs == 1 and rebuilds == 1}
 
 
+# ------------------------------------------------- fp16 training phases
+# the static loss scale of the fp16 step: the reference's FusedTrainStep
+# has no dynamic scaler, and a user of it on ResNet-50 sets one scale that
+# lifts the step's smallest gradients out of fp16's subnormals (below
+# 6.1e-5) without overflowing its largest (65504): 1024 = 2^10
+FP16_GRAD_SCALE = 1024.0
+# the training kernels' shapes: ResNet-50's four stages at batch 128, the
+# wgmma kernels' first two edges, the ragged C = 20 on mma.sync
+FP16_TRAIN_SHAPES = BF16_TRAIN_STAGES + BF16_WGMMA_EDGES[:2] + [BF16_RAGGED]
+# row 8's fp16 cases: the converted ResNet-50 forward's four stages at
+# batch 8 (the path shape first) and stage 1 at batch 64, each with fp16
+# vectors and with fp32 statistics (a half step's frozen segment); edges
+# and the ragged shape with a residual
+FP16_AFFINE_CASES = (
+    [(s, {}) for s in BF16_AFFINE_SHAPES[:5]] +
+    [(s, {"stats_fp32": True}) for s in BF16_AFFINE_SHAPES[:5]] +
+    [(BF16_WGMMA_EDGES[0], {"residual": True}),
+     (BF16_WGMMA_EDGES[1], {"residual": True, "stats_fp32": True}),
+     ((2, 9, 11, 20, 12), {"residual": True}),
+     ((2, 9, 11, 20, 12), {"stats_fp32": True})])
+# a captured fp16 ResNet-50 step: 16 launches of each training kernel, all
+# of them its fp16 instance, the three convs on the wgmma kernels
+FP16_IMAGE_WANT = {**{n: RESNET50_SEGMENTS for n in BF16_TRAIN_KERNELS},
+                   **{n + "_fp16": RESNET50_SEGMENTS
+                      for n in BF16_TRAIN_KERNELS},
+                   **{n + "_fp16_wgmma": RESNET50_SEGMENTS
+                      for n in ("conv3x3", "conv_stats", "conv_wgrad")}}
+FP16_AMP_STEPS = 12     # eager amp.init("float16") Trainer steps
+FP16_AMP_BATCH = 64     # example/gluon/image_classification.py's batch
+FP16_SERVE_BATCH = 8    # the converted forward's batch
+
+
+def _fp16_range_cases(gen):
+    """fp16's range on the kernels: a large-magnitude case whose z
+    overflows past 65504 at the interior pixels (9 taps) and not at the
+    edges (4 or 6), through ``conv_stats`` (z inf exactly where the plain
+    version's is, Σz and Σz² of the fp32 values before the rounding,
+    finite) and the dgrad use of ``conv3x3``; and a small one whose
+    outputs are fp16 subnormals (below 6.1e-5), through ``conv3x3``,
+    ``conv_stats`` and ``bn_affine`` (each within one fp16 step, 2^-24
+    there)."""
+    import torch
+    from mxnet_tpu_torch.ops import conv_block as cb
+    f16 = torch.float16
+    big = {"what": "z past 65504: 40 * 4 * 576 at the interior pixels"}
+    x = (40 * (1 + 0.01 * torch.randn(2, 8, 16, 64, device="cuda",
+                                      generator=gen))).to(f16)
+    w = (4 * (1 + 0.01 * torch.randn(3, 3, 64, 64, device="cuda",
+                                     generator=gen))).to(f16)
+    z, s1, s2 = cb.conv_stats(x, w)
+    rz, r1, r2 = cb.conv_stats_plain(x, w)
+    big.update(_bf16_within(z, rz), sums_finite=bool(
+        torch.isfinite(s1).all() and torch.isfinite(s2).all()),
+        sum_rel_err=((s1 - r1).abs() / r1.abs()).max().item(),
+        sumsq_rel_err=((s2 - r2).abs() / r2.abs()).max().item(),
+        dgrad=_bf16_within(cb.conv3x3_dgrad(w, x),
+                           cb.conv3x3_plain(x, cb.rotate(w))))
+    small = {"what": "outputs in fp16's subnormals"}
+    x = (1e-3 * torch.randn(2, 8, 16, 64, device="cuda",
+                            generator=gen)).to(f16)
+    w = (1e-3 * torch.randn(3, 3, 64, 64, device="cuda",
+                            generator=gen)).to(f16)
+    ref = cb.conv3x3_plain(x, w)
+    z = cb.conv_stats(x, w)[0]
+    sc = torch.full((64,), 0.5, device="cuda")
+    sh = torch.zeros(64, device="cuda")
+    small.update(_bf16_within(cb.conv3x3(x, w), ref),
+                 subnormal_outputs=int(((ref.abs() < 2.0 ** -14) &
+                                        (ref != 0)).sum()),
+                 conv_stats=_bf16_within(z, ref),
+                 bn_affine=_bf16_within(cb.bn_affine(ref, sc, sh, None, False),
+                                        cb.bn_affine_plain(ref, sc, sh, None,
+                                                           False)))
+    ok = (big["within_steps"] and big["infinite"] > 0 and
+          big["sums_finite"] and big["sum_rel_err"] <= BF16_SUM_TOL and
+          big["sumsq_rel_err"] <= BF16_SUM_TOL and
+          big["dgrad"]["within_steps"] and small["within_steps"] and
+          small["subnormal_outputs"] > 0 and
+          small["conv_stats"]["within_steps"] and
+          small["bn_affine"]["within_steps"])
+    return {"overflow": big, "subnormal": small, "ok": ok}
+
+
+def _checkout_package(root, name):
+    """The ``mxnet_tpu_torch`` package of the checkout at ``root``
+    imported under ``name`` beside this one: its own modules, build
+    directory and kernel library (relative imports keep it inside)."""
+    import importlib
+    import importlib.util
+    if name not in sys.modules:
+        pkg = os.path.join(os.path.abspath(root), "mxnet_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(pkg, "__init__.py"),
+            submodule_search_locations=[pkg])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(name)
+
+
+def _affine_host_us_against_parent(parent):
+    """Warm host µs of one bf16 ``conv_affine`` call on the ``wgmma``
+    kernel ((1, 8, 16, 64→64), bf16 vectors, the same tensors each call)
+    of this checkout and of the checkout at ``parent``, both packages in
+    this process (the parent's under another name, on its own build), in
+    turns in windows (:func:`_host_us`); → the µs of each and the
+    change's over the parent's."""
+    import importlib
+    import torch
+    from mxnet_tpu_torch.ops import conv_block as cb
+    _checkout_package(parent, "parent_mxnet_tpu_torch")
+    pcb = importlib.import_module("parent_mxnet_tpu_torch.ops.conv_block")
+    b = torch.bfloat16
+    x = torch.randn(1, 8, 16, 64, device="cuda").to(b)
+    w = torch.randn(3, 3, 64, 64, device="cuda").to(b)
+    v = (torch.rand(64, device="cuda") + 0.5).to(b)
+    same = bool(torch.equal(pcb.conv_affine(x, w, v, v, v, v),
+                            cb.conv_affine(x, w, v, v, v, v)))
+    us = _host_us({"parent": lambda i: pcb.conv_affine(x, w, v, v, v, v),
+                   "change": lambda i: cb.conv_affine(x, w, v, v, v, v)})
+    return {"shape": [1, 8, 16, 64, 64], "us": us, "outputs_equal": same,
+            "parent_library": str(pcb._build.LIB_PATH),
+            "change_over_parent": us["change"] / us["parent"]}
+
+
+def phase_fp16_train_kernels(state):
+    """The fp16 instances of rows 7 (``conv3x3``, in its dgrad use), 9
+    (``conv_stats``), 10 (``bn_affine``) and 11 (``conv_wgrad``) at
+    ResNet-50's four 3x3 stages at batch 128, the ``wgmma`` kernels'
+    edges and the ragged C = 20 (through the wrappers to the ``mma.sync``
+    kernels), and row 8 (``conv_affine``) at the converted forward's
+    shapes with fp16 and with fp32 statistics, against their plain
+    versions: fp16 outputs within one fp16 step (inf where the plain
+    version's are), fp32 sums and dW within ``BF16_SUM_TOL``, bitwise on
+    relaunch, each wrapper launching the kernel its shape takes; timed
+    beside their bounds (2 bytes an element, 4 for fp32 dW and sums, fp16
+    over 989 TFLOP/s dense), plain versions, the nearest fp16 library call
+    and the ``wgmma`` f16 ceiling; fp16's overflow and subnormals
+    (:func:`_fp16_range_cases`); the repair of a frozen segment in a half
+    step, bf16 ``conv_affine`` with fp32 statistics on both of its
+    kernels (``mixed_bf16``).  With ``--parent DIR``, the warm host µs of
+    the bf16 ``wgmma`` ``conv_affine`` against the checkout at DIR's, in
+    turns in one process."""
+    import torch
+    f16 = torch.float16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    names = [f"{k}_fp16_{i}" for k in ("conv3x3", "conv_stats",
+                                       "conv_affine", "conv_wgrad")
+             for i in ("wgmma", "mma_sync")] + ["bn_affine_fp16"]
+    cases = {k: [] for k in names}
+    for shape in FP16_TRAIN_SHAPES:
+        for k, c in _bf16_train_conv_cases(*shape, gen, dtype=f16).items():
+            cases[k].append(c)
+    for N, H, W, _, C in BF16_TRAIN_STAGES:
+        cases["bn_affine_fp16"].append(_bf16_affine_case(N, H, W, C, gen,
+                                                         dtype=f16))
+    cases["bn_affine_fp16"] += [
+        _bf16_affine_case(128, 56, 56, 64, gen, residual=True, dtype=f16),
+        _bf16_affine_case(128, 56, 56, 64, gen, relu=False, dtype=f16),
+        _bf16_affine_case(2, 9, 11, 12, gen, residual=True, dtype=f16)]
+    for shape, kw in FP16_AFFINE_CASES:
+        for k, c in _conv_bf16_cases(*shape, gen, dtype=f16, **kw).items():
+            cases[k].append(c)
+    mixed = [c for shape in (BF16_AFFINE_SHAPES[0], (2, 9, 11, 20, 12))
+             for c in _conv_bf16_cases(*shape, gen,
+                                       stats_fp32=True).values()]
+    state["cases"].update(cases)
+    ceiling = _wgmma_ceiling(state, "f16")
+    for k in ("conv3x3_fp16_wgmma", "conv_stats_fp16_wgmma",
+              "conv_wgrad_fp16_wgmma", "conv_affine_fp16_wgmma"):
+        for c in cases[k]:
+            c["wgmma_ceiling_share"] = c["tflop_s"] / ceiling["tflop_s"]
+    ranges = _fp16_range_cases(gen)
+    stages = [{"shape": a["shape"], "dgrad_ms": a["kernel_ms"],
+               "stats_ms": c["kernel_ms"], "wgrad_ms": b["kernel_ms"],
+               "mma_sync_ms": [a["parent_ms"], c["parent_ms"],
+                               b["parent_ms"]],
+               "vs_library": [a["vs_library"], c["vs_library"],
+                              b["vs_library"]]}
+              for a, c, b in zip(cases["conv3x3_fp16_wgmma"],
+                                 cases["conv_stats_fp16_wgmma"],
+                                 cases["conv_wgrad_fp16_wgmma"])][:4]
+    res = {"cases": cases, "mixed_bf16": mixed, "range": ranges,
+           "wgmma_f16_ceiling": ceiling, "stages": stages}
+    bad = [c for cs in list(cases.values()) + [mixed] for c in cs
+           if not _bf16_case_ok(c)]
+    taken = len(BF16_TRAIN_STAGES) + 2
+    if len(cases["conv3x3_fp16_wgmma"]) != taken or \
+            len(cases["conv_stats_fp16_wgmma"]) != taken or \
+            len(cases["conv_wgrad_fp16_wgmma"]) != taken or \
+            len(cases["conv_affine_fp16_wgmma"]) != len(FP16_AFFINE_CASES) - 2:
+        bad.append("a shape the wgmma kernels should take was not taken")
+    by_wrapper = [c["launched"] for k in names if k.endswith("_mma_sync")
+                  for c in cases[k]].count("by the wrapper")
+    if by_wrapper != 5 or [c.get("launched") for c in mixed].count(
+            "by the wrapper") != 1:
+        bad.append("the ragged shape did not go through the wrappers")
+    if not ranges["ok"]:
+        bad.append({"fp16 range": ranges})
+    if state.get("parent"):
+        res["affine_host_us_against_parent"] = \
+            _affine_host_us_against_parent(state["parent"])
+    if bad:
+        raise AssertionError(f"fp16 training kernel disagrees: {bad}")
+    return res
+
+
+def _freeze_first_segment(net, x):
+    """Set the BatchNorm of the first residual block's fused 3x3/s1
+    segment (``body[4]`` of its bottleneck or basic block) to
+    ``use_global_stats``, as a user fine-tuning with frozen statistics
+    does, its running statistics first set to the batch statistics of
+    ``x`` (one training forward with that BatchNorm's momentum 0: frozen
+    at their initial 0 and 1 they would not normalize); → its name."""
+    from mxnet_tpu_torch import autograd
+    for name, m in net.named_modules():
+        if type(m).__name__ in ("BottleneckV1", "BasicBlockV1"):
+            bn = m.body[4]
+            momentum, bn._momentum = bn._momentum, 0.0
+            with autograd.record():
+                net(x)
+            bn._momentum = momentum
+            bn._use_global_stats = True
+            return f"{name}.body.4"
+    raise AssertionError("no residual block")
+
+
+def _frozen_half_step(dtype, grad_scale, batch_xy, calls=4):
+    """ResNet-50 v1 at ``train_mode``'s configuration through
+    ``FusedTrainStep(dtype=dtype)`` with one frozen segment
+    (:func:`_freeze_first_segment`): ``calls`` calls on one fixed batch
+    (capture, then replays); the captured launches, the losses, and the
+    running statistics of the frozen BatchNorm (untouched)."""
+    import math
+    import torch
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.examples import image_classification as ic
+    from mxnet_tpu_torch.parallel import FusedTrainStep
+    from mxnet_tpu_torch.ops import conv_block as cb
+    dev = torch.device("cuda")
+    args = ic.parse_args(["--batch-size", str(FUSED_IMAGE_BATCH),
+                          "--seed", str(SEED)])
+    net, _, loss_fn = ic.build(args, dev)
+    x, y = batch_xy
+    frozen = _freeze_first_segment(net, x)
+    step = FusedTrainStep(net, loss_fn, opt_mod.create(
+        "sgd", learning_rate=args.lr, momentum=0.9, wd=1e-4), dtype=dtype,
+        grad_scale=grad_scale)
+    step._prepare(x)
+    bn = dict(net.named_modules())[frozen]
+    before = bn.running_mean.detach().clone()
+    _fused_zero()
+    losses = [float(step(x, y)) for _ in range(calls)]
+    torch.cuda.synchronize()
+    h = cb.HALF_NAMES[{"bfloat16": torch.bfloat16,
+                       "float16": torch.float16}[dtype]]
+    captured = step.launches_per_step
+    want = {"conv_affine": 1, f"conv_affine_{h}": 1,
+            f"conv_affine_{h}_wgmma": 1,
+            "conv_stats": RESNET50_SEGMENTS - 1,
+            "bn_affine": RESNET50_SEGMENTS - 1,
+            "conv3x3": RESNET50_SEGMENTS + 1,
+            "conv_wgrad": RESNET50_SEGMENTS}
+    res = {"dtype": dtype, "frozen": frozen,
+           "grad_scale": grad_scale, "losses": losses,
+           "launches_per_step": captured, "want": want,
+           "replays": step.replays,
+           "frozen_stats_untouched": bool(torch.equal(
+               before, bn.running_mean.detach())),
+           "stats_dtype": str(bn.running_mean.dtype)[6:]}
+    res["ok"] = (all(math.isfinite(v) for v in losses) and
+                 all(captured.get(k, 0) == v for k, v in want.items()) and
+                 res["frozen_stats_untouched"] and
+                 step.programs == 1)
+    del net, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def _amp_fp16_leg(state):
+    """The reference's dynamic-loss-scaled fp16 training on ResNet-50 v1
+    at the example's batch 64: ``amp.init("float16")`` (the matrix ops
+    patched: the 3x3/s1 convs of the residual blocks take the reference's
+    layer route into ``Conv3x3Fn``, rows 7 and 11 in fp16),
+    ``gluon.Trainer`` (SGD) with ``amp.init_trainer`` (the scale from
+    2^16), each step ``amp.scale_loss`` and ``trainer.step``; the scale's
+    trajectory (the scale each step used, skipped, the scale after), the
+    losses, the fp16 launches, and after ``amp.deinit()`` nothing
+    patched."""
+    import math
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import amp, autograd
+    from mxnet_tpu_torch.examples import image_classification as ic
+    from mxnet_tpu_torch.ops import nn as tnn
+    dev = torch.device("cuda")
+    amp.init("float16")
+    try:
+        args = ic.parse_args(["--batch-size", str(FP16_AMP_BATCH),
+                              "--seed", str(SEED)])
+        net, trainer, loss_fn = ic.build(args, dev)
+        amp.init_trainer(trainer)
+        scaler = trainer._amp_loss_scaler
+        rng = np.random.RandomState(SEED + 23)
+        batches = [tuple(torch.as_tensor(a, device=dev) for a in
+                         ic.synthetic_batch(rng, args.batch_size,
+                                            args.image_size, args.classes))
+                   for _ in range(FP16_AMP_STEPS)]
+        _fused_zero()
+        traj, losses, ms = [], [], []
+        for x, y in batches:
+            t0 = time.perf_counter()
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            used = scaler.loss_scale
+            with amp.scale_loss(loss, trainer) as scaled:
+                scaled.backward(torch.ones_like(scaled))
+            trainer.step(args.batch_size)
+            losses.append(float(loss.mean()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            traj.append({"scale": used, "skipped": scaler.loss_scale < used,
+                         "scale_after": scaler.loss_scale})
+        counts = {k: v for k, v in _fused_counts().items() if v}
+    finally:
+        amp.deinit()
+    patched = [n for n in dir(tnn) if hasattr(getattr(tnn, n), "__wrapped__")]
+    steps = FP16_AMP_STEPS
+    want = {"conv3x3_fp16_wgmma": 2 * RESNET50_SEGMENTS * steps,
+            "conv_wgrad_fp16_wgmma": RESNET50_SEGMENTS * steps}
+    res = {"batch": args.batch_size, "steps": steps, "trajectory": traj,
+           "skipped": sum(t["skipped"] for t in traj),
+           "losses": losses, "step_ms": ms, "launches": counts,
+           "want": want, "patched_after_deinit": patched,
+           "first_scale": traj[0]["scale"]}
+    res["ok"] = (traj[0]["scale"] == 2.0 ** 16 and not patched and
+                 all(math.isfinite(v) for v in losses) and
+                 all(counts.get(k, 0) == v for k, v in want.items()) and
+                 not counts.get("conv_stats") and
+                 not counts.get("conv_affine"))
+    tot = state.setdefault("fp16_train_launches", {})
+    for k, v in counts.items():
+        if "_fp16" in k:
+            tot[k] = tot.get(k, 0) + v
+    del net, trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def _fp16_convert_forward(state):
+    """``amp.convert_model(resnet50_v1, "float16")``: the net's
+    parameters and running statistics cast to fp16, its inference forward
+    at batch 8 (16 ``conv_affine`` launches on the fp16 ``wgmma`` kernel,
+    none other), beside the fp32 forward of the same weights on the same
+    items: logits finite, top-1 agreement."""
+    import math
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import amp
+    from mxnet_tpu_torch.models import get_model
+    dev = torch.device("cuda")
+    net = get_model("resnet50_v1", classes=1000)
+    net.initialize(ctx=dev, seed=SEED)
+    net.hybridize()
+    rng = np.random.RandomState(SEED + 24)
+    x = torch.as_tensor(rng.rand(FP16_SERVE_BATCH, 224, 224, 3).astype(
+        np.float32), device=dev)
+    with torch.inference_mode():
+        ref = net(x).float()
+        amp.convert_model(net, "float16")
+        _fused_zero()
+        out = net(x.half())
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in _fused_counts().items() if v}
+    agree = (out.float().argmax(-1) == ref.argmax(-1)).float().mean().item()
+    res = {"batch": FP16_SERVE_BATCH, "launches": counts,
+           "top1_agreement_with_fp32": agree,
+           "finite": bool(torch.isfinite(out).all()),
+           "max_abs_logit_diff": (out.float() - ref).abs().max().item(),
+           "logit_scale": ref.abs().max().item()}
+    res["ok"] = (res["finite"] and
+                 counts.get("conv_affine_fp16_wgmma") == RESNET50_SEGMENTS
+                 and counts.get("conv_affine") == RESNET50_SEGMENTS and
+                 math.isfinite(res["max_abs_logit_diff"]))
+    tot = state.setdefault("fp16_train_launches", {})
+    for k, v in counts.items():
+        if "_fp16" in k:
+            tot[k] = tot.get(k, 0) + v
+    del net
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_fp16_train(state):
+    """fp16 training on the card: ResNet-50 v1 at ``bench.py``
+    ``train_mode``'s configuration (batch 128 x 224x224x3, 1000 classes,
+    SGD lr 0.1, momentum 0.9, wd 1e-4) through
+    ``FusedTrainStep(dtype="float16", grad_scale=FP16_GRAD_SCALE)`` on one
+    fixed batch for 21 calls (each one captured CUDA graph), beside the
+    same run's bf16 step (``bf16_train``, run here when it was not);
+    gates: exactly 16 launches of each of the four training kernels a
+    step, all of them the fp16 instance (``wgmma`` for the three convs),
+    finite losses that fall, one program, no fallback.  The same step
+    with one frozen (``use_global_stats``) segment in bf16 and in fp16
+    (the repair: fp32 running statistics into the half ``conv_affine``).
+    The eager ``amp.init("float16")`` Trainer leg
+    (:func:`_amp_fp16_leg`) and the ``amp.convert_model`` fp16 forward
+    (:func:`_fp16_convert_forward`)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.examples import image_classification as ic
+    from mxnet_tpu_torch.parallel import FusedTrainStep
+    if "bf16_image" not in state:
+        phase_bf16_train(state)
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    args = ic.parse_args(["--batch-size", str(FUSED_IMAGE_BATCH),
+                          "--seed", str(SEED)])
+    net, _, loss_fn = ic.build(args, dev)
+    opt = opt_mod.create("sgd", learning_rate=args.lr, momentum=0.9,
+                         wd=1e-4)
+    step = FusedTrainStep(net, loss_fn, opt, dtype="float16",
+                          grad_scale=FP16_GRAD_SCALE)
+    rng = np.random.RandomState(SEED + 20)
+    x, y = ic.synthetic_batch(rng, args.batch_size, args.image_size,
+                              args.classes)
+    xy = (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev))
+    r = _bf16_fused(state, "fp16_image", step, xy, FP16_IMAGE_WANT,
+                    args.batch_size, "fused_image", half="fp16")
+    b16 = state["bf16_image"]
+    r.update(optimizer="sgd", lr=args.lr, momentum=0.9, wd=1e-4,
+             image=args.image_size, classes=args.classes, dtype="float16",
+             grad_scale=FP16_GRAD_SCALE,
+             bf16={k: b16[k] for k in (
+                 "replayed_step_ms_median", "eager_step_ms_median",
+                 "items_s_replayed", "peak_mem_bytes")},
+             bf16_over_fp16_step=(b16["replayed_step_ms_median"] /
+                                  r["replayed_step_ms_median"]))
+    r["bf16"]["idle_share"] = b16["profile_replays"].get("idle_share")
+    res = {"resnet50_v1": r}
+    del net, step, opt
+    torch.cuda.empty_cache()
+    res["frozen_segment"] = {
+        "bfloat16": _frozen_half_step("bfloat16", None, xy),
+        "float16": _frozen_half_step("float16", FP16_GRAD_SCALE, xy)}
+    res["amp_trainer"] = _amp_fp16_leg(state)
+    res["convert_model_forward"] = _fp16_convert_forward(state)
+    bad = [k for k, v in res["frozen_segment"].items() if not v["ok"]]
+    bad += [k for k in ("amp_trainer", "convert_model_forward")
+            if not res[k]["ok"]]
+    if bad:
+        raise AssertionError(f"fp16 training path fails in {bad}: {res}")
+    return res
+
+
+def phase_fp16_train_reference(state):
+    """Two fp16 ``FusedTrainStep`` SGD steps (``grad_scale``
+    ``FP16_GRAD_SCALE``) on the card (captured graphs) and through the
+    port on the CPU (the step function run directly) from the same
+    weights and batches, and the same on the CPU in fp32: ResNet-18 v1 (10
+    classes, 64x64x3, batch 2, each residual branch's last BatchNorm γ
+    damped by 0.1, lr 0.01, momentum 0.9, wd 1e-4).  The card's fp16 step
+    no farther from the CPU's fp16 step than that is from the CPU's fp32
+    step: the losses of both steps and every master weight and running
+    statistic after them."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.models import get_model
+    rs = np.random.RandomState(SEED + 25)
+    img = [(rs.rand(2, 64, 64, 3).astype(np.float32),
+            rs.randint(0, 10, (2,))) for _ in range(2)]
+    net = get_model("resnet18_v1", classes=10)
+    net.initialize(ctx="cpu", seed=SEED)
+    with torch.no_grad():
+        net(torch.zeros(1, 64, 64, 3))
+    arrays = {k: t.detach().numpy().copy()
+              for k, t in net.collect_params().items()}
+    for k in arrays:
+        if k.endswith(".body.4.gamma"):
+            arrays[k] = (0.1 * arrays[k]).astype(np.float32)
+    kind = "resnet18_v1"
+    card = _bf16_side(kind, torch.device("cuda"), arrays, img, "float16",
+                      FP16_GRAD_SCALE)
+    cpu16 = _bf16_side(kind, torch.device("cpu"), arrays, img, "float16",
+                       FP16_GRAD_SCALE)
+    cpu32 = _bf16_side(kind, torch.device("cpu"), arrays, img, None)
+    d, floor = _bf16_dist(card, cpu16), _bf16_dist(cpu16, cpu32)
+    finite = all(np.isfinite(v) for v in card[0]) and all(
+        np.isfinite(t).all() for t in card[1].values())
+    res = {kind: {"losses_card": card[0], "losses_cpu": cpu16[0],
+                  "losses_cpu_fp32": cpu32[0], "grad_scale": FP16_GRAD_SCALE,
+                  "card_vs_cpu": {"loss": d[0], "weights": d[1]},
+                  "cpu_fp16_vs_fp32": {"loss": floor[0],
+                                       "weights": floor[1]},
+                  "finite": finite}}
+    if not (finite and d[0] <= floor[0] and d[1] <= floor[1]):
+        raise AssertionError(f"card fp16 step off the CPU's: {res}")
+    return res
+
+
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
      "mxnet_tpu/ops/pallas_kernels.py:104"),
@@ -6540,6 +7118,24 @@ KERNELS = [
      "mxnet_tpu/ops/pallas_block.py:343"),
     ("conv_affine_bf16_wgmma", "mxnet_tpu_torch/csrc/conv_bf16_wgmma.cu",
      "mxnet_tpu/ops/pallas_block.py:325"),
+    ("conv3x3_fp16_wgmma", "mxnet_tpu_torch/csrc/conv_bf16_wgmma.cu",
+     "mxnet_tpu/ops/pallas_block.py:318"),
+    ("conv3x3_fp16_mma_sync", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
+     "mxnet_tpu/ops/pallas_block.py:318"),
+    ("conv_stats_fp16_wgmma", "mxnet_tpu_torch/csrc/conv_bf16_wgmma.cu",
+     "mxnet_tpu/ops/pallas_block.py:343"),
+    ("conv_stats_fp16_mma_sync", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
+     "mxnet_tpu/ops/pallas_block.py:343"),
+    ("conv_affine_fp16_wgmma", "mxnet_tpu_torch/csrc/conv_bf16_wgmma.cu",
+     "mxnet_tpu/ops/pallas_block.py:325"),
+    ("conv_affine_fp16_mma_sync", "mxnet_tpu_torch/csrc/conv3x3_tc.cu",
+     "mxnet_tpu/ops/pallas_block.py:325"),
+    ("conv_wgrad_fp16_wgmma", "mxnet_tpu_torch/csrc/conv_bf16_wgmma.cu",
+     "mxnet_tpu/ops/pallas_block.py:381"),
+    ("conv_wgrad_fp16_mma_sync", "mxnet_tpu_torch/csrc/conv_wgrad.cu",
+     "mxnet_tpu/ops/pallas_block.py:381"),
+    ("bn_affine_fp16", "mxnet_tpu_torch/csrc/conv_train.cu",
+     "mxnet_tpu/ops/pallas_block.py:367"),
 ]
 # what else an entry names: the header holding the body two attention
 # entries share, the kernels of a stream-K entry (main, then the one that
@@ -6646,10 +7242,31 @@ KERNEL_NOTES = {
                                       "ldmatrix.trans fragments, fp32 "
                                       "sums"},
 }
+# the fp16 instances: the bf16 ones' kernels and loops on fp16 (the wgmma
+# kernels' F16 traits: `.f16.f16` products, FLOAT16 tensor maps; the
+# mma.sync ones' `__half` instances), outputs rounded to nearest even
+# (+-inf past 65504, subnormals kept)
+for _n in ("conv3x3", "conv_stats", "conv_affine", "conv_wgrad"):
+    for _i in ("wgmma", "mma_sync"):
+        _b = KERNEL_NOTES[f"{_n}_bf16_{_i}"]
+        KERNEL_NOTES[f"{_n}_fp16_{_i}"] = {
+            "instance": _b["instance"].replace("bf16", "fp16"),
+            "kernels": [k.replace("bf16", "f16") for k in _b["kernels"]],
+            "arithmetic": _b["arithmetic"].replace("bf16", "f16"),
+            **({"loop": _b["loop"].replace("bf16", "fp16")}
+               if "loop" in _b else {})}
+KERNEL_NOTES["conv_affine_fp16_wgmma"]["vectors"] = \
+    "fp16 or fp32 (a half step's running statistics), a bit each"
+KERNEL_NOTES["conv_affine_fp16_mma_sync"]["vectors"] = \
+    "fp16 or fp32, a bit each"
+KERNEL_NOTES["bn_affine_fp16"] = {
+    "instance": "fp16 z, residual and out; fp32 scale and shift",
+    "kernels": ["bn_affine_f16_kernel"]}
 PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
                  "train_launches", "text_launches", "int8_launches",
                  "ext_launches", "fused_launches", "v2_launches",
-                 "zoo_launches", "bf16_launches", "bf16_train_launches")
+                 "zoo_launches", "bf16_launches", "bf16_train_launches",
+                 "fp16_train_launches")
 
 
 def kernels_line(state):
@@ -6664,7 +7281,9 @@ def kernels_line(state):
     instances in bf16 ResNet-50 scoring and serving (``int8_score``,
     ``int8_serve``, ``bf16_serve``), Gluon BERT-base serving
     (``bf16_serve``), Inception-v3's bf16 forward (``bf16_serve``) and
-    bf16 ResNet-50 and BERT-base training (``bf16_train``));
+    bf16 ResNet-50 and BERT-base training (``bf16_train``), and the fp16
+    instances in fp16 ResNet-50 training, fused and under ``amp``, and
+    the fp16-converted forward (``fp16_train``));
     the times are at the first case, the
     path's own shape (``conv3x3``: its dgrad use, which is how training
     launches it)."""
@@ -6770,7 +7389,8 @@ PHASES = ("env", "build", "kernels", "slice", "reference", "profile",
           "loss_metric", "zoo_kernels", "zoo_serve", "zoo_reference",
           "zoo_train", "zoo_train_reference", "bf16_kernels", "bf16_serve",
           "bf16_reference", "bf16_train_kernels", "bf16_train",
-          "bf16_train_reference")
+          "bf16_train_reference", "fp16_train_kernels", "fp16_train",
+          "fp16_train_reference")
 
 
 def _args(argv):

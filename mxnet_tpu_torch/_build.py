@@ -71,11 +71,17 @@ _SIGNATURES = {
     # bn, vec, out (int*)
     "mxt_conv_affine_tc_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                          ctypes.POINTER(ctypes.c_int)],
-    # the same arguments for bf16 x, w, gamma, beta, mean, var, res, out
+    # the same arguments for bf16 x, w, res, out and bf16 or fp32 gamma,
+    # beta, mean, var, with vf32 (their fp32 bits) after relu
     "mxt_conv_affine_bf16": [_P] * 9 + [ctypes.c_int] * 5 +
-                            [ctypes.c_float] + [ctypes.c_int] * 4 + [_P],
+                            [ctypes.c_float] + [ctypes.c_int] * 5 + [_P],
     "mxt_conv_affine_bf16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                            ctypes.POINTER(ctypes.c_int)],
+    # and for fp16 (fp16 or fp32 vectors)
+    "mxt_conv_affine_f16": [_P] * 9 + [ctypes.c_int] * 5 +
+                           [ctypes.c_float] + [ctypes.c_int] * 5 + [_P],
+    "mxt_conv_affine_f16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)],
     # x, w, part, out, N, H, W, C, Cout, bn, ranges, vec, stream
     "mxt_conv3x3_tc_f32": [_P] * 4 + [ctypes.c_int] * 8 + [_P],
     # bn, vec, out (int*)
@@ -85,6 +91,9 @@ _SIGNATURES = {
     "mxt_conv3x3_tc_bf16": [_P] * 4 + [ctypes.c_int] * 8 + [_P],
     "mxt_conv3x3_bf16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_int)],
+    "mxt_conv3x3_tc_f16": [_P] * 4 + [ctypes.c_int] * 8 + [_P],
+    "mxt_conv3x3_f16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                      ctypes.POINTER(ctypes.c_int)],
     # x, w, part, z, tstats, stats, N, H, W, C, Cout, bn, ranges, vec,
     # stream
     "mxt_conv_stats_tc_f32": [_P] * 6 + [ctypes.c_int] * 8 + [_P],
@@ -95,6 +104,9 @@ _SIGNATURES = {
     "mxt_conv_stats_tc_bf16": [_P] * 6 + [ctypes.c_int] * 8 + [_P],
     "mxt_conv_stats_bf16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                           ctypes.POINTER(ctypes.c_int)],
+    "mxt_conv_stats_tc_f16": [_P] * 6 + [ctypes.c_int] * 8 + [_P],
+    "mxt_conv_stats_f16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_int)],
     # x, dy, part, dw, N, H, W, C, Cout, bn, ranges, jmax, vec, stream
     "mxt_conv_wgrad_f32": [_P] * 4 + [ctypes.c_int] * 9 + [_P],
     # bn, vec, out (int*)
@@ -104,6 +116,9 @@ _SIGNATURES = {
     "mxt_conv_wgrad_bf16": [_P] * 4 + [ctypes.c_int] * 9 + [_P],
     "mxt_conv_wgrad_bf16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                           ctypes.POINTER(ctypes.c_int)],
+    "mxt_conv_wgrad_f16": [_P] * 4 + [ctypes.c_int] * 9 + [_P],
+    "mxt_conv_wgrad_f16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_int)],
     # the wgmma kernels on bf16 (C % 8 == 0, Cout % 8 == 0): x, w, part,
     # out, N, H, W, C, Cout, bn, ranges, stream
     "mxt_conv3x3_wgmma_bf16": [_P] * 4 + [ctypes.c_int] * 7 + [_P],
@@ -119,21 +134,39 @@ _SIGNATURES = {
     "mxt_conv_stats_wgmma_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                            ctypes.POINTER(ctypes.c_int)],
     # x, w, gamma, beta, mean, var, res, part, out, N, H, W, C, Cout, eps,
-    # relu, bn, ranges, stream
+    # relu, vf32 (the vectors given in fp32: 1 gamma, 2 beta, 4 mean, 8
+    # var), bn, ranges, stream
     "mxt_conv_affine_wgmma_bf16": [_P] * 9 + [ctypes.c_int] * 5 +
-                                  [ctypes.c_float] + [ctypes.c_int] * 3 +
+                                  [ctypes.c_float] + [ctypes.c_int] * 4 +
                                   [_P],
     "mxt_conv_affine_wgmma_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
                                             ctypes.POINTER(ctypes.c_int)],
+    # the fp16 instances of the four wgmma entries, the same arguments
+    "mxt_conv3x3_wgmma_f16": [_P] * 4 + [ctypes.c_int] * 7 + [_P],
+    "mxt_conv_wgrad_wgmma_f16": [_P] * 4 + [ctypes.c_int] * 8 + [_P],
+    "mxt_conv_stats_wgmma_f16": [_P] * 6 + [ctypes.c_int] * 7 + [_P],
+    "mxt_conv_affine_wgmma_f16": [_P] * 9 + [ctypes.c_int] * 5 +
+                                 [ctypes.c_float] + [ctypes.c_int] * 4 +
+                                 [_P],
+    "mxt_conv3x3_wgmma_f16_blocks_per_sm": [ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)],
+    "mxt_conv_wgrad_wgmma_f16_blocks_per_sm": [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+    "mxt_conv_stats_wgmma_f16_blocks_per_sm": [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+    "mxt_conv_affine_wgmma_f16_blocks_per_sm": [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
     # out (int64[3]): the wgmma kernels' tensor-map cache hits, misses,
     # entries
     "mxt_wgmma_map_cache_stats": [ctypes.POINTER(ctypes.c_longlong)],
     # z, scale, shift, res, out, total, Cout, relu, vec, stream
     "mxt_bn_affine_f32": [_P] * 5 + [ctypes.c_longlong] +
                          [ctypes.c_int] * 3 + [_P],
-    # the same for bf16 z, res, out (scale, shift fp32)
+    # the same for bf16 z, res, out (scale, shift fp32), and for fp16
     "mxt_bn_affine_bf16": [_P] * 5 + [ctypes.c_longlong] +
                           [ctypes.c_int] * 3 + [_P],
+    "mxt_bn_affine_f16": [_P] * 5 + [ctypes.c_longlong] +
+                         [ctypes.c_int] * 3 + [_P],
     # x, y, rows, cols, vec, prologue, div, keep, rows a mask row, stream
     "mxt_softmax_f32": [_P, _P, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int, ctypes.c_float, _P,

@@ -15,13 +15,15 @@
   parameters and running statistics for low-precision inference
   (``Block.cast``): what ``InferenceEngine(precision="bf16")`` does.
 
-On the card a bf16 net runs the softmax kernel's and the conv kernels'
-bf16 instances.  The training legs (``init`` + ``init_trainer``) keep
-fp32 parameters: the patched convs and dense take bf16 operands (a
-3x3/s1 conv on the bf16 instances of ``conv3x3`` and ``conv_wgrad``) and
-return fp32.  A whole bf16 training step, bf16 activations through the
-training BatchNorm (the reference's ``_bn_train``) and the fused conv
-blocks, is ``parallel.FusedTrainStep(dtype="bfloat16")``.
+On the card a bf16 or fp16 net runs the softmax kernel's and the conv
+kernels' half instances.  The training legs (``init`` +
+``init_trainer``) keep fp32 parameters: the patched convs and dense take
+half operands (a 3x3/s1 conv on the bf16 or fp16 instances of
+``conv3x3`` and ``conv_wgrad``) and return fp32.  A whole half training
+step, half activations through the training BatchNorm (the reference's
+``_bn_train``) and the fused conv blocks, is
+``parallel.FusedTrainStep(dtype="bfloat16")`` or ``(dtype="float16",
+grad_scale=...)``.
 """
 from __future__ import annotations
 

@@ -116,8 +116,21 @@
 // ms at the 989 TFLOP/s dense bf16 peak; 2.8-6.5 MB, 0.0008-0.0019 ms at
 // 3.35 TB/s; at batch 128 (the bf16 training step) 29.6 GFLOP, 0.0299 ms,
 // and 0.0307 ms of bytes at 56x56x64, where bytes bind.
+//
+// The fp16 instances (the fp16 training slice; the reference's kernels
+// take fp16 operands as they take bf16): the same code on `__half`
+// storage (`Half<T>` of tf32x3.cuh), each 16-deep step one
+// `mma.sync.m16n8k16.row.col.f32.f16.f16.f32` product, exact in fp32;
+// the outputs rounded to nearest even (overflowing to +-inf past 65504,
+// subnormals kept), conv_stats' sums of the fp32 values before that.  On
+// both half types conv_affine takes each BatchNorm vector in the half
+// type or in fp32 (a bit each in `vf32`: a half step keeps its running
+// statistics fp32).  The path's fp16 shapes (C and Cout multiples of 8,
+// aligned) take conv_bf16_wgmma.cu's fp16 instances; these take the rest
+// (C = 20, say).  Bound as the bf16 instances'.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -137,6 +150,7 @@ constexpr int STAGES = 4;
 constexpr int kThreads = 256;  // 8 warps: 4 along pixels x 2 along co
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 // what a finished tile gets on its way out
 enum class Epi { kNone, kStats, kAffine };
@@ -154,14 +168,16 @@ struct Ring {
   T b[STAGES][BK][BN + 8];       // weight: k rows, channels contiguous
 };
 
-// fp32 and bf16 values as fp32 (the bf16 instance widens on the way out
+// fp32 and half values as fp32 (a half instance widens on the way out
 // of shared memory or device memory; its products are exact in fp32)
 __device__ __forceinline__ float wide(float v) { return v; }
 __device__ __forceinline__ float wide(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float wide(f16 v) { return __half2float(v); }
 
-// T is the storage type of x, w, the BatchNorm vectors, res and out: fp32
-// or bf16 (every instance); the partial tiles and the statistics are fp32
-// in both.
+// T is the storage type of x, w, res and out: fp32, bf16 or fp16 (every
+// instance); the BatchNorm vectors are T too, or on a half T each fp32
+// where its bit of vf32 says so; the partial tiles and the statistics are
+// fp32 in all.
 template <typename T>
 struct ArgsT {
   const T* x;           // (N, H, W, C)
@@ -176,6 +192,7 @@ struct ArgsT {
   const T* res;         // conv_affine: (N*H*W, Cout) or null
   float eps;
   int relu;
+  int vf32;             // half T: fp32 vectors, 1 gamma 2 beta 4 mean 8 var
   long long nch;        // chunks a tile: ceil(K / BK)
   long long total;      // tiles * nch units of work
   int M;                // N*H*W
@@ -373,22 +390,24 @@ __device__ __forceinline__ void mma_chunk(const Ring<BN>& s, int st,
         acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], run[mi][ni][e]);
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+template <typename T>
+__device__ __forceinline__ uint32_t ld_pair(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ uint32_t pack_pair(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         (uint32_t)__bfloat16_as_ushort(hi) << 16;
+template <typename T>
+__device__ __forceinline__ uint32_t pack_pair(T lo, T hi) {
+  return (uint32_t)Half<T>::bits(lo) | (uint32_t)Half<T>::bits(hi) << 16;
 }
 
-// The bf16 instance of mma_chunk: acc += this warp's 32 x BN/2 share of
-// the chunk in stage st as two 16-deep steps of one bf16 product each
-// (the products are exact in fp32), gathered in a run accumulator from
-// zero and added with IEEE adds.  A's pairs are contiguous in k (one
-// 4-byte read); B's two k of a pair lie a row apart (two 2-byte reads).
-template <int BN>
-__device__ __forceinline__ void mma_chunk(const Ring<BN, bf16>& s, int st,
+// The half instances of mma_chunk (T bf16 or fp16): acc += this warp's 32
+// x BN/2 share of the chunk in stage st as two 16-deep steps of one half
+// product each (the products are exact in fp32), gathered in a run
+// accumulator from zero and added with IEEE adds.  A's pairs are
+// contiguous in k (one 4-byte read); B's two k of a pair lie a row apart
+// (two 2-byte reads).
+template <int BN, typename T>
+__device__ __forceinline__ void mma_chunk(const Ring<BN, T>& s, int st,
                                           int wm, int wn, int g, int t,
                                           float (&acc)[2][BN / 16][4]) {
   float run[2][BN / 16][4];
@@ -417,7 +436,7 @@ __device__ __forceinline__ void mma_chunk(const Ring<BN, bf16>& s, int st,
           pack_pair(s.b[st][ks + 2 * t + 8][cn],
                     s.b[st][ks + 2 * t + 9][cn])};
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) mma_bf16(run[mi][ni], af[mi], bf);
+      for (int mi = 0; mi < 2; ++mi) Half<T>::mma(run[mi][ni], af[mi], bf);
     }
   }
 #pragma unroll
@@ -479,14 +498,23 @@ __device__ __forceinline__ void tile_stats(const ArgsT<T>& a,
   }
 }
 
+// Element n of BatchNorm vector p as fp32: on a half T, read as fp32
+// where bit `bit` of vf32 is set, else widened (as _fold casts them).
+template <typename T>
+__device__ __forceinline__ float vec_at(const ArgsT<T>& a, const T* p,
+                                        int bit, int n) {
+  if constexpr (sizeof(T) == 2)
+    if (a.vf32 & bit) return reinterpret_cast<const float*>(p)[n];
+  return wide(p[n]);
+}
+
 // The folded frozen BatchNorm of channel n, in fp32 from the vectors as
-// stored (bf16 widened, as _fold casts them): scale = gamma * rsqrt(var +
-// eps), shift = beta - mean * scale.
+// stored: scale = gamma * rsqrt(var + eps), shift = beta - mean * scale.
 template <typename T>
 __device__ __forceinline__ void fold(const ArgsT<T>& a, int n, float& sc,
                                      float& sh) {
-  sc = wide(a.gamma[n]) * rsqrtf(wide(a.var[n]) + a.eps);
-  sh = wide(a.beta[n]) - wide(a.mean[n]) * sc;
+  sc = vec_at(a, a.gamma, 1, n) * rsqrtf(vec_at(a, a.var, 8, n) + a.eps);
+  sh = vec_at(a, a.beta, 2, n) - vec_at(a, a.mean, 4, n) * sc;
 }
 
 template <typename T>
@@ -501,26 +529,25 @@ __device__ __forceinline__ float affine(const ArgsT<T>& a, float v, float sc,
 // caller), through the affine epilogue when EPI is kAffine (sc, sh: the
 // two columns' folded BatchNorm).  VEC: Cout % 4 == 0 and 16-byte aligned
 // bases, so n < Cout implies n + 1 < Cout and the pair is one float2.
-// bf16: the residual pair widened to fp32, the result rounded once to a
-// bf16 pair at the store (VEC: Cout % 8 == 0).
-template <bool VEC, Epi EPI>
-__device__ __forceinline__ void store2(const ArgsT<bf16>& a, int m, int n,
+// A half T (bf16, fp16): the residual pair widened to fp32, the result
+// rounded once to a pair of T at the store (VEC: Cout % 8 == 0).
+template <bool VEC, Epi EPI, typename T>
+__device__ __forceinline__ void store2(const ArgsT<T>& a, int m, int n,
                                        float v0, float v1,
                                        const float (&sc)[2],
                                        const float (&sh)[2]) {
+  using T2 = typename Half<T>::T2;
   const long long at = (long long)m * a.Cout + n;
   if constexpr (VEC) {
     if (n >= a.Cout) return;
     if constexpr (EPI == Epi::kAffine) {
       float2 r = make_float2(0.f, 0.f);
       if (a.res)
-        r = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(a.res + at));
+        r = Half<T>::wide2(*reinterpret_cast<const T2*>(a.res + at));
       v0 = affine(a, v0, sc[0], sh[0], r.x);
       v1 = affine(a, v1, sc[1], sh[1], r.y);
     }
-    *reinterpret_cast<__nv_bfloat162*>(a.out + at) =
-        __floats2bfloat162_rn(v0, v1);
+    *reinterpret_cast<T2*>(a.out + at) = Half<T>::narrow2(v0, v1);
   } else {
     const float v[2] = {v0, v1};
 #pragma unroll
@@ -529,7 +556,7 @@ __device__ __forceinline__ void store2(const ArgsT<bf16>& a, int m, int n,
       float o = v[j];
       if constexpr (EPI == Epi::kAffine)
         o = affine(a, o, sc[j], sh[j], a.res ? wide(a.res[at + j]) : 0.f);
-      a.out[at + j] = __float2bfloat16_rn(o);
+      a.out[at + j] = Half<T>::narrow(o);
     }
   }
 }
@@ -685,16 +712,41 @@ conv_stats_bf16_kernel(const ArgsT<bf16> a) {
   conv_ranges<BN, VEC, Epi::kStats, bf16>(a);
 }
 
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
+conv_affine_f16_kernel(const ArgsT<f16> a) {
+  conv_ranges<BN, VEC, Epi::kAffine, f16>(a);
+}
+
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
+conv3x3_f16_kernel(const ArgsT<f16> a) {
+  conv_ranges<BN, VEC, Epi::kNone, f16>(a);
+}
+
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
+conv_stats_f16_kernel(const ArgsT<f16> a) {
+  conv_ranges<BN, VEC, Epi::kStats, f16>(a);
+}
+
 // The main kernel of an epilogue and storage type.
 template <int BN, bool VEC, Epi EPI, typename T = float>
 auto main_kernel() {
-  if constexpr (!std::is_same_v<T, float>) {
+  if constexpr (std::is_same_v<T, bf16>) {
     if constexpr (EPI == Epi::kNone)
       return conv3x3_bf16_kernel<BN, VEC>;
     else if constexpr (EPI == Epi::kStats)
       return conv_stats_bf16_kernel<BN, VEC>;
     else
       return conv_affine_bf16_kernel<BN, VEC>;
+  } else if constexpr (std::is_same_v<T, f16>) {
+    if constexpr (EPI == Epi::kNone)
+      return conv3x3_f16_kernel<BN, VEC>;
+    else if constexpr (EPI == Epi::kStats)
+      return conv_stats_f16_kernel<BN, VEC>;
+    else
+      return conv_affine_f16_kernel<BN, VEC>;
   } else if constexpr (EPI == Epi::kNone) {
     return conv3x3_tc_kernel<BN, VEC>;
   } else if constexpr (EPI == Epi::kStats) {
@@ -733,25 +785,26 @@ __device__ __forceinline__ void store4(const Args& a, int m, int n,
   }
 }
 
-// The same for bf16 out, each value rounded once (VEC: Cout % 8 == 0, so
+// The same for half out, each value rounded once (VEC: Cout % 8 == 0, so
 // the four are one 8-byte store).
-template <bool VEC>
-__device__ __forceinline__ void store4(const ArgsT<bf16>& a, int m, int n,
+template <bool VEC, typename T>
+__device__ __forceinline__ void store4(const ArgsT<T>& a, int m, int n,
                                        float4 v) {
-  bf16* o = a.out + (long long)m * a.Cout + n;
+  T* o = a.out + (long long)m * a.Cout + n;
   if constexpr (VEC) {
-    __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
-                           __floats2bfloat162_rn(v.z, v.w)};
+    typename Half<T>::T2 h[2] = {Half<T>::narrow2(v.x, v.y),
+                                 Half<T>::narrow2(v.z, v.w)};
     *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(h);
   } else {
     const float sv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      if (n + i < a.Cout) o[i] = __float2bfloat16_rn(sv[i]);
+      if (n + i < a.Cout) o[i] = Half<T>::narrow(sv[i]);
   }
 }
 
-// res[at .. at + 3] as fp32 (VEC: one 16-byte or, for bf16, 8-byte load)
+// res[at .. at + 3] as fp32 (VEC: one 16-byte or, for a half T, 8-byte
+// load)
 template <bool VEC, typename T>
 __device__ __forceinline__ void load4(const T* res, long long at, int n,
                                       int Cout, float (&r)[4]) {
@@ -759,11 +812,10 @@ __device__ __forceinline__ void load4(const T* res, long long at, int n,
     const float4 q = *reinterpret_cast<const float4*>(res + at);
     r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
   } else if constexpr (VEC) {
+    using T2 = typename Half<T>::T2;
     const uint2 q = *reinterpret_cast<const uint2*>(res + at);
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&q.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    const float2 lo = Half<T>::wide2(*reinterpret_cast<const T2*>(&q.x));
+    const float2 hi = Half<T>::wide2(*reinterpret_cast<const T2*>(&q.y));
     r[0] = lo.x; r[1] = lo.y; r[2] = hi.x; r[3] = hi.y;
   } else {
 #pragma unroll
@@ -860,6 +912,18 @@ template <int BN, bool VEC>
 __global__ void __launch_bounds__(256)
 conv3x3_bf16_reduce_kernel(const ArgsT<bf16> a) {
   reduce_cut<BN, VEC, Epi::kNone, bf16>(a);
+}
+
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(256)
+conv_affine_f16_reduce_kernel(const ArgsT<f16> a) {
+  reduce_cut<BN, VEC, Epi::kAffine, f16>(a);
+}
+
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(256)
+conv3x3_f16_reduce_kernel(const ArgsT<f16> a) {
+  reduce_cut<BN, VEC, Epi::kNone, f16>(a);
 }
 
 // conv_stats' cut tiles: block blockIdx.x finds the tile cut at the start
@@ -1010,11 +1074,16 @@ void launch(const ArgsT<T>& a, cudaStream_t s) {
         <<<(unsigned)(a.ranges - 1), 1024, 0, s>>>(a);
   } else {
     const dim3 grid(BM * BN / 4 / 256, (unsigned)(a.ranges - 1));
-    if constexpr (!std::is_same_v<T, float>) {
+    if constexpr (std::is_same_v<T, bf16>) {
       if constexpr (EPI == Epi::kNone)
         conv3x3_bf16_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
       else
         conv_affine_bf16_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
+    } else if constexpr (std::is_same_v<T, f16>) {
+      if constexpr (EPI == Epi::kNone)
+        conv3x3_f16_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
+      else
+        conv_affine_f16_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
     } else if constexpr (EPI == Epi::kNone) {
       conv3x3_reduce_kernel<BN, VEC><<<grid, 256, 0, s>>>(a);
     } else {
@@ -1052,6 +1121,7 @@ bool plan_args(ArgsT<T>& a, const void* x, const void* w, void* part,
   a.gamma = a.beta = a.mean = a.var = a.res = nullptr;
   a.eps = 0.f;
   a.relu = 0;
+  a.vf32 = 0;
   a.M = N * H * W;
   a.H = H; a.W = W; a.C = C; a.Cout = Cout; a.K = 9 * C;
   a.tiles_n = (Cout + bn - 1) / bn;
@@ -1167,32 +1237,51 @@ extern "C" int mxt_conv_affine_bf16_blocks_per_sm(int bn, int vec, int* out) {
   return (int)prepare_any<Epi::kAffine, bf16>(bn, vec, out);
 }
 
-// conv_affine on bf16: x, w, the four BatchNorm vectors, res (or null) and
-// out bf16, everything else as mxt_conv_affine_f32.  The products are
-// exact bf16 products summed in fp32 (mma.sync m16n8k16), the BatchNorm
-// folded in fp32, the residual widened to fp32, and each output rounded
-// once to bf16.  vec != 0: C % 8 == 0, Cout % 8 == 0 and 16-byte aligned
-// x, w, res and out.  The plan comes from
+namespace {
+
+// conv_affine on the half type T (bf16, fp16)
+template <typename T>
+int conv_affine_half(const void* x, const void* w, const void* gamma,
+                     const void* beta, const void* mean, const void* var,
+                     const void* res, void* part, void* out, int N, int H,
+                     int W, int C, int Cout, float eps, int relu, int vf32,
+                     int bn, int ranges, int vec, void* stream) {
+  ArgsT<T> a;
+  if (!plan_args(a, x, w, part, out, N, H, W, C, Cout, bn, ranges) ||
+      vf32 < 0 || vf32 > 15)
+    return (int)cudaErrorInvalidValue;
+  a.gamma = static_cast<const T*>(gamma);
+  a.beta = static_cast<const T*>(beta);
+  a.mean = static_cast<const T*>(mean);
+  a.var = static_cast<const T*>(var);
+  a.res = static_cast<const T*>(res);
+  a.eps = eps;
+  a.relu = relu;
+  a.vf32 = vf32;
+  return (int)launch_any<Epi::kAffine, T>(a, bn, vec,
+                                          static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+// conv_affine on bf16: x, w, res (or null) and out bf16, the four
+// BatchNorm vectors bf16 or, where their bit of vf32 is set (1 gamma, 2
+// beta, 4 mean, 8 var), fp32; everything else as mxt_conv_affine_f32.
+// The products are exact bf16 products summed in fp32 (mma.sync
+// m16n8k16), the BatchNorm folded in fp32, the residual widened to fp32,
+// and each output rounded once to bf16.  vec != 0: C % 8 == 0, Cout % 8
+// == 0 and 16-byte aligned x, w, res and out.  The plan comes from
 // mxt_conv_affine_bf16_blocks_per_sm.
 extern "C" int mxt_conv_affine_bf16(const void* x, const void* w,
                                     const void* gamma, const void* beta,
                                     const void* mean, const void* var,
                                     const void* res, void* part, void* out,
                                     int N, int H, int W, int C, int Cout,
-                                    float eps, int relu, int bn, int ranges,
-                                    int vec, void* stream) {
-  ArgsT<bf16> a;
-  if (!plan_args(a, x, w, part, out, N, H, W, C, Cout, bn, ranges))
-    return (int)cudaErrorInvalidValue;
-  a.gamma = static_cast<const bf16*>(gamma);
-  a.beta = static_cast<const bf16*>(beta);
-  a.mean = static_cast<const bf16*>(mean);
-  a.var = static_cast<const bf16*>(var);
-  a.res = static_cast<const bf16*>(res);
-  a.eps = eps;
-  a.relu = relu;
-  return (int)launch_any<Epi::kAffine, bf16>(
-      a, bn, vec, static_cast<cudaStream_t>(stream));
+                                    float eps, int relu, int vf32, int bn,
+                                    int ranges, int vec, void* stream) {
+  return conv_affine_half<bf16>(x, w, gamma, beta, mean, var, res, part,
+                                out, N, H, W, C, Cout, eps, relu, vf32, bn,
+                                ranges, vec, stream);
 }
 
 // Blocks of conv3x3_bf16_kernel<bn, vec> that fit an SM of the current
@@ -1235,4 +1324,55 @@ extern "C" int mxt_conv_stats_tc_bf16(const void* x, const void* w,
                                       int vec, void* stream) {
   return conv_stats_any<bf16>(x, w, part, z, tstats, stats, N, H, W, C,
                               Cout, bn, ranges, vec, stream);
+}
+
+// The fp16 instances: the entries of the bf16 ones above on fp16 x, w,
+// res, out (z) and BatchNorm vectors (each fp16 or, by vf32, fp32), each
+// product one mma.sync m16n8k16 f16 product, exact in fp32; each output
+// rounded once to fp16 (to nearest even, +-inf past 65504).
+extern "C" int mxt_conv_affine_f16_blocks_per_sm(int bn, int vec, int* out) {
+  if (bn != 64 && bn != 128) return (int)cudaErrorInvalidValue;
+  return (int)prepare_any<Epi::kAffine, f16>(bn, vec, out);
+}
+
+extern "C" int mxt_conv_affine_f16(const void* x, const void* w,
+                                   const void* gamma, const void* beta,
+                                   const void* mean, const void* var,
+                                   const void* res, void* part, void* out,
+                                   int N, int H, int W, int C, int Cout,
+                                   float eps, int relu, int vf32, int bn,
+                                   int ranges, int vec, void* stream) {
+  return conv_affine_half<f16>(x, w, gamma, beta, mean, var, res, part, out,
+                               N, H, W, C, Cout, eps, relu, vf32, bn, ranges,
+                               vec, stream);
+}
+
+extern "C" int mxt_conv3x3_f16_blocks_per_sm(int bn, int vec, int* out) {
+  if (bn != 64 && bn != 128) return (int)cudaErrorInvalidValue;
+  return (int)prepare_any<Epi::kNone, f16>(bn, vec, out);
+}
+
+extern "C" int mxt_conv_stats_f16_blocks_per_sm(int bn, int vec, int* out) {
+  if (bn != 64 && bn != 128) return (int)cudaErrorInvalidValue;
+  return (int)prepare_any<Epi::kStats, f16>(bn, vec, out);
+}
+
+extern "C" int mxt_conv3x3_tc_f16(const void* x, const void* w, void* part,
+                                  void* out, int N, int H, int W, int C,
+                                  int Cout, int bn, int ranges, int vec,
+                                  void* stream) {
+  ArgsT<f16> a;
+  if (!plan_args(a, x, w, part, out, N, H, W, C, Cout, bn, ranges))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_any<Epi::kNone, f16>(a, bn, vec,
+                                          static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mxt_conv_stats_tc_f16(const void* x, const void* w,
+                                     void* part, void* z, void* tstats,
+                                     void* stats, int N, int H, int W,
+                                     int C, int Cout, int bn, int ranges,
+                                     int vec, void* stream) {
+  return conv_stats_any<f16>(x, w, part, z, tstats, stats, N, H, W, C,
+                             Cout, bn, ranges, vec, stream);
 }

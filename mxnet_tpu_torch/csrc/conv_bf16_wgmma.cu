@@ -1,4 +1,5 @@
-// The bf16 instances of the 3x3/s1/p1 convolution (conv3x3, also as the
+// The bf16 and fp16 instances (this file holds both half types; its name
+// is the first one's) of the 3x3/s1/p1 convolution (conv3x3, also as the
 // dgrad), of the same conv with a statistics epilogue (conv_stats) or a
 // folded frozen BatchNorm epilogue (conv_affine), and of its weight
 // gradient (conv_wgrad) for Hopper: wgmma products on tiles that TMA
@@ -12,23 +13,38 @@
 //
 // m runs over the N*H*W pixels, k = tap*C + c tap-major, x (N, H, W, C)
 // NHWC with a zero halo, w (3, 3, C, Cout) HWIO = the row-major (9C, Cout)
-// matrix, dy, z, res and out (N, H, W, Cout), dW (9C, Cout) fp32.  bf16
-// operands, their products exact in fp32, fp32 sums; conv3x3, conv_stats
-// and conv_affine round each output once to bf16 (the sums of conv_stats
-// are of the fp32 values before that rounding; conv_affine's fold,
-// residual and ReLU act on them in fp32), conv_wgrad writes fp32 (the
-// caller casts dW to the weight's dtype).  The dgrad is conv3x3 of dy with
-// the rotated weight.
+// matrix, dy, z, res and out (N, H, W, Cout), dW (9C, Cout) fp32.  Half
+// operands (bf16 or fp16), their products exact in fp32 (8 + 8 or 11 + 11
+// significant bits), fp32 sums; conv3x3, conv_stats and conv_affine round
+// each output once to the operands' type (the sums of conv_stats are of
+// the fp32 values before that rounding; conv_affine's fold, residual and
+// ReLU act on them in fp32), conv_wgrad writes fp32 (the caller casts dW
+// to the weight's dtype).  The dgrad is conv3x3 of dy with the rotated
+// weight.
 //
-// Replaces, on bf16 operands with C % 8 == 0 and Cout % 8 == 0 and 16-byte
-// aligned tensors: mxnet_tpu/ops/pallas_block.py `_conv_kernel` (:318,
+// Replaces, on half operands with C % 8 == 0 and Cout % 8 == 0 and
+// 16-byte aligned tensors: mxnet_tpu/ops/pallas_block.py `_conv_kernel` (:318,
 // launched by `conv3x3` :419 and `conv3x3_dgrad` :438; 16 dgrads a bf16
 // ResNet-50 v1 training step, 10 forwards a bf16 Inception-v3 forward),
 // `_conv_stats_kernel` (:343, `_conv_stats` :488; 16 a bf16 ResNet-50
 // step), `_conv_affine_kernel` (:325, `_conv_affine` :465 with `_fold`
 // :539; 16 a bf16 ResNet-50 serving forward) and `_wgrad_kernel` (:381,
-// launched by `conv3x3_wgrad` :444; 16 a step).  Other bf16 shapes keep
-// the mma.sync instances of conv3x3_tc.cu and conv_wgrad.cu.
+// launched by `conv3x3_wgrad` :444; 16 a step), each the same in an fp16
+// step (`FusedTrainStep(dtype="float16")`) and under `amp.init("float16")`.
+// Other half shapes keep the mma.sync instances of conv3x3_tc.cu and
+// conv_wgrad.cu.
+//
+// fp16 against bf16: one traits type (BF16, F16) carries the storage and
+// pair types, the product's `.bf16.bf16` / `.f16.f16`, the tensor maps'
+// BFLOAT16 / FLOAT16 and the conversions; the ring, the descriptors, the
+// swizzle, the runs and the plans are one code.  fp16's range ends at
+// 65504: each output is rounded to nearest even from its fp32 value and
+// overflows to +-inf there as the reference's cast does, while
+// conv_stats' sums, taken before that rounding, stay finite.  Its
+// subnormals (below 6.1e-5) are kept: the build has no --use_fast_math,
+// so nothing in the fp32 epilogue flushes them.  conv_affine's four
+// BatchNorm vectors are each the half type or fp32 (a bit each in the
+// epilogue's parameter): a half step keeps its running statistics fp32.
 //
 // Bound on an H100 at batch 128 of a ResNet-50 stage: 2 * N*H*W * 9C * Cout
 // = 29.6 GFLOP, 0.0299 ms at the 989 TFLOP/s dense bf16 peak; bytes (x and
@@ -46,7 +62,8 @@
 //   and the barrier wait loops inside its asm, so the compiler sees every
 //   wgmma on a warp-uniform path (otherwise ptxas serializes the products
 //   and says so, C7518).
-// - Products: `wgmma.mma_async.m64nNk16.f32.bf16.bf16` (N = BN = 64 when
+// - Products: `wgmma.mma_async.m64nNk16.f32.bf16.bf16` (or `.f16.f16`;
+//   N = BN = 64 when
 //   Cout <= 64, else 128) on 128-byte-swizzled tiles behind descriptors,
 //   four 16-deep steps a 64-deep chunk.  conv3x3: A = patches K-major (a
 //   pixel's 64 channels of one tap along a 128-byte row), B = the weight
@@ -89,8 +106,8 @@
 //   partial tile to its slot and conv_wgrad_wgmma_reduce_kernel sums a
 //   tile's slots in order.  No float atomics: a relaunch is bitwise equal.
 // - The loop (`wgmma_ranges`) is one body for all four: the operation
-//   picks the loads, the A descriptor and the epilogue (an fp16 instance,
-//   the f16 wgmma having the same shapes, would be another instance).
+//   picks the loads, the A descriptor and the epilogue, the half type the
+//   product and the stores.
 //   conv_stats, conv_affine and conv3x3 run the same loads, products and
 //   runs, so where their plans agree conv_stats' z is conv3x3's bit for
 //   bit.
@@ -106,11 +123,11 @@
 //   in a fixed order into stats (2, Cout).
 // - AFFINE: a whole tile folds each of its thread's column pairs inside
 //   the store loop (scale = gamma * rsqrt(var + eps), shift = beta - mean
-//   * scale, from the bf16 vectors widened, in fp32 with no fused
+//   * scale, from the vectors widened, in fp32 with no fused
 //   multiply-add, as the plain version rounds), applies it to the fp32
-//   sums, adds the residual read as bf16 pairs at the store's addresses,
-//   the ReLU, and rounds once to bf16; the reduce kernel does the same to
-//   a cut tile's summed slots.
+//   sums, adds the residual read as half pairs at the store's addresses,
+//   the ReLU, and rounds once; the reduce kernel does the same to a cut
+//   tile's summed slots.
 // - Tensor maps are encoded on the host and kept in a small cache keyed by
 //   every argument of the encoding (the encoding is a pure function of
 //   them, so a hit is exact); a map is a 128-byte kernel parameter, which
@@ -127,6 +144,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -140,10 +158,39 @@ extern __shared__ __align__(1024) unsigned char mxt_wgmma_smem[];
 namespace {
 
 using namespace mxt_wgmma;
-using bf16 = __nv_bfloat16;
+
+// The two half types the kernels take (every kernel below is an instance
+// of one of them): the storage and pair types, the wgmma product's and
+// the tensor maps' type names, the widening to fp32 and the pair's
+// rounding from it (round to nearest even: fp16 overflows to +-inf past
+// 65504 and keeps its subnormals, as a cast of the fp32 value does).
+struct BF16 {
+  using T = __nv_bfloat16;
+  using T2 = __nv_bfloat162;
+  static constexpr bool kF16 = false;
+  static constexpr CUtensorMapDataType kMap =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  __device__ static float wide(T v) { return __bfloat162float(v); }
+  __device__ static float2 wide2(T2 v) { return __bfloat1622float2(v); }
+  __device__ static T2 narrow2(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+};
+
+struct F16 {
+  using T = __half;
+  using T2 = __half2;
+  static constexpr bool kF16 = true;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  __device__ static float wide(T v) { return __half2float(v); }
+  __device__ static float2 wide2(T2 v) { return __half22float2(v); }
+  __device__ static T2 narrow2(float a, float b) {
+    return __floats2half2_rn(a, b);
+  }
+};
 
 constexpr int BM = 128;       // tile rows: conv3x3 pixels, wgrad patch rows
-constexpr int SLAB = 64;      // channels a box: 128 bytes of bf16
+constexpr int SLAB = 64;      // channels a box: 128 bytes of halves
 constexpr int BK = 64;        // a chunk: conv3x3 k, wgrad pixels
 constexpr int kConsumers = 2;                    // warpgroups, 64 rows each
 constexpr int kThreads = 128 * kConsumers + 32;  // + the producer warp
@@ -161,8 +208,8 @@ constexpr int kRun = 8;       // chunks a run: 512 k (conv3x3) or pixels
 // and B's 64-column boxes (k or pixel rows), each 128-byte swizzled.
 template <int BN>
 struct alignas(1024) Stage {
-  bf16 a[2][64][64];
-  bf16 b[BN / 64][64][64];
+  uint16_t a[2][64][64];        // 2-byte halves: bf16 or fp16
+  uint16_t b[BN / 64][64][64];
 };
 
 template <int BN>
@@ -186,7 +233,7 @@ constexpr int smem_bytes() {
 }
 
 struct Geo {
-  bf16* out;          // conv3x3, conv_stats (z), conv_affine: (N*H*W, Cout)
+  void* out;          // conv3x3, conv_stats (z), conv_affine: (N*H*W, Cout)
   float* part;        // conv: (2 * ranges, BM, BN); wgrad: (tiles, jmax,
                       // BM, BN)
   float* dw;          // wgrad: (9C, Cout)
@@ -204,13 +251,14 @@ struct Geo {
 // their own, so conv3x3's and conv_wgrad's kernels keep theirs.
 struct Epi {
   float* tstats;      // conv_stats: (ceil(M / BM), 2, Cout)
-  const bf16* gamma;  // conv_affine: the BatchNorm (Cout,) each
-  const bf16* beta;
-  const bf16* mean;
-  const bf16* var;
-  const bf16* res;    // conv_affine: (N*H*W, Cout) or null
+  const void* gamma;  // conv_affine: the BatchNorm (Cout,) each, in x's
+  const void* beta;   // half type or fp32 (the bits of vf32)
+  const void* mean;
+  const void* var;
+  const void* res;    // conv_affine: (N*H*W, Cout) in x's type, or null
   float eps;
   int relu;
+  int vf32;           // fp32 vectors: 1 gamma, 2 beta, 4 mean, 8 var
 };
 
 // Range b holds units [b*total/ranges, (b+1)*total/ranges); unit u lies in
@@ -291,7 +339,7 @@ __device__ __forceinline__ void produce(const Geo& g, const CUtensorMap* ta,
 
 // Issue this warpgroup's 64 x BN products of the chunk in stage s into
 // run: four 16-deep steps, the first from zero when `fresh` (a new run).
-template <Op OP, int BN>
+template <typename H, Op OP, int BN>
 __device__ __forceinline__ void mma_chunk(const Stage<BN>& s, int wg,
                                           bool fresh, float (&run)[BN / 2]) {
   const uint32_t a = smem_u32(&s.a[wg][0][0]);
@@ -306,20 +354,32 @@ __device__ __forceinline__ void mma_chunk(const Stage<BN>& s, int wg,
                             ? desc_sw128(a + 32 * kk, 16, 1024)
                             : desc_sw128(a + 2048 * kk, BOX, 1024);
     const uint64_t db = desc_sw128(b + 2048 * kk, BOX, 1024);
-    mma<BN, OP == Op::kWgrad ? 1 : 0, 1>(run, da, db, kk > 0 || !fresh);
+    mma<BN, OP == Op::kWgrad ? 1 : 0, 1, H::kF16>(run, da, db,
+                                                  kk > 0 || !fresh);
   }
   wg_commit();
 }
 
-// The folded frozen BatchNorm of channel n from the bf16 vectors widened,
-// in fp32 as the plain version rounds it (no fused multiply-add): scale =
-// gamma * rsqrt(var + eps), shift = beta - mean * scale.
+// Element n of a BatchNorm vector as fp32: read as fp32 where `f32`, else
+// as H's half type widened.
+template <typename H>
+__device__ __forceinline__ float vec_at(const void* p, int f32, int n) {
+  return f32 ? static_cast<const float*>(p)[n]
+             : H::wide(static_cast<const typename H::T*>(p)[n]);
+}
+
+// The folded frozen BatchNorm of channel n from the vectors widened (each
+// fp32 or in x's half type, as vf32 says: a half step keeps its running
+// statistics fp32), in fp32 as the plain version rounds it (no fused
+// multiply-add): scale = gamma * rsqrt(var + eps), shift = beta - mean *
+// scale.
+template <typename H>
 __device__ __forceinline__ void fold(const Epi& e, int n, float& sc,
                                      float& sh) {
-  sc = __fmul_rn(__bfloat162float(e.gamma[n]),
-                 rsqrtf(__fadd_rn(__bfloat162float(e.var[n]), e.eps)));
-  sh = __fsub_rn(__bfloat162float(e.beta[n]),
-                 __fmul_rn(__bfloat162float(e.mean[n]), sc));
+  sc = __fmul_rn(vec_at<H>(e.gamma, e.vf32 & 1, n),
+                 rsqrtf(__fadd_rn(vec_at<H>(e.var, e.vf32 & 8, n), e.eps)));
+  sh = __fsub_rn(vec_at<H>(e.beta, e.vf32 & 2, n),
+                 __fmul_rn(vec_at<H>(e.mean, e.vf32 & 4, n), sc));
 }
 
 // act(v * sc + sh (+ r)) in fp32, each operation rounded on its own
@@ -332,24 +392,25 @@ __device__ __forceinline__ float affine(const Epi& e, float v, float sc,
 
 // out[m][n], out[m][n + 1] of a whole tile from their fp32 values, through
 // the folded BatchNorm (+ the residual pair at the same addresses) (+
-// ReLU) for kAffine, rounded once to a bf16 pair (Cout % 8 == 0: n <
-// Cout implies n + 1 < Cout).
-template <Op OP>
+// ReLU) for kAffine, rounded once to a pair of H's halves (Cout % 8 == 0:
+// n < Cout implies n + 1 < Cout).
+template <typename H, Op OP>
 __device__ __forceinline__ void store2(const Geo& g, const Epi& e, int m,
                                        int n, float v0, float v1,
                                        const float (&sc)[2],
                                        const float (&sh)[2]) {
+  using T2 = typename H::T2;
   const long long at = (long long)m * g.Cout + n;
   if constexpr (OP == Op::kAffine) {
     float2 r = make_float2(0.f, 0.f);
     if (e.res)
-      r = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(e.res + at));
+      r = H::wide2(*reinterpret_cast<const T2*>(
+          static_cast<const typename H::T*>(e.res) + at));
     v0 = affine(e, v0, sc[0], sh[0], r.x);
     v1 = affine(e, v1, sc[1], sh[1], r.y);
   }
-  *reinterpret_cast<__nv_bfloat162*>(g.out + at) =
-      __floats2bfloat162_rn(v0, v1);
+  *reinterpret_cast<T2*>(static_cast<typename H::T*>(g.out) + at) =
+      H::narrow2(v0, v1);
 }
 
 // the two consumer warpgroups meet (named barrier 1 of their 256 threads;
@@ -414,10 +475,10 @@ __device__ __forceinline__ void tile_stats(const Geo& g, const Epi& e,
 
 // A finished segment [us, ue) of tile `tile` out of this warpgroup's
 // registers.  conv3x3, conv_stats, conv_affine: a whole tile goes out in
-// bf16 (conv_affine through its epilogue; conv_stats also writes its row
-// of per-tile sums), a cut one's rows < M to its range's slot; wgrad
-// stores its partial tile to its slot.
-template <Op OP, int BN>
+// H's half type (conv_affine through its epilogue; conv_stats also writes
+// its row of per-tile sums), a cut one's rows < M to its range's slot;
+// wgrad stores its partial tile to its slot.
+template <typename H, Op OP, int BN>
 __device__ __forceinline__ void store_segment(const Geo& g, const Epi& e,
                                               long long tile, long long us,
                                               long long ue, long long u0,
@@ -441,8 +502,8 @@ __device__ __forceinline__ void store_segment(const Geo& g, const Epi& e,
         const int nn = tn * BN + col;
         float sc[2] = {1.f, 1.f}, sh[2] = {0.f, 0.f};
         if (whole && nn < g.Cout) {
-          fold(e, nn, sc[0], sh[0]);
-          fold(e, nn + 1, sc[1], sh[1]);
+          fold<H>(e, nn, sc[0], sh[0]);
+          fold<H>(e, nn + 1, sc[1], sh[1]);
         }
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
@@ -451,7 +512,7 @@ __device__ __forceinline__ void store_segment(const Geo& g, const Epi& e,
           if (m >= g.M) continue;
           const float v0 = acc[4 * j + 2 * hf], v1 = acc[4 * j + 2 * hf + 1];
           if (whole) {
-            if (nn < g.Cout) store2<OP>(g, e, m, nn, v0, v1, sc, sh);
+            if (nn < g.Cout) store2<H, OP>(g, e, m, nn, v0, v1, sc, sh);
           } else {
             *reinterpret_cast<float2*>(slot + row * BN + col) =
                 make_float2(v0, v1);
@@ -471,7 +532,7 @@ __device__ __forceinline__ void store_segment(const Geo& g, const Epi& e,
           const int col = 8 * j + cl;
           if (whole) {
             const int nn = tn * BN + col;
-            if (nn < g.Cout) store2<OP>(g, e, m, nn, v0, v1, one, zero);
+            if (nn < g.Cout) store2<H, OP>(g, e, m, nn, v0, v1, one, zero);
           } else {
             *reinterpret_cast<float2*>(slot + row * BN + col) =
                 make_float2(v0, v1);
@@ -500,7 +561,7 @@ __device__ __forceinline__ void store_segment(const Geo& g, const Epi& e,
 // the tensor cores always have the next products queued; every kRun
 // chunks, and at the segment's end, the run is waited for and added to
 // the tile's sums with IEEE adds.
-template <Op OP, int BN>
+template <typename H, Op OP, int BN>
 __device__ __forceinline__ void consume(const Geo& g, const Epi& e,
                                         Smem<BN>& sm, int wg, float* red) {
   constexpr int S = kStages<BN>;
@@ -524,7 +585,7 @@ __device__ __forceinline__ void consume(const Geo& g, const Epi& e,
     for (long long v = u; v < ue; ++v) {
       bar_wait(&sm.full[st], ph);
       if (active) {
-        mma_chunk<OP, BN>(sm.st[st], wg, in_run == 0, run);
+        mma_chunk<H, OP, BN>(sm.st[st], wg, in_run == 0, run);
         wg_wait<1>();            // the previous chunk's products are done
         if (prev >= 0 && lane0) bar_arrive(&sm.empty[prev]);
         prev = st;
@@ -546,12 +607,12 @@ __device__ __forceinline__ void consume(const Geo& g, const Epi& e,
       }
     }
     if (active)
-      store_segment<OP, BN>(g, e, tile, u, ue, u0, wg, acc, red);
+      store_segment<H, OP, BN>(g, e, tile, u, ue, u0, wg, acc, red);
     u = ue;
   }
 }
 
-template <Op OP, int BN>
+template <typename H, Op OP, int BN>
 __device__ __forceinline__ void wgmma_ranges(const CUtensorMap* ta,
                                              const CUtensorMap* tb,
                                              const Geo& g, const Epi& e) {
@@ -574,50 +635,50 @@ __device__ __forceinline__ void wgmma_ranges(const CUtensorMap* ta,
     if (threadIdx.x == 128 * kConsumers) produce<OP, BN>(g, ta, tb, sm);
   } else {
     // kStats' cross-warp sums sit after the ring (Smem is 1024-aligned)
-    consume<OP, BN>(g, e, sm, wg, reinterpret_cast<float*>(&sm + 1));
+    consume<H, OP, BN>(g, e, sm, wg, reinterpret_cast<float*>(&sm + 1));
   }
 }
 
-template <int BN>
+template <typename H, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                      const __grid_constant__ CUtensorMap tb, const Geo g) {
-  wgmma_ranges<Op::kConv, BN>(&ta, &tb, g, Epi{});
+  wgmma_ranges<H, Op::kConv, BN>(&ta, &tb, g, Epi{});
 }
 
-template <int BN>
+template <typename H, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_stats_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                         const __grid_constant__ CUtensorMap tb, const Geo g,
                         const Epi e) {
-  wgmma_ranges<Op::kStats, BN>(&ta, &tb, g, e);
+  wgmma_ranges<H, Op::kStats, BN>(&ta, &tb, g, e);
 }
 
-template <int BN>
+template <typename H, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_affine_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                          const __grid_constant__ CUtensorMap tb, const Geo g,
                          const Epi e) {
-  wgmma_ranges<Op::kAffine, BN>(&ta, &tb, g, e);
+  wgmma_ranges<H, Op::kAffine, BN>(&ta, &tb, g, e);
 }
 
-template <int BN>
+template <typename H, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                         const __grid_constant__ CUtensorMap tb, const Geo g) {
-  wgmma_ranges<Op::kWgrad, BN>(&ta, &tb, g, Epi{});
+  wgmma_ranges<H, Op::kWgrad, BN>(&ta, &tb, g, Epi{});
 }
 
-template <Op OP, int BN>
+template <typename H, Op OP, int BN>
 auto main_kernel() {
   if constexpr (OP == Op::kConv)
-    return conv3x3_wgmma_kernel<BN>;
+    return conv3x3_wgmma_kernel<H, BN>;
   else if constexpr (OP == Op::kStats)
-    return conv_stats_wgmma_kernel<BN>;
+    return conv_stats_wgmma_kernel<H, BN>;
   else if constexpr (OP == Op::kAffine)
-    return conv_affine_wgmma_kernel<BN>;
+    return conv_affine_wgmma_kernel<H, BN>;
   else
-    return conv_wgrad_wgmma_kernel<BN>;
+    return conv_wgrad_wgmma_kernel<H, BN>;
 }
 
 constexpr int SLOT_BATCH = 8;   // partial slots a reduce loads at once
@@ -637,9 +698,10 @@ __device__ __forceinline__ long long cut_tile(const Geo& g, long long r) {
 // slots summed in range order 4 values a thread (conv3x3_tc.cu's
 // reduce_cut, on this kernel's slots), then for kAffine the four columns'
 // folded BatchNorm, the residual and the ReLU, each value rounded once to
-// bf16.
-template <Op OP, int BN>
+// H's half type.
+template <typename H, Op OP, int BN>
 __device__ __forceinline__ void reduce_cut(const Geo& g, const Epi& ep) {
+  using T2 = typename H::T2;
   const long long r = (long long)blockIdx.y + 1;
   const long long tile = cut_tile(g, r);
   if (tile < 0) return;
@@ -680,37 +742,36 @@ __device__ __forceinline__ void reduce_cut(const Geo& g, const Epi& ep) {
     // four values are one 8-byte load
     float rv[4] = {0.f, 0.f, 0.f, 0.f};
     if (ep.res) {
-      const uint2 q = *reinterpret_cast<const uint2*>(ep.res + at);
-      const float2 lo = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&q.x));
-      const float2 hi = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&q.y));
+      const uint2 q = *reinterpret_cast<const uint2*>(
+          static_cast<const typename H::T*>(ep.res) + at);
+      const float2 lo = H::wide2(*reinterpret_cast<const T2*>(&q.x));
+      const float2 hi = H::wide2(*reinterpret_cast<const T2*>(&q.y));
       rv[0] = lo.x; rv[1] = lo.y; rv[2] = hi.x; rv[3] = hi.y;
     }
     float o[4] = {sum.x, sum.y, sum.z, sum.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float sc, sh;
-      fold(ep, n + i, sc, sh);
+      fold<H>(ep, n + i, sc, sh);
       o[i] = affine(ep, o[i], sc, sh, rv[i]);
     }
     sum = make_float4(o[0], o[1], o[2], o[3]);
   }
-  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(sum.x, sum.y),
-                         __floats2bfloat162_rn(sum.z, sum.w)};
-  *reinterpret_cast<uint2*>(g.out + at) = *reinterpret_cast<const uint2*>(h);
+  T2 h[2] = {H::narrow2(sum.x, sum.y), H::narrow2(sum.z, sum.w)};
+  *reinterpret_cast<uint2*>(static_cast<typename H::T*>(g.out) + at) =
+      *reinterpret_cast<const uint2*>(h);
 }
 
-template <int BN>
+template <typename H, int BN>
 __global__ void __launch_bounds__(256)
 conv3x3_wgmma_reduce_kernel(const Geo g) {
-  reduce_cut<Op::kConv, BN>(g, Epi{});
+  reduce_cut<H, Op::kConv, BN>(g, Epi{});
 }
 
-template <int BN>
+template <typename H, int BN>
 __global__ void __launch_bounds__(256)
 conv_affine_wgmma_reduce_kernel(const Geo g, const Epi e) {
-  reduce_cut<Op::kAffine, BN>(g, e);
+  reduce_cut<H, Op::kAffine, BN>(g, e);
 }
 
 // conv_stats' cut tiles (conv3x3_tc.cu's conv_stats_cut_kernel on this
@@ -721,9 +782,10 @@ conv_affine_wgmma_reduce_kernel(const Geo g, const Epi e) {
 // z, and sums each column's fp32 values over the rows < M in a fixed order
 // (a thread its rows rg, rg + RG, ... in turn, then the RG row groups in
 // order through shared memory) into the tile's row of tstats.
-template <int BN>
+template <typename H, int BN>
 __global__ void __launch_bounds__(1024)
 conv_stats_wgmma_cut_kernel(const Geo g, const Epi e) {
+  using T2 = typename H::T2;
   constexpr int CQ = BN / 4;        // 4-column pieces of a row
   constexpr int RG = 1024 / CQ;     // row groups: 32 (BN 128), 64 (BN 64)
   constexpr int RPT = BM / RG;      // rows a thread: 4 or 2
@@ -760,9 +822,9 @@ conv_stats_wgmma_cut_kernel(const Geo g, const Epi e) {
     const int m = m0 + rg + RG * i;
     if (m >= g.M) continue;
     if (n < g.Cout) {
-      __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v[i].x, v[i].y),
-                             __floats2bfloat162_rn(v[i].z, v[i].w)};
-      *reinterpret_cast<uint2*>(g.out + (long long)m * g.Cout + n) =
+      T2 h[2] = {H::narrow2(v[i].x, v[i].y), H::narrow2(v[i].z, v[i].w)};
+      *reinterpret_cast<uint2*>(static_cast<typename H::T*>(g.out) +
+                                (long long)m * g.Cout + n) =
           *reinterpret_cast<const uint2*>(h);
     }
     const float sv[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
@@ -856,14 +918,14 @@ conv_wgrad_wgmma_reduce_kernel(const Geo g) {
 // The main kernel's shared-memory attribute, set once on each of the
 // first 64 devices (a bit each in `ready`), and, where per_sm is given, the
 // blocks of it an SM holds.
-template <Op OP, int BN>
+template <typename H, Op OP, int BN>
 cudaError_t prepare(int* per_sm) {
   static std::atomic<unsigned long long> ready{0};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  const auto kernel = main_kernel<OP, BN>();
+  const auto kernel = main_kernel<H, OP, BN>();
   if (!(ready.load(std::memory_order_acquire) & bit)) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -876,9 +938,9 @@ cudaError_t prepare(int* per_sm) {
       per_sm, kernel, kThreads, smem_bytes<OP, BN>());
 }
 
-template <Op OP>
+template <typename H, Op OP>
 cudaError_t prepare_any(int bn, int* per_sm) {
-  return bn == 64 ? prepare<OP, 64>(per_sm) : prepare<OP, 128>(per_sm);
+  return bn == 64 ? prepare<H, OP, 64>(per_sm) : prepare<H, OP, 128>(per_sm);
 }
 
 // An encoder's failure as the entry's return value: 10000 + its CUresult
@@ -886,13 +948,14 @@ cudaError_t prepare_any(int bn, int* per_sm) {
 constexpr int kEncodeError = 10000;
 
 // The encoded maps of recent calls, by every argument of their encoding
-// that varies (the mode, the base pointer, the rank, the dims, an im2col
-// box's pixels; the strides, the box and the rest follow from these), so
-// a hit is exactly the map an encoding would give.  Bounded (kMapSlots
-// entries, replaced in turn) and under one mutex; the hits and misses are
-// read by mxt_wgmma_map_cache_stats.
+// that varies (the mode, the element type, the base pointer, the rank, the
+// dims, an im2col box's pixels; the strides, the box and the rest follow
+// from these), so a hit is exactly the map an encoding would give.
+// Bounded (kMapSlots entries, replaced in turn) and under one mutex; the
+// hits and misses are read by mxt_wgmma_map_cache_stats.
 struct MapKey {
   int im2col;         // 1: x in im2col mode; 0: tiled
+  int dtype;          // the CUtensorMapDataType: bf16 or fp16
   int rank;
   int pixels;         // im2col: pixels a box
   const void* ptr;
@@ -900,8 +963,8 @@ struct MapKey {
 };
 
 bool same_key(const MapKey& a, const MapKey& b) {
-  if (a.im2col != b.im2col || a.rank != b.rank || a.pixels != b.pixels ||
-      a.ptr != b.ptr)
+  if (a.im2col != b.im2col || a.dtype != b.dtype || a.rank != b.rank ||
+      a.pixels != b.pixels || a.ptr != b.ptr)
     return false;
   for (int i = 0; i < 4; ++i)
     if (a.dims[i] != b.dims[i]) return false;
@@ -944,11 +1007,12 @@ int cached_map(CUtensorMap* map, const MapKey& k, F encode) {
   return 0;
 }
 
-// x (N, H, W, C) bf16 in im2col mode: `pixels` pixels x 64 channels a box,
-// the pad-1 3x3 window (corners -1, -1 in H and W).
-int encode_x(CUtensorMap* map, const void* x, int N, int H, int W, int C,
-             int pixels) {
-  const MapKey k = {1, 4, pixels, x,
+// x (N, H, W, C) of 2-byte halves of type dt in im2col mode: `pixels`
+// pixels x 64 channels a box, the pad-1 3x3 window (corners -1, -1 in H
+// and W).
+int encode_x(CUtensorMap* map, CUtensorMapDataType dt, const void* x, int N,
+             int H, int W, int C, int pixels) {
+  const MapKey k = {1, (int)dt, 4, pixels, x,
                     {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
                      (cuuint64_t)N}};
   return cached_map(map, k, [&](CUtensorMap* m) {
@@ -959,7 +1023,7 @@ int encode_x(CUtensorMap* map, const void* x, int N, int H, int W, int C,
     const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
     const cuuint32_t estr[4] = {1, 1, 1, 1};
     const CUresult r = enc.im2col(
-        m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+        m, dt, 4, const_cast<void*>(x),
         k.dims, strides, lower, upper, SLAB, (cuuint32_t)pixels, estr,
         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -968,11 +1032,11 @@ int encode_x(CUtensorMap* map, const void* x, int N, int H, int W, int C,
   });
 }
 
-// A bf16 tensor of `rank` (2 or 3) dims (innermost first) in 64 x 64
-// boxes (the rest 1), 128-byte swizzled.
-int encode_tiled(CUtensorMap* map, const void* t, int rank,
-                 const cuuint64_t* dims) {
-  MapKey k = {0, rank, 0, t, {0, 0, 0, 0}};
+// A tensor of 2-byte halves of type dt, `rank` (2 or 3) dims (innermost
+// first), in 64 x 64 boxes (the rest 1), 128-byte swizzled.
+int encode_tiled(CUtensorMap* map, CUtensorMapDataType dt, const void* t,
+                 int rank, const cuuint64_t* dims) {
+  MapKey k = {0, (int)dt, rank, 0, t, {0, 0, 0, 0}};
   for (int i = 0; i < rank; ++i) k.dims[i] = dims[i];
   return cached_map(map, k, [&](CUtensorMap* m) {
     const Encoders& enc = encoders();
@@ -982,7 +1046,7 @@ int encode_tiled(CUtensorMap* map, const void* t, int rank,
     for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
     const cuuint32_t box[3] = {64, 64, 1}, estr[3] = {1, 1, 1};
     const CUresult r = enc.tiled(
-        m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+        m, dt, (cuuint32_t)rank,
         const_cast<void*>(t), dims, strides, box, estr,
         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -1022,80 +1086,202 @@ bool conv_plan(Geo& g) {
 }
 
 // The conv kernels' maps: x by im2col boxes of 128 pixels, w as the 3-D
-// (9, C, Cout) tensor.
-int conv_maps(CUtensorMap* ta, CUtensorMap* tb, const void* x,
-              const void* w, int N, int H, int W, int C, int Cout) {
+// (9, C, Cout) tensor, both of type dt.
+int conv_maps(CUtensorMap* ta, CUtensorMap* tb, CUtensorMapDataType dt,
+              const void* x, const void* w, int N, int H, int W, int C,
+              int Cout) {
   const cuuint64_t wdims[3] = {(cuuint64_t)Cout, (cuuint64_t)C, 9};
-  const int err = encode_x(ta, x, N, H, W, C, BM);
-  return err ? err : encode_tiled(tb, w, 3, wdims);
+  const int err = encode_x(ta, dt, x, N, H, W, C, BM);
+  return err ? err : encode_tiled(tb, dt, w, 3, wdims);
 }
 
 // A conv kernel, then the one that finishes its cut tiles.
-template <Op OP, int BN>
+template <typename H, Op OP, int BN>
 void launch_conv(const CUtensorMap& ta, const CUtensorMap& tb, const Geo& g,
                  const Epi& e, cudaStream_t s) {
-  const auto kernel = main_kernel<OP, BN>();
+  const auto kernel = main_kernel<H, OP, BN>();
   const unsigned smem = smem_bytes<OP, BN>();
   const dim3 rgrid(BM * BN / 4 / 256, (unsigned)(g.ranges - 1));
   if constexpr (OP == Op::kConv) {
     kernel<<<(unsigned)g.ranges, kThreads, smem, s>>>(ta, tb, g);
-    if (g.ranges > 1) conv3x3_wgmma_reduce_kernel<BN><<<rgrid, 256, 0, s>>>(g);
+    if (g.ranges > 1)
+      conv3x3_wgmma_reduce_kernel<H, BN><<<rgrid, 256, 0, s>>>(g);
   } else if constexpr (OP == Op::kStats) {
     kernel<<<(unsigned)g.ranges, kThreads, smem, s>>>(ta, tb, g, e);
     if (g.ranges > 1)
-      conv_stats_wgmma_cut_kernel<BN>
+      conv_stats_wgmma_cut_kernel<H, BN>
           <<<(unsigned)(g.ranges - 1), 1024, 0, s>>>(g, e);
   } else {
     kernel<<<(unsigned)g.ranges, kThreads, smem, s>>>(ta, tb, g, e);
     if (g.ranges > 1)
-      conv_affine_wgmma_reduce_kernel<BN><<<rgrid, 256, 0, s>>>(g, e);
+      conv_affine_wgmma_reduce_kernel<H, BN><<<rgrid, 256, 0, s>>>(g, e);
   }
 }
 
 // The maps, the kernels' attributes, the launches: an encoder's or a
 // launch's error, else 0.
-template <Op OP>
+template <typename H, Op OP>
 int run_conv(const void* x, const void* w, const Geo& g, const Epi& e, int N,
              int bn, void* stream) {
   CUtensorMap ta, tb;
-  int err = conv_maps(&ta, &tb, x, w, N, g.H, g.W, g.C, g.Cout);
+  int err = conv_maps(&ta, &tb, H::kMap, x, w, N, g.H, g.W, g.C, g.Cout);
   if (err) return err;
-  err = (int)prepare_any<OP>(bn, nullptr);
+  err = (int)prepare_any<H, OP>(bn, nullptr);
   if (err) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bn == 64)
-    launch_conv<OP, 64>(ta, tb, g, e, s);
+    launch_conv<H, OP, 64>(ta, tb, g, e, s);
   else
-    launch_conv<OP, 128>(ta, tb, g, e, s);
+    launch_conv<H, OP, 128>(ta, tb, g, e, s);
   return (int)cudaGetLastError();
+}
+
+// The four operations on half type H, behind the C entries below.
+template <typename H>
+int conv3x3_entry(const void* x, const void* w, void* part, void* out,
+                  int N, int H_, int W, int C, int Cout, int bn, int ranges,
+                  void* stream) {
+  Geo g;
+  if (!geometry(g, N, H_, W, C, Cout, bn, ranges) || !conv_plan(g))
+    return (int)cudaErrorInvalidValue;
+  g.out = out;
+  g.part = static_cast<float*>(part);
+  return run_conv<H, Op::kConv>(x, w, g, Epi{}, N, bn, stream);
+}
+
+template <typename H>
+int conv_stats_entry(const void* x, const void* w, void* part, void* z,
+                     void* tstats, void* stats, int N, int H_, int W, int C,
+                     int Cout, int bn, int ranges, void* stream) {
+  Geo g;
+  if (!geometry(g, N, H_, W, C, Cout, bn, ranges) || !conv_plan(g))
+    return (int)cudaErrorInvalidValue;
+  g.out = z;
+  g.part = static_cast<float*>(part);
+  Epi e{};
+  e.tstats = static_cast<float*>(tstats);
+  const int err = run_conv<H, Op::kStats>(x, w, g, e, N, bn, stream);
+  if (err) return err;
+  const int rows = (g.M + BM - 1) / BM, cols = 2 * Cout;
+  conv_stats_wgmma_sum_kernel<<<(unsigned)(cols / SUM_COLS),
+                                SUM_COLS * SUM_ROWS, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      e.tstats, static_cast<float*>(stats), rows, cols);
+  return (int)cudaGetLastError();
+}
+
+template <typename H>
+int conv_affine_entry(const void* x, const void* w, const void* gamma,
+                      const void* beta, const void* mean, const void* var,
+                      const void* res, void* part, void* out, int N, int H_,
+                      int W, int C, int Cout, float eps, int relu, int vf32,
+                      int bn, int ranges, void* stream) {
+  Geo g;
+  if (!geometry(g, N, H_, W, C, Cout, bn, ranges) || !conv_plan(g) ||
+      vf32 < 0 || vf32 > 15)
+    return (int)cudaErrorInvalidValue;
+  g.out = out;
+  g.part = static_cast<float*>(part);
+  Epi e{};
+  e.gamma = gamma;
+  e.beta = beta;
+  e.mean = mean;
+  e.var = var;
+  e.res = res;
+  e.eps = eps;
+  e.relu = relu;
+  e.vf32 = vf32;
+  return run_conv<H, Op::kAffine>(x, w, g, e, N, bn, stream);
+}
+
+template <typename H>
+int conv_wgrad_entry(const void* x, const void* dy, void* part, void* dw,
+                     int N, int H_, int W, int C, int Cout, int bn,
+                     int ranges, int jmax, void* stream) {
+  Geo g;
+  if (!geometry(g, N, H_, W, C, Cout, bn, ranges) || jmax <= 0)
+    return (int)cudaErrorInvalidValue;
+  g.part = static_cast<float*>(part);
+  g.dw = static_cast<float*>(dw);
+  g.jmax = jmax;
+  g.nch = (g.M + BK - 1) / BK;
+  const long long tiles = (long long)((g.slabs + 1) / 2) * g.tiles_n;
+  g.total = tiles * g.nch;
+  if (tiles > 65535 || ranges > g.total) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  const cuuint64_t ddims[2] = {(cuuint64_t)Cout, (cuuint64_t)g.M};
+  int err = encode_x(&ta, H::kMap, x, N, H_, W, C, BK);
+  if (!err) err = encode_tiled(&tb, H::kMap, dy, 2, ddims);
+  if (err) return err;
+  err = (int)prepare_any<H, Op::kWgrad>(bn, nullptr);
+  if (err) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 rgrid(BM * bn / 4 / 256, (unsigned)tiles);
+  if (bn == 64) {
+    conv_wgrad_wgmma_kernel<H, 64>
+        <<<(unsigned)ranges, kThreads, smem_bytes<Op::kWgrad, 64>(), s>>>(
+            ta, tb, g);
+    conv_wgrad_wgmma_reduce_kernel<64><<<rgrid, 256, 0, s>>>(g);
+  } else {
+    conv_wgrad_wgmma_kernel<H, 128>
+        <<<(unsigned)ranges, kThreads, smem_bytes<Op::kWgrad, 128>(), s>>>(
+            ta, tb, g);
+    conv_wgrad_wgmma_reduce_kernel<128><<<rgrid, 256, 0, s>>>(g);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The blocks of an operation's main kernel on H that fit an SM.
+template <typename H, Op OP>
+int blocks_per_sm(int bn, int vec, int* out) {
+  if ((bn != 64 && bn != 128) || vec != 1) return (int)cudaErrorInvalidValue;
+  return (int)prepare_any<H, OP>(bn, out);
 }
 
 }  // namespace
 
-// Blocks of conv3x3_wgmma_kernel<bn> that fit an SM of the current device,
-// into *out (the host cuts the work into 132 x this many ranges); vec must
-// be 1 (the kernel takes only C % 8 == 0, Cout % 8 == 0, aligned tensors).
+// Blocks of conv3x3_wgmma_kernel<BF16, bn> that fit an SM of the current
+// device, into *out (the host cuts the work into 132 x this many ranges);
+// vec must be 1 (the kernel takes only C % 8 == 0, Cout % 8 == 0, aligned
+// tensors).  The same for the other operations, and with _f16 for the
+// fp16 instances.
 extern "C" int mxt_conv3x3_wgmma_blocks_per_sm(int bn, int vec, int* out) {
-  if ((bn != 64 && bn != 128) || vec != 1) return (int)cudaErrorInvalidValue;
-  return (int)prepare_any<Op::kConv>(bn, out);
+  return blocks_per_sm<BF16, Op::kConv>(bn, vec, out);
 }
 
 extern "C" int mxt_conv_wgrad_wgmma_blocks_per_sm(int bn, int vec,
                                                   int* out) {
-  if ((bn != 64 && bn != 128) || vec != 1) return (int)cudaErrorInvalidValue;
-  return (int)prepare_any<Op::kWgrad>(bn, out);
+  return blocks_per_sm<BF16, Op::kWgrad>(bn, vec, out);
 }
 
 extern "C" int mxt_conv_stats_wgmma_blocks_per_sm(int bn, int vec,
                                                   int* out) {
-  if ((bn != 64 && bn != 128) || vec != 1) return (int)cudaErrorInvalidValue;
-  return (int)prepare_any<Op::kStats>(bn, out);
+  return blocks_per_sm<BF16, Op::kStats>(bn, vec, out);
 }
 
 extern "C" int mxt_conv_affine_wgmma_blocks_per_sm(int bn, int vec,
                                                    int* out) {
-  if ((bn != 64 && bn != 128) || vec != 1) return (int)cudaErrorInvalidValue;
-  return (int)prepare_any<Op::kAffine>(bn, out);
+  return blocks_per_sm<BF16, Op::kAffine>(bn, vec, out);
+}
+
+extern "C" int mxt_conv3x3_wgmma_f16_blocks_per_sm(int bn, int vec,
+                                                   int* out) {
+  return blocks_per_sm<F16, Op::kConv>(bn, vec, out);
+}
+
+extern "C" int mxt_conv_wgrad_wgmma_f16_blocks_per_sm(int bn, int vec,
+                                                      int* out) {
+  return blocks_per_sm<F16, Op::kWgrad>(bn, vec, out);
+}
+
+extern "C" int mxt_conv_stats_wgmma_f16_blocks_per_sm(int bn, int vec,
+                                                      int* out) {
+  return blocks_per_sm<F16, Op::kStats>(bn, vec, out);
+}
+
+extern "C" int mxt_conv_affine_wgmma_f16_blocks_per_sm(int bn, int vec,
+                                                       int* out) {
+  return blocks_per_sm<F16, Op::kAffine>(bn, vec, out);
 }
 
 // The tensor-map cache's hits, misses and entries since the library was
@@ -1117,73 +1303,73 @@ extern "C" int mxt_wgmma_map_cache_stats(long long* out) {
 // conv_block.py conv3x3_splits, per_sm from
 // mxt_conv3x3_wgmma_blocks_per_sm).  Returns cudaGetLastError() after the
 // launches, or 10000 + the CUresult of a tensor-map encoder that failed.
+// The _f16 entries take fp16 where these take bf16, with everything else
+// the same (their plans from the _f16 occupancy entries).
 extern "C" int mxt_conv3x3_wgmma_bf16(const void* x, const void* w,
                                       void* part, void* out, int N, int H,
                                       int W, int C, int Cout, int bn,
                                       int ranges, void* stream) {
-  Geo g;
-  if (!geometry(g, N, H, W, C, Cout, bn, ranges) || !conv_plan(g))
-    return (int)cudaErrorInvalidValue;
-  g.out = static_cast<bf16*>(out);
-  g.part = static_cast<float*>(part);
-  return run_conv<Op::kConv>(x, w, g, Epi{}, N, bn, stream);
+  return conv3x3_entry<BF16>(x, w, part, out, N, H, W, C, Cout, bn, ranges,
+                             stream);
+}
+
+extern "C" int mxt_conv3x3_wgmma_f16(const void* x, const void* w,
+                                     void* part, void* out, int N, int H,
+                                     int W, int C, int Cout, int bn,
+                                     int ranges, void* stream) {
+  return conv3x3_entry<F16>(x, w, part, out, N, H, W, C, Cout, bn, ranges,
+                            stream);
 }
 
 // conv_stats on bf16: z as mxt_conv3x3_wgmma_bf16 computes out, plus
 // tstats (ceil(N*H*W / 128), 2, Cout) fp32 scratch (a row of per-tile
 // sums) and stats (2, Cout) fp32: sum(z) then sum(z^2) per channel, of
 // the fp32 values before z is rounded (as _conv_stats_kernel sums its f32
-// accumulator).  The plan comes from mxt_conv_stats_wgmma_blocks_per_sm.
+// accumulator; on fp16 a z that overflows to inf still adds its finite
+// fp32 value).  The plan comes from mxt_conv_stats_wgmma_blocks_per_sm.
 extern "C" int mxt_conv_stats_wgmma_bf16(const void* x, const void* w,
                                          void* part, void* z, void* tstats,
                                          void* stats, int N, int H, int W,
                                          int C, int Cout, int bn, int ranges,
                                          void* stream) {
-  Geo g;
-  if (!geometry(g, N, H, W, C, Cout, bn, ranges) || !conv_plan(g))
-    return (int)cudaErrorInvalidValue;
-  g.out = static_cast<bf16*>(z);
-  g.part = static_cast<float*>(part);
-  Epi e{};
-  e.tstats = static_cast<float*>(tstats);
-  const int err = run_conv<Op::kStats>(x, w, g, e, N, bn, stream);
-  if (err) return err;
-  const int rows = (g.M + BM - 1) / BM, cols = 2 * Cout;
-  conv_stats_wgmma_sum_kernel<<<(unsigned)(cols / SUM_COLS),
-                                SUM_COLS * SUM_ROWS, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      e.tstats, static_cast<float*>(stats), rows, cols);
-  return (int)cudaGetLastError();
+  return conv_stats_entry<BF16>(x, w, part, z, tstats, stats, N, H, W, C,
+                                Cout, bn, ranges, stream);
+}
+
+extern "C" int mxt_conv_stats_wgmma_f16(const void* x, const void* w,
+                                        void* part, void* z, void* tstats,
+                                        void* stats, int N, int H, int W,
+                                        int C, int Cout, int bn, int ranges,
+                                        void* stream) {
+  return conv_stats_entry<F16>(x, w, part, z, tstats, stats, N, H, W, C,
+                               Cout, bn, ranges, stream);
 }
 
 // conv_affine on bf16: out = act(z * scale + shift (+ res)) with z as
 // mxt_conv3x3_wgmma_bf16 computes it (before its rounding) and the
-// BatchNorm folded in fp32 from gamma, beta, mean, var (Cout,) bf16 and
-// eps; res (N, H, W, Cout) bf16, 16-byte aligned, or null; relu != 0
-// applies the ReLU; one rounding to bf16.  The plan comes from
+// BatchNorm folded in fp32 from gamma, beta, mean, var (Cout,) and eps,
+// each vector bf16 or, where its bit of vf32 is set (1 gamma, 2 beta, 4
+// mean, 8 var), fp32; res (N, H, W, Cout) bf16, 16-byte aligned, or null;
+// relu != 0 applies the ReLU; one rounding to bf16.  The plan comes from
 // mxt_conv_affine_wgmma_blocks_per_sm.
-extern "C" int mxt_conv_affine_wgmma_bf16(const void* x, const void* w,
-                                          const void* gamma,
-                                          const void* beta, const void* mean,
-                                          const void* var, const void* res,
-                                          void* part, void* out, int N, int H,
-                                          int W, int C, int Cout, float eps,
-                                          int relu, int bn, int ranges,
-                                          void* stream) {
-  Geo g;
-  if (!geometry(g, N, H, W, C, Cout, bn, ranges) || !conv_plan(g))
-    return (int)cudaErrorInvalidValue;
-  g.out = static_cast<bf16*>(out);
-  g.part = static_cast<float*>(part);
-  Epi e{};
-  e.gamma = static_cast<const bf16*>(gamma);
-  e.beta = static_cast<const bf16*>(beta);
-  e.mean = static_cast<const bf16*>(mean);
-  e.var = static_cast<const bf16*>(var);
-  e.res = static_cast<const bf16*>(res);
-  e.eps = eps;
-  e.relu = relu;
-  return run_conv<Op::kAffine>(x, w, g, e, N, bn, stream);
+extern "C" int mxt_conv_affine_wgmma_bf16(
+    const void* x, const void* w, const void* gamma, const void* beta,
+    const void* mean, const void* var, const void* res, void* part,
+    void* out, int N, int H, int W, int C, int Cout, float eps, int relu,
+    int vf32, int bn, int ranges, void* stream) {
+  return conv_affine_entry<BF16>(x, w, gamma, beta, mean, var, res, part,
+                                 out, N, H, W, C, Cout, eps, relu, vf32, bn,
+                                 ranges, stream);
+}
+
+extern "C" int mxt_conv_affine_wgmma_f16(
+    const void* x, const void* w, const void* gamma, const void* beta,
+    const void* mean, const void* var, const void* res, void* part,
+    void* out, int N, int H, int W, int C, int Cout, float eps, int relu,
+    int vf32, int bn, int ranges, void* stream) {
+  return conv_affine_entry<F16>(x, w, gamma, beta, mean, var, res, part,
+                                out, N, H, W, C, Cout, eps, relu, vf32, bn,
+                                ranges, stream);
 }
 
 // conv_wgrad on bf16 x (N, H, W, C) and dy (N, H, W, Cout), dw (3, 3, C,
@@ -1198,35 +1384,14 @@ extern "C" int mxt_conv_wgrad_wgmma_bf16(const void* x, const void* dy,
                                          void* part, void* dw, int N, int H,
                                          int W, int C, int Cout, int bn,
                                          int ranges, int jmax, void* stream) {
-  Geo g;
-  if (!geometry(g, N, H, W, C, Cout, bn, ranges) || jmax <= 0)
-    return (int)cudaErrorInvalidValue;
-  g.part = static_cast<float*>(part);
-  g.dw = static_cast<float*>(dw);
-  g.jmax = jmax;
-  g.nch = (g.M + BK - 1) / BK;
-  const long long tiles = (long long)((g.slabs + 1) / 2) * g.tiles_n;
-  g.total = tiles * g.nch;
-  if (tiles > 65535 || ranges > g.total) return (int)cudaErrorInvalidValue;
-  CUtensorMap ta, tb;
-  const cuuint64_t ddims[2] = {(cuuint64_t)Cout, (cuuint64_t)g.M};
-  int err = encode_x(&ta, x, N, H, W, C, BK);
-  if (!err) err = encode_tiled(&tb, dy, 2, ddims);
-  if (err) return err;
-  err = (int)prepare_any<Op::kWgrad>(bn, nullptr);
-  if (err) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 rgrid(BM * bn / 4 / 256, (unsigned)tiles);
-  if (bn == 64) {
-    conv_wgrad_wgmma_kernel<64>
-        <<<(unsigned)ranges, kThreads, smem_bytes<Op::kWgrad, 64>(), s>>>(
-            ta, tb, g);
-    conv_wgrad_wgmma_reduce_kernel<64><<<rgrid, 256, 0, s>>>(g);
-  } else {
-    conv_wgrad_wgmma_kernel<128>
-        <<<(unsigned)ranges, kThreads, smem_bytes<Op::kWgrad, 128>(), s>>>(
-            ta, tb, g);
-    conv_wgrad_wgmma_reduce_kernel<128><<<rgrid, 256, 0, s>>>(g);
-  }
-  return (int)cudaGetLastError();
+  return conv_wgrad_entry<BF16>(x, dy, part, dw, N, H, W, C, Cout, bn,
+                                ranges, jmax, stream);
+}
+
+extern "C" int mxt_conv_wgrad_wgmma_f16(const void* x, const void* dy,
+                                        void* part, void* dw, int N, int H,
+                                        int W, int C, int Cout, int bn,
+                                        int ranges, int jmax, void* stream) {
+  return conv_wgrad_entry<F16>(x, dy, part, dw, N, H, W, C, Cout, bn,
+                               ranges, jmax, stream);
 }

@@ -1,5 +1,5 @@
 // The BatchNorm affine pass of the fused 3x3/s1/p1 conv + BatchNorm (+ add)
-// (+ ReLU) training block, fp32 or bf16, NHWC:
+// (+ ReLU) training block, fp32, bf16 or fp16, NHWC:
 //
 //   bn_affine   out = act(z * scale[c] + shift[c] (+ res)), elementwise.
 //
@@ -26,14 +26,24 @@
 // the store.  8 halves a 16-byte load and store when Cout % 8 == 0 and
 // the bases are aligned, else one element at a time.  Bound: bytes, 2 an
 // element each way (103 MB, 0.0307 ms at (128, 56, 56, 64)).
+//
+// The fp16 instance (the fp16 training slice): the bf16 instance's code
+// on `__half` z, res and out: fp32 arithmetic, one rounding to nearest
+// even at the store (+-inf past 65504, as the reference's cast; fp16
+// subnormals kept), 8 halves a 16-byte access.  Bound as bf16's.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+using mxt_tf32::Half;
 
 template <bool VEC>
 __global__ void __launch_bounds__(256)
@@ -78,33 +88,34 @@ bn_affine_kernel(const float* __restrict__ z, const float* __restrict__ scale,
   }
 }
 
-// 8 bf16 values of a 16-byte word as fp32, and back rounded once each
+// 8 half values (T) of a 16-byte word as fp32, and back rounded once each
+template <typename T>
 __device__ __forceinline__ void unpack8(const uint4& q, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+  const auto* h = reinterpret_cast<const typename Half<T>::T2*>(&q);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const float2 v = __bfloat1622float2(h[k]);
+    const float2 v = Half<T>::wide2(h[k]);
     f[2 * k] = v.x;
     f[2 * k + 1] = v.y;
   }
 }
 
+template <typename T>
 __device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
   uint4 q;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+  auto* h = reinterpret_cast<typename Half<T>::T2*>(&q);
 #pragma unroll
   for (int k = 0; k < 4; ++k)
-    h[k] = __floats2bfloat162_rn(f[2 * k], f[2 * k + 1]);
+    h[k] = Half<T>::narrow2(f[2 * k], f[2 * k + 1]);
   return q;
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(256)
-bn_affine_bf16_kernel(const bf16* __restrict__ z,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ shift,
-                      const bf16* __restrict__ res, bf16* __restrict__ out,
-                      long long total, int Cout, int relu) {
+// The body of the half instances (T bf16 or fp16).
+template <typename T, bool VEC>
+__device__ __forceinline__ void bn_affine_half(
+    const T* __restrict__ z, const float* __restrict__ scale,
+    const float* __restrict__ shift, const T* __restrict__ res,
+    T* __restrict__ out, long long total, int Cout, int relu) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   if constexpr (VEC) {
     const long long n8 = total / 8;
@@ -116,8 +127,8 @@ bn_affine_bf16_kernel(const bf16* __restrict__ z,
          i < n8; i += stride) {
       const int c = (int)(i % cq) * 8;
       float v[8], r[8];
-      unpack8(z8[i], v);
-      if (res) unpack8(r8[i], r);
+      unpack8<T>(z8[i], v);
+      if (res) unpack8<T>(r8[i], r);
       const float4 sc[2] = {*reinterpret_cast<const float4*>(scale + c),
                             *reinterpret_cast<const float4*>(scale + c + 4)};
       const float4 sh[2] = {*reinterpret_cast<const float4*>(shift + c),
@@ -131,18 +142,38 @@ bn_affine_bf16_kernel(const bf16* __restrict__ z,
         if (relu) y = y > 0.f ? y : 0.f;
         v[k] = y;
       }
-      o8[i] = pack8(v);
+      o8[i] = pack8<T>(v);
     }
   } else {
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          i < total; i += stride) {
       const int c = (int)(i % Cout);
-      float y = fmaf(__bfloat162float(z[i]), scale[c], shift[c]);
-      if (res) y += __bfloat162float(res[i]);
+      float y = fmaf(Half<T>::wide(z[i]), scale[c], shift[c]);
+      if (res) y += Half<T>::wide(res[i]);
       if (relu) y = y > 0.f ? y : 0.f;
-      out[i] = __float2bfloat16_rn(y);
+      out[i] = Half<T>::narrow(y);
     }
   }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(256)
+bn_affine_bf16_kernel(const bf16* __restrict__ z,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ shift,
+                      const bf16* __restrict__ res, bf16* __restrict__ out,
+                      long long total, int Cout, int relu) {
+  bn_affine_half<bf16, VEC>(z, scale, shift, res, out, total, Cout, relu);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(256)
+bn_affine_f16_kernel(const f16* __restrict__ z,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ shift,
+                     const f16* __restrict__ res, f16* __restrict__ out,
+                     long long total, int Cout, int relu) {
+  bn_affine_half<f16, VEC>(z, scale, shift, res, out, total, Cout, relu);
 }
 
 // The grid of a launch over `work` items: a thread an item, at most 32
@@ -202,5 +233,29 @@ extern "C" int mxt_bn_affine_bf16(const void* z, const void* scale,
   else
     bn_affine_bf16_kernel<false><<<blocks, 256, 0, s>>>(zi, sc, sh, r, o,
                                                         total, Cout, relu);
+  return (int)cudaGetLastError();
+}
+
+// The same on fp16 z, res and out (scale and shift fp32); vec needs
+// Cout % 8 == 0 and 16-byte aligned bases.
+extern "C" int mxt_bn_affine_f16(const void* z, const void* scale,
+                                 const void* shift, const void* res,
+                                 void* out, long long total, int Cout,
+                                 int relu, int vec, void* stream) {
+  if (total <= 0 || Cout <= 0 || total % Cout != 0)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = grid_of(vec ? total / 8 : total);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const f16* zi = static_cast<const f16*>(z);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+  const f16* r = static_cast<const f16*>(res);
+  f16* o = static_cast<f16*>(out);
+  if (vec)
+    bn_affine_f16_kernel<true><<<blocks, 256, 0, s>>>(zi, sc, sh, r, o,
+                                                      total, Cout, relu);
+  else
+    bn_affine_f16_kernel<false><<<blocks, 256, 0, s>>>(zi, sc, sh, r, o,
+                                                       total, Cout, relu);
   return (int)cudaGetLastError();
 }

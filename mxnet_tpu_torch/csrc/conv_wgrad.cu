@@ -70,8 +70,16 @@
 // IEEE adds as there.  Bound at (128, 56, 56, 64 -> 64): 29.6 GFLOP,
 // 0.0299 ms at the 989 TFLOP/s dense bf16 peak; 103 MB, 0.0307 ms at 3.35
 // TB/s: bytes bind, barely.
+//
+// The fp16 instance (the fp16 training slice): the bf16 instance's code
+// on `__half` x and dy, each step one
+// `mma.sync.m16n8k16.row.col.f32.f16.f16.f32` product on the same
+// ldmatrix.trans fragments, exact in fp32; dW fp32.  The path's fp16
+// shapes take conv_bf16_wgmma.cu's fp16 instance; this one the rest (C =
+// 20, say).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -92,8 +100,9 @@ constexpr int kThreads = 256;  // 8 warps: 4 along k x 2 along co
 constexpr int LDA = BM + 8;    // ring row strides in elements
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
-// T: the storage type of x and dy, fp32 or bf16
+// T: the storage type of x and dy, fp32, bf16 or fp16
 template <int BN, typename T = float>
 struct Ring {
   T a[STAGES][BK][LDA];          // x patches: pixel rows, k contiguous
@@ -304,15 +313,16 @@ __device__ __forceinline__ void mma_chunk(const Ring<BN>& s, int st,
         acc[mi][ni][e] = __fadd_rn(acc[mi][ni][e], run[mi][ni][e]);
 }
 
-// The bf16 instance of mma_chunk: the chunk's two 16-pixel steps, each
-// one bf16 product a fragment pair, gathered in the run accumulator and
-// added with IEEE adds.  Lane l reads row l % 8 of matrix l / 8 of each
-// ldmatrix.trans: A's matrices are (pixels ks .. + 7, k rows r .. + 7),
-// (ks .., r + 8 ..), (ks + 8 .., r ..), (ks + 8 .., r + 8 ..), its four
-// registers in the fragment's order; B's are (ks .., channels of n-step
-// j), (ks + 8 .., j), (ks .., j + 1), (ks + 8 .., j + 1): two fragments.
-template <int BN>
-__device__ __forceinline__ void mma_chunk(const Ring<BN, bf16>& s, int st,
+// The half instances of mma_chunk (T bf16 or fp16): the chunk's two
+// 16-pixel steps, each one half product a fragment pair, gathered in the
+// run accumulator and added with IEEE adds.  Lane l reads row l % 8 of
+// matrix l / 8 of each ldmatrix.trans: A's matrices are (pixels ks .. +
+// 7, k rows r .. + 7), (ks .., r + 8 ..), (ks + 8 .., r ..), (ks + 8 ..,
+// r + 8 ..), its four registers in the fragment's order; B's are (ks ..,
+// channels of n-step j), (ks + 8 .., j), (ks .., j + 1), (ks + 8 .., j +
+// 1): two fragments.
+template <int BN, typename T>
+__device__ __forceinline__ void mma_chunk(const Ring<BN, T>& s, int st,
                                           int wk, int wn, int g, int t,
                                           float (&acc)[2][BN / 16][4]) {
   float run[2][BN / 16][4];
@@ -338,8 +348,8 @@ __device__ __forceinline__ void mma_chunk(const Ring<BN, bf16>& s, int st,
                             [wn * (BN / 2) + (j + (mat >> 1)) * 8]);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
-        mma_bf16(run[mi][j], af[mi], bf);
-        mma_bf16(run[mi][j + 1], af[mi], bf + 2);
+        Half<T>::mma(run[mi][j], af[mi], bf);
+        Half<T>::mma(run[mi][j + 1], af[mi], bf + 2);
       }
     }
   }
@@ -434,12 +444,20 @@ conv_wgrad_bf16_kernel(const ArgsT<bf16> a) {
   wgrad_ranges<BN, VEC>(a);
 }
 
+template <int BN, bool VEC>
+__global__ void __launch_bounds__(kThreads, BN == 64 ? 2 : 1)
+conv_wgrad_f16_kernel(const ArgsT<f16> a) {
+  wgrad_ranges<BN, VEC>(a);
+}
+
 template <int BN, bool VEC, typename T>
 auto main_kernel() {
   if constexpr (std::is_same_v<T, float>)
     return conv_wgrad_kernel<BN, VEC>;
-  else
+  else if constexpr (std::is_same_v<T, bf16>)
     return conv_wgrad_bf16_kernel<BN, VEC>;
+  else
+    return conv_wgrad_f16_kernel<BN, VEC>;
 }
 
 // dW of tile blockIdx.y: its slots summed in slot order, 4 values a
@@ -576,4 +594,19 @@ extern "C" int mxt_conv_wgrad_bf16(const void* x, const void* dy,
                                    void* stream) {
   return wgrad_any<bf16>(x, dy, part, dw, N, H, W, C, Cout, bn, ranges,
                          jmax, vec, stream);
+}
+
+// The same for conv_wgrad_f16_kernel<bn, vec>, and conv_wgrad on fp16 x
+// and dy (dw fp32), everything else as mxt_conv_wgrad_bf16.
+extern "C" int mxt_conv_wgrad_f16_blocks_per_sm(int bn, int vec, int* out) {
+  if (bn != 64 && bn != 128) return (int)cudaErrorInvalidValue;
+  return (int)prepare_any<f16>(bn, vec, out);
+}
+
+extern "C" int mxt_conv_wgrad_f16(const void* x, const void* dy, void* part,
+                                  void* dw, int N, int H, int W, int C,
+                                  int Cout, int bn, int ranges, int jmax,
+                                  int vec, void* stream) {
+  return wgrad_any<f16>(x, dy, part, dw, N, H, W, C, Cout, bn, ranges, jmax,
+                        vec, stream);
 }

@@ -1,8 +1,9 @@
 // Device helpers of the tensor-core kernels (conv_wgrad.cu,
 // conv3x3_tc.cu, flash_fwd_tc.cuh): asynchronous copies into shared
 // memory, the hi/lo split of an fp32 value into TF32 parts, the m16n8k8
-// TF32 product, and, for the bf16 instances of the conv kernels, the
-// m16n8k16 bf16 product and the transposing ldmatrix.
+// TF32 product, and, for the bf16 and fp16 instances of the conv kernels,
+// the m16n8k16 bf16 and fp16 products, the half types' conversions
+// (`Half<T>`) and the transposing ldmatrix.
 //
 // 3xTF32 ("fast fp32"): every fp32 operand v is split into TF32 hi and lo,
 // and each product is lo*hi' + hi*lo' + hi*hi', small terms first.  The
@@ -12,6 +13,8 @@
 // accumulator from zero and add it to their sums with IEEE adds.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,6 +79,55 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+
+// The same on fp16 operands (`.f16.f16`, the same fragments): products of
+// fp16 values (11 significant bits each) are exact in fp32 too.
+__device__ __forceinline__ void mma_f16(float* c, const uint32_t* a,
+                                        const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The half types of the conv kernels' bf16 and fp16 instances: the pair
+// type, the raw bits, the widening to fp32, the rounding from it (to
+// nearest even: fp16 overflows to +-inf past 65504 and keeps its
+// subnormals, as a cast of the fp32 value does) and the m16n8k16 product.
+template <typename T>
+struct Half;
+
+template <>
+struct Half<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  using T2 = __nv_bfloat162;
+  __device__ static uint16_t bits(T v) { return __bfloat16_as_ushort(v); }
+  __device__ static float wide(T v) { return __bfloat162float(v); }
+  __device__ static float2 wide2(T2 v) { return __bfloat1622float2(v); }
+  __device__ static T narrow(float v) { return __float2bfloat16_rn(v); }
+  __device__ static T2 narrow2(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+  __device__ static void mma(float* c, const uint32_t* a, const uint32_t* b) {
+    mma_bf16(c, a, b);
+  }
+};
+
+template <>
+struct Half<__half> {
+  using T = __half;
+  using T2 = __half2;
+  __device__ static uint16_t bits(T v) { return __half_as_ushort(v); }
+  __device__ static float wide(T v) { return __half2float(v); }
+  __device__ static float2 wide2(T2 v) { return __half22float2(v); }
+  __device__ static T narrow(float v) { return __float2half_rn(v); }
+  __device__ static T2 narrow2(float a, float b) {
+    return __floats2half2_rn(a, b);
+  }
+  __device__ static void mma(float* c, const uint32_t* a, const uint32_t* b) {
+    mma_f16(c, a, b);
+  }
+};
 
 // Four 8 x 8 matrices of 2-byte values from shared memory, transposed:
 // lane l gives the address of row l % 8 of matrix l / 8 (8 contiguous

@@ -1,9 +1,9 @@
-// Hopper building blocks of the bf16 wgmma conv kernels
+// Hopper building blocks of the bf16 and fp16 wgmma conv kernels
 // (conv_bf16_wgmma.cu): mbarriers, TMA loads (tiled and im2col) that
 // complete on them, wgmma matrix descriptors of 128-byte-swizzled tiles,
-// the m64nNk16 bf16 products, and the driver's tensor-map encoders,
-// reached through the runtime (cudaGetDriverEntryPoint*) so the library
-// links without -lcuda.  Every helper is a single PTX instruction or a
+// the m64nNk16 bf16 and fp16 products, and the driver's tensor-map
+// encoders, reached through the runtime (cudaGetDriverEntryPoint*) so the
+// library links without -lcuda.  Every helper is a single PTX instruction or a
 // wait loop around one; the layouts they assume are stated where the
 // kernels use them.
 #pragma once
@@ -107,13 +107,13 @@ __device__ __forceinline__ void tma_im2col(void* dst, const CUtensorMap* map,
 }
 
 // ---------------------------------------------------------------- wgmma
-// The descriptor of a bf16 tile in shared memory as TMA writes it with
-// 128-byte swizzling: rows of 128 bytes (64 values), the swizzle's 8-row
-// pattern 1024-byte aligned.  K-major (k along the row): `addr` steps 32
-// bytes a 16-deep k step, `sbo` = 1024 (8 rows), `lbo` unused.  MN-major
-// (m or n along the row, k down the rows): `addr` steps 16 rows (2048
-// bytes) a k step, `sbo` = 1024 (the next 8 k rows), `lbo` = the bytes
-// to the next 64 values of m or n.
+// The descriptor of a tile of 2-byte halves in shared memory as TMA
+// writes it with 128-byte swizzling: rows of 128 bytes (64 values), the
+// swizzle's 8-row pattern 1024-byte aligned.  K-major (k along the
+// row): `addr` steps 32 bytes a 16-deep k step, `sbo` = 1024 (8 rows),
+// `lbo` unused.  MN-major (m or n along the row, k down the rows): `addr`
+// steps 16 rows (2048 bytes) a k step, `sbo` = 1024 (the next 8 k rows),
+// `lbo` = the bytes to the next 64 values of m or n.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
@@ -143,65 +143,82 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 // d (64 x N, fp32, N / 2 registers a thread) = (scale_d ? d : 0) + A (64
-// x 16) . B (16 x N), A and B bf16 behind descriptors; TA, TB: 1 where A,
-// B is MN-major.  Thread t of the warpgroup holds rows 16 (t / 32) + (t %
-// 32) / 4 (+ 8) and columns 8 j + 2 (t % 4) (+ 1): d[4 j .. 4 j + 3] =
-// (r, c), (r, c + 1), (r + 8, c), (r + 8, c + 1).
-template <int TA, int TB>
+// x 16) . B (16 x N), A and B 2-byte halves behind descriptors: bf16
+// (`.bf16.bf16`) or, with F16, fp16 (`.f16.f16`), the same shapes and
+// layouts; TA, TB: 1 where A, B is MN-major.  Thread t of the warpgroup
+// holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4)
+// (+ 1): d[4 j .. 4 j + 3] = (r, c), (r, c + 1), (r + 8, c), (r + 8, c +
+// 1).
+#define MXT_WGMMA_N64(TY)                                                   \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+      "%28, %29, %30, %31}, "                                               \
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31])                                            \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
+
+#define MXT_WGMMA_N128(TY)                                                  \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                          \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "                 \
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),    \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),    \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),    \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),    \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),    \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),    \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                  \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
+
+template <int TA, int TB, bool F16>
 __device__ __forceinline__ void mma_n64(float (&d)[32], uint64_t da,
-                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+                                        uint64_t db, int scale_d) {
+  if constexpr (F16)
+    MXT_WGMMA_N64("f16");
+  else
+    MXT_WGMMA_N64("bf16");
 }
 
-template <int TA, int TB>
+template <int TA, int TB, bool F16>
 __device__ __forceinline__ void mma_n128(float (&d)[64], uint64_t da,
-                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+                                         uint64_t db, int scale_d) {
+  if constexpr (F16)
+    MXT_WGMMA_N128("f16");
+  else
+    MXT_WGMMA_N128("bf16");
 }
 
-template <int N, int TA, int TB>
+#undef MXT_WGMMA_N64
+#undef MXT_WGMMA_N128
+
+template <int N, int TA, int TB, bool F16 = false>
 __device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t da,
                                     uint64_t db, int scale_d) {
   if constexpr (N == 64)
-    mma_n64<TA, TB>(d, da, db, scale_d);
+    mma_n64<TA, TB, F16>(d, da, db, scale_d);
   else
-    mma_n128<TA, TB>(d, da, db, scale_d);
+    mma_n128<TA, TB, F16>(d, da, db, scale_d);
 }
 
 // ------------------------------------------------- tensor-map encoders

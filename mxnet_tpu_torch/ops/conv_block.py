@@ -17,24 +17,29 @@ Function that trains through them (≙ ``mxnet_tpu/ops/pallas_block.py``).
   ``_fused_fwd``, ``_fused_bwd``, ``_conv_bwd``, ``_sums``): training
   (batch statistics) and frozen forward, and their backward.
 
-Every kernel has an fp32 and a bf16 instance (the reference's kernels
-take any input dtype and accumulate in f32): bf16 operands are exact
-bf16 products summed in fp32, each output rounded once to bf16; the
-statistics, the affine's scale and shift and dW stay fp32.  On bf16,
-``conv3x3`` (and so the dgrad), ``conv_stats``, ``conv_affine`` and
-``conv_wgrad`` have two instances, chosen by shape before the launch
-(:func:`wgmma_takes`): where C and Cout are multiples of 8 and every
-tensor is 16-byte aligned (every ResNet-50 and Inception-v3 shape), the
-Hopper kernels of ``csrc/conv_bf16_wgmma.cu`` (``wgmma`` products on
-tiles that TMA copies into a ring of stages; the conv with no epilogue,
-a statistics one or a folded-BatchNorm one, and dW); other shapes (C =
-20, say) the ``mma.sync`` instances of ``conv3x3_tc.cu`` and
-``conv_wgrad.cu``.  fp16 raises ``TypeError`` on the card (its instances
-are Queue 1 item 3c); the plain versions take any float dtype, a half
-one widened to fp32 and the result rounded once, as the bf16 instances
-compute it.  ``launches`` counts a wrapper's launches; the four conv
-wrappers, which have two kernels on bf16, count each kernel's in
-``launches_by_instance`` (``fp32``, ``bf16_mma_sync``, ``bf16_wgmma``),
+Every kernel has an fp32, a bf16 and an fp16 instance (the reference's
+kernels take any input dtype and accumulate in f32): half operands are
+exact products summed in fp32, each output rounded once to the
+operands' type (fp16 overflowing to ±inf past 65504 as the reference's
+cast does, its subnormals kept); the statistics, the affine's scale and
+shift and dW stay fp32, and ``conv_affine`` takes each BatchNorm vector
+in x's dtype or in fp32 (a half step keeps its running statistics
+fp32).  On each half type, ``conv3x3`` (and so the dgrad),
+``conv_stats``, ``conv_affine`` and ``conv_wgrad`` have two instances,
+chosen by shape before the launch (:func:`wgmma_takes`): where C and
+Cout are multiples of 8 and every tensor is 16-byte aligned (every
+ResNet-50 and Inception-v3 shape), the Hopper kernels of
+``csrc/conv_bf16_wgmma.cu`` (``wgmma`` products on tiles that TMA copies
+into a ring of stages; the conv with no epilogue, a statistics one or a
+folded-BatchNorm one, and dW); other shapes (C = 20, say) the
+``mma.sync`` instances of ``conv3x3_tc.cu`` and ``conv_wgrad.cu``.
+Other dtypes (float64, integers) raise ``TypeError`` on the card; the
+plain versions take any float dtype, a half one widened to fp32 and the
+result rounded once, as the half instances compute it.  ``launches``
+counts a wrapper's launches; the four conv wrappers, which have two
+kernels on each half type, count each kernel's in
+``launches_by_instance`` (:data:`INSTANCES`: ``fp32``,
+``bf16_mma_sync``, ``bf16_wgmma``, ``fp16_mma_sync``, ``fp16_wgmma``),
 and ``bn_affine`` each dtype's in ``launches_by_dtype``.
 
 See the notes at the top of the ``.cu`` files for bounds and designs.
@@ -70,6 +75,15 @@ __all__ = ["conv_affine", "conv_affine_plain", "fold", "conv3x3",
 
 _count_mu = threading.Lock()
 _HALF = (torch.bfloat16, torch.float16)
+# a half dtype's instance name (launches_by_instance) and the suffix of
+# its C entries
+HALF_NAMES = {torch.bfloat16: "bf16", torch.float16: "fp16"}
+_ENTRY = {torch.bfloat16: "bf16", torch.float16: "f16"}
+# each wgmma operation's C entry and count key by half dtype, made once
+# (these wrappers run on eager paths, where the host's µs are the call's)
+_WGMMA = {(op, dt): (f"mxt_{op}_wgmma_{_ENTRY[dt]}", f"{half}_wgmma")
+          for op in ("conv3x3", "conv_stats", "conv_affine", "conv_wgrad")
+          for dt, half in HALF_NAMES.items()}
 
 
 def _wide(t):
@@ -79,7 +93,8 @@ def _wide(t):
 
 # the kernels behind conv3x3, conv_stats, conv_affine and conv_wgrad, as
 # launches_by_instance names them
-INSTANCES = ("fp32", "bf16_mma_sync", "bf16_wgmma")
+INSTANCES = ("fp32", "bf16_mma_sync", "bf16_wgmma", "fp16_mma_sync",
+             "fp16_wgmma")
 
 
 def _count(fn, key):
@@ -96,7 +111,8 @@ def _count(fn, key):
 def _counted(fn):
     """Give a wrapper its counts: every launch, and each dtype's."""
     fn.launches = 0
-    fn.launches_by_dtype = {torch.float32: 0, torch.bfloat16: 0}
+    fn.launches_by_dtype = {torch.float32: 0, torch.bfloat16: 0,
+                            torch.float16: 0}
     return fn
 
 
@@ -110,13 +126,16 @@ def _instanced(fn):
 
 
 def _card_half(what, x):
-    """True for a bf16 tensor, False for an fp32 one: the two instances
-    of the kernel; raise on any other dtype (fp16: Queue 1 item 3c)."""
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{what}: x must be float32 or bfloat16, got "
-                        f"{x.dtype} (the fp16 instances of the conv "
-                        f"kernels are ROADMAP Queue 1 item 3c)")
-    return x.dtype == torch.bfloat16
+    """The instance of the kernel x's dtype takes: ``"bf16"`` or
+    ``"fp16"`` (:data:`HALF_NAMES`), or None for fp32; raise on any
+    other dtype (float64, integers: no instance takes them)."""
+    if x.dtype == torch.float32:
+        return None
+    half = HALF_NAMES.get(x.dtype)
+    if half is None:
+        raise TypeError(f"{what}: x must be float32, bfloat16 or float16, "
+                        f"got {x.dtype}")
+    return half
 
 
 def fold(gamma, beta, mean, var, eps: float = 1e-5):
@@ -129,11 +148,13 @@ def fold(gamma, beta, mean, var, eps: float = 1e-5):
 def conv_affine_plain(x, w, gamma, beta, mean, var, residual=None,
                       eps: float = 1e-5, relu: bool = True):
     """Plain PyTorch version of the kernel: 3×3/s1/p1 conv of NHWC ``x``
-    with HWIO ``w``, then ``·scale + shift``, ``+ residual``, ReLU.  On
-    bf16 (the kernel's bf16 instance, ≙ ``_conv_affine_kernel`` on bf16
-    operands): everything widened to fp32, where the products of bf16
-    values are exact, the conv in fp32 (the card's TF32 switched off by
-    ``context.exact_fp32``), the same fold, and one rounding to bf16."""
+    with HWIO ``w``, then ``·scale + shift``, ``+ residual``, ReLU.  On a
+    half dtype (the kernel's bf16 and fp16 instances, ≙
+    ``_conv_affine_kernel`` on half operands): everything widened to
+    fp32, where the products of half values are exact, the conv in fp32
+    (the card's TF32 switched off by ``context.exact_fp32``), the same
+    fold from the vectors in either dtype, and one rounding to x's
+    dtype."""
     if x.dtype in _HALF:
         out = conv_affine_plain(
             x.float(), w.float(), gamma, beta, mean, var,
@@ -148,17 +169,18 @@ def conv_affine_plain(x, w, gamma, beta, mean, var, residual=None,
     return torch.relu(y) if relu else y
 
 
-def _same(what, x, named, dtype=torch.float32):
-    """Every tensor of ``named`` on x's device, of ``dtype`` and
-    contiguous."""
+def _same(what, x, named, dtype=torch.float32, also=None):
+    """Every tensor of ``named`` on x's device, of ``dtype`` (or of
+    ``also``) and contiguous."""
     dev = x.device
     for name, t in named:
         if t.device != dev:
             raise ValueError(f"{what}: {name} is on {t.device}, x on "
                              f"{dev}")
-        if t.dtype != dtype:
+        if t.dtype != dtype and t.dtype != also:
             raise TypeError(f"{what}: {name} must be "
-                            f"{str(dtype).rpartition('.')[2]}, got "
+                            f"{str(dtype).rpartition('.')[2]}"
+                            f"{' or float32' if also else ''}, got "
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous "
@@ -166,8 +188,9 @@ def _same(what, x, named, dtype=torch.float32):
 
 
 def _check(x, w, vecs, residual, what="conv_affine", dtype=torch.float32):
-    """Refuse what the kernel does not take (every tensor of ``dtype``);
-    → (N, H, W, C, Cout)."""
+    """Refuse what the kernel does not take (every tensor of ``dtype``;
+    each BatchNorm vector of ``vecs`` of ``dtype`` or fp32); → (N, H, W,
+    C, Cout)."""
     if x.dim() != 4:
         raise ValueError(f"{what}: x must be NHWC, got {tuple(x.shape)}")
     N, H, W, C = x.shape
@@ -175,7 +198,7 @@ def _check(x, w, vecs, residual, what="conv_affine", dtype=torch.float32):
         raise ValueError(f"{what}: w must be (3, 3, {C}, Cout) HWIO, "
                          f"got {tuple(w.shape)}")
     Cout = w.shape[3]
-    named = [("x", x), ("w", w)] + list(vecs)
+    named = [("x", x), ("w", w), *vecs]
     if residual is not None:
         if tuple(residual.shape) != (N, H, W, Cout):
             raise ValueError(f"{what}: residual must be "
@@ -186,7 +209,14 @@ def _check(x, w, vecs, residual, what="conv_affine", dtype=torch.float32):
         if tuple(t.shape) != (Cout,):
             raise ValueError(f"{what}: {name} must be ({Cout},), got "
                              f"{tuple(t.shape)}")
-    _same(what, x, named, dtype)
+    if dtype is torch.float32:
+        _same(what, x, named, dtype)
+    else:
+        _same(what, x, named, dtype, torch.float32)
+        strict = [("w", w)] + ([("residual", residual)] if residual is not
+                               None and residual.dtype is not dtype else [])
+        if w.dtype is not dtype or len(strict) > 1:
+            _same(what, x, strict, dtype)   # only the vectors may be fp32
     return N, H, W, C, Cout
 
 
@@ -207,13 +237,14 @@ WGMMA_SLAB = 64     # channels a TMA box of the wgmma kernels holds (128 B)
 
 
 def wgmma_takes(C, Cout, *tensors):
-    """True where a bf16 ``conv3x3``, ``conv_stats``, ``conv_affine`` or
+    """True where a half ``conv3x3``, ``conv_stats``, ``conv_affine`` or
     ``conv_wgrad`` of ``C`` input and ``Cout`` output channels on
     ``tensors`` (their images, weights, outputs and residual) launches the
     ``wgmma`` kernels of ``csrc/conv_bf16_wgmma.cu``: TMA wants 16-byte
-    strides (C % 8 == 0, Cout % 8 == 0) and 16-byte aligned bases.
-    Decided from the shapes and pointers before the launch; the other
-    bf16 shapes launch the ``mma.sync`` instances."""
+    strides (C % 8 == 0, Cout % 8 == 0) and 16-byte aligned bases; the
+    same on bf16 and fp16.  Decided from the shapes and pointers before
+    the launch; the other half shapes launch the ``mma.sync``
+    instances."""
     return C % 8 == 0 and Cout % 8 == 0 and _aligned(*tensors)
 
 
@@ -345,16 +376,17 @@ def _per_sm(entry, index, bn, vec):
 @_instanced
 def conv3x3(x, w):
     """3×3/s1/p1 conv with no epilogue, ``x`` (N, H, W, C) and ``w``
-    (3, 3, C, Cout) contiguous, both fp32 or both bf16: an implicit GEMM
-    on the tensor cores, its work cut into one wave of ranges
-    (:func:`conv3x3_splits`, at the instance's own occupancy) whose cut
-    tiles are summed in a fixed order.  fp32: 3×TF32, fp32-accurate
-    (``csrc/conv3x3_tc.cu``).  bf16: exact bf16 products, fp32 sums, one
-    rounding at the store; where :func:`wgmma_takes` the shape (C and
-    Cout multiples of 8, 16-byte aligned tensors) the ``wgmma`` kernel of
-    ``csrc/conv_bf16_wgmma.cu`` (x by TMA im2col loads, chunks of one
-    tap's 64-channel slab), else the ``mma.sync`` instance of
-    ``conv3x3_tc.cu``.  CPU tensors take :func:`conv3x3_plain`."""
+    (3, 3, C, Cout) contiguous, both fp32, both bf16 or both fp16: an
+    implicit GEMM on the tensor cores, its work cut into one wave of
+    ranges (:func:`conv3x3_splits`, at the instance's own occupancy)
+    whose cut tiles are summed in a fixed order.  fp32: 3×TF32,
+    fp32-accurate (``csrc/conv3x3_tc.cu``).  bf16 and fp16: exact half
+    products, fp32 sums, one rounding at the store; where
+    :func:`wgmma_takes` the shape (C and Cout multiples of 8, 16-byte
+    aligned tensors) the ``wgmma`` kernel of ``csrc/conv_bf16_wgmma.cu``
+    (x by TMA im2col loads, chunks of one tap's 64-channel slab), else
+    the ``mma.sync`` instance of ``conv3x3_tc.cu``.  CPU tensors take
+    :func:`conv3x3_plain`."""
     if not _on_card("conv3x3", x):
         return conv3x3_plain(x, w)
     half = _card_half("conv3x3", x)
@@ -367,57 +399,80 @@ def conv3x3(x, w):
     return _conv3x3_tc(x, w, out)
 
 
+def _wgmma_per_sm(op, index, bn, dtype):
+    """Blocks of the ``wgmma`` kernel of ``op`` on half ``dtype`` an SM of
+    card ``index`` holds (``mxt_<op>_wgmma[_f16]_blocks_per_sm``)."""
+    f16 = "_f16" if dtype == torch.float16 else ""
+    return _per_sm(f"mxt_{op}_wgmma{f16}_blocks_per_sm", index, bn, 1)
+
+
 @functools.lru_cache(maxsize=256)
-def _wgmma_conv_plan(op, index, M, C, Cout):
+def _wgmma_conv_plan(op, index, M, C, Cout, dtype=torch.bfloat16):
     """The plan of the ``wgmma`` conv kernel ``op`` (``conv3x3``,
-    ``conv_stats``, ``conv_affine``) for ``M`` pixels on card ``index``:
-    :func:`conv3x3_splits` with chunks of one tap's 64-channel slab, at
-    the kernel's own occupancy (its ``mxt_<op>_wgmma_blocks_per_sm``)."""
+    ``conv_stats``, ``conv_affine``) on half ``dtype`` for ``M`` pixels on
+    card ``index``: :func:`conv3x3_splits` with chunks of one tap's
+    64-channel slab, at the kernel's own occupancy
+    (:func:`_wgmma_per_sm`)."""
     bn = wgrad_tile_cols(Cout)
     return conv3x3_splits(M, 9 * WGMMA_SLAB * _slabs(C), Cout,
                           _sm_count(index),
-                          _per_sm(f"mxt_{op}_wgmma_blocks_per_sm", index,
-                                  bn, 1), chunk=WGMMA_SLAB)
+                          _wgmma_per_sm(op, index, bn, dtype),
+                          chunk=WGMMA_SLAB)
 
 
 def _conv3x3_wgmma(x, w, out):
-    """Launch ``csrc/conv_bf16_wgmma.cu``'s conv3x3 into ``out``."""
+    """Launch ``csrc/conv_bf16_wgmma.cu``'s conv3x3 (x's half type) into
+    ``out``."""
     N, H, W, C = x.shape
     Cout = w.shape[3]
-    plan = _wgmma_conv_plan("conv3x3", x.device.index, N * H * W, C, Cout)
+    dt = x.dtype
+    plan = _wgmma_conv_plan("conv3x3", x.device.index, N * H * W, C, Cout,
+                            dt)
     with _device(x.device):
         part = _part(x.device, (2 * plan.ranges, CONV_ROWS, plan.bn))
-        err = _build.lib().mxt_conv3x3_wgmma_bf16(
+        entry, key = _WGMMA["conv3x3", dt]
+        err = getattr(_build.lib(), entry)(
             x.data_ptr(), w.data_ptr(), part.data_ptr(), out.data_ptr(),
             N, H, W, C, Cout, plan.bn, plan.ranges, _raw_stream(x.device))
     _build.check(err, "conv3x3")
-    _count(conv3x3, "bf16_wgmma")
+    _count(conv3x3, key)
     return out
 
 
+def _tc_instance(x, fp32_entry, entry, C, Cout, *tensors):
+    """The ``mma.sync`` (or fp32) instance x's dtype takes: → (its C
+    entry, ``fp32_entry`` or ``entry`` with the half type's suffix for
+    ``{}``; its count key; ``vec``, 1 where C and Cout are multiples of
+    the values a 16-byte copy moves and ``tensors`` are aligned)."""
+    if x.dtype == torch.float32:
+        key, name, wide = "fp32", fp32_entry, 4
+    else:
+        key = HALF_NAMES[x.dtype] + "_mma_sync"
+        name, wide = entry.format(_ENTRY[x.dtype]), 8
+    return name, key, int(C % wide == 0 and Cout % wide == 0 and
+                          _aligned(*tensors))
+
+
 def _conv3x3_tc(x, w, out):
-    """Launch ``csrc/conv3x3_tc.cu``'s conv3x3 (fp32, or bf16 on
+    """Launch ``csrc/conv3x3_tc.cu``'s conv3x3 (fp32, or a half type on
     ``mma.sync``) into ``out``."""
     N, H, W, C = x.shape
     Cout = w.shape[3]
-    half = x.dtype == torch.bfloat16
-    wide = 8 if half else 4             # channels a 16-byte copy moves
-    vec = int(C % wide == 0 and Cout % wide == 0 and _aligned(x, w, out))
+    entry, key, vec = _tc_instance(x, "mxt_conv3x3_tc_f32",
+                                   "mxt_conv3x3_tc_{}", C, Cout, x, w, out)
+    per_sm = ("mxt_conv3x3_tc_blocks_per_sm" if key == "fp32" else
+              f"mxt_conv3x3_{_ENTRY[x.dtype]}_blocks_per_sm")
     index = x.device.index
     plan = conv3x3_splits(N * H * W, 9 * C, Cout, _sm_count(index),
-                          _per_sm("mxt_conv3x3_bf16_blocks_per_sm" if half
-                                  else "mxt_conv3x3_tc_blocks_per_sm",
-                                  index, wgrad_tile_cols(Cout), vec))
+                          _per_sm(per_sm, index, wgrad_tile_cols(Cout), vec))
     part = torch.empty((2 * plan.ranges, CONV_ROWS, plan.bn),
                        device=x.device, dtype=torch.float32)
-    lib = _build.lib()
-    entry = lib.mxt_conv3x3_tc_bf16 if half else lib.mxt_conv3x3_tc_f32
     with torch.cuda.device(x.device):
-        err = entry(
+        err = getattr(_build.lib(), entry)(
             x.data_ptr(), w.data_ptr(), part.data_ptr(), out.data_ptr(),
             N, H, W, C, Cout, plan.bn, plan.ranges, vec, _stream(x.device))
     _build.check(err, "conv3x3")
-    _count(conv3x3, "bf16_mma_sync" if half else "fp32")
+    _count(conv3x3, key)
     return out
 
 
@@ -489,13 +544,14 @@ def tile_writers(plan):
 def conv_stats(x, w):
     """``(z, Σz, Σz²)``: the conv of :func:`conv3x3`, on the same
     tensor-core loop with a statistics epilogue, and its per-channel sums
-    (f32, (Cout,) each) read off the fp32 accumulator (bf16: before z is
-    rounded to bf16): per 128-pixel tile in a fixed order, then over the
-    tiles in a fixed order, so the three are the same on every run
-    (:func:`tile_writers` names the kernel that sums each tile).  fp32:
-    ``csrc/conv3x3_tc.cu``'s 3×TF32 loop.  bf16: where :func:`wgmma_takes`
-    the shape, the ``wgmma`` kernel of ``csrc/conv_bf16_wgmma.cu``, else
-    the ``mma.sync`` instance of ``conv3x3_tc.cu``.  Its plan is
+    (f32, (Cout,) each) read off the fp32 accumulator (bf16, fp16: before
+    z is rounded, so an fp16 z past 65504 is inf and its sums finite):
+    per 128-pixel tile in a fixed order, then over the tiles in a fixed
+    order, so the three are the same on every run (:func:`tile_writers`
+    names the kernel that sums each tile).  fp32: ``csrc/conv3x3_tc.cu``'s
+    3×TF32 loop.  bf16 and fp16: where :func:`wgmma_takes` the shape, the
+    ``wgmma`` kernel of ``csrc/conv_bf16_wgmma.cu``, else the ``mma.sync``
+    instance of ``conv3x3_tc.cu``.  Its plan is
     :func:`conv3x3_splits` at the occupancy of the statistics instance;
     where that equals ``conv3x3``'s plan, z is ``conv3x3(x, w)`` bit for
     bit.  CPU tensors take :func:`conv_stats_plain`."""
@@ -518,49 +574,48 @@ def conv_stats(x, w):
 
 
 def _conv_stats_wgmma(x, w, z, stats):
-    """Launch ``csrc/conv_bf16_wgmma.cu``'s conv_stats into ``z`` and
-    ``stats``; its per-tile sums (``tstats``) follow the partial sums in
-    the scratch."""
+    """Launch ``csrc/conv_bf16_wgmma.cu``'s conv_stats (x's half type)
+    into ``z`` and ``stats``; its per-tile sums (``tstats``) follow the
+    partial sums in the scratch."""
     N, H, W, C = x.shape
     Cout = w.shape[3]
+    dt = x.dtype
     plan = _wgmma_conv_plan("conv_stats", x.device.index, N * H * W, C,
-                            Cout)
+                            Cout, dt)
     slots = 2 * plan.ranges * CONV_ROWS * plan.bn
     with _device(x.device):
         part = _part(x.device, (slots + -(-(N * H * W) // CONV_ROWS) * 2 *
                                 Cout,))
-        err = _build.lib().mxt_conv_stats_wgmma_bf16(
+        entry, key = _WGMMA["conv_stats", dt]
+        err = getattr(_build.lib(), entry)(
             x.data_ptr(), w.data_ptr(), part.data_ptr(), z.data_ptr(),
             part.data_ptr() + 4 * slots, stats.data_ptr(), N, H, W, C, Cout,
             plan.bn, plan.ranges, _raw_stream(x.device))
     _build.check(err, "conv_stats")
-    _count(conv_stats, "bf16_wgmma")
+    _count(conv_stats, key)
 
 
 def _conv_stats_tc(x, w, z, tstats, stats):
-    """Launch ``csrc/conv3x3_tc.cu``'s conv_stats (fp32, or bf16 on
-    ``mma.sync``) into ``z``, ``tstats`` and ``stats``."""
+    """Launch ``csrc/conv3x3_tc.cu``'s conv_stats (fp32, or a half type
+    on ``mma.sync``) into ``z``, ``tstats`` and ``stats``."""
     N, H, W, C = x.shape
     Cout = w.shape[3]
-    half = x.dtype == torch.bfloat16
-    wide = 8 if half else 4
-    vec = int(C % wide == 0 and Cout % wide == 0 and _aligned(x, w, z))
+    entry, key, vec = _tc_instance(x, "mxt_conv_stats_tc_f32",
+                                   "mxt_conv_stats_tc_{}", C, Cout, x, w, z)
+    per_sm = ("mxt_conv_stats_tc_blocks_per_sm" if key == "fp32" else
+              f"mxt_conv_stats_{_ENTRY[x.dtype]}_blocks_per_sm")
     index = x.device.index
     plan = conv3x3_splits(N * H * W, 9 * C, Cout, _sm_count(index),
-                          _per_sm("mxt_conv_stats_bf16_blocks_per_sm" if half
-                                  else "mxt_conv_stats_tc_blocks_per_sm",
-                                  index, wgrad_tile_cols(Cout), vec))
+                          _per_sm(per_sm, index, wgrad_tile_cols(Cout), vec))
     part = torch.empty((2 * plan.ranges, CONV_ROWS, plan.bn),
                        device=x.device, dtype=torch.float32)
-    lib = _build.lib()
-    entry = lib.mxt_conv_stats_tc_bf16 if half else lib.mxt_conv_stats_tc_f32
     with torch.cuda.device(x.device):
-        err = entry(
+        err = getattr(_build.lib(), entry)(
             x.data_ptr(), w.data_ptr(), part.data_ptr(), z.data_ptr(),
             tstats.data_ptr(), stats.data_ptr(), N, H, W, C, Cout, plan.bn,
             plan.ranges, vec, _stream(x.device))
     _build.check(err, "conv_stats")
-    _count(conv_stats, "bf16_mma_sync" if half else "fp32")
+    _count(conv_stats, key)
 
 
 @_instanced
@@ -569,18 +624,20 @@ def conv_affine(x, w, gamma, beta, mean, var, residual=None,
     """``act(conv3x3(x, w)·scale + shift (+ residual))`` with the BN
     statistics folded as :func:`fold` does.  ``x`` (N, H, W, C) and
     ``residual`` (N, H, W, Cout) contiguous NHWC, ``w`` contiguous HWIO
-    (3, 3, C, Cout), the four BN vectors (Cout,), all fp32 or all bf16.
-    fp32: the conv of :func:`conv3x3` (3×TF32 on the tensor cores, one
-    wave of ranges at the affine instance's occupancy) with the BN folded
-    and applied to each finished tile before it is written
+    (3, 3, C, Cout), all fp32, all bf16 or all fp16, the four BN vectors
+    (Cout,), each in x's dtype or fp32 (a half training step keeps its
+    running statistics fp32; the fold widens all four as ``_fold``
+    does).  fp32: the conv of :func:`conv3x3` (3×TF32 on the tensor
+    cores, one wave of ranges at the affine instance's occupancy) with
+    the BN folded and applied to each finished tile before it is written
     (:func:`tile_writers` names the kernel that finishes each tile).
-    bf16: exact bf16 products, fp32 sums, the fold, the residual and the
-    ReLU in fp32, one rounding at the store; where :func:`wgmma_takes` the
-    shape (x, w, out and the residual) the ``wgmma`` kernel of
-    ``csrc/conv_bf16_wgmma.cu``, else the ``mma.sync`` instance of
-    ``csrc/conv3x3_tc.cu``, each planned at its own occupancy.  fp16
-    raises ``TypeError`` (Queue 1 item 3c).  CPU tensors take
-    :func:`conv_affine_plain`."""
+    bf16 and fp16: exact half products, fp32 sums, the fold, the residual
+    and the ReLU in fp32, one rounding at the store; where
+    :func:`wgmma_takes` the shape (x, w, out and the residual) the
+    ``wgmma`` kernel of ``csrc/conv_bf16_wgmma.cu``, else the ``mma.sync``
+    instance of ``csrc/conv3x3_tc.cu``, each planned at its own occupancy;
+    each kernel reads every vector in its own dtype (``vf32``, a bit a
+    vector).  CPU tensors take :func:`conv_affine_plain`."""
     if not _on_card("conv_affine", x):
         return conv_affine_plain(x, w, gamma, beta, mean, var, residual,
                                  eps, relu)
@@ -597,59 +654,68 @@ def conv_affine(x, w, gamma, beta, mean, var, residual=None,
     return _conv_affine_tc(x, w, bn, residual, eps, relu, out)
 
 
-def _affine_launch(entry, plan, vec, x, w, bn, residual, eps, relu, out,
-                   part, stream):
+def _vf32(bn):
+    """The bits of the BatchNorm vectors ``bn`` (gamma, beta, mean, var)
+    given in fp32: 1, 2, 4, 8."""
+    f32 = torch.float32
+    return ((bn[0].dtype is f32) | (bn[1].dtype is f32) << 1 |
+            (bn[2].dtype is f32) << 2 | (bn[3].dtype is f32) << 3)
+
+
+def _affine_launch(entry, plan, flags, vec, x, w, bn, residual, eps, relu,
+                   out, part, stream):
     """Call ``entry`` (a conv_affine entry of ``_build``) on ``plan``
     with scratch ``part`` on ``stream``, x's card the current device;
-    ``vec`` is ``(vec,)`` for the ``conv3x3_tc.cu`` entries, ``()`` for
-    the ``wgmma`` one."""
+    ``flags`` is ``(vf32,)`` for a half entry (:func:`_vf32`), ``()``
+    for the fp32 one; ``vec`` is ``(vec,)`` for the ``conv3x3_tc.cu``
+    entries, ``()`` for the ``wgmma`` ones."""
     N, H, W, C = x.shape
     err = getattr(_build.lib(), entry)(
         x.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in bn),
         residual.data_ptr() if residual is not None else None,
         part.data_ptr(), out.data_ptr(), N, H, W, C, w.shape[3],
-        float(eps), int(bool(relu)), plan.bn, plan.ranges, *vec, stream)
+        float(eps), int(bool(relu)), *flags, plan.bn, plan.ranges, *vec,
+        stream)
     _build.check(err, "conv_affine")
 
 
 def _conv_affine_wgmma(x, w, bn, residual, eps, relu, out):
-    """Launch ``csrc/conv_bf16_wgmma.cu``'s conv_affine into ``out``
-    (``bn``: gamma, beta, mean, var)."""
+    """Launch ``csrc/conv_bf16_wgmma.cu``'s conv_affine (x's half type)
+    into ``out`` (``bn``: gamma, beta, mean, var)."""
     N, H, W, C = x.shape
+    dt = x.dtype
     plan = _wgmma_conv_plan("conv_affine", x.device.index, N * H * W, C,
-                            w.shape[3])
+                            w.shape[3], dt)
+    entry, key = _WGMMA["conv_affine", dt]
     with _device(x.device):
-        _affine_launch("mxt_conv_affine_wgmma_bf16", plan, (), x, w, bn,
-                       residual, eps, relu, out,
+        _affine_launch(entry, plan, (_vf32(bn),), (), x, w, bn, residual,
+                       eps, relu, out,
                        _part(x.device, (2 * plan.ranges, CONV_ROWS, plan.bn)),
                        _raw_stream(x.device))
-    _count(conv_affine, "bf16_wgmma")
+    _count(conv_affine, key)
     return out
 
 
 def _conv_affine_tc(x, w, bn, residual, eps, relu, out):
-    """Launch ``csrc/conv3x3_tc.cu``'s conv_affine (fp32, or bf16 on
-    ``mma.sync``) into ``out``."""
+    """Launch ``csrc/conv3x3_tc.cu``'s conv_affine (fp32, or a half type
+    on ``mma.sync``) into ``out``."""
     N, H, W, C = x.shape
     Cout = w.shape[3]
-    half = x.dtype == torch.bfloat16
-    wide = 8 if half else 4             # channels a 16-byte copy moves
-    vec = int(C % wide == 0 and Cout % wide == 0 and
-              _aligned(x, w, out, *([residual] if residual is not None
-                                    else [])))
+    entry, key, vec = _tc_instance(
+        x, "mxt_conv_affine_f32", "mxt_conv_affine_{}", C, Cout, x, w, out,
+        *([residual] if residual is not None else []))
+    per_sm = ("mxt_conv_affine_tc_blocks_per_sm" if key == "fp32" else
+              f"mxt_conv_affine_{_ENTRY[x.dtype]}_blocks_per_sm")
     index = x.device.index
     plan = conv3x3_splits(N * H * W, 9 * C, Cout, _sm_count(index),
-                          _per_sm("mxt_conv_affine_bf16_blocks_per_sm"
-                                  if half else
-                                  "mxt_conv_affine_tc_blocks_per_sm", index,
-                                  wgrad_tile_cols(Cout), vec))
+                          _per_sm(per_sm, index, wgrad_tile_cols(Cout), vec))
     part = torch.empty((2 * plan.ranges, CONV_ROWS, plan.bn),
                        device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
-        _affine_launch("mxt_conv_affine_bf16" if half else
-                       "mxt_conv_affine_f32", plan, (vec,), x, w, bn,
-                       residual, eps, relu, out, part, _stream(x.device))
-    _count(conv_affine, "bf16_mma_sync" if half else "fp32")
+        _affine_launch(entry, plan, () if key == "fp32" else (_vf32(bn),),
+                       (vec,), x, w, bn, residual, eps, relu, out, part,
+                       _stream(x.device))
+    _count(conv_affine, key)
     return out
 
 
@@ -669,9 +735,9 @@ def bn_affine_plain(z, scale, shift, residual=None, relu: bool = True):
 @_counted
 def bn_affine(z, scale, shift, residual=None, relu: bool = True):
     """``act(z·scale + shift (+ residual))`` over the last axis of ``z``
-    (the channels, NHWC): ``z`` and ``residual`` contiguous fp32 or bf16
-    (the arithmetic in fp32, one rounding at a bf16 store), ``scale`` and
-    ``shift`` contiguous fp32 (Cout,).  CUDA tensors launch
+    (the channels, NHWC): ``z`` and ``residual`` contiguous fp32, bf16 or
+    fp16 (the arithmetic in fp32, one rounding at a half store),
+    ``scale`` and ``shift`` contiguous fp32 (Cout,).  CUDA tensors launch
     ``csrc/conv_train.cu``; CPU tensors take :func:`bn_affine_plain`."""
     if not _on_card("bn_affine", z):
         return bn_affine_plain(z, scale, shift, residual, relu)
@@ -699,8 +765,8 @@ def bn_affine(z, scale, shift, residual=None, relu: bool = True):
     wide = 8 if half else 4
     vec = int(Cout % wide == 0 and
               _aligned(out, *(t for _, t in named + vecs)))
-    lib = _build.lib()
-    entry = lib.mxt_bn_affine_bf16 if half else lib.mxt_bn_affine_f32
+    entry = getattr(_build.lib(), "mxt_bn_affine_" +
+                    (_ENTRY[z.dtype] if half else "f32"))
     with torch.cuda.device(z.device):
         err = entry(
             z.data_ptr(), scale.data_ptr(), shift.data_ptr(),
@@ -772,11 +838,12 @@ def wgrad_splits(M, K, Cout, sms, per_sm, chunk=WGRAD_CHUNK):
 @_instanced
 def conv_wgrad(x, dy):
     """dW (3, 3, C, Cout), fp32, of the 3×3/s1/p1 conv from NHWC ``x``
-    (N, H, W, C) and ``dy`` (N, H, W, Cout), contiguous, both fp32 or both
-    bf16: patchesᵀ·dy on the tensor cores, the pixel reduction cut into
-    one wave of ranges whose partial tiles are summed in a fixed order.
-    fp32: 3×TF32, fp32-accurate (``csrc/conv_wgrad.cu``).  bf16: exact
-    bf16 products, fp32 sums; where :func:`wgmma_takes` the shape the
+    (N, H, W, C) and ``dy`` (N, H, W, Cout), contiguous, both fp32, both
+    bf16 or both fp16: patchesᵀ·dy on the tensor cores, the pixel
+    reduction cut into one wave of ranges whose partial tiles are summed
+    in a fixed order.  fp32: 3×TF32, fp32-accurate
+    (``csrc/conv_wgrad.cu``).  bf16 and fp16: exact half products, fp32
+    sums; where :func:`wgmma_takes` the shape the
     ``wgmma`` kernel of ``csrc/conv_bf16_wgmma.cu`` (both operands
     pixel-major as NHWC lays them, read through ``wgmma``'s transpose
     bits; 64-pixel chunks), else the ``mma.sync`` instance of
@@ -804,50 +871,50 @@ def conv_wgrad(x, dy):
 
 
 def _wgrad_wgmma(x, dy, dw):
-    """Launch ``csrc/conv_bf16_wgmma.cu``'s conv_wgrad into ``dw``."""
+    """Launch ``csrc/conv_bf16_wgmma.cu``'s conv_wgrad (x's half type)
+    into ``dw``."""
     N, H, W, C = x.shape
     Cout = dy.shape[3]
     index = x.device.index
-    bn = wgrad_tile_cols(Cout)
+    dt = x.dtype
     plan = wgrad_splits(N * H * W, 9 * WGMMA_SLAB * _slabs(C), Cout,
                         _sm_count(index),
-                        _per_sm("mxt_conv_wgrad_wgmma_blocks_per_sm", index,
-                                bn, 1), chunk=WGMMA_SLAB)
+                        _wgmma_per_sm("conv_wgrad", index,
+                                      wgrad_tile_cols(Cout), dt),
+                        chunk=WGMMA_SLAB)
     with _device(x.device):
         part = _part(x.device, (plan.tiles, plan.jmax, WGRAD_ROWS, plan.bn))
-        err = _build.lib().mxt_conv_wgrad_wgmma_bf16(
+        entry, key = _WGMMA["conv_wgrad", dt]
+        err = getattr(_build.lib(), entry)(
             x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
             N, H, W, C, Cout, plan.bn, plan.ranges, plan.jmax,
             _raw_stream(x.device))
     _build.check(err, "conv_wgrad")
-    _count(conv_wgrad, "bf16_wgmma")
+    _count(conv_wgrad, key)
     return dw
 
 
 def _wgrad_tc(x, dy, dw):
-    """Launch ``csrc/conv_wgrad.cu``'s kernel (fp32, or bf16 on
+    """Launch ``csrc/conv_wgrad.cu``'s kernel (fp32, or a half type on
     ``mma.sync``) into ``dw``."""
     N, H, W, C = x.shape
     Cout = dy.shape[3]
-    half = x.dtype == torch.bfloat16
-    wide = 8 if half else 4
-    vec = int(C % wide == 0 and Cout % wide == 0 and _aligned(x, dy, dw))
+    entry, key, vec = _tc_instance(x, "mxt_conv_wgrad_f32",
+                                   "mxt_conv_wgrad_{}", C, Cout, x, dy, dw)
+    per_sm = ("mxt_conv_wgrad_blocks_per_sm" if key == "fp32" else
+              f"mxt_conv_wgrad_{_ENTRY[x.dtype]}_blocks_per_sm")
     index = x.device.index
     plan = wgrad_splits(N * H * W, 9 * C, Cout, _sm_count(index),
-                        _per_sm("mxt_conv_wgrad_bf16_blocks_per_sm" if half
-                                else "mxt_conv_wgrad_blocks_per_sm", index,
-                                wgrad_tile_cols(Cout), vec))
+                        _per_sm(per_sm, index, wgrad_tile_cols(Cout), vec))
     part = torch.empty((plan.tiles, plan.jmax, WGRAD_ROWS, plan.bn),
                        device=x.device, dtype=torch.float32)
-    lib = _build.lib()
-    entry = lib.mxt_conv_wgrad_bf16 if half else lib.mxt_conv_wgrad_f32
     with torch.cuda.device(x.device):
-        err = entry(
+        err = getattr(_build.lib(), entry)(
             x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
             N, H, W, C, Cout, plan.bn, plan.ranges, plan.jmax, vec,
             _stream(x.device))
     _build.check(err, "conv_wgrad")
-    _count(conv_wgrad, "bf16_mma_sync" if half else "fp32")
+    _count(conv_wgrad, key)
     return dw
 
 
@@ -861,12 +928,14 @@ class _FusedBlock(torch.autograd.Function):
     mask, (Σdy, Σdy·x̂) in fp32 and dz in plain torch, then dx by
     ``conv3x3`` on the rotated weight and dW by ``conv_wgrad``, each cast
     to its input's dtype; frozen mode first recomputes z with
-    ``conv3x3``.  On bf16 every op of the dz chain rounds where the
-    reference's eager ops round: x̂ from μ and 1/σ cast to bf16, the means
-    of the two sums and γ/σ cast to bf16 before they meet dy; dγ and dβ
-    come back in γ's dtype.  On fp32 the casts are no-ops.  Cotangents of
-    the batch statistics are ignored (they feed the running averages
-    only)."""
+    ``conv3x3``.  On bf16 and fp16 every op of the dz chain rounds where
+    the reference's eager ops round: x̂ from μ and 1/σ cast to x's dtype,
+    the means of the two sums and γ/σ cast before they meet dy; dγ and
+    dβ come back in γ's dtype.  On fp32 the casts are no-ops.  Frozen in
+    a half step, μ and σ² are the fp32 running statistics and γ, β the
+    step's half casts: ``conv_affine`` folds the mixed vectors in fp32.
+    Cotangents of the batch statistics are ignored (they feed the running
+    averages only)."""
 
     @staticmethod
     def forward(ctx, x, w, gamma, beta, mean, var, residual, eps, frozen,
@@ -936,8 +1005,8 @@ def residual_block_fused(x, w, gamma, beta, mean, var, residual=None, *,
     (≙ ``pallas_block.residual_block_fused``).  Returns ``(out,
     batch_mean, batch_var)`` in training mode (the biased batch variance)
     and ``(out, mean, var)``, the given statistics, when ``frozen``.
-    ``x``, ``w`` and ``residual`` contiguous NHWC/HWIO, all fp32 or all
-    bf16 (the statistics fp32)."""
+    ``x``, ``w`` and ``residual`` contiguous NHWC/HWIO, all fp32, all
+    bf16 or all fp16 (the statistics fp32)."""
     outs = _FusedBlock.apply(x, w, gamma, beta, mean, var, residual,
                              float(eps), bool(frozen), bool(relu))
     if frozen:

@@ -314,7 +314,7 @@ def convolution(x, weight, bias=None, stride=1, pad=0, dilate=1,
                 groups: int = 1, layout: str = "NHWC"):
     """2-D convolution ≙ Convolution, NHWC × HWIO.  A conv that
     ``pallas_conv.eligible`` takes (3×3, stride 1, pad 1, no dilation, one
-    group, fp32 or bf16, the weight in x's dtype) is
+    group, fp32, bf16 or fp16, the weight in x's dtype) is
     ``pallas_conv.conv3x3_s1``, with the bias added after,
     as the reference routes it: the conv3x3 / conv_wgrad kernels on the
     card, their plain versions on the CPU.  Any other is one ``F.conv2d``
@@ -323,7 +323,11 @@ def convolution(x, weight, bias=None, stride=1, pad=0, dilate=1,
     ``layout="NCHW"`` transposes the activation to NHWC and back, as the
     reference does; the weight stays HWIO.  On bf16 and fp16 the bias is
     added in the dtype after the conv's one rounding, as the reference
-    adds it.  The JAX package's space-to-depth stem rewrite is a TPU
+    adds it.  An fp16 conv on the CPU is the fp32 conv of the widened
+    operands rounded once, forward and backward, as XLA computes one (and
+    cuDNN on the card): torch's own CPU fp16 conv rounds inside its sums,
+    on some builds hundreds of fp16 steps off in a stem's weight
+    gradient.  The JAX package's space-to-depth stem rewrite is a TPU
     layout trick computing the same conv and is not carried over."""
     if layout == "NCHW":
         return _nchw(convolution(_nhwc(x), weight, bias, stride, pad,
@@ -337,8 +341,12 @@ def convolution(x, weight, bias=None, stride=1, pad=0, dilate=1,
     if x.dtype in _HALF and bias is not None:
         return convolution(x, weight, None, stride, pad, dilate,
                            groups) + bias
+    dt = x.dtype
+    if dt == torch.float16 and x.device.type == "cpu":
+        x, weight = x.float(), weight.float()
     return _nhwc(F.conv2d(_nchw(x), weight.permute(3, 2, 0, 1), bias,
-                          _pair(stride), _pair(pad), _pair(dilate), groups))
+                          _pair(stride), _pair(pad), _pair(dilate),
+                          groups)).to(dt)
 
 
 def _transpose_weight(weight, groups):
@@ -612,9 +620,9 @@ def residual_block(x, weight, gamma, beta, running_mean, running_var,
     affine pass; its backward runs dgrad and wgrad).  Frozen
     (``use_global_stats`` or inference) with autograd recording: the same
     Function's frozen branch.  Frozen without gradients: ``conv_affine``
-    alone, with no autograd node.  bf16 takes the kernels' bf16
-    instances on every route (fp16 raises on the card: Queue 1 item 3c;
-    the CPU's plain versions take it).  ``x``, ``weight`` and
+    alone, with no autograd node.  bf16 and fp16 take the kernels' half
+    instances on every route (the BatchNorm vectors in x's dtype or, as
+    a half step keeps its running statistics, fp32).  ``x``, ``weight`` and
     ``residual`` are made contiguous here (a no-op on the path, where the
     producing cuDNN and element-wise calls keep NHWC contiguous), since
     the kernels take contiguous NHWC only."""

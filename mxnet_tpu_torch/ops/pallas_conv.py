@@ -1,6 +1,6 @@
 """The standalone 3×3/s1 convolution (≙ ``mxnet_tpu/ops/pallas_conv.py``):
 a lone conv, with no BatchNorm fused into it, trained through the
-hand-written kernels of ``ops/conv_block``, in fp32 or bf16.
+hand-written kernels of ``ops/conv_block``, in fp32, bf16 or fp16.
 
 ``conv3x3_s1(x, w)`` is the reference's custom-VJP op as an autograd
 Function: the forward is ``conv_block.conv3x3``, the backward
@@ -9,11 +9,12 @@ dW, on the card the kernels of ``csrc/conv3x3_tc.cu`` and
 ``csrc/conv_wgrad.cu`` and on the CPU their plain versions.
 ``ops.nn.convolution`` sends a conv here when :func:`eligible` takes its
 geometry and dtype (ResNet v2's stride-1 bottleneck convs, a user's
-``Conv2D(k, 3, padding=1)``, Inception-v3's ten 3×3/s1 convs, fp32 or
-bf16, as the reference admits bf16).  The reference's VMEM budget and per-stage
-decision table are budgets of the TPU and are not carried over: the
-route is chosen by geometry and dtype alone, and a kernel that fails
-raises.
+``Conv2D(k, 3, padding=1)``, Inception-v3's ten 3×3/s1 convs, the 3×3/s1
+convs of a net under ``amp.init``; fp32, bf16 or fp16, as the
+reference's ``conv3x3_s1`` takes any dtype).  The reference's VMEM
+budget and per-stage decision table are budgets of the TPU and are not
+carried over: the route is chosen by geometry and dtype alone, and a
+kernel that fails raises.
 """
 from __future__ import annotations
 
@@ -32,9 +33,10 @@ def eligible(x_shape, w_shape, stride, pad, dilate, groups,
              dtype=torch.float32) -> bool:
     """The geometry ``conv_block.conv3x3`` computes: an NHWC activation
     and an HWIO 3×3 weight over all of its channels, stride 1, pad 1, no
-    dilation, one group, fp32 or bf16 (the kernels' two instances; fp16
-    stays with cuDNN until Queue 1 item 3c)."""
-    return (dtype in (torch.float32, torch.bfloat16) and groups == 1
+    dilation, one group, fp32, bf16 or fp16 (the kernels' three
+    instances)."""
+    return (dtype in (torch.float32, torch.bfloat16, torch.float16)
+            and groups == 1
             and len(x_shape) == 4 and len(w_shape) == 4
             and tuple(w_shape[:3]) == (3, 3, x_shape[-1])
             and _pair(stride) == (1, 1) and _pair(pad) == (1, 1)

@@ -95,23 +95,26 @@ def kernel_wrappers() -> Dict[str, Callable]:
 
 
 def _counts():
-    """Each wrapper's launches by name, its bf16 instance's (also counted
-    in the former) as ``<name>_bf16`` and, where bf16 has several
-    kernels (the four conv wrappers), each one's as ``<name>_<instance>``
-    (``conv_stats_bf16_wgmma``, ``conv_stats_bf16_mma_sync``;
-    ``<name>_bf16`` is their sum)."""
+    """Each wrapper's launches by name, each half dtype's instance's
+    (also counted in the former) as ``<name>_<half>`` (``_bf16``,
+    ``_fp16``: ``conv_block.HALF_NAMES``, the one table of half dtypes)
+    and, where a half dtype has several kernels (the four conv wrappers),
+    each one's as ``<name>_<half>_<kernel>`` (``conv_stats_fp16_wgmma``,
+    ``conv_stats_fp16_mma_sync``; ``<name>_<half>`` is their sum)."""
+    from ..ops.conv_block import HALF_NAMES
     out = {}
     for n, fn in kernel_wrappers().items():
         out[n] = fn.launches
         by_dtype = getattr(fn, "launches_by_dtype", {})
-        if torch.bfloat16 in by_dtype:
-            out[n + "_bf16"] = by_dtype[torch.bfloat16]
         by_kernel = getattr(fn, "launches_by_instance", {})
-        kernels = {f"{n}_{inst}": k for inst, k in by_kernel.items()
-                   if inst.startswith("bf16_")}
-        if kernels:
-            out[n + "_bf16"] = sum(kernels.values())
-            out.update(kernels)
+        for dt, half in HALF_NAMES.items():
+            if dt in by_dtype:
+                out[f"{n}_{half}"] = by_dtype[dt]
+            kernels = {f"{n}_{inst}": k for inst, k in by_kernel.items()
+                       if inst.startswith(half + "_")}
+            if kernels:
+                out[f"{n}_{half}"] = sum(kernels.values())
+                out.update(kernels)
     return out
 
 
@@ -422,13 +425,14 @@ class FusedTrainStep(_Stats):
     The gradients are of the mean loss; the optimizer's own
     ``rescale_grad`` is left as it is.  The trainable parameters are the
     net's ``nn.Parameter`` s that require grad; the optimizer states are
-    this object's own.  ``dtype`` (``"bfloat16"`` or a torch dtype) runs
-    the step in mixed precision as the module notes say, fp32 master
-    weights updated through the casts; the conv kernels have no fp16
-    instance yet, so ``"float16"`` raises on the card where a net reaches
-    them (Queue 1 item 3c).  ``grad_scale`` multiplies the loss before
-    the backward and divides the gradients after it (the returned loss
-    is unscaled).  ``mesh=`` is not ported and raises;
+    this object's own.  ``dtype`` (``"bfloat16"``, ``"float16"`` or a
+    torch dtype) runs the step in mixed precision as the module notes
+    say, fp32 master weights updated through the casts, the conv kernels'
+    instances of that dtype on the card.  ``grad_scale`` multiplies the
+    loss before the backward and divides the gradients after it (the
+    returned loss is unscaled): a static scale, the reference's only
+    one, which an fp16 step wants so that its small gradients do not
+    underflow.  ``mesh=`` is not ported and raises;
     ``batch_axis`` names the mesh axis of the batch and is accepted for
     the reference's signature."""
 

@@ -326,16 +326,17 @@ def test_bf16_forwards_take_the_half_kernels(monkeypatch):
 
 
 def test_what_stays_refused_below_fp32():
-    """fp16 ``conv_affine`` on the card raises ``TypeError`` naming its
-    queue item (the fp16 instances of the conv kernels, Queue 1 item 3c);
+    """A float64 ``conv_affine`` on the card raises ``TypeError`` naming
+    the dtypes its instances take (fp16, refused here until the fp16
+    training slice, now has its instances: ``test_torch_fp16_kernels``);
     the softmax kernel takes no integer scores; float64 still trains on
     the CPU (the float64 floor of the card checks).  bf16 training
     BatchNorm and a bf16 fused segment under autograd, refused here until
     the bf16 training slice, now run (``test_torch_bf16_train_kernels``)."""
-    x = torch.zeros(1, 4, 4, 8, dtype=torch.float16)
-    w = torch.zeros(3, 3, 8, 8, dtype=torch.float16)
-    v = torch.ones(8, dtype=torch.float16)
-    with pytest.raises(TypeError, match="3c"):
+    x = torch.zeros(1, 4, 4, 8, dtype=torch.float64)
+    w = torch.zeros(3, 3, 8, 8, dtype=torch.float64)
+    v = torch.ones(8, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float16"):
         conv_block.conv_affine(_FakeCuda(x), _FakeCuda(w), *(_FakeCuda(v),)
                                * 4)
     with pytest.raises(TypeError):

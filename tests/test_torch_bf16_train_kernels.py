@@ -294,8 +294,11 @@ def test_lone_bf16_conv_routes_to_kernels_and_matches_reference(
     output, dx and dW (fp32 sums cast to bf16) within one bf16 step."""
     assert pallas_conv.eligible((2, 8, 8, 16), (3, 3, 16, 24), 1, 1, 1, 1,
                                 torch.bfloat16)
+    # fp16 since the fp16 training slice; float64 stays with cuDNN
+    assert pallas_conv.eligible((2, 8, 8, 16), (3, 3, 16, 24), 1, 1, 1, 1,
+                                torch.float16)
     assert not pallas_conv.eligible((2, 8, 8, 16), (3, 3, 16, 24), 1, 1, 1,
-                                    1, torch.float16)
+                                    1, torch.float64)
     calls = []
     real = pallas_conv.conv3x3_s1
     monkeypatch.setattr(pallas_conv, "conv3x3_s1",

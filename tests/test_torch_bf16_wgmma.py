@@ -349,14 +349,17 @@ def test_bf16_wrappers_on_cpu_take_plain_and_match_reference(shape):
 def test_fused_counts_name_each_bf16_kernel():
     """A fused step's counts list each bf16 kernel of ``conv3x3`` and
     ``conv_wgrad`` on its own (``<name>_bf16_wgmma``,
-    ``<name>_bf16_mma_sync``) beside the dtype's sum, and no fp32 key."""
+    ``<name>_bf16_mma_sync``) beside the dtype's sum, and no fp32 key;
+    since the fp16 training slice the fp16 kernels likewise."""
     counts = ptrain._counts()
     for name in ("conv3x3", "conv_wgrad"):
         for key in (name, name + "_bf16", name + "_bf16_wgmma",
-                    name + "_bf16_mma_sync"):
+                    name + "_bf16_mma_sync", name + "_fp16",
+                    name + "_fp16_wgmma", name + "_fp16_mma_sync"):
             assert key in counts, key
         assert name + "_fp32" not in counts
-    assert conv_block.INSTANCES == ("fp32", "bf16_mma_sync", "bf16_wgmma")
+    assert conv_block.INSTANCES == ("fp32", "bf16_mma_sync", "bf16_wgmma",
+                                    "fp16_mma_sync", "fp16_wgmma")
 
 
 @pytest.mark.parametrize("name", ["conv3x3", "conv_wgrad", "conv_stats",

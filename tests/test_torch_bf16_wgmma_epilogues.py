@@ -396,13 +396,46 @@ def test_conv_affine_launches_the_instance_its_shape_takes(
 
 
 def test_fp16_still_raises_on_the_card(card):
-    """fp16 has no instance of either kernel yet (Queue 1 item 3c)."""
+    """What still raises on the card is a dtype no instance takes: fp16,
+    refused here until the fp16 training slice, now reaches the fp16
+    ``wgmma`` entries of both kernels (``test_torch_fp16_kernels`` holds
+    them), and float64 raises ``TypeError`` before any launch."""
     x, w, vecs, _ = _operands(1, 4, 4, 64, 64, torch.float16)
-    with pytest.raises(TypeError, match="3c"):
+    conv_block.conv_stats(x, w)
+    conv_block.conv_affine(x, w, *vecs)
+    assert [c[0] for c in card.calls] == ["mxt_conv_stats_wgmma_f16",
+                                          "mxt_conv_affine_wgmma_f16"]
+    x, w, vecs, _ = _operands(1, 4, 4, 64, 64, torch.float64)
+    with pytest.raises(TypeError, match="float64"):
         conv_block.conv_stats(x, w)
-    with pytest.raises(TypeError, match="3c"):
+    with pytest.raises(TypeError, match="float64"):
         conv_block.conv_affine(x, w, *vecs)
-    assert card.calls == []
+    assert len(card.calls) == 2
+
+
+@pytest.mark.parametrize("fp32_vecs,bits", [
+    ((2, 3), 4 | 8),          # a half step's frozen segment: fp32 mean, var
+    ((0, 1, 2, 3), 15),
+    ((), 0)])
+def test_bf16_conv_affine_takes_fp32_batchnorm_vectors(card, fp32_vecs,
+                                                       bits):
+    """The repair of a frozen segment in a half step: a bf16
+    ``conv_affine`` whose BatchNorm vectors are fp32 (the step keeps its
+    running statistics fp32 while γ and β are cast) reaches the ``wgmma``
+    entry with each vector's dtype passed on (``vf32``, a bit a vector:
+    1 γ, 2 β, 4 μ, 8 σ²) instead of raising, one ``bf16_wgmma`` launch
+    counted; bf16 vectors pass 0, the parent's arguments."""
+    x, w, vecs, _ = _operands(2, 6, 6, 64, 64, torch.bfloat16)
+    vecs = [v.float() if i in fp32_vecs else v for i, v in enumerate(vecs)]
+    before = conv_block.conv_affine.launches_by_instance["bf16_wgmma"]
+    out = conv_block.conv_affine(x, w, *vecs, None, 1e-5, True)
+    (name, args), = card.calls
+    assert name == "mxt_conv_affine_wgmma_bf16"
+    assert len(args) == len(_build._SIGNATURES[name])
+    assert args[16] == bits
+    assert out.dtype == torch.bfloat16
+    assert conv_block.conv_affine.launches_by_instance["bf16_wgmma"] == \
+        before + 1
 
 
 def test_stats_tile_sums_follow_the_partial_sums_in_the_scratch(card):

@@ -92,10 +92,12 @@ def test_conv3x3_fn_takes_a_channels_last_view_and_one_gradient(
     ((2, 8, 8, 16), (3, 3, 16, 8), {"dilate": 2}, torch.float32, False),
     ((2, 8, 8, 16), (3, 3, 8, 8), {"groups": 2}, torch.float32, False),
     ((2, 8, 8, 16), (5, 5, 16, 8), {}, torch.float32, False),
-    ((2, 8, 8, 16), (3, 3, 16, 8), {}, torch.float16, False),
+    ((2, 8, 8, 16), (3, 3, 16, 8), {}, torch.float64, False),
     ((2, 8, 8, 16), (1, 1, 16, 8), {}, torch.float32, False),
-    # bf16 since the bf16 training slice: the kernels' bf16 instances
+    # bf16 since the bf16 training slice, fp16 since the fp16 one: the
+    # kernels' half instances
     ((2, 8, 8, 16), (3, 3, 16, 8), {}, torch.bfloat16, True),
+    ((2, 8, 8, 16), (3, 3, 16, 8), {}, torch.float16, True),
 ])
 def test_eligible_takes_only_the_kernels_geometry(x_shape, w_shape, kw,
                                                   dtype, ok):
