@@ -48,7 +48,11 @@ and ``conv_affine`` kernels (``conv_affine`` on its ``wgmma`` AFFINE
 instance), then bf16 training: ResNet-50 v1 at batch 128
 and Gluon BERT-base at 8 x 512 through ``parallel.FusedTrainStep(dtype=
 "bfloat16")`` on the bf16 instances of ``conv3x3``, ``conv_stats``,
-``bn_affine``, ``conv_wgrad`` and the softmax.  Phases, one JSON line
+``bn_affine``, ``conv_wgrad`` and the softmax, then fp16 training of
+ResNet-50 v1, then Gluon BERT-base training with a row-sparse word
+embedding (``Embedding(sparse_grad=True)``, the Trainer's lazy update)
+and the transformer attention ops of ``ops/attention.py`` at Gluon
+BERT-base and Longformer-base widths.  Phases, one JSON line
 each; the run stops with a non-zero exit at the first phase that fails:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and
@@ -523,6 +527,30 @@ each; the run stops with a non-zero exit at the first phase that fails:
     (64x64, batch 2, damped residual γ, ``grad_scale`` 1024) on the card
     against the port on the CPU: no farther from the CPU's fp16 step
     than that is from the CPU's fp32 step.
+51. ``sparse_train``: Gluon BERT-base masked-LM training at
+    ``fused_bert_train``'s configuration (8 x 512 tokens, fp32, Adam lr
+    1e-4) with the word embedding an ``Embedding(sparse_grad=True)``: 6
+    calls of ``Trainer.fuse_step`` (fallback ``sparse_param``, counted),
+    then 6 of the plain record / backward / ``trainer.step`` loop, on two
+    seeded batches in turns; finite losses, each batch's falling; 12
+    ``softmax_fused`` and 25 ``layernorm_fused`` launches a forward;
+    after every step the untouched rows of the table and of both Adam
+    moments bit for bit, the touched rows bit for bit the dense Adam
+    rule on a copy of those rows, their count beside the 3,834 expected.
+    The eager step sparse against dense in turns, the lazy update alone
+    against the dense update of the 30522 x 768 table (CUDA events, host
+    waits included), and two narrow layers, 3 steps, card against CPU
+    (weights within 2·lr·steps, the same rows touched, the untouched
+    ones bit for bit).
+52. ``attention_ops``: ``ops/attention.py``'s seven ops and the masked
+    softmax pair, forward and backward, card against CPU within 1e-5 of
+    each tensor's largest magnitude: the interleaved ops at Gluon
+    BERT-base width (qkv (512, 8, 12·3·64), a valid-length key mask),
+    ``causal=True`` also in bf16 and fp16 (one step of the dtype or 1e-5
+    of the largest magnitude, fp16's -inf where the CPU's are); the sliding-window ops at Longformer-base
+    width (1 x 4096, 12 heads of 64, w 256, symmetric) and dilated,
+    one-sided at L 1024; ``sldwin_atten_mask_like`` bit for bit; each
+    op's card ms.
 
 Then one ``{"kernels": [...]}`` line (35 entries: the bf16 and fp16
 instances of rows 7, 8, 9, 10 and 11 and the bf16 one of row 1 their
@@ -7065,6 +7093,568 @@ def phase_fp16_train_reference(state):
     return res
 
 
+# ------------------------------------------------- Gluon BERT leftovers
+SPARSE_BERT = dict(batch=8, seq=512, lr=1e-4, vocab=30522)  # FUSED_BERT's
+SPARSE_STEPS = 6            # calls each way: fuse_step, then the plain loop
+SPARSE_TIMED = 4            # eager steps timed each way, in turns
+SPARSE_UPDATE_ITERS = 20
+SPARSE_WORD_EMBED = "encoder.word_embed.weight"
+# the card-vs-CPU check: two narrow layers, the full vocabulary
+SPARSE_REF = dict(units=128, heads=2, layers=2, ffn=512, batch=2, seq=64,
+                  steps=3)
+
+
+def _sparse_word_embed(net):
+    """Rebuild ``net``'s word embedding as ``Embedding(sparse_grad=True)``
+    holding the same table (``bert_gluon`` builds a dense one; the
+    reference's ``Embedding(sparse_grad=True)`` marks its weight
+    ``row_sparse``): → the new weight."""
+    import torch
+    from mxnet_tpu_torch.gluon import nn
+    old = net.encoder.word_embed.weight
+    emb = nn.Embedding(*old.shape, sparse_grad=True)
+    emb.initialize(ctx=old.device)
+    with torch.no_grad():
+        emb.weight.copy_(old)
+    net.encoder.word_embed = emb
+    return emb.weight
+
+
+def _log_sparse_updates(opt):
+    """Wrap ``opt.update`` so each row-sparse update it takes is recorded
+    as (rows, their gradient, the key's count): → the list it fills."""
+    calls = []
+    update = opt.update
+
+    def logged(index, weight, grad, state):
+        t = opt._index_update_count.get(str(index),
+                                        opt.begin_num_update) + 1
+        calls.append((grad.indices.clone(), grad.data.clone(), t))
+        return update(index, weight, grad, state)
+    opt.update = logged
+    return calls
+
+
+def _sparse_check(opt, weight, state, before, call, tokens):
+    """One step of the lazy Adam update against its definition: the rows
+    it did not touch, in the table and in both moments, bit for bit as
+    ``before``; the touched rows bit for bit the port's dense Adam rule
+    run on a copy of just those rows (and their moments) at the key's
+    count; the touched rows a subset of the batch's ids."""
+    import torch
+    rows, g, t = call
+    w0, m0, v0 = before
+    untouched = torch.ones(weight.shape[0], dtype=torch.bool,
+                           device=weight.device)
+    untouched[rows] = False
+    after = (weight.detach(), state["mean"], state["var"])
+    same = all(torch.equal(a[untouched], b[untouched])
+               for a, b in zip(after, before))
+    wr = w0.index_select(0, rows)
+    sr = {"mean": m0.index_select(0, rows), "var": v0.index_select(0, rows)}
+    opt.rule([wr], [g], [sr], opt.control(weight.device, t))
+    rule = all(torch.equal(a.index_select(0, rows), b) for a, b in
+               zip(after, (wr, sr["mean"], sr["var"])))
+    ids = torch.unique(tokens)
+    return {"touched_rows": int(rows.numel()),
+            "batch_ids": int(ids.numel()), "key_count": t,
+            "rows_in_batch": bool(torch.isin(rows, ids).all()),
+            "untouched_bitwise": same, "touched_equal_dense_rule": rule}
+
+
+def _lazy_update_times(opt_name, lr, rescale, weight, grad):
+    """The lazy Adam update of the table alone (mask, ``nonzero``'s wait,
+    gathers, rule, scatter) against the dense Adam update of the whole
+    table, on copies, by a fresh optimizer: ms each, and their bounds
+    (bytes: the dense rule reads w, g, m, v and writes w, m, v; the lazy
+    one reads g once for its mask and reads and writes the touched rows of
+    w, m and v)."""
+    import torch
+    from mxnet_tpu_torch import optimizer as opt_mod
+    from mxnet_tpu_torch.sparse import RowSparseNDArray
+    opt = opt_mod.create(opt_name, learning_rate=lr, rescale_grad=rescale)
+    w = weight.detach().clone()
+    st = opt.create_state("w", w)
+    rs = RowSparseNDArray.from_dense(grad)
+    n, (V, E) = int(rs.indices.numel()), weight.shape
+    it = SPARSE_UPDATE_ITERS
+
+    def marked_ms(fn):
+        """Median CUDA-event ms a call, host waits included (a call that
+        waits for the card leaves it idle while the host queues more)."""
+        ms = sorted(_step_marks(fn, it)[1])
+        return ms[len(ms) // 2]
+
+    out = {
+        "lazy_ms": marked_ms(lambda: opt.update(
+            "w", w, RowSparseNDArray.from_dense(grad), st)),
+        "mask_rows_ms": marked_ms(lambda: RowSparseNDArray.from_dense(grad)),
+        "gather_rule_scatter_ms": cuda_ms(lambda: opt.update("w", w, rs, st),
+                                          iters=it),
+        "dense_ms": cuda_ms(lambda: opt.update("w", w, grad, st), iters=it),
+        "lazy_eager_ms": eager_ms(lambda: opt.update(
+            "w", w, RowSparseNDArray.from_dense(grad), st), iters=it),
+        "dense_eager_ms": eager_ms(lambda: opt.update("w", w, grad, st),
+                                   iters=it),
+        "rows": n, "table": [V, E]}
+    out["dense_bound_ms"] = bound(7 * V * E * 4, 0)[0]
+    out["lazy_bound_ms"] = bound(V * E * 4 + 6 * n * E * 4, 0)[0]
+    out["lazy_over_dense"] = out["lazy_ms"] / out["dense_ms"]
+    return out
+
+
+def _sparse_side(dev, arrays=None):
+    """``SPARSE_REF``'s narrow two-layer Gluon BERT with the sparse word
+    embedding, trained ``steps`` Adam steps on ``dev`` by the plain loop
+    from seeded weights (or ``arrays``): → (weights before, after, the
+    losses, each step's touched rows on the CPU)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon import Trainer, load_numpy
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import bert_gluon
+    c = SPARSE_REF
+    net = bert_gluon.BERTModel(units=c["units"], heads=c["heads"],
+                               layers=c["layers"], ffn_units=c["ffn"],
+                               vocab_size=SPARSE_BERT["vocab"])
+    net.initialize(ctx=dev, seed=SEED)
+    _sparse_word_embed(net)
+    rng = np.random.RandomState(SEED + 24)
+    xs = [torch.as_tensor(rng.randint(0, SPARSE_BERT["vocab"], (
+        c["batch"], c["seq"])).astype(np.int32), device=dev)
+        for _ in range(c["steps"])]
+    with torch.no_grad():
+        net(xs[0])
+    if arrays is not None:
+        load_numpy(net, arrays)
+    before = {k: t.detach().cpu().clone()
+              for k, t in net.collect_params().items()}
+    trainer = Trainer(net.collect_params(), "adam",
+                      {"learning_rate": SPARSE_BERT["lr"]})
+    calls = _log_sparse_updates(trainer.optimizer)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    losses = []
+    for x in xs:
+        with autograd.record():
+            loss = loss_fn(net(x), x)
+        loss.backward(torch.ones_like(loss))
+        trainer.step(c["batch"], ignore_stale_grad=True)
+        losses.append(float(loss.detach().mean()))
+    after = {k: t.detach().cpu() for k, t in net.collect_params().items()}
+    return before, after, losses, [r.cpu() for r, _, _ in calls]
+
+
+def _sparse_reference():
+    """The narrow model's ``steps`` sparse Adam steps on the card against
+    the port on the CPU from the same weights and batches: losses within
+    1e-4 relative, every weight within 2·lr·steps (an Adam step moves an
+    element by up to lr whatever its gradient's size, so a gradient near
+    0 that the two devices round to opposite signs moves it 2·lr apart),
+    the same rows touched each step, and the rows no step touched bit for
+    bit as they started on both."""
+    import torch
+    b_cpu, a_cpu, l_cpu, r_cpu = _sparse_side("cpu")
+    b_card, a_card, l_card, r_card = _sparse_side(
+        "cuda", {k: t.numpy() for k, t in b_cpu.items()})
+    tol = 2 * SPARSE_BERT["lr"] * SPARSE_REF["steps"]
+    diffs = {k: (a_card[k].double() - a_cpu[k].double()).abs().max().item()
+             for k in a_cpu}
+    touched = torch.unique(torch.cat(r_cpu))
+    untouched = torch.ones(a_cpu[SPARSE_WORD_EMBED].shape[0],
+                           dtype=torch.bool)
+    untouched[touched] = False
+    res = {"config": SPARSE_REF, "lr": SPARSE_BERT["lr"],
+           "losses_card": l_card, "losses_cpu": l_cpu,
+           "loss_rel": max(abs(a - b) / abs(b)
+                           for a, b in zip(l_card, l_cpu)),
+           "weights_max_abs_diff": max(diffs.values()),
+           "worst_weight": max(diffs, key=diffs.get),
+           "weights_tol": tol,
+           "rows_touched_cpu": [int(r.numel()) for r in r_cpu],
+           "same_rows": len(r_cpu) == len(r_card) and all(
+               torch.equal(a, b) for a, b in zip(r_cpu, r_card)),
+           "untouched_rows_bitwise": all(
+               torch.equal(side[SPARSE_WORD_EMBED][untouched],
+                           b_cpu[SPARSE_WORD_EMBED][untouched])
+               for side in (a_cpu, a_card))}
+    res["ok"] = (res["loss_rel"] <= 1e-4 and res["weights_max_abs_diff"]
+                 <= tol and res["same_rows"]
+                 and res["untouched_rows_bitwise"])
+    return res
+
+
+def phase_sparse_train(state):
+    """Gluon BERT-base masked-LM training with a row-sparse word
+    embedding: ``FUSED_BERT``'s configuration (``bert_12_768_12``,
+    vocabulary 30522, 8 x 512 tokens, fp32, Adam lr 1e-4,
+    ``SoftmaxCrossEntropyLoss`` over the (8, 512, 30522) logits, each
+    token its own label), the word embedding rebuilt as
+    ``Embedding(sparse_grad=True)``.  From one seeded initialization,
+    ``SPARSE_STEPS`` calls of ``Trainer.fuse_step(loss, net=net)`` (which
+    must fall back as ``sparse_param`` and count it) then as many of the
+    plain ``autograd.record`` / ``backward`` / ``trainer.step`` loop, on
+    two seeded batches in turns (so rows one batch touched and the next
+    did not carry moments the lazy rule must leave alone), each with
+    ``ignore_stale_grad`` (without token types the token-type embedding
+    takes no gradient, and the legacy step would refuse it).  Gates: the
+    fallback and its counter, finite losses, each batch's last loss below
+    its first, exactly 12 ``softmax_fused`` and 25 ``layernorm_fused``
+    launches a forward (fp32), and after every step
+    (:func:`_sparse_check`) the untouched rows of the table and of both
+    moments bit for bit, the touched rows bit for bit the dense Adam rule
+    on a copy of those rows.  Then, timed with CUDA events in one call:
+    the eager step with the sparse embedding against the same step dense
+    (in turns), and the lazy update alone against the dense Adam update
+    of the table (:func:`_lazy_update_times`); and the narrow card-vs-CPU
+    check (:func:`_sparse_reference`)."""
+    import math
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import autograd, telemetry
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import bert_gluon
+    from mxnet_tpu_torch.ops.cuda_kernels import (layernorm_fused,
+                                                  softmax_fused)
+    cfg = SPARSE_BERT
+    B, T, V = cfg["batch"], cfg["seq"], cfg["vocab"]
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = bert_gluon.bert_12_768_12(vocab_size=V)
+    net.initialize(ctx=dev, seed=SEED)
+    weight = _sparse_word_embed(net)
+    net.hybridize()
+    net.train()
+    rng = np.random.RandomState(SEED + 23)
+    batches = [torch.as_tensor(rng.randint(0, V, (B, T)).astype(np.int32),
+                               device=dev) for _ in range(2)]
+    with torch.no_grad():
+        net(batches[0])                 # the deferred shapes
+    trainer = Trainer(net.collect_params(), "adam",
+                      {"learning_rate": cfg["lr"]})
+    opt = trainer.optimizer
+    calls = _log_sparse_updates(opt)
+    loss_fn = SoftmaxCrossEntropyLoss()
+    step = trainer.fuse_step(loss_fn, net=net)
+
+    def plain_step(x):
+        with autograd.record():
+            loss = loss_fn(net(x), x)
+        loss.backward(torch.ones_like(loss))
+        trainer.step(B, ignore_stale_grad=True)
+        return loss.detach().mean()
+
+    c0 = telemetry.raw_snapshot()["counters"]
+    for fn in (softmax_fused, layernorm_fused):
+        fn.launches = 0
+    softmax_fused.launches_by_dtype = dict.fromkeys(
+        softmax_fused.launches_by_dtype, 0)
+    losses, checks = [], []
+    for i in range(2 * SPARSE_STEPS):
+        x = batches[i % 2]
+        st = trainer._states.get(SPARSE_WORD_EMBED)
+        before = (weight.detach().clone(),) + (
+            (st["mean"].clone(), st["var"].clone()) if st else
+            (torch.zeros_like(weight), torch.zeros_like(weight)))
+        loss = step(x, x, ignore_stale_grad=True) if i < SPARSE_STEPS \
+            else plain_step(x)
+        losses.append(float(loss))
+        checks.append(_sparse_check(opt, weight,
+                                    trainer._states[SPARSE_WORD_EMBED],
+                                    before, calls[-1], x))
+        del before
+    launches = {"softmax_fused": softmax_fused.launches,
+                "layernorm_fused": layernorm_fused.launches}
+    fp32_softmax = softmax_fused.launches_by_dtype[torch.float32]
+    c1 = telemetry.raw_snapshot()["counters"]
+    delta = {k: v - c0.get(k, 0) for k, v in c1.items()
+             if k.startswith("fused.") and v != c0.get(k, 0)}
+    forwards = 2 * SPARSE_STEPS
+    want = {"softmax_fused": BERT_SOFTMAXES * forwards,
+            "layernorm_fused": BERT_LAYERNORMS * forwards}
+    state["sparse_launches"] = launches
+    peak = torch.cuda.max_memory_allocated()
+
+    # the eager step sparse against dense, in turns
+    def timed_step(sparse):
+        if sparse:
+            weight.grad_stype = "row_sparse"
+        else:
+            del weight.grad_stype
+        t0 = time.perf_counter()
+        ms = _step_marks(lambda: plain_step(batches[0]), 1)[1][0]
+        wall = (time.perf_counter() - t0) * 1e3
+        weight.grad_stype = "row_sparse"
+        return ms, wall
+
+    times = {"sparse": [], "dense": []}
+    walls = {"sparse": [], "dense": []}
+    for k in range(SPARSE_TIMED):
+        for sparse in ((True, False) if k % 2 == 0 else (False, True)):
+            ms, wall = timed_step(sparse)
+            times["sparse" if sparse else "dense"].append(ms)
+            walls["sparse" if sparse else "dense"].append(wall)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    # one dense gradient of the table, for the update alone
+    with autograd.record():
+        loss = loss_fn(net(batches[1]), batches[1])
+    loss.backward(torch.ones_like(loss))
+    grad = weight.grad.detach().clone()
+    for p in net.collect_params().values():
+        p.grad = None
+    update = _lazy_update_times("adam", cfg["lr"], 1.0 / B, weight, grad)
+    del grad
+    torch.cuda.empty_cache()
+    expected_rows = V * (1 - math.exp(-B * T / V))
+    res = {"model": "bert_12_768_12", "optimizer": "adam", **cfg,
+           "sparse_param": SPARSE_WORD_EMBED,
+           "fallback_reason": step.fallback_reason, "telemetry": delta,
+           "losses": losses, "steps": checks,
+           "touched_rows": [c["touched_rows"] for c in checks],
+           "touched_rows_expected": expected_rows,
+           "touched_share": [c["touched_rows"] / V for c in checks],
+           "launches": launches, "launches_expected": want,
+           "softmax_fp32_launches": fp32_softmax,
+           "eager_step_ms": times, "eager_step_ms_median": med,
+           "eager_step_wall_ms": walls,
+           "sparse_over_dense_step": med["sparse"] / med["dense"],
+           "update": update, "peak_mem_bytes": peak}
+    res["reference"] = _sparse_reference()
+    problems = []
+    if step.fallback_reason != "sparse_param" or \
+            delta.get("fused.fallback.sparse_param") != SPARSE_STEPS:
+        problems.append("no sparse_param fallback counted")
+    if not all(math.isfinite(v) for v in losses):
+        problems.append("a non-finite loss")
+    if not (losses[-2] < losses[0] and losses[-1] < losses[1]):
+        problems.append("a batch's loss did not fall")
+    if launches != want or fp32_softmax != want["softmax_fused"]:
+        problems.append("launches differ from 12 / 25 a forward")
+    bad = [i for i, c in enumerate(checks) if not (
+        c["untouched_bitwise"] and c["touched_equal_dense_rule"]
+        and c["rows_in_batch"])]
+    if bad:
+        problems.append(f"lazy update off its definition at steps {bad}")
+    if not res["reference"]["ok"]:
+        problems.append("card off the CPU")
+    if problems:
+        raise AssertionError(f"{problems}: {res}")
+    return res
+
+
+ATT_TOL = 1e-5      # fp32 card vs CPU: of the tensor's largest magnitude
+ATT_BERT = dict(L=512, B=8, H=12, D=64)              # Gluon BERT-base
+ATT_LONG = dict(B=1, L=4096, H=12, D=64, w=256)      # Longformer-base
+ATT_DILATED = dict(B=1, L=1024, H=12, D=64, w=128,
+                   dilation=(1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4))
+
+
+def _att_inputs(dev, arrays, diff, dtype=None):
+    """numpy ``arrays`` as tensors on ``dev`` (floating ones in ``dtype``
+    when given), those at the positions ``diff`` requiring grad."""
+    import numpy as np
+    import torch
+    out = []
+    for i, a in enumerate(arrays):
+        t = torch.from_numpy(np.asarray(a)).to(dev)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        out.append(t.requires_grad_(i in diff))
+    return out
+
+
+def _att_case(fn, arrays, diff, seed, cpu_fn=None, iters=10):
+    """``fn`` on the card and (``cpu_fn`` or ``fn``) on the port on the
+    CPU from the same numpy ``arrays`` (``diff``: the positions to
+    differentiate), one random cotangent: the largest |card − CPU| of
+    the value and of each gradient over its largest magnitude, and the
+    card's forward and forward + backward ms."""
+    import numpy as np
+    import torch
+    card = _att_inputs("cuda", arrays, diff)
+    out = fn(*card)
+    cot = np.random.RandomState(seed).randn(*out.shape).astype(np.float32)
+    out.backward(torch.from_numpy(cot).cuda())
+    got = [out.detach().cpu()] + [card[i].grad.cpu() for i in diff]
+    if cpu_fn is not None:
+        want = cpu_fn(arrays, cot)
+    else:
+        cpu = _att_inputs("cpu", arrays, diff)
+        o = fn(*cpu)
+        o.backward(torch.from_numpy(cot))
+        want = [o.detach()] + [cpu[i].grad for i in diff]
+    errs = [_rel(g, w) for g, w in zip(got, want)]
+    del out, got, want
+    plain = _att_inputs("cuda", arrays, ())
+    g = torch.from_numpy(cot).cuda()
+
+    def fwd_bwd():
+        for i in diff:
+            card[i].grad = None
+        fn(*card).backward(g)
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: fn(*plain), iters=iters, repeats=3)
+    both = cuda_ms(fwd_bwd, iters=iters, repeats=3)
+    return {"value_rel": errs[0], "grad_rel": errs[1:],
+            "shape": list(cot.shape), "forward_ms": fwd,
+            "forward_backward_ms": both,
+            "ok": max(errs) <= ATT_TOL}
+
+
+def _half_case(fn, arrays, dtype):
+    """``fn`` in a half dtype on the card against the port on the CPU:
+    every finite value within one step of the dtype at the larger of the
+    two, or within ``ATT_TOL`` of the largest magnitude (both sides sum in
+    fp32, in another order: near 0 that error exceeds a step); the
+    infinite ones at the same positions with the same sign."""
+    import torch
+    xs = _att_inputs("cuda", arrays, (), dtype)
+    card = fn(*xs).float().cpu()
+    cpu = fn(*_att_inputs("cpu", arrays, (), dtype)).float()
+    inf = torch.isinf(cpu)
+    same_inf = torch.equal(torch.isinf(card), inf) and torch.equal(
+        card[inf], cpu[inf])
+    # one step of the dtype at the larger magnitude: 2^(e - p) for a
+    # value m·2^e (m in [0.5, 1)) with p significand bits, at least the
+    # smallest subnormal
+    bits, tiny = {torch.bfloat16: (8, 2.0 ** -133),
+                  torch.float16: (11, 2.0 ** -24)}[dtype]
+    m = torch.maximum(card[~inf].abs(), cpu[~inf].abs())
+    step = torch.ldexp(torch.ones_like(m), torch.frexp(m)[1] - bits) \
+        .clamp(min=tiny)
+    diff = (card[~inf] - cpu[~inf]).abs()
+    off = diff > torch.clamp(step, min=ATT_TOL * m.max().item())
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fn(*xs), iters=10, repeats=3)
+    return {"dtype": str(dtype).replace("torch.", ""),
+            "infinite": int(inf.sum()), "same_infinite": same_inf,
+            "beyond_one_step": int((diff > step).sum()),
+            "beyond_tolerance": int(off.sum()),
+            "max_abs_diff": diff.max().item(), "forward_ms": ms,
+            "ok": same_inf and not off.any()}
+
+
+def _sldwin_cpu(op, dilation, w, symmetric):
+    """``op`` on the port on the CPU one head at a time (the heads are
+    independent), so the (B, H, L, w_len, D) gather of a full-width
+    window never lives on the host at once: → value and both gradients,
+    heads concatenated."""
+    def run(arrays, cot):
+        import torch
+        outs = [[], [], []]
+        for h in range(arrays[0].shape[2]):
+            ts = [torch.from_numpy(a[:, :, h:h + 1].copy())
+                  .requires_grad_() for a in arrays]
+            o = op(*ts, dilation[h:h + 1], w, symmetric)
+            o.backward(torch.from_numpy(cot[:, :, h:h + 1].copy()))
+            for k, t in enumerate((o.detach(), ts[0].grad, ts[1].grad)):
+                outs[k].append(t)
+        return [torch.cat(x, dim=2) for x in outs]
+    return run
+
+
+def phase_attention_ops(state):
+    """``ops/attention.py``'s seven ops and ``ops/nn.py``'s masked pair on
+    the card against the port on the CPU from the same numpy inputs,
+    forward and backward (fp32 within ``ATT_TOL`` of each tensor's largest
+    magnitude: sums in another order), each op's card ms (forward;
+    forward + backward) beside the card's name and power limit.  The
+    interleaved ops at Gluon BERT-base width (qkv (512, 8, 12·3·64);
+    encoder-decoder q (512, 8, 768), kv (512, 8, 12·2·64)), the scores
+    through ``masked_softmax`` and ``masked_log_softmax`` under a
+    valid-length key mask; ``causal=True`` in fp32, bf16 and fp16 (one
+    step of the dtype; fp16's -inf at the CPU's positions).  The
+    sliding-window ops at Longformer-base width (B 1, L 4096, 12 heads
+    of 64, w 256, symmetric, dilation 1; the CPU leg a head at a time)
+    and dilated, one-sided at L 1024 (w 128, dilations 1-4);
+    ``sldwin_atten_mask_like`` bit for bit at both."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import nn as onn
+    rs = np.random.RandomState(SEED + 52)
+    L, B, H, D = (ATT_BERT[k] for k in ("L", "B", "H", "D"))
+    qkv = rs.randn(L, B, H * 3 * D).astype(np.float32)
+    q = rs.randn(L, B, H * D).astype(np.float32)
+    kv = rs.randn(L, B, H * 2 * D).astype(np.float32)
+    valid = rs.randint(L // 4, L + 1, B)
+    keep = np.repeat(np.arange(L)[None, :] < valid[:, None], H,
+                     axis=0)[:, None, :]             # (B·H, 1, L)
+    probs = rs.rand(B * H, L, L).astype(np.float32)
+    probs /= probs.sum(-1, keepdims=True)
+    scores = (rs.randn(B * H, L, L) * 3).astype(np.float32)
+    cases = {}
+    cases["selfatt_qk"] = _att_case(
+        lambda x: att.interleaved_matmul_selfatt_qk(x, H), [qkv], (0,), 1)
+    cases["selfatt_qk_causal"] = _att_case(
+        lambda x: att.interleaved_matmul_selfatt_qk(x, H, causal=True),
+        [qkv], (0,), 2)
+    cases["selfatt_valatt"] = _att_case(
+        lambda x, a: att.interleaved_matmul_selfatt_valatt(x, a, H),
+        [qkv, probs], (0, 1), 3)
+    cases["encdec_qk"] = _att_case(
+        lambda a, b: att.interleaved_matmul_encdec_qk(a, b, H), [q, kv],
+        (0, 1), 4)
+    cases["encdec_valatt"] = _att_case(
+        lambda b, a: att.interleaved_matmul_encdec_valatt(b, a, H),
+        [kv, probs], (0, 1), 5)
+    cases["masked_softmax"] = _att_case(
+        lambda s, m: onn.masked_softmax(s, m), [scores, keep], (0,), 6)
+    cases["masked_log_softmax"] = _att_case(
+        lambda s, m: onn.masked_log_softmax(s, m), [scores, keep], (0,), 7)
+    # the whole chain: scores, masked softmax, context
+    cases["selfatt_chain"] = _att_case(
+        lambda x, m: att.interleaved_matmul_selfatt_valatt(
+            x, onn.masked_softmax(att.interleaved_matmul_selfatt_qk(x, H),
+                                  m), H), [qkv, keep], (0,), 8)
+    half = [_half_case(lambda x: att.interleaved_matmul_selfatt_qk(
+                x, H, causal=True), [qkv], dt)
+            for dt in (torch.bfloat16, torch.float16)]
+    cases["selfatt_qk_causal_half"] = {"cases": half,
+                                       "ok": all(c["ok"] for c in half)}
+    fp16 = half[1]
+    if fp16["infinite"] != B * H * L * (L - 1) // 2:
+        fp16["ok"] = cases["selfatt_qk_causal_half"]["ok"] = False
+    del probs, scores
+    for name, c in (("long", ATT_LONG), ("dilated", ATT_DILATED)):
+        Bq, Lq, Hq, Dq, w = (c[k] for k in ("B", "L", "H", "D", "w"))
+        dil = np.array(c.get("dilation", (1,) * Hq), np.int64)
+        sym = name == "long"
+        w_len = 2 * w + 1 if sym else w + 1
+        qq, kk, vv = (rs.randn(Bq, Lq, Hq, Dq).astype(np.float32)
+                      for _ in range(3))
+        ss = rs.randn(Bq, Lq, Hq, w_len).astype(np.float32)
+        cases[f"sldwin_score_{name}"] = _att_case(
+            lambda a, b: att.sldwin_atten_score(a, b, dil, w, sym),
+            [qq, kk], (0, 1), 9,
+            cpu_fn=_sldwin_cpu(att.sldwin_atten_score, dil, w, sym),
+            iters=3)
+        cases[f"sldwin_context_{name}"] = _att_case(
+            lambda a, b: att.sldwin_atten_context(a, b, dil, w, sym),
+            [ss, vv], (0, 1), 10,
+            cpu_fn=_sldwin_cpu(att.sldwin_atten_context, dil, w, sym),
+            iters=3)
+        vl = np.array([Lq * 3 // 4] * Bq, np.int64)
+        card = att.sldwin_atten_mask_like(torch.from_numpy(ss).cuda(), dil,
+                                          vl, w, sym).cpu()
+        cpu = att.sldwin_atten_mask_like(torch.from_numpy(ss), dil, vl, w,
+                                         sym)
+        cases[f"sldwin_mask_like_{name}"] = {
+            "bitwise": torch.equal(card, cpu), "ones": int(cpu.sum()),
+            "valid_length": vl.tolist(), "ok": torch.equal(card, cpu)}
+        torch.cuda.empty_cache()
+    res = {"card": state["card"], "bert": ATT_BERT, "long": ATT_LONG,
+           "dilated": ATT_DILATED,
+           "tol": ATT_TOL, "cases": cases,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    bad = [k for k, c in cases.items() if not c["ok"]]
+    if bad:
+        raise AssertionError(f"card off the CPU in {bad}: {res}")
+    return res
+
+
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
      "mxnet_tpu/ops/pallas_kernels.py:104"),
@@ -7266,7 +7856,7 @@ PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
                  "train_launches", "text_launches", "int8_launches",
                  "ext_launches", "fused_launches", "v2_launches",
                  "zoo_launches", "bf16_launches", "bf16_train_launches",
-                 "fp16_train_launches")
+                 "fp16_train_launches", "sparse_launches")
 
 
 def kernels_line(state):
@@ -7283,7 +7873,8 @@ def kernels_line(state):
     (``bf16_serve``), Inception-v3's bf16 forward (``bf16_serve``) and
     bf16 ResNet-50 and BERT-base training (``bf16_train``), and the fp16
     instances in fp16 ResNet-50 training, fused and under ``amp``, and
-    the fp16-converted forward (``fp16_train``));
+    the fp16-converted forward (``fp16_train``), and Gluon BERT-base
+    training with a row-sparse word embedding (``sparse_train``));
     the times are at the first case, the
     path's own shape (``conv3x3``: its dgrad use, which is how training
     launches it)."""
@@ -7390,7 +7981,7 @@ PHASES = ("env", "build", "kernels", "slice", "reference", "profile",
           "zoo_train", "zoo_train_reference", "bf16_kernels", "bf16_serve",
           "bf16_reference", "bf16_train_kernels", "bf16_train",
           "bf16_train_reference", "fp16_train_kernels", "fp16_train",
-          "fp16_train_reference")
+          "fp16_train_reference", "sparse_train", "attention_ops")
 
 
 def _args(argv):

@@ -53,7 +53,7 @@ from .models.gpt import GPTConfig, GPTModel, init_params, params_from_numpy
 from .models import get_model
 from .serve import (Batcher, DecodeBatcher, InferenceEngine,
                     ModelRegistry)
-from . import autograd, nd, operator, library, rtc, tvmop, _ffi, amp
+from . import autograd, nd, operator, library, rtc, tvmop, _ffi, amp, sparse
 from ._ffi import get_global_func, register_func
 
 init = initializer   # ≙ mx.init

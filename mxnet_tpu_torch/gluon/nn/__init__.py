@@ -85,12 +85,13 @@ class Dropout(HybridBlock):
     """≙ ``gluon.nn.Dropout``: the identity in inference mode; in training
     mode (``_training``) ``ops.nn.dropout`` at ``rate``, drawing from
     ``generator=`` when one is given, else from the ``mx.random``
-    generator of the input's device, which ``mx.seed`` seeds."""
+    generator of the input's device, which ``mx.seed`` seeds.  ``axes``
+    is taken and not used: the reference drops element by element
+    whatever it says, and so does this block (the mask is not shared
+    along ``axes`` in either)."""
 
     def __init__(self, rate, axes=(), generator=None, **kwargs):
         super().__init__(**kwargs)
-        if axes:
-            raise NotImplementedError("Dropout(axes=...) is not ported")
         self._rate = rate
         self._generator = generator
 
@@ -544,8 +545,11 @@ class Embedding(HybridBlock):
     """≙ ``gluon.nn.Embedding``: weight ``(input_dim, output_dim)`` of
     ``dtype`` (a float dtype: float32, float64, bfloat16, float16),
     ``Normal(0.02)`` by default; the forward gathers its rows at integer
-    ids.  ``sparse_grad`` (a row-sparse gradient for the optimizer) is
-    not ported."""
+    ids.  ``sparse_grad=True`` marks the weight ``grad_stype =
+    "row_sparse"``, as the reference does: the forward and the dense
+    gradient autograd writes are unchanged, and ``Trainer`` sends the
+    weight through the optimizer's lazy update of the rows whose gradient
+    has a non-zero entry."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
@@ -554,11 +558,10 @@ class Embedding(HybridBlock):
         if not dt.is_floating_point:
             raise TypeError(f"Embedding dtype {dtype!r}: the table is of "
                             f"a float dtype")
-        if sparse_grad:
-            raise NotImplementedError("Embedding(sparse_grad=True) is not "
-                                      "ported")
         self._param("weight", (input_dim, output_dim),
                     weight_initializer or init.Normal(0.02), dtype=dt)
+        if sparse_grad:
+            self.weight.grad_stype = "row_sparse"
 
     def forward(self, x):
         return _nn.embedding(x, self.weight)

@@ -5,7 +5,9 @@ that take gradients: the ``nn.Parameter``s with ``requires_grad``.  The
 running statistics are buffers and are left out, as the reference marks
 them ``grad_req="null"``.  ``step(batch_size)`` sets the optimizer's
 ``rescale_grad`` to ``1 / batch_size`` and applies one multi-tensor
-update of every parameter that has a gradient.
+update of every parameter that has a gradient; a ``row_sparse``
+parameter (``Embedding(sparse_grad=True)``) takes the optimizer's lazy
+update of the rows its gradient touches first (``_update``).
 
 Gradients follow the reference's ``grad_req="write"``: a step consumes
 them.  PyTorch accumulates into ``.grad``, so ``step`` clears each
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import optimizer as opt_mod
+from ..sparse import RowSparseNDArray
 from .parameter import is_initialized
 
 __all__ = ["Trainer"]
@@ -155,7 +158,21 @@ class Trainer:
             ex.resync()
 
     def _update(self, ignore_stale_grad=False):
-        live = []
+        """One multi-tensor update of the parameters with a gradient.
+
+        A parameter marked ``grad_stype = "row_sparse"``
+        (``Embedding(sparse_grad=True)``) goes first through the
+        optimizer's single-key ``update`` on a ``RowSparseNDArray`` of the
+        rows whose dense gradient has a non-zero entry (≙ the reference's
+        Trainer): its lazy rule leaves the other rows and their states as
+        they were.  Finding those rows waits for the card once a step
+        (``nonzero``), as the reference fetches its row mask to the host.
+        That update advances ``num_update`` through the key's own count,
+        so the dense parameters' update then does not advance it again:
+        the step is counted once, and a sparse key whose count lags
+        leaves them at the step count of the step before, as in the
+        reference."""
+        live, sparse = [], []
         for name, p in self._trainable:
             if not is_initialized(p):
                 continue            # deferred: no forward has run yet
@@ -165,17 +182,24 @@ class Trainer:
                         f"Gradient of Parameter `{name}` has not been "
                         f"updated by backward since last step")
                 continue
-            live.append((name, p))
-        if not live:
-            return
-        for name, p in live:
+            row_sparse = getattr(p, "grad_stype", "default") == "row_sparse"
+            (sparse if row_sparse else live).append((name, p))
+        for name, p in sparse + live:
             if name not in self._states:
                 self._states[name] = self._optimizer.create_state(name, p)
+        for name, p in sparse:
+            self._optimizer.update(name, p.data,
+                                   RowSparseNDArray.from_dense(p.grad),
+                                   self._states[name])
+            p.grad = None           # consumed; the next backward writes
+        if not live:
+            return
         self._optimizer.update_multi(
             [n for n, _ in live], [p.data for _, p in live],
-            [p.grad for _, p in live], [self._states[n] for n, _ in live])
+            [p.grad for _, p in live], [self._states[n] for n, _ in live],
+            advance=not sparse)
         for _, p in live:
-            p.grad = None           # consumed; the next backward writes
+            p.grad = None
 
     # -- state io -------------------------------------------------------
     def save_states(self, fname):

@@ -32,7 +32,8 @@ from .cuda_kernels import (LayerNormFn, SoftmaxFn, layernorm_fused,
 
 __all__ = ["softmax", "layer_norm", "gelu", "activation", "fully_connected",
            "convolution", "pooling", "batch_norm", "residual_block",
-           "log_softmax", "pick", "softmax_cross_entropy",
+           "log_softmax", "masked_softmax", "masked_log_softmax", "pick",
+           "softmax_cross_entropy",
            "sigmoid_binary_cross_entropy", "embedding",
            "dropout", "quantized_dense", "quantized_conv", "silu", "swish",
            "mish", "leaky_relu", "elu", "selu", "prelu", "hard_sigmoid",
@@ -713,6 +714,43 @@ def log_softmax(x, axis: int = -1):
         e = _r(e, dt)
     s = _r(e.sum(dim=axis, keepdim=True), dt)
     return (d - _r(torch.log(s), dt)).to(dt)
+
+
+def _keep(mask, x):
+    """``mask`` as a bool tensor on ``x``'s device (nonzero = keep, as
+    ``jnp.where`` reads a mask)."""
+    m = torch.as_tensor(mask, device=x.device)
+    return m if m.dtype == torch.bool else m != 0
+
+
+def masked_softmax(x, mask, axis: int = -1, temperature=1.0):
+    """≙ ``ops/nn.py masked_softmax`` (``src/operator/nn/masked_softmax``;
+    ``mask`` true = keep, broadcast as ``jnp.where`` broadcasts it):
+    ``x`` divided by ``temperature`` when it is not 1, the masked entries
+    set to the dtype's most negative finite value, the softmax over
+    ``axis``, then the masked outputs zeroed: a fully masked row gives
+    zeros.  Plain torch, as the reference's is ``jax.nn.softmax`` and not
+    its routed softmax kernel; bf16 and fp16 round as
+    ``cuda_kernels.softmax_plain`` (the reference's jitted closed
+    form)."""
+    keep = _keep(mask, x)
+    if temperature != 1.0:
+        x = x / temperature
+    x = torch.where(keep, x, torch.finfo(x.dtype).min)
+    if x.dtype in _HALF:
+        out = softmax_plain(x, axis)
+    else:
+        out = torch.softmax(x, dim=axis)
+    return torch.where(keep, out, 0.0)
+
+
+def masked_log_softmax(x, mask, axis: int = -1):
+    """≙ ``ops/nn.py masked_log_softmax``: the masked entries set to the
+    dtype's most negative finite value, then :func:`log_softmax`; the
+    masked outputs are not zeroed, as in the reference, so a fully
+    masked row gives ``-log(n)`` everywhere."""
+    x = torch.where(_keep(mask, x), x, torch.finfo(x.dtype).min)
+    return log_softmax(x, axis=axis)
 
 
 def pick(x, index, axis: int = -1, keepdims: bool = False):

@@ -35,6 +35,8 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..sparse import RowSparseNDArray
+
 __all__ = ["Optimizer", "create", "register", "SGD", "NAG", "Adam",
            "AdamW", "Adamax", "Nadam", "AdaGrad", "AdaDelta", "AdaBelief",
            "RMSProp", "Ftrl", "FTML", "LAMB", "LARS", "LANS", "Signum",
@@ -115,8 +117,9 @@ class Optimizer:
 
     ``lr_scheduler`` (a ``lr_scheduler.LRScheduler``) sets the learning
     rate from ``num_update``; ``begin_num_update`` is the count a key's
-    first ``update`` continues from.  ``aggregate_num``,
-    ``multi_precision`` and ``lazy_update`` are taken and stored as the
+    first ``update`` continues from.  ``lazy_update`` (default true)
+    picks the lazy rule for a row-sparse gradient (:meth:`update`).
+    ``aggregate_num`` and ``multi_precision`` are taken and stored as the
     reference stores them (it keeps no ``aggregate_num``; every update
     here is one multi-tensor update, and the port trains fp32 weights
     only)."""
@@ -205,22 +208,55 @@ class Optimizer:
                                                        t))
 
     def update_multi(self, indices: Sequence, weights: Sequence,
-                     grads: Sequence, states: Sequence):
+                     grads: Sequence, states: Sequence, advance=True):
         """One step of every key in ``indices`` (≙ the reference's
         ``update_multi``, which ``Trainer`` calls): ``num_update``
-        advances once and is every key's step count, whether or not a key
-        took the steps before.  Each weight is updated in place from its
-        gradient and state (both updated in place too)."""
-        self.num_update += 1
+        advances once (unless ``advance`` is false: the caller has
+        advanced it this step already, through a row-sparse ``update``)
+        and is every key's step count, whether or not a key took the
+        steps before.  Each weight is updated in place from its gradient
+        and state (both updated in place too)."""
+        if advance:
+            self.num_update += 1
         self._apply(weights, grads, states, self.num_update)
 
     def update(self, index, weight, grad, state):
         """Single-tensor update (≙ the reference's ``Optimizer.update``)
         with the key's own step count; updates ``weight`` and ``state`` in
-        place and returns the state."""
+        place and returns the state.
+
+        A ``sparse.RowSparseNDArray`` gradient takes the lazy path when
+        ``lazy_update`` is true (≙ the reference's lazy sgd / adam
+        update): the rows at its indices are gathered from the weight and
+        from every state tensor of the weight's shape (any other state
+        is passed whole), the same rule runs on them, and they are
+        scattered back, so the other rows and their states stay as they
+        were, bit for bit, weight decay included.  A rule with per-tensor
+        norms (LAMB, LANS, LARS) takes them over the gathered rows, as
+        the reference does.  With ``lazy_update`` false the gradient is
+        made dense and the dense rule runs."""
         t = self._update_count(index)
-        self._apply([weight], [grad], [state], t)
+        if not isinstance(grad, RowSparseNDArray):
+            self._apply([weight], [grad], [state], t)
+        elif not self.lazy_update:
+            self._apply([weight], [grad.tostype("default")], [state], t)
+        else:
+            self._lazy(weight, grad, state, t)
         return state
+
+    @torch.no_grad()
+    def _lazy(self, weight, grad, state, t):
+        rows = grad.indices
+        shaped = [k for k, s in state.items()
+                  if isinstance(s, torch.Tensor) and s.shape == weight.shape]
+        w_rows = weight.index_select(0, rows)
+        st_rows = dict(state)
+        for k in shaped:
+            st_rows[k] = state[k].index_select(0, rows)
+        self._apply([w_rows], [grad.data], [st_rows], t)
+        weight.index_copy_(0, rows, w_rows)
+        for k in shaped:
+            state[k].index_copy_(0, rows, st_rows[k])
 
 
 def _decay(opt, gs, ws):

@@ -462,8 +462,14 @@ def test_embedding_block_matches_reference():
         out = te(torch.from_numpy(ids).to(dt)).detach().numpy()
         np.testing.assert_array_equal(out, ref)
     assert dict(te.collect_params()).keys() == {"weight"}
-    with pytest.raises(NotImplementedError):
-        tgnn.Embedding(50, 12, sparse_grad=True)
+    # sparse_grad marks the weight for the lazy update; the forward is
+    # the same gather
+    ts = tgnn.Embedding(50, 12, sparse_grad=True)
+    ts.initialize(ctx="cpu")
+    tgluon.load_numpy(ts, {"weight": w})
+    assert ts.weight.grad_stype == "row_sparse"
+    np.testing.assert_array_equal(ts(torch.from_numpy(ids)).detach().numpy(),
+                                  ref)
     with pytest.raises(TypeError):
         tgnn.Embedding(50, 12, dtype="int32")
     # a float16 table, as the reference builds one

@@ -343,6 +343,29 @@ def test_fallback_sparse_param():
         del tr._trainable[0][1].grad_stype
 
 
+def test_fallback_sparse_embedding_steps():
+    """A net with ``Embedding(sparse_grad=True)`` falls back as
+    ``sparse_param`` and its call runs the legacy step: the rows no id
+    indexes stay as they were, the indexed ones move."""
+    net = nn.HybridSequential()
+    net.add(nn.Embedding(20, D, sparse_grad=True), nn.Dense(C))
+    net.initialize(ctx="cpu", seed=0)
+    net.hybridize()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 10, (B, 3)))
+    net(ids)
+    w0 = net[0].weight.detach().clone()
+    tr = Trainer(net.collect_params(), "adam", {"learning_rate": 0.1})
+    step = tr.fuse_step(SoftmaxCrossEntropyLoss())
+    assert step.fallback_reason == "sparse_param"
+    r0 = _counter("fused.fallback.sparse_param")
+    assert torch.isfinite(step(ids, _batch()[1]))
+    assert _counter("fused.fallback.sparse_param") == r0 + 1
+    w1 = net[0].weight.detach()
+    used = torch.unique(ids)
+    assert torch.equal(w1[10:], w0[10:])
+    assert (w1[used] != w0[used]).any(dim=1).all()
+
+
 # ---------------------------------------------------- rebuilds, telemetry
 def test_batch_size_change_rebuilds_program():
     """``rescale_grad`` is a constant of the captured rule: a new batch
