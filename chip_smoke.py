@@ -52,7 +52,10 @@ and Gluon BERT-base at 8 x 512 through ``parallel.FusedTrainStep(dtype=
 ResNet-50 v1, then Gluon BERT-base training with a row-sparse word
 embedding (``Embedding(sparse_grad=True)``, the Trainer's lazy update)
 and the transformer attention ops of ``ops/attention.py`` at Gluon
-BERT-base and Longformer-base widths.  Phases, one JSON line
+BERT-base and Longformer-base widths, then the input path: ResNet-50 v1
+training fed from a ``.rec`` file written in the run, through
+``io.ImageRecordIter``'s python tier and ``pipeline="datafeed"``, on the
+host decode stage (``csrc_host/dataio.cc``, built with g++).  Phases, one JSON line
 each; the run stops with a non-zero exit at the first phase that fails:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch and
@@ -551,6 +554,28 @@ each; the run stops with a non-zero exit at the first phase that fails:
     width (1 x 4096, 12 heads of 64, w 256, symmetric) and dilated,
     one-sided at L 1024; ``sldwin_atten_mask_like`` bit for bit; each
     op's card ms.
+53. ``input_train``: the input path.  A ``.rec`` / ``.idx`` pair of 1,408
+    JPEGs (22 batches of 64) at 500x375x3, quality 90, written here
+    through ``recordio.pack_img`` from seeded smooth fields with edges
+    and mild noise (bytes, encode seconds).  The decode held on this
+    host: ``imdecode`` of the first 64 twice, bit for bit, and against
+    its source (PSNR at least 30 dB where nvJPEG decodes; the native
+    loader's 8/8 pixels bit for bit the python tier's where libjpeg
+    does), and where OpenCV is installed, ``imresize`` within one level
+    of ``cv2.resize`` (linear and cubic).  Images/s of both tiers
+    (``ImageRecordIter``'s python tier, the native loader) at
+    ``preprocess_threads`` 1, 2, 4 and the host's cores, with the
+    loader's stage µs.  ResNet-50 v1 training through
+    ``examples.image_classification`` (eager Trainer, batch 64 x 224²,
+    2 warm-up and 20 timed steps) on the synthetic feed, from the file
+    through the python tier, and through ``pipeline="datafeed"``
+    (resize 256, random crop and mirror, ImageNet mean and std): step
+    ms against the synthetic step, images/s, ``DataFeed.stats()`` (h2d
+    bytes a batch against an fp32 wire's, sync fallbacks,
+    backpressure), the launches of ``conv3x3``, ``conv_stats``,
+    ``bn_affine`` and ``conv_wgrad`` (16 each a step, a gate), and each
+    feed's idle share over 5 profiled steps.  Then ``io.feedcheck``'s
+    verdicts, all of which must hold.
 
 Then one ``{"kernels": [...]}`` line (35 entries: the bf16 and fp16
 instances of rows 7, 8, 9, 10 and 11 and the bf16 one of row 1 their
@@ -669,10 +694,26 @@ def phase_env(state):
 
 
 def phase_build(state):
-    from mxnet_tpu_torch import _build
+    from mxnet_tpu_torch import _build, _host_build
     t0 = time.perf_counter()
+    host = {}
+
+    def build_host():
+        try:
+            t = time.perf_counter()
+            _host_build.build(force=True)
+            host["seconds"] = time.perf_counter() - t
+        except Exception as e:      # noqa: BLE001 — raised below
+            host["error"] = e
+
+    th = threading.Thread(target=build_host)
+    th.start()
     _build.build(force=True)
     _build.lib()
+    th.join()
+    if "error" in host:
+        raise host["error"]
+    host["decoder"] = _host_build.info()
     ptxas, fn = {}, None
     for ln in _build.last_build_log.splitlines():
         m = re.search(r"entry function '\S*?(flash_fwd_tc|layernorm_fwd|"
@@ -698,6 +739,7 @@ def phase_build(state):
         if m and fn:
             ptxas.setdefault(fn, {})["spill_store_bytes"] = int(m.group(1))
     return {"seconds": time.perf_counter() - t0,
+            "host_stage": host,
             "nvcc_seconds": _build.last_build_s,
             "sources": [str(s.relative_to(HERE)) for s in _build.SOURCES],
             "ptxas": ptxas}
@@ -7655,6 +7697,291 @@ def phase_attention_ops(state):
     return res
 
 
+INPUT_IMAGES = 1408         # 22 batches of 64
+INPUT_HW = (375, 500)       # ImageNet's common size, height x width
+INPUT_QUALITY = 90
+INPUT_BATCH = 64
+INPUT_ITERS = 20            # timed steps a feed, after 2 warm-up ones
+INPUT_PSNR_MIN = 30.0       # nvJPEG's pixels against the source, dB
+INPUT_CHECKED = 64          # images whose decode is checked
+INPUT_PROFILED = 5          # steps a feed under torch.profiler
+
+
+def _input_image(rs, noise):
+    """A smooth field with edges and mild noise at 375 x 500: a
+    low-frequency sinusoid a channel (sin(u + v) as outer products of
+    its row and column terms), the right part inverted and the lower
+    part's green halved (two hard edges), and a window at a random
+    offset of ``noise`` (sigma 3)."""
+    import numpy as np
+    h, w = INPUT_HW
+    x = np.arange(w, dtype=np.float32) / w
+    y = np.arange(h, dtype=np.float32) / h
+    f = rs.uniform(0.5, 2.0, 6)
+    ph = rs.uniform(0, 2 * np.pi, 3)
+    chans = []
+    for c, sy in enumerate((1.0, -1.0, 1.0)):
+        u = 2 * np.pi * f[2 * c] * x
+        v = 2 * np.pi * sy * f[2 * c + 1] * y + ph[c]
+        chans.append(128 + 90 * (np.outer(np.cos(v), np.sin(u)) +
+                                 np.outer(np.sin(v), np.cos(u))))
+    img = np.stack(chans, axis=-1)
+    x0, y0 = rs.randint(w // 4, 3 * w // 4), rs.randint(h // 4, 3 * h // 4)
+    img[:, x0:] = 255.0 - img[:, x0:]
+    img[y0:, :, 1] *= 0.5
+    dy = rs.randint(0, noise.shape[0] - h + 1)
+    dx = rs.randint(0, noise.shape[1] - w + 1)
+    img += noise[dy:dy + h, dx:dx + w]
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _write_input_rec(path, rs):
+    """The phase's ``.rec`` / ``.idx`` pair through ``pack_img``; → (the
+    first images for the decode checks, encode seconds, total seconds)."""
+    from mxnet_tpu_torch import recordio
+    t0 = time.perf_counter()
+    enc = 0.0
+    kept = []
+    ih, iw = INPUT_HW
+    noise = (rs.standard_normal((ih + 64, iw + 64, 3)) * 3.0).astype(
+        "float32")
+    w = recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
+                                   path, "w")
+    for i in range(INPUT_IMAGES):
+        img = _input_image(rs, noise)
+        if i < INPUT_CHECKED:
+            kept.append(img)
+        t = time.perf_counter()
+        rec = recordio.pack_img(recordio.IRHeader(0, float(i % 1000), i, 0),
+                                img[:, :, ::-1], quality=INPUT_QUALITY)
+        enc += time.perf_counter() - t
+        w.write_idx(i, rec)
+    w.close()
+    return kept, enc, time.perf_counter() - t0
+
+
+def _decode_checks(path, sources, lib):
+    """imdecode of the first records against their sources (PSNR) and
+    against a second decode of the same bytes; the native loader's 8/8
+    pixels against the python tier's (bit for bit under libjpeg); under
+    an OpenCV on this host, ``imresize`` against ``cv2.resize``."""
+    import numpy as np
+    from mxnet_tpu_torch import image, recordio
+    from mxnet_tpu_torch import io as mio
+    r = recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
+                                   path, "r")
+    payloads = [recordio.unpack(r.read_idx(i))[1]
+                for i in range(len(sources))]
+    r.close()
+    psnr, twice, decoded = [], True, []
+    for src, p in zip(sources, payloads):
+        a, b = image.imdecode(p), image.imdecode(p)
+        twice = twice and np.array_equal(a, b)
+        mse = float(((a.astype(np.float64) - src) ** 2).mean())
+        psnr.append(10 * math.log10(255.0 ** 2 / max(mse, 1e-12)))
+        decoded.append(a)
+    h, w = INPUT_HW
+    s = 224
+    it = mio.NativeImageRecordIter(path, (3, s, s), len(sources),
+                                   preprocess_threads=2, dtype="uint8")
+    nat = it.next_raw()[0]
+    it.close()
+    y0, x0 = (h - s) // 2, (w - s) // 2
+    py = np.stack([d[y0:y0 + s, x0:x0 + s].transpose(2, 0, 1)
+                   for d in decoded])
+    tiers = int(np.abs(nat.astype(np.int16) - py).max())
+    out = {"psnr_db_min": min(psnr), "psnr_db_mean": sum(psnr) / len(psnr),
+           "decode_twice_bitwise_equal": twice,
+           "native_vs_python_max_diff": tiers, "images": len(sources)}
+    ok = twice and (tiers == 0 if lib == "libjpeg"
+                    else min(psnr) >= INPUT_PSNR_MIN)
+    try:
+        import cv2
+    except ImportError:
+        out["opencv"] = "not on this host: imresize not held against it"
+        return out, ok
+    src = sources[0]
+    cvres = {}
+    for interp, name in ((1, "linear"), (2, "cubic")):
+        for (ww, hh) in ((341, 256), (224, 224), (700, 525)):
+            ours = image.imresize(src, ww, hh, interp)
+            ref = cv2.resize(src, (ww, hh), interpolation=interp)
+            d = np.abs(ours.astype(np.int16) - ref)
+            cvres[f"{name}_{ww}x{hh}"] = {"max": int(d.max()),
+                                          "share_off": float((d > 0).mean())}
+    cvd = cv2.imdecode(np.frombuffer(payloads[0], np.uint8), 1)[:, :, ::-1]
+    d = np.abs(cvd.astype(np.int16) - decoded[0])
+    out["opencv"] = {"version": cv2.__version__, "imresize": cvres,
+                     "imdecode_vs_cv2": {"max": int(d.max()),
+                                         "mean": float(d.mean())}}
+    ok = ok and all(v["max"] <= 1 for v in cvres.values())
+    return out, ok
+
+
+def _decode_rates(path):
+    """Images/s of one epoch (after one warm batch) of both tiers at
+    ``preprocess_threads`` 1, 2, 4 and the host's cores, no resize,
+    center crop to 224: the python tier (``ImageRecordIter``: decode,
+    crop, float32) and the native loader (uint8), with its stage µs."""
+    from mxnet_tpu_torch import io as mio
+    counts = sorted({1, 2, 4, os.cpu_count() or 1})
+    out = {"python": {}, "native": {}}
+    for n in counts:
+        for tier in ("python", "native"):
+            if tier == "python":
+                it = mio.ImageRecordIter(path, (3, 224, 224), INPUT_BATCH,
+                                         preprocess_threads=n)
+                nxt = it.next
+            else:
+                it = mio.NativeImageRecordIter(path, (3, 224, 224),
+                                               INPUT_BATCH,
+                                               preprocess_threads=n,
+                                               dtype="uint8")
+                nxt = it.next_raw
+            nxt()
+            if tier == "native":
+                it.stats_reset()
+            t0 = time.perf_counter()
+            k = 0
+            while True:
+                try:
+                    nxt()
+                except StopIteration:
+                    break
+                k += 1
+            dt = time.perf_counter() - t0
+            row = {"images_s": k * INPUT_BATCH / dt, "batches": k}
+            if tier == "native":
+                st = it.stats()
+                row["stage_us_per_image"] = {
+                    s: st[f"{s}_us"] / max(st["samples"], 1)
+                    for s in ("read", "decode", "augment", "batchify")}
+                row["decode_backend"] = st["decode_backend"]
+                row["consumer_waits"] = st["consumer_waits"]
+            it.close()
+            out[tier][str(n)] = row
+    return out
+
+
+def _fed_profile(argv, dev):
+    """Idle share and busy µs of ``INPUT_PROFILED`` steps of the example
+    fed as ``argv`` says (a fresh net; 2 warm steps first)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.examples import image_classification as ic
+    args = ic.parse_args(argv)
+    net, trainer, loss_fn = ic.build(args, dev)
+    if args.rec:
+        import random
+        random.seed(args.seed)
+        it = ic.record_iter(args, dev)
+        feed = ic.record_batches(it, dev)
+    else:
+        x, y = ic.synthetic_batch(np.random.RandomState(SEED),
+                                  args.batch_size, args.image_size,
+                                  args.classes)
+        x = torch.as_tensor(x, device=dev)
+        y = torch.as_tensor(y, device=dev)
+        it = None
+        feed = iter(lambda: (x, y), None)
+
+    def step():
+        ic.train_step(net, trainer, loss_fn, *next(feed))
+
+    for _ in range(ic.WARMUP):
+        step()
+    res = _profile(step, INPUT_PROFILED, top=3)
+    if it is not None:
+        it.close()
+    return res
+
+
+def phase_input_train(state):
+    """The input path at the example's full width: a ``.rec`` written
+    here, the decode held on this host, decode rates by worker count,
+    ResNet-50 v1 training fed from the file (the python tier, then
+    ``DataFeed``) against the synthetic feed, and ``feedcheck``."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import image
+    from mxnet_tpu_torch.examples import image_classification as ic
+    from mxnet_tpu_torch.io import feedcheck
+    info = image.decoder_info()
+    work = tempfile.mkdtemp(prefix="chip_smoke_input_")
+    try:
+        path = os.path.join(work, "train.rec")
+        kept, enc_s, write_s = _write_input_rec(
+            path, np.random.RandomState(SEED))
+        res = {"decoder": info,
+               "rec": {"images": INPUT_IMAGES, "hw": list(INPUT_HW),
+                       "quality": INPUT_QUALITY,
+                       "rec_bytes": os.path.getsize(path),
+                       "encode_s": enc_s, "write_s": write_s}}
+        checks, ok = _decode_checks(path, kept, info["jpeg"])
+        res["decode_checks"] = checks
+        if not ok:
+            raise AssertionError(f"decode checks failed: {checks}")
+        res["decode_rates"] = _decode_rates(path)
+
+        counted = _train_counters()
+        dev = torch.device("cuda")
+        base = ["--iters", str(INPUT_ITERS), "--seed", str(SEED)]
+        feeds = {"synthetic": base,
+                 "python_tier": base + ["--rec", path],
+                 "datafeed": base + ["--rec", path, "--pipeline",
+                                     "datafeed", "--resize", "256",
+                                     "--rand-crop", "--rand-mirror",
+                                     "--normalize"]}
+        runs, launches_all = {}, {}
+        for name, argv in feeds.items():
+            for fn in counted:
+                fn.launches = 0
+            out = ic.main(argv)
+            launches = {fn.__name__: fn.launches for fn in counted}
+            want = dict({n: RESNET50_SEGMENTS * out["steps"]
+                         for n in TRAIN_KERNELS}, conv_affine=0)
+            timed = sorted(out["step_ms"][ic.WARMUP:])
+            med = timed[len(timed) // 2]
+            run = {"argv": argv, "steps": out["steps"],
+                   "losses": out["losses"], "step_ms_median": med,
+                   "images_s": out["img_s"], "launches": launches,
+                   "launches_expected": want}
+            if out["feed_stats"] is not None:
+                st = out["feed_stats"]
+                b = INPUT_BATCH
+                run["feed_stats"] = st
+                run["h2d_bytes_per_batch"] = \
+                    st["h2d_bytes"] / max(st["staged_batches"], 1)
+                run["fp32_wire_bytes_per_batch"] = b * 3 * 224 * 224 * 4 + \
+                    b * 4
+            if not all(math.isfinite(v) for v in out["losses"]):
+                raise AssertionError(f"{name}: non-finite loss: {run}")
+            if launches != want:
+                raise AssertionError(f"{name}: launch counts differ from "
+                                     f"the path's: {run}")
+            for k, v in launches.items():
+                launches_all[k] = launches_all.get(k, 0) + v
+            runs[name] = run
+        state["input_launches"] = launches_all
+        syn = runs["synthetic"]["step_ms_median"]
+        for name in ("python_tier", "datafeed"):
+            runs[name]["step_ms_over_synthetic"] = \
+                runs[name]["step_ms_median"] / syn
+        res["train"] = runs
+        res["profile"] = {name: _fed_profile(argv, dev)
+                          for name, argv in feeds.items()}
+        os.makedirs(os.path.join(work, "feedcheck"))
+        fc = feedcheck.summary(os.path.join(work, "feedcheck"))
+        res["feedcheck"] = fc
+        if not fc["ok"]:
+            raise AssertionError(f"feedcheck failed: {fc['checks']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
      "mxnet_tpu/ops/pallas_kernels.py:104"),
@@ -7856,7 +8183,8 @@ PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
                  "train_launches", "text_launches", "int8_launches",
                  "ext_launches", "fused_launches", "v2_launches",
                  "zoo_launches", "bf16_launches", "bf16_train_launches",
-                 "fp16_train_launches", "sparse_launches")
+                 "fp16_train_launches", "sparse_launches",
+                 "input_launches")
 
 
 def kernels_line(state):
@@ -7981,7 +8309,8 @@ PHASES = ("env", "build", "kernels", "slice", "reference", "profile",
           "zoo_train", "zoo_train_reference", "bf16_kernels", "bf16_serve",
           "bf16_reference", "bf16_train_kernels", "bf16_train",
           "bf16_train_reference", "fp16_train_kernels", "fp16_train",
-          "fp16_train_reference", "sparse_train", "attention_ops")
+          "fp16_train_reference", "sparse_train", "attention_ops",
+          "input_train")
 
 
 def _args(argv):

@@ -54,6 +54,7 @@ from .models import get_model
 from .serve import (Batcher, DecodeBatcher, InferenceEngine,
                     ModelRegistry)
 from . import autograd, nd, operator, library, rtc, tvmop, _ffi, amp, sparse
+from . import image, io, recordio, storage
 from ._ffi import get_global_func, register_func
 
 init = initializer   # ≙ mx.init
@@ -80,4 +81,4 @@ __all__ = ["context", "gluon", "initializer", "init", "lr_scheduler",
            "init_params", "params_from_numpy", "get_model", "Batcher",
            "InferenceEngine", "ModelRegistry", "autograd", "nd", "operator",
            "library", "rtc", "tvmop", "_ffi", "get_global_func",
-           "register_func", "amp"]
+           "register_func", "amp", "image", "io", "recordio", "storage"]

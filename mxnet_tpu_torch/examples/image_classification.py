@@ -1,5 +1,6 @@
-"""Image classification training on synthetic ImageNet-shaped data
-(≙ ``example/gluon/image_classification.py``, single process).
+"""Image classification training on synthetic ImageNet-shaped data or
+a RecordIO file (≙ ``example/gluon/image_classification.py``, single
+process).
 
 A model-zoo CNN (default ResNet-50 v1, 1000 classes; ``--model
 resnet50_v2`` trains v2, whose stride-1 3x3 convs take the standalone
@@ -13,9 +14,17 @@ are NHWC float32 images in [0, 1) and integer labels drawn from
 ``numpy.random.RandomState(seed)`` in the reference's order (images,
 then labels, per step); they are all drawn and copied to the device
 before the first step, so the timed steps hold no host data
-generation.  It runs on the GPU unless
-``--device cpu`` is given, and prints images/s over the steps after the
-warm-up ones, as the reference does.
+generation.  With ``--rec``, the batches come from the file through
+``io.ImageRecordIter(rec, data_shape=(3, S, S), batch_size=B,
+shuffle=True)`` as the reference feeds them (the python decode tier; each
+batch copied to the device in the step), epoch after epoch, Python's
+``random`` seeded with ``--seed`` first; ``--pipeline datafeed`` takes
+the native loader and ``io.DataFeed`` instead (uint8 on the wire, the
+cast and normalize on the device), with ``--resize``, ``--rand-crop``,
+``--rand-mirror`` and ``--normalize`` (ImageNet's mean and std) for
+either route.  It runs on the GPU unless ``--device cpu`` is given, and
+prints images/s over the steps after the warm-up ones, as the reference
+does.
 
     python -m mxnet_tpu_torch.examples.image_classification --device cpu \\
         --model resnet18_v1 --image-size 32 --batch-size 2 --iters 2
@@ -23,6 +32,7 @@ warm-up ones, as the reference does.
 from __future__ import annotations
 
 import argparse
+import random
 import time
 
 import numpy as np
@@ -30,6 +40,7 @@ import torch
 
 from .. import autograd
 from .. import context as _context
+from .. import io as _io
 from ..gluon import Trainer
 from ..gluon.loss import SoftmaxCrossEntropyLoss
 from ..models import get_model
@@ -49,6 +60,15 @@ def parse_args(argv=None):
     ap.add_argument("--kvstore", default="device")
     ap.add_argument("--rec", default=None,
                     help="RecordIO file (synthetic data if absent)")
+    ap.add_argument("--pipeline", default=None, choices=("datafeed",),
+                    help="with --rec: the native loader into io.DataFeed")
+    ap.add_argument("--resize", type=int, default=0,
+                    help="with --rec: resize the short side first")
+    ap.add_argument("--rand-crop", action="store_true")
+    ap.add_argument("--rand-mirror", action="store_true")
+    ap.add_argument("--normalize", action="store_true",
+                    help="with --rec: subtract ImageNet's mean, divide by "
+                         "its std")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and of the data stream")
     ap.add_argument("--device", default=None,
@@ -61,6 +81,35 @@ def synthetic_batch(rng, batch_size, image_size, classes):
     x = rng.rand(batch_size, image_size, image_size, 3).astype("float32")
     y = rng.randint(0, classes, (batch_size,))
     return x, y
+
+
+def record_iter(args, device):
+    """``io.ImageRecordIter`` over ``args.rec`` as the example feeds it
+    (the python tier, or ``DataFeed`` with ``--pipeline datafeed``)."""
+    from ..image import IMAGENET_MEAN, IMAGENET_STD
+    kw = {}
+    if args.resize:
+        kw["resize"] = args.resize
+    if args.rand_crop:
+        kw["rand_crop"] = True
+    if args.rand_mirror:
+        kw["rand_mirror"] = True
+    if args.normalize:
+        kw["mean"], kw["std"] = IMAGENET_MEAN, IMAGENET_STD
+    if args.pipeline:
+        kw.update(pipeline=args.pipeline, device=device, seed=args.seed)
+    return _io.ImageRecordIter(
+        args.rec, data_shape=(3, args.image_size, args.image_size),
+        batch_size=args.batch_size, shuffle=True, **kw)
+
+
+def record_batches(it, device):
+    """(images, labels) on ``device`` from ``it``, epoch after epoch."""
+    while True:
+        it.reset()
+        for b in it:
+            yield (b.data[0].to(device),
+                   b.label[0].reshape(-1).to(device, torch.int64))
 
 
 def build(args, device, lr_scheduler=None):
@@ -117,15 +166,16 @@ def _ms(a, b):
 
 
 def main(argv=None):
-    """Train; → {"img_s", "losses", "step_ms", "steps"}.  ``step_ms`` is
-    each step's time on the device's timeline (CUDA events between step
-    starts; host time on the CPU); ``img_s`` is over the timed steps, by
-    the host clock up to a synchronize, as the reference's ``waitall``."""
+    """Train; → {"img_s", "losses", "step_ms", "steps", "feed_stats"}.
+    ``step_ms`` is each step's time on the device's timeline (CUDA events
+    between step starts, so a step holds the wait for the next batch;
+    host time on the CPU); ``img_s`` is over the timed steps, by the host
+    clock up to a synchronize, as the reference's ``waitall``;
+    ``feed_stats`` is ``DataFeed.stats()`` with ``--pipeline datafeed``,
+    else None."""
     args = parse_args(argv)
-    if args.rec:
-        raise NotImplementedError(
-            "--rec: the ImageRecordIter input path is not ported yet (it is "
-            "queued with the input-path modules); run on synthetic data")
+    if args.pipeline and not args.rec:
+        raise ValueError("--pipeline needs --rec")
     if args.kvstore not in ("device", "local"):
         raise NotImplementedError(
             f"--kvstore {args.kvstore}: only single-process training is "
@@ -137,14 +187,20 @@ def main(argv=None):
     if device.type == "cuda":
         _context.exact_fp32()
     net, trainer, loss_fn = build(args, device)
-    rng = np.random.RandomState(args.seed)
     steps = WARMUP + args.iters
-    batches = []
-    for _ in range(steps):
-        x, y = synthetic_batch(rng, args.batch_size, args.image_size,
-                               args.classes)
-        batches.append((torch.as_tensor(x, device=device),
-                        torch.as_tensor(y, device=device)))
+    if args.rec:
+        random.seed(args.seed)
+        it = record_iter(args, device)
+        feed = record_batches(it, device)
+        batches = (next(feed) for _ in range(steps))
+    else:
+        rng = np.random.RandomState(args.seed)
+        batches = []
+        for _ in range(steps):
+            x, y = synthetic_batch(rng, args.batch_size, args.image_size,
+                                   args.classes)
+            batches.append((torch.as_tensor(x, device=device),
+                            torch.as_tensor(y, device=device)))
     losses, marks, tic = [], [], None
     for i, (x, y) in enumerate(batches):
         if i == WARMUP:
@@ -157,12 +213,17 @@ def main(argv=None):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - tic
+    feed_stats = None
+    if args.rec:
+        stats = getattr(it, "stats", None)
+        feed_stats = stats() if callable(stats) else None
+        it.close()
     ips = args.iters * args.batch_size / dt
     print(f"[rank 0/1] {args.model}: {ips:.1f} img/s "
           f"(batch {args.batch_size})", flush=True)
     return {"img_s": ips, "losses": [float(v.mean()) for v in losses],
             "step_ms": [_ms(a, b) for a, b in zip(marks, marks[1:])],
-            "steps": steps}
+            "steps": steps, "feed_stats": feed_stats}
 
 
 if __name__ == "__main__":

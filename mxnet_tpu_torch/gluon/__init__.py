@@ -8,7 +8,8 @@ from .block import (Block, HybridBlock, HybridSequential, Sequential,
 from .parameter import DeferredInitializationError, ParameterDict, load_numpy
 from .trainer import Trainer
 from . import model_zoo
+from . import data
 
-__all__ = ["nn", "loss", "metric", "model_zoo", "Block", "HybridBlock", "Sequential",
+__all__ = ["nn", "loss", "metric", "model_zoo", "data", "Block", "HybridBlock", "Sequential",
            "HybridSequential", "SymbolBlock", "DeferredInitializationError",
            "ParameterDict", "load_numpy", "Trainer"]

@@ -15,16 +15,22 @@ some intermediates in fp32 (as its jitted bf16 forward does: 1.1% of
 the largest logit from its eager forward on ``bert_small``); run op by
 op (``jax.disable_jit()``), the same step rounds every op.  So the
 oracle is the reference's ``FusedTrainStep(dtype="bfloat16")`` run op by
-op.  No cap below one bf16 step can hold two bf16 steps together, so
-each test computes the reference's own distance between that bf16 step
-and its fp32 step on the same inputs, and holds the port's bf16 step to
-no more than that distance from the reference's bf16 step: the losses of
-both steps, and every master weight and running statistic after them
+op, each of its Pallas kernels one compiled program (bit for bit the
+kernel interpreted op by op: a kernel's body rounds where it says).  No
+cap below one bf16 step can hold two bf16 steps together, so each test
+computes the reference's own distance between that bf16 step and its
+fp32 step on the same inputs, and holds the port's bf16 step to no more
+than that distance from the reference's bf16 step: the losses of both
+steps, and every master weight and running statistic after them
 (largest absolute difference over the net).  On ResNet-18 the jitted
 bf16 step is as far from the op-by-op one (0.0127 in the losses, 0.0073
 in the weights) as from the fp32 step (0.0101, 0.0072); the port lies
 0.0016 and 0.0034 from the op-by-op step, 0.0112 and 0.0063 from the
 jitted one."""
+import contextlib
+import functools
+import types
+
 import numpy as np
 import pytest
 
@@ -65,20 +71,83 @@ def _resnet_batches():
              rs.randint(0, 10, (2,))) for _ in range(2)]
 
 
+@contextlib.contextmanager
+def _compiled_pallas_kernels():
+    """Run each of the reference's fused-block Pallas kernels
+    (``pallas_block``'s ``pallas_call``s, interpret mode) as one compiled
+    program, built once per kernel, grid, blocks and operand shapes,
+    also inside ``jax.disable_jit()``.  A kernel's body rounds where it
+    says, so its values are bit for bit those of interpreting it op by
+    op; what goes is the Python interpretation of every kernel call."""
+    from mxnet_tpu.ops import pallas_block as pb
+    real = pb.pl
+    cache = {}
+
+    def blocks(specs):
+        specs = specs if isinstance(specs, (list, tuple)) else [specs]
+        return tuple(getattr(sp, "block_shape", None) for sp in specs)
+
+    def pallas_call(kernel, **kw):
+        call = real.pallas_call(kernel, **kw)
+        if not isinstance(kernel, functools.partial):
+            return call
+
+        def run(*args):
+            key = (kernel.func.__qualname__,
+                   tuple(sorted(kernel.keywords.items())), kw.get("grid"),
+                   blocks(kw.get("in_specs", ())),
+                   blocks(kw.get("out_specs", ())),
+                   repr(kw.get("out_shape")),
+                   tuple((a.shape, str(a.dtype)) for a in args))
+            fn = cache.get(key)
+            if fn is None:
+                fn = cache[key] = jax.jit(call)
+            with jax.disable_jit(False):
+                return fn(*args)
+        return run
+
+    pb.pl = types.SimpleNamespace(
+        **{k: getattr(real, k) for k in dir(real) if not k.startswith("__")})
+    pb.pl.pallas_call = pallas_call
+    try:
+        yield
+    finally:
+        pb.pl = real
+
+
 def _reference_run(make, arrays, batches, opt, kw, dtype, grad_scale=None):
     """The reference's ``FusedTrainStep`` over ``batches`` from
-    ``arrays``, run op by op when ``dtype`` is set (the module's note):
-    → (losses, {name: array after})."""
+    ``arrays``, run op by op when ``dtype`` is set (the module's note),
+    its Pallas kernels each compiled once (``_compiled_pallas_kernels``):
+    → (losses, {name: array after}).  The net is made (and its deferred
+    shapes inferred) before, on the layer route: that forward's output
+    and the weights it starts from are replaced by ``arrays``."""
+    with _plain_route():
+        jnet = make()
     if dtype is None:
-        return _reference_steps(make, arrays, batches, opt, kw, dtype,
+        return _reference_steps(jnet, arrays, batches, opt, kw, dtype,
                                 grad_scale)
-    with jax.disable_jit():
-        return _reference_steps(make, arrays, batches, opt, kw, dtype,
+    with jax.disable_jit(), _compiled_pallas_kernels():
+        return _reference_steps(jnet, arrays, batches, opt, kw, dtype,
                                 grad_scale)
 
 
-def _reference_steps(make, arrays, batches, opt, kw, dtype, grad_scale):
-    jnet = make()
+@contextlib.contextmanager
+def _plain_route():
+    """The reference's layer route (no Pallas kernel) for a while."""
+    import os
+    was = os.environ.get("MXNET_TPU_PALLAS_BLOCK")
+    os.environ["MXNET_TPU_PALLAS_BLOCK"] = "0"
+    try:
+        yield
+    finally:
+        if was is None:
+            del os.environ["MXNET_TPU_PALLAS_BLOCK"]
+        else:
+            os.environ["MXNET_TPU_PALLAS_BLOCK"] = was
+
+
+def _reference_steps(jnet, arrays, batches, opt, kw, dtype, grad_scale):
     for k, p in jnet.collect_params().items():
         p.set_data(jnp.asarray(arrays[k]))
     jnet.hybridize()

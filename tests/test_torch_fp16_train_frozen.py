@@ -45,10 +45,29 @@ def _freeze(net):
     return net
 
 
+def _jmake():
+    from mxnet_tpu import models as jmodels
+    net = jmodels.get_model("resnet18_v1", classes=10)
+    net.initialize()
+    net(mx.np.array(np.zeros((1,) + TRAIN_ITEM, np.float32)))
+    return _freeze(net)
+
+
+@pytest.fixture(scope="module")
+def frozen_fp32_reference():
+    """The reference's fp32 run of the frozen net, which both cases
+    hold their half runs against: computed once for the module."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MXNET_TPU_PALLAS_BLOCK", "1")
+        mp.setenv("MXNET_TPU_PALLAS_STAGES", FORCED)
+        return _reference_run(_jmake, _resnet_arrays(), _resnet_batches(),
+                              "sgd", SGD, None)
+
+
 @pytest.mark.parametrize("dtype,scale", [("bfloat16", None),
                                          ("float16", SCALE)])
-def test_frozen_segment_in_half_step_matches_reference(monkeypatch, dtype,
-                                                       scale):
+def test_frozen_segment_in_half_step_matches_reference(
+        monkeypatch, dtype, scale, frozen_fp32_reference):
     """The half fused step with one frozen segment (fp32 running
     statistics beside half γ and β) runs and lies within the reference's
     own half-vs-fp32 distance of the reference's half step; the frozen
@@ -56,18 +75,12 @@ def test_frozen_segment_in_half_step_matches_reference(monkeypatch, dtype,
     on both sides."""
     monkeypatch.setenv("MXNET_TPU_PALLAS_BLOCK", "1")
     monkeypatch.setenv("MXNET_TPU_PALLAS_STAGES", FORCED)
-    from mxnet_tpu import models as jmodels
     from mxnet_tpu_torch import models as tmodels
     arrays = _resnet_arrays()
     batches = _resnet_batches()
-
-    def jmake():
-        net = jmodels.get_model("resnet18_v1", classes=10)
-        net.initialize()
-        net(mx.np.array(np.zeros((1,) + TRAIN_ITEM, np.float32)))
-        return _freeze(net)
-    ref16 = _reference_run(jmake, arrays, batches, "sgd", SGD, dtype, scale)
-    ref32 = _reference_run(jmake, arrays, batches, "sgd", SGD, None)
+    ref16 = _reference_run(_jmake, arrays, batches, "sgd", SGD, dtype,
+                           scale)
+    ref32 = frozen_fp32_reference
     *port, _ = _port_run(lambda: _freeze(tmodels.get_model(
         "resnet18_v1", classes=10)), arrays, batches, "sgd", SGD, dtype,
         scale)

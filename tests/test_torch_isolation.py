@@ -5,6 +5,7 @@ import ast
 import json
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -69,3 +70,61 @@ def test_foreign_predicate_minds_the_shared_prefix():
     assert _foreign("jax.numpy")
     assert not _foreign("mxnet_tpu_torch") and \
         not _foreign("mxnet_tpu_torch.ops")
+
+
+HOST_SOURCES = sorted((PKG / "csrc_host").glob("*"))
+
+
+@pytest.mark.parametrize("path", HOST_SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_host_stage_source_includes_nothing_of_the_reference(path):
+    """The input path's C++ stage is the port's own copy: it includes no
+    header of the reference's ``src/`` by path and names not its
+    library."""
+    text = path.read_text()
+    quoted = re.findall(r'#include\s+"([^"]+)"', text)
+    assert all("/" not in q and (PKG / "csrc_host" / q).exists()
+               for q in quoted), quoted
+    assert "libmxtpu_rt" not in text and "mxtpu/" not in text
+
+
+def test_host_stage_build_reads_only_its_own_sources():
+    from mxnet_tpu_torch import _host_build
+    cmd = _host_build._command("g++", ROOT / "build" / "x.so")
+    inc = [c for c in cmd if c.startswith("-I")]
+    assert f"-I{PKG / 'csrc_host'}" in inc
+    assert not [c for c in cmd if str(ROOT / "src") in c or
+                "mxnet_tpu/" in c.replace("mxnet_tpu_torch/", "")]
+    assert [str(s) for s in _host_build.SOURCES] == \
+        [str(PKG / "csrc_host" / "dataio.cc")]
+
+
+def test_input_path_never_loads_the_reference_library(tmp_path):
+    """Decode, encode, resize and the native loader in a fresh process:
+    its maps hold the port's stage and no ``libmxtpu_rt.so``."""
+    script = (
+        "import json, numpy as np\n"
+        "from mxnet_tpu_torch import image, recordio, io\n"
+        "img = (np.arange(48 * 40 * 3) % 251).astype(np.uint8)"
+        ".reshape(48, 40, 3)\n"
+        "rec = recordio.MXIndexedRecordIO('t.idx', 't.rec', 'w')\n"
+        "for i in range(4):\n"
+        "    rec.write_idx(i, recordio.pack_img((0, i, i, 0), img))\n"
+        "rec.close()\n"
+        "image.imresize(image.imdecode(image.imencode(img)), 20, 20)\n"
+        "it = io.NativeImageRecordIter('t.rec', (3, 32, 32), 2)\n"
+        "it.next_raw()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "import sys\n"
+        "print(json.dumps(['libmxtpu_rt' in maps,\n"
+        "                  'libmxnet_tpu_torch_dataio' in maps,\n"
+        "                  sorted(m for m in sys.modules\n"
+        "                         if m.split('.')[0] in ('jax', 'mxnet_tpu'))"
+        "]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    ref_lib, own_lib, foreign = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not ref_lib and own_lib and foreign == []

@@ -4,11 +4,14 @@ ResNet-18/50 logits on shared numpy weights — on the reference's default
 (layer-by-layer) route and on its forced-Pallas route, whose fused
 segments run the Pallas kernel in interpret mode.  On the CPU the
 port's fused segments take ``conv_affine_plain``."""
+import functools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import mxnet_tpu as mx  # noqa: E402
@@ -49,16 +52,33 @@ def weights_for(names_shapes, seed):
     return out
 
 
-def reference_net(arch, seed=0, **kw):
-    """The JAX package's net with seeded numpy weights, and the arrays."""
+def reference_net(arch, seed=0, hybridize=False, **kw):
+    """The JAX package's net with seeded numpy weights, and the arrays;
+    hybridized (before its shape-inferring forward) with ``hybridize``."""
     net = jmodels.get_model(arch, **kw)
     net.initialize()
+    if hybridize:
+        net.hybridize()
     net(mx.np.array(np.zeros((1,) + ITEM, np.float32)))   # deferred shapes
     params = net.collect_params()
     arrays = weights_for([(k, p.shape) for k, p in params.items()], seed)
     for k, p in params.items():
         p.set_data(jnp.asarray(arrays[k]))
     return net, arrays
+
+
+def compiled_backward(monkeypatch):
+    """Apply each vjp closure the reference's tape records as one
+    compiled program, built once per closure structure and shapes,
+    rather than transposing it op by op with a program a primitive and
+    shape.  In fp32 the gradients are the same up to rounding."""
+    from mxnet_tpu import tape
+    apply = jax.jit(lambda vjp_fn, ct: vjp_fn(ct))
+    real = tape.TapeNode.__init__
+
+    def init(self, vjp_fn, *args, **kw):
+        real(self, functools.partial(apply, vjp_fn), *args, **kw)
+    monkeypatch.setattr(tape.TapeNode, "__init__", init)
 
 
 def port_net(arch, arrays, **kw):
@@ -227,17 +247,19 @@ UPDATE_TOL = 1e-2       # of the largest two-step update in the net
 STATS_TOL = 1e-4        # of each running statistic's largest magnitude
 
 
-def two_sgd_steps(arch, seed=5):
+def two_sgd_steps(arch, seed=5, hybridize=False):
     """→ (reference losses, port losses, initial arrays, reference
     arrays after, port arrays after): two steps of forward in training
     mode, backward of the per-sample loss, ``trainer.step(batch)`` with
     SGD (momentum 0.9, wd 1e-4), through ``autograd.record`` /
-    ``backward`` / ``gluon.Trainer`` in the JAX package and
+    ``backward`` / ``gluon.Trainer`` in the JAX package (its net
+    hybridized, one compiled program a forward, with ``hybridize``) and
     ``examples.image_classification.forward_backward`` / the port's
     ``gluon.Trainer``."""
     from mxnet_tpu import gluon as jgluon
     from mxnet_tpu_torch.examples import image_classification as ic
-    jnet, arrays = reference_net(arch, seed=seed, classes=10)
+    jnet, arrays = reference_net(arch, seed=seed, classes=10,
+                                 hybridize=hybridize)
     last = ".body.7.gamma" if arch.startswith("resnet50") else \
         ".body.4.gamma"
     params = jnet.collect_params()

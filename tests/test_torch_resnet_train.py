@@ -392,8 +392,15 @@ def test_example_trains_on_the_cpu_and_launches_nothing():
 
 @pytest.mark.parametrize("argv", [["--rec", "data.rec"],
                                   ["--kvstore", "dist_sync"]])
-def test_example_refuses_what_later_slices_bring(argv):
-    with pytest.raises(NotImplementedError):
+def test_example_refuses_what_later_slices_bring(argv, tmp_path,
+                                                 monkeypatch):
+    """``--kvstore dist_sync`` belongs to a later slice and is refused.
+    ``--rec``, refused until the input path was ported, now opens the
+    file: here one that does not exist (``test_torch_image_iter`` trains
+    from one that does)."""
+    monkeypatch.chdir(tmp_path)
+    err = FileNotFoundError if argv[0] == "--rec" else NotImplementedError
+    with pytest.raises(err):
         ic.main(["--device", "cpu"] + argv)
 
 

@@ -27,7 +27,8 @@ from mxnet_tpu_torch import models as tmodels  # noqa: E402
 from mxnet_tpu_torch.ops import conv_block  # noqa: E402
 from mxnet_tpu_torch.ops import nn as tnn  # noqa: E402
 from mxnet_tpu_torch.ops import pallas_conv as tpc  # noqa: E402
-from test_torch_resnet import port_net, reference_net  # noqa: E402
+from test_torch_resnet import (compiled_backward, port_net,  # noqa: E402
+                               reference_net)
 
 torch.set_num_threads(1)
 
@@ -180,14 +181,19 @@ def test_two_sgd_steps_of_resnet18_v2_match_reference_pallas_conv(
     ``conv3x3_s1``) land 0.7% and 1% of the largest update away from the
     port's float64 step while the port's float32 step is within 7.3e-6
     of it, so the comparison would measure the reference's rounding.
-    Damped, the port is within 1.2e-5 of the reference."""
+    Damped, the port is within 1.2e-5 of the reference.  The reference's
+    net is hybridized and its tape's backward compiled
+    (``compiled_backward``), so its steps compile as whole programs
+    rather than as one program a primitive and shape."""
     monkeypatch.setenv("MXNET_TPU_PALLAS_CONV", "1")
+    compiled_backward(monkeypatch)
     routed = []
     real = jpc.conv3x3_s1
     monkeypatch.setattr(jpc, "conv3x3_s1",
                         lambda x, w: routed.append(x.shape) or real(x, w))
     calls = _count_route(monkeypatch)
-    jnet, arrays = reference_net("resnet18_v2", seed=6, classes=10)
+    jnet, arrays = reference_net("resnet18_v2", seed=6, classes=10,
+                                 hybridize=True)
     params = jnet.collect_params()
     for k, p in params.items():
         if k.endswith(".bn2.gamma"):

@@ -38,7 +38,7 @@ from mxnet_tpu_torch import autograd as tautograd  # noqa: E402
 from mxnet_tpu_torch import gluon as tgluon  # noqa: E402
 from mxnet_tpu_torch import models as tmodels  # noqa: E402
 from mxnet_tpu_torch.ops import conv_block  # noqa: E402
-from test_torch_resnet import weights_for  # noqa: E402
+from test_torch_resnet import compiled_backward, weights_for  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -60,6 +60,7 @@ def _damped(k):
 def _reference_step(x, y):
     net = jmodels.get_model("densenet121", classes=CLASSES)
     net.initialize(init=mx.init.Zero())
+    net.hybridize()     # the shape-inferring forward: one program
     net(mx.np.array(np.zeros((BATCH,) + ITEM, np.float32)))
     params = net.collect_params()
     arrays = weights_for([(k, p.shape) for k, p in params.items()], 4)
@@ -97,6 +98,7 @@ def _port_step(arrays, x, y, dtype):
 
 
 def test_one_sgd_step_of_densenet121_matches_reference(monkeypatch):
+    compiled_backward(monkeypatch)
     calls = {"conv3x3": 0, "conv_wgrad": 0}
     for name in calls:
         real = getattr(conv_block, name)
