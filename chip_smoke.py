@@ -350,7 +350,8 @@ each; the run stops with a non-zero exit at the first phase that fails:
     ``torch.profiler`` (idle share, device time by category) and the
     same 13 convs' forward and backward through cuDNN (``F.conv2d`` and
     autograd) under it, the device time the route replaced.
-35. ``v2_train_reference``: one step of ResNet-50 v2 at batch 64 on the
+35. ``v2_train_reference``: one step of ResNet-50 v2 (its widths, one
+    bottleneck a stage: ``V2_REF_DEPTH``) at batch 64 on the
     card and through the port on the CPU from the same weights (a
     ``.params`` file) and batch, and on the CPU in float64: per-sample
     losses within 1e-3 of the largest, every parameter and running
@@ -577,6 +578,34 @@ each; the run stops with a non-zero exit at the first phase that fails:
     feed's idle share over 5 profiled steps.  Then ``io.feedcheck``'s
     verdicts, all of which must hold.
 
+Train → checkpoint → serve over HTTP (ResNet-50 v1, 224², fp32):
+
+54. ``ckpt_train``: ``bench.py ckpt_mode`` at the training cell (batch
+    64, SGD momentum, ``Trainer.fuse_step``): 2 warm steps, 6 with an
+    async ``CheckpointManager(keep=2).save_trainer`` each; pause µs,
+    bytes, the commit's d2h / sha256 / write + fsync ms, pending saves
+    and the card bytes they hold, restore ms, step ms without and with a
+    save in turns.  The step-3 checkpoint (hard-linked as it is
+    published) resumed into a fresh net and Trainer and into the live
+    fused one (no rebuild), steps 4-6 bit for bit against the run that
+    never stopped (cuDNN deterministic for this phase); fp32, bf16 and
+    fp16 card leaves in one tree, saved twice, restore bit for bit; a
+    ``torn_write`` save falls back.  Rows 7, 9-11: 16 a captured step.
+55. ``serve_plane``: two ``python -m mxnet_tpu_torch.serve --model
+    r50=resnet50_v1:<step-3 root>`` replicas behind a ``Router``, and an
+    in-process ``InferenceServer`` over ``ModelRegistry.load``: healthz
+    ``warming`` → ok, router outputs bit for bit the in-process
+    ``predict``'s, a 16-client burst against the unbatched forward
+    (1e-4 of the largest logit, argmax where the top two are apart),
+    ``/metrics`` as Prometheus text, 429 with ``Retry-After``, drain /
+    undrain, a ``publish`` of the run's checkpoint under a burst (no
+    request lost, the new weights served), row 8 at 16 a forward; JSON
+    encode / decode ms, HTTP p50 / p99 at 1 and 8 clients, items/s, the
+    in-process p50.
+56. ``chaos``: ``resilience_bench()`` at its defaults on the card (zero
+    client-visible failures, a breaker cycle, a respawn, ≥ 1.5× at 2
+    replicas), then ``serve_bench()`` on ``mlp`` and ResNet-50, 5 s each.
+
 Then one ``{"kernels": [...]}`` line (35 entries: the bf16 and fp16
 instances of rows 7, 8, 9, 10 and 11 and the bf16 one of row 1 their
 own, rows 7, 8, 9 and 11 twice a half type: the ``wgmma`` kernels and
@@ -594,6 +623,8 @@ kernels or result line).  Two commits are compared on one card by
 running each checkout's own script in turns (parent, change, change,
 parent), each on its own package and build.
 """
+import atexit
+import contextlib
 import json
 import math
 import os
@@ -4158,6 +4189,7 @@ V2_CONVS = 13       # stride-1 3x3 convs of ResNet-50 v2: 3, 3, 5, 2 a stage
 V2_WANT = {"conv3x3": 2 * V2_CONVS, "conv_wgrad": V2_CONVS, "conv_stats": 0,
            "bn_affine": 0, "conv_affine": 0}
 V2_REF_TOL = 1e-3       # losses, parameters: of the largest magnitude
+V2_REF_DEPTH = (1, 1, 1, 1)     # v2_train_reference's bottlenecks a stage
 LOSS_CARD_TOL = 1e-5    # loss_metric: of the largest magnitude
 METRIC_CARD_REL = 1e-6
 
@@ -4354,10 +4386,28 @@ def _v2_errs(a, b):
             {k: (pa[k] - pb[k]).abs().max().item() for k in pb})
 
 
+@contextlib.contextmanager
+def _resnet50_depth(layers):
+    """ResNet-50's stage widths at ``layers`` bottlenecks a stage for the
+    nets built inside (the model zoo's own spec table, put back after).
+    Keep the context to the build and use of those nets: a net built
+    inside keeps the cut depth, so none may escape it, and nothing else
+    may build or read ResNet-50's spec while it is open."""
+    from mxnet_tpu_torch.models import resnet
+    kind, full, widths = resnet._SPECS[50]
+    resnet._SPECS[50] = (kind, list(layers), widths)
+    try:
+        yield
+    finally:
+        resnet._SPECS[50] = (kind, full, widths)
+
+
 def phase_v2_train_reference(state):
     """One ResNet-50 v2 step at batch 64 on the card and on the CPU from
     the same weights and batch, and on the CPU in float64 (the
-    docstring's item 35).  Gates: the per-sample losses within 1e-3 of
+    docstring's item 35), at ResNet-50 v2's widths and ``V2_REF_DEPTH``
+    bottlenecks a stage (the CPU's float64 step at full depth took 95 s
+    of the script).  Gates: the per-sample losses within 1e-3 of
     the largest; each parameter and running statistic within 1e-3 of the
     largest magnitude in the net, or, where the CPU's own float32 step
     lies farther than that from the float64 step, the card's step no
@@ -4365,7 +4415,10 @@ def phase_v2_train_reference(state):
     import torch
     args = _v2_args()
     (x, y), = _v2_batches(args, torch.device("cuda"), 1)
-    return _step_reference(args, x, y, V2_REF_TOL, "resnet50_v2.params")
+    with _resnet50_depth(V2_REF_DEPTH):
+        res = _step_reference(args, x, y, V2_REF_TOL, "resnet50_v2.params")
+    res["bottlenecks_a_stage"] = list(V2_REF_DEPTH)
+    return res
 
 
 def _step_reference(args, x, y, loss_tol, fname):
@@ -7982,6 +8035,647 @@ def phase_input_train(state):
     return res
 
 
+# ------------------------------------------- train → checkpoint → serve
+CKPT_MODEL = "resnet50_v1"  # example/gluon/image_classification.py's
+CKPT_IMAGE = 224
+CKPT_BATCH = 64
+CKPT_WARM = 2               # fused steps before the saving ones
+CKPT_STEPS = 6              # steps with a save after each
+CKPT_RESUME_AT = 3          # the checkpoint the resumed runs start from
+CKPT_TURNS = 4              # (no save, save) step pairs, in turns
+SERVE_ITEM = (CKPT_IMAGE, CKPT_IMAGE, 3)     # the zoo's nets are NHWC
+SERVE_SEQ = 16              # sequential single-item requests a leg
+SERVE_CLIENTS = 8
+SERVE_BURST = 16
+SERVE_TOL = 1e-4            # batched vs unbatched: of the largest |logit|
+SERVE_READY_S = 180.0       # a replica's import, CUDA, load and warm-up
+SERVE_PROM_LINE = r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? \S+$"
+
+
+def _ckpt_trainer(dev, batch=CKPT_BATCH):
+    """(net, trainer, fused step): the example's ResNet-50 v1 SGD trainer
+    at its defaults, seeded, through ``Trainer.fuse_step``."""
+    from mxnet_tpu_torch.examples import image_classification as ic
+    args = ic.parse_args(["--model", CKPT_MODEL, "--image-size",
+                          str(CKPT_IMAGE), "--batch-size", str(batch),
+                          "--seed", str(SEED)])
+    net, trainer, loss_fn = ic.build(args, dev)
+    return net, trainer, trainer.fuse_step(loss_fn)
+
+
+def _hold_published(root, step, dst):
+    """A thread that hard-links ``root``'s ``ckpt-<step>`` into the root
+    ``dst`` as soon as the writer publishes it (before keep-K retention
+    removes it).  → (thread, stop event, box with "ok")."""
+    import shutil
+    src = os.path.join(root, f"ckpt-{step:08d}")
+    stop, box = threading.Event(), {"ok": False}
+
+    def run():
+        while not stop.is_set():
+            if os.path.isdir(src):
+                try:
+                    shutil.copytree(src, os.path.join(dst, f"ckpt-{step:08d}"),
+                                    copy_function=os.link)
+                    box["ok"] = True
+                except OSError as e:
+                    box["error"] = repr(e)
+                return
+            time.sleep(0.002)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th, stop, box
+
+
+def _params_equal(a, b):
+    """Names of the tensors of two name → tensor dicts that differ."""
+    import torch
+    return [k for k, t in a.items()
+            if t.shape != b[k].shape or not torch.equal(t, b[k])]
+
+
+def _median(v):
+    s = sorted(v)
+    return s[len(s) // 2] if s else None
+
+
+CKPT_MIXED = (("w", (1 << 22,), "float32"), ("e", (512, 1024), "bfloat16"),
+              ("h", (1000, 64), "float16"), ("b", (64,), "float32"))
+
+
+def _mixed_card_saves(root, dev):
+    """Two async saves of one tree of fp32, bf16 and fp16 card leaves
+    (three snapshot buffers through the writer's one pinned buffer, the
+    second save reusing it), each leaf changed in place after its save;
+    both steps restored.  → {"leaves", "steps", "differ": [(step, key)
+    whose restored dtype or bits are not the saved ones]}."""
+    import torch
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    mgr = CheckpointManager(root, keep=2, async_write=True)
+    want = {}
+    for s in (1, 2):
+        tree = {k: torch.randn(shape, generator=gen, device=dev).to(
+            getattr(torch, dt)) for k, shape, dt in CKPT_MIXED}
+        want[s] = {k: v.cpu() for k, v in tree.items()}
+        mgr.save(tree, step=s)
+        for v in tree.values():     # the snapshot, not the live tensor
+            v.add_(1)
+    err = mgr.wait()
+    mgr.close()
+    if err is not None:
+        raise err
+    differ = []
+    for s, leaves in want.items():
+        got, _, step = CheckpointManager(root).restore(step=s)
+        for k, w in leaves.items():
+            g = torch.as_tensor(got[k])
+            if step != s or g.dtype != w.dtype or not torch.equal(g, w):
+                differ.append((s, k))
+    return {"leaves": [list(c) for c in CKPT_MIXED], "steps": [1, 2],
+            "differ": differ}
+
+
+def phase_ckpt_train(state):
+    """``bench.py ckpt_mode`` at the fused ResNet-50 v1 training cell: 2
+    warm steps, then 6 with ``save_trainer`` after each (keep 2, async);
+    pauses, bytes, the commit's parts, the pending snapshots, restore ms,
+    step ms with and without a save in turns; the step-3 checkpoint
+    resumed into a fresh net and Trainer and into the live fused one
+    (no rebuild), each bit for bit against the run that never stopped;
+    a tree of fp32, bf16 and fp16 card leaves saved twice and restored
+    bit for bit; one torn save falls back."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+    from mxnet_tpu_torch.examples import image_classification as ic
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    atexit.register(shutil.rmtree, work, True)  # serve_plane may not run
+    root, held = os.path.join(work, "run"), os.path.join(work, "step3")
+    os.makedirs(held)
+    try:
+        rng = np.random.RandomState(SEED)
+        batches = []
+        for _ in range(CKPT_WARM + CKPT_STEPS + 2 * CKPT_TURNS):
+            x, y = ic.synthetic_batch(rng, CKPT_BATCH, CKPT_IMAGE, 1000)
+            batches.append((torch.as_tensor(x, device=dev),
+                            torch.as_tensor(y, device=dev)))
+        _fused_zero()
+        c0 = telemetry.raw_snapshot()["counters"]
+        net, tr, step = _ckpt_trainer(dev)
+        warm = [float(step(*batches[i])) for i in range(CKPT_WARM)]
+        mgr = CheckpointManager(root, keep=2, async_write=True)
+        th, stop, box = _hold_published(root, CKPT_RESUME_AT, held)
+        losses, pauses, pending = {}, [], []
+        for i in range(1, CKPT_STEPS + 1):
+            losses[i] = step(*batches[CKPT_WARM + i - 1])
+            t0 = time.perf_counter()
+            mgr.save_trainer(tr, step=i)
+            pauses.append((time.perf_counter() - t0) * 1e6)
+            pending.append(mgr.stats()["pending"])
+        losses = {i: float(v) for i, v in losses.items()}
+        final = _snapshot(net)
+        t0 = time.perf_counter()
+        err = mgr.wait()
+        drain_s = time.perf_counter() - t0
+        th.join(30.0)
+        stop.set()
+        if err is not None or not box["ok"]:
+            raise AssertionError(f"saves: {err!r}; step-{CKPT_RESUME_AT} "
+                                 f"checkpoint held: {box}")
+        st = mgr.stats()
+        saves = st["saves"]
+        res = {"batch": CKPT_BATCH, "warm_losses": warm, "losses": losses,
+               "pause_us": pauses, "pause_us_median": _median(pauses),
+               "pause_us_max": max(pauses),
+               "manager_pause_us_max": st["pause_us_max"],
+               "bytes_per_save": st["bytes_written"] / saves,
+               "commit_ms_per_save": {
+                   "d2h": st["d2h_us_total"] / saves / 1e3,
+                   "sha256": st["sha256_us_total"] / saves / 1e3,
+                   "write_fsync": st["write_us_total"] / saves / 1e3},
+               "pending_after_each_save": pending,
+               "pending_max": max(pending),
+               "pending_card_bytes_max": st["pending_bytes_max"],
+               "writer_drain_s_after_loop": drain_s,
+               "steps_kept": mgr.steps()}
+        # restore ms (validate every shard, read the leaves)
+        t0 = time.perf_counter()
+        tree, meta, got = CheckpointManager(held).restore()
+        res["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        res["restored_step"] = got
+        # step ms without and with a save, in turns (into a root of
+        # their own: the run's keeps its steps 5 and 6)
+        mgr.close()
+        mgr = CheckpointManager(os.path.join(work, "turns"), keep=2,
+                                async_write=True)
+        plain_ms, saving_ms = [], []
+        for k in range(CKPT_TURNS):
+            for saving, out in ((False, plain_ms), (True, saving_ms)):
+                x, y = batches[CKPT_WARM + CKPT_STEPS + 2 * k + saving]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(x, y)
+                if saving:
+                    mgr.save_trainer(tr, step=100 + k)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+        res["step_ms_in_turns"] = {
+            "without_save": plain_ms, "with_save": saving_ms,
+            "without_save_median": _median(plain_ms),
+            "with_save_median": _median(saving_ms),
+            "pending_after": mgr.stats()["pending"],
+            "pending_card_bytes_max": mgr.stats()["pending_bytes_max"]}
+        mgr.wait()
+        # resume 1: a fresh net and Trainer from the step-3 checkpoint
+        resumes = {}
+        net2, tr2, step2 = _ckpt_trainer(dev)
+        s, meta = CheckpointManager(held).restore_trainer(tr2)
+        l2 = {i: float(step2(*batches[CKPT_WARM + i - 1]))
+              for i in range(s + 1, CKPT_STEPS + 1)}
+        resumes["fresh"] = {"step": s, "meta": meta, "losses": l2,
+                            "params_differ": _params_equal(
+                                _snapshot(net2), final)}
+        # resume 2: the same checkpoint into the live fused trainer
+        r0 = telemetry.raw_snapshot()["counters"].get("fused.rebuilds", 0)
+        s, meta = CheckpointManager(held).restore_trainer(tr)
+        l1 = {i: float(step(*batches[CKPT_WARM + i - 1]))
+              for i in range(s + 1, CKPT_STEPS + 1)}
+        r1 = telemetry.raw_snapshot()["counters"].get("fused.rebuilds", 0)
+        resumes["live"] = {"step": s, "losses": l1,
+                           "params_differ": _params_equal(_snapshot(net),
+                                                          final),
+                           "rebuilds": r1 - r0, "programs": step.programs}
+        res["resume"] = resumes
+        # launches: the first call's warm-up and capture, and the replays
+        counted = _fused_counts()
+        real = {}
+        for ex in (step, step2):
+            cap = ex.launches_per_step
+            for n in TRAIN_KERNELS:
+                real[n] = real.get(n, 0) + ex.replays * cap.get(n, 0)
+        for n in TRAIN_KERNELS:
+            real[n] += counted[n] - step.launches_per_step.get(n, 0) \
+                - step2.launches_per_step.get(n, 0)
+        state["ckpt_launches"] = real
+        res["launches"] = real
+        res["launches_per_step"] = step.launches_per_step
+        # card leaves of three dtypes, saved twice and restored bit for bit
+        res["mixed_dtype_saves"] = _mixed_card_saves(
+            os.path.join(work, "mixed"), dev)
+        # one torn save falls back to the newest intact step
+        os.environ["MXNET_CKPT_FAULT"] = "torn_write"
+        try:
+            mgr.save_trainer(tr, step=200, blocking=True)
+        finally:
+            os.environ.pop("MXNET_CKPT_FAULT", None)
+        _, _, fell = mgr.restore()
+        res["torn_write"] = {"saved": 200, "restored": fell,
+                             "steps": mgr.steps()}
+        mgr.close()
+        c1 = telemetry.raw_snapshot()["counters"]
+        res["telemetry"] = {k: v - c0.get(k, 0) for k, v in c1.items()
+                            if k.startswith(("checkpoint.", "fused."))
+                            and v != c0.get(k, 0)}
+        # serve_plane serves the step-3 copy, then publishes the run's
+        state["ckpt_roots"] = {"step3": held, "run": root, "work": work,
+                               "final": final}
+        problems = []
+        for name, r in resumes.items():
+            want = {i: losses[i] for i in r["losses"]}
+            if r["step"] != CKPT_RESUME_AT or r["losses"] != want or \
+                    r["params_differ"]:
+                problems.append(f"resume into the {name} trainer")
+        if resumes["live"]["rebuilds"] or resumes["live"]["programs"] != 1:
+            problems.append("restoring into the live step rebuilt it")
+        if fell != 103 or 200 not in mgr.steps():
+            problems.append("the torn save did not fall back")
+        if res["mixed_dtype_saves"]["differ"]:
+            problems.append("a mixed-dtype card save restored other bits")
+        if step.launches_per_step != {n: RESNET50_SEGMENTS
+                                      for n in TRAIN_KERNELS}:
+            problems.append("captured launches differ from the path's")
+        if not all(math.isfinite(v) for v in losses.values()):
+            problems.append("a non-finite loss")
+        if problems:
+            raise AssertionError(f"{problems}: {res}")
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return res
+
+
+def _http(port, method, path, body=None, timeout=120.0):
+    """(status, headers, payload) of one request to 127.0.0.1:port."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+def _predict_body(x, model="r50"):
+    return json.dumps({"model": model, "inputs": x.tolist()}).encode()
+
+
+def _outputs(payload):
+    """The first output's row of a one-item ``/v1/predict`` reply."""
+    import numpy as np
+    return np.asarray(json.loads(payload)["outputs"][0],
+                      dtype=np.float32)[0]
+
+
+def _spawn_replicas(root, ports, logdir):
+    """One ``python -m mxnet_tpu_torch.serve`` process a port, serving
+    the checkpoint root as ``r50`` on the card; output to ``logdir``."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("MXNET_SERVE_FAULT", None)
+    procs = []
+    for p in ports:
+        log = open(os.path.join(logdir, f"replica_{p}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.serve", "--model",
+             f"r50={CKPT_MODEL}:{root}", "--item-shape",
+             ",".join(map(str, SERVE_ITEM)), "--host", "127.0.0.1",
+             "--port", str(p)], cwd=HERE, env=env, stdout=log,
+            stderr=subprocess.STDOUT))
+        log.close()
+    return procs
+
+
+def _stop(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    for p in procs:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            pass
+
+
+def _lat_ms(fn, n):
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _pcts(v):
+    s = sorted(v)
+    return {"p50": s[len(s) // 2], "p99": s[min(len(s) - 1,
+                                                int(0.99 * len(s)))]}
+
+
+def _clients(n, fn):
+    """``fn(i)`` on ``n`` threads released together: → (results, errors,
+    wall s)."""
+    res, errs = [None] * n, [None] * n
+    barrier = threading.Barrier(n)
+
+    def run(i):
+        try:
+            barrier.wait()
+            res[i] = fn(i)
+        except Exception as e:      # noqa: BLE001 — reported by the gate
+            errs[i] = repr(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300.0)
+    return res, errs, time.perf_counter() - t0
+
+
+def phase_serve_plane(state):
+    """``ckpt_train``'s checkpoint served over HTTP: two replica
+    processes on the card behind an in-process ``Router``, and an
+    in-process ``InferenceServer`` over ``ModelRegistry.load(root)``;
+    readiness, exactness through the router, a burst, ``/metrics``, 429,
+    drain, a warm ``publish`` of the run's newest checkpoint under load,
+    row 8's launches; HTTP and in-process latencies."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.gluon.parameter import load_numpy
+    from mxnet_tpu_torch.models import get_model
+    from mxnet_tpu_torch.ops import conv_block as cb
+    from mxnet_tpu_torch.serve import (InferenceServer, ModelRegistry,
+                                       Router)
+    from mxnet_tpu_torch.serve.chaos import _free_port, _wait_ready
+    roots = state.get("ckpt_roots")
+    if roots is None:
+        phase_ckpt_train(state)
+        roots = state["ckpt_roots"]
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_replicas_")
+    ports = [_free_port(), _free_port()]
+    procs = _spawn_replicas(roots["step3"], ports, logdir)
+    servers, router, res = [], None, {"item_shape": list(SERVE_ITEM)}
+    try:
+        telemetry.reset()
+        _fused_zero()
+        forwards0 = cb.conv_affine.launches
+        reg = ModelRegistry(device="cuda")
+        entry = reg.load("r50", roots["step3"], arch=CKPT_MODEL,
+                         item_shape=SERVE_ITEM, warmup=False)
+        srv = InferenceServer(reg, port=0).start()
+        servers.append(srv)
+        health = [_http(srv.port, "GET", "/healthz")[:1]]
+        health[0] += (json.loads(_http(srv.port, "GET",
+                                       "/healthz")[2])["status"],)
+        entry.engine.warmup()
+        st, _, raw = _http(srv.port, "GET", "/healthz")
+        health.append((st, json.loads(raw)["status"]))
+        res["healthz"] = health
+        t0 = time.perf_counter()
+        ready = [_wait_ready(p, SERVE_READY_S) for p in ports]
+        res["replicas_ready_s"] = time.perf_counter() - t0
+        if not all(ready):
+            raise AssertionError(f"replicas not ready: {ready}")
+        router = Router([f"127.0.0.1:{p}" for p in ports], port=0,
+                        probe_interval_ms=250, timeout_ms=60000).start()
+        rs = np.random.RandomState(SEED)
+        xs = [rs.rand(*SERVE_ITEM).astype(np.float32)
+              for _ in range(SERVE_BURST)]
+        # encoded once: a client's 3 MB JSON encode holds the GIL that
+        # the in-process server and router need
+        bodies = [_predict_body(x) for x in xs]
+        # sequential single items through the router against the
+        # in-process registry at the same bucket (1)
+        seq, seq_err = [], 0.0
+        for x, body in zip(xs[:SERVE_SEQ], bodies):
+            st, _, payload = router.forward(body)
+            mine = reg.predict("r50", x)[0][0]
+            got = _outputs(payload) if st == 200 else np.full_like(
+                mine, np.nan)
+            seq.append(bool(np.array_equal(got, mine)))
+            seq_err = max(seq_err, float(np.abs(got - mine).max()))
+        res["router_sequential_bitwise"] = seq
+        res["router_sequential_max_abs_err"] = seq_err
+        # the wire's host cost at one item
+        body = bodies[0]
+        enc = _lat_ms(lambda: _predict_body(xs[0]), 10)
+        dec = _lat_ms(lambda: np.asarray(json.loads(body)["inputs"],
+                                         dtype=np.float32), 10)
+        res["json_body_bytes"] = len(body)
+        res["json_encode_ms_median"] = _median(enc)
+        res["json_decode_ms_median"] = _median(dec)
+        # latency at 1 and at SERVE_CLIENTS clients through the router
+        lat1 = _lat_ms(lambda: router.forward(body), SERVE_SEQ)
+        res["http_1_client_ms"] = _pcts(lat1)
+        per = SERVE_SEQ // 2
+
+        def client(i):
+            return _lat_ms(lambda: router.forward(body), per)
+
+        got, errs, wall = _clients(SERVE_CLIENTS, client)
+        lat8 = [v for g in got if g for v in g]
+        res["http_8_clients_ms"] = _pcts(lat8)
+        res["http_8_clients_items_s"] = SERVE_CLIENTS * per / wall
+        res["http_8_clients_errors"] = [e for e in errs if e]
+        inproc = _lat_ms(lambda: reg.predict("r50", xs[0]), SERVE_SEQ)
+        res["in_process_predict_ms"] = _pcts(inproc)
+        res["http_over_in_process_p50"] = \
+            res["http_1_client_ms"]["p50"] / res["in_process_predict_ms"]["p50"]
+        # a burst of single items through the router against the
+        # unbatched forward
+        got, errs, _ = _clients(SERVE_BURST, lambda i: router.forward(
+            bodies[i]))
+        burst = {"errors": [e for e in errs if e], "max_rel_err": 0.0,
+                 "argmax_agree": 0, "argmax_checked": 0}
+        for i, r in enumerate(got):
+            if r is None or r[0] != 200:
+                burst["errors"].append(f"{i}: {r and r[0]}")
+                continue
+            out = _outputs(r[2])
+            ref = entry.engine.run(xs[i][None])[0].float().cpu().numpy()[0]
+            scale = float(np.abs(ref).max())
+            burst["max_rel_err"] = max(burst["max_rel_err"], float(
+                np.abs(out - ref).max()) / scale)
+            top2 = np.sort(ref)[-2:]
+            if top2[1] - top2[0] > SERVE_TOL * scale:
+                burst["argmax_checked"] += 1
+                burst["argmax_agree"] += int(out.argmax() == ref.argmax())
+        res["burst"] = burst
+        st, _, prom = _http(router.port, "GET", "/metrics")
+        st2, _, prom2 = _http(srv.port, "GET", "/metrics")
+        bad = [ln for text in (prom, prom2)
+               for ln in text.decode().splitlines()
+               if ln and not ln.startswith("#")
+               and not re.match(SERVE_PROM_LINE, ln)]
+        res["metrics"] = {"router_lines": len(prom.splitlines()),
+                          "server_lines": len(prom2.splitlines()),
+                          "malformed": bad[:5]}
+        # drain / undrain of the in-process server
+        drain = [_http(srv.port, "POST", "/admin/drain")[0]]
+        st, _, raw = _http(srv.port, "GET", "/healthz")
+        drain.append((st, json.loads(raw)["status"]))
+        st, h, _ = _http(srv.port, "POST", "/v1/predict", body)
+        drain.append((st, float(h.get("Retry-After", 0)) > 0))
+        drain.append(_http(srv.port, "POST", "/admin/undrain")[0])
+        drain.append(_http(srv.port, "GET", "/healthz")[0])
+        drain.append(_http(srv.port, "POST", "/v1/predict", body)[0])
+        res["drain"] = drain
+        # publish the run's newest intact checkpoint during a burst
+        before = reg.predict("r50", xs[0])[0]
+        pub = {}
+
+        def publisher():
+            time.sleep(0.2)
+            t0 = time.perf_counter()
+            reg.publish("r50", roots["run"], arch=CKPT_MODEL,
+                        item_shape=SERVE_ITEM)
+            pub["s"] = time.perf_counter() - t0
+
+        pth = threading.Thread(target=publisher)
+        pth.start()
+        got, errs, _ = _clients(SERVE_BURST, lambda i: [
+            _http(srv.port, "POST", "/v1/predict", bodies[i])[0]
+            for _ in range(4)])
+        pth.join(300.0)
+        after = reg.predict("r50", xs[0])[0]
+        launches = cb.conv_affine.launches - forwards0
+        fwd = entry.engine.forwards + reg.get("r50").engine.forwards
+        state["serve_plane_launches"] = {"conv_affine": launches}
+        res["conv_affine"] = {"launches": launches, "forwards": fwd,
+                              "per_forward": launches / max(fwd, 1)}
+        ref_net = get_model(CKPT_MODEL)
+        load_numpy(ref_net, {k: v.cpu() for k, v in roots["final"].items()})
+        check = ModelRegistry(device="cuda")
+        check.register("r50", ref_net, SERVE_ITEM)
+        want = check.predict("r50", xs[0])[0]
+        check.close()
+        statuses = [s for g in got if g for s in g]
+        res["publish"] = {
+            "publish_s": pub.get("s"), "requests": len(statuses),
+            "non_200": [s for s in statuses if s != 200] +
+                       [e for e in errs if e],
+            "changed": not np.array_equal(before, after),
+            "serves_the_new_weights": bool(np.array_equal(after, want)),
+            "swaps": telemetry.raw_snapshot()["counters"].get(
+                "serve.swaps", 0)}
+        # a bounded queue sheds with 429 + Retry-After
+        res["shed"] = _shed_429()
+        res["router"] = router.stats()
+        problems = []
+        if [h[0] for h in health] != [503, 200] or \
+                health[0][1] != "warming":
+            problems.append("healthz did not go warming → ok")
+        if not all(seq):
+            problems.append("router outputs differ from in-process predict")
+        if burst["errors"] or burst["max_rel_err"] > SERVE_TOL or \
+                burst["argmax_agree"] != burst["argmax_checked"]:
+            problems.append("the burst disagrees with the unbatched forward")
+        if res["http_8_clients_errors"]:
+            problems.append("errors at 8 clients")
+        if bad:
+            problems.append("/metrics is not Prometheus text")
+        if drain != [200, (503, "draining"), (503, True), 200, 200, 200]:
+            problems.append("drain / undrain")
+        p = res["publish"]
+        if p["non_200"] or not p["changed"] or \
+                not p["serves_the_new_weights"] or p["swaps"] != 1:
+            problems.append("publish lost requests or weights")
+        if launches != RESNET50_SEGMENTS * fwd:
+            problems.append("conv_affine launches differ from 16 a forward")
+        if not res["shed"]["ok"]:
+            problems.append("no 429 with Retry-After")
+        if problems:
+            raise AssertionError(f"{problems}: {res}")
+        reg.close()
+    except BaseException:
+        for p in ports:
+            path = os.path.join(logdir, f"replica_{p}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    print(f"--- replica {p}:\n{f.read()[-3000:]}",
+                          file=sys.stderr)
+        raise
+    finally:
+        if router is not None:
+            router.stop()
+        for s in servers:
+            s.stop()
+        _stop(procs)
+        shutil.rmtree(logdir, ignore_errors=True)
+        shutil.rmtree(roots["work"], ignore_errors=True)
+    return res
+
+
+def _shed_429():
+    """A model behind a queue of 2 items whose batches take 300 ms (the
+    batcher's delay fault): 6 concurrent requests, some shed with 429
+    and a Retry-After."""
+    import numpy as np
+    from mxnet_tpu_torch.serve import InferenceServer, ModelRegistry
+    from mxnet_tpu_torch.serve.bench import _build_model
+    import mxnet_tpu_torch as mx
+    mx.seed(SEED)
+    net, item = _build_model("mlp")
+    net.initialize(ctx="cuda")
+    reg = ModelRegistry(queue_depth=2, max_wait_ms=1, device="cuda")
+    reg.register("mlp", net, item, buckets=(1,))
+    srv = InferenceServer(reg, port=0).start()
+    os.environ["MXNET_SERVE_FAULT"] = "batcher:delay:1.0:300"
+    try:
+        body = _predict_body(np.zeros(item, np.float32), "mlp")
+        got, _, _ = _clients(6, lambda i: _http(srv.port, "POST",
+                                                "/v1/predict", body))
+    finally:
+        os.environ.pop("MXNET_SERVE_FAULT", None)
+        srv.stop(close_registry=True)
+    codes = [g[0] for g in got if g]
+    shed = [g for g in got if g and g[0] == 429]
+    return {"codes": codes, "ok": bool(shed) and all(
+        float(g[1].get("Retry-After", 0)) > 0 for g in shed) and
+        set(codes) <= {200, 429}}
+
+
+def phase_chaos(state):
+    """``resilience_bench()`` at the reference's defaults with its
+    replicas on the card (the seeded mlp, a SIGKILL mid-load, a respawn),
+    then ``serve_bench()`` on ``mlp`` and on ResNet-50 v1, 5 s each."""
+    from mxnet_tpu_torch.serve import bench, chaos
+    res = {"resilience": chaos.resilience_bench(verbose=False)}
+    rows = {}
+    for model in ("mlp", "resnet50_v1"):
+        os.environ["BENCH_SERVE_MODEL"] = model
+        os.environ["BENCH_SERVE_S"] = "5"
+        try:
+            rows[model] = bench.serve_bench()
+        finally:
+            os.environ.pop("BENCH_SERVE_MODEL", None)
+            os.environ.pop("BENCH_SERVE_S", None)
+    res["serve_bench"] = rows
+    r = res["resilience"]
+    if "error" in r or not r.get("ok"):
+        raise AssertionError(f"resilience gate: {r}")
+    for model, row in rows.items():
+        if not row["completed"] or row["completed"] != row["submitted"]:
+            raise AssertionError(f"serve_bench {model}: {row}")
+    return res
+
+
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
      "mxnet_tpu/ops/pallas_kernels.py:104"),
@@ -8184,7 +8878,7 @@ PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
                  "ext_launches", "fused_launches", "v2_launches",
                  "zoo_launches", "bf16_launches", "bf16_train_launches",
                  "fp16_train_launches", "sparse_launches",
-                 "input_launches")
+                 "input_launches", "ckpt_launches", "serve_plane_launches")
 
 
 def kernels_line(state):
@@ -8201,8 +8895,10 @@ def kernels_line(state):
     (``bf16_serve``), Inception-v3's bf16 forward (``bf16_serve``) and
     bf16 ResNet-50 and BERT-base training (``bf16_train``), and the fp16
     instances in fp16 ResNet-50 training, fused and under ``amp``, and
-    the fp16-converted forward (``fp16_train``), and Gluon BERT-base
-    training with a row-sparse word embedding (``sparse_train``));
+    the fp16-converted forward (``fp16_train``), Gluon BERT-base
+    training with a row-sparse word embedding (``sparse_train``), the
+    checkpointed ResNet-50 training (``ckpt_train``) and the served
+    checkpoint (``serve_plane``));
     the times are at the first case, the
     path's own shape (``conv3x3``: its dgrad use, which is how training
     launches it)."""
@@ -8310,7 +9006,7 @@ PHASES = ("env", "build", "kernels", "slice", "reference", "profile",
           "bf16_reference", "bf16_train_kernels", "bf16_train",
           "bf16_train_reference", "fp16_train_kernels", "fp16_train",
           "fp16_train_reference", "sparse_train", "attention_ops",
-          "input_train")
+          "input_train", "ckpt_train", "serve_plane", "chaos")
 
 
 def _args(argv):

@@ -38,10 +38,20 @@ the lone 3×3/s1 conv of ``ops.pallas_conv`` (ResNet v2's convs) on the
 conv3x3 and conv_wgrad kernels.  bf16: ``amp`` and
 ``InferenceEngine(precision="bf16")`` serve, and
 ``parallel.FusedTrainStep(dtype="bfloat16")`` trains (fp32 masters, the
-step in bf16), on the kernels' bf16 instances.  Entry points run on the
-GPU unless ``device="cpu"`` is passed.  Importing the package builds and
+step in bf16), on the kernels' bf16 instances.  The host planes:
+``checkpoint`` (durable async checkpoints of a Trainer, the reference's
+format), ``serve.InferenceServer`` / ``serve.Router`` (serving over
+HTTP), ``telemetry``, ``profiler``, ``faults`` and ``lockwatch``
+(``MXNET_LOCK_CHECK``, installed here before any submodule builds a
+lock).  Entry points run on the GPU unless ``device="cpu"`` is passed.  Importing the package builds and
 compiles nothing.
 """
+# MXNET_LOCK_CHECK=1|warn: wrap threading.Lock/RLock/Condition with the
+# order-recording watchdog before any submodule constructs its locks
+# (lockwatch is stdlib only: nothing is added to import cost when off)
+from . import lockwatch as _lockwatch
+_lockwatch.install()
+
 from . import (context, gluon, initializer, lr_scheduler, optimizer,
                random, telemetry)
 from .context import (cpu, current_context, current_device, gpu, num_gpus,
@@ -55,6 +65,7 @@ from .serve import (Batcher, DecodeBatcher, InferenceEngine,
                     ModelRegistry)
 from . import autograd, nd, operator, library, rtc, tvmop, _ffi, amp, sparse
 from . import image, io, recordio, storage
+from . import checkpoint, faults, lockwatch, profiler
 from ._ffi import get_global_func, register_func
 
 init = initializer   # ≙ mx.init
@@ -81,4 +92,5 @@ __all__ = ["context", "gluon", "initializer", "init", "lr_scheduler",
            "init_params", "params_from_numpy", "get_model", "Batcher",
            "InferenceEngine", "ModelRegistry", "autograd", "nd", "operator",
            "library", "rtc", "tvmop", "_ffi", "get_global_func",
-           "register_func", "amp", "image", "io", "recordio", "storage"]
+           "register_func", "amp", "image", "io", "recordio", "storage",
+           "checkpoint", "faults", "lockwatch", "profiler"]

@@ -146,6 +146,9 @@ class Block(nn.Module):
                     spec.shape if spec.known() else None
                 if shape is None:
                     mod._pending = (given, gen)
+                    # where a checkpoint restored before the first
+                    # forward materializes it (gluon.parameter.assign)
+                    mod._pending_device = device
                 else:
                     mod._fill(name, shape, mod._initializer(name, given),
                               gen, device)

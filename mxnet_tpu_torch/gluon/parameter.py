@@ -29,6 +29,7 @@ and, where it moved, drops its graphs and captures anew.
 from __future__ import annotations
 
 from collections import OrderedDict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -166,10 +167,19 @@ class ParameterDict(OrderedDict):
             _storage_moved()
 
 
-def _spec(net, name):
+def _owner(net, name):
     owner, _, leaf = name.rpartition(".")
-    mod = net.get_submodule(owner) if owner else net
+    return (net.get_submodule(owner) if owner else net), leaf
+
+
+def _spec(net, name):
+    mod, leaf = _owner(net, name)
     return getattr(mod, "_specs", {}).get(leaf)
+
+
+def _pending_device(net, name):
+    """The device ``initialize(ctx=...)`` gave a still-deferred tensor."""
+    return getattr(_owner(net, name)[0], "_pending_device", None)
 
 
 def _tensor(a):
@@ -181,11 +191,35 @@ def _tensor(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def assign(t, a, spec: Optional[ParamSpec] = None, name: str = "",
+           device=None):
+    """Copy the host array or tensor ``a`` into the parameter or buffer
+    ``t`` in place (cast to ``t``'s dtype, moved to its device); an
+    uninitialized (deferred) ``t`` first takes ``a``'s shape, ``spec``'s
+    dtype (fp32 without one) and ``device`` (its own without one)."""
+    src = a if isinstance(a, torch.Tensor) else _tensor(np.asarray(a))
+    shape = tuple(src.shape)
+    with torch.no_grad():
+        if is_initialized(t):
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name}: shape {shape} does not match "
+                                 f"the parameter's {tuple(t.shape)}")
+        else:
+            if spec is not None and not spec.fits(shape):
+                raise ValueError(f"{name}: shape {shape} does not fit "
+                                 f"{spec.shape}")
+            t.materialize(shape, device=device or t.device,
+                          dtype=spec.dtype if spec is not None
+                          else torch.float32)
+        t.copy_(src)
+
+
 def load_numpy(net, arrays, allow_missing: bool = False,
                ignore_extra: bool = False):
     """Copy ``{dotted name: ndarray}`` into ``net``'s parameters and
     buffers, e.g. the JAX package's ``{k: p.data().asnumpy() for k, p in
-    net.collect_params().items()}``.  Each tensor keeps its dtype (the
+    net.collect_params().items()}`` (a value may also be a tensor, as a
+    checkpoint restores a bf16 leaf).  Each tensor keeps its dtype (the
     values are cast to it); uninitialized (deferred) entries take the
     array's shape and their block's dtype.  Raises ``KeyError`` on a
     missing name (unless ``allow_missing``) or an extra one (unless
@@ -199,21 +233,6 @@ def load_numpy(net, arrays, allow_missing: bool = False,
     if extra and not ignore_extra:
         raise KeyError(f"extra parameters {sorted(extra)[:5]} "
                        f"({len(extra)} in all)")
-    with torch.no_grad():
-        for k, t in params.items():
-            if k not in arrays:
-                continue
-            a = np.asarray(arrays[k])
-            if is_initialized(t):
-                if tuple(t.shape) != a.shape:
-                    raise ValueError(f"{k}: shape {a.shape} does not match "
-                                     f"the parameter's {tuple(t.shape)}")
-            else:
-                spec = _spec(net, k)
-                if spec is not None and not spec.fits(a.shape):
-                    raise ValueError(f"{k}: shape {a.shape} does not fit "
-                                     f"{spec.shape}")
-                t.materialize(a.shape, device=t.device,
-                              dtype=spec.dtype if spec is not None
-                              else torch.float32)
-            t.copy_(_tensor(a))
+    for k, t in params.items():
+        if k in arrays:
+            assign(t, arrays[k], _spec(net, k), k, _pending_device(net, k))

@@ -23,12 +23,23 @@ Only the single-process stores are ported: ``kvstore`` None, "device" or
 one captured CUDA graph a step, sharing this Trainer's state.  The
 optimizer's arguments (``lr_scheduler``, ``clip_gradient``, ...) pass
 through ``optimizer_params``.
+
+``export_checkpoint_state`` / ``import_checkpoint_state`` are the tree
+``checkpoint.CheckpointManager.save_trainer`` / ``restore_trainer``
+carry, under the reference's keys: ``params/<name>`` (running
+statistics included), ``states/<name>/<key>`` (the optimizer's state
+names, which are the reference's), and, once a fused step has run,
+``ctl/t`` (int32, the step count) and ``ctl/generators/<i>`` (the
+states of the ``torch.Generator`` s the captured step draws from:
+Dropout's, SGLD's).  A reference checkpoint's ``ctl/rng`` (a JAX key)
+has no torch counterpart and is skipped with a warning.
 """
 from __future__ import annotations
 
 import json
 import os
 import pickle
+import warnings
 import weakref
 from typing import Dict, List
 
@@ -37,7 +48,7 @@ import torch
 
 from .. import optimizer as opt_mod
 from ..sparse import RowSparseNDArray
-from .parameter import is_initialized
+from .parameter import _pending_device, _spec, assign, is_initialized
 
 __all__ = ["Trainer"]
 
@@ -75,6 +86,7 @@ class Trainer:
         self._update_on_kvstore = bool(update_on_kvstore)
         items = list(params.items()) if isinstance(params, dict) else \
             [(str(i), p) for i, p in enumerate(params)]
+        self._items = items         # parameters and running statistics
         self._trainable = [(n, p) for n, p in items
                            if isinstance(p, torch.nn.Parameter) and
                            p.requires_grad]
@@ -85,6 +97,9 @@ class Trainer:
         # the fused executors sharing this trainer's state, held weakly:
         # load_states resyncs them
         self._fused_execs: List[weakref.ref] = []
+        # generator states of a restored checkpoint's ctl, for a fused
+        # executor built after the restore
+        self._restored_generators = None
 
     # -- properties -----------------------------------------------------
     @property
@@ -153,9 +168,12 @@ class Trainer:
         return live
 
     def _resync_fused(self):
-        """Hand every live fused executor the states just loaded."""
+        """Hand every live fused executor the states just loaded (and the
+        generators' states a checkpoint restored)."""
         for ex in self._live_fused():
             ex.resync()
+            if self._restored_generators is not None:
+                ex.resync_ctl(self._restored_generators)
 
     def _update(self, ignore_stale_grad=False):
         """One multi-tensor update of the parameters with a gradient.
@@ -202,6 +220,81 @@ class Trainer:
             p.grad = None
 
     # -- state io -------------------------------------------------------
+    def export_checkpoint_state(self):
+        """``(tree, meta)`` of everything a resumed run needs: the
+        parameters and running statistics, the optimizer states, and a
+        live fused executor's control block (``ctl/t``, its generators'
+        states).  Leaves are the live tensors: ``CheckpointManager.save``
+        copies them at the step boundary before the next step."""
+        tree: dict = {"params": {}, "states": {}}
+        for n, t in self._items:
+            if is_initialized(t):
+                tree["params"][n] = t.detach()
+        for k, v in self._states.items():
+            tree["states"][k] = v
+        for ex in self._live_fused():
+            ctl = ex.export_ctl()
+            if ctl is not None:
+                tree["ctl"] = ctl
+                break
+        meta = {"num_update": int(self._optimizer.num_update),
+                "lr": float(self._optimizer.learning_rate)}
+        return tree, meta
+
+    def import_checkpoint_state(self, tree, meta=None):
+        """Inverse of :meth:`export_checkpoint_state` from host leaves
+        (this package's checkpoint or the JAX package's): parameters and
+        running statistics are copied in place (a deferred one takes the
+        stored shape), so a live fused executor keeps its graph; states
+        are copied into the tensors that hold them where shapes agree;
+        ``num_update`` and the learning rate (without a scheduler) are
+        restored; every live fused executor resyncs its states and
+        generators, and one built later takes the restored generators."""
+        meta = dict(meta or {})
+        net = self._net() if self._net is not None else None
+        byname = dict(self._items)
+        for n, a in (tree.get("params") or {}).items():
+            t = byname.get(n)
+            if t is None:
+                continue
+            if net is None:
+                assign(t, a, name=n)
+            else:
+                assign(t, a, _spec(net, n), n, _pending_device(net, n))
+        states: Dict[str, dict] = {}
+        with torch.no_grad():
+            for k, st in (tree.get("states") or {}).items():
+                dev = byname[k].device if k in byname else "cpu"
+                cur = self._states.get(k) or {}
+                new = {}
+                for sk, v in st.items():
+                    src = v if isinstance(v, torch.Tensor) else \
+                        torch.as_tensor(np.asarray(v))
+                    held = cur.get(sk)
+                    if held is not None and held.shape == src.shape:
+                        held.copy_(src)
+                        new[sk] = held
+                    else:
+                        new[sk] = src.to(dev).clone()
+                states[k] = new
+        self._states = states
+        if "num_update" in meta:
+            self._optimizer.num_update = int(meta["num_update"])
+        if meta.get("lr") is not None and \
+                getattr(self._optimizer, "lr_scheduler", None) is None:
+            self._optimizer.set_learning_rate(float(meta["lr"]))
+        ctl = tree.get("ctl") or {}
+        if "rng" in ctl:
+            warnings.warn(
+                "checkpoint ctl/rng is a JAX PRNG key, which no torch "
+                "generator can continue: skipped (the fused step's "
+                "generators keep their own streams)", UserWarning)
+        gens = ctl.get("generators")
+        self._restored_generators = None if not gens else [
+            torch.as_tensor(np.asarray(gens[k]), dtype=torch.uint8)
+            for k in sorted(gens, key=int)]
+        self._resync_fused()
+
     def save_states(self, fname):
         """The optimizer's states and step counts to ``fname`` as an
         ``.npz`` (written to the exact path, atomically)."""

@@ -14,8 +14,11 @@ computes on batch N:
   recorded after them (``record_stream`` keeps the caching allocator
   from reusing the batch's memory early);
 - counters (staged batches, h2d bytes, producer backpressure, consumer
-  waits, sync fallbacks) come out of ``stats()`` and as the port's
-  ``telemetry`` gauges ``datafeed.staged`` and ``datafeed.ring_depth``.
+  waits, sync fallbacks) come out of ``stats()``; the staged count and
+  the ring's depth are also gauges, each both a ``telemetry`` gauge
+  (``datafeed.staged``, ``datafeed.ring_depth``) and a
+  ``profiler.Counter`` (``datafeed/staged``, ``datafeed/ring_depth``:
+  chrome traces keep the ``/`` form), as the reference's ``_gauge``.
 
 Ring semantics: a bounded queue of ``depth`` staged batches.  The
 producer blocks (counted as backpressure) when the ring is full; the
@@ -110,6 +113,7 @@ class DataFeed:
         self._abandoned = None
         self._err = None
         self._closed = False
+        self._gauges = {}
         self._start()
 
     # -------------------------------------------------------- lifecycle --
@@ -302,6 +306,16 @@ class DataFeed:
                 event.record(self._stream)
         return _Staged(out, event, pinned)
 
+    def _gauge(self, name, value):
+        """One gauge, twice: the registry's (``datafeed/ring_depth`` →
+        ``datafeed.ring_depth``) and a profiler Counter's."""
+        from .. import profiler
+        _telemetry.gauge_set(name.replace("/", "."), value)
+        g = self._gauges.get(name)
+        if g is None:
+            g = self._gauges[name] = profiler.Counter(name)
+        g.set_value(value)
+
     def _give_back(self, staged):
         """Return a staged batch's pinned buffers once its copy is done."""
         if staged.pinned:
@@ -320,7 +334,7 @@ class DataFeed:
                 with self._lock:
                     self._stats["staged_batches"] += 1
                     n = self._stats["staged_batches"]
-                _telemetry.gauge_set("datafeed.staged", n)
+                self._gauge("datafeed/staged", n)
                 try:
                     queue.put_nowait(staged)
                 except _q.Full:
@@ -334,7 +348,7 @@ class DataFeed:
                             continue
                 if abandoned.is_set():
                     return
-                _telemetry.gauge_set("datafeed.ring_depth", queue.qsize())
+                self._gauge("datafeed/ring_depth", queue.qsize())
         except BaseException as e:          # raised at the consumer
             self._err = e
         finally:

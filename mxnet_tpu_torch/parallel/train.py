@@ -538,6 +538,8 @@ class TrainerFusedStep(_Stats):
             return
         self._step = _Step(net, self._loss, self._opt, tr._trainable,
                            lambda: tr._states, mean=False)
+        if tr._restored_generators is not None:
+            self.resync_ctl(tr._restored_generators)
 
     def __call__(self, x, y, batch_size=None, ignore_stale_grad=False):
         x, y = torch.as_tensor(x), torch.as_tensor(y)
@@ -581,3 +583,38 @@ class TrainerFusedStep(_Stats):
         the step count is read from ``num_update`` on every call."""
         if self._step is not None:
             self._step.resync()
+
+    # ---------------------------------------------------------- checkpoint
+    def export_ctl(self):
+        """The control block a checkpoint carries (None before the first
+        fused step): ``t``, the step count as the reference's int32, and
+        ``generators``, the states of the generators the step draws from
+        (in :meth:`_Step._generators` order), so a resumed run continues
+        the same streams."""
+        if self._step is None:
+            return None
+        ctl = {"t": torch.tensor(self._opt.num_update, dtype=torch.int32)}
+        gens = self._step._generators()
+        if gens:
+            ctl["generators"] = {str(i): g.get_state()
+                                 for i, g in enumerate(gens)}
+        return ctl
+
+    def resync_ctl(self, generators):
+        """After a restore: the step count is read from ``num_update`` at
+        every call, so only the generators' states (``generators``, in
+        :meth:`export_ctl` order) need setting; before the first call
+        :meth:`_prepare` sets them.  ``set_state`` writes the generator's
+        own seed and offset, which a replay of a graph it is registered
+        with reads, so the next replay draws from them.  The generators
+        are the net's and the optimizer's, shared by every executor: set
+        once, the Trainer forgets them."""
+        if self._step is None:
+            return
+        gens = self._step._generators()
+        if len(gens) != len(generators):
+            raise ValueError(f"checkpoint holds {len(generators)} generator "
+                             f"states, the step draws from {len(gens)}")
+        for g, st in zip(gens, generators):
+            g.set_state(st)
+        self._trainer._restored_generators = None

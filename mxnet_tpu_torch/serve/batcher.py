@@ -7,8 +7,10 @@ partial batches are padded with zeros (the pad rows are computed and
 discarded), and each caller gets its own slice of the one forward.
 Admission control is a bounded queue counted in items (``QueueFull``);
 a ``submit`` that times out tombstones its request, which the coalescer
-then skips (``serve.abandoned``).  The reference's fault injection and
-trace links belong to the host planes, not ported yet.
+then skips (``serve.abandoned``).  ``MXNET_SERVE_FAULT=batcher:...``
+(faults.py) injects a delay, an error or a black hole around the
+device execution, as the reference's does.  The reference's trace links
+(a batch span naming the request spans it served) are not ported.
 
 ``DecodeBatcher`` is token-level continuous batching over one decode
 engine: a persistent B-row decode batch where each row (slot) hosts one
@@ -32,8 +34,10 @@ import numpy as np
 import torch
 
 from .. import telemetry as _telemetry
+from . import faults as _faults
 
-__all__ = ["Batcher", "DecodeBatcher", "QueueFull", "RequestError"]
+__all__ = ["Batcher", "DecodeBatcher", "QueueFull", "RequestError",
+           "BatcherClosed"]
 
 _US = 1e6
 
@@ -61,6 +65,11 @@ def _host(t):
 
 class QueueFull(Exception):
     """Admission control: the bounded request queue is at capacity."""
+
+
+class BatcherClosed(RuntimeError):
+    """The batcher was closed (drained by a warm swap or an eviction)
+    before this request was queued."""
 
 
 class RequestError(Exception):
@@ -158,7 +167,7 @@ class Batcher:
         _telemetry.counter_add("serve.requests")
         with self._cv:
             if self._closed:
-                raise RuntimeError(f"batcher {self.name!r} is closed")
+                raise BatcherClosed(f"batcher {self.name!r} is closed")
             if self._qn + n > self.queue_depth:
                 _telemetry.counter_add("serve.rejected")
                 raise QueueFull(f"queue at {self._qn}/{self.queue_depth} "
@@ -267,6 +276,22 @@ class Batcher:
             ([np.zeros((bucket - n_items,) + self.engine.item_shape,
                        dtype=self.engine.dtype)]
              if bucket > n_items else []))
+        fault = _faults.maybe("batcher")
+        if fault is not None:
+            mode, secs = fault
+            if mode == "delay":
+                _faults.apply_delay(secs)
+            elif mode == "black_hole":
+                # strand the batch: events never set, callers hit their
+                # submit() timeout (→ HTTP 504)
+                return
+            else:   # error
+                e = RequestError("injected fault (MXNET_SERVE_FAULT)")
+                _telemetry.counter_add("serve.errors")
+                for r in batch:
+                    r.error = e
+                    r.event.set()
+                return
         try:
             t0 = time.perf_counter()
             with _telemetry.span("serve.execute", fill=n_items,

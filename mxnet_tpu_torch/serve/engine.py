@@ -135,12 +135,15 @@ class InferenceEngine:
         self.item_shape = tuple(int(d) for d in item_shape)
         self.buckets = bucket_ladder(buckets)
         net.eval()
-        if not all(is_initialized(t)
-                   for t in net.collect_params().values()):
-            # deferred shapes resolve on the CPU, then the net moves (not
-            # under inference_mode: its tensors could not be moved after)
+        params = net.collect_params().values()
+        if not all(is_initialized(t) for t in params):
+            # deferred shapes resolve where the initialized tensors live
+            # (the CPU when none is), then the net moves (not under
+            # inference_mode: its tensors could not be moved after)
+            where = {t.device for t in params if is_initialized(t)}
+            where = where.pop() if len(where) == 1 else "cpu"
             with torch.no_grad():
-                net(self._zeros(self.buckets[0], "cpu", self._tdtype))
+                net(self._zeros(self.buckets[0], where, self._tdtype))
         net.to(self.device)
         if self.precision == "bf16":
             from .. import amp as _amp
@@ -210,8 +213,16 @@ class InferenceEngine:
                 torch.cuda.synchronize(self.device)
 
     @property
+    def warm(self) -> bool:
+        return self._warm
+
+    @property
     def ready(self) -> bool:
-        """Every bucket has run once."""
+        """Readiness for traffic: every bucket has run once.  The
+        readiness-aware ``/healthz`` (server.py) reports the model as
+        ``warming`` (503) until this flips, so a router never sends
+        traffic to a replica that would build kernels on the serving
+        path."""
         return self._warm
 
     def bucket_for(self, n: int) -> int:

@@ -8,10 +8,18 @@ registry is an LRU capped at ``MXNET_SERVE_MAX_MODELS`` (4): loading
 past the cap evicts the least recently predicted model, whose batcher
 drains.
 
-Models load from a ``.params`` file written by ``save_parameters`` (by
-this package or by the JAX package: the format is the same).  A
-``CheckpointManager`` directory raises until ``checkpoint.py`` is
-ported.
+Models load from either format the trainer writes, by this package or
+by the JAX package (the formats are the same):
+
+- a ``CheckpointManager`` root (directory): the parameter subtree of the
+  newest intact training checkpoint is restored with
+  ``restore(subtree="params")``, without optimizer states or control
+  block, so a serving host never builds a Trainer;
+- a ``.params`` file written by ``save_parameters``.
+
+``publish`` warm-swaps a model to new weights (the replacement is built
+and warmed before the swap; ``serve.swaps``), ``health`` is the
+per-model readiness behind the server's ``/healthz``.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from collections import OrderedDict
 from typing import Optional, Sequence
 
 from .. import telemetry as _telemetry
+from ..gluon.parameter import load_numpy
 from .batcher import Batcher, _env_int
 from .engine import InferenceEngine
 
@@ -118,14 +127,14 @@ class ModelRegistry:
              warmup: bool = True, precision: Optional[str] = None,
              calib_data=None, mesh=None, sharding_plan=None, device=None,
              **model_kwargs) -> ModelEntry:
-        """Load weights from the ``.params`` file ``source`` into ``net``
-        (or a fresh ``models.get_model(arch, **model_kwargs)``) and
-        register the model."""
-        if os.path.isdir(source):
-            raise NotImplementedError(
-                f"{source!r} is a checkpoint directory: restoring a "
-                f"CheckpointManager root needs checkpoint.py, which is not "
-                f"ported yet; load a .params file from save_parameters")
+        """Load weights from ``source`` and register the model.
+
+        ``source`` is a ``CheckpointManager`` root directory (the
+        parameters of the newest intact checkpoint) or a ``.params`` file
+        from ``save_parameters``.  The net comes from ``net=`` or the
+        model zoo via ``arch=`` (``models.get_model(arch,
+        **model_kwargs)``); a fresh zoo net's deferred parameters take the
+        stored shapes."""
         if net is None:
             if arch is None:
                 raise ValueError("load() needs net= or arch=")
@@ -134,13 +143,32 @@ class ModelRegistry:
         if item_shape is None:
             raise ValueError("load() needs item_shape= (one item, no batch "
                              "dim)")
-        net.load_parameters(source)
+        if os.path.isdir(source):
+            from ..checkpoint import CheckpointManager
+            tree, _meta, _step = CheckpointManager(source).restore(
+                subtree="params")
+            self._load_params(net, tree)
+        else:
+            net.load_parameters(source)
         net.hybridize()
         return self.register(name, net, item_shape, dtype=dtype,
                              buckets=buckets, warmup=warmup, source=source,
                              precision=precision, calib_data=calib_data,
                              mesh=mesh, sharding_plan=sharding_plan,
                              device=device)
+
+    @staticmethod
+    def _load_params(net, tree):
+        """Copy restored host leaves into the net's parameters and
+        running statistics, deferred ones included (the stored array
+        gives the shape)."""
+        params = net.collect_params()
+        missing = [k for k in params if k not in tree]
+        if missing:
+            raise KeyError(
+                f"checkpoint params subtree lacks {missing[:4]} "
+                f"(has {len(tree)} leaves)")
+        load_numpy(net, {k: tree[k] for k in params})
 
     # ------------------------------------------------------------ dispatch
     def get(self, name: str) -> ModelEntry:
@@ -156,16 +184,39 @@ class ModelRegistry:
         """Blocking predict against model ``name`` through its batcher."""
         return self.get(name).batcher.submit(x, timeout=timeout)
 
+    def publish(self, name: str, source: str, **kw) -> ModelEntry:
+        """Warm-swap a model to new weights: load, build and warm the
+        replacement first (``load`` → ``register``), then swap it into
+        the serving map and drain the old entry's batcher.  Traffic never
+        meets a cold model or a half swap; if the load raises, the old
+        entry keeps serving.  Counted as ``serve.swaps``."""
+        return self.load(name, source, **kw)
+
     # --------------------------------------------------------------- admin
     def names(self):
         with self._mu:
             return list(self._models)
+
+    def health(self) -> dict:
+        """Per-model readiness, ``{name: "ready" | "warming"}``: the
+        payload behind the readiness-aware ``/healthz``."""
+        with self._mu:
+            entries = list(self._models.values())
+        return {e.name: "ready" if e.engine.ready else "warming"
+                for e in entries}
 
     def stats(self) -> dict:
         with self._mu:
             entries = list(self._models.values())
         return {"max_models": self.max_models,
                 "models": {e.name: e.stats() for e in entries}}
+
+    def unregister(self, name: str):
+        with self._mu:
+            entry = self._models.pop(name, None)
+            _telemetry.gauge_set("serve.models", len(self._models))
+        if entry is not None:
+            entry.batcher.close()
 
     def close(self):
         with self._mu:

@@ -347,10 +347,20 @@ def test_registry_builds_the_zoo_arch_from_a_params_file(tmp_path):
     with torch.inference_mode():
         ref = src(torch.from_numpy(x[None])).numpy()
     _close(out, ref)
-    with ModelRegistry(device="cpu") as reg:
-        with pytest.raises(NotImplementedError, match="checkpoint"):
+    # a directory is a CheckpointManager root: one without a checkpoint
+    # raises, one with the same weights serves the same predictions
+    from mxnet_tpu_torch.checkpoint import (CheckpointManager,
+                                            NoCheckpointError)
+    root = str(tmp_path / "ckpt")
+    CheckpointManager(root).save({"params": dict(src.collect_params())},
+                                 step=1, blocking=True)
+    with ModelRegistry(buckets=(1,), device="cpu") as reg:
+        with pytest.raises(NoCheckpointError):
             reg.load("ckpt", str(tmp_path), arch="resnet18_v1",
                      item_shape=(16, 16, 3))
+        reg.load("ckpt", root, arch="resnet18_v1", classes=5,
+                 item_shape=(16, 16, 3))
+        assert np.array_equal(reg.predict("ckpt", x, timeout=60)[0], out)
         with pytest.raises(ValueError):
             reg.load("r18", path, item_shape=(16, 16, 3))   # no net/arch
 

@@ -45,6 +45,34 @@ def test_import_loads_no_jax_and_no_reference_module():
     assert subs and subs <= set(mods)
 
 
+HOST_PLANES = ("checkpoint", "faults", "lockwatch", "profiler",
+               "telemetry", "serve.server", "serve.router", "serve.chaos",
+               "serve.bench", "serve.faults", "serve.supervise",
+               "serve.__main__")
+
+
+def test_host_planes_import_alone_under_the_lock_watchdog():
+    """The train → checkpoint → serve modules, each imported in a fresh
+    process with ``MXNET_LOCK_CHECK=1`` (the chaos replicas' setting):
+    the watchdog is installed, nothing of JAX or the JAX package loads,
+    and ``serve.__main__`` starts no server when imported."""
+    script = (
+        "import importlib, json, sys\n"
+        "for m in sys.argv[1:]:\n"
+        "    importlib.import_module('mxnet_tpu_torch.' + m)\n"
+        "from mxnet_tpu_torch import lockwatch\n"
+        "print(json.dumps([lockwatch.installed(), sorted(sys.modules)]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), MXNET_LOCK_CHECK="1")
+    out = subprocess.run([sys.executable, "-c", script, *HOST_PLANES],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    installed, mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert installed
+    assert [m for m in mods if _foreign(m)] == []
+    assert {f"mxnet_tpu_torch.{m}" for m in HOST_PLANES} <= set(mods)
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
