@@ -606,6 +606,44 @@ Train → checkpoint → serve over HTTP (ResNet-50 v1, 224², fp32):
     client-visible failures, a breaker cycle, a respawn, ≥ 1.5× at 2
     replicas), then ``serve_bench()`` on ``mlp`` and ResNet-50, 5 s each.
 
+The observed fleet (ResNet-50 v1, 224², 1000 classes, fp32):
+
+57. ``int8_calib``: the seeded ResNet-50 published into a fresh model
+    store and loaded by ``get_model(pretrained=True, root=)``, then the
+    store emptied and the weights downloaded again from a ``file://``
+    ``MXNET_GLUON_REPO`` mirror (sha1 checked both times, a corrupted
+    copy refused, the parameters bit for bit the seeded ones).  An eager
+    scoring loop of 4 seeded batches of 32 on the card under
+    ``observe_activations``: row 8 at 16 a forward, a ``quant.amax.*``
+    gauge for each of the 54 quantizable layers, the ``naive``
+    thresholds read back from the registry within 1e-6 of the max |x|
+    that ``quantize_net``'s own collector takes of the same inputs, every
+    ``entropy`` threshold ≤ its amax.  ``quantize_net(thresholds=)`` →
+    ``ModelRegistry`` (precision int8, the twins pass through): row 12
+    at 16 a forward, none of row 8, argmax agreement with fp32 on 64
+    seeded images at least a directly calibrated int8 net's.  Prints the
+    observed and plain forward ms, host transfers and ``quant.act``
+    observations a batch, int8 images/s at batch 32.
+58. ``obs_fleet``: ``obs.check.check`` at full width: a ``--selftest-model
+    web`` replica on the card behind a ``Router`` at 15 qps, four decode
+    workers (host processes; two feed fewer batches than the step takes,
+    and the watchdog fires without a fault) serving
+    ``synthetic:64x3x224x224``, a ``FeedClient`` → ``DataFeed``
+    (finalized to NHWC fp32 on the card) feeding the example's fused
+    ResNet-50 step at batch 64, the recorder at 250 ms with the seeded
+    watchdog, ``MXNET_OBS_PEAK_FLOPS`` the card's fp32 peak.  A
+    ``client:delay`` fault sized from the measured step makes
+    ``input_starved`` fire and, removed, clear; the merged report holds
+    serve, feed and trainer rates and finite stall, goodput and MFU.  Rows 7, 9-11 at 16 a captured step.  Prints step ms in the
+    fleet and alone, MFU, the stall fraction before, under and after the
+    fault, goodput and the recorder's dropped frames.
+59. ``trace_check``: ``tracecheck._selfcheck`` on the card: the
+    ``--selftest-model trace`` replica behind a ``Router``, and a decode
+    worker feeding the fused ResNet-50 step through a ``prefetch=0``
+    ``FeedClient``; one trace id across both pids in each leg, every
+    child within its parent, each ``serve.execute`` linking its
+    requests, the merged file valid Chrome trace JSON.
+
 Then one ``{"kernels": [...]}`` line (35 entries: the bf16 and fp16
 instances of rows 7, 8, 9, 10 and 11 and the bf16 one of row 1 their
 own, rows 7, 8, 9 and 11 twice a half type: the ``wgmma`` kernels and
@@ -3067,6 +3105,7 @@ def phase_int8_score(state):
     # launch no conv_affine)
     _add_bf16_launches(state, _half_counts())
     twins = sum(isinstance(b, q._Twin) for b in int8_net.modules())
+    state["int8_score_agreement"] = agree / total
     del fp32_net, int8_net, bf16_net, xs
     torch.cuda.empty_cache()
     res = {"model": "resnet50_v1", "classes": 1000, "batch": B,
@@ -8676,6 +8715,377 @@ def phase_chaos(state):
     return res
 
 
+CALIB_BATCH = 32            # the observed scoring's batch
+CALIB_IMAGE = 224
+CALIB_BATCHES = 4
+CALIB_AGREE_N = 64          # seeded images of the int8-vs-fp32 agreement
+CALIB_WARMUP = 3
+CALIB_ITERS = 10
+CALIB_LAYERS = 54           # ResNet-50 v1's quantizable layers (53 + dense)
+CALIB_TOL = 1e-6            # naive threshold: the amax gauge's resolution
+OBS_BATCH = 64              # the training cell's batch
+OBS_IMAGE = 224
+OBS_RECORDS = 4096          # 64 shards an epoch: a pipeline restart in 8 s
+OBS_WORKERS = 4             # two: ~7.4 batches/s, an H100 step 8.3/s
+OBS_ALONE_STEPS = 10
+
+
+def _store_roundtrip(work, params):
+    """The seeded weights through the model store: published and loaded,
+    then the store emptied and the weights downloaded from a ``file://``
+    mirror; a corrupted store copy refused.  → (net from the mirror, the
+    record)."""
+    import numpy as np
+    from mxnet_tpu_torch.models import get_model, model_store
+    store = os.path.join(work, "store")
+    mirror = os.path.join(work, "mirror")
+    with np.load(params) as z:
+        want = {k: z[k] for k in z.files}
+
+    def same(net):
+        got = {k: t.detach().cpu().numpy()
+               for k, t in net.collect_params().items()}
+        return set(got) == set(want) and all(
+            np.array_equal(got[k], want[k]) for k in want)
+
+    rec = {"published": model_store.publish_model_file(
+        "resnet50_v1", params, root=store)}
+    rec["sha1"] = model_store._model_sha1["resnet50_v1"]
+    rec["local_equal"] = same(get_model("resnet50_v1", pretrained=True,
+                                        root=store))
+    model_store.publish_model_file("resnet50_v1", params, root=mirror)
+    model_store.purge(root=store)
+    os.environ["MXNET_GLUON_REPO"] = "file://" + mirror
+    try:
+        net = get_model("resnet50_v1", pretrained=True, root=store)
+        path = model_store.get_model_file("resnet50_v1", root=store)
+        rec["downloaded"] = os.path.dirname(path) == \
+            os.path.join(store, "models")
+        rec["mirror_equal"] = same(net)
+        with open(path, "r+b") as f:        # one flipped bit
+            f.seek(4096)
+            b = f.read(1)
+            f.seek(4096)
+            f.write(bytes([b[0] ^ 1]))
+        try:
+            model_store.get_model_file("resnet50_v1", root=store)
+            rec["corrupt_refused"] = None
+        except OSError as e:
+            rec["corrupt_refused"] = str(e)[:200]
+    finally:
+        os.environ.pop("MXNET_GLUON_REPO", None)
+    return net, rec
+
+
+def _agreement(ref, fn, images):
+    """Share of the images (batches) whose argmax under ``fn`` is
+    ``ref``'s (the fp32 argmaxes, one tensor a batch)."""
+    import torch
+    agree = total = 0
+    with torch.inference_mode():
+        for a, x in zip(ref, images):
+            b = torch.as_tensor(fn(x)).to(a.device)
+            if not torch.isfinite(b).all():
+                raise AssertionError("int8 logits not finite")
+            agree += int((a == b.argmax(-1)).sum())
+            total += a.numel()
+    return agree / total
+
+
+def phase_int8_calib(state):
+    """Store → observed scoring → thresholds from telemetry → int8 (see
+    the module docstring, phase 57)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import quantization as q
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.serve import ModelRegistry
+    qk, ca = _int8_counters()
+    work = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        params = os.path.join(work, "resnet50_v1.params")
+        _resnet50_params(params)
+        net, store = _store_roundtrip(work, params)
+        net = net.to("cuda").eval()
+        telemetry.set_enabled(True)
+        rs = np.random.RandomState(SEED + 26)
+        batches = [torch.as_tensor(
+            rs.rand(CALIB_BATCH, CALIB_IMAGE, CALIB_IMAGE, 3).astype(np.float32),
+            device="cuda") for _ in range(CALIB_BATCHES)]
+        images = [torch.as_tensor(
+            rs.rand(CALIB_BATCH, CALIB_IMAGE, CALIB_IMAGE, 3).astype(np.float32),
+            device="cuda") for _ in range(CALIB_AGREE_N // CALIB_BATCH)]
+        sites = [p for _, c, p in q._walk(net)
+                 if isinstance(c, q._QUANTIZABLE)]
+
+        def scoring():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                for x in batches:
+                    net(x)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+        scoring()                                       # warm
+        plain_ms = scoring()
+        h0 = telemetry.raw_snapshot()["histograms"]
+        ca.launches = 0
+        handle = q.observe_activations(net)
+        try:
+            observed_ms = scoring()
+            forward_launches = ca.launches
+            syncs = handle.syncs
+            h1 = telemetry.raw_snapshot()["histograms"]
+            # the same inputs again, quantize_net's own collector beside
+            # the hooks (the kernels relaunch bit for bit, so the running
+            # maxima do not move)
+            direct = q._Collector("naive")
+            one = q._observe_one
+
+            def both(h, path, x, sample):
+                direct.add(path, x)
+                one(h, path, x, sample)
+            q._observe_one = both
+            try:
+                with torch.inference_mode():
+                    for x in batches:
+                        net(x)
+            finally:
+                q._observe_one = one
+        finally:
+            handle.remove()
+        acts = sum(h1[k]["count"] - h0.get(k, {}).get("count", 0)
+                   for k in h1 if k.startswith("quant.act."))
+        gauges = telemetry.raw_snapshot()["gauges"]
+        th = q.thresholds_from_telemetry(layers=set(sites))
+        the = q.thresholds_from_telemetry(layers=set(sites),
+                                          mode="entropy")
+        naive_err = {p: abs(th[p] - float(direct.amax[p])) for p in sites
+                     if p in th and p in direct.amax}
+        res = {"store": store, "layers": len(sites),
+               "gauged": sum(f"quant.amax.{p}" in gauges for p in sites),
+               "observed_ms": observed_ms, "plain_ms": plain_ms,
+               "hook_host_ms": observed_ms - plain_ms,
+               "host_syncs_per_batch": syncs / len(batches),
+               "act_observations_per_batch": acts / len(batches),
+               "conv_affine_per_forward": forward_launches / len(batches),
+               "naive_max_err": max(naive_err.values()) if naive_err
+               else None,
+               "entropy_over_amax_max": max(the[p] / th[p] for p in sites),
+               "entropy_over_amax_min": min(the[p] / th[p] for p in sites)}
+        launches = {"conv_affine": forward_launches}
+
+        # int8: the telemetry thresholds, and int8_score's direct naive
+        # calibration on the same batches, each against fp32
+        with torch.inference_mode():
+            ref = [net(x).argmax(-1) for x in images]
+        tel = q.quantize_net(_load_resnet50(params, "cuda"),
+                             thresholds=th)
+        reg = ModelRegistry(device="cuda", precision="int8")
+        entry = reg.register("r50_int8", tel, (CALIB_IMAGE, CALIB_IMAGE, 3),
+                             buckets=(CALIB_BATCH,))
+        qk.launches = ca.launches = 0
+        try:
+            agree_tel = _agreement(
+                ref, lambda x: reg.predict("r50_int8", x.cpu().numpy())[0],
+                images)
+        finally:
+            reg.close()
+        x = batches[0]
+        with torch.inference_mode():
+            for _ in range(CALIB_WARMUP):
+                tel(x)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(CALIB_ITERS):
+                tel(x)
+            end.record()
+            end.synchronize()
+        ms = start.elapsed_time(end) / CALIB_ITERS
+        int8_forwards = len(images) + CALIB_WARMUP + CALIB_ITERS
+        launches["qconv3x3_affine"] = qk.launches
+        int8_affine = ca.launches
+        direct_net = q.quantize_net(
+            _load_resnet50(params, "cuda"), calib_data=batches,
+            calib_mode="naive")
+        agree_direct = _agreement(ref, direct_net, images)
+        res.update({
+            "int8": {"ms_per_batch": ms,
+                     "images_s": CALIB_BATCH / (ms * 1e-3),
+                     "argmax_agreement_vs_fp32": agree_tel,
+                     "direct_calibration_agreement": agree_direct,
+                     "int8_score_agreement": state.get(
+                         "int8_score_agreement"),
+                     "agreement_images": CALIB_AGREE_N,
+                     "qconv_per_forward":
+                         launches["qconv3x3_affine"] / int8_forwards,
+                     "conv_affine_launches": int8_affine,
+                     "twins": sum(isinstance(b, q._Twin)
+                                  for b in tel.modules()),
+                     "served_precision": entry.engine.precision},
+            "launches": launches})
+        state["int8_calib_launches"] = launches
+        problems = []
+        if not (store["local_equal"] and store["mirror_equal"] and
+                store["downloaded"] and store["corrupt_refused"] and
+                "sha1 does not match" in store["corrupt_refused"]):
+            problems.append("model store")
+        if forward_launches != RESNET50_SEGMENTS * len(batches):
+            problems.append("row 8 launches of the observed forward")
+        if len(sites) != CALIB_LAYERS or res["gauged"] != CALIB_LAYERS:
+            problems.append("layers without a quant.amax gauge")
+        if len(naive_err) != CALIB_LAYERS or \
+                res["naive_max_err"] > CALIB_TOL:
+            problems.append("naive thresholds against the direct max |x|")
+        if res["entropy_over_amax_max"] > 1.0:
+            problems.append("an entropy threshold above its amax")
+        if launches["qconv3x3_affine"] != \
+                RESNET50_SEGMENTS * int8_forwards or int8_affine or \
+                res["int8"]["twins"] != CALIB_LAYERS:
+            problems.append("int8 forward launches")
+        if agree_tel < agree_direct:
+            problems.append("agreement below the direct calibration's")
+        if problems:
+            raise AssertionError(f"{problems}: {res}")
+        del tel, direct_net, net, batches, images, ref
+        torch.cuda.empty_cache()
+        return res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _fed_launches(step):
+    """The real launches of a fused executor's kernels since the counters
+    were zeroed: the first call's warm-up and the replays times the
+    captured counts."""
+    counted = _fused_counts()
+    cap = step.launches_per_step
+    return {n: counted[n] - cap.get(n, 0) + step.replays * cap.get(n, 0)
+            for n in TRAIN_KERNELS}
+
+
+def _fed_ok(step, launches, replays):
+    """16 launches of each training kernel a captured step, and the
+    real count: the first call's warm-up and ``replays`` replays."""
+    return step.launches_per_step == {n: RESNET50_SEGMENTS
+                                      for n in TRAIN_KERNELS} and \
+        all(launches[n] == RESNET50_SEGMENTS * (replays + 1)
+            for n in TRAIN_KERNELS)
+
+
+def _fault_window(out):
+    """The recorder's windows from 2 s before the baseline to 2 s after
+    the rule cleared (all of them when the check stopped early), their
+    times from the baseline's start."""
+    tl, marks = out.get("timeline") or [], out.get("marks")
+    if not marks:
+        return tl
+    t0 = marks["base"]
+    return [[round(w[0] - t0, 3)] + w[1:] for w in tl
+            if t0 - 2.0 <= w[0] <= marks["cleared"] + 2.0]
+
+
+def phase_obs_fleet(state):
+    """``obs.check.check`` at full width (see the module docstring, phase
+    58)."""
+    import torch
+    from mxnet_tpu_torch.obs import check as oc
+    os.environ["MXNET_OBS_PEAK_FLOPS"] = repr(PEAK_FP32_FLOP_S)
+    dev = torch.device("cuda")
+    net, _trainer, step = _ckpt_trainer(dev, batch=OBS_BATCH)
+    _fused_zero()
+    try:
+        out = oc.check(verbose=True, device="cuda",
+                       spec=f"synthetic:{OBS_BATCH}x3x{OBS_IMAGE}x{OBS_IMAGE}:1000:"
+                            f"{OBS_RECORDS}",
+                       workers=OBS_WORKERS, trainer=(net, step),
+                       layout="NHWC")
+    finally:
+        os.environ.pop("MXNET_OBS_PEAK_FLOPS", None)
+    launches = _fed_launches(step)
+    replays = step.replays
+    state["obs_fleet_launches"] = launches
+    # the same step alone: no fleet, one batch on the card
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 58)
+    x = torch.rand(OBS_BATCH, OBS_IMAGE, OBS_IMAGE, 3, device="cuda", generator=gen)
+    y = torch.randint(0, 1000, (OBS_BATCH,), device="cuda", generator=gen)
+    _, alone = _step_marks(lambda: step(x, y), OBS_ALONE_STEPS)
+    rep = out.get("report", {})
+    res = {"checks": out["checks"], "failures": out["failures"],
+           "fault_ms": out["fault_ms"], "stall": out["stall"],
+           "step_ms_in_fleet": out.get("step_ms"),
+           "step_p50_ms_in_fleet": out.get("step_p50_ms"),
+           "step_ms_alone": _median(alone), "mfu": out.get("mfu"),
+           "mfu_report": rep.get("signals", {}).get("mfu"),
+           "peak_flops": PEAK_FP32_FLOP_S,
+           "goodput": out.get("goodput"), "signals": out.get("signals"),
+           "frames": out.get("frames"),
+           "dropped_frames": out.get("dropped_frames"),
+           "train_steps": out.get("train_steps"),
+           "events": [(e["rule"], e["event"], e.get("value"))
+                      for e in out.get("events", [])],
+           "roles": {r: v.get("nonzero_rates")
+                     for r, v in rep.get("roles", {}).items()},
+           "breakdown": rep.get("breakdown"),
+           "feed": {k: v for k, v in out.get("feed_stats", {}).items()
+                    if k != "workers"},
+           "seconds": out.get("seconds"), "marks": out.get("marks"),
+           "timeline": _fault_window(out),
+           "replays": replays, "launches": launches,
+           "launches_per_step": step.launches_per_step}
+    state["obs_trainer"] = (net, step)
+    if out["failures"] or not _fed_ok(step, launches, replays):
+        raise AssertionError(f"obs fleet: {res}")
+    return res
+
+
+def phase_trace_check(state):
+    """``tracecheck._selfcheck`` on the card (see the module docstring,
+    phase 59)."""
+    import torch
+    from mxnet_tpu_torch import tracecheck
+    trainer = state.get("obs_trainer")
+    if trainer is None:
+        net, _trainer, step = _ckpt_trainer(torch.device("cuda"),
+                                            batch=OBS_BATCH)
+        trainer = (net, step)
+    step = trainer[1]
+    _fused_zero()
+    replays0 = step.replays
+    out = {}
+    rc = tracecheck._selfcheck(
+        verbose=True, device="cuda", trainer=trainer,
+        spec=f"synthetic:{OBS_BATCH}x3x{OBS_IMAGE}x{OBS_IMAGE}:1000:"
+             f"{OBS_BATCH * tracecheck.FED_STEPS}",
+        layout="NHWC", result=out)
+    counted = _fused_counts()
+    cap = step.launches_per_step
+    fresh = replays0 == 0           # this phase made the capture
+    launches = {n: counted[n] - (cap.get(n, 0) if fresh else 0) +
+                (step.replays - replays0) * cap.get(n, 0)
+                for n in TRAIN_KERNELS}
+    state["trace_check_launches"] = launches
+    state.pop("obs_trainer", None)
+    res = {"rc": rc, "checks": out.get("checks"),
+           "routed_traces": out.get("routed_traces"),
+           "fed_traces": out.get("fed_traces"),
+           "execute_spans": out.get("execute_spans"),
+           "merged_spans": out.get("merged_spans"),
+           "nesting_violations": out.get("nesting_violations"),
+           "feed_leg": out.get("feed_leg"), "launches": launches,
+           "replays": step.replays - replays0}
+    steps = step.replays - replays0
+    want = RESNET50_SEGMENTS * (steps + (1 if fresh else 0))
+    if rc != 0 or steps != tracecheck.FED_STEPS or \
+            any(launches[n] != want for n in TRAIN_KERNELS):
+        raise AssertionError(f"trace check: {res}")
+    return res
+
+
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
      "mxnet_tpu/ops/pallas_kernels.py:104"),
@@ -8878,7 +9288,9 @@ PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
                  "ext_launches", "fused_launches", "v2_launches",
                  "zoo_launches", "bf16_launches", "bf16_train_launches",
                  "fp16_train_launches", "sparse_launches",
-                 "input_launches", "ckpt_launches", "serve_plane_launches")
+                 "input_launches", "ckpt_launches", "serve_plane_launches",
+                 "int8_calib_launches", "obs_fleet_launches",
+                 "trace_check_launches")
 
 
 def kernels_line(state):
@@ -8897,8 +9309,11 @@ def kernels_line(state):
     instances in fp16 ResNet-50 training, fused and under ``amp``, and
     the fp16-converted forward (``fp16_train``), Gluon BERT-base
     training with a row-sparse word embedding (``sparse_train``), the
-    checkpointed ResNet-50 training (``ckpt_train``) and the served
-    checkpoint (``serve_plane``));
+    checkpointed ResNet-50 training (``ckpt_train``), the served
+    checkpoint (``serve_plane``), the observed scoring and the
+    telemetry-calibrated int8 net (``int8_calib``) and the fed fused
+    steps of the observed fleet and the trace check (``obs_fleet``,
+    ``trace_check``));
     the times are at the first case, the
     path's own shape (``conv3x3``: its dgrad use, which is how training
     launches it)."""
@@ -9006,7 +9421,8 @@ PHASES = ("env", "build", "kernels", "slice", "reference", "profile",
           "bf16_reference", "bf16_train_kernels", "bf16_train",
           "bf16_train_reference", "fp16_train_kernels", "fp16_train",
           "fp16_train_reference", "sparse_train", "attention_ops",
-          "input_train", "ckpt_train", "serve_plane", "chaos")
+          "input_train", "ckpt_train", "serve_plane", "chaos",
+          "int8_calib", "obs_fleet", "trace_check")
 
 
 def _args(argv):

@@ -43,8 +43,13 @@ step in bf16), on the kernels' bf16 instances.  The host planes:
 format), ``serve.InferenceServer`` / ``serve.Router`` (serving over
 HTTP), ``telemetry``, ``profiler``, ``faults`` and ``lockwatch``
 (``MXNET_LOCK_CHECK``, installed here before any submodule builds a
-lock).  Entry points run on the GPU unless ``device="cpu"`` is passed.  Importing the package builds and
-compiles nothing.
+lock).  The observed fleet: ``models.model_store`` (pretrained weights),
+int8 thresholds calibrated from telemetry, ``io.data_service`` (decode
+workers and the resilient ``FeedClient``), ``obs`` (the recorder,
+signals and watchdog, imported here only when ``MXNET_OBS_INTERVAL_MS``
+is set) and ``tracecheck``.  Entry points run on the GPU unless
+``device="cpu"`` is passed.  Importing the package builds and compiles
+nothing.
 """
 # MXNET_LOCK_CHECK=1|warn: wrap threading.Lock/RLock/Condition with the
 # order-recording watchdog before any submodule constructs its locks
@@ -67,6 +72,13 @@ from . import autograd, nd, operator, library, rtc, tvmop, _ffi, amp, sparse
 from . import image, io, recordio, storage
 from . import checkpoint, faults, lockwatch, profiler
 from ._ffi import get_global_func, register_func
+
+# the obs recorder: imported only when its sampling knob is set (its
+# import starts the sampler thread), so the off path costs one env read
+import os as _os
+if _os.environ.get("MXNET_OBS_INTERVAL_MS", ""):
+    from . import obs  # noqa: F401
+del _os
 
 init = initializer   # ≙ mx.init
 

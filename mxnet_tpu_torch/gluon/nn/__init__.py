@@ -651,6 +651,9 @@ def fused_conv_bn_relu(conv: Conv2D, bn: BatchNorm, x, residual=None,
     segment runs its layers one by one, which computes the same
     function.
 
+    A conv that ``quantization.observe_activations`` watches has its
+    input recorded on the fused route too.
+
     After ``quantization.quantize_net`` the conv slot holds a
     ``QuantizedConv2D`` twin and the BN slot the identity its BN was
     folded into: the twin's ``fused_forward`` carries the epilogue
@@ -669,6 +672,11 @@ def fused_conv_bn_relu(conv: Conv2D, bn: BatchNorm, x, residual=None,
         if residual is not None:
             out = out + residual
         return out.relu() if relu else out
+    watch = getattr(conv, "_mx_observe", None)
+    if watch is not None:
+        # quantization.observe_activations: the conv's input, seen here
+        # because this route never calls the conv's forward
+        watch(x)
     conv._infer(x)
     bn._infer(conv._channels, x.device)
     training = _training(bn)

@@ -24,7 +24,8 @@ from .vgg import (VGG, vgg11, vgg11_bn, vgg13, vgg13_bn, vgg16, vgg16_bn,
                   vgg19, vgg19_bn)
 
 __all__ = ["bert", "bert_gluon", "densenet", "gpt", "inception", "lenet",
-           "mobilenet", "resnet", "squeezenet", "vgg", "alexnet", "AlexNet",
+           "mobilenet", "resnet", "squeezenet", "vgg", "model_store",
+           "alexnet", "AlexNet",
            "BertConfig", "BertModel", "DenseNet", "GPTConfig", "GPTModel",
            "Inception3", "LeNet", "MobileNet", "MobileNetV2", "ResNetV1",
            "ResNetV2", "SqueezeNet", "VGG", "get_model"]
@@ -62,19 +63,23 @@ _MODELS = {
 }
 
 
-def get_model(name, pretrained=False, **kwargs):
+def get_model(name, pretrained=False, root=None, **kwargs):
     """≙ ``gluon.model_zoo.vision.get_model``: the net registered under
     ``name`` (the reference's keys), built with ``kwargs``.
     ``ssd_300_lite`` raises ``NotImplementedError`` until its box ops are
-    ported.  ``pretrained=True`` raises: the model store is not ported;
-    load weights with ``load_parameters`` instead."""
+    ported.  ``pretrained=True`` loads the weights that
+    :func:`model_store.get_model_file` resolves (the local store under
+    ``root``, else the ``MXNET_GLUON_REPO`` mirror); they load on the
+    CPU, as ``load_parameters`` without ``ctx`` does."""
     name = name.lower()
     if name not in _MODELS:
         raise ValueError(f"unknown model {name}; available: "
                          f"{sorted(_MODELS)}")
+    net = _MODELS[name](**kwargs)
     if pretrained:
-        raise NotImplementedError(
-            "pretrained weights come from the model store "
-            "(models/model_store.py), which is not ported; build the net "
-            "and call load_parameters(path)")
-    return _MODELS[name](**kwargs)
+        path = model_store.get_model_file(name, root=root)
+        net.load_parameters(path)
+    return net
+
+
+from . import model_store  # noqa: E402

@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import gc
 import os
+import sys
 from typing import Callable, Dict, Optional
 
 import torch
@@ -368,6 +369,18 @@ def _on_net(net, t):
     return t
 
 
+def _publish_model_flops(net, x):
+    """With the obs recorder running, price the model once at build (the
+    MFU signal's numerator); looked up in ``sys.modules``, so a process
+    that never imported ``obs`` never imports it here."""
+    obs = sys.modules.get(__name__.split(".")[0] + ".obs")
+    try:
+        if obs is not None and obs.active() and net is not None:
+            obs.publish_model_flops(net, x)
+    except Exception:
+        pass
+
+
 def _materialize(net, x):
     """One inference forward gives deferred parameters their shapes
     (≙ the reference's first eager call)."""
@@ -455,6 +468,7 @@ class FusedTrainStep(_Stats):
 
     def _prepare(self, x):
         _materialize(self._net, x)
+        _publish_model_flops(self._net, x)
         trainable = [(n, p) for n, p in self._net.collect_params().items()
                      if isinstance(p, torch.nn.Parameter) and p.requires_grad]
         self._step = _Step(self._net, self._loss, self._opt, trainable,
@@ -465,6 +479,9 @@ class FusedTrainStep(_Stats):
         if self._step is None:
             self._prepare(torch.as_tensor(x))
         _telemetry.counter_add("fused.steps")
+        # a fresh trace id a step: the step's span and the feed fetch
+        # that follows it share it
+        _telemetry.set_current_trace()
         with _telemetry.span("train.step"), \
                 _telemetry.timed("fused.step_us"):
             self._opt.num_update += 1
@@ -540,6 +557,7 @@ class TrainerFusedStep(_Stats):
                            lambda: tr._states, mean=False)
         if tr._restored_generators is not None:
             self.resync_ctl(tr._restored_generators)
+        _publish_model_flops(net, x)
 
     def __call__(self, x, y, batch_size=None, ignore_stale_grad=False):
         x, y = torch.as_tensor(x), torch.as_tensor(y)
@@ -550,6 +568,7 @@ class TrainerFusedStep(_Stats):
         _telemetry.counter_add("fused.steps")
         if self.fallback_reason is not None:
             return self._legacy_step(x, y, batch_size, ignore_stale_grad)
+        _telemetry.set_current_trace()
         with _telemetry.span("train.step"), \
                 _telemetry.timed("fused.step_us"):
             tr, opt = self._trainer, self._opt

@@ -21,8 +21,16 @@ parameters, as the reference keeps them out of ``collect_params``):
 ``.to(device)`` moves them, ``.params`` files do not hold them.  The
 fp32 weights cross between the packages as ``.params`` files; a
 quantized net's state crosses through :func:`state_from_numpy`.
-Calibrating from telemetry (``observe_activations``,
-``thresholds_from_telemetry``) is not ported yet.
+
+Calibrating from telemetry: :func:`observe_activations` hooks the same
+layers during an ordinary scoring run and publishes each one's input
+statistics into the registry (``quant.amax.<layer>`` gauges in fixed
+point ×1e6, ``quant.act.<layer>`` histograms of a strided subsample,
+``quant.calib.batches``); :func:`thresholds_from_telemetry` reads the
+thresholds back from a snapshot.  A ResNet block's 3×3/s1 segments keep
+their fused route while observed: ``gluon.nn.fused_conv_bn_relu`` hands
+the conv's input to the watching handle, so every layer is seen and the
+conv_affine kernel still runs.
 """
 from __future__ import annotations
 
@@ -31,13 +39,15 @@ import itertools
 import numpy as onp
 import torch
 
+from . import telemetry as _telemetry
 from .gluon import nn as _gnn
 from .gluon.parameter import is_initialized
 from .ops import cuda_int8
 from .ops import nn as _nn
 
 __all__ = ["quantize_v2", "dequantize", "quantize_net", "QuantizedDense",
-           "QuantizedConv2D", "state_from_numpy", "_get_optimal_threshold"]
+           "QuantizedConv2D", "state_from_numpy", "_get_optimal_threshold",
+           "observe_activations", "thresholds_from_telemetry"]
 
 
 # ----------------------------------------------------------------- op layer
@@ -194,6 +204,141 @@ def _abs_hist(data, amax, num_bins):
                         torch.zeros_like(amax))
     idx = (a * scale).to(torch.int32).clamp_(0, num_bins - 1)
     return torch.bincount(idx.long(), minlength=num_bins)
+
+
+# ------------------------------------------- telemetry-sourced calibration
+_Q_FIX = 1e6        # fixed-point scale mapping |x| onto the µs bucket grid
+
+
+class _ObserveHandle:
+    """Uninstaller for :func:`observe_activations` hooks; ``syncs``
+    counts the host transfers the hooks made (one a layer and batch)."""
+
+    def __init__(self):
+        self._sites = []
+        self._amax = {}     # layer path -> running host max |x|
+        self.syncs = 0
+
+    def remove(self):
+        for child, orig in self._sites:
+            child.forward = orig
+            child.__dict__.pop("_mx_observe", None)
+        self._sites = []
+
+
+def observe_activations(net, layers=None, sample=None):
+    """Hook every quantizable layer (the sites ``quantize_net`` targets)
+    to publish its input's statistics into the telemetry registry during
+    an ordinary scoring run:
+
+    - ``quant.amax.<layer>`` gauge — the running max |x| in fixed point
+      (×1e6), so the minmax threshold survives the int-valued registry
+      to 1e-6;
+    - ``quant.act.<layer>`` histogram — a strided |x| subsample (512
+      values a batch, ``MXNET_QUANT_SAMPLE``) scaled ×1e6 onto the
+      registry's bucket grid, the entropy sweep's mass;
+    - ``quant.calib.batches`` counter — one a hooked layer and batch.
+
+    A layer's forward is wrapped; a conv that a fused ResNet segment
+    runs without calling its forward is watched through
+    ``gluon.nn.fused_conv_bn_relu`` instead.  Each layer and batch costs
+    one transfer to the host (the max and the subsample together).
+    Returns a handle whose ``remove()`` restores the forwards; feed a
+    later snapshot to :func:`thresholds_from_telemetry`."""
+    import os
+    if sample is None:
+        sample = int(os.environ.get("MXNET_QUANT_SAMPLE", "") or 512)
+    handle = _ObserveHandle()
+    for _, child, path in _walk(net):
+        if not isinstance(child, _QUANTIZABLE):
+            continue
+        if layers is not None and path not in layers:
+            continue
+        orig = child.forward
+
+        def watch(x, _p=path):
+            _observe_one(handle, _p, x, sample)
+
+        def hooked(x, _f=orig, _w=watch):
+            _w(x)
+            return _f(x)
+        child.forward = hooked
+        child._mx_observe = watch
+        handle._sites.append((child, orig))
+    return handle
+
+
+def _observe_one(handle, path, x, sample):
+    a = x.detach().abs().reshape(-1)
+    stride = max(1, a.numel() // sample)
+    # one small transfer a layer and batch: the scalar max and the
+    # strided subsample, never the whole activation
+    host = torch.cat([a.max().reshape(1).float(),
+                      a[::stride][:sample].float()]).cpu().numpy()
+    handle.syncs += 1
+    amax = float(host[0])
+    run = max(handle._amax.get(path, 0.0), amax)
+    handle._amax[path] = run
+    _telemetry.gauge_set(f"quant.amax.{path}", int(round(run * _Q_FIX)))
+    _telemetry._observe_many(f"quant.act.{path}",
+                             host[1:].astype(onp.float64) * _Q_FIX)
+    _telemetry.counter_add("quant.calib.batches", 1)
+
+
+def thresholds_from_telemetry(layers=None, mode="naive", snap=None):
+    """Per-layer activation thresholds from a telemetry snapshot written
+    by :func:`observe_activations` (``snap=`` a serialized or remote
+    snapshot; default the live registry).
+
+    ``naive``: ``quant.amax.<layer>`` / 1e6, the in-process minmax to
+    1e-6.  ``entropy``: the ``quant.act.<layer>`` bucket histogram spread
+    onto the linear 1001-bin KL grid (uniformly within each bucket) and
+    swept by ``_get_optimal_threshold_from_hist``, capped at amax."""
+    raw = snap if snap is not None else _telemetry.raw_snapshot()
+    gauges = raw.get("gauges", {})
+    hists = raw.get("histograms", {})
+    out = {}
+    for key in sorted(gauges):
+        if not key.startswith("quant.amax."):
+            continue
+        layer = key[len("quant.amax."):]
+        if layers is not None and layer not in layers:
+            continue
+        amax = float(gauges[key]) / _Q_FIX
+        if mode != "entropy" or amax <= 0.0:
+            out[layer] = amax if amax > 0.0 else 1e-8
+            continue
+        h = hists.get(f"quant.act.{layer}")
+        out[layer] = _threshold_from_bucket_hist(h, amax) if h else amax
+    return out
+
+
+def _threshold_from_bucket_hist(h, amax, num_bins=1001):
+    """Registry buckets (``le`` bounds in fixed point) → a linear
+    [0, amax] histogram → the KL sweep.  Each bucket's count is spread
+    uniformly over the linear bins it covers; the overflow bucket clips
+    into the last bin."""
+    le = [float(b) / _Q_FIX for b in h.get("le", ())]
+    counts = list(h.get("counts", ()))
+    if not counts or sum(counts) == 0:
+        return amax
+    lin = onp.zeros(num_bins, onp.float64)
+    width = amax / num_bins
+    lo = 0.0
+    for bound, c in zip(le, counts):
+        hi = min(bound, amax)
+        if c and hi > lo:
+            i0 = min(int(lo / width), num_bins - 1)
+            i1 = min(max(int(onp.ceil(hi / width)), i0 + 1), num_bins)
+            lin[i0:i1] += c / (i1 - i0)
+        lo = bound
+        if lo >= amax:
+            break
+    if len(counts) > len(le) and counts[len(le)]:
+        lin[-1] += counts[len(le)]          # +inf overflow bucket
+    if lin.sum() == 0:
+        return amax
+    return min(_get_optimal_threshold_from_hist(lin, amax), amax)
 
 
 # -------------------------------------------------------- quantized blocks

@@ -9,8 +9,10 @@ Admission control is a bounded queue counted in items (``QueueFull``);
 a ``submit`` that times out tombstones its request, which the coalescer
 then skips (``serve.abandoned``).  ``MXNET_SERVE_FAULT=batcher:...``
 (faults.py) injects a delay, an error or a black hole around the
-device execution, as the reference's does.  The reference's trace links
-(a batch span naming the request spans it served) are not ported.
+device execution, as the reference's does.  Each request keeps its
+submitter's trace context: the batch's ``serve.execute`` span is a child
+of the first request's span and links every request's (the
+N-requests → one-execution join the merged trace draws).
 
 ``DecodeBatcher`` is token-level continuous batching over one decode
 engine: a persistent B-row decode batch where each row (slot) hosts one
@@ -84,7 +86,7 @@ def _on_device(dev):
 
 class _Request:
     __slots__ = ("x", "n", "event", "result", "error", "t_submit",
-                 "abandoned")
+                 "abandoned", "trace")
 
     def __init__(self, x, n):
         self.x = x
@@ -94,6 +96,10 @@ class _Request:
         self.error = None
         self.t_submit = time.perf_counter()
         self.abandoned = False
+        # the submitter's (trace_id, span_id), taken here: the batcher's
+        # thread that runs the request cannot see the submitter's
+        # thread-local context
+        self.trace = _telemetry.current_context()
 
 
 class Batcher:
@@ -294,7 +300,13 @@ class Batcher:
                 return
         try:
             t0 = time.perf_counter()
-            with _telemetry.span("serve.execute", fill=n_items,
+            # one execute span for the batch: a child of the first
+            # request's span (so it nests in a live request), linked to
+            # every request's
+            links = [r.trace for r in batch if r.trace is not None]
+            with _telemetry.span("serve.execute",
+                                 parent=(links[0] if links else None),
+                                 links=(links or None), fill=n_items,
                                  requests=len(batch), bucket=bucket):
                 outs = self.engine.run(x)
                 outs = tuple(_host(o) for o in outs)    # waits
@@ -353,7 +365,7 @@ class Batcher:
 
 # ===================================================================== decode
 class _DecodeRequest:
-    __slots__ = ("tokens", "max_new", "q", "emitted", "t_submit")
+    __slots__ = ("tokens", "max_new", "q", "emitted", "t_submit", "trace")
 
     def __init__(self, tokens, max_new):
         self.tokens = tokens
@@ -361,6 +373,9 @@ class _DecodeRequest:
         self.q = queue.Queue()      # streamed token ids; None terminates
         self.emitted = 0
         self.t_submit = time.perf_counter()
+        # the submitter's trace context, taken at ingress (the decode
+        # loop's thread cannot see the submitter's)
+        self.trace = _telemetry.current_context()
 
 
 class DecodeBatcher:

@@ -48,14 +48,19 @@ def test_import_loads_no_jax_and_no_reference_module():
 HOST_PLANES = ("checkpoint", "faults", "lockwatch", "profiler",
                "telemetry", "serve.server", "serve.router", "serve.chaos",
                "serve.bench", "serve.faults", "serve.supervise",
-               "serve.__main__")
+               "serve.__main__", "io.data_service", "obs", "obs.recorder",
+               "obs.signals", "obs.rules", "obs.fleet", "obs.check",
+               "obs.__main__", "tracecheck", "tracemerge",
+               "models.model_store", "gluon.utils")
 
 
 def test_host_planes_import_alone_under_the_lock_watchdog():
-    """The train → checkpoint → serve modules, each imported in a fresh
-    process with ``MXNET_LOCK_CHECK=1`` (the chaos replicas' setting):
-    the watchdog is installed, nothing of JAX or the JAX package loads,
-    and ``serve.__main__`` starts no server when imported."""
+    """The train → checkpoint → serve modules and the observed fleet's
+    (the data service, obs, the trace gate and merge, the model store),
+    each imported in a fresh process with ``MXNET_LOCK_CHECK=1`` (the
+    chaos replicas' and the obs fleet's setting): the watchdog is
+    installed, nothing of JAX or the JAX package loads, and neither
+    ``serve.__main__`` nor ``obs.__main__`` runs when imported."""
     script = (
         "import importlib, json, sys\n"
         "for m in sys.argv[1:]:\n"

@@ -335,9 +335,15 @@ def test_hybridize_changes_nothing(image):
     assert torch.equal(a, b)
 
 
-def test_get_model_refuses_pretrained_and_unknown_names():
-    with pytest.raises(NotImplementedError):
-        tmodels.get_model("resnet50_v1", pretrained=True)
+def test_get_model_refuses_pretrained_and_unknown_names(tmp_path,
+                                                        monkeypatch):
+    # pretrained weights come from the model store: an empty store and no
+    # weight repository refuse with the reference's error
+    monkeypatch.delenv("MXNET_GLUON_REPO", raising=False)
+    monkeypatch.delenv("MXNET_TPU_REPO", raising=False)
+    with pytest.raises(FileNotFoundError):
+        tmodels.get_model("resnet50_v1", pretrained=True,
+                          root=str(tmp_path))
     with pytest.raises(ValueError):
         tmodels.get_model("vgg17")
 
