@@ -99,7 +99,9 @@ each; the run stops with a non-zero exit at the first phase that fails:
    below step 0's, each attention kernel launched 12 times a step and
    LayerNorm 25 times a step.
 9. ``bert_reference``: one step at batch 2 on the card and through the
-   port on the CPU from the same weights and batch: loss within 1e-4
+   port on the CPU from the same weights and batch, at BERT-base's
+   widths and ``BERT_REF_LAYERS`` layers (the CPU's step at 12 layers
+   was most of the phase): loss within 1e-4
    relative, every gradient within 1e-3 of its largest magnitude, the
    weights after one AdamW step within 2 * lr.
 10. ``bert_profile``: one train step under ``torch.profiler``.
@@ -158,7 +160,8 @@ each; the run stops with a non-zero exit at the first phase that fails:
     (CUDA events), images/s, peak memory.
 17. ``image_train_reference``: one step at batch 2 on the card and
     through the port on the CPU (and on the CPU in float64, the floor)
-    from the same seeded weights (the damped-residual init) and batch:
+    from the same seeded weights (the damped-residual init) and batch,
+    at ResNet-50's widths and ``TRAIN_REF_DEPTH`` bottlenecks a stage:
     loss within 1e-4 relative, every gradient within 1e-2 of the net's
     largest gradient, every parameter after the SGD step within 1e-2 of
     the net's largest update, running statistics within 1e-5 of their
@@ -644,6 +647,34 @@ The observed fleet (ResNet-50 v1, 224², 1000 classes, fp32):
     child within its parent, each ``serve.execute`` linking its
     requests, the merged file valid Chrome trace JSON.
 
+Distributed training on the one card (two workers, ``python -m
+mxnet_tpu_torch.launch -n 2 --launcher local``; gloo, as NCCL refuses two
+ranks on one card):
+
+60. ``dist_sync_train``: ``examples.bert_pretrain`` at its defaults
+    (BERT-base, 16 x 128 tokens a worker, AdamW) for 4 steps a worker,
+    the gradients through one ``dist_sync`` list ``pushpull`` a step,
+    averaged.  Gates: each worker launches LayerNorm 25 times a step and
+    the three attention kernels 12 each; the two ranks' flat fp32
+    parameters hash the same after every step; step 0's reduced
+    gradients of the word embedding and of layers 0 and 11's attention
+    weights equal (g_0 + g_1) / 2 bit for bit (the local ones differ);
+    finite losses.  Prints the backend, step ms a worker beside
+    ``bert_train``'s one-process step, the all-reduce's ms a step, bytes
+    and share of the step.
+61. ``ps_train``: ResNet-50 v1 (224², b64 a worker, SGD momentum) through
+    ``examples.image_classification --kvstore dist_async`` (update on the
+    store) with ``-s 1 --server-procs``, 3 steps, with
+    ``MXNET_KVSTORE_USE_WORKERS_MERGE`` 0 then 1, every process dumping
+    its telemetry at exit.  Gates: rows 7, 9-11 at 16 each a worker step;
+    the server's push frames keys × steps with the merge and twice that
+    without; no partial flush by the leader; after the final barrier both
+    workers' pulled weights hash as the server's copy, key by key; the
+    server saw no card (``CUDA_VISIBLE_DEVICES`` empty in its
+    environment) and made no CUDA context (its own report).  Prints step ms a
+    worker, server push MB, its apply ms a push and the leader's sum µs a
+    push and forward ms a key, merge off and on.
+
 Then one ``{"kernels": [...]}`` line (35 entries: the bf16 and fp16
 instances of rows 7, 8, 9, 10 and 11 and the bf16 one of row 1 their
 own, rows 7, 8, 9 and 11 twice a half type: the ``wgmma`` kernels and
@@ -688,6 +719,7 @@ LSE_TOL = 1e-5
 REF_TOL = 1e-3
 BERT_STEPS = 6
 BERT_LOSS_RTOL = 1e-4
+BERT_REF_LAYERS = 2             # bert_reference's depth (BERT-base widths)
 MAX_NEW = 32
 SEED = 0
 SLEEP_CYCLES = 40_000_000      # ~20 ms at the H100's boost clock
@@ -763,7 +795,7 @@ def phase_env(state):
 
 
 def phase_build(state):
-    from mxnet_tpu_torch import _build, _host_build
+    from mxnet_tpu_torch import _build, _host_build, base
     t0 = time.perf_counter()
     host = {}
 
@@ -772,6 +804,9 @@ def phase_build(state):
             t = time.perf_counter()
             _host_build.build(force=True)
             host["seconds"] = time.perf_counter() - t
+            t = time.perf_counter()
+            base.lib()              # the native engine (the merge leader's)
+            host["engine_seconds"] = time.perf_counter() - t
         except Exception as e:      # noqa: BLE001 — raised below
             host["error"] = e
 
@@ -1352,7 +1387,8 @@ def phase_bert_reference(state):
     import torch
     from mxnet_tpu_torch.examples import bert_pretrain
     torch.set_num_threads(os.cpu_count() or 1)
-    args = bert_pretrain.parse_args(["--batch-size", "2"])
+    args = bert_pretrain.parse_args(["--batch-size", "2", "--layers",
+                                     str(BERT_REF_LAYERS)])
     cfg = bert_pretrain.config(args)
     tokens, labels = bert_pretrain.synthetic_batch(
         np.random.RandomState(SEED + 2), 2, args.seq_len, args.vocab)
@@ -1369,7 +1405,8 @@ def phase_bert_reference(state):
     loss_rel = abs(lc - lp) / abs(lp)
     grad_rel = max(_rel(a, b) for a, b in zip(gc, gp))
     w_err = max((a - b).abs().max().item() for a, b in zip(wc, wp))
-    res = {"batch": [2, args.seq_len], "loss_card": lc, "loss_cpu": lp,
+    res = {"batch": [2, args.seq_len], "layers": args.layers,
+           "loss_card": lc, "loss_cpu": lp,
            "loss_rel": loss_rel, "loss_tol": BERT_LOSS_RTOL,
            "grad_rel_to_max": grad_rel, "grad_tol": REF_TOL,
            "params_after_step_max_abs_diff": w_err,
@@ -1693,6 +1730,7 @@ TRAIN_TOL = 1e-4            # z, dx, dW: of the tensor's largest magnitude
 STATS_RTOL = 1e-5           # sum(z), sum(z^2)
 AFFINE_TOL = 1e-6           # bn_affine: of the output's largest magnitude
 TRAIN_ITERS = 8
+TRAIN_REF_DEPTH = (1, 1, 1, 1)  # image_train_reference's bottlenecks a stage
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_REF_TOL = 1e-2        # gradients, updates: of the net's largest
 TRAIN_STATS_TOL = 1e-5
@@ -2095,7 +2133,9 @@ def _step_diff(a, b):
 def phase_image_train_reference(state):
     """One ResNet-50 training step at batch 2 on the card and through the
     port on the CPU, from the same seeded weights and batch; the CPU
-    step in float64 too, as the floor any fp32 run sits on.
+    step in float64 too, as the floor any fp32 run sits on.  At
+    ResNet-50's widths and ``TRAIN_REF_DEPTH`` bottlenecks a stage (PR
+    27: five CPU steps at full depth were most of the phase).
 
     The weights are the example's, with each bottleneck's last BN γ
     scaled by 0.1 (the damped-residual init of large-batch ResNet
@@ -2113,15 +2153,17 @@ def phase_image_train_reference(state):
     args = ic.parse_args(["--batch-size", "2", "--seed", str(SEED)])
     x, y = ic.synthetic_batch(np.random.RandomState(SEED + 4), 2,
                               args.image_size, args.classes)
-    card = _train_side(args, "cuda", x, y)
-    cpu = _train_side(args, "cpu", x, y)
-    cpu64 = _train_side(args, "cpu", x, y, "float64")
+    with _resnet50_depth(TRAIN_REF_DEPTH):
+        card = _train_side(args, "cuda", x, y)
+        cpu = _train_side(args, "cpu", x, y)
+        cpu64 = _train_side(args, "cpu", x, y, "float64")
+        # the same floor from the example's own weights (γ = 1), not gated
+        floor_gamma1 = _step_diff(
+            _train_side(args, "cpu", x, y, damp=1.0),
+            _train_side(args, "cpu", x, y, "float64", damp=1.0))
     diff = _step_diff(card, cpu)
-    # the same floor from the example's own weights (γ = 1), not gated
-    floor_gamma1 = _step_diff(_train_side(args, "cpu", x, y, damp=1.0),
-                              _train_side(args, "cpu", x, y, "float64",
-                                          damp=1.0))
     res = {"batch": [2, args.image_size, args.image_size, 3],
+           "bottlenecks_a_stage": list(TRAIN_REF_DEPTH),
            "loss_card": card[0].tolist(), "loss_cpu": cpu[0].tolist(),
            "card_vs_cpu": diff,
            "cpu_fp32_vs_fp64": _step_diff(cpu, cpu64),
@@ -9086,6 +9128,232 @@ def phase_trace_check(state):
     return res
 
 
+# the distributed paths: two workers on the one card (gloo: NCCL refuses
+# two ranks on one card), a parameter-server process on the host
+DIST_TIMEOUT_S = 300        # one launcher job, workers and server included
+DIST_BERT_STEPS = 4
+DIST_PS_ITERS = 1           # + image_classification's 2 warm-up steps
+BERT_KERNELS = ("layernorm_fused", "attention_fwd", "attention_dq",
+                "attention_dkv")
+BERT_PER_STEP = {"layernorm_fused": BERT_LAYERNORMS,
+                 "attention_fwd": 12, "attention_dq": 12,
+                 "attention_dkv": 12}
+
+
+def _launch_job(args, work, env=None, timeout=DIST_TIMEOUT_S):
+    """``python -m mxnet_tpu_torch.launch <args>`` from ``work`` with the
+    package on the path; the job killed in a ``finally`` if it overruns.
+    → (exit code, stdout, stderr)."""
+    e = {k: v for k, v in os.environ.items()
+         if not k.startswith(("MXNET_TPU_PS_ADDR", "DMLC_"))}
+    e["PYTHONPATH"] = HERE
+    e.update(env or {})
+    with open(os.path.join(work, "stdout.txt"), "w+") as out, \
+            open(os.path.join(work, "stderr.txt"), "w+") as err:
+        p = subprocess.Popen([sys.executable, "-m", "mxnet_tpu_torch.launch",
+                              *args], cwd=work, env=e, stdout=out,
+                             stderr=err)
+        try:
+            deadline = time.monotonic() + timeout
+            while p.poll() is None and time.monotonic() < deadline:
+                time.sleep(0.5)
+        finally:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        out.seek(0)
+        err.seek(0)
+        return p.returncode, out.read(), err.read()
+
+
+def _dist_reports(stdout):
+    reps = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines()
+            if ln.startswith("dist_report ")]
+    return sorted(reps, key=lambda d: d["rank"])
+
+
+def _job_failed(what, rc, out, err):
+    return AssertionError(f"{what}: exit {rc}\nstdout tail:\n{out[-3000:]}"
+                          f"\nstderr tail:\n{err[-3000:]}")
+
+
+def phase_dist_sync_train(state):
+    """BERT-base masked-LM pretraining, data-parallel over two workers on
+    the card through ``dist_sync`` (see the module docstring, phase
+    60)."""
+    import tempfile
+
+    import numpy as np
+    work = tempfile.mkdtemp(prefix="chip-dist-sync-")
+    dump = os.path.join(work, "grads")
+    args = ["-n", "2", "--launcher", "local", sys.executable, "-m",
+            "mxnet_tpu_torch.examples.bert_pretrain", "--steps",
+            str(DIST_BERT_STEPS), "--seed", str(SEED), "--dump-dir", dump]
+    t0 = time.perf_counter()
+    rc, out, err = _launch_job(args, work)
+    job_s = time.perf_counter() - t0
+    reps = _dist_reports(out)
+    if rc != 0 or [d["rank"] for d in reps] != [0, 1]:
+        raise _job_failed("dist_sync_train", rc, out, err)
+    want = {n: BERT_PER_STEP[n] * DIST_BERT_STEPS for n in BERT_KERNELS}
+    launches = [{n: d["launches"][n] for n in BERT_KERNELS} for d in reps]
+    state["dist_sync_launches"] = {n: sum(w[n] for w in launches)
+                                   for n in BERT_KERNELS}
+    # step 0's reduced gradient against the mean of the local ones
+    g = [np.load(os.path.join(dump, f"grads_rank{i}.npz")) for i in (0, 1)]
+    names = [k[len("local/"):] for k in g[0].files if k.startswith("local/")]
+    reduced_equal = {}
+    for n in names:
+        mean = (g[0][f"local/{n}"] + g[1][f"local/{n}"]) / np.float32(2)
+        reduced_equal[n] = all(np.array_equal(g[i][f"reduced/{n}"], mean)
+                               for i in (0, 1)) and \
+            not np.array_equal(g[0][f"local/{n}"], g[1][f"local/{n}"])
+    steady = [sorted(d["step_ms"][1:]) for d in reps]
+    step_ms = [s[len(s) // 2] for s in steady]
+    ar = [sorted(d["allreduce_ms"][1:]) for d in reps]
+    ar_ms = [a[len(a) // 2] for a in ar]
+    res = {"backend": reps[0]["backend"], "job_s": job_s,
+           "step_ms_per_worker": step_ms,
+           "step_ms_one_process": state.get("bert_step_ms"),
+           "allreduce_ms_per_step": ar_ms,
+           "allreduce_bytes": reps[0]["allreduce_bytes"],
+           "allreduce_share": [a / t for a, t in zip(ar_ms, step_ms)],
+           "losses": [d["losses"] for d in reps],
+           "step_ms": [d["step_ms"] for d in reps],
+           "allreduce_ms": [d["allreduce_ms"] for d in reps],
+           "params_sha256": [d["params_sha256"] for d in reps],
+           "reduced_equals_mean": reduced_equal,
+           "launches": launches, "launches_expected": want}
+    print(f"[dist_sync_train] backend {res['backend']}", flush=True)
+    if launches != [want, want]:
+        raise AssertionError(f"launch counts differ from the path's: {res}")
+    if reps[0]["params_sha256"] != reps[1]["params_sha256"] or \
+            len(reps[0]["params_sha256"]) != DIST_BERT_STEPS:
+        raise AssertionError(f"the ranks' parameters differ: {res}")
+    if len(names) != 5 or not all(reduced_equal.values()):
+        raise AssertionError(f"reduced gradient is not the mean: {res}")
+    if not all(np.isfinite(d["losses"]).all() for d in reps):
+        raise AssertionError(f"non-finite loss: {res}")
+    return res
+
+
+def _ps_run(work, merge):
+    """ResNet-50 v1 through ``dist_async`` with a server process, two
+    workers on the card, WorkersMerge off or on → (reports, the server's
+    dump section, the workers' kvstore histograms and counters, job
+    seconds)."""
+    import glob
+    run = os.path.join(work, f"merge{merge}")
+    os.makedirs(run)
+    args = ["-n", "2", "-s", "1", "--server-procs", "--launcher", "local",
+            sys.executable, "-m", "mxnet_tpu_torch.examples.image_classification",
+            "--kvstore", "dist_async", "--iters", str(DIST_PS_ITERS),
+            "--seed", str(SEED)]
+    t0 = time.perf_counter()
+    rc, out, err = _launch_job(
+        args, run, env={"MXNET_KVSTORE_USE_WORKERS_MERGE": str(merge),
+                        "MXNET_TELEMETRY_DUMP_ON_EXIT": "1",
+                        "MXNET_TPU_MERGE_TIMEOUT": "120"})
+    job_s = time.perf_counter() - t0
+    reps = _dist_reports(out)
+    dumps = [json.load(open(f)) for f in
+             glob.glob(os.path.join(run, "mxtpu_telemetry_*.json"))]
+    server = [dict(d["kvstore_server"], apply_us_mean=_hist_mean(
+        [d["snapshot"]["kvstore"]["histograms"]], "kvstore.server_apply_us"))
+        for d in dumps if "kvstore_server" in d]
+    workers = [d["snapshot"]["kvstore"] for d in dumps
+               if d["argv"][0].endswith("image_classification.py")]
+    if rc != 0 or len(reps) != 2 or len(server) != 1 or len(workers) != 2:
+        raise _job_failed(f"ps_train merge={merge}", rc, out, err)
+    return reps, server[0], workers, job_s
+
+
+def _hist_mean(hists, name):
+    """The mean of histogram ``name`` over the registries ``hists``."""
+    h = [x[name] for x in hists if name in x]
+    n = sum(x["count"] for x in h)
+    return sum(x["sum"] for x in h) / n if n else None
+
+
+def _ms_or_none(us):
+    return None if us is None else us / 1e3
+
+
+def phase_ps_train(state):
+    """ResNet-50 v1 trained through ``dist_async`` with update_on_kvstore,
+    two workers on the card and one parameter-server process, with
+    WorkersMerge off then on (see the module docstring, phase 61)."""
+    import tempfile
+    work = tempfile.mkdtemp(prefix="chip-ps-")
+    steps = 2 + DIST_PS_ITERS
+    runs = {m: _ps_run(work, m) for m in (0, 1)}
+    want = {n: RESNET50_SEGMENTS * steps for n in TRAIN_KERNELS}
+    res, failures = {"steps": steps, "launches_expected": want}, []
+    total = dict.fromkeys(TRAIN_KERNELS, 0)
+    from mxnet_tpu_torch.examples.image_classification import \
+        digest_of_digests
+    for m, (reps, server, workers, job_s) in runs.items():
+        keys = len(server["sha256"])
+        keyed = {int(k.split("/", 1)[1]): v
+                 for k, v in server["sha256"].items()}
+        digest = digest_of_digests(keyed[k] for k in sorted(keyed))
+        launches = [{n: d["launches"][n] for n in TRAIN_KERNELS}
+                    for d in reps]
+        for w in launches:
+            for n in TRAIN_KERNELS:
+                total[n] += w[n]
+        step_ms = [sorted(d["step_ms"][2:]) for d in reps]
+        counters = [w["counters"] for w in workers]
+        hists = [w["histograms"] for w in workers]
+        leg = {"job_s": job_s, "keys": keys,
+               "step_ms_per_worker": [s[len(s) // 2] for s in step_ms],
+               "step_ms": [d["step_ms"] for d in reps],
+               "losses": [d["losses"] for d in reps],
+               "server_stats": server["stats"],
+               "server_push_mb": server["stats"]["push_bytes"] / 1e6,
+               "server_apply_ms_per_push": _ms_or_none(server["apply_us_mean"]),
+               "server_pid": server["pid"],
+               "server_cuda_initialized": server["cuda_initialized"],
+               "server_cuda_visible_devices":
+                   server["cuda_visible_devices"],
+               "merge_partial_flushes": sum(
+                   c.get("kvstore.merge_partial_flushes", 0)
+                   for c in counters),
+               "merge_rounds": sum(c.get("kvstore.merge_rounds", 0)
+                                   for c in counters),
+               "leader_sum_us_per_push": _hist_mean(hists,
+                                                    "kvstore.merge_sum_us"),
+               "leader_forward_ms_per_key": _ms_or_none(_hist_mean(
+                   hists, "kvstore.ps_push_us")),
+               "weights_equal_server": [d["weights_sha256"] == digest
+                                        for d in reps],
+               "launches": launches}
+        res[f"merge_{'on' if m else 'off'}"] = leg
+        if launches != [want, want]:
+            failures.append(f"merge={m}: launch counts")
+        if not all(leg["weights_equal_server"]) or \
+                [d["keys"] for d in reps] != [keys, keys]:
+            failures.append(f"merge={m}: pulled weights differ from the "
+                            f"server's")
+        if leg["server_cuda_initialized"] or \
+                leg["server_cuda_visible_devices"] != "":
+            failures.append(f"merge={m}: the server saw the card or made "
+                            f"a CUDA context")
+    on, off = res["merge_on"], res["merge_off"]
+    frames_on = on["server_stats"]["push_frames"]
+    frames_off = off["server_stats"]["push_frames"]
+    res["frames_ratio"] = frames_off / frames_on if frames_on else None
+    if frames_on != on["keys"] * steps or frames_off != 2 * frames_on:
+        failures.append("server push frames are not keys × steps with the "
+                        "merge and twice that without")
+    if on["merge_partial_flushes"] != 0:
+        failures.append("the leader flushed a round partially")
+    state["ps_train_launches"] = total
+    if failures:
+        raise AssertionError(f"ps_train: {failures}: {res}")
+    return res
+
+
 KERNELS = [
     ("layernorm_fused", "mxnet_tpu_torch/csrc/layernorm.cu",
      "mxnet_tpu/ops/pallas_kernels.py:104"),
@@ -9290,7 +9558,8 @@ PATH_LAUNCHES = ("launches", "bert_launches", "image_launches",
                  "fp16_train_launches", "sparse_launches",
                  "input_launches", "ckpt_launches", "serve_plane_launches",
                  "int8_calib_launches", "obs_fleet_launches",
-                 "trace_check_launches")
+                 "trace_check_launches", "dist_sync_launches",
+                 "ps_train_launches")
 
 
 def kernels_line(state):
@@ -9311,9 +9580,10 @@ def kernels_line(state):
     training with a row-sparse word embedding (``sparse_train``), the
     checkpointed ResNet-50 training (``ckpt_train``), the served
     checkpoint (``serve_plane``), the observed scoring and the
-    telemetry-calibrated int8 net (``int8_calib``) and the fed fused
+    telemetry-calibrated int8 net (``int8_calib``), the fed fused
     steps of the observed fleet and the trace check (``obs_fleet``,
-    ``trace_check``));
+    ``trace_check``), and both workers of the distributed runs
+    (``dist_sync_train``, ``ps_train``));
     the times are at the first case, the
     path's own shape (``conv3x3``: its dgrad use, which is how training
     launches it)."""
@@ -9422,7 +9692,8 @@ PHASES = ("env", "build", "kernels", "slice", "reference", "profile",
           "bf16_train_reference", "fp16_train_kernels", "fp16_train",
           "fp16_train_reference", "sparse_train", "attention_ops",
           "input_train", "ckpt_train", "serve_plane", "chaos",
-          "int8_calib", "obs_fleet", "trace_check")
+          "int8_calib", "obs_fleet", "trace_check", "dist_sync_train",
+          "ps_train")
 
 
 def _args(argv):

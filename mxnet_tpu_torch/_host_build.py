@@ -118,43 +118,57 @@ def _command(cxx: str, out: Path) -> List[str]:
     return cmd + [str(s) for s in SOURCES] + ["-o", str(out)] + libs
 
 
-def _cxx() -> str:
+def _cxx(what: str = "the host decode stage (csrc_host/dataio.cc)") -> str:
     for cand in (os.environ.get("CXX"), shutil.which("g++"),
                  shutil.which("c++")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("g++ not found: the host decode stage "
-                       "(csrc_host/dataio.cc) is built at first use")
+    raise RuntimeError(f"g++ not found: {what} is built at first use")
+
+
+def stamped_build(lib_path: Path, tag: str, what: str, command,
+                  inputs, force: bool = False) -> Path:
+    """Compile ``command(out)`` (an argv that writes the library to
+    ``out``) into ``lib_path`` unless the stamp ``<tag>.sha256`` holds the
+    hash of that command and of ``inputs``' bytes; → ``lib_path``.  The
+    compiler writes a private temporary that is renamed over the library,
+    under the file lock ``<tag>.lock``, so a concurrent process neither
+    builds over this one nor loads a half-written file.  A failed build
+    raises with the command and the compiler's output; the last build's
+    are in ``<tag>_build.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{lib_path.name}.{os.getpid()}"
+    cmd = command(tmp)
+    h = hashlib.sha256(" ".join(cmd).replace(str(tmp), "").encode())
+    for src in inputs:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    want = h.hexdigest()
+    stamp = BUILD_DIR / f"{tag}.sha256"
+    with open(BUILD_DIR / f"{tag}.lock", "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        if not force and lib_path.exists() and stamp.exists() and \
+                stamp.read_text() == want:
+            return lib_path
+        r = subprocess.run(cmd, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"building {what} failed:\n" +
+                               " ".join(cmd) + "\n" + r.stdout)
+        os.replace(tmp, lib_path)
+        stamp.write_text(want)
+        (BUILD_DIR / f"{tag}_build.log").write_text(
+            " ".join(cmd) + "\n" + r.stdout)
+        return lib_path
 
 
 def build(force: bool = False) -> Path:
     """Compile ``csrc_host/dataio.cc`` into :data:`LIB_PATH` unless the
     stamped library matches the sources and the command; → its path."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cxx = _cxx()
-    tmp = BUILD_DIR / f".{LIB_PATH.name}.{os.getpid()}"
-    cmd = _command(cxx, tmp)
-    h = hashlib.sha256(" ".join(cmd).replace(str(tmp), "").encode())
-    for src in SOURCES + HEADERS:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    want = h.hexdigest()
-    stamp = BUILD_DIR / "dataio.sha256"
-    with open(BUILD_DIR / "dataio.lock", "w") as lockf:
-        fcntl.flock(lockf, fcntl.LOCK_EX)
-        if not force and LIB_PATH.exists() and stamp.exists() and \
-                stamp.read_text() == want:
-            return LIB_PATH
-        r = subprocess.run(cmd, stdout=subprocess.PIPE,
-                           stderr=subprocess.STDOUT, text=True)
-        if r.returncode != 0:
-            raise RuntimeError("building the host decode stage failed:\n" +
-                               " ".join(cmd) + "\n" + r.stdout)
-        os.replace(tmp, LIB_PATH)
-        stamp.write_text(want)
-        (BUILD_DIR / "dataio_build.log").write_text(
-            " ".join(cmd) + "\n" + r.stdout)
-        return LIB_PATH
+    return stamped_build(LIB_PATH, "dataio", "the host decode stage",
+                         lambda out: _command(cxx, out), SOURCES + HEADERS,
+                         force)
 
 
 def lib() -> ctypes.CDLL:

@@ -1,6 +1,5 @@
 """Image classification training on synthetic ImageNet-shaped data or
-a RecordIO file (≙ ``example/gluon/image_classification.py``, single
-process).
+a RecordIO file (≙ ``example/gluon/image_classification.py``).
 
 A model-zoo CNN (default ResNet-50 v1, 1000 classes; ``--model
 resnet50_v2`` trains v2, whose stride-1 3x3 convs take the standalone
@@ -28,11 +27,29 @@ does.
 
     python -m mxnet_tpu_torch.examples.image_classification --device cpu \\
         --model resnet18_v1 --image-size 32 --batch-size 2 --iters 2
+
+Launched with more than one worker (``python -m mxnet_tpu_torch.launch
+-n 2 [-s 1 --server-procs] --launcher local python -m
+mxnet_tpu_torch.examples.image_classification --kvstore dist_async``) it
+joins the job (``parallel.dist.initialize()``) and trains through the
+``--kvstore`` store, as the reference's does: every rank starts from the
+same seeded weights and draws its synthetic batches from ``--seed`` +
+its rank; ``dist_async`` updates on the store (``Trainer.step``: push the
+gradients, pull the weights).  In one process a ``dist`` store is none,
+as the reference takes none.  Each rank then waits at the store's
+barrier and prints one ``dist_report`` JSON line: its step ms, losses,
+the kernels' launch counts and ``weights_sha256``: the sha256 of the
+sha256 hex digests of the parameters' weights, one after another in key
+order (pulled from the store with ``dist_async`` after the barrier), so
+one line carries the check of every key (:func:`digest_of_digests`).
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import random
+import sys
 import time
 
 import numpy as np
@@ -112,11 +129,21 @@ def record_batches(it, device):
                    b.label[0].reshape(-1).to(device, torch.int64))
 
 
+def _kvstore(name):
+    """The Trainer's store for ``--kvstore``: a ``dist`` store only when
+    the job has more than one worker (≙ the reference's ``None`` in one
+    process)."""
+    from ..parallel import dist
+    if name.lower().startswith("dist") and dist.size() == 1:
+        return None
+    return name
+
+
 def build(args, device, lr_scheduler=None):
     """(net, trainer, loss_fn): the model in training mode with weights
     from ``args.seed`` (deferred shapes take theirs at the first
     forward), and the reference's SGD trainer, under ``lr_scheduler``
-    when one is given."""
+    when one is given, on the ``--kvstore`` store (:func:`_kvstore`)."""
     net = get_model(args.model, classes=args.classes)
     net.initialize(ctx=device, seed=args.seed)
     net.hybridize()
@@ -125,7 +152,7 @@ def build(args, device, lr_scheduler=None):
     if lr_scheduler is not None:
         opt["lr_scheduler"] = lr_scheduler
     trainer = Trainer(net.collect_params(), "sgd", opt,
-                      kvstore=args.kvstore)
+                      kvstore=_kvstore(args.kvstore))
     return net, trainer, SoftmaxCrossEntropyLoss()
 
 
@@ -141,14 +168,17 @@ def forward_backward(net, loss_fn, x, y):
 def train_step(net, trainer, loss_fn, x, y):
     """One step as a Gluon user writes it: the forward and the loss under
     ``autograd.record()``, ``backward``, ``trainer.allreduce_grads()``
-    and ``trainer.update(batch)``; → (per-sample loss, logits),
-    detached."""
+    and ``trainer.update(batch)`` (``trainer.step(batch)`` where the
+    store updates); → (per-sample loss, logits), detached."""
     with autograd.record():
         out = net(x)
         loss = loss_fn(out, y)
     loss.backward(torch.ones_like(loss))
-    trainer.allreduce_grads()
-    trainer.update(int(x.shape[0]))
+    if trainer._update_on_kvstore:
+        trainer.step(int(x.shape[0]))
+    else:
+        trainer.allreduce_grads()
+        trainer.update(int(x.shape[0]))
     return loss.detach(), out.detach()
 
 
@@ -173,16 +203,14 @@ def main(argv=None):
     clock up to a synchronize, as the reference's ``waitall``;
     ``feed_stats`` is ``DataFeed.stats()`` with ``--pipeline datafeed``,
     else None."""
+    from ..parallel import dist
     args = parse_args(argv)
     if args.pipeline and not args.rec:
         raise ValueError("--pipeline needs --rec")
-    if args.kvstore not in ("device", "local"):
-        raise NotImplementedError(
-            f"--kvstore {args.kvstore}: only single-process training is "
-            f"ported ('device' or 'local'); distributed kvstores belong to "
-            f"the host-planes slice")
     if args.iters < 1:
         raise ValueError("--iters must be >= 1")
+    dist.initialize()           # no-op for one process; DMLC_* env
+    rank, nproc = dist.rank(), dist.size()
     device = _context.resolve(args.device)
     if device.type == "cuda":
         _context.exact_fp32()
@@ -194,7 +222,7 @@ def main(argv=None):
         feed = record_batches(it, device)
         batches = (next(feed) for _ in range(steps))
     else:
-        rng = np.random.RandomState(args.seed)
+        rng = np.random.RandomState(args.seed + rank)
         batches = []
         for _ in range(steps):
             x, y = synthetic_batch(rng, args.batch_size, args.image_size,
@@ -219,11 +247,49 @@ def main(argv=None):
         feed_stats = stats() if callable(stats) else None
         it.close()
     ips = args.iters * args.batch_size / dt
-    print(f"[rank 0/1] {args.model}: {ips:.1f} img/s "
+    print(f"[rank {rank}/{nproc}] {args.model}: {ips:.1f} img/s "
           f"(batch {args.batch_size})", flush=True)
-    return {"img_s": ips, "losses": [float(v.mean()) for v in losses],
-            "step_ms": [_ms(a, b) for a, b in zip(marks, marks[1:])],
-            "steps": steps, "feed_stats": feed_stats}
+    out = {"img_s": ips, "losses": [float(v.mean()) for v in losses],
+           "step_ms": [_ms(a, b) for a, b in zip(marks, marks[1:])],
+           "steps": steps, "feed_stats": feed_stats}
+    if nproc > 1:
+        out["report"] = _dist_report(trainer, out, rank, nproc)
+        # one write: the ranks share the launcher's stdout, and a line
+        # written in pieces can interleave with another rank's
+        sys.stdout.write("dist_report " + json.dumps(out["report"]) + "\n")
+        sys.stdout.flush()
+        dist.finalize()
+    return out
+
+
+def digest_of_digests(hexdigests) -> str:
+    """sha256 of the hex digests, one after another (each key's sha256
+    of its weights' bytes, in key order)."""
+    return hashlib.sha256("".join(hexdigests).encode()).hexdigest()
+
+
+def _dist_report(trainer, out, rank, nproc) -> dict:
+    """After the store's barrier: the digest of each parameter's weights
+    (pulled from the store where it updates, :func:`digest_of_digests`),
+    with the step ms, losses, the store's type and the kernels' launch
+    counts."""
+    from ..parallel import dist
+    from ..parallel.train import kernel_wrappers
+    kv = trainer._kvstore
+    kv.barrier()
+    digests = []
+    for i, (name, p) in enumerate(trainer._trainable):
+        w = p.detach().cpu().clone()
+        if trainer._update_on_kvstore:
+            kv.pull(i, out=w)
+        digests.append(hashlib.sha256(w.numpy()).hexdigest())
+    kv.barrier()
+    return {"rank": rank, "size": nproc, "kvstore": kv.type,
+            "backend": dist.backend(), "step_ms": out["step_ms"],
+            "losses": out["losses"], "keys": len(digests),
+            "weights_sha256": digest_of_digests(digests),
+            "launches": {n: fn.launches
+                         for n, fn in kernel_wrappers().items()}}
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""gluon.Trainer (≙ ``mxnet_tpu/gluon/trainer.py``), single process.
+"""gluon.Trainer (≙ ``mxnet_tpu/gluon/trainer.py``).
 
 ``Trainer(net.collect_params(), "sgd", {...})`` trains the parameters
 that take gradients: the ``nn.Parameter``s with ``requires_grad``.  The
@@ -15,8 +15,21 @@ gradient it used (sets it to None); the next ``backward`` writes a fresh
 one.  A step that finds a parameter without a fresh gradient raises
 ``UserWarning``, as the reference does, unless ``ignore_stale_grad``.
 
-Only the single-process stores are ported: ``kvstore`` None, "device" or
-"local" reduce nothing (one process holds every gradient).
+``kvstore`` is a store name or a ``kvstore`` object (≙ the reference's
+``_init_kvstore``, trainer.py:195).  ``step`` reduces the gradients
+through it (``allreduce_grads``: one batched ``pushpull`` of every live
+gradient for the dist stores, into the gradients in place), then
+updates; a one-process ``device`` / ``local`` store without compression
+has nothing to reduce and is skipped.  The collective stores agree first
+on which gradients are live on some rank (``sync_live_mask``): a key
+stale on one rank takes zeros there, so every rank enters the same
+collectives and applies the same update.  With ``update_on_kvstore``
+(the default for ``dist_async``, which requires it) the store runs the
+optimizer: ``step`` pushes each gradient, scaled by ``1 / batch_size``,
+and pulls the updated weight back (``_step_on_kvstore``), and the first
+step sends the store a copy of the optimizer with ``rescale_grad`` 1.
+``dist`` stores enable WorkersMerge as ``MXNET_KVSTORE_USE_WORKERS_MERGE``
+says (default on).  ``compression_params`` go to the store.
 
 ``fuse_step(loss_fn)`` returns the whole-step executor
 (``parallel.TrainerFusedStep``): forward, loss, backward and update as
@@ -36,6 +49,7 @@ has no torch counterpart and is skipped with a warning.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
@@ -46,17 +60,16 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .. import kvstore as kvs
 from .. import optimizer as opt_mod
 from ..sparse import RowSparseNDArray
 from .parameter import _pending_device, _spec, assign, is_initialized
 
 __all__ = ["Trainer"]
 
-_LOCAL_STORES = (None, "device", "local")
-
 
 class Trainer:
-    """≙ ``gluon.Trainer`` for one process."""
+    """≙ ``gluon.Trainer``."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
@@ -66,24 +79,35 @@ class Trainer:
                 "Trainer(mesh=, sharding_plan=): sharded training belongs "
                 "to the tensor-parallel slice of the port (item 7 of its "
                 "queue of modules), not ported yet")
-        if not (kvstore in _LOCAL_STORES):
-            raise NotImplementedError(
-                f"kvstore={kvstore!r}: only the single-process stores "
-                f"(None, 'device', 'local') are ported; distributed "
-                f"kvstores belong to the host-planes slice of the port")
-        if update_on_kvstore:
-            raise NotImplementedError(
-                "update_on_kvstore=True: updates on a (distributed) "
-                "kvstore belong to the host-planes slice of the port")
-        if compression_params is not None:
-            raise NotImplementedError(
-                "compression_params: gradient compression belongs to the "
-                "host-planes slice of the port")
         # collect_params() stamps a weak reference to its block on the
         # dict: fuse_step finds the net by it
         self._net = getattr(params, "_block_ref", None)
+        kv_type = kvstore.lower() if isinstance(kvstore, str) else \
+            getattr(kvstore, "type", "")
+        if update_on_kvstore is None:
+            # ≙ trainer.py _init_kvstore defaults: async stores REQUIRE
+            # server-side updates (there is no gradient aggregate to apply
+            # locally); sync stores use the local multi-tensor update
+            update_on_kvstore = "async" in kv_type
+        elif not update_on_kvstore and "async" in kv_type:
+            # refused before a named store (and its server) is made
+            raise ValueError(
+                "dist_async requires update_on_kvstore=True (the server "
+                "applies each push immediately, kvstore_dist_server.h:882)")
+        if isinstance(kvstore, str):
+            kw = {}
+            if kv_type.startswith("dist"):
+                # WorkersMerge default-on for dist stores (≙ fork
+                # behavior); MXNET_KVSTORE_USE_WORKERS_MERGE=0 opts out
+                from ..kvstore.workers_merge import merge_enabled
+                kw["use_workers_merge"] = merge_enabled()
+            kvstore = kvs.create(kvstore, **kw)
         self._kvstore = kvstore
-        self._update_on_kvstore = bool(update_on_kvstore)
+        self._update_on_kvstore = bool(update_on_kvstore) and \
+            kvstore is not None
+        if compression_params is not None and kvstore is not None:
+            kvstore.set_gradient_compression(compression_params)
+        self._kv_initialized = False
         items = list(params.items()) if isinstance(params, dict) else \
             [(str(i), p) for i, p in enumerate(params)]
         self._items = items         # parameters and running statistics
@@ -112,25 +136,179 @@ class Trainer:
 
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
+        if self._update_on_kvstore and self._kv_initialized:
+            # the store holds its own optimizer copy — re-send so the lr
+            # change is not silently ignored (per-key step counts are
+            # preserved by set_optimizer on the store/server side)
+            self._kvstore.set_optimizer(self._store_optimizer())
+
+    # -- kvstore --------------------------------------------------------
+    def _store_optimizer(self):
+        """The store's copy of the optimizer: ``rescale_grad`` 1.0, as the
+        workers scale gradients before pushing (the scale may change per
+        step, the store's copy cannot)."""
+        import copy
+        opt = copy.copy(self._optimizer)
+        opt.rescale_grad = 1.0
+        return opt
+
+    def _init_kvstore(self):
+        """≙ trainer.py:195 _init_kvstore for the update_on_kvstore path:
+        register every parameter under its index and send the store its
+        optimizer."""
+        if self._kv_initialized or self._kvstore is None:
+            return
+        for i, (name, p) in enumerate(self._trainable):
+            self._kvstore.init(i, p.detach())
+        self._kvstore.set_optimizer(self._store_optimizer())
+        self._kv_initialized = True
+
+    def _reduces(self) -> bool:
+        """Whether ``allreduce_grads`` has work: any store but a
+        one-process local one without compression (whose pushpull of a
+        single copy is that copy)."""
+        kv = self._kvstore
+        if kv is None:
+            return False
+        if type(kv) is kvs.KVStore and kv.num_workers == 1:
+            return kv._compression is not None
+        return True
+
+    def _collective_live_counts(self, local_live):
+        """Per-key count of workers holding a fresh gradient (ONE tiny
+        mask all-reduce), or None when the store isn't collective.
+
+        Collective stores enter a cross-process reduce per key, so every
+        rank must agree on the key list: keys live on SOME rank get zero
+        contributions from stale ranks, keys stale EVERYWHERE are skipped
+        symmetrically, and any stale-grad error must be raised from these
+        shared counts (a local raise on one rank strands its peers in the
+        next collective)."""
+        if not getattr(self._kvstore, "collective_push", False):
+            return None
+        return self._kvstore.sync_live_mask(
+            np.array(local_live, dtype=np.float32))
+
+    def _allreduce_grads(self):
+        """≙ trainer.py:392: pushpull the live gradients, in place.
+        Stores advertising ``batched_pushpull`` (the dist stores) take the
+        whole set in ONE call, one all-reduce over a flat buffer; the
+        others one pushpull a key with priority −i (P3 inside its
+        ``batch()`` window, drained highest priority first)."""
+        if not self._reduces():
+            return
+        kv = self._kvstore
+        live, local_live = [], []
+        for i, (name, p) in enumerate(self._trainable):
+            local_live.append(is_initialized(p) and p.grad is not None)
+            if local_live[-1]:
+                live.append((i, p))
+        counts = self._collective_live_counts(local_live)
+        if counts is not None:
+            # zero-fill stale-here/live-elsewhere keys; the reduced grad is
+            # written into the stale rank's gradient too, so every rank's
+            # _update applies the SAME update and replicas stay
+            # bit-identical
+            have = {i for i, _ in live}
+            for i, (name, p) in enumerate(self._trainable):
+                if counts[i] > 0 and i not in have and is_initialized(p):
+                    p.grad = torch.zeros_like(p)
+                    live.append((i, p))
+            live.sort(key=lambda t: t[0])
+        if not live:
+            return
+        if getattr(kv, "batched_pushpull", False):
+            gs = [p.grad for _, p in live]
+            kv.pushpull([i for i, _ in live], gs, out=gs)
+            return
+        batch = getattr(kv, "batch", None)
+        with (batch() if batch is not None else contextlib.nullcontext()):
+            for i, p in live:
+                kv.pushpull(i, p.grad, out=p.grad, priority=-i)
+
+    def _step_on_kvstore(self, ignore_stale_grad=False):
+        """update_on_kvstore data path: push scaled grads, pull back the
+        store-updated weights (≙ trainer.py _update when
+        update_on_kvstore; dist_async's server applies each push)."""
+        self._init_kvstore()
+        kv = self._kvstore
+        scale = self._optimizer.rescale_grad
+        collective = getattr(kv, "collective_push", False)
+        entries = []
+        for i, (name, p) in enumerate(self._trainable):
+            live = is_initialized(p) and p.grad is not None
+            if (not live and not ignore_stale_grad and not collective
+                    and is_initialized(p)):
+                raise UserWarning(
+                    f"Gradient of Parameter `{name}` has not been "
+                    "updated by backward since last step")
+            entries.append((i, p, live))
+        live_anywhere = None
+        counts = self._collective_live_counts(
+            [live for _, _, live in entries]) if collective else None
+        if counts is not None:
+            if not ignore_stale_grad:
+                nproc = kv.num_workers
+                for idx, (i, p, _) in enumerate(entries):
+                    if is_initialized(p) and counts[idx] < nproc:
+                        raise UserWarning(
+                            f"Gradient of Parameter "
+                            f"`{self._trainable[idx][0]}` has not been "
+                            "updated by backward since last step (on at "
+                            "least one worker)")
+            live_anywhere = counts > 0
+        pushed = []
+        for idx, (i, p, live) in enumerate(entries):
+            if not live:
+                if (live_anywhere is not None and live_anywhere[idx]
+                        and is_initialized(p)):
+                    kv.push(i, torch.zeros_like(p), priority=-i)
+                    pushed.append((i, p, False))
+                continue
+            g = p.grad if scale == 1.0 else p.grad * scale
+            kv.push(i, g, priority=-i)
+            pushed.append((i, p, True))
+        for i, p, live in pushed:
+            kv.pull(i, out=p.data, priority=-i)
+            if live:
+                p.grad = None       # consumed; the next backward writes
+        store_opt = getattr(kv, "_optimizer", None)
+        if store_opt is not None:
+            # an in-process store updated with its copy of the optimizer
+            # (which shares the per-key counts): the step count follows
+            self._optimizer.num_update = max(self._optimizer.num_update,
+                                             store_opt.num_update)
 
     # -- step -----------------------------------------------------------
     def step(self, batch_size, ignore_stale_grad=False):
-        """Rescale gradients by ``1 / batch_size`` and update every
-        parameter that has one; the gradients are consumed."""
+        """Rescale gradients by ``1 / batch_size``, reduce them through the
+        store and update every parameter that has one (or, with
+        ``update_on_kvstore``, push them and pull the store's weights);
+        the gradients are consumed."""
         self._optimizer.rescale_grad = self._scale / batch_size
+        if self._update_on_kvstore:
+            self._step_on_kvstore(ignore_stale_grad)
+            return
+        self._allreduce_grads()
         self._update(ignore_stale_grad)
 
     def allreduce_grads(self):
-        """≙ ``Trainer.allreduce_grads``: reduce the gradients across the
-        store's devices.  One process holding every gradient on a local
-        store has nothing to reduce, so the gradients stay as they are;
+        """≙ ``Trainer.allreduce_grads``: reduce the gradients through the
+        store, in place (nothing to do for a one-process local store);
         the Gluon idiom ``allreduce_grads(); ...; update(bs)`` is then
         :meth:`step`."""
+        self._allreduce_grads()
 
     def update(self, batch_size, ignore_stale_grad=False):
-        """As :meth:`step` without the reduction (:meth:`allreduce_grads`,
-        which reduces nothing here)."""
-        self.step(batch_size, ignore_stale_grad)
+        """As :meth:`step` without the reduction (:meth:`allreduce_grads`
+        does it).  Not with ``update_on_kvstore``, where the store
+        updates: use :meth:`step`."""
+        if self._update_on_kvstore:
+            raise ValueError(
+                "update() when parameters are updated on the kvstore is not "
+                "supported: use step(), or update_on_kvstore=False")
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self._update(ignore_stale_grad)
 
     def shard_batch(self, *arrays):
         """≙ ``Trainer.shard_batch``: with no mesh (the only kind this

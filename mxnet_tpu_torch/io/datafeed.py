@@ -18,7 +18,10 @@ computes on batch N:
   the ring's depth are also gauges, each both a ``telemetry`` gauge
   (``datafeed.staged``, ``datafeed.ring_depth``) and a
   ``profiler.Counter`` (``datafeed/staged``, ``datafeed/ring_depth``:
-  chrome traces keep the ``/`` form), as the reference's ``_gauge``.
+  chrome traces keep the ``/`` form), as the reference's ``_gauge``;
+  while the consumer waits, the ``datafeed.wait_since_us`` gauge holds
+  the wait's start (monotonic µs), so the obs recorder counts a wait
+  still open in its window (``obs.signals.WaitAccrual``).
 
 Ring semantics: a bounded queue of ``depth`` staged batches.  The
 producer blocks (counted as backpressure) when the ring is full; the
@@ -50,6 +53,19 @@ def _env_int(name, default):
         return int(os.environ.get(name, default))
     except (TypeError, ValueError):
         return default
+
+
+@contextlib.contextmanager
+def _waiting():
+    """Publish the consumer's wait in progress: its start in the
+    ``datafeed.wait_since_us`` gauge, cleared before the wait is
+    recorded."""
+    _telemetry.gauge_set("datafeed.wait_since_us",
+                         int(time.monotonic() * 1e6))
+    try:
+        yield
+    finally:
+        _telemetry.gauge_set("datafeed.wait_since_us", 0)
 
 
 class _Staged:
@@ -368,7 +384,8 @@ class DataFeed:
             raise RuntimeError("DataFeed is closed; call reset()")
         if self._queue is None:                      # synchronous mode
             t0 = time.perf_counter()
-            with _telemetry.span("datafeed.wait", mode="sync"):
+            with _telemetry.span("datafeed.wait", mode="sync"), \
+                    _waiting():
                 staged = self._stage(next(self._sync_it))
                 self._give_back(staged)
             _telemetry.observe("datafeed.wait_us",
@@ -383,7 +400,8 @@ class DataFeed:
                 self._stats["consumer_waits"] += 1
                 self._stats["sync_fallbacks"] += 1
             t0 = time.perf_counter()
-            with _telemetry.span("datafeed.wait", mode="stall"):
+            with _telemetry.span("datafeed.wait", mode="stall"), \
+                    _waiting():
                 staged = self._wait_for_batch()
             waited = time.perf_counter() - t0
             _telemetry.observe("datafeed.wait_us", waited * 1e6)

@@ -27,8 +27,19 @@ workers, a prebuilt trainer); :func:`_check` runs it at the reference's
 (one worker of ``synthetic:8x3x16x16:10:256``, a Dense trainer).  The
 reference's delay is a fixed 150 ms; here it is sized from the measured
 step (at least 150 ms), so the gate holds on a loaded host and at a
-full-width step alike.  ``device`` places the replica, the feed and the
-default trainer (``"cpu"`` for a machine without a card).
+full-width step alike.  The fault starves in cycles: the
+:data:`PREFETCH` fetches sleep together, so a cycle delivers that many
+batches and then the trainer waits, for longer than the recorder's
+window.  The recorder keeps its window throughout; its stall signal
+counts the part of a wait still open in a window
+(``obs.signals.WaitAccrual``), so every window inside a wait reads it.
+``device`` places the replica, the feed and the default trainer
+(``"cpu"`` for a machine without a card).
+
+Every wait has a cap, and the caps add up to :data:`BUDGET_S`, so a
+slow run fails at the gate whose wait ran out, with a ``[obs-check]
+FAIL`` line that names it and the seconds it waited, well inside the
+caller's time limit.
 """
 from __future__ import annotations
 
@@ -50,7 +61,16 @@ STEADY = 8              # recorder windows that must look healthy in a row
 QPS = 15.0              # the router's open-loop predict rate
 INTERVAL_MS = 250.0     # the recorder's window
 PACE_S = 0.01           # the trainer's pause between steps
-READY_S = 180.0         # a subprocess's import, card and warm-up
+PREFETCH = 4            # the feed client's fetches in flight
+# the caps of the waits, in the order they run; their sum is the check's
+# budget (the fleet's tests allow it 300 s with the interpreter's start)
+READY_S = 90.0          # the subprocesses' import, card and warm-up
+STEADY_S = 60.0         # the healthy steady state
+FIRE_S = 45.0           # input_starved fires under the fault
+CLEAR_S = 45.0          # and clears after it
+SCRAPE_S = 10.0         # the fleet scrape (2.5 s) and the shard flushes
+TEARDOWN_S = 15.0       # the subprocesses' exit and the threads' stop
+BUDGET_S = READY_S + STEADY_S + FIRE_S + CLEAR_S + SCRAPE_S + TEARDOWN_S
 
 
 def _repo_root() -> str:
@@ -86,7 +106,7 @@ def _sub_env(label: str) -> dict:
     return env
 
 
-def _wait_ready(port: int, timeout_s: float = 180.0, proc=None) -> bool:
+def _wait_ready(port: int, timeout_s: float = READY_S, proc=None) -> bool:
     deadline = time.monotonic() + timeout_s
     while time.monotonic() < deadline:
         if proc is not None and proc.poll() is not None:
@@ -177,16 +197,26 @@ def _signal_between(frames, key, t0, t1):
     return sum(vals) / len(vals) if vals else None
 
 
+def _starved_for_s() -> float:
+    """``input_starved``'s ``for_s``: how long its breach must last."""
+    from .rules import seeded_rules
+    return next(r.for_s for r in seeded_rules() if r.name == "input_starved")
+
+
 def _fault_delay_ms(period_ms: float, fetch_ms: float) -> float:
-    """The ``client:delay`` that starves the measured step: each of the
-    four prefetch fetches sleeps it before fetching, so a batch arrives
-    every (delay + fetch) / 4.  That period is set to twice the step's,
-    so the loop waits a step's time each step however the step is
-    timed, yet kept within 0.8 of a recorder window, so every window
-    still holds a step (one without loses the stall signal, and the
-    rule's clock restarts); at least the reference's 150 ms."""
-    batch_ms = min(2.0 * period_ms, 0.8 * INTERVAL_MS)
-    return float(max(150.0, round(4.0 * batch_ms - fetch_ms)))
+    """The ``client:delay`` that starves the measured step.  The
+    :data:`PREFETCH` fetches in flight sleep the delay together, so a
+    cycle of ``delay + fetch`` ms delivers that many batches, which the
+    trainer takes a step period apart, and then it waits for the next
+    cycle.  The wait is set to outlast ``input_starved``'s ``for_s`` by two
+    recorder windows, and by one more burst of steps against a step that
+    slows under the fault: a window that falls among the steps of a
+    burst longer than the window reads no stall and restarts the rule's
+    clock, so the rule must be able to fire within one wait.  At least
+    the reference's 150 ms."""
+    burst_ms = PREFETCH * period_ms
+    wait_ms = 1e3 * _starved_for_s() + 2 * INTERVAL_MS + burst_ms
+    return float(max(150.0, round(burst_ms + wait_ms - fetch_ms)))
 
 
 def _timeline(frames):
@@ -251,6 +281,9 @@ def check(verbose: bool = True, device=None, spec: str = SPEC,
             print(f"[obs-check] {'ok  ' if ok else 'FAIL'} {name}"
                   + (f" — {detail}" if detail else ""), flush=True)
 
+    def waited(t0, cap):
+        return f"{time.monotonic() - t0:.1f} s of {cap:g}"
+
     def spawn(label, argv):
         log = os.path.join(obs_dir, f"{label}.log")
         logs.append(log)
@@ -272,11 +305,14 @@ def check(verbose: bool = True, device=None, spec: str = SPEC,
             "mxnet_tpu_torch.io.data_service", "--worker", "--spec",
             spec, "--seed", str(SEED), "--host", "127.0.0.1",
             "--port", str(p)]) for i, p in enumerate(fports)]
+        # the subprocesses start together and share one deadline
+        t_up = time.monotonic()
         note("replica ready", _wait_ready(rport, READY_S, rproc),
-             f"port {rport}")
+             f"port {rport}, {waited(t_up, READY_S)}")
         for p, w in zip(fports, wprocs):
-            note("feed worker ready", _wait_ready(p, READY_S, w),
-                 f"port {p}")
+            left = max(READY_S - (time.monotonic() - t_up), 0.0)
+            note("feed worker ready", _wait_ready(p, left, w),
+                 f"port {p}, {waited(t_up, READY_S)}")
         if not all(ok for _, ok, _ in checks):
             return out
 
@@ -320,8 +356,12 @@ def check(verbose: bool = True, device=None, spec: str = SPEC,
         # healthy steady state: steps and no stall in every recent
         # window, the rule not firing (the first steps may stall while
         # the ring fills)
-        steady = _poll(_steady, 300.0)
-        note("steady state reached", steady, f"steps={steps[0]}")
+        t_st = time.monotonic()
+        steady = _poll(_steady, STEADY_S)
+        note("steady state reached", steady,
+             f"steps={steps[0]}, {waited(t_st, STEADY_S)}")
+        if not steady:
+            return out
         t_base = time.monotonic()
         _poll(lambda: False, 4 * INTERVAL_MS / 1e3)
         t_on = time.monotonic()
@@ -340,9 +380,9 @@ def check(verbose: bool = True, device=None, spec: str = SPEC,
             else None,
             "step_p50_ms": p50[len(p50) // 2] / 1e3 if p50 else None,
             "mfu": mfu[len(mfu) // 2] if mfu else None})
+        fetch_ms = sum(fetch) / len(fetch) / 1e3 if fetch else 0.0
         fault_ms = out["fault_ms"] = _fault_delay_ms(
-            out["step_ms"] or 30.0,
-            sum(fetch) / len(fetch) / 1e3 if fetch else 0.0)
+            out["step_ms"] or 30.0, fetch_ms)
         out["stall"]["before"] = _signal_between(rec.frames(),
                                                  "input_stall_frac",
                                                  t_base, t_on)
@@ -351,18 +391,19 @@ def check(verbose: bool = True, device=None, spec: str = SPEC,
         n_ev = len(engine.events)
         os.environ["MXNET_FEED_FAULT"] = f"client:delay:1.0:{fault_ms:g}"
         fired = _poll(
-            lambda: ("input_starved", "firing") in _events(n_ev), 60.0)
+            lambda: ("input_starved", "firing") in _events(n_ev), FIRE_S)
         note("input_starved fires under feed fault", fired,
-             f"delay {fault_ms:g} ms, events={_events(n_ev)}")
+             f"delay {fault_ms:g} ms, {waited(t_on, FIRE_S)}, "
+             f"events={_events(n_ev)}")
 
         # ------------------------------------ clear: hysteresis release
         os.environ.pop("MXNET_FEED_FAULT", None)
         t_off = time.monotonic()
         cleared = _poll(
-            lambda: ("input_starved", "cleared") in _events(n_ev), 60.0)
+            lambda: ("input_starved", "cleared") in _events(n_ev), CLEAR_S)
         t_clear = time.monotonic()
         note("input_starved clears after fault removed", cleared,
-             f"events={_events(n_ev)}")
+             f"{waited(t_off, CLEAR_S)}, events={_events(n_ev)}")
         kinds = _events(n_ev)
         note("watchdog logged firing→cleared transition",
              fired and cleared
@@ -440,11 +481,16 @@ def check(verbose: bool = True, device=None, spec: str = SPEC,
         for p in procs:
             try:
                 p.terminate()
-                p.wait(10)
+            except Exception:
+                pass
+        t_end = time.monotonic() + TEARDOWN_S / 2
+        for p in procs:
+            try:
+                p.wait(max(t_end - time.monotonic(), 0.1))
             except Exception:
                 try:
                     p.kill()
-                    p.wait(10)
+                    p.wait(5)
                 except Exception:
                     pass
         if out["failures"] and verbose:

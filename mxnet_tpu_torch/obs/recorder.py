@@ -137,6 +137,8 @@ class Recorder:
         self._thread: Optional[threading.Thread] = None
         self._prev_raw: Optional[dict] = None
         self._prev_mono: Optional[float] = None
+        from .signals import WaitAccrual
+        self._wait = WaitAccrual()
         self._samples = 0
         self._dropped = 0
         self._flush_every = max(1, _env_int("MXNET_OBS_FLUSH_EVERY", 10))
@@ -184,32 +186,11 @@ class Recorder:
     def sample_once(self) -> dict:
         """Take one frame now (the sampler's body; also the test/bench
         entry point for deterministic sampling)."""
-        raw = _telemetry.raw_snapshot()
-        mono = time.monotonic()
-        prev_raw, prev_mono = self._prev_raw, self._prev_mono
-        dt = (mono - prev_mono) if prev_mono is not None else None
-        derived = derive_between(prev_raw, raw, dt) if dt else \
-            {"rates": {}, "quantiles": {}}
-        frame = {
-            "t": time.time(),
-            "mono": mono,
-            "dt": dt,
-            "label": _telemetry._proc_label(),
-            "pid": os.getpid(),
-            "counters": dict(raw.get("counters", {})),
-            "gauges": dict(raw.get("gauges", {})),
-            "histograms": dict(raw.get("histograms", {})),
-            "rates": derived["rates"],
-            "quantiles": derived["quantiles"],
-        }
-        self._prev_raw, self._prev_mono = raw, mono
-
+        frame = self.derive(_telemetry.raw_snapshot(), time.monotonic())
         # derived health signals ride the frame and the registry (obs.*
         # gauges), so /metrics sees them too
         from . import signals as _signals
-        sig = _signals.compute(frame)
-        frame["signals"] = sig
-        _signals.publish(sig)
+        _signals.publish(frame["signals"])
 
         engine = self.engine
         if engine is not None:
@@ -232,6 +213,35 @@ class Recorder:
         _telemetry.counter_add("obs.frames")
         if self.out_dir and n % self._flush_every == 0:
             self.flush()
+        return frame
+
+    def derive(self, raw: dict, mono: float) -> dict:
+        """The frame of registry snapshot ``raw`` taken at monotonic time
+        ``mono``: rates and quantiles against the previous frame's, the
+        feed wait accrued in the window (``accrued_us``) and the derived
+        signals.  Advances the recorder's previous-frame state."""
+        prev_raw, prev_mono = self._prev_raw, self._prev_mono
+        dt = (mono - prev_mono) if prev_mono is not None else None
+        derived = derive_between(prev_raw, raw, dt) if dt else \
+            {"rates": {}, "quantiles": {}}
+        accrued = self._wait.update(raw, mono)
+        frame = {
+            "t": time.time(),
+            "mono": mono,
+            "dt": dt,
+            "label": _telemetry._proc_label(),
+            "pid": os.getpid(),
+            "counters": dict(raw.get("counters", {})),
+            "gauges": dict(raw.get("gauges", {})),
+            "histograms": dict(raw.get("histograms", {})),
+            "rates": derived["rates"],
+            "quantiles": derived["quantiles"],
+            "accrued_us": ({} if accrued is None or not dt
+                           else {"datafeed.wait_us": accrued}),
+        }
+        self._prev_raw, self._prev_mono = raw, mono
+        from . import signals as _signals
+        frame["signals"] = _signals.compute(frame)
         return frame
 
     # -------------------------------------------------------------- state

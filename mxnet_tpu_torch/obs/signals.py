@@ -8,7 +8,12 @@ stores integers) so ``/metrics`` shows them:
 
 * ``input_stall_frac`` — µs the consumer waited on the feed
   (``datafeed.wait_us``) per µs of fused train step (``fused.step_us``)
-  in the window; above 1 the card is input-bound.
+  in the window; above 1 the card is input-bound.  In a recorder frame
+  the wait is accrued (:class:`WaitAccrual`): the elapsed part of a wait
+  still open at the frame counts in its window, so a feed that delivers
+  in bursts longer than the window shows its stall in every window it
+  holds the consumer back, and a window that ended no step but waited
+  reads its wait against one step of the run's mean length.
 * ``ckpt_pause_frac`` — ``checkpoint.pause_us`` per step µs.
 * ``goodput`` — (admitted − rejected − abandoned) / offered request
   rate, clamped to [0, 1]; present only when the window offered load.
@@ -28,9 +33,13 @@ from typing import Dict, Optional
 
 from .. import telemetry as _telemetry
 
-__all__ = ["compute", "publish", "publish_model_flops", "peak_flops"]
+__all__ = ["compute", "publish", "publish_model_flops", "peak_flops",
+           "WaitAccrual", "WAIT_SINCE"]
 
 PPM = 1e6
+# gauge: the monotonic µs at which the feed's consumer began the wait it
+# is in, 0 when it is not waiting (``io.datafeed``)
+WAIT_SINCE = "datafeed.wait_since_us"
 
 
 def _env_float(name: str, default: float) -> float:
@@ -53,6 +62,41 @@ def _win_sum_us(q: Optional[dict]) -> float:
     return float(q.get("mean_us", 0.0)) * float(q.get("rate", 0.0))
 
 
+class WaitAccrual:
+    """The feed wait accrued up to each recorder frame: the completed
+    waits' sum (``datafeed.wait_us``) plus the elapsed part of the wait in
+    progress (:data:`WAIT_SINCE`).  :meth:`update` returns the µs that
+    accrued since the previous frame.  The total is held monotone: the
+    feed clears its gauge just before it records the wait, and a frame
+    taken between the two reads the open part gone before the sum has it
+    (the next frame's window gets it).  A registry reset (the sum falls)
+    restarts the accrual."""
+
+    def __init__(self):
+        self._sum: Optional[float] = None
+        self._total = 0.0
+
+    def update(self, raw: dict, mono: float) -> Optional[float]:
+        h = raw.get("histograms", {}).get("datafeed.wait_us")
+        s = float(h.get("sum", 0.0)) if h else 0.0
+        since = raw.get("gauges", {}).get(WAIT_SINCE) or 0
+        total = s + (max(mono * 1e6 - since, 0.0) if since > 0 else 0.0)
+        prev_sum, prev_total = self._sum, self._total
+        self._sum = s
+        if prev_sum is None or s < prev_sum:
+            self._total = total
+            return None
+        self._total = max(total, prev_total)
+        return self._total - prev_total
+
+
+def _mean_us(h: Optional[dict]) -> Optional[float]:
+    """The mean of a cumulative histogram snapshot, None when empty."""
+    if not h or not h.get("count"):
+        return None
+    return float(h["sum"]) / float(h["count"])
+
+
 def compute(frame: dict) -> Dict[str, float]:
     """Signals for one recorder frame (see module docstring); keys are
     present only when their inputs are — a report must distinguish
@@ -68,11 +112,19 @@ def compute(frame: dict) -> Dict[str, float]:
         out["steps_per_s"] = float(step_q.get("rate", 0.0))
         if step_q.get("p50_us") is not None:
             out["step_p50_us"] = float(step_q["p50_us"])
+    wait_us_per_s = _win_sum_us(quants.get("datafeed.wait_us"))
+    accrued = frame.get("accrued_us", {}).get("datafeed.wait_us")
+    if accrued is not None and frame.get("dt"):
+        wait_us_per_s = accrued / frame["dt"]
     if step_us_per_s > 0.0:
-        out["input_stall_frac"] = \
-            _win_sum_us(quants.get("datafeed.wait_us")) / step_us_per_s
+        out["input_stall_frac"] = wait_us_per_s / step_us_per_s
         out["ckpt_pause_frac"] = \
             _win_sum_us(quants.get("checkpoint.pause_us")) / step_us_per_s
+    elif accrued:
+        # no step ended: the wait held back the one in progress
+        step_us = _mean_us(frame.get("histograms", {}).get("fused.step_us"))
+        if step_us:
+            out["input_stall_frac"] = accrued / step_us
 
     offered = rates.get("serve.requests", 0.0)
     if offered > 0.0:

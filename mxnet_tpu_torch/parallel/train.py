@@ -535,7 +535,10 @@ class TrainerFusedStep(_Stats):
         tr = self._trainer
         if tr._update_on_kvstore:
             return "update_on_kvstore"
-        if str(tr._kvstore).startswith("dist"):
+        kv = tr._kvstore
+        if kv is not None and (getattr(kv, "num_workers", 1) > 1
+                               or getattr(kv, "collective_push", False)
+                               or getattr(kv, "batched_pushpull", False)):
             return "dist_kvstore"
         for _, p in tr._trainable:
             if getattr(p, "grad_stype", "default") == "row_sparse":

@@ -128,6 +128,18 @@ class _PyRegistry:
                 total += v
             h[2] = total
 
+    def merge_hist(self, name, counts, count, total):
+        """Add bucket ``counts``, ``count`` observations and their sum
+        ``total`` to histogram ``name`` (the native engine's block,
+        folded in by ``engine``)."""
+        with self._mu:
+            h = self._hists.setdefault(
+                name, [[0] * (len(BUCKET_BOUNDS_US) + 1), 0, 0.0])
+            for b, c in enumerate(counts):
+                h[0][b] += int(c)
+            h[1] += int(count)
+            h[2] += float(total)
+
     def snapshot(self):
         with self._mu:
             return {
@@ -188,6 +200,24 @@ def observe(name: str, value_us: float):
     the fixed bucket bounds are BUCKET_BOUNDS_US)."""
     if _py_enabled:
         _pyreg.observe(name, value_us)
+
+
+def _merge_hist(name: str, counts, count: int, total: float):
+    """Fold observations recorded elsewhere (the native engine's block:
+    bucket counts on :data:`BUCKET_BOUNDS_US`, their number and sum) into
+    histogram ``name``."""
+    if _py_enabled:
+        _pyreg.merge_hist(name, counts, count, total)
+
+
+_engine_states: list = []
+
+
+def _set_engine_states(states):
+    """The live engines' queue states that :func:`raw_snapshot` lists
+    under ``"engines"`` (set by ``engine`` at each snapshot)."""
+    global _engine_states
+    _engine_states = list(states)
 
 
 def _observe_many(name: str, values):
@@ -609,7 +639,9 @@ def raw_snapshot() -> dict:
     """The registry verbatim: {"enabled", "counters", "gauges",
     "histograms", "engines"}."""
     _run_publishers()
-    return _pyreg.snapshot()
+    snap = _pyreg.snapshot()
+    snap["engines"] = list(_engine_states)
+    return snap
 
 
 # the reference's PJRT memory_stats keys ← torch.cuda.memory_stats keys

@@ -284,9 +284,10 @@ def test_fallback_not_hybridized_and_the_switch_that_forces(monkeypatch):
 
 
 def test_fallback_update_on_kvstore():
-    """The port's Trainer refuses ``update_on_kvstore=True`` when it is
-    built; a Trainer whose flag is set after construction routes every
-    fused call through the legacy step."""
+    """A Trainer that updates on its kvstore (here the flag set after
+    construction, on the default ``device`` store) routes every fused
+    call through the legacy step, which pushes to the store and pulls
+    its weights."""
     net, _ = _twins()
     tr = Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
     tr._update_on_kvstore = True

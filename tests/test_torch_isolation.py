@@ -51,16 +51,23 @@ HOST_PLANES = ("checkpoint", "faults", "lockwatch", "profiler",
                "serve.__main__", "io.data_service", "obs", "obs.recorder",
                "obs.signals", "obs.rules", "obs.fleet", "obs.check",
                "obs.__main__", "tracecheck", "tracemerge",
-               "models.model_store", "gluon.utils")
+               "models.model_store", "gluon.utils", "base", "engine",
+               "runtime", "parallel.dist", "kvstore", "kvstore.ps",
+               "kvstore.collective", "kvstore.workers_merge",
+               "kvstore.kvstore_server", "kvstore.p3", "kvstore.horovod",
+               "kvstore.byteps", "kvstore.nightly", "launch")
 
 
 def test_host_planes_import_alone_under_the_lock_watchdog():
-    """The train → checkpoint → serve modules and the observed fleet's
-    (the data service, obs, the trace gate and merge, the model store),
-    each imported in a fresh process with ``MXNET_LOCK_CHECK=1`` (the
-    chaos replicas' and the obs fleet's setting): the watchdog is
-    installed, nothing of JAX or the JAX package loads, and neither
-    ``serve.__main__`` nor ``obs.__main__`` runs when imported."""
+    """The train → checkpoint → serve modules, the observed fleet's (the
+    data service, obs, the trace gate and merge, the model store) and the
+    distributed ones (the engine and its loader, runtime, dist, the
+    kvstore package, the launcher), each imported in a fresh process with
+    ``MXNET_LOCK_CHECK=1`` (the chaos replicas' and the obs fleet's
+    setting): the watchdog is installed, nothing of JAX or the JAX
+    package loads, nothing is built, and neither ``serve.__main__``,
+    ``obs.__main__``, ``kvstore.nightly`` nor ``launch`` runs when
+    imported."""
     script = (
         "import importlib, json, sys\n"
         "for m in sys.argv[1:]:\n"
@@ -160,4 +167,51 @@ def test_input_path_never_loads_the_reference_library(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr
     ref_lib, own_lib, foreign = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not ref_lib and own_lib and foreign == []
+
+
+def test_engine_build_reads_only_its_own_sources():
+    """The native engine is compiled from the port's copies in
+    ``csrc_host/`` (``engine.cc`` and its two headers), never from the
+    JAX package's ``src/`` or ``include/``."""
+    from mxnet_tpu_torch import base
+    cmd = base._command("g++", ROOT / "build" / "x.so")
+    assert [c for c in cmd if c.startswith("-I")] == \
+        [f"-I{PKG / 'csrc_host'}"]
+    assert [str(s) for s in base.SOURCES] == \
+        [str(PKG / "csrc_host" / "engine.cc")]
+    assert {p.name for p in base.HEADERS} == {"engine_api.h",
+                                              "engine_stats.h"}
+    assert not [c for c in cmd if str(ROOT / "src") in c or
+                str(ROOT / "include") in c]
+
+
+def test_engine_never_loads_the_reference_library(tmp_path):
+    """An engine op and the WorkersMerge leader's engine in a fresh
+    process: its maps hold the port's engine library and no
+    ``libmxtpu_rt.so``, and importing the package built nothing."""
+    script = (
+        "import json, os, sys\n"
+        "import mxnet_tpu_torch\n"
+        "from mxnet_tpu_torch import base\n"
+        "built_on_import = base._lib is not None\n"
+        "from mxnet_tpu_torch import engine\n"
+        "e = engine.Engine(); v = e.new_variable(); out = []\n"
+        "e.push(lambda: out.append(1), mutable_vars=[v]); e.wait_for_all()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print(json.dumps([built_on_import, out,\n"
+        "                  'libmxtpu_rt' in maps,\n"
+        "                  'libmxnet_tpu_torch_engine' in maps,\n"
+        "                  sorted(m for m in sys.modules\n"
+        "                         if m.split('.')[0] in ('jax', 'mxnet_tpu'))"
+        "]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("MXNET_TPU_NO_NATIVE", None)
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    built, ran, ref_lib, own_lib, foreign = \
+        json.loads(out.stdout.strip().splitlines()[-1])
+    assert not built and ran == [1]
     assert not ref_lib and own_lib and foreign == []

@@ -8,6 +8,8 @@ Trainer, the example's entry point, and two SGD steps of ResNet-50 v1
 route and in ``test_torch_resnet_train_pallas.py`` on its Pallas route).
 On the CPU the port's wrappers take their plain versions (no launch is
 counted)."""
+import os
+
 import numpy as np
 import pytest
 
@@ -365,8 +367,30 @@ def test_trainer_save_and_load_states(tmp_path):
                                 dict(mesh=object()),
                                 dict(sharding_plan=object())])
 def test_trainer_refuses_what_later_slices_bring(kw):
-    with pytest.raises(NotImplementedError, match="slice"):
-        tgluon.Trainer(_tiny().collect_params(), "sgd", **kw)
+    """Sharded training (``mesh=``, ``sharding_plan=``) belongs to a later
+    slice and is refused.  The kvstore cases, refused until the
+    distributed KVStore was ported, now build the reference's store: a
+    dist store in one process (the sync one reduces with the local
+    update, the async one updates on the store), and
+    ``update_on_kvstore`` on the default ``device`` store."""
+    if "mesh" in kw or "sharding_plan" in kw:
+        with pytest.raises(NotImplementedError, match="slice"):
+            tgluon.Trainer(_tiny().collect_params(), "sgd", **kw)
+        return
+    # a one-process dist_async store spawns its server and publishes its
+    # address in this process's environment: both are undone here
+    before = {k for k in os.environ if k.startswith("MXNET_TPU_PS_ADDR_")}
+    tr = tgluon.Trainer(_tiny().collect_params(), "sgd", **kw)
+    try:
+        kind = kw.get("kvstore", "device")
+        assert tr._kvstore.type == kind and tr._kvstore.num_workers == 1
+        assert tr._update_on_kvstore == (kind == "dist_async" or
+                                         kw.get("update_on_kvstore", False))
+    finally:
+        getattr(tr._kvstore, "_stop_servers", lambda: None)()
+        for k in [k for k in os.environ if k.startswith(
+                "MXNET_TPU_PS_ADDR_") and k not in before]:
+            del os.environ[k]
 
 
 def test_initialize_without_a_card_or_ctx_raises(monkeypatch):
@@ -391,15 +415,17 @@ def test_example_trains_on_the_cpu_and_launches_nothing():
 
 
 @pytest.mark.parametrize("argv", [["--rec", "data.rec"],
-                                  ["--kvstore", "dist_sync"]])
+                                  ["--kvstore", "horovod"]])
 def test_example_refuses_what_later_slices_bring(argv, tmp_path,
                                                  monkeypatch):
-    """``--kvstore dist_sync`` belongs to a later slice and is refused.
-    ``--rec``, refused until the input path was ported, now opens the
+    """``--rec``, refused until the input path was ported, now opens the
     file: here one that does not exist (``test_torch_image_iter`` trains
-    from one that does)."""
+    from one that does).  ``--kvstore``, refused until the distributed
+    KVStore was ported, now takes the dist stores
+    (``test_torch_dist_kvstore`` trains through them); a plugin store
+    whose package is absent (``horovod``) raises its ImportError."""
     monkeypatch.chdir(tmp_path)
-    err = FileNotFoundError if argv[0] == "--rec" else NotImplementedError
+    err = FileNotFoundError if argv[0] == "--rec" else ImportError
     with pytest.raises(err):
         ic.main(["--device", "cpu"] + argv)
 
